@@ -1,0 +1,215 @@
+"""Typed configuration, field for field the JAX package's
+(msfno_tpu/utils/config.py): same dataclasses, defaults and JSON form, so one
+JSON string drives both packages.  Frozen dataclasses; `to_json` /
+`from_json` round-trip checkpoint metadata (reference main.py:179-246).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any
+
+
+def _asdict(cfg) -> dict[str, Any]:
+    d = dataclasses.asdict(cfg)
+    d["__config__"] = type(cfg).__name__
+    return d
+
+
+_REGISTRY: dict[str, type] = {}
+
+
+def register(cls):
+    _REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def to_json(cfg) -> str:
+    return json.dumps(_asdict(cfg), sort_keys=True)
+
+
+def from_json(s: str):
+    d = json.loads(s)
+    name = d.pop("__config__")
+    cls = _REGISTRY[name]
+    field_names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in field_names:
+            continue
+        # nested configs lose their __config__ tag in dataclasses.asdict, so
+        # the film field is rehydrated by name
+        if isinstance(v, dict) and "__config__" in v:
+            v = from_json(json.dumps(v))
+        elif isinstance(v, dict) and k == "film":
+            v = from_json(json.dumps({**v, "__config__": "FilmConfig"}))
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[k] = v
+    return cls(**kwargs)
+
+
+def replace(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)
+
+
+@register
+@dataclasses.dataclass(frozen=True)
+class FilmConfig:
+    """FiLM generator configuration (reference "Architecture Film Gen" argparse
+    group, main.py:1053-1137; Film_wrapper, sfnonet.py:863-912)."""
+
+    film_gen_type: str = "gcn_custom"  # gcn | gcn_custom | transformer | mae | none
+    film_layers: int = 1  # number of trailing filmed SFNO blocks
+    repeat_film: bool = False  # film every block with shared (gamma, beta)
+    model_depth: int = 6  # generator depth (gcn residual stack / vit blocks)
+    embed_dim: int = 512  # generator hidden width
+    mlp_dim: int = 512
+    temporal_step: int = 28  # SST history length (days)
+    coarse_level: int = 4  # SST coarsening factor: 721x1440 -> 180x360
+    sst_shape: tuple[int, int] = (180, 360)
+    patch_size: tuple[int, int, int] = (28, 9, 9)  # (t, h, w) for vit/mae
+    nan_mask_threshold: float = 0.5
+    dropout: float = 0.0
+    num_film_features: int = 256  # = embed_dim_sfno of the backbone
+    scale_weight: float = 1.0  # mae film-head init scaling
+    compute_dtype: str = "float32"  # generator compute dtype (head stays fp32)
+    # hand-written gcn_layer kernel for the gcn/gcn_custom generators
+    # (ops/kernels/gcn_layer.py)
+    pallas_gcn: bool = True
+    # mae generator: feed precomputed encoder cls tokens (B, embed_dim)
+    # directly to the film head
+    cls_input: bool = False
+
+
+@register
+@dataclasses.dataclass(frozen=True)
+class SFNOConfig:
+    """SFNO architecture config (reference FourierNeuralOperatorNet defaults,
+    MSFNO/Models/sfno/sfnonet.py:406-441).  The kernel switches keep the JAX
+    package's names (use_pallas, pallas_grid_mlp, pallas_gcn) so one JSON
+    string drives both packages; in this package they select the
+    hand-written CUDA kernels."""
+
+    img_size: tuple[int, int] = (721, 1440)
+    scale_factor: int = 6
+    in_chans: int = 73
+    out_chans: int = 73
+    embed_dim: int = 256
+    num_layers: int = 12
+    spectral_transform: str = "sht"  # sht | fft
+    filter_type: str = "non-linear"  # non-linear | linear
+    mlp_ratio: float = 2.0
+    drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
+    normalization_layer: str = "instance_norm"  # instance_norm | layer_norm
+    hard_thresholding_fraction: float = 1.0
+    big_skip: bool = True
+    compression: str | None = None  # None | "tt"
+    rank: int = 128
+    complex_activation: str = "real"
+    spectral_layers: int = 3
+    pos_embed: bool = True
+    spectral_rescale: float = 1e5  # sfnonet.py:550-555 gradient-conditioning trick
+    checkpointing_mlp: bool = False
+    # fold each block's instance-norm into its forward SHT (exact linear
+    # rewrite; skips materializing the normalized field at full resolution)
+    fuse_norm_sht: bool = True
+    checkpointing_block: bool = False
+    checkpointing_encoder: bool = False
+    checkpointing_decoder: bool = False
+    # compute dtype for grid-space MLPs; SHT + spectral MLP stay fp32
+    compute_dtype: str = "float32"  # "float32" | "bfloat16"
+    use_pallas: bool = False  # spectral_mlp kernel
+    pallas_grid_mlp: bool = False  # grid_mlp kernel for encoder/decoder/inner MLPs
+    # matmul operand dtype inside the grid-MLP kernel (fp32 accumulation)
+    grid_mlp_mxu_dtype: str = "bfloat16"
+    # fused spectral->output decoder tail (not ported yet: must stay off
+    # whenever pallas_grid_mlp is on)
+    fuse_decoder_tail: bool = True
+    # fused encoder->spectral head (not ported yet: same gate family)
+    fuse_encoder_dft: bool = True
+    # fold each inner block's norm1 + FiLM into the channel-MLP kernel as a
+    # per-sample channel affine, and the outer identity skip into its output
+    fuse_inner_mlp: bool = False
+    # dtype of the model OUTPUT field (and the autoregressive carry)
+    output_dtype: str = "float32"
+    # matmul operand dtype inside the spectral-MLP kernel (fp32 accumulation)
+    spectral_mxu_dtype: str = "float32"
+    # matmul operand dtype for the SHT's DFT/Legendre matmuls
+    sht_mxu_dtype: str = "float32"
+    film: FilmConfig | None = None
+
+    @property
+    def h(self) -> int:
+        return self.img_size[0] // self.scale_factor
+
+    @property
+    def w(self) -> int:
+        return self.img_size[1] // self.scale_factor
+
+    @property
+    def modes_lat(self) -> int:
+        return int(self.h * self.hard_thresholding_fraction)
+
+    @property
+    def modes_lon(self) -> int:
+        return int((self.w // 2 + 1) * self.hard_thresholding_fraction)
+
+
+def tiny_sfno(film: bool = False) -> SFNOConfig:
+    """Small config for tests (2 blocks, embed 64, 128x256 Gaussian grid).
+
+    Kept identical to the JAX package's, including its film config's
+    num_film_features=256 default, which does not match embed_dim=64: a
+    filmed net needs an explicit FilmConfig(num_film_features=embed_dim)."""
+    return SFNOConfig(
+        img_size=(128, 256),
+        scale_factor=2,
+        in_chans=8,
+        out_chans=8,
+        embed_dim=64,
+        num_layers=2,
+        spectral_layers=2,
+        film=FilmConfig(model_depth=2, embed_dim=64, mlp_dim=64, sst_shape=(32, 64))
+        if film
+        else None,
+    )
+
+
+def serving_config(**overrides) -> SFNOConfig:
+    """The serving tier this package runs through its kernels: the full
+    721x1440x73 filmed net, bf16 activations and matmul operands, the
+    spectral_mlp / grid_mlp / gcn_layer kernels, and the two fused head/tail
+    kernels off (they are not ported yet)."""
+    cfg = SFNOConfig(
+        film=FilmConfig(film_gen_type="gcn_custom", compute_dtype="bfloat16"),
+        compute_dtype="bfloat16",
+        use_pallas=True,
+        pallas_grid_mlp=True,
+        spectral_mxu_dtype="bfloat16",
+        sht_mxu_dtype="bfloat16",
+        fuse_encoder_dft=False,
+        fuse_decoder_tail=False,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def exact_config(cfg: SFNOConfig) -> SFNOConfig:
+    """`cfg` with every knob at fp32 and every kernel off: the plain fp32
+    path the kernel path is held against."""
+    film = cfg.film
+    if film is not None:
+        film = dataclasses.replace(film, compute_dtype="float32", pallas_gcn=False)
+    return dataclasses.replace(
+        cfg,
+        compute_dtype="float32",
+        use_pallas=False,
+        pallas_grid_mlp=False,
+        grid_mlp_mxu_dtype="float32",
+        spectral_mxu_dtype="float32",
+        sht_mxu_dtype="float32",
+        output_dtype="float32",
+        film=film,
+    )

@@ -1,0 +1,106 @@
+"""Weight carry from the JAX package: flax parameter tree -> this package's
+state_dict.
+
+Backbone names and layouts follow the original MSFNO state_dict, as
+msfno_tpu.models.convert.export_sfno_state_dict emits them (this is an
+independent copy of that mapping for the parameters this package has):
+
+  Dense kernel (in, out)        ->  1x1 conv weight (out, in, 1, 1)
+  pos_embed (H, W, C)           ->  (1, C, H, W)
+  norm scale / bias             ->  norm weight / bias
+  filter w{l} / wout (in, out, 2) -> filter_layer.filter.w.{l} / .wout
+
+The GCN FiLM generator, which the export skips, maps to
+`film_gen.film_gen.{conv1,conv_i}.{weight (in, out), bias}` and
+`film_gen.film_gen.head_film.{weight (out, in), bias}`.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, path))
+        else:
+            flat[path] = np.asarray(v)
+    return flat
+
+
+def _kind(leaf: str) -> str:
+    return "weight" if leaf in ("kernel", "scale") else "bias"
+
+
+def _dense_to_conv1x1(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.T)[..., None, None]
+
+
+def _backbone_key(parts: list[str], v: np.ndarray):
+    """(name, array) of a backbone leaf, or None if it is not one."""
+    if parts == ["pos_embed"]:
+        return "pos_embed", np.ascontiguousarray(np.transpose(v, (2, 0, 1)))[None]
+    if parts[0] in ("encoder", "decoder") and len(parts) == 3:
+        idx = "0" if parts[1] == "fc1" else "2"
+        name = f"{parts[0]}.fwd.{idx}.{_kind(parts[2])}"
+        return name, _dense_to_conv1x1(v) if parts[2] == "kernel" else v
+    m = re.match(r"^blocks_(\d+)$", parts[0])
+    if not m:
+        return None
+    base, rest = f"blocks.{m.group(1)}", parts[1:]
+    if rest[0] in ("norm0", "norm1") and len(rest) == 2:
+        return f"{base}.{rest[0]}.{_kind(rest[1])}", v
+    if rest[0] == "filter" and len(rest) == 2:
+        if rest[1] == "wout":
+            return f"{base}.filter_layer.filter.wout", v
+        if re.match(r"^w\d+$", rest[1]):
+            return f"{base}.filter_layer.filter.w.{rest[1][1:]}", v
+    if rest[0] == "inner_skip" and len(rest) == 2:
+        return (f"{base}.inner_skip.{_kind(rest[1])}",
+                _dense_to_conv1x1(v) if rest[1] == "kernel" else v)
+    if rest[0] == "mlp" and len(rest) == 3:
+        idx = "0" if rest[1] == "fc1" else "2"
+        return (f"{base}.mlp.fwd.{idx}.{_kind(rest[2])}",
+                _dense_to_conv1x1(v) if rest[2] == "kernel" else v)
+    return None
+
+
+def _film_key(parts: list[str], v: np.ndarray):
+    """(name, array) of a GCN generator leaf, or None."""
+    if parts[:2] != ["film_gen", "film_gen"] or len(parts) < 4:
+        return None
+    layer, g = parts[2], parts[3:]
+    base = f"film_gen.film_gen.{layer}"
+    if layer == "head_film":
+        return f"{base}.{_kind(g[0])}", (np.ascontiguousarray(v.T) if g[0] == "kernel" else v)
+    if re.match(r"^conv(1|_\d+)$", layer):
+        if g == ["weight", "kernel"]:
+            return f"{base}.weight", v
+        if g == ["bias"]:
+            return f"{base}.bias", v
+    return None
+
+
+def from_flax_params(params: Mapping) -> dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays (a flax `params` tree of the JAX SFNO /
+    filmed SFNO with a gcn or gcn_custom generator) -> state_dict for
+    `load_state_dict(strict=True)`.  Raises on a leaf it cannot place."""
+    out, unknown = {}, []
+    for path, v in _flatten(params).items():
+        parts = path.split("/")
+        hit = _backbone_key(parts, v) or _film_key(parts, v)
+        if hit is None:
+            unknown.append(path)
+            continue
+        name, arr = hit
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    if unknown:
+        raise ValueError(f"unmapped parameters: {unknown}")
+    return out

@@ -1,0 +1,92 @@
+"""Autoregressive inference rollout (port of msfno_tpu/inference/rollout.py;
+reference FourCastNetv2.running(), MSFNO/Models/sfno/model.py:289-372).
+
+The model state stays on the device across steps; each step's output is
+fed back as the next input.  Emitted fields are always fp32, whatever the
+model's output dtype; the carry keeps the output dtype, and the initial
+state is cast to it as well.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Sequence
+
+import numpy as np
+import torch
+
+from msfno_torch.data.normalization import Normalizer, SSTNormalizer
+
+
+@dataclasses.dataclass
+class RolloutConfig:
+    steps: int  # number of 6h steps (lead_time // 6, model.py:327)
+    step_hours: int = 6
+    collect_channels: Sequence[int] | None = None  # None = all
+    denormalize: bool = True
+
+
+def serving_params(model: torch.nn.Module, dtype=torch.bfloat16) -> torch.nn.Module:
+    """Store the model's fp32 parameters in `dtype` (in place) for
+    bf16-compute serving: every consumer already rounds its operands to bf16
+    on the serving tier, and the stored weights (the 1.06 GB fp32 pos_embed
+    above all) halve in size.  Keep fp32 parameters for the exact tier."""
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dtype == torch.float32:
+                p.data = p.data.to(dtype)
+    return model
+
+
+def _states(model, x0, steps: int, sst_seq, normalizer, sst_normalizer, scale):
+    """The autoregressive loop shared by `rollout` and `scan_rollout`:
+    yields each step's state (normalized space, the model's output dtype)."""
+    dev = next(model.parameters()).device
+    normalizer = normalizer or Normalizer.identity(x0.shape[-1])
+    sstn = sst_normalizer or SSTNormalizer.identity()
+    out_dtype = getattr(model, "out_dtype", torch.float32)
+    with torch.inference_mode():
+        state = normalizer(torch.as_tensor(x0, device=dev).float()).to(out_dtype)
+        for i in range(steps):
+            if sst_seq is None:
+                state = model(state)
+            else:
+                sst_i = sstn(torch.as_tensor(sst_seq[i], device=dev).float())
+                state = model(state, sst_i, scale)
+            yield state
+
+
+def _collect(t: torch.Tensor, channels) -> torch.Tensor:
+    if channels is None:
+        return t
+    return t[..., torch.as_tensor(np.asarray(channels), device=t.device)]
+
+
+def rollout(model, x0, cfg: RolloutConfig, sst_seq=None,
+            normalizer: Normalizer | None = None,
+            sst_normalizer: SSTNormalizer | None = None, scale: float = 1.0,
+            stepper=None) -> Iterator[np.ndarray]:
+    """Streaming rollout on the model's device: yields one (B, H, W, C_collect)
+    fp32 numpy field per step (denormalized unless cfg.denormalize=False).
+    x0 is the raw initial condition; sst_seq (steps, B, T, Hs, Ws) drives a
+    filmed model."""
+    normalizer = normalizer or Normalizer.identity(x0.shape[-1])
+    states = _states(model, x0, cfg.steps, sst_seq, normalizer, sst_normalizer, scale)
+    for i, state in enumerate(states):
+        out = state.float()
+        if cfg.denormalize:
+            out = normalizer(out, reverse=True)
+        yield _collect(out, cfg.collect_channels).cpu().numpy()
+        if stepper is not None:
+            stepper(i, cfg.step_hours)
+
+
+def scan_rollout(model, x0, steps: int, sst_seq=None,
+                 normalizer: Normalizer | None = None,
+                 sst_normalizer: SSTNormalizer | None = None, scale: float = 1.0,
+                 collect_channels: Sequence[int] | None = None) -> torch.Tensor:
+    """The JAX `scan_rollout` as a loop: returns the stacked
+    (steps, B, H, W, C_collect) normalized-space outputs, fp32, on the
+    model's device."""
+    states = _states(model, x0, steps, sst_seq, normalizer, sst_normalizer, scale)
+    return torch.stack([_collect(s, collect_channels).float() for s in states])

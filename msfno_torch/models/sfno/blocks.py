@@ -1,0 +1,142 @@
+"""SFNO blocks and FiLM modulation (port of msfno_tpu/models/sfno/blocks.py).
+
+Block wiring (reference sfnonet.py:573-614):
+  - block 0:       no skips, transforms change resolution down
+  - blocks 1..N-2: inner_skip = 1x1 linear, outer_skip = identity
+  - block N-1:     no skips, no channel MLP, resolution back up
+  - norms: norm0 at the block's input resolution, norm1 at its output
+Filmed block (sfnonet.py:254-393): FiLM between norm1 and the channel MLP.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from msfno_torch.models.sfno.layers import (
+    Conv1x1,
+    InstanceNorm,
+    Mlp,
+    SpectralAttentionS2,
+    SpectralFilterLayer,
+    dense,
+)
+from msfno_torch.runtime import torch_dtype
+
+
+def film_modulation(x, gamma, beta, scale):
+    """FiLM: ((1 + gamma*scale) * x) + beta*scale (reference FiLM module,
+    sfnonet.py:689-697).  gamma/beta are (B, C); x is (B, H, W, C)."""
+    g = gamma[:, None, None, :].to(x.dtype)
+    b = beta[:, None, None, :].to(x.dtype)
+    return (1.0 + g * scale) * x + b * scale
+
+
+def make_norm(kind: str, c: int, device=None):
+    if kind == "instance_norm":
+        return InstanceNorm(c, device=device)
+    raise NotImplementedError(
+        f"normalization {kind!r}: only instance_norm is ported; layer_norm "
+        "comes in a later slice"
+    )
+
+
+def make_filter(filter_type: str, spectral_transform: str, forward_transform,
+                inverse_transform, embed_dim: int, mlp_ratio: float,
+                complex_activation: str, spectral_layers: int, compression=None,
+                use_pallas: bool = False, mxu_dtype: str = "float32",
+                device=None, gen=None):
+    """SpectralFilterLayer mux (reference sfnonet.py:60-133); the non-linear
+    SHT filter is the one ported."""
+    if filter_type == "non-linear" and spectral_transform == "sht":
+        if compression is not None:
+            raise NotImplementedError("compression applies to the linear filter")
+        return SpectralAttentionS2(
+            forward_transform, inverse_transform, embed_dim,
+            hidden_size_factor=mlp_ratio, complex_activation=complex_activation,
+            spectral_layers=spectral_layers, use_pallas=use_pallas,
+            mxu_dtype=mxu_dtype, device=device, gen=gen,
+        )
+    raise NotImplementedError(
+        f"filter {filter_type}/{spectral_transform}: only the non-linear SHT "
+        "filter is ported; the linear (incl. tt) and fft filters come in a "
+        "later slice"
+    )
+
+
+class FourierNeuralOperatorBlock(nn.Module):
+    """One SFNO block, optionally FiLM-modulated (`filmed`: forward takes
+    gamma, beta and scale; reference FourierNeuralOperatorBlock_Filmed,
+    sfnonet.py:357-393)."""
+
+    def __init__(self, forward_transform, inverse_transform, embed_dim: int,
+                 filter_type: str = "non-linear", spectral_transform: str = "sht",
+                 mlp_ratio: float = 2.0, norm_kind: str = "instance_norm",
+                 inner_skip=None, outer_skip=None, use_mlp: bool = True,
+                 complex_activation: str = "real", spectral_layers: int = 1,
+                 compression=None, use_pallas: bool = False,
+                 mxu_dtype: str = "float32", pallas_grid_mlp: bool = False,
+                 grid_mlp_mxu_dtype: str = "bfloat16", fuse_norm: bool = True,
+                 fuse_mlp_affine: bool = False, filmed: bool = False,
+                 dtype="float32", device=None, gen=None):
+        super().__init__()
+        if outer_skip not in (None, "identity") or inner_skip not in (None, "linear"):
+            raise NotImplementedError(
+                f"skips inner={inner_skip!r} outer={outer_skip!r} are not ported"
+            )
+        self.norm0 = make_norm(norm_kind, embed_dim, device)
+        self.filter_layer = SpectralFilterLayer(make_filter(
+            filter_type, spectral_transform, forward_transform, inverse_transform,
+            embed_dim, mlp_ratio, complex_activation, spectral_layers,
+            compression, use_pallas, mxu_dtype, device, gen,
+        ))
+        self.inner_skip = (
+            Conv1x1(embed_dim, embed_dim, True, device, gen)
+            if inner_skip == "linear" else None
+        )
+        self.norm1 = make_norm(norm_kind, embed_dim, device)
+        self.mlp = (
+            Mlp(embed_dim, int(embed_dim * mlp_ratio), embed_dim, dtype=dtype,
+                use_pallas=pallas_grid_mlp, mxu_dtype=grid_mlp_mxu_dtype,
+                device=device, gen=gen)
+            if use_mlp else None
+        )
+        self.outer_skip = outer_skip
+        self.fuse_norm = fuse_norm
+        self.fuse_mlp_affine = fuse_mlp_affine
+        self.filmed = filmed
+        self.dtype = torch_dtype(dtype)
+
+    def forward(self, x, gamma=None, beta=None, scale=1.0, norm0_stats=None):
+        residual = x
+        if self.fuse_norm:
+            # fold norm0 into the filter's forward SHT: the normalized field
+            # is never materialized
+            a, b = self.norm0(x, True, norm0_stats)
+            x = self.filter_layer(x, norm_affine=(a, b))
+        else:
+            x = self.filter_layer(self.norm0(x, stats=norm0_stats))
+
+        if self.inner_skip is not None:
+            x = x + dense(residual, self.inner_skip, self.dtype)
+
+        if self.fuse_mlp_affine and self.mlp is not None:
+            # norm1(x) == a*x + b per (B, C); FiLM folds in on top, and the
+            # affine and the outer skip run inside the grid_mlp kernel
+            a, b = self.norm1(x, True)
+            if self.filmed:
+                g = 1.0 + gamma[:, None, None, :].to(a.dtype) * scale
+                a, b = g * a, g * b + beta[:, None, None, :].to(a.dtype) * scale
+            return self.mlp(
+                x, affine=(a, b),
+                residual=residual if self.outer_skip == "identity" else None,
+            )
+
+        x = self.norm1(x)
+        if self.filmed:
+            x = film_modulation(x, gamma, beta, scale)
+        if self.mlp is not None:
+            x = self.mlp(x)
+        if self.outer_skip == "identity":
+            x = x + residual
+        return x

@@ -1,0 +1,309 @@
+"""Spectral and pointwise layers of the SFNO (channels-last).
+
+Port of msfno_tpu/models/sfno/layers.py.  Parameters keep the names and
+shapes of the original MSFNO state_dict (what
+msfno_tpu.models.convert.export_sfno_state_dict emits): 1x1 convolutions
+store (out, in, 1, 1) weights, complex spectral weights are fp32 real pairs
+with a trailing 2, instance norms have weight/bias.  Activations are
+(B, H, W, C) on the grid and (2, B, L, M, C) [re, im] in spectral space.
+
+`use_pallas` (the JAX package's name) selects the hand-written kernel of
+each layer; on a CPU tensor a kernel wrapper runs its plain version.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from msfno_torch.ops.kernels.grid_mlp import grid_mlp, prepare_weights
+from msfno_torch.ops.kernels.spectral_mlp import (
+    pack_weights,
+    spectral_mlp,
+    spectral_mlp_reference,
+)
+from msfno_torch.runtime import DerivedCache, torch_dtype
+
+
+def trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.02):
+    """Truncated normal with the reference's absolute cutoffs (+-2.0, i.e.
+    +-100 sigma at std 0.02: effectively untruncated)."""
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, std=std, a=-2.0, b=2.0, generator=gen)
+
+
+def new_param(shape, device, gen=None, init: str = "zeros", std: float = 0.02):
+    """A parameter of `shape` on `device`: "zeros", "ones", "trunc_normal"
+    (std) or "normal" (std times a standard normal)."""
+    t = torch.empty(shape, device=device, dtype=torch.float32)
+    with torch.no_grad():
+        if init == "zeros":
+            t.zero_()
+        elif init == "ones":
+            t.fill_(1.0)
+        elif init == "trunc_normal":
+            trunc_normal_(t, gen, std)
+        elif init == "normal":
+            t.normal_(0.0, std, generator=gen)
+        else:
+            raise ValueError(init)
+    return nn.Parameter(t)
+
+
+def rows_of(x: torch.Tensor) -> int:
+    return math.prod(x.shape[1:-1])
+
+
+def spatial_stats(y: torch.Tensor):
+    """(ssum, ssq, count) over the spatial axes of (B, ..., C), fp32: the
+    instance-norm statistics contract (InstanceNorm `stats=`)."""
+    y32 = y.float()
+    axes = tuple(range(1, y.dim() - 1))
+    return y32.sum(axes), (y32 * y32).sum(axes), rows_of(y)
+
+
+class Conv1x1(nn.Module):
+    """Parameters of a 1x1 convolution in the reference layout:
+    weight (out, in, 1, 1), bias (out,).  `dense()` is the channels-last
+    (in, out) view."""
+
+    def __init__(self, c_in: int, c_out: int, bias: bool = True, device=None,
+                 gen=None):
+        super().__init__()
+        self.weight = new_param((c_out, c_in, 1, 1), device, gen, "trunc_normal")
+        if bias:
+            self.bias = new_param((c_out,), device)
+        else:
+            self.register_parameter("bias", None)
+
+    def dense(self) -> torch.Tensor:
+        return self.weight[:, :, 0, 0].t()
+
+
+def dense(x: torch.Tensor, conv: Conv1x1, dtype: torch.dtype) -> torch.Tensor:
+    """x @ W (+ b) with input, kernel and output in `dtype` (flax Dense with
+    dtype=...)."""
+    y = x.to(dtype) @ conv.dense().to(dtype)
+    if conv.bias is not None:
+        y = y + conv.bias.to(dtype)
+    return y
+
+
+class Mlp(nn.Module):
+    """1x1-conv MLP (reference layers.py:145-178) as Dense -> GELU -> Dense
+    over the channel axis.  `fwd.0` / `fwd.2` are the reference's names.
+
+    `use_pallas` routes through the grid_mlp kernel: the hidden activation
+    stays on chip, `pe` and `residual` ride the output write, and with
+    `with_stats` the per-sample instance-norm statistics of the output come
+    back as well."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 output_bias: bool = True, dtype="float32", use_pallas: bool = False,
+                 mxu_dtype: str = "bfloat16", out_dtype=None, with_stats: bool = False,
+                 device=None, gen=None):
+        super().__init__()
+        self.fwd = nn.ModuleDict({
+            "0": Conv1x1(in_features, hidden_features, True, device, gen),
+            "2": Conv1x1(hidden_features, out_features, output_bias, device, gen),
+        })
+        self.dtype = torch_dtype(dtype)
+        self.out_dtype = torch_dtype(out_dtype) if out_dtype is not None else self.dtype
+        self.use_pallas = use_pallas
+        self.mxu_dtype = mxu_dtype
+        self.with_stats = with_stats
+        self._cache = DerivedCache()
+
+    def forward(self, x, pe=None, affine=None, residual=None):
+        fc1, fc2 = self.fwd["0"], self.fwd["2"]
+        if self.use_pallas:
+            w1, w2 = fc1.dense(), fc2.dense()
+            prepared = None
+            if x.is_cuda:
+                prepared = self._cache.get(
+                    "weights", (fc1.weight, fc2.weight),
+                    lambda: prepare_weights(w1, w2, x.shape[-1]),
+                )
+            aff2d = None
+            if affine is not None:
+                aff2d = tuple(a.reshape(a.shape[0], a.shape[-1]) for a in affine)
+            rows = rows_of(x)
+            y = grid_mlp(
+                x, w1, fc1.bias, w2, b2=fc2.bias, pe=pe,
+                mxu_dtype=self.mxu_dtype, out_dtype=self.out_dtype,
+                stats_rows=rows if self.with_stats else None,
+                affine=aff2d, residual=residual, prepared=prepared,
+            )
+            if self.with_stats:
+                y, ssum, ssq = y
+                return y.to(self.out_dtype), (ssum, ssq, rows)
+            return y.to(self.out_dtype)
+
+        if affine is not None:
+            a, b = affine
+            x = x.float() * a.float() + b.float()
+        h = torch.nn.functional.gelu(dense(x, fc1, self.dtype), approximate="none")
+        y = dense(h, fc2, self.dtype)
+        if pe is not None:
+            y = y + pe.to(y.dtype)
+        if residual is not None:
+            y = y + residual.to(y.dtype)
+        if self.with_stats:
+            return y, spatial_stats(y)
+        return y
+
+
+class BigSkipMlp(nn.Module):
+    """Decoder MLP over concat(x, residual) without materializing the concat
+    (the reference concatenates the input onto the features, big_skip,
+    sfnonet.py:679-684).  `fwd.0.weight` is (hidden, in_main + skip, 1, 1):
+    the same parameters as the reference's decoder on the concatenation."""
+
+    def __init__(self, hidden_features: int, out_features: int, in_main: int,
+                 skip_features: int, output_bias: bool = False, dtype="float32",
+                 use_pallas: bool = False, mxu_dtype: str = "bfloat16",
+                 out_dtype=None, device=None, gen=None):
+        super().__init__()
+        self.fwd = nn.ModuleDict({
+            "0": Conv1x1(in_main + skip_features, hidden_features, True, device, gen),
+            "2": Conv1x1(hidden_features, out_features, output_bias, device, gen),
+        })
+        self.in_main = in_main
+        self.dtype = torch_dtype(dtype)
+        self.out_dtype = torch_dtype(out_dtype) if out_dtype is not None else self.dtype
+        self.use_pallas = use_pallas
+        self.mxu_dtype = mxu_dtype
+        self._cache = DerivedCache()
+
+    def forward(self, x, residual):
+        fc1, fc2 = self.fwd["0"], self.fwd["2"]
+        if self.use_pallas:
+            w1, w2 = fc1.dense(), fc2.dense()
+            prepared = None
+            if x.is_cuda:
+                prepared = self._cache.get(
+                    "weights", (fc1.weight, fc2.weight),
+                    lambda: prepare_weights(w1, w2, self.in_main),
+                )
+            y = grid_mlp(x, w1, fc1.bias, w2, b2=fc2.bias, skip=residual,
+                         mxu_dtype=self.mxu_dtype, out_dtype=self.out_dtype,
+                         prepared=prepared)
+            return y.to(self.out_dtype)
+        k = fc1.dense().to(self.dtype)
+        h = (x.to(self.dtype) @ k[: self.in_main]
+             + residual.to(self.dtype) @ k[self.in_main:]
+             + fc1.bias.to(self.dtype))
+        h = torch.nn.functional.gelu(h, approximate="none")
+        return dense(h, fc2, self.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """Per-sample, per-channel normalization over the spatial axes
+    (nn.InstanceNorm2d(affine=True), sfnonet.py:492-498), always in fp32.
+
+    `return_affine=True` returns norm(x) = a*x + b as per-(B, C) (a, b), for
+    folding into a downstream linear op.  `stats=(ssum, ssq, count)` takes
+    precomputed spatial sums instead of reading x."""
+
+    def __init__(self, c: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.weight = new_param((c,), device, init="ones")
+        self.bias = new_param((c,), device)
+        self.eps = eps
+
+    def forward(self, x, return_affine: bool = False, stats=None):
+        in_dtype = x.dtype
+        c = x.shape[-1]
+        if stats is not None:
+            ssum, ssq, count = stats
+            shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (c,)
+            mean = (ssum.float() / count).reshape(shape)
+            mean_sq = (ssq.float() / count).reshape(shape)
+        else:
+            # E[x^2] - E[x]^2, both sums accumulated in fp32 straight from x
+            # (no fp32 copy of a full-resolution activation)
+            dims = (-3, -2)
+            count = x.shape[-3] * x.shape[-2]
+            mean = x.mean(dim=dims, keepdim=True, dtype=torch.float32)
+            norm = torch.linalg.vector_norm(x, 2, dim=dims, keepdim=True,
+                                            dtype=torch.float32)
+            mean_sq = norm * norm / count
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + self.eps)
+        scale, bias = self.weight.float(), self.bias.float()
+        a, b = inv * scale, bias - mean * inv * scale
+        if return_affine:
+            return a, b
+        # norm(x) = a*x + b per (sample, channel), in one pass over x
+        return torch.addcmul(b, x, a).to(in_dtype)
+
+
+class SpectralAttentionS2(nn.Module):
+    """Non-linear spectral filter: complex MLP over the retained (l, m) modes
+    (reference SpectralAttentionS2, layers.py:536-641).  `spectral_layers`
+    complex layers C -> hidden with ComplexReLU("real"), then the `wout`
+    projection back to C; weights (in, out, 2) shared across modes.  The
+    transforms and the MLP run in fp32 (operands rounded per `mxu_dtype`)."""
+
+    def __init__(self, forward_transform, inverse_transform, embed_dim: int,
+                 hidden_size_factor: float = 2.0, complex_activation: str = "real",
+                 spectral_layers: int = 1, scale: float = 0.02,
+                 use_pallas: bool = False, mxu_dtype: str = "float32",
+                 device=None, gen=None):
+        super().__init__()
+        if complex_activation != "real":
+            raise NotImplementedError(
+                f"complex_activation={complex_activation!r}: only 'real' is "
+                "ported; the other ComplexReLU modes come in a later slice"
+            )
+        self.forward_transform = forward_transform
+        self.inverse_transform = inverse_transform
+        hidden = int(hidden_size_factor * embed_dim)
+        dims = [embed_dim] + [hidden] * spectral_layers
+        self.w = nn.ParameterList([
+            new_param((dims[i], dims[i + 1], 2), device, gen, "normal", scale)
+            for i in range(spectral_layers)
+        ])
+        self.wout = new_param((hidden, embed_dim, 2), device, gen, "normal", scale)
+        self.use_pallas = use_pallas
+        self.mxu_dtype = mxu_dtype
+        self._cache = DerivedCache()
+
+    def weights(self) -> list[torch.Tensor]:
+        return [*self.w, self.wout]
+
+    def forward(self, x, norm_affine=None):
+        in_dtype = x.dtype
+        # the transform casts its matmul operands per its knob: no fp32 copy
+        z = self.forward_transform(x)
+        if norm_affine is not None:
+            # SHT(a*x + b) = a*SHT(x) + b*SHT(1); the constant field only
+            # excites the real m = 0 column, with profile s0 (lmax,)
+            a, b = norm_affine  # (B, 1, 1, C) fp32 each
+            bsz, c = a.shape[0], a.shape[-1]
+            s0 = self.forward_transform._const("s0", z.device)
+            z = z * a.reshape(1, bsz, 1, 1, c).float()
+            z[0, :, :, 0, :] += b.reshape(bsz, 1, c).float() * s0.reshape(1, -1, 1)
+        ws = self.weights()
+        if self.use_pallas:
+            packed = None
+            if z.is_cuda:
+                packed = self._cache.get("packed", ws, lambda: pack_weights(ws))
+            z = spectral_mlp(z, ws, 0.0, self.mxu_dtype, packed=packed)
+        else:
+            z = spectral_mlp_reference(z, ws, 0.0, self.mxu_dtype)
+        return self.inverse_transform(z, out_dtype=in_dtype)
+
+
+class SpectralFilterLayer(nn.Module):
+    """Holder that gives the filter the reference's `filter_layer.filter`
+    parameter path."""
+
+    def __init__(self, filt: nn.Module):
+        super().__init__()
+        self.filter = filt
+
+    def forward(self, x, norm_affine=None):
+        return self.filter(x, norm_affine=norm_affine)

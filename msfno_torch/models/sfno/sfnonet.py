@@ -1,0 +1,236 @@
+"""Full SFNO networks (port of msfno_tpu/models/sfno/sfnonet.py; reference
+MSFNO/Models/sfno/sfnonet.py:406-912).
+
+FourierNeuralOperatorNet: encoder MLP -> +pos_embed -> num_layers spectral
+blocks (resolution drops `scale_factor`-fold inside block 0 and returns in the
+last block) -> big-skip decoder MLP.  FourierNeuralOperatorNetFilmed adds a
+FiLM generator over SST history whose (gamma, beta) modulate the trailing
+`film_layers` blocks.
+
+Layout: channels-last (B, H, W, C) on the grid.  Parameter names and shapes
+are the original MSFNO state_dict's.  The nets run on CUDA unless built with
+`device="cpu"`; weights are random, drawn from a `torch.Generator` seeded
+with `seed` (load real ones with `load_state_dict`).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from msfno_torch.config import SFNOConfig
+from msfno_torch.models.sfno.blocks import FourierNeuralOperatorBlock
+from msfno_torch.models.sfno.layers import BigSkipMlp, Mlp, new_param
+from msfno_torch.ops.sht import InverseRealSHT, RealSHT
+from msfno_torch.runtime import DerivedCache, resolve_device, torch_dtype
+
+
+def build_transforms(cfg: SFNOConfig):
+    """(trans_down, itrans_up, trans, itrans) (sfnonet.py:532-569): full grid
+    -> spectral, spectral -> full grid, and the internal Gauss grid pair."""
+    if cfg.spectral_transform != "sht":
+        raise NotImplementedError(
+            f"spectral_transform={cfg.spectral_transform!r}: only the SHT is "
+            "ported; the fft transform comes in a later slice"
+        )
+    nlat, nlon = cfg.img_size
+    lmax, mmax = cfg.modes_lat, cfg.modes_lon
+    kw = dict(lmax=lmax, mmax=mmax, spectral_rescale=cfg.spectral_rescale,
+              mxu_dtype=cfg.sht_mxu_dtype)
+    return (
+        RealSHT(nlat, nlon, grid="equiangular", **kw),
+        InverseRealSHT(nlat, nlon, grid="equiangular", **kw),
+        RealSHT(cfg.h, cfg.w, grid="legendre-gauss", **kw),
+        InverseRealSHT(cfg.h, cfg.w, grid="legendre-gauss", **kw),
+    )
+
+
+def _block_kwargs(cfg: SFNOConfig, i: int, transforms) -> dict:
+    """Per-block wiring truth table (sfnonet.py:573-614)."""
+    trans_down, itrans_up, trans, itrans = transforms
+    first, last = i == 0, i == cfg.num_layers - 1
+    inner = 0 < i < cfg.num_layers - 1
+    return dict(
+        forward_transform=trans_down if first else trans,
+        inverse_transform=itrans_up if last else itrans,
+        embed_dim=cfg.embed_dim,
+        filter_type=cfg.filter_type,
+        spectral_transform=cfg.spectral_transform,
+        mlp_ratio=cfg.mlp_ratio,
+        norm_kind=cfg.normalization_layer,
+        inner_skip="linear" if inner else None,
+        outer_skip="identity" if inner else None,
+        use_mlp=not last,
+        complex_activation=cfg.complex_activation,
+        spectral_layers=cfg.spectral_layers,
+        compression=cfg.compression,
+        use_pallas=cfg.use_pallas,
+        mxu_dtype=cfg.spectral_mxu_dtype,
+        pallas_grid_mlp=cfg.pallas_grid_mlp,
+        grid_mlp_mxu_dtype=cfg.grid_mlp_mxu_dtype,
+        fuse_norm=cfg.fuse_norm_sht,
+        fuse_mlp_affine=(cfg.fuse_inner_mlp and cfg.drop_rate == 0.0
+                         and cfg.drop_path_rate == 0.0
+                         and not cfg.checkpointing_mlp),
+        dtype=cfg.compute_dtype,
+    )
+
+
+def _encoder_fusible(cfg: SFNOConfig) -> bool:
+    """The JAX gate of the fused encoder->spectral kernel
+    (grid_encoder_spectral), single-device."""
+    return (cfg.fuse_encoder_dft and cfg.pallas_grid_mlp
+            and cfg.filter_type == "non-linear" and cfg.spectral_transform == "sht"
+            and cfg.normalization_layer == "instance_norm" and cfg.fuse_norm_sht
+            and not cfg.checkpointing_encoder)
+
+
+def _tail_fusible(cfg: SFNOConfig) -> bool:
+    """The JAX gate of the fused spectral->output decoder tail
+    (spectral_decoder), single-device."""
+    return (cfg.fuse_decoder_tail and cfg.pallas_grid_mlp and cfg.big_skip
+            and cfg.filter_type == "non-linear" and cfg.spectral_transform == "sht"
+            and cfg.normalization_layer == "instance_norm" and cfg.fuse_norm_sht
+            and cfg.drop_path_rate == 0.0)
+
+
+def check_supported(cfg: SFNOConfig) -> None:
+    """Raise NotImplementedError for what this package does not run yet."""
+    if _encoder_fusible(cfg) or _tail_fusible(cfg):
+        raise NotImplementedError(
+            "fuse_encoder_dft / fuse_decoder_tail would engage (pallas_grid_mlp "
+            "is on): the grid_encoder_spectral and spectral_decoder kernels "
+            "come in the next serving slice; set both fields to False"
+        )
+    if cfg.normalization_layer != "instance_norm":
+        raise NotImplementedError(
+            f"normalization_layer={cfg.normalization_layer!r}: layer_norm "
+            "comes in a later slice"
+        )
+    if cfg.filter_type != "non-linear" or cfg.compression is not None:
+        raise NotImplementedError(
+            f"filter_type={cfg.filter_type!r}, compression={cfg.compression!r}: "
+            "the linear and tt filters come in a later slice"
+        )
+    build_transforms(cfg)  # raises for the fft transform
+
+
+class FourierNeuralOperatorNet(nn.Module):
+    """SFNO (reference FourierNeuralOperatorNet, sfnonet.py:406-686)."""
+
+    filmed = False
+
+    def __init__(self, cfg: SFNOConfig, device=None, seed: int = 0):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self._build(cfg, device, gen)
+
+    def _build(self, cfg: SFNOConfig, device, gen) -> None:
+        self.transforms = build_transforms(cfg)
+        dtype = torch_dtype(cfg.compute_dtype)
+        self.dtype = dtype
+        self.out_dtype = torch_dtype(cfg.output_dtype)
+        self.want_stats = cfg.fuse_norm_sht
+        self.encoder = Mlp(
+            cfg.in_chans, cfg.embed_dim, cfg.embed_dim, output_bias=False,
+            dtype=dtype, use_pallas=cfg.pallas_grid_mlp,
+            mxu_dtype=cfg.grid_mlp_mxu_dtype, with_stats=self.want_stats,
+            device=device, gen=gen,
+        )
+        if cfg.pos_embed:
+            h, w = cfg.img_size
+            self.pos_embed = new_param((1, cfg.embed_dim, h, w), device, gen,
+                                       "trunc_normal")
+        else:
+            self.register_parameter("pos_embed", None)
+        n_film = cfg.film.film_layers if self.filmed else 0
+        repeat = self.filmed and cfg.film.repeat_film
+        self.blocks = nn.ModuleList([
+            FourierNeuralOperatorBlock(
+                **_block_kwargs(cfg, i, self.transforms),
+                filmed=bool(n_film) and (repeat or i >= cfg.num_layers - n_film),
+                device=device, gen=gen,
+            )
+            for i in range(cfg.num_layers)
+        ])
+        if cfg.big_skip:
+            self.decoder = BigSkipMlp(
+                cfg.embed_dim, cfg.out_chans, cfg.embed_dim, cfg.in_chans,
+                dtype=dtype, use_pallas=cfg.pallas_grid_mlp,
+                mxu_dtype=cfg.grid_mlp_mxu_dtype, out_dtype=self.out_dtype,
+                device=device, gen=gen,
+            )
+        else:
+            self.decoder = Mlp(
+                cfg.embed_dim, cfg.embed_dim, cfg.out_chans, output_bias=False,
+                dtype=dtype, use_pallas=cfg.pallas_grid_mlp,
+                mxu_dtype=cfg.grid_mlp_mxu_dtype, out_dtype=self.out_dtype,
+                device=device, gen=gen,
+            )
+        self._cache = DerivedCache()
+
+    def _pos_embed(self, x):
+        """pos_embed channels-last (H, W, C) in the compute dtype; cached for
+        the kernel path (1.06 GB in fp32 at full resolution)."""
+        if self.pos_embed is None:
+            return None
+        build = lambda: self.pos_embed[0].permute(1, 2, 0).to(self.dtype).contiguous()
+        if x.is_cuda and self.cfg.pallas_grid_mlp:
+            return self._cache.get("pe", (self.pos_embed,), build)
+        return self.pos_embed[0].permute(1, 2, 0).to(self.dtype)
+
+    def _encode(self, x):
+        out = self.encoder(x, pe=self._pos_embed(x))
+        return out if self.want_stats else (out, None)
+
+    def _decode(self, x, residual):
+        if self.cfg.big_skip:
+            y = self.decoder(x, residual)
+        else:
+            y = self.decoder(x)
+        return y.to(self.out_dtype)
+
+    def _run_blocks(self, x, stats, gamma=None, beta=None, scale=1.0):
+        cfg = self.cfg
+        n_film = cfg.film.film_layers if self.filmed else 0
+        for i, blk in enumerate(self.blocks):
+            s_i = stats if i == 0 else None
+            if blk.filmed:
+                idx = (min(i, n_film - 1) if cfg.film.repeat_film
+                       else i - (cfg.num_layers - n_film))
+                x = blk(x, gamma[:, idx], beta[:, idx], scale, s_i)
+            else:
+                x = blk(x, None, None, 1.0, s_i)
+        return x
+
+    def forward(self, x):
+        residual = x
+        x, stats = self._encode(x)
+        x = self._run_blocks(x, stats)
+        return self._decode(x, residual)
+
+
+class FourierNeuralOperatorNetFilmed(FourierNeuralOperatorNet):
+    """MSFNO: SFNO with FiLM conditioning on SST history (reference
+    FourierNeuralOperatorNet_Filmed, sfnonet.py:699-860)."""
+
+    filmed = True
+
+    def _build(self, cfg: SFNOConfig, device, gen) -> None:
+        from msfno_torch.models.film.wrapper import FilmWrapper
+
+        if cfg.film is None:
+            raise ValueError("SFNOConfig.film must be set for the filmed net")
+        self.film_gen = FilmWrapper(cfg.film, device=device, gen=gen)
+        super()._build(cfg, device, gen)
+
+    def forward(self, x, sst, scale=1.0):
+        film_mod = self.film_gen(sst)  # (B, 2, film_layers, C)
+        gamma, beta = film_mod[:, 0], film_mod[:, 1]
+        residual = x
+        x, stats = self._encode(x)
+        x = self._run_blocks(x, stats, gamma, beta, scale)
+        return self._decode(x, residual)

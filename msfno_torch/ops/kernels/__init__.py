@@ -1,0 +1,142 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
+
+Each kernel lives in `msfno_torch/csrc/<name>.cu` with a plain C interface.
+At first use it is compiled with nvcc into a shared library under
+`msfno_torch/_build/` and loaded with ctypes; pointers and the stream go in
+as `c_void_p`, and each C function returns `cudaGetLastError()`, which the
+wrapper turns into an exception.  Nothing is compiled at import time, so the
+package imports on a machine without nvcc or a card.
+
+Each wrapper module (`spectral_mlp`, `grid_mlp`, `gcn_layer`) holds the
+kernel's plain PyTorch version, used for tensors on the CPU, and a launch
+counter: a CUDA tensor always goes to the kernel, or the wrapper raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+KERNELS = ("spectral_mlp", "grid_mlp", "gcn_layer")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine "
+                       "with the CUDA toolkit")
+
+
+def _library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _compile_command(name: str, out: Path, verbose: bool) -> list[str]:
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+    if verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    return cmd
+
+
+def build(names=KERNELS, verbose: bool = False) -> dict[str, str]:
+    """Compile the named kernels that are not built yet, one nvcc process per
+    source, all started together.  Returns nvcc's output per kernel built
+    (with `verbose`, ptxas' register and shared-memory report)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (
+            subprocess.Popen(
+                _compile_command(name, tmp, verbose),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ),
+            tmp, out,
+        )
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed\n" + "\n".join(failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel `name`, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _library_path(name)
+        if not path.exists():
+            build((name,))
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def check(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """The kernels are forward-only; their backward kernels come with the
+    fine-tune slice."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet (fine-tune slice); "
+            "run under torch.no_grad() or torch.inference_mode()"
+        )
+
+
+def launch_counts() -> dict[str, int]:
+    from msfno_torch.ops.kernels import gcn_layer, grid_mlp, spectral_mlp
+
+    return {
+        "spectral_mlp": spectral_mlp.LAUNCHES,
+        "grid_mlp": grid_mlp.LAUNCHES,
+        "gcn_layer": gcn_layer.LAUNCHES,
+    }
+
+
+def reset_launch_counts() -> None:
+    from msfno_torch.ops.kernels import gcn_layer, grid_mlp, spectral_mlp
+
+    spectral_mlp.LAUNCHES = 0
+    grid_mlp.LAUNCHES = 0
+    gcn_layer.LAUNCHES = 0

@@ -1,0 +1,124 @@
+"""One masked-grid GCN layer: the `gcn_layer` CUDA kernel
+(csrc/gcn_layer.cu) and its plain version.
+
+Replaces msfno_tpu/ops/pallas/gcn_layer.py:gcn_layer:
+
+    out = residual + leaky_relu((box3(x @ W * d) * d + b) * mask, slope)
+
+with box3 the 3x3 neighbour sum (periodic in longitude, zero past the poles)
+and d = D^{-1/2}.  Bound on the H100 at the generator's shapes: a 512 -> 512
+layer is ~3.4e10 FLOP against ~200 MB of bf16 traffic (see the kernel
+source).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from msfno_torch.ops.kernels import (
+    check,
+    library,
+    require_no_grad,
+    stream_ptr,
+)
+from msfno_torch.runtime import mxu_round, torch_dtype
+
+LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
+
+
+def box3(v: torch.Tensor) -> torch.Tensor:
+    """3x3 box sum (self + 8 neighbours) of (B, H, W, F): periodic in
+    longitude (axis -2), zero past the poles (axis -3)."""
+    if v.shape[-2] < 3:
+        raise ValueError(f"box3 needs >= 3 longitude columns, got {v.shape[-2]}")
+    zero = torch.zeros_like(v[..., :1, :, :])
+    rows = v + torch.cat([zero, v[..., :-1, :, :]], dim=-3) + torch.cat(
+        [v[..., 1:, :, :], zero], dim=-3
+    )
+    return rows + torch.roll(rows, 1, dims=-2) + torch.roll(rows, -1, dims=-2)
+
+
+def gcn_layer_reference(x, w, b, dinv, mask, residual=None, slope=0.01,
+                        mxu_dtype="bfloat16", out_dtype=None):
+    """Plain version of `_ref_gcn_layer` (msfno_tpu/ops/pallas/gcn_layer.py:
+    362-377) with the kernel's rounding points: for c_in > 1, x and W are
+    rounded to `mxu_dtype` before an fp32-accumulated product; c_in == 1 is
+    an fp32 outer product.  Everything after the product is fp32."""
+    c_in = x.shape[-1]
+    if c_in == 1:
+        sup = x.float() * w.float()[0]
+    else:
+        sup = mxu_round(x, mxu_dtype) @ mxu_round(w, mxu_dtype)
+    d = dinv.float()
+    agg = (box3(sup * d) * d + b.float()) * mask.float()
+    y = torch.where(agg >= 0, agg, slope * agg)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(torch_dtype(out_dtype) if out_dtype is not None else x.dtype)
+
+
+def _act(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        t = t.float()
+    return t.contiguous(), int(t.dtype == torch.bfloat16)
+
+
+def gcn_layer(x, w, b, dinv, mask, residual=None, slope: float = 0.01,
+              mxu_dtype: str = "bfloat16", out_dtype=None, prepared=None):
+    """One fused GCN layer (JAX `gcn_layer` API).
+
+    x: (B, H, W, C_in); w: (C_in, F); b: (F,); dinv/mask: (B, H, W, 1);
+    residual: optional (B, H, W, F) added after the activation.  Returns
+    (B, H, W, F) in `out_dtype` (default x.dtype).  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises.  `prepared`
+    is an optional cached bf16 copy of w (c_in > 1)."""
+    if x.device.type == "cpu":
+        return gcn_layer_reference(x, w, b, dinv, mask, residual, slope,
+                                   mxu_dtype, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"gcn_layer: unsupported device {x.device}")
+    bsz, h, wd, c_in = x.shape
+    f = w.shape[1]
+    if (w.shape != (c_in, f) or b.shape != (f,) or dinv.numel() != bsz * h * wd
+            or mask.numel() != bsz * h * wd
+            or (residual is not None and residual.shape != (bsz, h, wd, f))):
+        raise ValueError("gcn_layer: operand shapes do not match x (B, H, W, C_in) "
+                         f"{tuple(x.shape)} and w (C_in, F) {tuple(w.shape)}")
+    if c_in > 1 and mxu_dtype != "bfloat16":
+        raise NotImplementedError(
+            "gcn_layer: the CUDA kernel takes bf16 operands; an fp32 kernel "
+            f"({mxu_dtype!r}) comes in a later slice; set pallas_gcn=False "
+            "for an fp32 generator"
+        )
+    require_no_grad("gcn_layer", x, w, residual)
+    if c_in == 1:
+        wk = w.float().reshape(-1).contiguous()
+    else:
+        wk = prepared if prepared is not None else w.to(torch.bfloat16).contiguous()
+    xk, x_bf16 = _act(x)
+    dk, d_bf16 = _act(dinv)
+    mk, m_bf16 = _act(mask)
+    if d_bf16 != m_bf16:
+        mk = mk.to(dk.dtype)
+    rk, r_bf16 = _act(residual) if residual is not None else (None, 0)
+    od = torch_dtype(out_dtype) if out_dtype is not None else x.dtype
+    if od not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gcn_layer: unsupported out dtype {od}")
+    out = torch.empty((bsz, h, wd, f), dtype=od, device=x.device)
+    bk = b.float().contiguous()
+    fn = library("gcn_layer").gcn_layer_bf16
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 7 + [ci] * 9 + [ctypes.c_float, vp]
+    fn.restype = ci
+    status = fn(
+        xk.data_ptr(), wk.data_ptr(), bk.data_ptr(), dk.data_ptr(), mk.data_ptr(),
+        rk.data_ptr() if rk is not None else None, out.data_ptr(),
+        bsz, h, wd, c_in, f, x_bf16, d_bf16, r_bf16, int(od == torch.bfloat16),
+        slope, stream_ptr(x),
+    )
+    check(status, "gcn_layer")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

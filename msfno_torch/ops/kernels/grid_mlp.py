@@ -1,0 +1,221 @@
+"""Pointwise grid MLP with fused epilogues: the `grid_mlp` CUDA kernel
+(csrc/grid_mlp.cu) and its plain version.
+
+Replaces msfno_tpu/ops/pallas/grid_mlp.py:grid_mlp.  Per pixel:
+
+    y = gelu_exact((A*x + B) @ W1a [+ skip @ W1b] + b1) @ W2 [+ b2] [+ pe] [+ res]
+
+with optional per-sample sum(y) and sum(y^2) of the fp32 y before it is
+rounded to the output dtype.  Bound on the H100 at the full-resolution call
+sites: memory traffic (see the kernel source).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from msfno_torch.ops.kernels import (
+    check,
+    library,
+    require_no_grad,
+    stream_ptr,
+)
+from msfno_torch.runtime import mxu_round, torch_dtype
+
+LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1])
+
+
+def _check_options(stats_rows, affine, pe, residual):
+    if residual is not None and stats_rows is not None:
+        # the JAX `_grid_mlp_with_stats` path silently drops the residual
+        # (grid_mlp.py:375-384); no call site combines them
+        raise ValueError("grid_mlp: residual and stats_rows cannot be combined")
+    if affine is not None and (pe is not None or stats_rows is not None):
+        raise ValueError("grid_mlp: affine is mutually exclusive with pe/stats")
+
+
+def grid_mlp_reference(x, w1, b1, w2, b2=None, skip=None, pe=None,
+                       mxu_dtype="bfloat16", out_dtype=None, stats_rows=None,
+                       affine=None, residual=None):
+    """Plain version with the kernel's rounding points: the (affine-applied)
+    input, the skip, W1, W2 and the GELU output rounded to `mxu_dtype`;
+    fp32 everywhere else.  Same signature and returns as `grid_mlp`."""
+    _check_options(stats_rows, affine, pe, residual)
+    lead, c_main = x.shape[:-1], x.shape[-1]
+    xf = _flat(x).float()
+    n = xf.shape[0]
+    if affine is not None:
+        a, b = (t.reshape(t.shape[0], -1).float() for t in affine)
+        ns = a.shape[0]
+        xf = (xf.reshape(ns, -1, c_main) * a[:, None] + b[:, None]).reshape(n, c_main)
+    w1r = mxu_round(w1, mxu_dtype)
+    h = mxu_round(xf, mxu_dtype) @ w1r[:c_main]
+    if skip is not None:
+        h = h + mxu_round(_flat(skip), mxu_dtype) @ w1r[c_main:]
+    h = F.gelu(h + b1.float(), approximate="none")
+    y = mxu_round(h, mxu_dtype) @ mxu_round(w2, mxu_dtype)
+    if b2 is not None:
+        y = y + b2.float()
+    c_out = y.shape[-1]
+    if pe is not None:
+        pf = _flat(pe).float()
+        if n % pf.shape[0]:
+            raise ValueError(f"pixel count {n} not a multiple of pe rows {pf.shape[0]}")
+        y = (y.reshape(-1, pf.shape[0], c_out) + pf).reshape(n, c_out)
+    if residual is not None:
+        y = y + _flat(residual).float()
+    out = y.to(torch_dtype(out_dtype or "float32")).reshape(*lead, c_out)
+    if stats_rows is None:
+        return out
+    ys = y.reshape(-1, stats_rows, c_out)
+    return out, ys.sum(1), (ys * ys).sum(1)
+
+
+def prepare_weights(w1, w2, c_main: int):
+    """The kernel's bf16 weights: W1 as (k1p, hidden) with the main rows
+    padded to a multiple of 16 and the skip rows after them, W2 as
+    (hidden, n2p) with zero columns past c_out."""
+    hidden, c_out = w1.shape[1], w2.shape[1]
+    c_skip = w1.shape[0] - c_main
+    cmp = _pad16(c_main)
+    k1p = cmp + (_pad16(c_skip) if c_skip else 0)
+    w1p = torch.zeros((k1p, hidden), dtype=torch.bfloat16, device=w1.device)
+    w1p[:c_main] = w1[:c_main]
+    if c_skip:
+        w1p[cmp:cmp + c_skip] = w1[c_main:]
+    w2p = torch.zeros((hidden, _pad16(c_out)), dtype=torch.bfloat16, device=w2.device)
+    w2p[:, :c_out] = w2
+    return w1p, w2p
+
+
+def _act(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(contiguous tensor, is_bf16) in a dtype the kernel reads."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        t = t.float()
+    return t.contiguous(), int(t.dtype == torch.bfloat16)
+
+
+def grid_mlp(x, w1, b1, w2, b2=None, skip=None, pe=None, mxu_dtype="bfloat16",
+             out_dtype=None, stats_rows=None, affine=None, residual=None,
+             prepared=None):
+    """Fused pointwise two-layer MLP over grid pixels (JAX `grid_mlp` API).
+
+    x: (..., C_main); w1: (C_main + C_skip, hidden); w2: (hidden, C_out);
+    skip: (..., C_skip); pe: (H, W, C_out) or (H*W, C_out), broadcast over
+    the leading rows; affine: per-sample (A, B), each (n_samples, C_main);
+    residual: (..., C_out).  Returns y (..., C_out) in `out_dtype`
+    (default fp32), or (y, ssum, ssq) with per-sample fp32 sums when
+    `stats_rows` (rows per sample) is set.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.  `prepared` is an
+    optional `prepare_weights` result cached by the caller."""
+    if x.device.type == "cpu":
+        return grid_mlp_reference(x, w1, b1, w2, b2, skip, pe, mxu_dtype,
+                                  out_dtype, stats_rows, affine, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_mlp: unsupported device {x.device}")
+    _check_options(stats_rows, affine, pe, residual)
+    if mxu_dtype != "bfloat16":
+        raise NotImplementedError(
+            "grid_mlp: the CUDA kernel takes bf16 operands; an fp32 kernel "
+            f"({mxu_dtype!r}) comes in a later slice; set pallas_grid_mlp="
+            "False for the exact tier"
+        )
+    require_no_grad("grid_mlp", x, w1, w2, skip, residual)
+    lead, c_main = x.shape[:-1], x.shape[-1]
+    xf, x_bf16 = _act(_flat(x))
+    n = xf.shape[0]
+    hidden, c_out = w1.shape[1], w2.shape[1]
+    if hidden % 16:
+        raise ValueError(f"grid_mlp: hidden width {hidden} must be a multiple of 16")
+    c_skip = w1.shape[0] - c_main
+    if (skip is None) != (c_skip == 0):
+        raise ValueError("grid_mlp: w1 rows must equal C_main (+ C_skip with skip)")
+    if prepared is None:
+        prepared = prepare_weights(w1, w2, c_main)
+    w1p, w2p = prepared
+    dev = x.device
+    od = torch_dtype(out_dtype or "float32")
+    if od not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"grid_mlp: unsupported out dtype {od}")
+    out = torch.empty((n, c_out), dtype=od, device=dev)
+
+    n_samples, rows_per_sample = 1, n
+    aff_a = aff_b = None
+    if affine is not None:
+        aff_a, aff_b = (t.reshape(t.shape[0], -1).float().contiguous() for t in affine)
+        n_samples = aff_a.shape[0]
+    elif stats_rows is not None:
+        n_samples = n // stats_rows
+    if n % n_samples:
+        raise ValueError(f"grid_mlp: {n} rows do not split into {n_samples} samples")
+    rows_per_sample = n // n_samples
+
+    if (b1.shape != (hidden,) or w2.shape[0] != hidden
+            or (b2 is not None and b2.shape != (c_out,))
+            or (skip is not None and skip.numel() != n * c_skip)
+            or (residual is not None and residual.numel() != n * c_out)
+            or (pe is not None and pe.shape[-1] != c_out)
+            or (aff_a is not None and (aff_a.shape != (n_samples, c_main)
+                                       or aff_b.shape != aff_a.shape))):
+        raise ValueError("grid_mlp: operand shapes do not match x (..., C_main), "
+                         "w1 (C_main + C_skip, hidden) and w2 (hidden, C_out)")
+    skf, skip_bf16 = _act(_flat(skip)) if skip is not None else (None, 0)
+    pef, pe_bf16, pe_rows = None, 0, 0
+    if pe is not None:
+        pef, pe_bf16 = _act(_flat(pe))
+        pe_rows = pef.shape[0]
+        if n % pe_rows:
+            raise ValueError(f"pixel count {n} not a multiple of pe rows {pe_rows}")
+    rsf, res_bf16 = _act(_flat(residual)) if residual is not None else (None, 0)
+    b1f = b1.float().contiguous()
+    b2f = b2.float().contiguous() if b2 is not None else None
+
+    lib = library("grid_mlp")
+    lib.grid_mlp_n_blocks.argtypes = [ctypes.c_longlong]
+    lib.grid_mlp_n_blocks.restype = ctypes.c_int
+    lib.grid_mlp_bf16.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                  ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    lib.grid_mlp_bf16.restype = ctypes.c_int
+    ssum = ssq = part_sum = part_sq = None
+    if stats_rows is not None:
+        n_blocks = lib.grid_mlp_n_blocks(rows_per_sample)
+        part_sum = torch.empty((n_samples, n_blocks, c_out), device=dev)
+        part_sq = torch.empty_like(part_sum)
+        ssum = torch.empty((n_samples, c_out), device=dev)
+        ssq = torch.empty_like(ssum)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    ptrs = (ctypes.c_void_p * 15)(*[
+        ptr(xf), ptr(skf), ptr(aff_a), ptr(aff_b), ptr(w1p), ptr(b1f), ptr(w2p),
+        ptr(b2f), ptr(pef), ptr(rsf), ptr(out), ptr(part_sum), ptr(part_sq),
+        ptr(ssum), ptr(ssq),
+    ])
+    cmp = _pad16(c_main)
+    ints = (ctypes.c_longlong * 21)(
+        n_samples, rows_per_sample, pe_rows, c_main, c_skip, cmp, w1p.shape[0],
+        hidden, c_out, w2p.shape[1], x_bf16, skip_bf16, pe_bf16, res_bf16,
+        int(od == torch.bfloat16), int(skip is not None), int(affine is not None),
+        int(b2 is not None), int(pe is not None), int(residual is not None),
+        int(stats_rows is not None),
+    )
+    status = lib.grid_mlp_bf16(ptrs, ints, stream_ptr(x))
+    check(status, "grid_mlp")
+    global LAUNCHES
+    LAUNCHES += 1
+    out = out.reshape(*lead, c_out)
+    if stats_rows is None:
+        return out
+    return out, ssum, ssq

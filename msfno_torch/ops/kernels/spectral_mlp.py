@@ -1,0 +1,115 @@
+"""Complex spectral MLP over SHT modes: the `spectral_mlp` CUDA kernel
+(csrc/spectral_mlp.cu) and its plain version.
+
+Replaces msfno_tpu/ops/pallas/spectral_mlp.py:spectral_mlp.  Per retained
+(l, m) mode, weights shared across modes: `len(weights) - 1` layers of
+complex matmul + ComplexReLU("real") (LeakyReLU on the real part only), then
+the `wout` projection (reference SpectralAttentionS2.forward_mlp,
+MSFNO/Models/sfno/layers.py:615-631).
+
+Bound on the H100 at the serving shapes: operations (see the kernel source);
+one launch is ~9.1e10 FLOP in the 4-product form.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from msfno_torch.ops.kernels import (
+    check,
+    library,
+    require_no_grad,
+    stream_ptr,
+)
+from msfno_torch.runtime import mxu_round
+
+LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
+
+
+def spectral_mlp_reference(z: torch.Tensor, weights, negative_slope: float = 0.0,
+                           mxu_dtype: str = "float32") -> torch.Tensor:
+    """Plain version: z (2, ..., C) [re, im]; weights (in, out, 2) each.
+
+    The 4-product complex form of `_mlp_reference`
+    (msfno_tpu/ops/pallas/spectral_mlp.py:58-69) with the kernel's rounding
+    points: matmul operands rounded to `mxu_dtype`, fp32 accumulation."""
+    hr, hi = z[0].float(), z[1].float()
+    n_layers = len(weights)
+    for idx, w in enumerate(weights):
+        wr = mxu_round(w[..., 0], mxu_dtype)
+        wi = mxu_round(w[..., 1], mxu_dtype)
+        ar, ai = mxu_round(hr, mxu_dtype), mxu_round(hi, mxu_dtype)
+        nr = ar @ wr - ai @ wi
+        ni = ar @ wi + ai @ wr
+        if idx < n_layers - 1:
+            nr = torch.where(nr >= 0, nr, negative_slope * nr)
+        hr, hi = nr, ni
+    return torch.stack([hr, hi])
+
+
+def pack_weights(weights) -> tuple[torch.Tensor, list[int], list[int]]:
+    """The kernel's weight buffer: P_l = [[wr, wi], [-wi, wr]] per layer, in
+    bf16, concatenated; with the layer widths and element offsets."""
+    dims = [int(weights[0].shape[0])] + [int(w.shape[1]) for w in weights]
+    parts, offs, off = [], [], 0
+    for w in weights:
+        wr, wi = w[..., 0].float(), w[..., 1].float()
+        packed = torch.cat(
+            [torch.cat([wr, wi], dim=1), torch.cat([-wi, wr], dim=1)], dim=0
+        ).to(torch.bfloat16)
+        parts.append(packed.reshape(-1))
+        offs.append(off)
+        off += packed.numel()
+    return torch.cat(parts).contiguous(), dims, offs
+
+
+def spectral_mlp(z: torch.Tensor, weights, negative_slope: float = 0.0,
+                 mxu_dtype: str = "float32", packed=None) -> torch.Tensor:
+    """Spectral MLP over z (2, ..., C_in) fp32 -> (2, ..., C_out) fp32.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16 operands, fp32 accumulation) or raises.  `packed` is an optional
+    `pack_weights(weights)` result cached by the caller."""
+    if z.device.type == "cpu":
+        return spectral_mlp_reference(z, weights, negative_slope, mxu_dtype)
+    if z.device.type != "cuda":
+        raise ValueError(f"spectral_mlp: unsupported device {z.device}")
+    if mxu_dtype != "bfloat16":
+        raise NotImplementedError(
+            "spectral_mlp: the CUDA kernel takes bf16 operands; an fp32 "
+            f"kernel ({mxu_dtype!r}) comes in a later slice; set "
+            "use_pallas=False for the exact tier"
+        )
+    require_no_grad("spectral_mlp", z, *weights)
+    if packed is None:
+        packed = pack_weights(weights)
+    wbuf, dims, offs = packed
+    lead = z.shape[1:-1]
+    c_in = z.shape[-1]
+    if c_in != dims[0] or any(d % 16 for d in dims):
+        raise ValueError(f"spectral_mlp: widths {dims} must be multiples of 16 "
+                         f"and match the input's {c_in}")
+    x = z.float().reshape(2, -1, c_in).contiguous()
+    if x.data_ptr() % 16:  # the kernel stages its rows as float4
+        x = x.clone()
+    n = x.shape[1]
+    out = torch.empty((2, n, dims[-1]), device=z.device, dtype=torch.float32)
+    fn = library("spectral_mlp").spectral_mlp_bf16
+    vp = ctypes.c_void_p
+    fn.argtypes = [vp, vp, vp, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, vp, vp,
+                   ctypes.c_int, ctypes.c_float, vp]
+    fn.restype = ctypes.c_int
+    n_layers = len(dims) - 1
+    status = fn(
+        x[0].data_ptr(), x[1].data_ptr(), wbuf.data_ptr(),
+        (ctypes.c_int * len(dims))(*dims), (ctypes.c_longlong * n_layers)(*offs),
+        n_layers, out[0].data_ptr(), out[1].data_ptr(), n, negative_slope,
+        stream_ptr(z),
+    )
+    check(status, "spectral_mlp")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out.reshape(2, *lead, dims[-1])

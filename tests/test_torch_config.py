@@ -1,0 +1,86 @@
+"""Config, package boundary and entry-point rules of the PyTorch port: one
+JSON string drives both packages, importing the port pulls in no JAX, the
+entry points refuse to fall back to the CPU, and every path the port does
+not run yet raises NotImplementedError."""
+
+import dataclasses
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from msfno_torch import config as tcfg
+from msfno_torch.models import FourierNeuralOperatorNetFilmed
+
+SMALL = dict(img_size=(16, 32), scale_factor=2, in_chans=3, out_chans=3,
+             embed_dim=16, num_layers=3, spectral_layers=1,
+             film=tcfg.FilmConfig(model_depth=1, embed_dim=16, num_film_features=16,
+                                  sst_shape=(8, 16), temporal_step=2))
+
+
+@pytest.mark.parametrize("make", [
+    lambda m: m.SFNOConfig(),
+    lambda m: m.tiny_sfno(film=True),
+    lambda m: m.SFNOConfig(img_size=(33, 64), compression="tt",
+                           film=m.FilmConfig(patch_size=(2, 3, 4), compute_dtype="bfloat16")),
+])
+def test_one_json_drives_both_packages(make):
+    pytest.importorskip("jax")
+    from msfno_tpu.utils import config as jcfg
+
+    j, t = make(jcfg), make(tcfg)
+    assert tcfg.to_json(t) == jcfg.to_json(j)
+    assert tcfg.from_json(jcfg.to_json(j)) == t
+    assert jcfg.from_json(tcfg.to_json(t)) == j
+    assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+
+
+def test_serving_config_is_the_jax_fast_tier_without_fusion():
+    pytest.importorskip("jax")
+    import __graft_entry__
+    from msfno_tpu.utils import config as jcfg
+
+    fast = __graft_entry__._flagship_cfg(fast=True)
+    want = dataclasses.replace(fast, fuse_encoder_dft=False, fuse_decoder_tail=False,
+                               checkpointing_block=False)
+    assert jcfg.from_json(tcfg.to_json(tcfg.serving_config())) == want
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, msfno_torch, msfno_torch.config, msfno_torch.convert, "
+        "msfno_torch.models, msfno_torch.inference.rollout, "
+        "msfno_torch.data.normalization, msfno_torch.data.synthetic, "
+        "msfno_torch.ops.kernels.spectral_mlp, msfno_torch.ops.kernels.grid_mlp, "
+        "msfno_torch.ops.kernels.gcn_layer\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msfno_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True)
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = tcfg.SFNOConfig(**SMALL)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FourierNeuralOperatorNetFilmed(cfg)
+    assert FourierNeuralOperatorNetFilmed(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("change", [
+    dict(pallas_grid_mlp=True),  # both fused head/tail kernels would engage
+    dict(pallas_grid_mlp=True, fuse_decoder_tail=False),
+    dict(filter_type="linear"),
+    dict(filter_type="linear", compression="tt"),
+    dict(spectral_transform="fft"),
+    dict(normalization_layer="layer_norm"),
+    dict(complex_activation="modulus"),
+    dict(film=dataclasses.replace(SMALL["film"], film_gen_type="transformer")),
+    dict(film=dataclasses.replace(SMALL["film"], film_gen_type="mae")),
+])
+def test_unported_paths_raise(change):
+    cfg = tcfg.SFNOConfig(**{**SMALL, **change})
+    with pytest.raises(NotImplementedError):
+        FourierNeuralOperatorNetFilmed(cfg, device="cpu")

@@ -1,0 +1,137 @@
+"""grid_mlp of the PyTorch port: its plain version against the JAX
+package's Pallas kernel (interpret mode on the CPU) for every option the
+serving step uses, and the CUDA kernel against the plain version on a
+card."""
+
+import numpy as np
+import pytest
+import torch
+
+from msfno_torch.ops.kernels import grid_mlp as tk
+
+torch.set_num_threads(2)
+
+
+def rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def report(name, value):
+    """The measured error, for the parity table (pytest -s shows it)."""
+    print(f"parity {name} rel_l2={value:.3e}")
+    return value
+
+
+def _jax():
+    """The JAX side, imported in the tests that use it: the card's machine
+    has no JAX, and runs only the cuda tests of this file."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.grid_mlp import grid_mlp
+
+    return jnp, grid_mlp
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _case(name, seed=0, big=False):
+    """Operands of one call site, as numpy: encoder (+pe, +stats), inner
+    (+b2), decoder (+skip), fold (+affine, +residual, +b2)."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    b, h, w = (2, 9, 40) if big else (2, 6, 8)
+    if name == "encoder":
+        c, hid, out = 5, 16, 16
+        ops = dict(x=r(b, h, w, c), pe=0.1 * r(h, w, out), stats_rows=h * w)
+    elif name == "inner":
+        c, hid, out = 16, 32, 16
+        ops = dict(x=r(1, h, w, c), b2=0.1 * r(out))
+    elif name == "decoder":
+        c, hid, out = 16, 16, 5
+        ops = dict(x=r(1, h, w, c), skip=r(1, h, w, 5))
+        c_skip = 5
+    else:  # fold
+        c, hid, out = 16, 32, 16
+        ops = dict(x=r(b, h, w, c), b2=0.1 * r(out),
+                   affine=(1.0 + 0.1 * r(b, c), 0.1 * r(b, c)),
+                   residual=r(b, h, w, out))
+    k_in = c + (5 if name == "decoder" else 0)
+    ops.update(w1=0.3 * r(k_in, hid), b1=0.1 * r(hid), w2=0.3 * r(hid, out))
+    return ops
+
+
+def _call(fn, ops, to, **kw):
+    args = {k: (tuple(to(a) for a in v) if isinstance(v, tuple) else
+                (to(v) if isinstance(v, np.ndarray) else v))
+            for k, v in ops.items()}
+    return fn(args.pop("x"), args.pop("w1"), args.pop("b1"), args.pop("w2"),
+              **args, **kw)
+
+
+@pytest.mark.parametrize("name", ["encoder", "inner", "decoder", "fold"])
+def test_plain_matches_jax_kernel_fp32(name):
+    jnp, jax_grid_mlp = _jax()
+    ops = _case(name)
+    yj = _call(jax_grid_mlp, ops, jnp.asarray, mxu_dtype="float32")
+    yt = _call(tk.grid_mlp, ops, torch.from_numpy, mxu_dtype="float32")
+    if "stats_rows" in ops:
+        for part, a, b in zip(("y", "ssum", "ssq"), yt, yj):
+            assert report(f"grid_mlp[{name}] {part}", rel_l2(a, b)) <= 1e-5
+    else:
+        assert yt.shape == yj.shape
+        assert report(f"grid_mlp[{name}]", rel_l2(yt, yj)) <= 1e-5
+
+
+def test_bf16_out_and_pe_match_jax_kernel():
+    # bf16 pe storage and bf16 output rounding at the write, bf16 operands
+    jnp, jax_grid_mlp = _jax()
+    ops = _case("encoder", seed=3)
+    yj, sj, qj = _call(jax_grid_mlp, {**ops, "pe": jnp.asarray(ops["pe"], jnp.bfloat16)},
+                       lambda a: a if not isinstance(a, np.ndarray) else jnp.asarray(a),
+                       mxu_dtype="bfloat16", out_dtype=jnp.bfloat16)
+    pe_t = torch.from_numpy(ops["pe"]).to(torch.bfloat16)
+    yt, st, qt = _call(tk.grid_mlp, {**ops, "pe": pe_t},
+                       lambda a: a if not isinstance(a, np.ndarray) else torch.from_numpy(a),
+                       mxu_dtype="bfloat16", out_dtype="bfloat16")
+    assert yt.dtype == torch.bfloat16
+    # one-ulp bf16 flips of the hidden activation or the output
+    assert rel_l2(yt.float(), np.asarray(yj, np.float32)) <= 1e-2
+    assert rel_l2(st, sj) <= 1e-3 and rel_l2(qt, qj) <= 1e-3
+
+
+@pytest.mark.parametrize("bad", ["residual+stats", "affine+pe"])
+def test_invalid_combinations_raise(bad):
+    ops = _case("fold")
+    x, w1, b1, w2 = (torch.from_numpy(ops[k]) for k in ("x", "w1", "b1", "w2"))
+    kw = dict(residual=torch.from_numpy(ops["residual"]), stats_rows=48)
+    if bad == "affine+pe":
+        kw = dict(affine=tuple(torch.from_numpy(a) for a in ops["affine"]),
+                  pe=torch.zeros(6, 8, 16))
+    with pytest.raises(ValueError):
+        tk.grid_mlp(x, w1, b1, w2, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["encoder", "inner", "decoder", "fold"])
+def test_kernel_matches_plain(cuda, name):
+    ops = _case(name, seed=5, big=True)
+    to = lambda a: torch.from_numpy(a).to(cuda)
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        yk = _call(tk.grid_mlp, ops, to, mxu_dtype="bfloat16", out_dtype="bfloat16")
+        torch.cuda.synchronize()
+        yp = _call(tk.grid_mlp_reference, ops, to, mxu_dtype="bfloat16",
+                   out_dtype="bfloat16")
+    assert tk.LAUNCHES == before + 1
+    if isinstance(yk, tuple):
+        # stats: block partials added in another order than torch.sum
+        assert rel_l2(yk[1].cpu(), yp[1].cpu()) <= 1e-4
+        assert rel_l2(yk[2].cpu(), yp[2].cpu()) <= 1e-4
+        yk, yp = yk[0], yp[0]
+    assert rel_l2(yk.float().cpu(), yp.float().cpu()) <= 1e-2

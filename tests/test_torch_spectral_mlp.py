@@ -1,0 +1,107 @@
+"""spectral_mlp of the PyTorch port: its plain version against the JAX
+package's Pallas kernel (interpret mode on the CPU), and the CUDA kernel
+against the plain version on a card."""
+
+import numpy as np
+import pytest
+import torch
+
+from msfno_torch.ops.kernels import spectral_mlp as tk
+
+torch.set_num_threads(2)
+
+
+def rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def report(name, value):
+    """The measured error, for the parity table (pytest -s shows it)."""
+    print(f"parity {name} rel_l2={value:.3e}")
+    return value
+
+
+def _jax():
+    """The JAX side, imported in the tests that use it: the card's machine
+    has no JAX, and runs only the cuda tests of this file."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas import spectral_mlp as jk
+
+    return jnp, jk
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(lead, c, hidden, n_hidden, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, *lead, c)).astype(np.float32)
+    dims = [c] + [hidden] * n_hidden + [c]
+    ws = [(0.15 * rng.standard_normal((dims[i], dims[i + 1], 2))).astype(np.float32)
+          for i in range(len(dims) - 1)]
+    return x, ws
+
+
+@pytest.mark.parametrize("n_hidden", [3, 1])
+def test_plain_matches_jax_kernel_fp32(n_hidden):
+    # fp32 vs fp32: the rel-L2 ~1e-5 class of reference parity
+    jnp, jk = _jax()
+    x, ws = _inputs((2, 5, 7), 32, 64, n_hidden)
+    coeffs = jnp.asarray(x[0]) + 1j * jnp.asarray(x[1])
+    yj = jk.spectral_mlp(coeffs, [jnp.asarray(w) for w in ws], mxu_dtype="float32")
+    yt = tk.spectral_mlp(torch.from_numpy(x), [torch.from_numpy(w) for w in ws],
+                         mxu_dtype="float32")
+    assert yt.shape == (2, 2, 5, 7, 32)
+    assert report(f"spectral_mlp[{n_hidden} hidden] re", rel_l2(yt[0], np.real(yj))) <= 1e-5
+    assert report(f"spectral_mlp[{n_hidden} hidden] im", rel_l2(yt[1], np.imag(yj))) <= 1e-5
+
+
+def test_plain_bf16_matches_jax_packed_kernel():
+    # same rounding points as the packed (4-product) Pallas kernel: bf16
+    # operands, fp32 accumulation.  Sums in another order can flip a hidden
+    # value's bf16 rounding by one ulp, hence 1e-3 and not 1e-5.
+    jnp, jk = _jax()
+    x, ws = _inputs((40,), 32, 64, 3, seed=1)
+    flat = []
+    for w in ws:
+        flat += [jnp.asarray(w[..., 0]), jnp.asarray(w[..., 1])]
+    yr, yi = jk._packed_call(jnp.asarray(x[0]), jnp.asarray(x[1]), *flat,
+                             mxu_dtype="bfloat16", interpret=True)
+    yt = tk.spectral_mlp(torch.from_numpy(x), [torch.from_numpy(w) for w in ws],
+                         mxu_dtype="bfloat16")
+    assert rel_l2(yt[0], yr) <= 1e-3
+    assert rel_l2(yt[1], yi) <= 1e-3
+
+
+def test_pack_weights_layout():
+    _, ws = _inputs((1,), 16, 32, 1)
+    wt = [torch.from_numpy(w) for w in ws]
+    buf, dims, offs = tk.pack_weights(wt)
+    assert dims == [16, 32, 16] and offs == [0, 32 * 64]
+    p0 = buf[: 32 * 64].reshape(32, 64).float()
+    wr = wt[0][..., 0].to(torch.bfloat16).float()
+    wi = wt[0][..., 1].to(torch.bfloat16).float()
+    assert torch.equal(p0[:16, :32], wr) and torch.equal(p0[16:, :32], -wi)
+    assert torch.equal(p0[:16, 32:], wi) and torch.equal(p0[16:, 32:], wr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,c,hidden", [(1000, 64, 128), (14520, 256, 512)])
+def test_kernel_matches_plain(cuda, n_rows, c, hidden):
+    # bf16 operands on both sides; 1e-3 covers one-ulp flips of hidden values
+    x, ws = _inputs((n_rows,), c, hidden, 3, seed=2)
+    z = torch.from_numpy(x).to(cuda)
+    wt = [torch.from_numpy(w).to(cuda) for w in ws]
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        yk = tk.spectral_mlp(z, wt, mxu_dtype="bfloat16")
+        torch.cuda.synchronize()
+        yp = tk.spectral_mlp_reference(z, wt, mxu_dtype="bfloat16")
+    assert tk.LAUNCHES == before + 1
+    assert rel_l2(yk.cpu(), yp.cpu()) <= 1e-3

@@ -1,0 +1,68 @@
+#!/usr/bin/env python3
+"""A/B of compile-time variants of one CUDA kernel at the serving step's
+shapes, on one card, in one process.
+
+    python3 tools/kernel_variants.py grid_mlp base PREFETCH=1 TILE_ROWS=32,PREFETCH=2 base
+
+Each variant is "base" (the source as it stands) or comma-separated
+NAME=VALUE overrides of the kernel source's <NAME>_OVERRIDE macros
+(msfno_torch/csrc/<kernel>.cu).  Every variant is built with nvcc into
+msfno_torch/_build/variants/, loaded in place of the kernel's library and
+timed at the call sites of chip_smoke.py (CUDA events, the kernel against
+its plain version).  Prints ptxas' register and spill report per variant and
+one JSON line per (variant, site) with the card's name and power limit.
+Repeat "base" at the end to see the run-to-run spread.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main(argv) -> int:
+    import torch
+
+    import chip_smoke
+    from msfno_torch.ops import kernels
+    from msfno_torch.runtime import resolve_device
+
+    name, variants = argv[0], argv[1:] or ["base"]
+    dev = resolve_device()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    out_dir = kernels.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, var in enumerate(variants):
+        defs = [] if var == "base" else [
+            f"-D{kv.split('=')[0]}_OVERRIDE={kv.split('=')[1]}" for kv in var.split(",")]
+        lib = out_dir / f"lib{name}-v{i}.so"
+        cmd = kernels._compile_command(name, lib, verbose=True) + defs
+        procs.append((var, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for var, lib, proc in procs:
+        log, _ = proc.communicate()
+        report = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(json.dumps({"variant": var, "rc": proc.returncode, "ptxas": report}))
+        if proc.returncode != 0:
+            print(log[-3000:])
+            return 1
+    for var, lib, _ in procs:
+        kernels._LIBS[name] = ctypes.CDLL(str(lib))
+        for rec in chip_smoke.SITES[name](dev):
+            print(json.dumps({"variant": var, "site": rec["site"], "ms": rec["ms"],
+                              "rel_l2": rec["rel_l2"], "card": card}))
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
