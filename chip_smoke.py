@@ -5,15 +5,19 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the CUDA kernels from msfno_torch/csrc, one nvcc per source;
+  2. build the five CUDA kernels from msfno_torch/csrc, one nvcc per source;
   3. each kernel against its plain PyTorch version at the shapes of the
      serving step, with times (CUDA events), the bound and the error;
   4. the full-width filmed SFNO (721x1440x73, 12 blocks, embed 256, GCN FiLM
      generator over a (1, 28, 180, 360) SST history; seeded random weights)
-     through the kernels, held against the fp32 plain path (rel-L2 <= 3e-2);
-  5. a 4-step rollout with per-step SST: finite outputs and exactly
-     12 spectral_mlp, 13 grid_mlp and 7 gcn_layer launches per step;
-  6. the median time per chained step.
+     on both serving paths, `serving_config()` (fused head and tail) and
+     `serving_config(fuse_encoder_dft=False, fuse_decoder_tail=False)`,
+     each held against the fp32 plain path (rel-L2 <= 3e-2);
+  5. a 4-step rollout with per-step SST on each path: finite outputs and
+     exactly 12 spectral_mlp, 11 grid_mlp, 1 grid_encoder_spectral, 1
+     spectral_decoder and 7 gcn_layer launches per step on the fused path,
+     12 / 13 / 0 / 0 / 7 on the unfused one;
+  6. the median time per chained step of both paths, timed in turns.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device it exits with 1 and
 prints no result.
@@ -30,19 +34,26 @@ import time
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}  # dense, H100 SXM data sheet
 STEPS = 4
-TOL = {"spectral_mlp": 1e-3, "grid_mlp": 1e-2, "gcn_layer": 1e-2}
+TOL = {"spectral_mlp": 1e-3, "grid_mlp": 1e-2, "gcn_layer": 1e-2,
+       "grid_encoder_spectral": 1e-2, "spectral_decoder": 1e-2}
 REPLACES = {
     "spectral_mlp": "msfno_tpu/ops/pallas/spectral_mlp.py:286",
     "grid_mlp": "msfno_tpu/ops/pallas/grid_mlp.py:179",
     "gcn_layer": "msfno_tpu/ops/pallas/gcn_layer.py:129",
+    "grid_encoder_spectral": "msfno_tpu/ops/pallas/grid_mlp.py:455",
+    "spectral_decoder": "msfno_tpu/ops/pallas/spectral_decoder.py:107",
 }
-# launches of each kernel's call sites in one serving step
+# launches of each kernel's call sites in one serving step, per path: the
+# fused head and tail take the place of grid_mlp's encoder and decoder sites
+_COMMON = {"spectral_mlp": {"block": 12}, "gcn_layer": {"conv1": 1, "conv": 6}}
 SITE_COUNTS = {
-    "spectral_mlp": {"block": 12},
-    "grid_mlp": {"encoder": 1, "inner": 11, "decoder": 1},
-    "gcn_layer": {"conv1": 1, "conv": 6},
+    "fused": {**_COMMON, "grid_mlp": {"inner": 11},
+              "grid_encoder_spectral": {"head": 1}, "spectral_decoder": {"tail": 1}},
+    "unfused": {**_COMMON, "grid_mlp": {"encoder": 1, "inner": 11, "decoder": 1},
+                "grid_encoder_spectral": {}, "spectral_decoder": {}},
 }
-PER_STEP = {name: sum(sites.values()) for name, sites in SITE_COUNTS.items()}
+PER_STEP = {path: {name: sum(sites.values()) for name, sites in kernels.items()}
+            for path, kernels in SITE_COUNTS.items()}
 
 
 def log(*args):
@@ -207,8 +218,60 @@ def gcn_layer_sites(dev):
     return recs
 
 
+def _serving_transforms():
+    from msfno_torch.config import serving_config
+    from msfno_torch.models.sfno.sfnonet import build_transforms
+
+    return build_transforms(serving_config())
+
+
+def grid_encoder_spectral_sites(dev):
+    """grid_encoder_spectral at the fused head: x (1, 721, 1440, 73) fp32
+    -> 73 -> 256 -> 256 + pe (bf16) -> f (1, 721, 242, 256) bf16 + stats."""
+    import torch
+
+    from msfno_torch.ops.kernels import grid_encoder_spectral as ek
+
+    rn, _ = _randn(dev, 4)
+    h, w, c = 721, 1440, 256
+    cs = _serving_transforms()[0]._const("merged", dev)  # (1440, 242)
+    x, pe = rn(1, h, w, 73), rn(h, w, c, scale=0.02, dtype=torch.bfloat16)
+    w1, b1, w2 = rn(73, c, scale=0.1), rn(c, scale=0.1), rn(c, c, scale=0.06)
+    prepared = ek.prepare(w1, w2, cs)
+    n, two_m = h * w, cs.shape[1]
+    flops = 2 * n * (73 * c + c * c + two_m * c)
+    work = (nbytes(x, pe, w1, b1, w2, cs) + h * two_m * c * 2, {"bf16": flops})
+    return [check_site(
+        "grid_encoder_spectral", "head",
+        lambda: ek.grid_encoder_spectral(x, w1, b1, w2, pe, cs, prepared=prepared),
+        lambda: ek.grid_encoder_spectral_reference(x, w1, b1, w2, pe, cs), work, 10)]
+
+
+def spectral_decoder_sites(dev):
+    """spectral_decoder at the fused tail: hm (1, 721, 242, 256) fp32, the
+    folded affine, skip (1, 721, 1440, 73) -> 329 -> 256 -> 73, fp32 out."""
+    from msfno_torch.ops.kernels import spectral_decoder as dk
+
+    rn, _ = _randn(dev, 5)
+    h, w, c = 721, 1440, 256
+    mt = _serving_transforms()[1]._const("merged_t", dev)  # (1440, 242)
+    two_m = mt.shape[1]
+    hm, skip = rn(1, h, two_m, c, scale=0.05), rn(1, h, w, 73)
+    a, b = 1.0 + rn(1, c, scale=0.1), rn(1, c, scale=0.1)
+    w1, b1, w2 = rn(c + 73, c, scale=0.05), rn(c, scale=0.1), rn(c, 73, scale=0.06)
+    prepared = dk.prepare(w1, w2, mt, c)
+    n = h * w
+    flops = 2 * n * (two_m * c + (c + 73) * c + c * 73)
+    work = (nbytes(hm, skip, mt, a, b, w1, b1, w2) + n * 73 * 4, {"bf16": flops})
+    return [check_site(
+        "spectral_decoder", "tail",
+        lambda: dk.spectral_decoder(hm, skip, mt, a, b, w1, b1, w2, prepared=prepared),
+        lambda: dk.spectral_decoder_reference(hm, skip, mt, a, b, w1, b1, w2), work, 10)]
+
+
 SITES = {"spectral_mlp": spectral_mlp_sites, "grid_mlp": grid_mlp_sites,
-         "gcn_layer": gcn_layer_sites}
+         "gcn_layer": gcn_layer_sites, "grid_encoder_spectral": grid_encoder_spectral_sites,
+         "spectral_decoder": spectral_decoder_sites}
 
 
 def kernel_checks(dev):
@@ -270,66 +333,88 @@ def main() -> int:
     # phase 3
     recs = kernel_checks(dev)
 
-    # phase 4: the full-width serving net against its fp32 plain path
-    cfg = serving_config()
-    net = FourierNeuralOperatorNetFilmed(cfg, device=dev, seed=0)
-    x0, sst, sst_seq = model_inputs(cfg, dev, STEPS)
-    with torch.inference_mode():
-        y_k = net(x0, sst)
-        torch.cuda.synchronize()
-    plain = FourierNeuralOperatorNetFilmed(exact_config(cfg), device=dev, seed=0)
-    plain.load_state_dict(net.state_dict())
+    # phase 4: both serving paths at full width against the fp32 plain path
+    nets = {"fused": FourierNeuralOperatorNetFilmed(serving_config(), device=dev, seed=0)}
+    unfused_cfg = serving_config(fuse_encoder_dft=False, fuse_decoder_tail=False)
+    nets["unfused"] = FourierNeuralOperatorNetFilmed(unfused_cfg, device=dev, seed=0)
+    nets["unfused"].load_state_dict(nets["fused"].state_dict())
+    if not (nets["fused"].fuse_dft and nets["fused"].blocks[-1].fuse_tail
+            and not nets["unfused"].fuse_dft and not nets["unfused"].blocks[-1].fuse_tail):
+        raise AssertionError("the fused head and tail engage on the fused path only")
+    x0, sst, sst_seq = model_inputs(serving_config(), dev, STEPS)
+    plain = FourierNeuralOperatorNetFilmed(exact_config(serving_config()), device=dev, seed=0)
+    plain.load_state_dict(nets["fused"].state_dict())
     with torch.inference_mode():
         y_p = plain(x0, sst)
-    step_err = rel_l2(y_k, y_p)
-    del plain, y_p
+    del plain
     torch.cuda.empty_cache()
-    log(json.dumps({"phase": "step_vs_fp32_plain", "rel_l2": step_err, "tol": 3e-2,
-                    "shape": list(y_k.shape), "finite": bool(torch.isfinite(y_k).all())}))
-    if not (step_err <= 3e-2 and torch.isfinite(y_k).all()):
-        raise AssertionError(f"kernel path vs fp32 plain path: rel-L2 {step_err:.3e}")
+    for path, net in nets.items():
+        with torch.inference_mode():
+            y_k = net(x0, sst)
+        step_err = rel_l2(y_k, y_p)
+        finite = bool(torch.isfinite(y_k).all())
+        log(json.dumps({"phase": "step_vs_fp32_plain", "path": path, "rel_l2": step_err,
+                        "tol": 3e-2, "shape": list(y_k.shape), "finite": finite}))
+        if not (step_err <= 3e-2 and finite):
+            raise AssertionError(f"{path} kernel path vs fp32 plain path: rel-L2 {step_err:.3e}")
+        del y_k
+    del y_p
 
-    # phase 5: the main path, a rollout through the user entry point
-    reset_launch_counts()
-    outs = list(rollout(net, x0, RolloutConfig(steps=STEPS), sst_seq=sst_seq))
-    counts = launch_counts()
-    finite = all(bool(np.isfinite(o).all()) for o in outs)
-    log(json.dumps({"phase": "rollout", "steps": len(outs), "shape": list(outs[0].shape),
-                    "dtype": str(outs[0].dtype), "finite": finite, "launches": counts}))
-    want = {k: v * STEPS for k, v in PER_STEP.items()}
-    if counts != want or not finite or len(outs) != STEPS:
-        raise AssertionError(f"rollout: launches {counts} (want {want}), finite {finite}")
+    # phase 5: the main path of each configuration, a rollout through the
+    # user entry point, with the launch counts read around it
+    counts = {}
+    for path, net in nets.items():
+        reset_launch_counts()
+        outs = list(rollout(net, x0, RolloutConfig(steps=STEPS), sst_seq=sst_seq))
+        counts[path] = launch_counts()
+        finite = all(bool(np.isfinite(o).all()) for o in outs)
+        log(json.dumps({"phase": "rollout", "path": path, "steps": len(outs),
+                        "shape": list(outs[0].shape), "dtype": str(outs[0].dtype),
+                        "finite": finite, "launches": counts[path]}))
+        want = {k: v * STEPS for k, v in PER_STEP[path].items()}
+        if counts[path] != want or not finite or len(outs) != STEPS:
+            raise AssertionError(f"{path} rollout: launches {counts[path]} (want {want}), "
+                                 f"finite {finite}")
 
-    # phase 6: chained steps, CUDA events around each
-    times = []
+    # phase 6: chained steps, CUDA events around each, the two paths in
+    # turns (fused, unfused, unfused, fused)
+    times = {path: [] for path in nets}
     with torch.inference_mode():
-        state = x0
-        for i in range(6):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            state = net(state, sst_seq[i % STEPS])
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
+        for path in ("fused", "unfused", "unfused", "fused"):
+            state = x0
+            for i in range(6):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state = nets[path](state, sst_seq[i % STEPS])
+                end.record()
+                torch.cuda.synchronize()
+                if i:  # the first step of a chain warms up
+                    times[path].append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(json.dumps({"phase": "step_time", "card": smi, "median_ms": statistics.median(times[1:]),
-                    "ms": times, "peak_mem_gib": peak, "seconds_total": time.time() - t_start}))
+    log(json.dumps({"phase": "step_time", "card": smi,
+                    "median_ms": {p: statistics.median(t) for p, t in times.items()},
+                    "ms": times, "peak_mem_gib": peak,
+                    "seconds_total": time.time() - t_start}))
 
     kernels = []
-    for name in ("spectral_mlp", "grid_mlp", "gcn_layer"):
+    for name in SITES:
         mine = [r for r in recs if r["kernel"] == name]
-        per = SITE_COUNTS[name]
-        tot = lambda key: sum(per[r["site"]] * r[key] for r in mine)
-        by_bytes = sum(per[r["site"]] * r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
+        per = SITE_COUNTS["fused"][name]
+        tot = lambda key: sum(per.get(r["site"], 0) * r[key] for r in mine)
+        by_bytes = sum(per.get(r["site"], 0) * r["bound_ms"] for r in mine
+                       if r["bound_by"] == "bytes")
         kernels.append(dict(
             name=name, route="cuda", source=f"msfno_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=counts[name],
+            replaces=REPLACES[name], launches=counts["fused"][name],
+            launches_unfused_path=counts["unfused"][name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             rel_l2=max(r["rel_l2"] for r in mine), tol=TOL[name],
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
             bound_by="bytes" if by_bytes >= tot("bound_ms") / 2 else "operations",
-            library_ms=None, per="one 6-hour step (sum over its launches)",
+            library_ms=None,
+            per=f"one 6-hour step of the fused path (sum over its launches), {STEPS}-step "
+                "rollout counts",
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -125,10 +125,10 @@ class SFNOConfig:
     pallas_grid_mlp: bool = False  # grid_mlp kernel for encoder/decoder/inner MLPs
     # matmul operand dtype inside the grid-MLP kernel (fp32 accumulation)
     grid_mlp_mxu_dtype: str = "bfloat16"
-    # fused spectral->output decoder tail (not ported yet: must stay off
-    # whenever pallas_grid_mlp is on)
+    # fused spectral->output decoder tail (spectral_decoder kernel; engages
+    # with pallas_grid_mlp)
     fuse_decoder_tail: bool = True
-    # fused encoder->spectral head (not ported yet: same gate family)
+    # fused encoder->spectral head (grid_encoder_spectral kernel; same gate)
     fuse_encoder_dft: bool = True
     # fold each inner block's norm1 + FiLM into the channel-MLP kernel as a
     # per-sample channel affine, and the outer identity skip into its output
@@ -179,10 +179,14 @@ def tiny_sfno(film: bool = False) -> SFNOConfig:
 
 
 def serving_config(**overrides) -> SFNOConfig:
-    """The serving tier this package runs through its kernels: the full
-    721x1440x73 filmed net, bf16 activations and matmul operands, the
-    spectral_mlp / grid_mlp / gcn_layer kernels, and the two fused head/tail
-    kernels off (they are not ported yet)."""
+    """The serving tier this package runs through its kernels: the JAX
+    package's fast tier (`__graft_entry__._flagship_cfg(fast=True)`) with
+    `checkpointing_block=False` (a training-only rematerialization switch):
+    the full 721x1440x73 filmed net, bf16 activations and matmul operands,
+    the spectral_mlp / grid_mlp / gcn_layer kernels and the fused head and
+    tail (grid_encoder_spectral, spectral_decoder).
+    `serving_config(fuse_encoder_dft=False, fuse_decoder_tail=False)` is the
+    same tier with the head and tail unfused."""
     cfg = SFNOConfig(
         film=FilmConfig(film_gen_type="gcn_custom", compute_dtype="bfloat16"),
         compute_dtype="bfloat16",
@@ -190,8 +194,6 @@ def serving_config(**overrides) -> SFNOConfig:
         pallas_grid_mlp=True,
         spectral_mxu_dtype="bfloat16",
         sht_mxu_dtype="bfloat16",
-        fuse_encoder_dft=False,
-        fuse_decoder_tail=False,
     )
     return dataclasses.replace(cfg, **overrides)
 

@@ -28,13 +28,7 @@
 // current one is multiplied.  The row's dinv and mask sit in shared memory and
 // the residual loads of several pixels are issued before their stores.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-#include <cstdint>
-
-using namespace nvcuda;
+#include "tile_common.cuh"
 
 namespace {
 
@@ -67,26 +61,6 @@ struct GcnArgs {
   int vec;                // 16-byte async copies of x and w (bf16, aligned)
   float slope;
 };
-
-__device__ __forceinline__ float load_act(const void* p, long long i, int bf16) {
-  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
-              : reinterpret_cast<const float*>(p)[i];
-}
-
-// 16-byte global -> shared copy that bypasses registers; src_bytes == 0
-// writes zeros without reading
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 // stage channels [kc, kc + KC) of one x row and the matching weight rows
 __device__ __forceinline__ void stage_chunk(const GcnArgs& a, long long row_base, int kc,

@@ -31,13 +31,7 @@
 // and a second kernel adds the partials of each sample in a fixed order:
 // deterministic, and within ~1e-6 relative of a single fp32 sum.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-#include <cstdint>
-
-using namespace nvcuda;
+#include "tile_common.cuh"
 
 namespace {
 
@@ -77,92 +71,6 @@ struct GridArgs {
   int has_skip, has_aff, has_b2, has_pe, has_res, has_stats;
   int ldx, ldh;
 };
-
-__device__ __forceinline__ float load_act(const void* p, long long i, int bf16) {
-  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
-              : reinterpret_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ float gelu_exact(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// acc[i] = a_smem[i-th row tile] @ b_global[:, col0:col0+16] over k_dim;
-// PREFETCH weight fragments are in flight from L2 at any time
-__device__ __forceinline__ void tile_gemm(FragC (&acc)[ROW_TILES],
-                                          const __nv_bfloat16* a_smem, int lda,
-                                          const __nv_bfloat16* b, int ldb, int col0,
-                                          int k_dim) {
-#pragma unroll
-  for (int i = 0; i < ROW_TILES; ++i) wmma::fill_fragment(acc[i], 0.f);
-  FragB bq[PREFETCH];
-#pragma unroll
-  for (int u = 0; u < PREFETCH; ++u)
-    if (u * 16 < k_dim) wmma::load_matrix_sync(bq[u], b + (long long)u * 16 * ldb + col0, ldb);
-  for (int k0 = 0; k0 < k_dim; k0 += 16 * PREFETCH) {
-#pragma unroll
-    for (int u = 0; u < PREFETCH; ++u) {
-      const int k = k0 + u * 16;
-      if (k < k_dim) {
-#pragma unroll
-        for (int i = 0; i < ROW_TILES; ++i) {
-          FragA a;
-          wmma::load_matrix_sync(a, a_smem + i * 16 * lda + k, lda);
-          wmma::mma_sync(acc[i], a, bq[u], acc[i]);
-        }
-        const int kn = k + 16 * PREFETCH;
-        if (kn < k_dim)
-          wmma::load_matrix_sync(bq[u], b + (long long)kn * ldb + col0, ldb);
-      }
-    }
-  }
-}
-
-// Copies rows [0, rows) x columns [0, c) of a row-major (., c) tile that
-// starts at element `base` of `src` into shared columns [col0, col0 + c),
-// rounded to bf16, optionally through the per-channel affine.  The tile is
-// one contiguous run of rows * c values, read as 16-byte vectors when aligned.
-template <bool BF16>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* xs, int ldx, int col0,
-                                           const void* src, long long base, int rows,
-                                           int c, const float* aff_a, const float* aff_b) {
-  constexpr int vw = BF16 ? 8 : 4;  // values per 16-byte vector
-  const int count = rows * c;
-  const char* p0 = reinterpret_cast<const char*>(src) + base * (BF16 ? 2 : 4);
-  const bool vec = reinterpret_cast<uintptr_t>(p0) % 16 == 0;
-  const int n_vec = vec ? count / vw : 0;
-  for (int v = threadIdx.x; v < n_vec; v += blockDim.x) {
-    const uint4 raw = reinterpret_cast<const uint4*>(p0)[v];
-    float vals[vw];
-    if constexpr (BF16) {
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vals[e] = __bfloat162float(h[e]);
-    } else {
-      const float* f = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) vals[e] = f[e];
-    }
-#pragma unroll
-    for (int e = 0; e < vw; ++e) {
-      const int idx = v * vw + e;
-      const int r = idx / c, k = idx - r * c;
-      float x = vals[e];
-      if (aff_a) x = x * aff_a[k] + aff_b[k];
-      xs[r * ldx + col0 + k] = __float2bfloat16_rn(x);
-    }
-  }
-  for (int idx = n_vec * vw + threadIdx.x; idx < count; idx += blockDim.x) {
-    const int r = idx / c, k = idx - r * c;
-    float x = load_act(src, base + idx, BF16);
-    if (aff_a) x = x * aff_a[k] + aff_b[k];
-    xs[r * ldx + col0 + k] = __float2bfloat16_rn(x);
-  }
-}
 
 __global__ void __launch_bounds__(WARPS * 32) grid_mlp_kernel(GridArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -208,27 +116,15 @@ __global__ void __launch_bounds__(WARPS * 32) grid_mlp_kernel(GridArgs a) {
   __syncthreads();
 
   // first GEMM: hs = bf16(gelu(xs @ w1 + b1))
-  for (int ct = warp; ct < a.hidden / 16; ct += WARPS) {
-    FragC acc[ROW_TILES];
-    tile_gemm(acc, xs, a.ldx, a.w1, a.hidden, ct * 16, a.k1p);
-#pragma unroll
-    for (int i = 0; i < ROW_TILES; ++i) {
-      wmma::store_matrix_sync(my, acc[i], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = i * 16 + e / 16;
-        const int col = ct * 16 + (e % 16);
-        hs[row * a.ldh + col] = __float2bfloat16_rn(gelu_exact(my[e] + a.b1[col]));
-      }
-      __syncwarp();
-    }
-  }
+  mlp_hidden<ROW_TILES, PREFETCH>(xs, a.ldx, a.k1p, a.w1, a.hidden, a.b1, a.hidden, hs,
+                                  a.ldh, my,
+                                  warp, lane, WARPS);
   __syncthreads();
 
   // second GEMM + epilogue; a lane always sees the same column of its tile
   for (int ct = warp; ct < a.n2p / 16; ct += WARPS) {
     FragC acc[ROW_TILES];
-    tile_gemm(acc, hs, a.ldh, a.w2, a.n2p, ct * 16, a.hidden);
+    tile_gemm<ROW_TILES, PREFETCH>(acc, hs, a.ldh, a.w2, a.n2p, ct * 16, a.hidden);
     const int col = ct * 16 + (lane % 16);
     const bool col_ok = col < a.c_out;
     const float b2 = (a.has_b2 && col_ok) ? a.b2[col] : 0.f;
@@ -282,39 +178,6 @@ __global__ void __launch_bounds__(WARPS * 32) grid_mlp_kernel(GridArgs a) {
       a.part_sum[base + c] = col_sum[c];
       a.part_sq[base + c] = col_sq[c];
     }
-  }
-}
-
-// Adds each sample's block partials in a fixed order: thread (tx, ty) sums
-// blocks ty, ty + 8, ... of column bx*32 + tx, then the 8 partial sums are
-// added in ty order.
-__global__ void grid_mlp_stats_reduce(const float* __restrict__ part_sum,
-                                      const float* __restrict__ part_sq,
-                                      int n_blocks, int c_out,
-                                      float* __restrict__ ssum, float* __restrict__ ssq) {
-  __shared__ float sh_sum[8][32];
-  __shared__ float sh_sq[8][32];
-  const int s = blockIdx.y;
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float a = 0.f, b = 0.f;
-  if (c < c_out) {
-    for (int i = threadIdx.y; i < n_blocks; i += 8) {
-      const long long j = ((long long)s * n_blocks + i) * c_out + c;
-      a += part_sum[j];
-      b += part_sq[j];
-    }
-  }
-  sh_sum[threadIdx.y][threadIdx.x] = a;
-  sh_sq[threadIdx.y][threadIdx.x] = b;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < c_out) {
-    float ta = 0.f, tb = 0.f;
-    for (int t = 0; t < 8; ++t) {
-      ta += sh_sum[t][threadIdx.x];
-      tb += sh_sq[t][threadIdx.x];
-    }
-    ssum[(long long)s * c_out + c] = ta;
-    ssq[(long long)s * c_out + c] = tb;
   }
 }
 
@@ -386,7 +249,7 @@ extern "C" int grid_mlp_bf16(const void* const* ptrs, const long long* ints, voi
   err = cudaGetLastError();
   if (err != cudaSuccess || !a.has_stats) return (int)err;
   dim3 rgrid((a.c_out + 31) / 32, n_samples);
-  grid_mlp_stats_reduce<<<rgrid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
+  stats_reduce<<<rgrid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
       a.part_sum, a.part_sq, n_blocks, a.c_out, (float*)ptrs[P_SSUM], (float*)ptrs[P_SSQ]);
   return (int)cudaGetLastError();
 }

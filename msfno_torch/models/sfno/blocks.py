@@ -6,6 +6,9 @@ Block wiring (reference sfnonet.py:573-614):
   - block N-1:     no skips, no channel MLP, resolution back up
   - norms: norm0 at the block's input resolution, norm1 at its output
 Filmed block (sfnonet.py:254-393): FiLM between norm1 and the channel MLP.
+Fused head and tail: block 0 may take a `SpectralGridIn` (the encoder kernel
+already ran the longitude DFT), and with `fuse_tail` the last block stops
+before its inverse DFT and hands (hm, a, b) to the spectral_decoder kernel.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from msfno_torch.models.sfno.layers import (
     Mlp,
     SpectralAttentionS2,
     SpectralFilterLayer,
+    SpectralGridIn,
     dense,
 )
+from msfno_torch.ops.kernels.spectral_decoder import spectral_grid_stats
 from msfno_torch.runtime import torch_dtype
 
 
@@ -67,7 +72,12 @@ def make_filter(filter_type: str, spectral_transform: str, forward_transform,
 class FourierNeuralOperatorBlock(nn.Module):
     """One SFNO block, optionally FiLM-modulated (`filmed`: forward takes
     gamma, beta and scale; reference FourierNeuralOperatorBlock_Filmed,
-    sfnonet.py:357-393)."""
+    sfnonet.py:357-393).
+
+    `fuse_tail` (the last block only, set by the net): return (hm, a, b),
+    the Legendre-synthesis intermediate and the norm1 + FiLM affine folded
+    per (sample, channel), for the fused decoder.  The net guarantees the
+    non-linear SHT filter, instance norm, no skips and no channel MLP."""
 
     def __init__(self, forward_transform, inverse_transform, embed_dim: int,
                  filter_type: str = "non-linear", spectral_transform: str = "sht",
@@ -78,7 +88,7 @@ class FourierNeuralOperatorBlock(nn.Module):
                  mxu_dtype: str = "float32", pallas_grid_mlp: bool = False,
                  grid_mlp_mxu_dtype: str = "bfloat16", fuse_norm: bool = True,
                  fuse_mlp_affine: bool = False, filmed: bool = False,
-                 dtype="float32", device=None, gen=None):
+                 fuse_tail: bool = False, dtype="float32", device=None, gen=None):
         super().__init__()
         if outer_skip not in (None, "identity") or inner_skip not in (None, "linear"):
             raise NotImplementedError(
@@ -106,13 +116,23 @@ class FourierNeuralOperatorBlock(nn.Module):
         self.fuse_mlp_affine = fuse_mlp_affine
         self.filmed = filmed
         self.dtype = torch_dtype(dtype)
+        if fuse_tail and (inner_skip or outer_skip or use_mlp or not fuse_norm):
+            raise ValueError("fuse_tail set on an incompatible block configuration")
+        self.fuse_tail = fuse_tail
 
     def forward(self, x, gamma=None, beta=None, scale=1.0, norm0_stats=None):
+        if self.fuse_tail:
+            return self._fused_tail(x, gamma, beta, scale, norm0_stats)
         residual = x
+        spectral_in = isinstance(x, SpectralGridIn)
+        if spectral_in and not (self.fuse_norm and norm0_stats is not None
+                                and self.inner_skip is None and self.outer_skip is None):
+            raise ValueError("SpectralGridIn on an incompatible block configuration")
         if self.fuse_norm:
             # fold norm0 into the filter's forward SHT: the normalized field
-            # is never materialized
-            a, b = self.norm0(x, True, norm0_stats)
+            # is never materialized; with a SpectralGridIn the statistics
+            # come from the encoder kernel
+            a, b = self.norm0(x.f if spectral_in else x, True, norm0_stats)
             x = self.filter_layer(x, norm_affine=(a, b))
         else:
             x = self.filter_layer(self.norm0(x, stats=norm0_stats))
@@ -140,3 +160,20 @@ class FourierNeuralOperatorBlock(nn.Module):
         if self.outer_skip == "identity":
             x = x + residual
         return x
+
+    def _fused_tail(self, x, gamma, beta, scale, norm0_stats):
+        """Last-block body for the fused decoder tail: the standard path up to
+        and including the norm1 + FiLM affine, with the inverse DFT deferred
+        and the affine returned folded, (hm, a, b) with a, b (B, C) fp32."""
+        a0, b0 = self.norm0(x, True, norm0_stats)
+        hm = self.filter_layer(x, norm_affine=(a0, b0), defer_inverse=True)
+        itrans = self.filter_layer.filter.inverse_transform
+        mean, mean_sq = spectral_grid_stats(hm, itrans._const("omega", hm.device))
+        # the spectral identities yield means: the stats contract's count is 1
+        a1, b1 = self.norm1(hm, True, (mean, mean_sq, 1.0))
+        a1, b1 = a1[:, 0, 0, :], b1[:, 0, 0, :]
+        if self.filmed:
+            # film_modulation(norm(x)) = (1 + gamma*s) * (a1*x + b1) + beta*s
+            g = 1.0 + gamma.float() * scale
+            return hm, a1 * g, b1 * g + beta.float() * scale
+        return hm, a1, b1

@@ -14,10 +14,13 @@ each layer; on a CPU tensor a kernel wrapper runs its plain version.
 from __future__ import annotations
 
 import math
+import typing
 
 import torch
 from torch import nn
 
+from msfno_torch.ops.kernels import grid_encoder_spectral as enc_kernel
+from msfno_torch.ops.kernels import spectral_decoder as dec_kernel
 from msfno_torch.ops.kernels.grid_mlp import grid_mlp, prepare_weights
 from msfno_torch.ops.kernels.spectral_mlp import (
     pack_weights,
@@ -25,6 +28,15 @@ from msfno_torch.ops.kernels.spectral_mlp import (
     spectral_mlp_reference,
 )
 from msfno_torch.runtime import DerivedCache, torch_dtype
+
+
+class SpectralGridIn(typing.NamedTuple):
+    """Marker for a block input whose longitude DFT already ran inside the
+    fused encoder kernel (`grid_encoder_spectral`): `f` is the (B, H, 2M, C)
+    stacked [re | im] mode array; the consuming filter runs the Legendre
+    stage only (`RealSHT.legendre_stacked`)."""
+
+    f: torch.Tensor
 
 
 def trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.02):
@@ -98,7 +110,9 @@ class Mlp(nn.Module):
     `use_pallas` routes through the grid_mlp kernel: the hidden activation
     stays on chip, `pe` and `residual` ride the output write, and with
     `with_stats` the per-sample instance-norm statistics of the output come
-    back as well."""
+    back as well.  With `spectral_cs` (W, 2M) the output goes straight
+    through the forward longitude DFT instead (the grid_encoder_spectral
+    kernel) and `(f, (ssum, ssq, H*W))` comes back."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  output_bias: bool = True, dtype="float32", use_pallas: bool = False,
@@ -116,8 +130,10 @@ class Mlp(nn.Module):
         self.with_stats = with_stats
         self._cache = DerivedCache()
 
-    def forward(self, x, pe=None, affine=None, residual=None):
+    def forward(self, x, pe=None, affine=None, residual=None, spectral_cs=None):
         fc1, fc2 = self.fwd["0"], self.fwd["2"]
+        if spectral_cs is not None:
+            return self._encode_spectral(x, pe, spectral_cs)
         if self.use_pallas:
             w1, w2 = fc1.dense(), fc2.dense()
             prepared = None
@@ -154,12 +170,38 @@ class Mlp(nn.Module):
             return y, spatial_stats(y)
         return y
 
+    def _encode_spectral(self, x, pe, cs):
+        """The fused encoder -> spectral head (JAX Mlp with spectral_cs):
+        f (B, H, 2M, C) in the compute dtype and the statistics of the
+        grid-space output, counted over its H*W rows."""
+        fc1, fc2 = self.fwd["0"], self.fwd["2"]
+        if not (self.use_pallas and self.with_stats and fc2.bias is None):
+            raise ValueError("spectral_cs needs the kernel path, with_stats and no "
+                             "output bias")
+        w1, w2 = fc1.dense(), fc2.dense()
+        prepared = None
+        if x.is_cuda:
+            prepared = self._cache.get(
+                "spectral", (fc1.weight, fc2.weight, cs),
+                lambda: enc_kernel.prepare(w1, w2, cs),
+            )
+        f, ssum, ssq = enc_kernel.grid_encoder_spectral(
+            x, w1, fc1.bias, w2, pe, cs, mxu_dtype=self.mxu_dtype,
+            out_dtype=self.dtype, prepared=prepared,
+        )
+        return f, (ssum, ssq, rows_of(x))
+
 
 class BigSkipMlp(nn.Module):
     """Decoder MLP over concat(x, residual) without materializing the concat
     (the reference concatenates the input onto the features, big_skip,
     sfnonet.py:679-684).  `fwd.0.weight` is (hidden, in_main + skip, 1, 1):
-    the same parameters as the reference's decoder on the concatenation."""
+    the same parameters as the reference's decoder on the concatenation.
+
+    Given the tuple `(hm, a, b, mt)` of the last block's deferred inverse DFT
+    (`FourierNeuralOperatorBlock` with `fuse_tail`), the inverse DFT, the
+    norm + FiLM affine and both decoder layers run as the spectral_decoder
+    kernel."""
 
     def __init__(self, hidden_features: int, out_features: int, in_main: int,
                  skip_features: int, output_bias: bool = False, dtype="float32",
@@ -179,6 +221,19 @@ class BigSkipMlp(nn.Module):
 
     def forward(self, x, residual):
         fc1, fc2 = self.fwd["0"], self.fwd["2"]
+        if isinstance(x, tuple):
+            hm, a, b, mt = x
+            w1, w2 = fc1.dense(), fc2.dense()
+            prepared = None
+            if hm.is_cuda:
+                prepared = self._cache.get(
+                    "spectral", (fc1.weight, fc2.weight, mt),
+                    lambda: dec_kernel.prepare(w1, w2, mt, self.in_main),
+                )
+            return dec_kernel.spectral_decoder(
+                hm, residual, mt, a, b, w1, fc1.bias, w2, fc2.bias,
+                mxu_dtype=self.mxu_dtype, out_dtype=self.out_dtype, prepared=prepared,
+            )
         if self.use_pallas:
             w1, w2 = fc1.dense(), fc2.dense()
             prepared = None
@@ -274,10 +329,15 @@ class SpectralAttentionS2(nn.Module):
     def weights(self) -> list[torch.Tensor]:
         return [*self.w, self.wout]
 
-    def forward(self, x, norm_affine=None):
-        in_dtype = x.dtype
-        # the transform casts its matmul operands per its knob: no fp32 copy
-        z = self.forward_transform(x)
+    def forward(self, x, norm_affine=None, defer_inverse: bool = False):
+        if isinstance(x, SpectralGridIn):
+            # the longitude DFT already ran inside the fused encoder kernel
+            in_dtype = x.f.dtype
+            z = self.forward_transform.legendre_stacked(x.f)
+        else:
+            in_dtype = x.dtype
+            # the transform casts its matmul operands per its knob: no fp32 copy
+            z = self.forward_transform(x)
         if norm_affine is not None:
             # SHT(a*x + b) = a*SHT(x) + b*SHT(1); the constant field only
             # excites the real m = 0 column, with profile s0 (lmax,)
@@ -294,6 +354,10 @@ class SpectralAttentionS2(nn.Module):
             z = spectral_mlp(z, ws, 0.0, self.mxu_dtype, packed=packed)
         else:
             z = spectral_mlp_reference(z, ws, 0.0, self.mxu_dtype)
+        if defer_inverse:
+            # fused tail: the fp32 Legendre-synthesis intermediate; the
+            # spectral_decoder kernel runs the inverse DFT
+            return self.inverse_transform.synthesis_hm(z)
         return self.inverse_transform(z, out_dtype=in_dtype)
 
 
@@ -305,5 +369,5 @@ class SpectralFilterLayer(nn.Module):
         super().__init__()
         self.filter = filt
 
-    def forward(self, x, norm_affine=None):
-        return self.filter(x, norm_affine=norm_affine)
+    def forward(self, x, norm_affine=None, defer_inverse: bool = False):
+        return self.filter(x, norm_affine=norm_affine, defer_inverse=defer_inverse)

@@ -7,6 +7,12 @@ last block) -> big-skip decoder MLP.  FourierNeuralOperatorNetFilmed adds a
 FiLM generator over SST history whose (gamma, beta) modulate the trailing
 `film_layers` blocks.
 
+On the kernel path with `fuse_encoder_dft` the encoder emits block 0's
+longitude modes directly (grid_encoder_spectral kernel, `SpectralGridIn`),
+and with `fuse_decoder_tail` the last block's inverse DFT, its norm1 + FiLM
+and the decoder run as one kernel (spectral_decoder): neither full-width
+grid field of the head or the tail is stored.
+
 Layout: channels-last (B, H, W, C) on the grid.  Parameter names and shapes
 are the original MSFNO state_dict's.  The nets run on CUDA unless built with
 `device="cpu"`; weights are random, drawn from a `torch.Generator` seeded
@@ -20,7 +26,7 @@ from torch import nn
 
 from msfno_torch.config import SFNOConfig
 from msfno_torch.models.sfno.blocks import FourierNeuralOperatorBlock
-from msfno_torch.models.sfno.layers import BigSkipMlp, Mlp, new_param
+from msfno_torch.models.sfno.layers import BigSkipMlp, Mlp, SpectralGridIn, new_param
 from msfno_torch.ops.sht import InverseRealSHT, RealSHT
 from msfno_torch.runtime import DerivedCache, resolve_device, torch_dtype
 
@@ -78,7 +84,8 @@ def _block_kwargs(cfg: SFNOConfig, i: int, transforms) -> dict:
 
 def _encoder_fusible(cfg: SFNOConfig) -> bool:
     """The JAX gate of the fused encoder->spectral kernel
-    (grid_encoder_spectral), single-device."""
+    (grid_encoder_spectral).  The JAX gate's `active_mesh() is None` term is
+    always true here: this package has no mesh."""
     return (cfg.fuse_encoder_dft and cfg.pallas_grid_mlp
             and cfg.filter_type == "non-linear" and cfg.spectral_transform == "sht"
             and cfg.normalization_layer == "instance_norm" and cfg.fuse_norm_sht
@@ -87,7 +94,8 @@ def _encoder_fusible(cfg: SFNOConfig) -> bool:
 
 def _tail_fusible(cfg: SFNOConfig) -> bool:
     """The JAX gate of the fused spectral->output decoder tail
-    (spectral_decoder), single-device."""
+    (spectral_decoder).  The JAX gate's `active_mesh() is None` term is
+    always true here: this package has no mesh."""
     return (cfg.fuse_decoder_tail and cfg.pallas_grid_mlp and cfg.big_skip
             and cfg.filter_type == "non-linear" and cfg.spectral_transform == "sht"
             and cfg.normalization_layer == "instance_norm" and cfg.fuse_norm_sht
@@ -96,12 +104,6 @@ def _tail_fusible(cfg: SFNOConfig) -> bool:
 
 def check_supported(cfg: SFNOConfig) -> None:
     """Raise NotImplementedError for what this package does not run yet."""
-    if _encoder_fusible(cfg) or _tail_fusible(cfg):
-        raise NotImplementedError(
-            "fuse_encoder_dft / fuse_decoder_tail would engage (pallas_grid_mlp "
-            "is on): the grid_encoder_spectral and spectral_decoder kernels "
-            "come in the next serving slice; set both fields to False"
-        )
     if cfg.normalization_layer != "instance_norm":
         raise NotImplementedError(
             f"normalization_layer={cfg.normalization_layer!r}: layer_norm "
@@ -148,10 +150,16 @@ class FourierNeuralOperatorNet(nn.Module):
             self.register_parameter("pos_embed", None)
         n_film = cfg.film.film_layers if self.filmed else 0
         repeat = self.filmed and cfg.film.repeat_film
+        trans_down = self.transforms[0]
+        self.fuse_dft = (_encoder_fusible(cfg) and isinstance(trans_down, RealSHT)
+                         and trans_down.lon_dft == "matmul"
+                         and trans_down.mmax <= trans_down.nlon // 2 + 1)
+        fuse_tail = _tail_fusible(cfg)
         self.blocks = nn.ModuleList([
             FourierNeuralOperatorBlock(
                 **_block_kwargs(cfg, i, self.transforms),
                 filmed=bool(n_film) and (repeat or i >= cfg.num_layers - n_film),
+                fuse_tail=fuse_tail and i == cfg.num_layers - 1,
                 device=device, gen=gen,
             )
             for i in range(cfg.num_layers)
@@ -183,10 +191,21 @@ class FourierNeuralOperatorNet(nn.Module):
         return self.pos_embed[0].permute(1, 2, 0).to(self.dtype)
 
     def _encode(self, x):
+        """(block 0's input, its norm0 statistics or None): a SpectralGridIn
+        of the longitude modes when the fused head engages."""
+        if self.fuse_dft:
+            cs = self.transforms[0]._const("merged", x.device)
+            f, stats = self.encoder(x, pe=self._pos_embed(x), spectral_cs=cs)
+            return SpectralGridIn(f), stats
         out = self.encoder(x, pe=self._pos_embed(x))
         return out if self.want_stats else (out, None)
 
     def _decode(self, x, residual):
+        """The decoder; `x` is (hm, a, b) when the last block ran its fused
+        tail, and the whole tail then runs as one kernel."""
+        if isinstance(x, tuple):
+            hm, a, b = x
+            x = (hm, a, b, self.transforms[1]._const("merged_t", hm.device))
         if self.cfg.big_skip:
             y = self.decoder(x, residual)
         else:

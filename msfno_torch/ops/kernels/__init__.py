@@ -7,7 +7,7 @@ as `c_void_p`, and each C function returns `cudaGetLastError()`, which the
 wrapper turns into an exception.  Nothing is compiled at import time, so the
 package imports on a machine without nvcc or a card.
 
-Each wrapper module (`spectral_mlp`, `grid_mlp`, `gcn_layer`) holds the
+Each wrapper module (one per name in `KERNELS`) holds the
 kernel's plain PyTorch version, used for tensors on the CPU, and a launch
 counter: a CUDA tensor always goes to the kernel, or the wrapper raises.
 """
@@ -26,7 +26,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNELS = ("spectral_mlp", "grid_mlp", "gcn_layer")
+KERNELS = ("spectral_mlp", "grid_mlp", "gcn_layer", "grid_encoder_spectral",
+           "spectral_decoder")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,7 +50,9 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers are part of every kernel's source
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -124,19 +127,17 @@ def require_no_grad(name: str, *tensors) -> None:
         )
 
 
-def launch_counts() -> dict[str, int]:
-    from msfno_torch.ops.kernels import gcn_layer, grid_mlp, spectral_mlp
+def _wrappers() -> dict:
+    import importlib
 
-    return {
-        "spectral_mlp": spectral_mlp.LAUNCHES,
-        "grid_mlp": grid_mlp.LAUNCHES,
-        "gcn_layer": gcn_layer.LAUNCHES,
-    }
+    return {name: importlib.import_module(f"msfno_torch.ops.kernels.{name}")
+            for name in KERNELS}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: mod.LAUNCHES for name, mod in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from msfno_torch.ops.kernels import gcn_layer, grid_mlp, spectral_mlp
-
-    spectral_mlp.LAUNCHES = 0
-    grid_mlp.LAUNCHES = 0
-    gcn_layer.LAUNCHES = 0
+    for mod in _wrappers().values():
+        mod.LAUNCHES = 0

@@ -1,0 +1,148 @@
+"""Fused inverse longitude DFT + per-channel affine + big-skip decoder MLP:
+the `spectral_decoder` CUDA kernel (csrc/spectral_decoder.cu), its plain
+version, and the spectral-space instance-norm statistics it needs.
+
+Replaces msfno_tpu/ops/pallas/spectral_decoder.py:spectral_decoder (forward)
+and ports its `spectral_grid_stats`.  Per latitude row:
+
+    x = Mt @ (a * hm[b, h]) + b        (W, C): the last block's grid field,
+                                       normalized and FiLM-modulated
+    y = MLP([x, skip])                 (W, C_out)
+
+with hm the Legendre-synthesis intermediate (B, H, 2M, C)
+(`InverseRealSHT.synthesis_hm`), Mt (W, 2M) the transposed merged synthesis
+matrix (`InverseRealSHT.merged_matrix_t`) and (a, b) the combined norm + FiLM
+affine per (sample, channel): a per-channel affine commutes with the DFT.
+The grid field is never stored.  Bound on the H100 at the serving shapes:
+operations (see the kernel source).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from msfno_torch.ops.kernels import (
+    check,
+    library,
+    require_no_grad,
+    stream_ptr,
+)
+from msfno_torch.ops.kernels.grid_encoder_spectral import DFT_ROW_MULTIPLE, pad_dft_matrix
+from msfno_torch.ops.kernels.grid_mlp import _act, grid_mlp_reference, prepare_weights
+from msfno_torch.runtime import mxu_round, torch_dtype
+
+LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
+
+
+def spectral_decoder_reference(hm, skip, mt, a, b, w1, b1, w2, b2=None,
+                               mxu_dtype="bfloat16", out_dtype=None):
+    """Plain version with the Pallas kernel's rounding points
+    (spectral_decoder.py:79-98): t = hm * a rounded to `mxu_dtype`; x = Mt t
+    + b in fp32 with Mt rounded to `mxu_dtype`; then the big-skip MLP with x,
+    skip, W1, W2 and the GELU output rounded to `mxu_dtype`; y in fp32, cast
+    to `out_dtype` (default fp32).  Same signature and returns as
+    `spectral_decoder`."""
+    bsz, h, two_m, c = hm.shape
+    w = mt.shape[0]
+    t = mxu_round(hm.float() * a.float()[:, None, None, :], mxu_dtype)
+    x = torch.matmul(mxu_round(mt, mxu_dtype), t.reshape(bsz * h, two_m, c))
+    x = x.reshape(bsz, h, w, c) + b.float()[:, None, None, :]
+    return grid_mlp_reference(x, w1, b1, w2, b2, skip=skip, mxu_dtype=mxu_dtype,
+                              out_dtype=out_dtype or "float32")
+
+
+def spectral_grid_stats(hm: torch.Tensor, omega: torch.Tensor):
+    """Exact instance-norm statistics of the unstored grid field
+    x = Mt @ hm: by DFT orthogonality (omega = diag(M M^T) / W,
+    `InverseRealSHT.mode_power_weights`)
+
+        E[x]   = mean_h hm[:, :, 0, :]
+        E[x^2] = mean_h sum_m omega_m hm[:, :, m, :]^2
+
+    Returns (mean, mean_sq), each (B, C) fp32: the InstanceNorm statistics
+    contract with count 1.  Plain fp32 torch; the einsum is a true fp32
+    matmul on the card (`runtime.exact_fp32_matmuls`: no TF32)."""
+    hm32 = hm.float()
+    mean = hm32[:, :, 0, :].mean(dim=1)
+    mean_sq = torch.einsum("bhmc,m->bc", hm32 * hm32, omega.float()) / hm.shape[1]
+    return mean, mean_sq
+
+
+def prepare(w1, w2, mt, c_main: int):
+    """The kernel's bf16 operands: `grid_mlp.prepare_weights` of the MLP (main
+    rows, then the skip rows) and the padded Mt."""
+    return (*prepare_weights(w1, w2, c_main), pad_dft_matrix(mt))
+
+
+def spectral_decoder(hm, skip, mt, a, b, w1, b1, w2, b2=None, mxu_dtype="bfloat16",
+                     out_dtype=None, prepared=None):
+    """Fused inverse DFT + affine + big-skip decoder MLP (JAX
+    `spectral_decoder` API).
+
+    hm: (B, H, 2M, C); skip: (B, H, W, S); mt: (W, 2M); a, b: (B, C); w1:
+    (C + S, hidden); w2: (hidden, C_out).  Returns (B, H, W, C_out) in
+    `out_dtype` (default fp32).  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises (also for inputs that need a
+    gradient: the backward kernel comes with the fine-tune slice).
+    `prepared` is an optional `prepare` result cached by the caller."""
+    if hm.device.type == "cpu":
+        return spectral_decoder_reference(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype,
+                                          out_dtype)
+    if hm.device.type != "cuda":
+        raise ValueError(f"spectral_decoder: unsupported device {hm.device}")
+    if mxu_dtype != "bfloat16":
+        raise NotImplementedError(
+            "spectral_decoder: the CUDA kernel takes bf16 operands; an fp32 "
+            f"kernel ({mxu_dtype!r}) comes in a later slice"
+        )
+    require_no_grad("spectral_decoder", hm, skip, a, b, w1, b1, w2, b2)
+    bsz, h, two_m, c = hm.shape
+    w, s = skip.shape[-2], skip.shape[-1]
+    hidden, c_out = w1.shape[1], w2.shape[1]
+    if (skip.shape[:2] != (bsz, h) or mt.shape != (w, two_m) or a.shape != (bsz, c)
+            or b.shape != (bsz, c) or w1.shape[0] != c + s or b1.shape != (hidden,)
+            or w2.shape[0] != hidden or (b2 is not None and b2.shape != (c_out,))):
+        raise ValueError("spectral_decoder: operand shapes do not match hm (B, H, 2M, C), "
+                         "skip (B, H, W, S), mt (W, 2M), a/b (B, C), w1 (C + S, hidden) "
+                         "and w2 (hidden, C_out)")
+    if c % 16 or hidden % 16:
+        raise ValueError(f"spectral_decoder: C {c} and hidden {hidden} must be "
+                         "multiples of 16")
+    if prepared is None:
+        prepared = prepare(w1, w2, mt, c)
+    w1p, w2p, mtp = prepared
+    od = torch_dtype(out_dtype or "float32")
+    if od not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"spectral_decoder: unsupported out dtype {od}")
+    hmf, hm_bf16 = _act(hm)
+    skf, skip_bf16 = _act(skip)
+    af, bf = a.float().contiguous(), b.float().contiguous()
+    b1f = b1.float().contiguous()
+    b2f = b2.float().contiguous() if b2 is not None else None
+    out = torch.empty((bsz, h, w, c_out), dtype=od, device=hm.device)
+    # the kernel's scratch: t = bf16(hm * a), 2M padded to the kernel's K
+    t = torch.empty((bsz, h, mtp.shape[1], c), dtype=torch.bfloat16, device=hm.device)
+
+    lib = library("spectral_decoder")
+    lib.spectral_decoder_bf16.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    lib.spectral_decoder_bf16.restype = ctypes.c_int
+    lib.spectral_decoder_chunk.restype = ctypes.c_int
+    if lib.spectral_decoder_chunk() != DFT_ROW_MULTIPLE:
+        raise RuntimeError("spectral_decoder: kernel chunk and DFT_ROW_MULTIPLE differ")
+    ptrs = (ctypes.c_void_p * 11)(*[
+        p.data_ptr() if p is not None else None
+        for p in (hmf, af, bf, mtp, skf, w1p, b1f, w2p, b2f, out, t)
+    ])
+    ints = (ctypes.c_longlong * 17)(
+        bsz, h, w, two_m, mtp.shape[1], mtp.shape[0], c, s, c, w1p.shape[0], hidden,
+        c_out, w2p.shape[1], hm_bf16, skip_bf16, int(od == torch.bfloat16),
+        int(b2 is not None),
+    )
+    status = lib.spectral_decoder_bf16(ptrs, ints, stream_ptr(hm))
+    check(status, "spectral_decoder")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

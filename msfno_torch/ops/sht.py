@@ -127,7 +127,10 @@ class _Transform:
         key = (name, torch.device(device))
         t = self._consts.get(key)
         if t is None:
-            t = torch.from_numpy(np.ascontiguousarray(self._numpy(name))).to(device)
+            # a normal tensor even when first asked for under inference_mode:
+            # kernels cache operands derived from it (runtime.DerivedCache)
+            with torch.inference_mode(False):
+                t = torch.from_numpy(np.ascontiguousarray(self._numpy(name))).to(device)
             self._consts[key] = t
         return t
 
@@ -159,6 +162,8 @@ class RealSHT(_Transform):
             return np.concatenate([self.weights, self.weights], axis=0)
         if name == "merged_t":
             return self.merged_analysis.T  # (2M, W)
+        if name == "merged":
+            return self.merged_analysis  # (W, 2M)
         if name == "s0":
             # analysis of a constant field: only m = 0 is excited, with this
             # (lmax,) profile (SpectralAttentionS2's norm_affine fold)
@@ -230,6 +235,8 @@ class InverseRealSHT(_Transform):
             return self.pct2.transpose(0, 2, 1)  # (2M, H, L)
         if name == "merged_t":
             return self.merged_matrix_t  # (W, 2M)
+        if name == "omega":
+            return self.mode_power_weights  # (2M,)
         return super()._numpy(name)
 
     def synthesis_hm(self, coeffs: torch.Tensor) -> torch.Tensor:

@@ -36,15 +36,18 @@ def test_one_json_drives_both_packages(make):
     assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
 
 
-def test_serving_config_is_the_jax_fast_tier_without_fusion():
+def test_serving_config_is_the_jax_fast_tier():
     pytest.importorskip("jax")
     import __graft_entry__
     from msfno_tpu.utils import config as jcfg
 
     fast = __graft_entry__._flagship_cfg(fast=True)
-    want = dataclasses.replace(fast, fuse_encoder_dft=False, fuse_decoder_tail=False,
-                               checkpointing_block=False)
+    # checkpointing_block is a training-only rematerialization switch
+    want = dataclasses.replace(fast, checkpointing_block=False)
     assert jcfg.from_json(tcfg.to_json(tcfg.serving_config())) == want
+    unfused = tcfg.serving_config(fuse_encoder_dft=False, fuse_decoder_tail=False)
+    assert jcfg.from_json(tcfg.to_json(unfused)) == dataclasses.replace(
+        want, fuse_encoder_dft=False, fuse_decoder_tail=False)
 
 
 def test_port_imports_no_jax():
@@ -53,7 +56,8 @@ def test_port_imports_no_jax():
         "msfno_torch.models, msfno_torch.inference.rollout, "
         "msfno_torch.data.normalization, msfno_torch.data.synthetic, "
         "msfno_torch.ops.kernels.spectral_mlp, msfno_torch.ops.kernels.grid_mlp, "
-        "msfno_torch.ops.kernels.gcn_layer\n"
+        "msfno_torch.ops.kernels.gcn_layer, msfno_torch.ops.kernels.grid_encoder_spectral, "
+        "msfno_torch.ops.kernels.spectral_decoder, msfno_torch.models.registry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msfno_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -70,8 +74,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("change", [
-    dict(pallas_grid_mlp=True),  # both fused head/tail kernels would engage
-    dict(pallas_grid_mlp=True, fuse_decoder_tail=False),
+    dict(complex_activation="cartesian"),
+    dict(filter_type="linear", spectral_transform="fft"),
     dict(filter_type="linear"),
     dict(filter_type="linear", compression="tt"),
     dict(spectral_transform="fft"),
@@ -84,3 +88,11 @@ def test_unported_paths_raise(change):
     cfg = tcfg.SFNOConfig(**{**SMALL, **change})
     with pytest.raises(NotImplementedError):
         FourierNeuralOperatorNetFilmed(cfg, device="cpu")
+
+
+def test_serving_fusions_build():
+    # the fused head and tail engage at the small size, as on the serving tier
+    cfg = tcfg.SFNOConfig(**SMALL, pallas_grid_mlp=True, use_pallas=True)
+    net = FourierNeuralOperatorNetFilmed(cfg, device="cpu")
+    assert net.fuse_dft and net.blocks[-1].fuse_tail
+    assert not any(b.fuse_tail for b in net.blocks[:-1])

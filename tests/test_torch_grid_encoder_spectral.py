@@ -1,0 +1,129 @@
+"""grid_encoder_spectral of the PyTorch port: its plain version against the
+JAX package's Pallas kernel (interpret mode on the CPU), the Legendre stage
+that completes its output into the forward SHT, and the CUDA kernel against
+the plain version on a card."""
+
+import numpy as np
+import pytest
+import torch
+
+from msfno_torch.ops.kernels import grid_encoder_spectral as tk
+from msfno_torch.ops.kernels.grid_mlp import grid_mlp_reference
+from msfno_torch.ops.sht import RealSHT
+
+torch.set_num_threads(2)
+
+
+def rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def report(name, value):
+    """The measured error, for the parity table (pytest -s shows it)."""
+    print(f"parity {name} rel_l2={value:.3e}")
+    return value
+
+
+def _jax():
+    """The JAX side, imported in the tests that use it: the card's machine
+    has no JAX, and runs only the cuda tests of this file."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.grid_mlp import grid_encoder_spectral
+
+    return jnp, grid_encoder_spectral
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _case(seed=0, b=2, h=6, w=16, c_in=3, hidden=12, c=8, mmax=7, pe=True):
+    """Operands as numpy: x (B, H, W, C_in), the MLP, pe (H, W, C) and the
+    merged analysis matrix cs (W, 2M) of a (H, W) grid."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    ops = dict(x=r(b, h, w, c_in), w1=0.3 * r(c_in, hidden), b1=0.1 * r(hidden),
+               w2=0.3 * r(hidden, c), pe=0.1 * r(h, w, c) if pe else None,
+               cs=np.asarray(RealSHT(h, w, lmax=h, mmax=mmax).merged_analysis))
+    return ops
+
+
+def _call(fn, ops, to, **kw):
+    args = [None if ops[k] is None else to(ops[k]) for k in ("x", "w1", "b1", "w2", "pe", "cs")]
+    return fn(*args, **kw)
+
+
+@pytest.mark.parametrize("pe", [True, False])
+def test_plain_matches_jax_kernel_fp32(pe):
+    jnp, jax_enc = _jax()
+    ops = _case(pe=pe)
+    fj, sj, qj = _call(jax_enc, ops, jnp.asarray, mxu_dtype="float32",
+                       out_dtype=jnp.float32, interpret=True)
+    ft, st, qt = _call(tk.grid_encoder_spectral, ops, torch.from_numpy,
+                       mxu_dtype="float32", out_dtype="float32")
+    assert ft.shape == fj.shape == (2, 6, 14, 8) and ft.dtype == torch.float32
+    for part, a, b in (("f", ft, fj), ("ssum", st, sj), ("ssq", qt, qj)):
+        assert report(f"grid_encoder_spectral[pe={pe}] {part}", rel_l2(a, b)) <= 1e-5
+
+
+def test_plain_matches_jax_kernel_bf16():
+    # bf16 operands, bf16 pe storage and a bf16 f: both sides take exact
+    # bf16 products with fp32 sums, in another order, so a bf16 hidden value
+    # or output can flip by one ulp where a sum sits on a rounding boundary
+    jnp, jax_enc = _jax()
+    ops = _case(seed=3)
+    pe_j = jnp.asarray(ops["pe"], jnp.bfloat16)
+    fj, sj, qj = jax_enc(*(jnp.asarray(ops[k]) for k in ("x", "w1", "b1", "w2")), pe_j,
+                         jnp.asarray(ops["cs"]), mxu_dtype="bfloat16", interpret=True)
+    pe_t = torch.from_numpy(ops["pe"]).to(torch.bfloat16)
+    ft, st, qt = tk.grid_encoder_spectral(
+        *(torch.from_numpy(ops[k]) for k in ("x", "w1", "b1", "w2")), pe_t,
+        torch.from_numpy(ops["cs"]), mxu_dtype="bfloat16")
+    assert ft.dtype == torch.bfloat16 and str(fj.dtype) == "bfloat16"
+    assert report("grid_encoder_spectral[bf16] f",
+                  rel_l2(ft.float(), np.asarray(fj, np.float32))) <= 1e-2
+    assert rel_l2(st, sj) <= 1e-3 and rel_l2(qt, qj) <= 1e-3
+
+
+def test_legendre_stacked_completes_the_forward_sht():
+    # f of the fused head, through the Legendre stage, is the full forward
+    # SHT of the encoder output it never stored
+    ops = _case(seed=5, h=8, w=16, mmax=9)
+    t = {k: torch.from_numpy(v) for k, v in ops.items()}
+    sht = RealSHT(8, 16, lmax=8, mmax=9)
+    f, _, _ = tk.grid_encoder_spectral(t["x"], t["w1"], t["b1"], t["w2"], t["pe"], t["cs"],
+                                       mxu_dtype="float32", out_dtype="float32")
+    y = grid_mlp_reference(t["x"], t["w1"], t["b1"], t["w2"], pe=t["pe"],
+                           mxu_dtype="float32")
+    assert report("legendre_stacked(f) vs RealSHT(y)",
+                  rel_l2(sht.legendre_stacked(f), sht(y))) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # ragged last chunk, two channel blocks (the second one partial), 2M = 60
+    dict(b=2, h=3, w=100, c_in=7, hidden=64, c=160, mmax=30),
+    # the serving step's 2M = 242 (padded to 256) at 73 -> 256 -> 256
+    dict(b=1, h=2, w=240, c_in=73, hidden=256, c=256, mmax=121),
+])
+def test_kernel_matches_plain(cuda, shape):
+    ops = _case(seed=7, **shape)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in ops.items()}
+    t["pe"] = t["pe"].to(torch.bfloat16)
+    args = [t[k] for k in ("x", "w1", "b1", "w2", "pe", "cs")]
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        fk, sk, qk = tk.grid_encoder_spectral(*args, mxu_dtype="bfloat16")
+        torch.cuda.synchronize()
+        fp, sp, qp = tk.grid_encoder_spectral_reference(*args, mxu_dtype="bfloat16")
+    assert tk.LAUNCHES == before + 1
+    assert fk.shape == fp.shape and fk.dtype == torch.bfloat16
+    # one-ulp bf16 flips of hidden values; the statistics are fp32 sums in
+    # another order (row partials added in a fixed order)
+    assert rel_l2(fk.float().cpu(), fp.float().cpu()) <= 1e-2
+    assert rel_l2(sk.cpu(), sp.cpu()) <= 1e-4 and rel_l2(qk.cpu(), qp.cpu()) <= 1e-4

@@ -1,7 +1,8 @@
 """Layers and blocks of the PyTorch port: the InstanceNorm statistics
 contract, the norm_affine fold into the SHT, and one SFNO block (plain and
-filmed, with the spectral_mlp and grid_mlp plain versions) against the JAX
-package."""
+filmed, with the spectral_mlp and grid_mlp plain versions; block 0 fed the
+fused head's longitude modes; the last block in fused-tail mode) against the
+JAX package."""
 
 import numpy as np
 import pytest
@@ -9,7 +10,12 @@ import torch
 
 from msfno_torch.convert import from_flax_params
 from msfno_torch.models.sfno.blocks import FourierNeuralOperatorBlock
-from msfno_torch.models.sfno.layers import InstanceNorm, SpectralAttentionS2, spatial_stats
+from msfno_torch.models.sfno.layers import (
+    InstanceNorm,
+    SpectralAttentionS2,
+    SpectralGridIn,
+    spatial_stats,
+)
 from msfno_torch.ops.sht import InverseRealSHT, RealSHT
 
 torch.set_num_threads(2)
@@ -108,3 +114,63 @@ def test_block_matches_jax(i, filmed):
         yt = blk(torch.from_numpy(x), *args)
     assert yt.shape == yj.shape
     assert report(f"block[{i}, filmed={filmed}]", rel_l2(yt, yj)) <= 1e-5
+
+
+@pytest.mark.parametrize("mode,i,filmed", [
+    ("spectral_in", 0, False),
+    ("fuse_tail", 2, True),
+    ("fuse_tail", 2, False),
+])
+def test_fused_block_matches_jax(mode, i, filmed):
+    """Block 0 fed a SpectralGridIn (longitude modes + encoder statistics),
+    and the last block in fused-tail mode returning (hm, a, b)."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from msfno_tpu.models.sfno.blocks import FourierNeuralOperatorBlock as JBlock
+    from msfno_tpu.models.sfno.layers import SpectralGridIn as JSpectralGridIn
+    from msfno_tpu.models.sfno.sfnonet import _block_kwargs as jkw
+    from msfno_tpu.models.sfno.sfnonet import build_transforms as jtransforms
+    from msfno_tpu.utils.config import SFNOConfig as JConfig
+
+    from msfno_torch.config import SFNOConfig
+    from msfno_torch.models.sfno.sfnonet import _block_kwargs, build_transforms
+
+    x = _x((2, 16, 32, 16) if i == 0 else (2, 8, 16, 16), 5).numpy()
+    gamma, beta = 0.3 * _x((2, 16), 6).numpy(), 0.3 * _x((2, 16), 7).numpy()
+    jcfg, cfg = _cfg(JConfig), _cfg(SFNOConfig)
+    fuse_tail = mode == "fuse_tail"
+    jblk = JBlock(**jkw(jcfg, i, jtransforms(jcfg)), filmed=filmed, fuse_tail=fuse_tail)
+    blk = FourierNeuralOperatorBlock(**_block_kwargs(cfg, i, build_transforms(cfg)),
+                                     filmed=filmed, fuse_tail=fuse_tail, device="cpu")
+    film_j = (jnp.asarray(gamma), jnp.asarray(beta), 0.7) if filmed else (None, None, 1.0)
+    film_t = (torch.from_numpy(gamma), torch.from_numpy(beta), 0.7) if filmed else ()
+    if mode == "spectral_in":
+        cs = blk.filter_layer.filter.forward_transform.merged_analysis
+        f = np.einsum("bhwc,wm->bhmc", x, cs).astype(np.float32)
+        stats = (x.sum((1, 2)), (x * x).sum((1, 2)), 16 * 32)
+        xj, xt = JSpectralGridIn(jnp.asarray(f)), SpectralGridIn(torch.from_numpy(f))
+        stats_j = (jnp.asarray(stats[0]), jnp.asarray(stats[1]), stats[2])
+        stats_t = (torch.from_numpy(stats[0]), torch.from_numpy(stats[1]), stats[2])
+    else:
+        xj, xt, stats_j, stats_t = jnp.asarray(x), torch.from_numpy(x), None, None
+    params = jblk.init(jax.random.PRNGKey(i), xj, *film_j, norm0_stats=stats_j)["params"]
+    params = jax.tree_util.tree_map(np.asarray, params)
+    rng = np.random.default_rng(20 + i)
+    for n in ("norm0", "norm1"):
+        params[n]["scale"] = (1.0 + 0.2 * rng.standard_normal(16)).astype(np.float32)
+        params[n]["bias"] = (0.2 * rng.standard_normal(16)).astype(np.float32)
+    yj = jblk.apply({"params": params}, xj, *film_j, norm0_stats=stats_j)
+    prefix = f"blocks.{i}."
+    sd = from_flax_params({f"blocks_{i}": params})
+    blk.load_state_dict({k[len(prefix):]: v for k, v in sd.items()}, strict=True)
+    with torch.no_grad():
+        yt = blk(xt, *film_t, norm0_stats=stats_t)
+    if fuse_tail:
+        for part, a, b in zip(("hm", "a", "b"), yt, yj):
+            assert a.shape == b.shape
+            assert report(f"block[{i}, fuse_tail, filmed={filmed}] {part}",
+                          rel_l2(a, b)) <= 1e-5
+    else:
+        assert yt.shape == yj.shape
+        assert report(f"block[{i}, SpectralGridIn]", rel_l2(yt, yj)) <= 1e-5

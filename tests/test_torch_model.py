@@ -1,7 +1,8 @@
 """The slice as a whole: the PyTorch port's filmed SFNO against the JAX
 package's at a small config, with the JAX Pallas kernels in interpret mode
 and the port's kernel wrappers on their plain versions (CPU), weights carried
-with `from_flax_params`.  On a card, the kernel path against the plain path."""
+with `from_flax_params`; unfused (BASE) and with the fused head and tail
+(FUSED).  On a card, the kernel path against the plain path."""
 
 import dataclasses
 import json
@@ -31,6 +32,10 @@ SERVING = dataclasses.replace(
     BASE, compute_dtype="bfloat16", spectral_mxu_dtype="bfloat16",
     sht_mxu_dtype="bfloat16", film=dataclasses.replace(FILM, compute_dtype="bfloat16"),
 )
+# the same with the fused head and tail: all five kernels' plain versions
+FUSED = dict(fuse_encoder_dft=True, fuse_decoder_tail=True)
+FUSED_FP32 = dataclasses.replace(FP32, **FUSED)
+FUSED_SERVING = dataclasses.replace(SERVING, **FUSED)
 
 
 def rel_l2(a, b):
@@ -92,6 +97,8 @@ def torch_net(cfg, params, filmed=True, device="cpu"):
     # JAX's "bfloat16" SHT knob is true fp32 on the CPU, the port rounds its
     # operands: the bf16 class of the JAX fast-vs-exact drift (1.73e-2)
     ("serving", SERVING, 3e-2),
+    ("fused fp32", FUSED_FP32, 1e-4),
+    ("fused serving", FUSED_SERVING, 3e-2),
 ])
 def test_filmed_net_matches_jax(name, cfg, tol):
     import jax.numpy as jnp
@@ -116,6 +123,24 @@ def test_plain_net_matches_jax():
     with torch.no_grad():
         yt = torch_net(cfg, params, filmed=False)(torch.from_numpy(x))
     assert report("plain net[fp32, no kernels]", rel_l2(yt, yj)) <= 1e-4
+
+
+@pytest.mark.parametrize("filmed", [True, False])
+def test_fused_net_matches_unfused_net(filmed):
+    # the fused head and tail reorder the fp32 sums of the unfused path (the
+    # JAX package holds its own pair to 1e-3, tests/test_encoder_spectral.py)
+    cfg = FUSED_FP32 if filmed else dataclasses.replace(FUSED_FP32, film=None)
+    x, sst = inputs(FP32)
+    fused = (FourierNeuralOperatorNetFilmed if filmed else FourierNeuralOperatorNet)(
+        cfg, device="cpu", seed=4)
+    unfused = type(fused)(dataclasses.replace(cfg, fuse_encoder_dft=False,
+                                              fuse_decoder_tail=False), device="cpu")
+    unfused.load_state_dict(fused.state_dict())
+    assert fused.fuse_dft and fused.blocks[-1].fuse_tail and not unfused.fuse_dft
+    args = (torch.from_numpy(x),) + ((torch.from_numpy(sst), 0.7) if filmed else ())
+    with torch.no_grad():
+        yf, yu = fused(*args), unfused(*args)
+    assert report(f"fused vs unfused port net[filmed={filmed}]", rel_l2(yf, yu)) <= 1e-3
 
 
 def test_backbone_mapping_matches_export():
@@ -147,6 +172,29 @@ def test_kernel_path_matches_plain_path(cuda):
         yk = net(xt, st)
         counts = launch_counts()
         yp = plain(xt, st)
-    assert counts == {"spectral_mlp": 3, "grid_mlp": 4, "gcn_layer": 3}
+    assert counts == {"spectral_mlp": 3, "grid_mlp": 4, "gcn_layer": 3,
+                      "grid_encoder_spectral": 0, "spectral_decoder": 0}
+    assert torch.isfinite(yk).all()
+    assert rel_l2(yk.cpu(), yp.cpu()) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_fused_kernel_path_matches_plain_path(cuda):
+    from msfno_torch.config import exact_config
+
+    x, sst = inputs(FUSED_SERVING, seed=3)
+    net = FourierNeuralOperatorNetFilmed(FUSED_SERVING, device=cuda, seed=1)
+    plain = FourierNeuralOperatorNetFilmed(exact_config(FUSED_SERVING), device=cuda)
+    plain.load_state_dict(net.state_dict())
+    xt, st = torch.from_numpy(x).to(cuda), torch.from_numpy(sst).to(cuda)
+    with torch.inference_mode():
+        reset_launch_counts()
+        yk = net(xt, st)
+        counts = launch_counts()
+        yp = plain(xt, st)
+    # the last block has no channel MLP; the encoder and decoder sites of
+    # grid_mlp are the fused head and tail
+    assert counts == {"spectral_mlp": 3, "grid_mlp": 2, "gcn_layer": 3,
+                      "grid_encoder_spectral": 1, "spectral_decoder": 1}
     assert torch.isfinite(yk).all()
     assert rel_l2(yk.cpu(), yp.cpu()) <= 3e-2

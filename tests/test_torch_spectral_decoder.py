@@ -1,0 +1,126 @@
+"""spectral_decoder of the PyTorch port: its plain version against the JAX
+package's Pallas kernel (interpret mode on the CPU), the spectral-space
+statistics against the JAX package's and against pixel statistics of the
+synthesized field, and the CUDA kernel against the plain version on a card."""
+
+import numpy as np
+import pytest
+import torch
+
+from msfno_torch.ops.kernels import spectral_decoder as tk
+from msfno_torch.ops.sht import InverseRealSHT
+
+torch.set_num_threads(2)
+
+
+def rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def report(name, value):
+    """The measured error, for the parity table (pytest -s shows it)."""
+    print(f"parity {name} rel_l2={value:.3e}")
+    return value
+
+
+def _jax():
+    """The JAX side, imported in the tests that use it: the card's machine
+    has no JAX, and runs only the cuda tests of this file."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas import spectral_decoder as jk
+
+    return jnp, jk
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+NAMES = ("hm", "skip", "mt", "a", "b", "w1", "b1", "w2", "b2")
+
+
+def _case(seed=0, b=2, h=4, w=16, mmax=7, c=8, s=3, hidden=12, c_out=3, b2=True):
+    """Operands as numpy: hm (B, H, 2M, C), skip (B, H, W, S), the merged
+    synthesis matrix mt (W, 2M) of a (H, W) grid, the affine and the MLP."""
+    rng = np.random.default_rng(seed)
+    r = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    mt = np.asarray(InverseRealSHT(h, w, lmax=h, mmax=mmax).merged_matrix_t)
+    return dict(hm=r(b, h, 2 * mmax, c), skip=r(b, h, w, s), mt=mt,
+                a=1.0 + 0.2 * r(b, c), b=0.2 * r(b, c), w1=0.3 * r(c + s, hidden),
+                b1=0.1 * r(hidden), w2=0.3 * r(hidden, c_out),
+                b2=0.1 * r(c_out) if b2 else None)
+
+
+def _call(fn, ops, to, **kw):
+    return fn(*(None if ops[k] is None else to(ops[k]) for k in NAMES), **kw)
+
+
+@pytest.mark.parametrize("b2", [True, False])
+def test_plain_matches_jax_kernel_fp32(b2):
+    jnp, jk = _jax()
+    ops = _case(b2=b2)
+    yj = _call(jk.spectral_decoder, ops, jnp.asarray, mxu_dtype="float32", interpret=True)
+    yt = _call(tk.spectral_decoder, ops, torch.from_numpy, mxu_dtype="float32")
+    assert yt.shape == yj.shape == (2, 4, 16, 3) and yt.dtype == torch.float32
+    assert report(f"spectral_decoder[b2={b2}]", rel_l2(yt, yj)) <= 1e-5
+
+
+def test_plain_matches_jax_kernel_bf16():
+    # bf16 rounding of t, Mt, x, skip and the hidden activation on both
+    # sides; exact bf16 products with fp32 sums in another order can flip a
+    # bf16 value by one ulp where a sum sits on a rounding boundary
+    jnp, jk = _jax()
+    ops = _case(seed=3)
+    yj = _call(jk.spectral_decoder, ops, jnp.asarray, mxu_dtype="bfloat16", interpret=True)
+    yt = _call(tk.spectral_decoder, ops, torch.from_numpy, mxu_dtype="bfloat16")
+    assert report("spectral_decoder[bf16]", rel_l2(yt, yj)) <= 1e-2
+
+
+def test_spectral_grid_stats():
+    jnp, jk = _jax()
+    itrans = InverseRealSHT(8, 32, lmax=8, mmax=9)
+    hm = np.random.default_rng(1).standard_normal((2, 8, 18, 5)).astype(np.float32)
+    omega = torch.from_numpy(itrans.mode_power_weights)
+    mean, mean_sq = tk.spectral_grid_stats(torch.from_numpy(hm), omega)
+    mj, qj = jk.spectral_grid_stats(jnp.asarray(hm), itrans.mode_power_weights)
+    assert report("spectral_grid_stats mean", rel_l2(mean, mj)) <= 1e-5
+    assert report("spectral_grid_stats mean_sq", rel_l2(mean_sq, qj)) <= 1e-5
+    # the pixel statistics of the field x = Mt hm, in float64
+    x = np.einsum("bhmc,wm->bhwc", hm.astype(np.float64), itrans.merged_matrix_t)
+    np.testing.assert_allclose(mean, x.mean(axis=(1, 2)), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(mean_sq, (x * x).mean(axis=(1, 2)), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # ragged last chunk, 2M = 60, C = 32, no b2
+    dict(b=2, h=3, w=100, mmax=30, c=32, s=5, hidden=48, c_out=5, b2=False),
+    # the serving step's widths: 2M = 242 (padded to 256), 256 + 73 -> 256 -> 73
+    dict(b=1, h=2, w=240, mmax=121, c=256, s=73, hidden=256, c_out=73),
+])
+def test_kernel_matches_plain(cuda, shape):
+    ops = _case(seed=7, **shape)
+    args = [None if ops[k] is None else torch.from_numpy(ops[k]).to(cuda) for k in NAMES]
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        yk = tk.spectral_decoder(*args, mxu_dtype="bfloat16")
+        torch.cuda.synchronize()
+        yp = tk.spectral_decoder_reference(*args, mxu_dtype="bfloat16")
+    assert tk.LAUNCHES == before + 1
+    assert yk.shape == yp.shape and yk.dtype == torch.float32
+    # one-ulp bf16 flips of x or hidden values, fp32 sums in another order
+    assert rel_l2(yk.cpu(), yp.cpu()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_input_with_grad_raises(cuda):
+    ops = _case()
+    args = [None if ops[k] is None else torch.from_numpy(ops[k]).to(cuda) for k in NAMES]
+    args[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="fine-tune slice"):
+        tk.spectral_decoder(*args)

@@ -4,11 +4,15 @@
     python3 tools/profile_torch_step.py [--steps N] [--trace FILE]
 
 Builds the full-width filmed SFNO of `msfno_torch.config.serving_config()`
-(seeded random weights), runs two warm-up steps, then profiles N chained
-steps with torch.profiler (CPU + CUDA activity).  Prints one JSON line per
-kernel or op, sorted by device time (ms per step), the device busy share of
-the window, and the card's name and power limit; with --trace, writes the
-Chrome trace to FILE.
+(the fused head and tail) and the same net with both unfused, with the same
+seeded random weights.  For each path it runs two warm-up steps, then
+profiles N chained steps with torch.profiler (CPU + CUDA activity).  Prints,
+per path, one JSON line per kernel or op sorted by device time (ms per
+step), the five hand-written kernels' ms and calls per step, and the wall
+and device-busy time per step with the device's idle share; then both
+paths' median step times from CUDA events, timed in turns (fused, unfused,
+unfused, fused) in the same process, and the card's name and power limit.
+With --trace, writes the fused path's Chrome trace to FILE.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -23,9 +28,56 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main() -> int:
+def profile_path(net, sst_seq, steps: int, path: str):
+    """torch.profiler over `steps` chained steps; prints the breakdown and
+    returns the profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from msfno_torch.ops.kernels import KERNELS
+
+    x0 = torch.zeros((1, *net.cfg.img_size, net.cfg.in_chans), device=sst_seq.device)
+    with torch.inference_mode():
+        state = x0
+        for i in range(2):
+            state = net(state, sst_seq[i % steps])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                state = net(state, sst_seq[i])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only (kernels, memcpy, memset): op-level rows
+        # would count their kernels a second time
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / steps, ev.key, ev.count / steps))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    for ms, key, count in rows[:25]:
+        print(json.dumps({"path": path, "op": key[:90], "ms_per_step": ms,
+                          "calls_per_step": count,
+                          "share_of_busy": ms / busy if busy else None}))
+    for name in KERNELS:
+        mine = [r for r in rows if f"{name}_kernel" in r[1]]
+        print(json.dumps({"path": path, "kernel": name,
+                          "ms_per_step": sum(r[0] for r in mine),
+                          "calls_per_step": sum(r[2] for r in mine)}))
+    print(json.dumps({"path": path, "wall_ms_per_step": wall,
+                      "device_busy_ms_per_step": busy,
+                      "device_idle_share": 1.0 - busy / wall if wall else None}))
+    return prof
+
+
+def main() -> int:
+    import torch
 
     from chip_smoke import model_inputs
     from msfno_torch.config import serving_config
@@ -41,41 +93,31 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    cfg = serving_config()
-    net = FourierNeuralOperatorNetFilmed(cfg, device=dev, seed=0)
-    x0, _, sst_seq = model_inputs(cfg, dev, args.steps)
+    nets = {"fused": FourierNeuralOperatorNetFilmed(serving_config(), device=dev, seed=0)}
+    nets["unfused"] = FourierNeuralOperatorNetFilmed(
+        serving_config(fuse_encoder_dft=False, fuse_decoder_tail=False), device=dev)
+    nets["unfused"].load_state_dict(nets["fused"].state_dict())
+    x0, _, sst_seq = model_inputs(serving_config(), dev, args.steps)
+    for path, net in nets.items():
+        prof = profile_path(net, sst_seq, args.steps, path)
+        if args.trace and path == "fused":
+            prof.export_chrome_trace(args.trace)
+    times = {path: [] for path in nets}
     with torch.inference_mode():
-        state = x0
-        for i in range(2):
-            state = net(state, sst_seq[i % args.steps])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(args.steps):
-                state = net(state, sst_seq[i])
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / args.steps
-    rows = []
-    for ev in prof.key_averages():
-        # device-side events only (kernels, memcpy, memset): op-level rows
-        # would count their kernels a second time
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / args.steps, ev.key, ev.count // args.steps))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    for ms, key, count in rows[:25]:
-        print(json.dumps({"op": key[:90], "ms_per_step": ms, "calls_per_step": count,
-                          "share_of_busy": ms / busy if busy else None}))
-    print(json.dumps({"card": card, "wall_ms_per_step": wall,
-                      "device_busy_ms_per_step": busy,
-                      "device_idle_share": 1.0 - busy / wall if wall else None}))
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+        for path in ("fused", "unfused", "unfused", "fused"):
+            state = x0
+            for i in range(6):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state = nets[path](state, sst_seq[i % args.steps])
+                end.record()
+                torch.cuda.synchronize()
+                if i:
+                    times[path].append(start.elapsed_time(end))
+    print(json.dumps({"card": card,
+                      "median_step_ms": {p: statistics.median(t) for p, t in times.items()},
+                      "step_ms": times}))
     return 0
 
 
