@@ -158,6 +158,47 @@ class SFNOConfig:
         return int((self.w // 2 + 1) * self.hard_thresholding_fraction)
 
 
+@register
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training configuration (reference "Training" argparse group,
+    main.py:640-944; Trainer, MSFNO/Models/train.py:35-1337), field for field
+    the JAX package's."""
+
+    batch_size: int = 1
+    learning_rate: float = 5e-4
+    optimizer: str = "adam"  # adam | adamw | sgd
+    weight_decay: float = 0.0
+    scheduler: str = "none"  # none | cosine | step
+    scheduler_horizon: int = 2000
+    loss_fn: str = "L2Sphere_noSine"  # default per main.py:874
+    multi_step_training: int = 0  # extra autoregressive steps in the loss
+    training_step_skip: int = 0  # skip factor between supervised steps
+    discount_factor: float = 1.0  # per-step loss discount
+    accumulation_steps: int = 0  # gradient accumulation (mean over acc + 1)
+    validation_interval: int = 100
+    validation_step_skip: int = 0
+    multi_step_validation: int = 0
+    save_checkpoint_interval: int = 1
+    training_epochs: int = 1
+    film_scale_start: float = 0.0  # FiLM scale ramp: +0.002 per validation
+    film_scale_step: float = 0.002  # (train.py:638-641)
+    retrain_film: bool = False  # unfreeze decoder + last blocks too
+    seed: int = 42
+    time_limit_s: float | None = None  # graceful stop (train.py:821-828)
+    # optimizer steps per chunk of `Trainer.train_steps`; the host loop's
+    # cadence (validation, checkpoints, logs) is the same for every value
+    scan_steps: int = 1
+    # "npz" or "orbax" in the JAX package; this package writes its own
+    # torch.save format whatever the value (orbax directories raise)
+    checkpoint_backend: str = "npz"
+    async_checkpoint: bool = False
+    advanced_logging: bool = False
+    # store the frozen backbone in bf16 (serving tier only); trainable
+    # (film) parameters stay fp32
+    bf16_frozen_params: bool = False
+
+
 def tiny_sfno(film: bool = False) -> SFNOConfig:
     """Small config for tests (2 blocks, embed 64, 128x256 Gaussian grid).
 
@@ -215,3 +256,19 @@ def exact_config(cfg: SFNOConfig) -> SFNOConfig:
         output_dtype="float32",
         film=film,
     )
+
+
+def finetune_config(**overrides) -> SFNOConfig:
+    """The model of the FiLM fine-tune step the JAX bench times
+    (bench.py:287-301): `serving_config()`, the fast tier with both fusions,
+    at fp32 output."""
+    return serving_config(**{"output_dtype": "float32", **overrides})
+
+
+def finetune_train_config(**overrides) -> TrainConfig:
+    """The bench's fine-tune TrainConfig (bench.py:287-301): batch 1, the
+    FiLM scale at 1 and the frozen backbone in bf16; everything else at its
+    default (L2Sphere_noSine, Adam at 5e-4, multi_step_training=0,
+    film-only)."""
+    return TrainConfig(**{"batch_size": 1, "film_scale_start": 1.0,
+                          "bf16_frozen_params": True, **overrides})

@@ -104,3 +104,10 @@ def from_flax_params(params: Mapping) -> dict[str, torch.Tensor]:
     if unknown:
         raise ValueError(f"unmapped parameters: {unknown}")
     return out
+
+
+def from_flax_train_state(trainable: Mapping, frozen: Mapping) -> dict[str, torch.Tensor]:
+    """The `trainable` and `frozen` trees of a JAX `TrainState` (numpy
+    arrays; bf16 frozen leaves are widened to fp32) -> one state_dict for
+    the trainer's model (`load_state_dict(strict=True)`)."""
+    return {**from_flax_params(frozen), **from_flax_params(trainable)}

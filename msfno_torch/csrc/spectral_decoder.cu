@@ -107,82 +107,19 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) spectral_decoder_kerne
   const int w0 = blockIdx.x * CHUNK;
   const int rows = min(CHUNK, a.W - w0);
   const long long bh = (long long)blockIdx.z * a.H + blockIdx.y;
-  const float* sa = a.aff_a + (long long)blockIdx.z * a.c;
   const float* sb = a.aff_b + (long long)blockIdx.z * a.c;
-  const int n_xct = a.c / 16;
   float* my = scratch + warp * 256;
 
   // inverse DFT of the chunk: x = Mt[w0:w0+CHUNK] @ t, t staged per K-slab
   FragC acc_x[ROW_TILES][XCT_PER_WARP];
-#pragma unroll
-  for (int i = 0; i < ROW_TILES; ++i)
-#pragma unroll
-    for (int u = 0; u < XCT_PER_WARP; ++u) wmma::fill_fragment(acc_x[i][u], 0.f);
-  for (int k0 = 0; k0 < a.m2p; k0 += SLAB) {
-    const int kn = min(SLAB, a.m2p - k0);
-    __syncthreads();  // the previous slab is no longer read
-    // the K-slab of t and of the chunk's Mt, 16-byte async copies
-    const __nv_bfloat16* tsrc = a.t + (bh * a.m2p + k0) * a.c;
-    const int tv = a.c / 8;
-    for (int v = threadIdx.x; v < kn * tv; v += blockDim.x) {
-      const int r = v / tv, q = (v - r * tv) * 8;
-      cp_async16(ts + r * a.ldt + q, tsrc + (long long)r * a.c + q, 16);
-    }
-    const __nv_bfloat16* msrc = a.mt + (long long)w0 * a.m2p + k0;
-    const int mv = kn / 8;
-    for (int v = threadIdx.x; v < CHUNK * mv; v += blockDim.x) {
-      const int r = v / mv, q = (v - r * mv) * 8;
-      cp_async16(ms + r * (SLAB + PAD) + q, msrc + (long long)r * a.m2p + q, 16);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int k = 0; k < kn; k += 16) {
-      FragA ma[ROW_TILES];
-#pragma unroll
-      for (int i = 0; i < ROW_TILES; ++i)
-        wmma::load_matrix_sync(ma[i], ms + i * 16 * (SLAB + PAD) + k, SLAB + PAD);
-#pragma unroll
-      for (int u = 0; u < XCT_PER_WARP; ++u) {
-        const int ct = warp + u * WARPS;
-        if (ct < n_xct) {
-          FragB tb;
-          wmma::load_matrix_sync(tb, ts + k * a.ldt + ct * 16, a.ldt);
-#pragma unroll
-          for (int i = 0; i < ROW_TILES; ++i) wmma::mma_sync(acc_x[i][u], ma[i], tb, acc_x[i][u]);
-        }
-      }
-    }
-  }
+  chunk_inverse_dft<ROW_TILES, XCT_PER_WARP, SLAB>(acc_x, a.t + bh * a.m2p * a.c, a.mt, w0,
+                                                   a.m2p, a.c, ts, a.ldt, ms, warp, WARPS);
 
   // MLP input tile: [bf16(x + b) | bf16(skip)], zero padding and zero skip
   // rows past the end (x rows past the end are b: finite, never written)
-#pragma unroll
-  for (int u = 0; u < XCT_PER_WARP; ++u) {
-    const int ct = warp + u * WARPS;
-    if (ct >= n_xct) continue;
-#pragma unroll
-    for (int i = 0; i < ROW_TILES; ++i) {
-      wmma::store_matrix_sync(my, acc_x[i][u], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = i * 16 + e / 16;
-        const int col = ct * 16 + (e % 16);
-        xs[row * a.ldx + col] = __float2bfloat16_rn(my[e] + sb[col]);
-      }
-      __syncwarp();
-    }
-  }
-  const int skip_end = a.cmp + a.s;
-  for (int idx = threadIdx.x; idx < CHUNK * (a.k1p - a.c); idx += blockDim.x) {
-    const int r = idx / (a.k1p - a.c);
-    const int k = a.c + (idx - r * (a.k1p - a.c));
-    if (k < a.cmp || k >= skip_end || r >= rows) xs[r * a.ldx + k] = __float2bfloat16_rn(0.f);
-  }
-  if (a.skip_bf16)
-    stage_tile<true>(xs, a.ldx, a.cmp, a.skip, (bh * a.W + w0) * a.s, rows, a.s, nullptr, nullptr);
-  else
-    stage_tile<false>(xs, a.ldx, a.cmp, a.skip, (bh * a.W + w0) * a.s, rows, a.s, nullptr, nullptr);
+  stage_decoder_input<ROW_TILES, XCT_PER_WARP>(xs, a.ldx, acc_x, nullptr, sb, a.c, a.cmp, a.s,
+                                               a.k1p, a.skip, a.skip_bf16, (bh * a.W + w0) * a.s,
+                                               rows, my, warp, lane, WARPS);
   __syncthreads();  // xs complete; every warp is past its reads of the t slab
 
   // first layer over [x | skip]: hs = bf16(gelu(xs @ w1 + b1))

@@ -29,11 +29,7 @@
 // bf16 when written back to shared memory, where the TPU kernel rounds it at
 // the next dot: the same rounding point.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-using namespace nvcuda;
+#include "tile_common.cuh"
 
 namespace {
 
@@ -57,33 +53,6 @@ struct MlpDims {
   long long off[MAX_LAYERS];  // element offset of P_l in the weight buffer
 };
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// weight rows [k0, k0 + KS) of a (k_dim, n_dim) layer into a shared slab
-__device__ __forceinline__ void stage_slab(const __nv_bfloat16* w, int k0, int n_dim,
-                                           __nv_bfloat16* slab, int ldb) {
-  const int vpr = n_dim / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < KS * vpr; i += blockDim.x) {
-    const int r = i / vpr, c = (i - r * vpr) * 8;
-    cp_async16(slab + r * ldb + c, w + (long long)(k0 + r) * n_dim + c);
-  }
-  cp_async_commit();
-}
-
 __global__ void __launch_bounds__(WARPS * 32)
 spectral_mlp_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     const __nv_bfloat16* __restrict__ wbuf, MlpDims dims,
@@ -100,28 +69,10 @@ spectral_mlp_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const long long row0 = (long long)blockIdx.x * TILE_ROWS;
   float* my_scratch = scratch + warp * 256;
 
-  // stage the input rows as bf16 [re | im]; rows past the end are zero.  The
-  // block's rows are one contiguous run of each input, read as float4.
-  const int c_in = dims.d[0];
+  // stage the input rows as bf16 [re | im]; rows past the end are zero
   const long long rows_left = n_rows - row0;
   const int rows = rows_left < TILE_ROWS ? (int)rows_left : TILE_ROWS;
-  const float4* vr4 = reinterpret_cast<const float4*>(xr + row0 * c_in);
-  const float4* vi4 = reinterpret_cast<const float4*>(xi + row0 * c_in);
-  for (int v = threadIdx.x; v < TILE_ROWS * c_in / 4; v += blockDim.x) {
-    const int r = (4 * v) / c_in;
-    const int c = 4 * v - r * c_in;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (r < rows) {
-      a = vr4[v];
-      b = vi4[v];
-    }
-    __nv_bfloat16* dst = buf_a + r * ld + c;
-    dst[0] = __float2bfloat16_rn(a.x); dst[1] = __float2bfloat16_rn(a.y);
-    dst[2] = __float2bfloat16_rn(a.z); dst[3] = __float2bfloat16_rn(a.w);
-    dst += c_in;
-    dst[0] = __float2bfloat16_rn(b.x); dst[1] = __float2bfloat16_rn(b.y);
-    dst[2] = __float2bfloat16_rn(b.z); dst[3] = __float2bfloat16_rn(b.w);
-  }
+  stage_complex_rows<TILE_ROWS>(xr, xi, row0, rows, dims.d[0], buf_a, ld);
 
   __nv_bfloat16* h_in = buf_a;
   __nv_bfloat16* h_out = buf_b;
@@ -143,10 +94,10 @@ spectral_mlp_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     // previous slab is multiplied; every warp reads its A fragments once per
     // slab and applies them to all of its column tiles
     const int n_slabs = k_dim / KS;
-    stage_slab(w, 0, n_dim, slabs, ld);
+    stage_weight_rows<KS>(w, 0, n_dim, slabs, ld);
     for (int ks = 0; ks < n_slabs; ++ks) {
       if (ks + 1 < n_slabs) {
-        stage_slab(w, (ks + 1) * KS, n_dim, slabs + ((ks + 1) % 2) * KS * ld, ld);
+        stage_weight_rows<KS>(w, (ks + 1) * KS, n_dim, slabs + ((ks + 1) % 2) * KS * ld, ld);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();

@@ -1,8 +1,9 @@
 // Device pieces shared by the kernels of msfno_torch/csrc: activation loads,
 // cp.async copies, bf16 WMMA tile GEMMs with fp32 accumulation, row-tile
-// staging into shared memory, the exact GELU, the first MLP layer into a
-// bf16 hidden tile, and the fixed-order reduce of per-block column
-// statistics.
+// staging into shared memory, the exact GELU and its derivative, the first
+// MLP layer into a bf16 hidden tile, the fixed-order reduces of per-block
+// partials, and a split-K bf16 GEMM for the backward kernels' weight
+// gradients.
 
 #pragma once
 
@@ -11,6 +12,7 @@
 #include <mma.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -43,6 +45,12 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// d/dv gelu_exact(v) = Phi(v) + v * phi(v)
+__device__ __forceinline__ float gelu_exact_grad(float v) {
+  const float cdf = 0.5f * (1.f + erff(v * 0.70710678118654752f));
+  return cdf + v * 0.3989422804014327f * expf(-0.5f * v * v);
 }
 
 // acc[i] = a_smem[i-th row tile] @ b_global[:, col0:col0+16] over k_dim;
@@ -161,6 +169,144 @@ __device__ __forceinline__ void copy_tile_bf16(__nv_bfloat16* dst, int ldd,
   }
 }
 
+// Weight rows [k0, k0 + KS) of a (k_dim, n_dim) bf16 matrix into a shared
+// slab with leading dimension ldb, as 16-byte cp.async copies (n_dim is a
+// multiple of 8); commits the group.
+template <int KS>
+__device__ __forceinline__ void stage_weight_rows(const __nv_bfloat16* w, int k0, int n_dim,
+                                                  __nv_bfloat16* slab, int ldb) {
+  const int vpr = n_dim / 8;  // 16-byte vectors per row
+  for (int i = threadIdx.x; i < KS * vpr; i += blockDim.x) {
+    const int r = i / vpr, c = (i - r * vpr) * 8;
+    cp_async16(slab + r * ldb + c, w + (long long)(k0 + r) * n_dim + c, 16);
+  }
+  cp_async_commit();
+}
+
+// Rows [row0, row0 + TILE_ROWS) of a (2, n_rows, c) fp32 [re, im] pair as
+// bf16 [re | im] shared rows with leading dimension ld; rows past `rows`
+// are zero.  The rows are one contiguous, 16-byte aligned run of each half,
+// read as float4 (c is a multiple of 4).
+template <int TILE_ROWS>
+__device__ __forceinline__ void stage_complex_rows(const float* re, const float* im,
+                                                   long long row0, int rows, int c,
+                                                   __nv_bfloat16* dst, int ld) {
+  const float4* vr4 = reinterpret_cast<const float4*>(re + row0 * c);
+  const float4* vi4 = reinterpret_cast<const float4*>(im + row0 * c);
+  for (int v = threadIdx.x; v < TILE_ROWS * c / 4; v += blockDim.x) {
+    const int r = (4 * v) / c;
+    const int col = 4 * v - r * c;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (r < rows) {
+      a = vr4[v];
+      b = vi4[v];
+    }
+    __nv_bfloat16* p = dst + r * ld + col;
+    p[0] = __float2bfloat16_rn(a.x); p[1] = __float2bfloat16_rn(a.y);
+    p[2] = __float2bfloat16_rn(a.z); p[3] = __float2bfloat16_rn(a.w);
+    p += c;
+    p[0] = __float2bfloat16_rn(b.x); p[1] = __float2bfloat16_rn(b.y);
+    p[2] = __float2bfloat16_rn(b.z); p[3] = __float2bfloat16_rn(b.w);
+  }
+}
+
+// The inverse longitude DFT of a (16 * ROW_TILES)-pixel chunk of one
+// latitude row: acc[i][u] = Mt[w0 + 16 i .., :] @ t[:, 16 ct ..] over K =
+// m2p, ct = warp + u * n_warps (< c / 16).  t: the row's (m2p, c) bf16
+// operand in device memory; mt: (w_pad, m2p) bf16.  K-slabs of SLAB rows of
+// t (into ts, leading dimension ldt) and of the chunk's Mt (into ms,
+// leading dimension SLAB + 8) go through shared memory by cp.async.  Starts
+// and ends with every thread past its shared reads (a barrier before the
+// first copy; the caller syncs before reusing ts or ms).
+template <int ROW_TILES, int XCT, int SLAB>
+__device__ __forceinline__ void chunk_inverse_dft(FragC (&acc)[ROW_TILES][XCT],
+                                                  const __nv_bfloat16* t, const __nv_bfloat16* mt,
+                                                  int w0, int m2p, int c, __nv_bfloat16* ts,
+                                                  int ldt, __nv_bfloat16* ms, int warp,
+                                                  int n_warps) {
+  constexpr int LDM = SLAB + 8;
+  const int n_xct = c / 16;
+#pragma unroll
+  for (int i = 0; i < ROW_TILES; ++i)
+#pragma unroll
+    for (int u = 0; u < XCT; ++u) wmma::fill_fragment(acc[i][u], 0.f);
+  for (int k0 = 0; k0 < m2p; k0 += SLAB) {
+    const int kn = min(SLAB, m2p - k0);
+    __syncthreads();  // the previous slab is no longer read
+    const __nv_bfloat16* tsrc = t + (long long)k0 * c;
+    const int tv = c / 8;
+    for (int v = threadIdx.x; v < kn * tv; v += blockDim.x) {
+      const int r = v / tv, q = (v - r * tv) * 8;
+      cp_async16(ts + r * ldt + q, tsrc + (long long)r * c + q, 16);
+    }
+    const __nv_bfloat16* msrc = mt + (long long)w0 * m2p + k0;
+    const int mv = kn / 8;
+    for (int v = threadIdx.x; v < 16 * ROW_TILES * mv; v += blockDim.x) {
+      const int r = v / mv, q = (v - r * mv) * 8;
+      cp_async16(ms + r * LDM + q, msrc + (long long)r * m2p + q, 16);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int k = 0; k < kn; k += 16) {
+      FragA ma[ROW_TILES];
+#pragma unroll
+      for (int i = 0; i < ROW_TILES; ++i)
+        wmma::load_matrix_sync(ma[i], ms + i * 16 * LDM + k, LDM);
+#pragma unroll
+      for (int u = 0; u < XCT; ++u) {
+        const int ct = warp + u * n_warps;
+        if (ct < n_xct) {
+          FragB tb;
+          wmma::load_matrix_sync(tb, ts + k * ldt + ct * 16, ldt);
+#pragma unroll
+          for (int i = 0; i < ROW_TILES; ++i) wmma::mma_sync(acc[i][u], ma[i], tb, acc[i][u]);
+        }
+      }
+    }
+  }
+}
+
+// The big-skip MLP's input tile of a chunk: columns [0, c) bf16(x * sa +
+// sb) from the inverse-DFT accumulators (sa null: x + sb), columns [cmp,
+// cmp + s) bf16(skip) of the chunk's `rows` pixels (skip rows start at
+// element skip0), zeros elsewhere and in the skip rows past `rows`.  `my`
+// is the warp's 256-float scratch.  The caller syncs before reading xs.
+template <int ROW_TILES, int XCT>
+__device__ __forceinline__ void stage_decoder_input(
+    __nv_bfloat16* xs, int ldx, FragC (&acc)[ROW_TILES][XCT], const float* sa, const float* sb,
+    int c, int cmp, int s, int k1p, const void* skip, int skip_bf16, long long skip0, int rows,
+    float* my, int warp, int lane, int n_warps) {
+  const int n_xct = c / 16;
+#pragma unroll
+  for (int u = 0; u < XCT; ++u) {
+    const int ct = warp + u * n_warps;
+    if (ct >= n_xct) continue;
+#pragma unroll
+    for (int i = 0; i < ROW_TILES; ++i) {
+      wmma::store_matrix_sync(my, acc[i][u], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int row = i * 16 + e / 16;
+        const int col = ct * 16 + (e % 16);
+        const float x = sa ? my[e] * sa[col] : my[e];
+        xs[row * ldx + col] = __float2bfloat16_rn(x + sb[col]);
+      }
+      __syncwarp();
+    }
+  }
+  const int skip_end = cmp + s;
+  for (int idx = threadIdx.x; idx < 16 * ROW_TILES * (k1p - c); idx += blockDim.x) {
+    const int r = idx / (k1p - c);
+    const int k = c + (idx - r * (k1p - c));
+    if (k < cmp || k >= skip_end || r >= rows) xs[r * ldx + k] = __float2bfloat16_rn(0.f);
+  }
+  if (skip_bf16)
+    stage_tile<true>(xs, ldx, cmp, skip, skip0, rows, s, nullptr, nullptr);
+  else
+    stage_tile<false>(xs, ldx, cmp, skip, skip0, rows, s, nullptr, nullptr);
+}
+
 // Adds each sample's per-block column partials (n_samples, n_blocks, c_out)
 // in a fixed order: thread (tx, ty) sums blocks ty, ty + 8, ... of column
 // bx*32 + tx, then the 8 partial sums are added in ty order.  Launch with
@@ -192,6 +338,132 @@ __global__ void stats_reduce(const float* __restrict__ part_sum,
     }
     ssum[(long long)s * c_out + c] = ta;
     ssq[(long long)s * c_out + c] = tb;
+  }
+}
+
+// out[j] = sum over i of part[i * n_cols + j], i in order: the fixed-order
+// reduce of per-block or per-split partials.  Launch with n_cols threads.
+__global__ void sum_rows(const float* __restrict__ part, int n_rows, int n_cols,
+                         float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_cols) return;
+  float s = 0.f;
+  for (int i = 0; i < n_rows; ++i) s += part[(long long)i * n_cols + j];
+  out[j] = s;
+}
+
+// C (M x N, fp32, row-major) = A (M x K) @ B (K x N) on bf16 WMMA with fp32
+// accumulation.  A_T: A is stored as its (K x M) row-major transpose;
+// otherwise (M x K) row-major.  B_T: B is stored as its (N x K) row-major
+// transpose; otherwise (K x N) row-major.  lda and ldb are the stored rows'
+// lengths.  The stored rows' contiguous extents (K or M for A, N or K for B)
+// are multiples of 8 and every row starts 16-byte aligned: tiles are copied
+// as 16-byte vectors (cp.async), vectors past the end read as zeros.  Where K
+// is a contiguous extent (A row-major, or B_T), k_split is a multiple of 8.
+// blockIdx.z splits K into ranges of k_split; split z writes its partial
+// product to C + z * M * N.  A block computes a GEMM_BM x GEMM_BN tile with
+// 8 warps, each one 16-row tile x two 16-column tiles, K in double-buffered
+// slabs of GEMM_KC.
+constexpr int GEMM_BM = 64, GEMM_BN = 64, GEMM_KC = 32, GEMM_THREADS = 256;
+
+template <bool A_T, bool B_T>
+__device__ __forceinline__ void gemm_stage(const __nv_bfloat16* A, long long lda,
+                                           const __nv_bfloat16* B, long long ldb, int M, int N,
+                                           long long k0, long long k_end, int m0, int n0,
+                                           __nv_bfloat16* as, __nv_bfloat16* bs) {
+  // one 16-byte vector of each operand per thread: 64 x 32 values = 256 vectors
+  const int t = threadIdx.x;
+  if (!A_T) {  // as[m][k], ld GEMM_KC + 8
+    const int m = t / 4, k = (t % 4) * 8;
+    const bool ok = m0 + m < M && k0 + k < k_end;
+    cp_async16(as + m * (GEMM_KC + 8) + k, ok ? (const void*)(A + (m0 + m) * lda + k0 + k) : A,
+               ok ? 16 : 0);
+  } else {  // as[k][m], ld GEMM_BM + 8
+    const int k = t / 8, m = (t % 8) * 8;
+    const bool ok = k0 + k < k_end && m0 + m < M;
+    cp_async16(as + k * (GEMM_BM + 8) + m, ok ? (const void*)(A + (k0 + k) * lda + m0 + m) : A,
+               ok ? 16 : 0);
+  }
+  if (!B_T) {  // bs[k][n], ld GEMM_BN + 8
+    const int k = t / 8, n = (t % 8) * 8;
+    const bool ok = k0 + k < k_end && n0 + n < N;
+    cp_async16(bs + k * (GEMM_BN + 8) + n, ok ? (const void*)(B + (k0 + k) * ldb + n0 + n) : B,
+               ok ? 16 : 0);
+  } else {  // bs[n][k], ld GEMM_KC + 8
+    const int n = t / 4, k = (t % 4) * 8;
+    const bool ok = n0 + n < N && k0 + k < k_end;
+    cp_async16(bs + n * (GEMM_KC + 8) + k, ok ? (const void*)(B + (n0 + n) * ldb + k0 + k) : B,
+               ok ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+template <bool A_T, bool B_T>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_bf16(const __nv_bfloat16* __restrict__ A, long long lda,
+          const __nv_bfloat16* __restrict__ B, long long ldb, float* __restrict__ C, int M,
+          int N, long long K, long long k_split) {
+  constexpr int A_ELEMS = A_T ? GEMM_KC * (GEMM_BM + 8) : GEMM_BM * (GEMM_KC + 8);
+  constexpr int B_ELEMS = B_T ? GEMM_BN * (GEMM_KC + 8) : GEMM_KC * (GEMM_BN + 8);
+  __shared__ __align__(128) __nv_bfloat16 as[2][A_ELEMS];
+  __shared__ __align__(128) __nv_bfloat16 bs[2][B_ELEMS];
+  __shared__ __align__(32) float scratch[8][256];
+  using FA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                            typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type>;
+  using FB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                            typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.y * GEMM_BM, n0 = blockIdx.x * GEMM_BN;
+  const long long k_begin = (long long)blockIdx.z * k_split;
+  const long long k_end = k_begin + k_split < K ? k_begin + k_split : K;
+  const int rt = warp % 4, ct0 = (warp / 4) * 2;
+  FragC acc[2];
+  wmma::fill_fragment(acc[0], 0.f);
+  wmma::fill_fragment(acc[1], 0.f);
+  if (k_begin < k_end) {
+    const int n_slabs = (int)((k_end - k_begin + GEMM_KC - 1) / GEMM_KC);
+    gemm_stage<A_T, B_T>(A, lda, B, ldb, M, N, k_begin, k_end, m0, n0, as[0], bs[0]);
+    for (int s = 0; s < n_slabs; ++s) {
+      if (s + 1 < n_slabs) {
+        gemm_stage<A_T, B_T>(A, lda, B, ldb, M, N, k_begin + (long long)(s + 1) * GEMM_KC,
+                             k_end, m0, n0, as[(s + 1) % 2], bs[(s + 1) % 2]);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const __nv_bfloat16* a_s = as[s % 2];
+      const __nv_bfloat16* b_s = bs[s % 2];
+#pragma unroll
+      for (int kk = 0; kk < GEMM_KC; kk += 16) {
+        FA fa;
+        if (A_T)
+          wmma::load_matrix_sync(fa, a_s + kk * (GEMM_BM + 8) + rt * 16, GEMM_BM + 8);
+        else
+          wmma::load_matrix_sync(fa, a_s + rt * 16 * (GEMM_KC + 8) + kk, GEMM_KC + 8);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          FB fb;
+          if (B_T)
+            wmma::load_matrix_sync(fb, b_s + (ct0 + j) * 16 * (GEMM_KC + 8) + kk, GEMM_KC + 8);
+          else
+            wmma::load_matrix_sync(fb, b_s + kk * (GEMM_BN + 8) + (ct0 + j) * 16, GEMM_BN + 8);
+          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        }
+      }
+      __syncthreads();  // this buffer is refilled two slabs on
+    }
+  }
+  float* out = C + (long long)blockIdx.z * M * N;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    wmma::store_matrix_sync(scratch[warp], acc[j], 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += 32) {
+      const int m = m0 + rt * 16 + e / 16, n = n0 + (ct0 + j) * 16 + e % 16;
+      if (m < M && n < N) out[(long long)m * N + n] = scratch[warp][e];
+    }
+    __syncwarp();
   }
 }
 

@@ -26,14 +26,18 @@ class RolloutConfig:
     denormalize: bool = True
 
 
-def serving_params(model: torch.nn.Module, dtype=torch.bfloat16) -> torch.nn.Module:
+def serving_params(model: torch.nn.Module, dtype=torch.bfloat16,
+                   frozen_only: bool = False) -> torch.nn.Module:
     """Store the model's fp32 parameters in `dtype` (in place) for
     bf16-compute serving: every consumer already rounds its operands to bf16
     on the serving tier, and the stored weights (the 1.06 GB fp32 pos_embed
-    above all) halve in size.  Keep fp32 parameters for the exact tier."""
+    above all) halve in size.  Keep fp32 parameters for the exact tier.
+    `frozen_only` converts only the parameters that need no gradient (the
+    fine-tune trainer's frozen backbone, trainer.py:212-215 in the JAX
+    package): trainable ones stay fp32."""
     with torch.no_grad():
         for p in model.parameters():
-            if p.dtype == torch.float32:
+            if p.dtype == torch.float32 and not (frozen_only and p.requires_grad):
                 p.data = p.data.to(dtype)
     return model
 

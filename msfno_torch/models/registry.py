@@ -119,8 +119,8 @@ class ModelWrapper:
             return self.module
         if os.path.isdir(checkpoint_file):
             raise NotImplementedError(
-                f"{checkpoint_file} is a directory: Orbax checkpoints come with "
-                "the fine-tune slice (training/checkpoint.py)"
+                f"{checkpoint_file} is a directory: Orbax checkpoints come in a "
+                "later slice"
             )
         if checkpoint_file.endswith(TORCH_CHECKPOINT_SUFFIXES):
             checkpoint = torch.load(checkpoint_file, map_location="cpu", weights_only=True)
@@ -160,8 +160,8 @@ class ModelWrapper:
 
     def trainer(self, *args, **kwargs):
         raise NotImplementedError(
-            "training comes with the fine-tune slice (training/trainer.py, "
-            "losses.py, partition.py, optim.py, checkpoint.py)"
+            "the wrapper's trainer() comes in a later slice; build "
+            "msfno_torch.training.trainer.Trainer(model_cfg, train_cfg) directly"
         )
 
 

@@ -182,11 +182,13 @@ class FourierNeuralOperatorNet(nn.Module):
 
     def _pos_embed(self, x):
         """pos_embed channels-last (H, W, C) in the compute dtype; cached for
-        the kernel path (1.06 GB in fp32 at full resolution)."""
+        the kernel path (1.06 GB in fp32 at full resolution) unless it is
+        being trained."""
         if self.pos_embed is None:
             return None
         build = lambda: self.pos_embed[0].permute(1, 2, 0).to(self.dtype).contiguous()
-        if x.is_cuda and self.cfg.pallas_grid_mlp:
+        trained = torch.is_grad_enabled() and self.pos_embed.requires_grad
+        if x.is_cuda and self.cfg.pallas_grid_mlp and not trained:
             return self._cache.get("pe", (self.pos_embed,), build)
         return self.pos_embed[0].permute(1, 2, 0).to(self.dtype)
 

@@ -10,6 +10,9 @@ package imports on a machine without nvcc or a card.
 Each wrapper module (one per name in `KERNELS`) holds the
 kernel's plain PyTorch version, used for tensors on the CPU, and a launch
 counter: a CUDA tensor always goes to the kernel, or the wrapper raises.
+The forward wrappers are `torch.autograd.Function`s whose backward is what
+the JAX package's `custom_vjp` does: a backward kernel (`*_bwd`) where the
+JAX package has one, else the VJP of the fp32 reference.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 KERNELS = ("spectral_mlp", "grid_mlp", "gcn_layer", "grid_encoder_spectral",
-           "spectral_decoder")
+           "spectral_decoder", "gcn_layer_bwd", "spectral_decoder_bwd", "spectral_mlp_bwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -115,16 +118,31 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_no_grad(name: str, *tensors) -> None:
-    """The kernels are forward-only; their backward kernels come with the
-    fine-tune slice."""
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors
-    ):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet (fine-tune slice); "
-            "run under torch.no_grad() or torch.inference_mode()"
-        )
+def reference_vjp(fn, inputs, needs, grads):
+    """Gradients of `fn(*inputs)` (a tensor or a tuple of tensors) at the
+    cotangents `grads` (None: no cotangent) for the inputs flagged in
+    `needs`, by autograd through `fn`: the VJP of a plain fp32 reference.
+    Returns one entry per input, None where not needed."""
+    with torch.enable_grad():
+        leaves = [
+            t.detach().requires_grad_(bool(n)) if t is not None else None
+            for t, n in zip(inputs, needs)
+        ]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, grads) if g is not None]
+        wanted = [t for t, n in zip(leaves, needs) if n and t is not None]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted, [g for _, g in pairs], allow_unused=True
+        ))
+    out = []
+    for t, n in zip(inputs, needs):
+        if n and t is not None:
+            d = next(got)
+            out.append(torch.zeros_like(t) if d is None else d.to(t.dtype))
+        else:
+            out.append(None)
+    return out
 
 
 def _wrappers() -> dict:

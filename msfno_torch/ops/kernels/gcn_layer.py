@@ -8,7 +8,9 @@ Replaces msfno_tpu/ops/pallas/gcn_layer.py:gcn_layer:
 with box3 the 3x3 neighbour sum (periodic in longitude, zero past the poles)
 and d = D^{-1/2}.  Bound on the H100 at the generator's shapes: a 512 -> 512
 layer is ~3.4e10 FLOP against ~200 MB of bf16 traffic (see the kernel
-source).
+source).  Its gradient is the `gcn_layer_bwd` kernel (JAX `_bwd`,
+gcn_layer.py:396-421): dx, dW and db from the kernel, g itself for the
+residual, none for dinv and mask (functions of the SST's NaN pattern).
 """
 
 from __future__ import annotations
@@ -17,12 +19,7 @@ import ctypes
 
 import torch
 
-from msfno_torch.ops.kernels import (
-    check,
-    library,
-    require_no_grad,
-    stream_ptr,
-)
+from msfno_torch.ops.kernels import check, library, stream_ptr
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -72,8 +69,40 @@ def gcn_layer(x, w, b, dinv, mask, residual=None, slope: float = 0.01,
     x: (B, H, W, C_in); w: (C_in, F); b: (F,); dinv/mask: (B, H, W, 1);
     residual: optional (B, H, W, F) added after the activation.  Returns
     (B, H, W, F) in `out_dtype` (default x.dtype).  A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises.  `prepared`
-    is an optional cached bf16 copy of w (c_in > 1)."""
+    plain version, forward and backward; a CUDA tensor launches the kernels
+    or raises.  `prepared` is an optional cached bf16 copy of w (c_in > 1)."""
+    return _GcnLayer.apply(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype,
+                           prepared)
+
+
+class _GcnLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype, prepared):
+        y = _forward(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype, prepared)
+        ctx.save_for_backward(x, w, dinv, mask, residual, y)
+        ctx.opts = (slope, mxu_dtype, prepared)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        from msfno_torch.ops.kernels.gcn_layer_bwd import gcn_layer_bwd
+
+        x, w, dinv, mask, residual, y = ctx.saved_tensors
+        slope, mxu_dtype, prepared = ctx.opts
+        need = ctx.needs_input_grad
+        dx, dw, db = gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope, mxu_dtype,
+                                   need_dx=need[0], prepared=prepared)
+        return (
+            dx.to(x.dtype) if need[0] else None,
+            dw.to(w.dtype) if need[1] else None,
+            db if need[2] else None,
+            None, None,
+            g.to(residual.dtype) if need[5] else None,
+            None, None, None, None,
+        )
+
+
+def _forward(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype, prepared):
     if x.device.type == "cpu":
         return gcn_layer_reference(x, w, b, dinv, mask, residual, slope,
                                    mxu_dtype, out_dtype)
@@ -92,7 +121,6 @@ def gcn_layer(x, w, b, dinv, mask, residual=None, slope: float = 0.01,
             f"({mxu_dtype!r}) comes in a later slice; set pallas_gcn=False "
             "for an fp32 generator"
         )
-    require_no_grad("gcn_layer", x, w, residual)
     if c_in == 1:
         wk = w.float().reshape(-1).contiguous()
     else:

@@ -13,7 +13,9 @@ with cs (W, 2M) the merged [C | -S] analysis matrix (`RealSHT.merged_analysis`)
 and f the stacked [re | im] longitude modes that `RealSHT.legendre_stacked`
 completes into the forward SHT.  The grid-space encoder output is never
 stored.  Bound on the H100 at the serving shapes: operations (see the kernel
-source).
+source).  The JAX package has no backward kernel here: its gradient is the
+VJP of `_ref_encoder_spectral` (grid_mlp.py:521-560: fp32 MLP, y and cs
+rounded before the DFT), and so it is here.
 """
 
 from __future__ import annotations
@@ -22,12 +24,7 @@ import ctypes
 
 import torch
 
-from msfno_torch.ops.kernels import (
-    check,
-    library,
-    require_no_grad,
-    stream_ptr,
-)
+from msfno_torch.ops.kernels import check, library, reference_vjp, stream_ptr
 from msfno_torch.ops.kernels.grid_mlp import _act, _pad16, grid_mlp_reference, prepare_weights
 from msfno_torch.runtime import mxu_round, torch_dtype
 
@@ -84,6 +81,41 @@ def grid_encoder_spectral(x, w1, b1, w2, pe, cs, mxu_dtype="bfloat16", out_dtype
     CPU tensor takes the plain version; a CUDA tensor launches the kernel or
     raises.  `prepared` is an optional `prepare` result cached by the
     caller."""
+    return _GridEncoderSpectral.apply(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared)
+
+
+def _ref_encoder_spectral(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype):
+    """Port of the JAX `_ref_encoder_spectral`: the encoder MLP in fp32, y and
+    cs rounded to `mxu_dtype` before the DFT (the rounding passes the
+    gradient straight through, as `astype` does in JAX), statistics of the
+    unrounded y."""
+    bsz, h, w, _ = x.shape
+    y = grid_mlp_reference(x, w1, b1, w2, pe=pe, mxu_dtype="float32", out_dtype="float32")
+    ym = y + (mxu_round(y, mxu_dtype) - y).detach()
+    f = torch.matmul(mxu_round(cs, mxu_dtype).t(), ym.reshape(bsz * h, w, -1))
+    od = torch_dtype(out_dtype or "bfloat16")
+    f = f + (f.to(od).float() - f).detach()
+    ys = y.reshape(bsz, h * w, -1)
+    return f.reshape(bsz, h, -1, y.shape[-1]), ys.sum(1), (ys * ys).sum(1)
+
+
+class _GridEncoderSpectral(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared):
+        out = _forward(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared)
+        ctx.save_for_backward(x, w1, b1, w2, pe, cs)
+        ctx.opts = (mxu_dtype, out_dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mxu_dtype, out_dtype = ctx.opts
+        d = reference_vjp(lambda *t: _ref_encoder_spectral(*t, mxu_dtype, out_dtype),
+                          ctx.saved_tensors, ctx.needs_input_grad[:6], grads)
+        return (*d, None, None, None)
+
+
+def _forward(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared):
     if x.device.type == "cpu":
         return grid_encoder_spectral_reference(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype)
     if x.device.type != "cuda":
@@ -93,7 +125,6 @@ def grid_encoder_spectral(x, w1, b1, w2, pe, cs, mxu_dtype="bfloat16", out_dtype
             "grid_encoder_spectral: the CUDA kernel takes bf16 operands; an "
             f"fp32 kernel ({mxu_dtype!r}) comes in a later slice"
         )
-    require_no_grad("grid_encoder_spectral", x, w1, w2, pe)
     bsz, h, w, c_in = x.shape
     hidden, c = w1.shape[1], w2.shape[1]
     two_m = cs.shape[1]

@@ -7,7 +7,9 @@ Replaces msfno_tpu/ops/pallas/grid_mlp.py:grid_mlp.  Per pixel:
 
 with optional per-sample sum(y) and sum(y^2) of the fp32 y before it is
 rounded to the output dtype.  Bound on the H100 at the full-resolution call
-sites: memory traffic (see the kernel source).
+sites: memory traffic (see the kernel source).  The JAX package has no
+backward kernel here: its gradient is the VJP of the fp32 pre-rounding
+reference (`_ref_mlp_f32`, grid_mlp.py:306-395), and so it is here.
 """
 
 from __future__ import annotations
@@ -17,12 +19,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from msfno_torch.ops.kernels import (
-    check,
-    library,
-    require_no_grad,
-    stream_ptr,
-)
+from msfno_torch.ops.kernels import check, library, reference_vjp, stream_ptr
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -119,6 +116,39 @@ def grid_mlp(x, w1, b1, w2, b2=None, skip=None, pe=None, mxu_dtype="bfloat16",
     `stats_rows` (rows per sample) is set.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises.  `prepared` is an
     optional `prepare_weights` result cached by the caller."""
+    aff_a, aff_b = affine if affine is not None else (None, None)
+    return _GridMlp.apply(x, w1, b1, w2, b2, skip, pe, aff_a, aff_b, residual, mxu_dtype,
+                          out_dtype, stats_rows, prepared)
+
+
+def _ref_f32(x, w1, b1, w2, b2, skip, pe, aff_a, aff_b, residual, stats_rows):
+    """The fp32 pre-rounding reference whose VJP is the gradient."""
+    affine = (aff_a, aff_b) if aff_a is not None else None
+    return grid_mlp_reference(x, w1, b1, w2, b2, skip, pe, "float32", "float32",
+                              stats_rows, affine, residual)
+
+
+class _GridMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, skip, pe, aff_a, aff_b, residual, mxu_dtype,
+                out_dtype, stats_rows, prepared):
+        affine = (aff_a, aff_b) if aff_a is not None else None
+        out = _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affine,
+                       residual, prepared)
+        ctx.save_for_backward(x, w1, b1, w2, b2, skip, pe, aff_a, aff_b, residual)
+        ctx.stats_rows = stats_rows
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rows = ctx.stats_rows
+        d = reference_vjp(lambda *t: _ref_f32(*t, rows), ctx.saved_tensors,
+                          ctx.needs_input_grad[:10], grads)
+        return (*d, None, None, None, None)
+
+
+def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affine,
+             residual, prepared):
     if x.device.type == "cpu":
         return grid_mlp_reference(x, w1, b1, w2, b2, skip, pe, mxu_dtype,
                                   out_dtype, stats_rows, affine, residual)
@@ -131,7 +161,6 @@ def grid_mlp(x, w1, b1, w2, b2=None, skip=None, pe=None, mxu_dtype="bfloat16",
             f"({mxu_dtype!r}) comes in a later slice; set pallas_grid_mlp="
             "False for the exact tier"
         )
-    require_no_grad("grid_mlp", x, w1, w2, skip, residual)
     lead, c_main = x.shape[:-1], x.shape[-1]
     xf, x_bf16 = _act(_flat(x))
     n = xf.shape[0]

@@ -14,7 +14,9 @@ with hm the Legendre-synthesis intermediate (B, H, 2M, C)
 matrix (`InverseRealSHT.merged_matrix_t`) and (a, b) the combined norm + FiLM
 affine per (sample, channel): a per-channel affine commutes with the DFT.
 The grid field is never stored.  Bound on the H100 at the serving shapes:
-operations (see the kernel source).
+operations (see the kernel source).  Its gradient is the
+`spectral_decoder_bwd` kernel (JAX `_bwd`, spectral_decoder.py:412-438):
+dhm, dskip, da, db and the weight gradients; none for Mt, a constant.
 """
 
 from __future__ import annotations
@@ -23,12 +25,7 @@ import ctypes
 
 import torch
 
-from msfno_torch.ops.kernels import (
-    check,
-    library,
-    require_no_grad,
-    stream_ptr,
-)
+from msfno_torch.ops.kernels import check, library, stream_ptr
 from msfno_torch.ops.kernels.grid_encoder_spectral import DFT_ROW_MULTIPLE, pad_dft_matrix
 from msfno_torch.ops.kernels.grid_mlp import _act, grid_mlp_reference, prepare_weights
 from msfno_torch.runtime import mxu_round, torch_dtype
@@ -83,10 +80,38 @@ def spectral_decoder(hm, skip, mt, a, b, w1, b1, w2, b2=None, mxu_dtype="bfloat1
 
     hm: (B, H, 2M, C); skip: (B, H, W, S); mt: (W, 2M); a, b: (B, C); w1:
     (C + S, hidden); w2: (hidden, C_out).  Returns (B, H, W, C_out) in
-    `out_dtype` (default fp32).  A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises (also for inputs that need a
-    gradient: the backward kernel comes with the fine-tune slice).
-    `prepared` is an optional `prepare` result cached by the caller."""
+    `out_dtype` (default fp32).  A CPU tensor takes the plain version, forward
+    and backward; a CUDA tensor launches the kernels or raises.  `prepared`
+    is an optional `prepare` result cached by the caller."""
+    return _SpectralDecoder.apply(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype,
+                                  prepared)
+
+
+class _SpectralDecoder(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype, prepared):
+        out = _forward(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype, prepared)
+        ctx.save_for_backward(hm, skip, mt, a, b, w1, b1, w2, b2)
+        ctx.opts = (mxu_dtype, prepared)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from msfno_torch.ops.kernels.spectral_decoder_bwd import spectral_decoder_bwd
+
+        hm, skip, mt, a, b, w1, b1, w2, b2 = ctx.saved_tensors
+        mxu_dtype, prepared = ctx.opts
+        need = ctx.needs_input_grad
+        grads = spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype,
+                                     need_weights=any(need[5:9]), prepared=prepared)
+        dhm, dskip, da, db, dw1, db1, dw2, db2 = grads
+        ins = (hm, skip, None, a, b, w1, b1, w2, b2)
+        outs = (dhm, dskip, None, da, db, dw1, db1, dw2, db2)
+        return (*(d.to(t.dtype) if n and d is not None else None
+                  for d, t, n in zip(outs, ins, need)), None, None, None)
+
+
+def _forward(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype, prepared):
     if hm.device.type == "cpu":
         return spectral_decoder_reference(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype,
                                           out_dtype)
@@ -97,7 +122,6 @@ def spectral_decoder(hm, skip, mt, a, b, w1, b1, w2, b2=None, mxu_dtype="bfloat1
             "spectral_decoder: the CUDA kernel takes bf16 operands; an fp32 "
             f"kernel ({mxu_dtype!r}) comes in a later slice"
         )
-    require_no_grad("spectral_decoder", hm, skip, a, b, w1, b1, w2, b2)
     bsz, h, two_m, c = hm.shape
     w, s = skip.shape[-2], skip.shape[-1]
     hidden, c_out = w1.shape[1], w2.shape[1]

@@ -8,7 +8,10 @@ the `wout` projection (reference SpectralAttentionS2.forward_mlp,
 MSFNO/Models/sfno/layers.py:615-631).
 
 Bound on the H100 at the serving shapes: operations (see the kernel source);
-one launch is ~9.1e10 FLOP in the 4-product form.
+one launch is ~9.1e10 FLOP in the 4-product form.  Its gradient is what the
+JAX `_bwd` (spectral_mlp.py:485-507) does: on the bf16 path dx from the
+`spectral_mlp_bwd` kernel; the weights' gradients, only when asked for (and
+dx off the bf16 path), from the VJP of the fp32 reference `_ref_flat`.
 """
 
 from __future__ import annotations
@@ -17,12 +20,7 @@ import ctypes
 
 import torch
 
-from msfno_torch.ops.kernels import (
-    check,
-    library,
-    require_no_grad,
-    stream_ptr,
-)
+from msfno_torch.ops.kernels import check, library, reference_vjp, stream_ptr
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -69,9 +67,44 @@ def spectral_mlp(z: torch.Tensor, weights, negative_slope: float = 0.0,
                  mxu_dtype: str = "float32", packed=None) -> torch.Tensor:
     """Spectral MLP over z (2, ..., C_in) fp32 -> (2, ..., C_out) fp32.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16 operands, fp32 accumulation) or raises.  `packed` is an optional
-    `pack_weights(weights)` result cached by the caller."""
+    A CPU tensor takes the plain version, forward and backward; a CUDA tensor
+    launches the kernels (bf16 operands, fp32 accumulation) or raises.
+    `packed` is an optional `pack_weights(weights)` result cached by the
+    caller."""
+    return _SpectralMlp.apply(z, negative_slope, mxu_dtype, packed, *weights)
+
+
+class _SpectralMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, negative_slope, mxu_dtype, packed, *weights):
+        out = _forward(z, weights, negative_slope, mxu_dtype, packed)
+        ctx.save_for_backward(z, *weights)
+        ctx.opts = (negative_slope, mxu_dtype, packed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from msfno_torch.ops.kernels.spectral_mlp_bwd import spectral_mlp_bwd
+
+        z, *ws = ctx.saved_tensors
+        slope, mxu_dtype, packed = ctx.opts
+        need = ctx.needs_input_grad
+        # the fp32 reference's VJP (no rounding) for the weights, and for x
+        # too off the bf16 path, where the JAX package has no backward kernel
+        kernel_dz = mxu_dtype == "bfloat16"
+        vjp_need = (need[0] and not kernel_dz, *need[4:])
+        d = [None] * (1 + len(ws))
+        if any(vjp_need):
+            d = reference_vjp(
+                lambda x, *w: spectral_mlp_reference(x, list(w), slope, "float32"),
+                (z, *ws), vjp_need, (g,),
+            )
+        if kernel_dz and need[0]:
+            d[0] = spectral_mlp_bwd(z, g, ws, slope, mxu_dtype, packed)
+        return (d[0], None, None, None, *d[1:])
+
+
+def _forward(z, weights, negative_slope, mxu_dtype, packed):
     if z.device.type == "cpu":
         return spectral_mlp_reference(z, weights, negative_slope, mxu_dtype)
     if z.device.type != "cuda":
@@ -82,7 +115,6 @@ def spectral_mlp(z: torch.Tensor, weights, negative_slope: float = 0.0,
             f"kernel ({mxu_dtype!r}) comes in a later slice; set "
             "use_pallas=False for the exact tier"
         )
-    require_no_grad("spectral_mlp", z, *weights)
     if packed is None:
         packed = pack_weights(weights)
     wbuf, dims, offs = packed

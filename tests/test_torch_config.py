@@ -24,6 +24,9 @@ SMALL = dict(img_size=(16, 32), scale_factor=2, in_chans=3, out_chans=3,
     lambda m: m.tiny_sfno(film=True),
     lambda m: m.SFNOConfig(img_size=(33, 64), compression="tt",
                            film=m.FilmConfig(patch_size=(2, 3, 4), compute_dtype="bfloat16")),
+    lambda m: m.TrainConfig(),
+    lambda m: m.TrainConfig(multi_step_training=1, time_limit_s=60.0, retrain_film=True,
+                            scheduler="cosine", bf16_frozen_params=True),
 ])
 def test_one_json_drives_both_packages(make):
     pytest.importorskip("jax")
@@ -50,6 +53,20 @@ def test_serving_config_is_the_jax_fast_tier():
         want, fuse_encoder_dft=False, fuse_decoder_tail=False)
 
 
+def test_finetune_config_is_the_jax_bench_configuration():
+    """finetune_config()/finetune_train_config() are bench.py:287-301's."""
+    pytest.importorskip("jax")
+    import __graft_entry__
+    from msfno_tpu.utils import config as jcfg
+
+    want = dataclasses.replace(__graft_entry__._flagship_cfg(fast=True),
+                               checkpointing_block=False, output_dtype="float32")
+    assert jcfg.from_json(tcfg.to_json(tcfg.finetune_config())) == want
+    want_t = jcfg.TrainConfig(batch_size=1, film_scale_start=1.0, bf16_frozen_params=True)
+    assert jcfg.from_json(tcfg.to_json(tcfg.finetune_train_config())) == want_t
+    assert tcfg.finetune_train_config(multi_step_training=1).multi_step_training == 1
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, msfno_torch, msfno_torch.config, msfno_torch.convert, "
@@ -57,7 +74,10 @@ def test_port_imports_no_jax():
         "msfno_torch.data.normalization, msfno_torch.data.synthetic, "
         "msfno_torch.ops.kernels.spectral_mlp, msfno_torch.ops.kernels.grid_mlp, "
         "msfno_torch.ops.kernels.gcn_layer, msfno_torch.ops.kernels.grid_encoder_spectral, "
-        "msfno_torch.ops.kernels.spectral_decoder, msfno_torch.models.registry\n"
+        "msfno_torch.ops.kernels.spectral_decoder, msfno_torch.models.registry, "
+        "msfno_torch.ops.kernels.gcn_layer_bwd, msfno_torch.ops.kernels.spectral_decoder_bwd, "
+        "msfno_torch.ops.kernels.spectral_mlp_bwd, msfno_torch.training.trainer, "
+        "msfno_torch.training.checkpoint, msfno_torch.utils.observability\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msfno_tpu')]\n"
         "assert not bad, bad\n"
     )

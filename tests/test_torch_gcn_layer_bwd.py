@@ -1,0 +1,130 @@
+"""gcn_layer's backward in the PyTorch port: the plain version of the
+`gcn_layer_bwd` kernel against the JAX package's Pallas backward kernel
+(interpret mode on the CPU), the autograd Function against jax.grad of the
+JAX `gcn_layer`, and the CUDA kernel against the plain version on a card."""
+
+import numpy as np
+import pytest
+import torch
+
+from msfno_torch.ops.kernels import gcn_layer as tk
+from msfno_torch.ops.kernels import gcn_layer_bwd as tb
+
+torch.set_num_threads(2)
+
+
+def rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def report(name, value):
+    """The measured error, for the parity table (pytest -s shows it)."""
+    print(f"parity {name} rel_l2={value:.3e}")
+    return value
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _case(b, h, w, c_in, f, residual, seed=0):
+    """Forward operands, the forward output y (plain fp32) and a cotangent."""
+    rng = np.random.default_rng(seed)
+    mask = (rng.standard_normal((b, h, w, 1)) > -0.3).astype(np.float32)
+    ops = dict(
+        x=rng.standard_normal((b, h, w, c_in)).astype(np.float32),
+        w=(0.3 * rng.standard_normal((c_in, f))).astype(np.float32),
+        b=(0.1 * rng.standard_normal(f)).astype(np.float32),
+        dinv=(1.0 / np.sqrt(1.0 + 8.0 * mask)).astype(np.float32),
+        mask=mask,
+        residual=(rng.standard_normal((b, h, w, f)).astype(np.float32) if residual
+                  else None),
+    )
+    t = {k: torch.from_numpy(v) if v is not None else None for k, v in ops.items()}
+    y = tk.gcn_layer_reference(t["x"], t["w"], t["b"], t["dinv"], t["mask"],
+                               t["residual"], mxu_dtype="float32")
+    ops["y"] = y.numpy()
+    ops["g"] = rng.standard_normal((b, h, w, f)).astype(np.float32)
+    return ops
+
+
+SHAPES = [((1, 7, 16, 1, 16), False),   # conv1: c_in = 1
+          ((2, 7, 16, 8, 16), True)]    # residual layer; H = 7: pole rows, uneven tiles
+
+
+@pytest.mark.parametrize("mxu,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("shape,residual", SHAPES)
+def test_plain_bwd_matches_jax_kernel(shape, residual, mxu, tol):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.gcn_layer import _gcn_layer_bwd_call, _pick_tile_h
+
+    ops = _case(*shape, residual)
+    j = {k: jnp.asarray(v) if v is not None else None for k, v in ops.items()}
+    dxj, dwj, dbj = _gcn_layer_bwd_call(
+        j["g"], j["y"], j["residual"], j["x"], j["dinv"], j["mask"], j["w"].T,
+        has_residual=residual, slope=0.01, mxu_dtype=mxu, interpret=True,
+        tile_h=_pick_tile_h(shape[1]))
+    t = {k: torch.from_numpy(v) if v is not None else None for k, v in ops.items()}
+    dxt, dwt, dbt = tb.gcn_layer_bwd(t["g"], t["y"], t["residual"], t["x"], t["w"],
+                                     t["dinv"], t["mask"], 0.01, mxu)
+    for name, a, b in (("dx", dxt, dxj), ("dw", dwt, dwj), ("db", dbt, np.ravel(dbj))):
+        assert a.shape == np.shape(b)
+        assert report(f"gcn_layer_bwd[c_in={shape[3]},{mxu}] {name}", rel_l2(a, b)) <= tol
+
+
+@pytest.mark.parametrize("shape,residual", SHAPES)
+def test_function_matches_jax_grad(shape, residual):
+    """The autograd Function (plain backward on the CPU) against jax.grad of
+    the JAX public gcn_layer: x, w, b and the residual."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.gcn_layer import gcn_layer as jax_gcn_layer
+
+    ops = _case(*shape, residual)
+    names = ["x", "w", "b"] + (["residual"] if residual else [])
+
+    def loss_j(*vals):
+        kw = dict(zip(names, vals))
+        y = jax_gcn_layer(kw["x"], kw["w"], kw["b"], jnp.asarray(ops["dinv"]),
+                          jnp.asarray(ops["mask"]), residual=kw.get("residual"),
+                          mxu_dtype="float32")
+        return jnp.sum(y * jnp.asarray(ops["g"]))
+
+    gj = jax.grad(loss_j, argnums=tuple(range(len(names))))(
+        *[jnp.asarray(ops[k]) for k in names])
+    leaves = {k: torch.from_numpy(ops[k]).requires_grad_(True) for k in names}
+    y = tk.gcn_layer(leaves["x"], leaves["w"], leaves["b"], torch.from_numpy(ops["dinv"]),
+                     torch.from_numpy(ops["mask"]), residual=leaves.get("residual"),
+                     mxu_dtype="float32")
+    (y * torch.from_numpy(ops["g"])).sum().backward()
+    for k, g in zip(names, gj):
+        assert report(f"gcn_layer grad[c_in={shape[3]}] {k}",
+                      rel_l2(leaves[k].grad, g)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,residual", [((2, 7, 16, 8, 16), True),
+                                            ((1, 9, 40, 1, 64), False),
+                                            ((1, 6, 360, 512, 512), True)])
+def test_kernel_matches_plain(cuda, shape, residual):
+    ops = _case(*shape, residual, seed=4)
+    t = {k: torch.from_numpy(v).to(cuda) if v is not None else None for k, v in ops.items()}
+    bf = torch.bfloat16
+    args = (t["g"].to(bf), t["y"].to(bf), t["residual"].to(bf) if residual else None,
+            t["x"].to(bf), t["w"], t["dinv"].to(bf), t["mask"].to(bf))
+    before = tb.LAUNCHES
+    with torch.inference_mode():
+        k = tb.gcn_layer_bwd(*args)
+        torch.cuda.synchronize()
+        p = tb.gcn_layer_bwd_reference(*args)
+    assert tb.LAUNCHES == before + 1
+    for a, b in zip(k, p):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        # one-ulp bf16 flips of dsup, fp32 sums in another order
+        assert rel_l2(a.cpu(), b.cpu()) <= 1e-2

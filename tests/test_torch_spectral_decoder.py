@@ -119,8 +119,21 @@ def test_kernel_matches_plain(cuda, shape):
 
 @pytest.mark.cuda
 def test_cuda_input_with_grad_raises(cuda):
-    ops = _case()
+    """Inputs that need a gradient no longer raise on the card: the forward
+    kernel records the backward kernel, whose gradients match the plain
+    backward's."""
+    from msfno_torch.ops.kernels import spectral_decoder_bwd as tb
+
+    ops = _case(c=16, hidden=16)
     args = [None if ops[k] is None else torch.from_numpy(ops[k]).to(cuda) for k in NAMES]
     args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="fine-tune slice"):
-        tk.spectral_decoder(*args)
+    args[3].requires_grad_(True)
+    y = tk.spectral_decoder(*args)
+    g = torch.randn(y.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    before = tb.LAUNCHES
+    dhm, da = torch.autograd.grad(y, (args[0], args[3]), g)
+    assert tb.LAUNCHES == before + 1
+    want = tb.spectral_decoder_bwd_reference(g, *[a.detach() if a is not None else None
+                                                  for a in args])
+    assert rel_l2(dhm.cpu(), want[0].cpu()) <= 1e-2
+    assert rel_l2(da.cpu(), want[2].cpu()) <= 1e-2

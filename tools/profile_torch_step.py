@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""Where the time of one serving step of the PyTorch port goes, on a CUDA card.
+"""Where the time of one serving step, or of one fine-tune train step, of
+the PyTorch port goes, on a CUDA card.
 
     python3 tools/profile_torch_step.py [--steps N] [--trace FILE]
+    python3 tools/profile_torch_step.py --train [--steps N] [--trace FILE]
 
-Builds the full-width filmed SFNO of `msfno_torch.config.serving_config()`
-(the fused head and tail) and the same net with both unfused, with the same
-seeded random weights.  For each path it runs two warm-up steps, then
-profiles N chained steps with torch.profiler (CPU + CUDA activity).  Prints,
-per path, one JSON line per kernel or op sorted by device time (ms per
-step), the five hand-written kernels' ms and calls per step, and the wall
-and device-busy time per step with the device's idle share; then both
-paths' median step times from CUDA events, timed in turns (fused, unfused,
-unfused, fused) in the same process, and the card's name and power limit.
-With --trace, writes the fused path's Chrome trace to FILE.
+Serving: builds the full-width filmed SFNO of
+`msfno_torch.config.serving_config()` (the fused head and tail) and the same
+net with both unfused, with the same seeded random weights.  For each path it
+runs two warm-up steps, then profiles N chained steps with torch.profiler
+(CPU + CUDA activity).  Prints, per path, one JSON line per kernel or op
+sorted by device time (ms per step), the hand-written kernels' ms and calls
+per step, and the wall and device-busy time per step with the device's idle
+share; then both paths' median step times from CUDA events, timed in turns
+(fused, unfused, unfused, fused) in the same process, and the card's name
+and power limit.
+
+--train: the same for the FiLM fine-tune train step (`Trainer._train_step`
+of `finetune_config()` / `finetune_train_config()`: film-only, bf16 frozen
+backbone, Adam) with multi_step_training 0 and 1, each on one fixed
+synthetic batch: two warm-up steps, N profiled steps, then the median train
+step times from CUDA events in turns (0, 1, 1, 0).
+
+With --trace, writes the first path's Chrome trace to FILE.
 """
 
 from __future__ import annotations
@@ -28,26 +38,13 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def profile_path(net, sst_seq, steps: int, path: str):
-    """torch.profiler over `steps` chained steps; prints the breakdown and
-    returns the profile."""
+def breakdown(prof, steps: int, wall: float, path: str) -> None:
+    """Print the device-side rows of a profile, the kernels' share and the
+    idle share, per step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from msfno_torch.ops.kernels import KERNELS
 
-    x0 = torch.zeros((1, *net.cfg.img_size, net.cfg.in_chans), device=sst_seq.device)
-    with torch.inference_mode():
-        state = x0
-        for i in range(2):
-            state = net(state, sst_seq[i % steps])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(steps):
-                state = net(state, sst_seq[i])
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
     rows = []
     for ev in prof.key_averages():
         # device-side events only (kernels, memcpy, memset): op-level rows
@@ -61,19 +58,106 @@ def profile_path(net, sst_seq, steps: int, path: str):
             rows.append((dev_us / 1e3 / steps, ev.key, ev.count / steps))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    for ms, key, count in rows[:25]:
+    for ms, key, count in rows[:30]:
         print(json.dumps({"path": path, "op": key[:90], "ms_per_step": ms,
                           "calls_per_step": count,
                           "share_of_busy": ms / busy if busy else None}))
+    # a backward kernel's library holds more than one CUDA kernel: gcn's dsup
+    # pass, split-K GEMMs and reduces (the tail's backward runs its GEMMs
+    # only for weight gradients, which the fine-tune step does not ask for)
+    kernel_keys = {"gcn_layer_bwd": ("gcn_bwd_", "gemm_bf16", "sum_rows"),
+                   "spectral_decoder_bwd": ("decoder_bwd_", "hm_to_bf16"),
+                   "spectral_mlp_bwd": ("spectral_mlp_bwd_kernel",)}
     for name in KERNELS:
-        mine = [r for r in rows if f"{name}_kernel" in r[1]]
+        keys = kernel_keys.get(name, (f"{name}_kernel",))
+        mine = [r for r in rows if any(k in r[1] for k in keys)]
         print(json.dumps({"path": path, "kernel": name,
                           "ms_per_step": sum(r[0] for r in mine),
                           "calls_per_step": sum(r[2] for r in mine)}))
     print(json.dumps({"path": path, "wall_ms_per_step": wall,
                       "device_busy_ms_per_step": busy,
                       "device_idle_share": 1.0 - busy / wall if wall else None}))
+
+
+def profile_path(net, sst_seq, steps: int, path: str):
+    """torch.profiler over `steps` chained serving steps; prints the
+    breakdown and returns the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x0 = torch.zeros((1, *net.cfg.img_size, net.cfg.in_chans), device=sst_seq.device)
+    with torch.inference_mode():
+        state = x0
+        for i in range(2):
+            state = net(state, sst_seq[i % steps])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                state = net(state, sst_seq[i])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+    breakdown(prof, steps, wall, path)
     return prof
+
+
+def profile_train(trainer, state, batch, steps: int, path: str):
+    """torch.profiler over `steps` train steps on one batch; prints the
+    breakdown and returns the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    era5, sst = trainer._device_batch(batch)
+    for _ in range(2):
+        state, _ = trainer._train_step(state, era5, sst)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = trainer._train_step(state, era5, sst)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    breakdown(prof, steps, wall, path)
+    return prof
+
+
+def train_main(args, card) -> int:
+    import torch
+
+    from msfno_torch.config import finetune_config, finetune_train_config
+    from msfno_torch.data.synthetic import gen_batch
+    from msfno_torch.training.trainer import Trainer
+
+    runs = {}
+    for ms in (0, 1):
+        tr = Trainer(finetune_config(), finetune_train_config(multi_step_training=ms))
+        runs[ms] = (tr, tr.init_state(), gen_batch(tr.cfg, 1, ms, seed=11))
+    for ms, (tr, state, batch) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_train(tr, state, batch, args.steps, f"train ms={ms}")
+        print(json.dumps({"path": f"train ms={ms}",
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
+        if args.trace and ms == 0:
+            prof.export_chrome_trace(args.trace)
+    times = {ms: [] for ms in runs}
+    for ms in (0, 1, 1, 0):
+        tr, state, batch = runs[ms]
+        era5, sst = tr._device_batch(batch)
+        for i in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = tr._train_step(state, era5, sst)
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times[ms].append(start.elapsed_time(end))
+    print(json.dumps({"card": card,
+                      "median_train_step_ms": {f"multi_step_training={ms}": statistics.median(t)
+                                               for ms, t in times.items()},
+                      "train_step_ms": {f"multi_step_training={ms}": t
+                                        for ms, t in times.items()}}))
+    return 0
 
 
 def main() -> int:
@@ -87,12 +171,16 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the fine-tune train step instead of the serving step")
     args = ap.parse_args()
     dev = resolve_device()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    if args.train:
+        return train_main(args, card)
     nets = {"fused": FourierNeuralOperatorNetFilmed(serving_config(), device=dev, seed=0)}
     nets["unfused"] = FourierNeuralOperatorNetFilmed(
         serving_config(fuse_encoder_dft=False, fuse_decoder_tail=False), device=dev)
