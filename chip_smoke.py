@@ -5,10 +5,13 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the eight CUDA kernels from msfno_torch/csrc, one nvcc per source;
+  2. build the ten CUDA kernels from msfno_torch/csrc, one nvcc per source;
   3. each kernel against its plain PyTorch version at the shapes of the
      serving step and of the fine-tune step (the three backward kernels,
-     every output), with times (CUDA events), the bound and the error;
+     every output), and the two longitude-DFT kernels at the shapes of the
+     net's transforms (fp32 and bf16 operands, fp32 and bf16 inputs), with
+     times (CUDA events), the bound, the error and, for the DFT kernels, the
+     time of the one torch.matmul of the port's matmul path;
   4. the full-width filmed SFNO (721x1440x73, 12 blocks, embed 256, GCN FiLM
      generator over a (1, 28, 180, 360) SST history; seeded random weights)
      on both serving paths, `serving_config()` (fused head and tail) and
@@ -28,7 +31,19 @@ Phases (any failure raises, and the script exits non-zero):
      frozen weights stay bit-identical), exactly 7 / 1 / 0 gcn_layer_bwd /
      spectral_decoder_bwd / spectral_mlp_bwd launches per step with 0 and
      14 / 2 / 12 with 1 (forward launches 1x and 2x the fused serving
-     step's), the median ms per train step and the peak memory.
+     step's), the median ms per train step and the peak memory;
+  8. the SHT entry point with lon_dft="pallas" at full width (721x1440x256
+     equiangular, lmax 120, mmax 121, rescale 1e5), RealSHT then
+     InverseRealSHT with fp32 and with bf16 operands: exactly 1
+     dft_analysis and 1 dft_synthesis launch per round trip, held against
+     lon_dft="matmul" (rel-L2 <= 1e-5 / 2e-2) and "fft", with the round
+     trip's time beside the other two paths';
+  9. one full-width step of the other spectral configurations on the
+     serving knobs (`serving_config(...)`: the planar FFT, the tensor-train
+     linear filter and layer norm with the modulus ComplexReLU at 12 blocks;
+     the dense linear filter on the SHT and on the FFT at 2 blocks, whose
+     per-block weights are 3.8 and 7.6 GB) against its `exact_config` twin
+     (rel-L2 <= 3e-2, finite), with the launches the JAX gates give them.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device it exits with 1 and
 prints no result.
@@ -48,7 +63,9 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}  # dense, H100 SXM data sheet
 STEPS = 4
 TOL = {"spectral_mlp": 1e-3, "grid_mlp": 1e-2, "gcn_layer": 1e-2,
        "grid_encoder_spectral": 1e-2, "spectral_decoder": 1e-2, "gcn_layer_bwd": 1e-2,
-       "spectral_decoder_bwd": 1e-2, "spectral_mlp_bwd": 1e-3}
+       "spectral_decoder_bwd": 1e-2, "spectral_mlp_bwd": 1e-3,
+       # bf16 x bf16 products are exact in fp32: only the sum order differs
+       "dft_analysis": 1e-5, "dft_synthesis": 1e-5}
 REPLACES = {
     "spectral_mlp": "msfno_tpu/ops/pallas/spectral_mlp.py:286",
     "grid_mlp": "msfno_tpu/ops/pallas/grid_mlp.py:179",
@@ -58,6 +75,8 @@ REPLACES = {
     "gcn_layer_bwd": "msfno_tpu/ops/pallas/gcn_layer.py:291",
     "spectral_decoder_bwd": "msfno_tpu/ops/pallas/spectral_decoder.py:287",
     "spectral_mlp_bwd": "msfno_tpu/ops/pallas/spectral_mlp.py:392",
+    "dft_analysis": "msfno_tpu/ops/pallas/dft.py:64",
+    "dft_synthesis": "msfno_tpu/ops/pallas/dft.py:115",
 }
 # launches of each kernel's call sites in one serving step, per path: the
 # fused head and tail take the place of grid_mlp's encoder and decoder sites
@@ -70,6 +89,11 @@ SITE_COUNTS = {
 }
 PER_STEP = {path: {name: sum(sites.values()) for name, sites in kernels.items()}
             for path, kernels in SITE_COUNTS.items()}
+# the phase 3 sites that the lon_dft="pallas" round trips of phase 8 launch:
+# x fp32 in; the synthesis reads the Legendre GEMM's output, fp32 or bf16
+DFT_MAIN = {"dft_analysis": {"trans_down/float32/fp32-in": 1, "trans_down/bfloat16/fp32-in": 1},
+            "dft_synthesis": {"itrans_up/float32/fp32-in": 1,
+                              "itrans_up/bfloat16/bf16-in": 1}}
 
 
 def log(*args):
@@ -107,12 +131,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def check_site(name, site, kernel_fn, plain_fn, work, iters, time_fn=None, compare=None):
+def check_site(name, site, kernel_fn, plain_fn, work, iters, time_fn=None, compare=None,
+               library_fn=None):
     """Kernel against plain version on the same inputs; times and bound.
     `time_fn`, when given, is the call the main path makes (timed in place
     of `kernel_fn`, which may compute more outputs for the check);
     `compare(out_k, out_p) -> (error, extra record)` replaces the largest
-    rel-L2 over the outputs as the error held to the tolerance."""
+    rel-L2 over the outputs as the error held to the tolerance;
+    `library_fn`, when given, is one PyTorch call that computes the same
+    function, timed as `library_ms`."""
     import torch
 
     with torch.inference_mode():
@@ -130,9 +157,11 @@ def check_site(name, site, kernel_fn, plain_fn, work, iters, time_fn=None, compa
         del out_k, out_p, pairs
         ms = cuda_ms(time_fn or kernel_fn, iters)
         plain = cuda_ms(plain_fn, max(1, iters // 4), warmup=1)
+        library = cuda_ms(library_fn, iters) if library_fn is not None else None
     b_ms, by = bound_ms(*work)
     rec = dict(kernel=name, site=site, rel_l2=err, rel_l2_each=errs, max_abs_err=max_abs,
-               tol=TOL[name], ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by, **extra)
+               tol=TOL[name], ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+               library_ms=library, **extra)
     log(json.dumps(rec))
     if not err <= TOL[name]:
         raise AssertionError(f"{name}[{site}] disagrees with its plain version: "
@@ -394,11 +423,73 @@ def spectral_mlp_bwd_sites(dev):
         compare=by_rows)]
 
 
+# the longitude-DFT sites: the net's transforms at full width (trans_down /
+# itrans_up on the 721x1440 equiangular grid, trans / itrans on the 120x240
+# Gauss grid) and the spectral losses' SHT on the 73-channel output grid;
+# (latitude rows, longitudes, channels), lmax 120 and mmax 121 everywhere
+DFT_SITES = {
+    "dft_analysis": {"trans_down": (721, 1440, 256), "trans": (120, 240, 256),
+                     "loss_sht": (721, 1440, 73)},
+    "dft_synthesis": {"itrans_up": (721, 1440, 256), "itrans": (120, 240, 256),
+                      "loss_sht": (721, 1440, 73)},
+}
+DFT_MMAX = 121
+
+
+def _dtype_tag(dt) -> str:
+    import torch
+
+    return "fp32" if dt == torch.float32 else "bf16"
+
+
+def dft_sites(dev, name):
+    """One DFT kernel at each of its sites, with fp32 and bf16 operands and
+    fp32 and bf16 inputs; the library call is the port's matmul path, one
+    torch.matmul against the merged DFT matrix (fp32 without TF32, or
+    bf16)."""
+    import torch
+
+    from msfno_torch.ops.kernels import dft_analysis as ak
+    from msfno_torch.ops.kernels import dft_synthesis as sk
+    from msfno_torch.ops.sht import InverseRealSHT, RealSHT
+    from msfno_torch.runtime import mxu_matmul
+
+    analysis = name == "dft_analysis"
+    rn, _ = _randn(dev, 10 if analysis else 11)
+    recs = []
+    for site, (rows, w, c) in DFT_SITES[name].items():
+        t = (RealSHT if analysis else InverseRealSHT)(rows, w, lmax=120, mmax=DFT_MMAX)
+        mod = ak if analysis else sk
+        p, q, _ = t._dft_kernel_operands(mod, ("cmat", "smat") if analysis else ("ci", "si"),
+                                         dev)
+        merged_t = t._const("merged_t", dev)  # (2M, W) or (W, 2M)
+        k_in, m_out = (w, 2 * DFT_MMAX) if analysis else (2 * DFT_MMAX, w)
+        base = rn(rows, k_in, c)
+        for mxu in ("float32", "bfloat16"):
+            for dt in (torch.float32, torch.bfloat16):
+                x = base.to(dt)
+                at = mod.prepare(p, q, mxu)  # what the transform caches
+                kind = "bf16" if mxu == "bfloat16" else "fp32"
+                work = (nbytes(x, p, q) + rows * m_out * c * 4,
+                        {kind: 2 * rows * m_out * k_in * c})
+                kern = ak.dft_analysis if analysis else sk.dft_synthesis
+                plain = ak.dft_analysis_plain if analysis else sk.dft_synthesis_plain
+                recs.append(check_site(
+                    name, f"{site}/{mxu}/{_dtype_tag(dt)}-in",
+                    lambda: kern(x, p, q, mxu, prepared=at), lambda: plain(x, p, q, mxu), work,
+                    10, library_fn=lambda: mxu_matmul(merged_t, x, mxu, out_dtype=None)))
+                del x, at
+        del base, t
+    return recs
+
+
 SITES = {"spectral_mlp": spectral_mlp_sites, "grid_mlp": grid_mlp_sites,
          "gcn_layer": gcn_layer_sites, "grid_encoder_spectral": grid_encoder_spectral_sites,
          "spectral_decoder": spectral_decoder_sites, "gcn_layer_bwd": gcn_layer_bwd_sites,
          "spectral_decoder_bwd": spectral_decoder_bwd_sites,
-         "spectral_mlp_bwd": spectral_mlp_bwd_sites}
+         "spectral_mlp_bwd": spectral_mlp_bwd_sites,
+         "dft_analysis": lambda dev: dft_sites(dev, "dft_analysis"),
+         "dft_synthesis": lambda dev: dft_sites(dev, "dft_synthesis")}
 
 
 def kernel_checks(dev):
@@ -528,7 +619,8 @@ def finetune(dev, ms: int):
     frozen_same = all(torch.equal(p, frozen0[k]) for k, p in state.frozen.items())
     film_moved = any(not torch.equal(p, film0[k]) for k, p in state.trainable.items())
     finite = all(np.isfinite(v) for v in losses + [final])
-    want = {name: n * (ms + 1) for name, n in PER_STEP["fused"].items()}
+    want = {name: 0 for name in counts}  # the DFT kernels: none
+    want.update({name: n * (ms + 1) for name, n in PER_STEP["fused"].items()})
     want.update(TRAIN_BWD[ms])
     rec = dict(phase="descent_check", multi_step_training=ms, lr=1e-3, losses=losses,
                loss_after_last_step=final, finite=finite, film_params_changed=film_moved,
@@ -543,6 +635,121 @@ def finetune(dev, ms: int):
     del tr, state, frozen0, film0
     torch.cuda.empty_cache()
     return rec
+
+
+def sht_round_trip(dev, smi):
+    """Phase 8: RealSHT -> InverseRealSHT at full width on each longitude
+    path, with fp32 and with bf16 operands; the launch counts of each round
+    trip, read just around it.  Returns the phase's record."""
+    import torch
+
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+    from msfno_torch.ops.sht import InverseRealSHT, RealSHT
+
+    rn, _ = _randn(dev, 12)
+    x = rn(1, 721, 1440, 256)
+    tol = {"float32": 1e-5, "bfloat16": 2e-2}
+    rec = dict(phase="sht_round_trip", card=smi, shape=list(x.shape), lmax=120, mmax=DFT_MMAX,
+               launches={}, rel_l2_vs_matmul={}, rel_l2_vs_fft={}, tol=tol, ms={})
+    for mxu in ("float32", "bfloat16"):
+        kw = dict(lmax=120, mmax=DFT_MMAX, grid="equiangular", spectral_rescale=1e5,
+                  mxu_dtype=mxu)
+        ys, times = {}, {}
+        for lon in ("pallas", "matmul", "fft"):
+            fwd, inv = RealSHT(721, 1440, lon_dft=lon, **kw), InverseRealSHT(721, 1440,
+                                                                               lon_dft=lon, **kw)
+            with torch.inference_mode():
+                reset_launch_counts()
+                ys[lon] = inv(fwd(x))
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                times[lon] = cuda_ms(lambda: inv(fwd(x)), 5)
+            want = {name: 0 for name in counts}
+            if lon == "pallas":
+                want.update(dft_analysis=1, dft_synthesis=1)
+            if counts != want:
+                raise AssertionError(f"round trip lon_dft={lon} {mxu}: launches {counts} "
+                                     f"(want {want})")
+            rec["launches"][f"{lon}/{mxu}"] = {k: v for k, v in counts.items() if v}
+        rec["ms"][mxu] = times
+        err_m = rel_l2(ys["pallas"], ys["matmul"])
+        err_f = rel_l2(ys["pallas"], ys["fft"])
+        rec["rel_l2_vs_matmul"][mxu], rec["rel_l2_vs_fft"][mxu] = err_m, err_f
+        finite = bool(torch.isfinite(ys["pallas"]).all())
+        del ys
+        if not (err_m <= tol[mxu] and err_f <= tol[mxu] and finite):
+            raise AssertionError(f"lon_dft='pallas' round trip ({mxu}) vs matmul {err_m:.3e}, "
+                                 f"vs fft {err_f:.3e} (tol {tol[mxu]}), finite {finite}")
+    log(json.dumps(rec))
+    return rec
+
+
+# phase 9: the other spectral configurations on the serving knobs; the
+# dense linear filters at 2 blocks (per-block weights 7260 x 256 x 256 x 2
+# and 120 x 121 x 256 x 256 x 2 fp32: 3.8 and 7.6 GB)
+SPECTRAL_CONFIGS = {
+    "fft": dict(spectral_transform="fft"),
+    "linear_tt": dict(filter_type="linear", compression="tt"),
+    "layer_norm_modulus": dict(normalization_layer="layer_norm", complex_activation="modulus"),
+    "linear_sht_2_blocks": dict(filter_type="linear", num_layers=2),
+    "linear_fft_2_blocks": dict(filter_type="linear", spectral_transform="fft", num_layers=2),
+}
+
+
+def gate_launches(cfg) -> dict:
+    """The kernel launches of one step that the JAX package's gates give
+    these configurations: no fused head or tail (non-linear SHT with
+    instance norm only), no spectral_mlp (non-linear SHT with the "real"
+    activation only), grid_mlp for the encoder, the channel MLP of every
+    block but the last and the decoder, the GCN generator's layers."""
+    return {"grid_mlp": cfg.num_layers + 1, "gcn_layer": 1 + cfg.film.model_depth}
+
+
+def spectral_configs(dev, smi):
+    """Phase 9: one full-width step of each configuration against its
+    exact_config twin with the same weights.  Returns the records."""
+    import torch
+
+    from msfno_torch.config import exact_config, serving_config
+    from msfno_torch.models import FourierNeuralOperatorNetFilmed
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    recs = []
+    for name, change in SPECTRAL_CONFIGS.items():
+        cfg = serving_config(**change)
+        net = FourierNeuralOperatorNetFilmed(cfg, device=dev, seed=0)
+        x0, sst, _ = model_inputs(cfg, dev, 1)
+        with torch.inference_mode():
+            reset_launch_counts()
+            y_k = net(x0, sst)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            step_ms = cuda_ms(lambda: net(x0, sst), 2, warmup=0)
+        weights = net.state_dict()
+        del net
+        plain = FourierNeuralOperatorNetFilmed(exact_config(cfg), device=dev, seed=1)
+        plain.load_state_dict(weights)
+        del weights
+        with torch.inference_mode():
+            y_p = plain(x0, sst)
+        del plain
+        err, finite = rel_l2(y_k, y_p), bool(torch.isfinite(y_k).all())
+        want = {k: 0 for k in counts}
+        want.update(gate_launches(cfg))
+        rec = dict(phase="spectral_config", config=name, change=change, card=smi,
+                   num_layers=cfg.num_layers, shape=list(y_k.shape), rel_l2_vs_exact=err,
+                   tol=3e-2, finite=finite, launches={k: v for k, v in counts.items() if v},
+                   step_ms=step_ms, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(json.dumps(rec))
+        del y_k, y_p, x0, sst
+        torch.cuda.empty_cache()
+        if not (err <= 3e-2 and finite):
+            raise AssertionError(f"{name}: serving knobs vs exact_config rel-L2 {err:.3e}, "
+                                 f"finite {finite}")
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts} (want {want})")
+        recs.append(rec)
+    return recs
 
 
 def model_inputs(cfg, dev, steps):
@@ -670,11 +877,29 @@ def main() -> int:
                                      for ms, r in tuned.items()},
                     "seconds_total": time.time() - t_start}))
 
+    # phase 8: the SHT entry point on the lon_dft="pallas" path
+    torch.cuda.empty_cache()
+    trip = sht_round_trip(dev, smi)
+    torch.cuda.empty_cache()
+
+    # phase 9: the other spectral configurations at full width
+    torch.cuda.reset_peak_memory_stats()
+    spectral_configs(dev, smi)
+    log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
+
     kernels = []
     for name in SITES:
         mine = [r for r in recs if r["kernel"] == name]
         train = tuned[1]["launches_per_train_step"]
-        if name in TRAIN_BWD[1]:
+        if name in DFT_MAIN:
+            # the DFT kernels' main path is the lon_dft="pallas" round trip,
+            # once with fp32 and once with bf16 operands; no net selects it
+            per = DFT_MAIN[name]
+            launches = {"launches": sum(c.get(name, 0) for c in trip["launches"].values()),
+                        "launches_serving_rollout": counts["fused"][name]}
+            what = ("the two lon_dft='pallas' SHT round trips of phase 8 at 721x1440x256 "
+                    "(fp32 and bf16 operands; sum over their launches)")
+        elif name in TRAIN_BWD[1]:
             # the backward kernels' main path is the fine-tune step
             per = {"gcn_layer_bwd": {"conv1": 2, "conv": 12}, "spectral_decoder_bwd": {"tail": 2},
                    "spectral_mlp_bwd": {"block": 12}}[name]
@@ -698,7 +923,7 @@ def main() -> int:
             rel_l2=max(r["rel_l2"] for r in mine), tol=TOL[name],
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
             bound_by="bytes" if by_bytes >= tot("bound_ms") / 2 else "operations",
-            library_ms=None, per=what,
+            library_ms=tot("library_ms") if name in DFT_MAIN else None, per=what,
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,14 @@ independent copy of that mapping for the parameters this package has):
 
   Dense kernel (in, out)        ->  1x1 conv weight (out, in, 1, 1)
   pos_embed (H, W, C)           ->  (1, C, H, W)
-  norm scale / bias             ->  norm weight / bias
+  norm scale / bias             ->  norm weight / bias ((H, W, 1) -> (H, W)
+                                    for the layer norm)
   filter w{l} / wout (in, out, 2) -> filter_layer.filter.w.{l} / .wout
+                                    (also the tt factors w0 / w1 / w2)
+  filter w (K, in, out, 2)      ->  filter_layer.filter.w (out, in, K, 2)
+  filter w (L, M, in, out, 2)   ->  filter_layer.filter.w (out, in, L, M, 2)
+  filter act_bias (hidden,)     ->  filter_layer.filter.activation.bias
+                                    (hidden, 1, 1)
 
 The GCN FiLM generator, which the export skips, maps to
 `film_gen.film_gen.{conv1,conv_i}.{weight (in, out), bias}` and
@@ -56,10 +62,16 @@ def _backbone_key(parts: list[str], v: np.ndarray):
         return None
     base, rest = f"blocks.{m.group(1)}", parts[1:]
     if rest[0] in ("norm0", "norm1") and len(rest) == 2:
-        return f"{base}.{rest[0]}.{_kind(rest[1])}", v
+        return f"{base}.{rest[0]}.{_kind(rest[1])}", v[..., 0] if v.ndim == 3 else v
     if rest[0] == "filter" and len(rest) == 2:
         if rest[1] == "wout":
             return f"{base}.filter_layer.filter.wout", v
+        if rest[1] == "w":
+            # linear filters: the reference's (out, in, modes..., 2)
+            perm = (3, 2, 0, 1, 4) if v.ndim == 5 else (2, 1, 0, 3)
+            return f"{base}.filter_layer.filter.w", np.ascontiguousarray(np.transpose(v, perm))
+        if rest[1] == "act_bias":
+            return f"{base}.filter_layer.filter.activation.bias", v.reshape(-1, 1, 1)
         if re.match(r"^w\d+$", rest[1]):
             return f"{base}.filter_layer.filter.w.{rest[1][1:]}", v
     if rest[0] == "inner_skip" and len(rest) == 2:

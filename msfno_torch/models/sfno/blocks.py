@@ -4,6 +4,7 @@ Block wiring (reference sfnonet.py:573-614):
   - block 0:       no skips, transforms change resolution down
   - blocks 1..N-2: inner_skip = 1x1 linear, outer_skip = identity
   - block N-1:     no skips, no channel MLP, resolution back up
+  - filter "linear": GELU after the inner skip
   - norms: norm0 at the block's input resolution, norm1 at its output
 Filmed block (sfnonet.py:254-393): FiLM between norm1 and the channel MLP.
 Fused head and tail: block 0 may take a `SpectralGridIn` (the encoder kernel
@@ -20,7 +21,10 @@ from msfno_torch.models.sfno.layers import (
     Conv1x1,
     InstanceNorm,
     Mlp,
+    SpatialLayerNorm,
     SpectralAttentionS2,
+    SpectralConv2d,
+    SpectralConvS2,
     SpectralFilterLayer,
     SpectralGridIn,
     dense,
@@ -37,42 +41,44 @@ def film_modulation(x, gamma, beta, scale):
     return (1.0 + g * scale) * x + b * scale
 
 
-def make_norm(kind: str, c: int, device=None):
+def make_norm(kind: str, c: int, spatial_shape, device=None):
     if kind == "instance_norm":
         return InstanceNorm(c, device=device)
-    raise NotImplementedError(
-        f"normalization {kind!r}: only instance_norm is ported; layer_norm "
-        "comes in a later slice"
-    )
+    if kind == "layer_norm":
+        return SpatialLayerNorm(spatial_shape, device=device)
+    raise NotImplementedError(f"normalization {kind!r} not implemented")
 
 
 def make_filter(filter_type: str, spectral_transform: str, forward_transform,
                 inverse_transform, embed_dim: int, mlp_ratio: float,
                 complex_activation: str, spectral_layers: int, compression=None,
-                use_pallas: bool = False, mxu_dtype: str = "float32",
+                rank: int = 128, use_pallas: bool = False, mxu_dtype: str = "float32",
                 device=None, gen=None):
-    """SpectralFilterLayer mux (reference sfnonet.py:60-133); the non-linear
-    SHT filter is the one ported."""
-    if filter_type == "non-linear" and spectral_transform == "sht":
-        if compression is not None:
-            raise NotImplementedError("compression applies to the linear filter")
+    """SpectralFilterLayer mux (reference sfnonet.py:60-133): the spectral
+    MLP on the SHT or, without the kernel as in the JAX package, on the
+    planar FFT; the linear filter on either."""
+    if filter_type == "non-linear" and spectral_transform in ("sht", "fft"):
         return SpectralAttentionS2(
             forward_transform, inverse_transform, embed_dim,
             hidden_size_factor=mlp_ratio, complex_activation=complex_activation,
-            spectral_layers=spectral_layers, use_pallas=use_pallas,
+            spectral_layers=spectral_layers,
+            use_pallas=use_pallas and spectral_transform == "sht",
             mxu_dtype=mxu_dtype, device=device, gen=gen,
         )
-    raise NotImplementedError(
-        f"filter {filter_type}/{spectral_transform}: only the non-linear SHT "
-        "filter is ported; the linear (incl. tt) and fft filters come in a "
-        "later slice"
-    )
+    if filter_type == "linear" and spectral_transform == "sht":
+        return SpectralConvS2(forward_transform, inverse_transform, embed_dim,
+                              compression=compression, rank=rank, device=device, gen=gen)
+    if filter_type == "linear" and spectral_transform == "fft":
+        return SpectralConv2d(forward_transform, inverse_transform, embed_dim,
+                              device=device, gen=gen)
+    raise NotImplementedError(f"filter {filter_type}/{spectral_transform}")
 
 
 class FourierNeuralOperatorBlock(nn.Module):
     """One SFNO block, optionally FiLM-modulated (`filmed`: forward takes
     gamma, beta and scale; reference FourierNeuralOperatorBlock_Filmed,
-    sfnonet.py:357-393).
+    sfnonet.py:357-393).  `input_shape` / `output_shape` are the (H, W) of
+    norm0 / norm1 (the layer norm's parameter shapes).
 
     `fuse_tail` (the last block only, set by the net): return (hm, a, b),
     the Legendre-synthesis intermediate and the norm1 + FiLM affine folded
@@ -82,9 +88,10 @@ class FourierNeuralOperatorBlock(nn.Module):
     def __init__(self, forward_transform, inverse_transform, embed_dim: int,
                  filter_type: str = "non-linear", spectral_transform: str = "sht",
                  mlp_ratio: float = 2.0, norm_kind: str = "instance_norm",
+                 input_shape=(0, 0), output_shape=(0, 0),
                  inner_skip=None, outer_skip=None, use_mlp: bool = True,
                  complex_activation: str = "real", spectral_layers: int = 1,
-                 compression=None, use_pallas: bool = False,
+                 compression=None, rank: int = 128, use_pallas: bool = False,
                  mxu_dtype: str = "float32", pallas_grid_mlp: bool = False,
                  grid_mlp_mxu_dtype: str = "bfloat16", fuse_norm: bool = True,
                  fuse_mlp_affine: bool = False, filmed: bool = False,
@@ -94,17 +101,17 @@ class FourierNeuralOperatorBlock(nn.Module):
             raise NotImplementedError(
                 f"skips inner={inner_skip!r} outer={outer_skip!r} are not ported"
             )
-        self.norm0 = make_norm(norm_kind, embed_dim, device)
+        self.norm0 = make_norm(norm_kind, embed_dim, input_shape, device)
         self.filter_layer = SpectralFilterLayer(make_filter(
             filter_type, spectral_transform, forward_transform, inverse_transform,
             embed_dim, mlp_ratio, complex_activation, spectral_layers,
-            compression, use_pallas, mxu_dtype, device, gen,
+            compression, rank, use_pallas, mxu_dtype, device, gen,
         ))
         self.inner_skip = (
             Conv1x1(embed_dim, embed_dim, True, device, gen)
             if inner_skip == "linear" else None
         )
-        self.norm1 = make_norm(norm_kind, embed_dim, device)
+        self.norm1 = make_norm(norm_kind, embed_dim, output_shape, device)
         self.mlp = (
             Mlp(embed_dim, int(embed_dim * mlp_ratio), embed_dim, dtype=dtype,
                 use_pallas=pallas_grid_mlp, mxu_dtype=grid_mlp_mxu_dtype,
@@ -112,11 +119,17 @@ class FourierNeuralOperatorBlock(nn.Module):
             if use_mlp else None
         )
         self.outer_skip = outer_skip
-        self.fuse_norm = fuse_norm
-        self.fuse_mlp_affine = fuse_mlp_affine
+        self.instance_norm = norm_kind == "instance_norm"
+        # the JAX package's gates: norm0 folds into the non-linear filter's
+        # forward SHT, norm1 (+ FiLM) into the channel-MLP kernel, only with
+        # instance norm
+        self.fuse_norm = (fuse_norm and self.instance_norm and filter_type == "non-linear"
+                          and spectral_transform == "sht")
+        self.fuse_mlp_affine = fuse_mlp_affine and self.instance_norm
+        self.linear_filter = filter_type == "linear"
         self.filmed = filmed
         self.dtype = torch_dtype(dtype)
-        if fuse_tail and (inner_skip or outer_skip or use_mlp or not fuse_norm):
+        if fuse_tail and (inner_skip or outer_skip or use_mlp or not self.fuse_norm):
             raise ValueError("fuse_tail set on an incompatible block configuration")
         self.fuse_tail = fuse_tail
 
@@ -134,11 +147,15 @@ class FourierNeuralOperatorBlock(nn.Module):
             # come from the encoder kernel
             a, b = self.norm0(x.f if spectral_in else x, True, norm0_stats)
             x = self.filter_layer(x, norm_affine=(a, b))
-        else:
+        elif self.instance_norm:
             x = self.filter_layer(self.norm0(x, stats=norm0_stats))
+        else:
+            x = self.filter_layer(self.norm0(x))
 
         if self.inner_skip is not None:
             x = x + dense(residual, self.inner_skip, self.dtype)
+        if self.linear_filter:
+            x = torch.nn.functional.gelu(x, approximate="none")
 
         if self.fuse_mlp_affine and self.mlp is not None:
             # norm1(x) == a*x + b per (B, C); FiLM folds in on top, and the

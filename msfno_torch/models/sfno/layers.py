@@ -4,7 +4,8 @@ Port of msfno_tpu/models/sfno/layers.py.  Parameters keep the names and
 shapes of the original MSFNO state_dict (what
 msfno_tpu.models.convert.export_sfno_state_dict emits): 1x1 convolutions
 store (out, in, 1, 1) weights, complex spectral weights are fp32 real pairs
-with a trailing 2, instance norms have weight/bias.  Activations are
+with a trailing 2 (the linear filters' in the reference's (out, in, modes)
+order), instance norms have (C,) and layer norms (H, W) weight/bias.  Activations are
 (B, H, W, C) on the grid and (2, B, L, M, C) [re, im] in spectral space.
 
 `use_pallas` (the JAX package's name) selects the hand-written kernel of
@@ -16,17 +17,21 @@ from __future__ import annotations
 import math
 import typing
 
+import numpy as np
 import torch
 from torch import nn
 
+from msfno_torch.ops.activations import complex_relu
+from msfno_torch.ops.contractions import (
+    compl_contract_dense,
+    compl_contract_tril,
+    compl_mul,
+    contract_tt,
+)
 from msfno_torch.ops.kernels import grid_encoder_spectral as enc_kernel
 from msfno_torch.ops.kernels import spectral_decoder as dec_kernel
 from msfno_torch.ops.kernels.grid_mlp import grid_mlp, prepare_weights
-from msfno_torch.ops.kernels.spectral_mlp import (
-    pack_weights,
-    spectral_mlp,
-    spectral_mlp_reference,
-)
+from msfno_torch.ops.kernels.spectral_mlp import pack_weights, spectral_mlp
 from msfno_torch.runtime import DerivedCache, torch_dtype
 
 
@@ -295,12 +300,45 @@ class InstanceNorm(nn.Module):
         return torch.addcmul(b, x, a).to(in_dtype)
 
 
+class SpatialLayerNorm(nn.Module):
+    """LayerNorm over the (H, W) axes per (sample, channel) with per-pixel
+    affine parameters (nn.LayerNorm(normalized_shape=(H, W)),
+    sfnonet.py:484-491), in fp32."""
+
+    def __init__(self, spatial_shape, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.weight = new_param(tuple(spatial_shape), device, init="ones")
+        self.bias = new_param(tuple(spatial_shape), device)
+        self.eps = eps
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(dim=(-3, -2), keepdim=True)
+        mean_sq = (x32 * x32).mean(dim=(-3, -2), keepdim=True)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight[..., None] + self.bias[..., None]).to(x.dtype)
+
+
+class ComplexReLUBias(nn.Module):
+    """Holder of the trained ComplexReLU bias of the modulus and halfplane
+    modes, at the reference's `filter.activation.bias` (hidden, 1, 1)."""
+
+    def __init__(self, hidden: int, device=None):
+        super().__init__()
+        self.bias = new_param((hidden, 1, 1), device)
+
+
 class SpectralAttentionS2(nn.Module):
     """Non-linear spectral filter: complex MLP over the retained (l, m) modes
-    (reference SpectralAttentionS2, layers.py:536-641).  `spectral_layers`
-    complex layers C -> hidden with ComplexReLU("real"), then the `wout`
-    projection back to C; weights (in, out, 2) shared across modes.  The
-    transforms and the MLP run in fp32 (operands rounded per `mxu_dtype`)."""
+    (reference SpectralAttentionS2, layers.py:536-641; on the planar FFT too,
+    as the JAX package builds it for spectral_transform="fft").
+    `spectral_layers` complex layers C -> hidden, each followed by
+    ComplexReLU(`complex_activation`), then the `wout` projection back to C;
+    weights (in, out, 2) shared across modes.  The transforms and the MLP run
+    in fp32 (operands rounded per `mxu_dtype`).  The spectral_mlp kernel runs
+    under the JAX package's own gate: `use_pallas` and the "real"
+    activation."""
 
     def __init__(self, forward_transform, inverse_transform, embed_dim: int,
                  hidden_size_factor: float = 2.0, complex_activation: str = "real",
@@ -308,11 +346,6 @@ class SpectralAttentionS2(nn.Module):
                  use_pallas: bool = False, mxu_dtype: str = "float32",
                  device=None, gen=None):
         super().__init__()
-        if complex_activation != "real":
-            raise NotImplementedError(
-                f"complex_activation={complex_activation!r}: only 'real' is "
-                "ported; the other ComplexReLU modes come in a later slice"
-            )
         self.forward_transform = forward_transform
         self.inverse_transform = inverse_transform
         hidden = int(hidden_size_factor * embed_dim)
@@ -322,12 +355,25 @@ class SpectralAttentionS2(nn.Module):
             for i in range(spectral_layers)
         ])
         self.wout = new_param((hidden, embed_dim, 2), device, gen, "normal", scale)
-        self.use_pallas = use_pallas
+        self.complex_activation = complex_activation
+        # a trained bias in the modulus and halfplane modes only
+        self.activation = (ComplexReLUBias(hidden, device)
+                           if complex_activation in ("modulus", "halfplane") else None)
+        self.use_kernel = use_pallas and complex_activation == "real"
         self.mxu_dtype = mxu_dtype
         self._cache = DerivedCache()
 
     def weights(self) -> list[torch.Tensor]:
         return [*self.w, self.wout]
+
+    def _mlp(self, z):
+        """The complex MLP without the kernel (the JAX package's compl_mul +
+        complex_relu chain)."""
+        bias = None if self.activation is None else self.activation.bias.reshape(-1)
+        for w in self.w:
+            z = complex_relu(compl_mul(z, w, self.mxu_dtype), self.complex_activation,
+                             bias=bias)
+        return compl_mul(z, self.wout, self.mxu_dtype)
 
     def forward(self, x, norm_affine=None, defer_inverse: bool = False):
         if isinstance(x, SpectralGridIn):
@@ -346,19 +392,82 @@ class SpectralAttentionS2(nn.Module):
             s0 = self.forward_transform._const("s0", z.device)
             z = z * a.reshape(1, bsz, 1, 1, c).float()
             z[0, :, :, 0, :] += b.reshape(bsz, 1, c).float() * s0.reshape(1, -1, 1)
-        ws = self.weights()
-        if self.use_pallas:
+        if self.use_kernel:
+            ws = self.weights()
             packed = None
             if z.is_cuda:
                 packed = self._cache.get("packed", ws, lambda: pack_weights(ws))
             z = spectral_mlp(z, ws, 0.0, self.mxu_dtype, packed=packed)
         else:
-            z = spectral_mlp_reference(z, ws, 0.0, self.mxu_dtype)
+            z = self._mlp(z)
         if defer_inverse:
             # fused tail: the fp32 Legendre-synthesis intermediate; the
             # spectral_decoder kernel runs the inverse DFT
             return self.inverse_transform.synthesis_hm(z)
         return self.inverse_transform(z, out_dtype=in_dtype)
+
+
+class SpectralConvS2(nn.Module):
+    """Linear spectral filter: per-mode channel mixing over the triangular
+    l >= m modes (reference SpectralConvS2, layers.py:336-427), dense or
+    tensor-train compressed (`compression="tt"`, rank `rank`).  Dense weight
+    `w` (out, in, K, 2) in the reference's layout; tt factors `w.0` (C, R,
+    2), `w.1` (R, C, R, 2), `w.2` (R, K, 2).  Modes with l < m stay zero."""
+
+    def __init__(self, forward_transform, inverse_transform, embed_dim: int,
+                 compression=None, rank: int = 128, scale: float = 0.02,
+                 device=None, gen=None):
+        super().__init__()
+        self.forward_transform = forward_transform
+        self.inverse_transform = inverse_transform
+        ii, jj = np.tril_indices(forward_transform.lmax, m=forward_transform.mmax)
+        # the (l, m) index pairs of the modes, kept out of the state_dict
+        self.register_buffer("tril_l", torch.as_tensor(ii, device=device), persistent=False)
+        self.register_buffer("tril_m", torch.as_tensor(jj, device=device), persistent=False)
+        k = len(ii)
+        if compression == "tt":
+            shapes = [(embed_dim, rank, 2), (rank, embed_dim, rank, 2), (rank, k, 2)]
+            self.w = nn.ParameterList([new_param(s, device, gen, "normal", scale)
+                                       for s in shapes])
+        elif compression is None:
+            self.w = new_param((embed_dim, embed_dim, k, 2), device, gen, "normal", scale)
+        else:
+            raise ValueError(f"unknown compression {compression!r}")
+        self.compression = compression
+
+    def forward(self, x):
+        in_dtype = x.dtype
+        z = self.forward_transform(x)  # (2, B, L, M, C)
+        ii, jj = self.tril_l, self.tril_m
+        zk = z[:, :, ii, jj, :]  # (2, B, K, C)
+        if self.compression == "tt":
+            yk = contract_tt(zk, *self.w)
+        else:
+            yk = compl_contract_tril(zk, self.w.permute(2, 1, 0, 3))  # (K, in, out, 2)
+        y = z.new_zeros(z.shape[:-1] + (yk.shape[-1],))
+        y[:, :, ii, jj, :] = yk
+        return self.inverse_transform(y, out_dtype=in_dtype)
+
+
+class SpectralConv2d(nn.Module):
+    """Linear spectral filter on the planar FFT: per-mode dense mixing over
+    the full (lmax, mmax) rectangle (reference SpectralConv2d,
+    layers.py:253-333).  Weight `w` (out, in, L, M, 2), the reference's
+    layout."""
+
+    def __init__(self, forward_transform, inverse_transform, embed_dim: int,
+                 scale=None, device=None, gen=None):
+        super().__init__()
+        self.forward_transform = forward_transform
+        self.inverse_transform = inverse_transform
+        scale = scale if scale is not None else 1.0 / embed_dim ** 2
+        self.w = new_param((embed_dim, embed_dim, forward_transform.lmax,
+                            forward_transform.mmax, 2), device, gen, "normal", scale)
+
+    def forward(self, x):
+        z = self.forward_transform(x)
+        y = compl_contract_dense(z, self.w.permute(2, 3, 1, 0, 4))  # (L, M, in, out, 2)
+        return self.inverse_transform(y, out_dtype=x.dtype)
 
 
 class SpectralFilterLayer(nn.Module):
@@ -369,5 +478,5 @@ class SpectralFilterLayer(nn.Module):
         super().__init__()
         self.filter = filt
 
-    def forward(self, x, norm_affine=None, defer_inverse: bool = False):
-        return self.filter(x, norm_affine=norm_affine, defer_inverse=defer_inverse)
+    def forward(self, x, **kw):
+        return self.filter(x, **kw)

@@ -13,6 +13,10 @@ and with `fuse_decoder_tail` the last block's inverse DFT, its norm1 + FiLM
 and the decoder run as one kernel (spectral_decoder): neither full-width
 grid field of the head or the tail is stored.
 
+Every spectral configuration of the JAX package's SFNOConfig runs: the SHT
+or the planar FFT, the non-linear filter (any ComplexReLU mode) or the
+linear one (dense, or tensor-train on the SHT), instance or layer norm.
+
 Layout: channels-last (B, H, W, C) on the grid.  Parameter names and shapes
 are the original MSFNO state_dict's.  The nets run on CUDA unless built with
 `device="cpu"`; weights are random, drawn from a `torch.Generator` seeded
@@ -27,28 +31,34 @@ from torch import nn
 from msfno_torch.config import SFNOConfig
 from msfno_torch.models.sfno.blocks import FourierNeuralOperatorBlock
 from msfno_torch.models.sfno.layers import BigSkipMlp, Mlp, SpectralGridIn, new_param
+from msfno_torch.ops.fft import InverseRealFFT2, RealFFT2
 from msfno_torch.ops.sht import InverseRealSHT, RealSHT
 from msfno_torch.runtime import DerivedCache, resolve_device, torch_dtype
 
 
 def build_transforms(cfg: SFNOConfig):
     """(trans_down, itrans_up, trans, itrans) (sfnonet.py:532-569): full grid
-    -> spectral, spectral -> full grid, and the internal Gauss grid pair."""
-    if cfg.spectral_transform != "sht":
-        raise NotImplementedError(
-            f"spectral_transform={cfg.spectral_transform!r}: only the SHT is "
-            "ported; the fft transform comes in a later slice"
-        )
+    -> spectral, spectral -> full grid, and the internal grid pair; SHTs on
+    the equiangular / Gauss grids, or planar FFTs."""
     nlat, nlon = cfg.img_size
     lmax, mmax = cfg.modes_lat, cfg.modes_lon
-    kw = dict(lmax=lmax, mmax=mmax, spectral_rescale=cfg.spectral_rescale,
-              mxu_dtype=cfg.sht_mxu_dtype)
-    return (
-        RealSHT(nlat, nlon, grid="equiangular", **kw),
-        InverseRealSHT(nlat, nlon, grid="equiangular", **kw),
-        RealSHT(cfg.h, cfg.w, grid="legendre-gauss", **kw),
-        InverseRealSHT(cfg.h, cfg.w, grid="legendre-gauss", **kw),
-    )
+    if cfg.spectral_transform == "sht":
+        kw = dict(lmax=lmax, mmax=mmax, spectral_rescale=cfg.spectral_rescale,
+                  mxu_dtype=cfg.sht_mxu_dtype)
+        return (
+            RealSHT(nlat, nlon, grid="equiangular", **kw),
+            InverseRealSHT(nlat, nlon, grid="equiangular", **kw),
+            RealSHT(cfg.h, cfg.w, grid="legendre-gauss", **kw),
+            InverseRealSHT(cfg.h, cfg.w, grid="legendre-gauss", **kw),
+        )
+    if cfg.spectral_transform == "fft":
+        return (
+            RealFFT2(nlat, nlon, lmax=lmax, mmax=mmax),
+            InverseRealFFT2(nlat, nlon, lmax=lmax, mmax=mmax),
+            RealFFT2(cfg.h, cfg.w, lmax=lmax, mmax=mmax),
+            InverseRealFFT2(cfg.h, cfg.w, lmax=lmax, mmax=mmax),
+        )
+    raise ValueError(f"unknown spectral transform {cfg.spectral_transform!r}")
 
 
 def _block_kwargs(cfg: SFNOConfig, i: int, transforms) -> dict:
@@ -64,12 +74,15 @@ def _block_kwargs(cfg: SFNOConfig, i: int, transforms) -> dict:
         spectral_transform=cfg.spectral_transform,
         mlp_ratio=cfg.mlp_ratio,
         norm_kind=cfg.normalization_layer,
+        input_shape=cfg.img_size if first else (cfg.h, cfg.w),
+        output_shape=cfg.img_size if last else (cfg.h, cfg.w),
         inner_skip="linear" if inner else None,
         outer_skip="identity" if inner else None,
         use_mlp=not last,
         complex_activation=cfg.complex_activation,
         spectral_layers=cfg.spectral_layers,
         compression=cfg.compression,
+        rank=cfg.rank,
         use_pallas=cfg.use_pallas,
         mxu_dtype=cfg.spectral_mxu_dtype,
         pallas_grid_mlp=cfg.pallas_grid_mlp,
@@ -102,19 +115,11 @@ def _tail_fusible(cfg: SFNOConfig) -> bool:
             and cfg.drop_path_rate == 0.0)
 
 
-def check_supported(cfg: SFNOConfig) -> None:
-    """Raise NotImplementedError for what this package does not run yet."""
-    if cfg.normalization_layer != "instance_norm":
-        raise NotImplementedError(
-            f"normalization_layer={cfg.normalization_layer!r}: layer_norm "
-            "comes in a later slice"
-        )
-    if cfg.filter_type != "non-linear" or cfg.compression is not None:
-        raise NotImplementedError(
-            f"filter_type={cfg.filter_type!r}, compression={cfg.compression!r}: "
-            "the linear and tt filters come in a later slice"
-        )
-    build_transforms(cfg)  # raises for the fft transform
+def _want_stats(cfg: SFNOConfig) -> bool:
+    """The JAX gate of the encoder's instance-norm statistics: block 0's
+    norm0 folds into the non-linear filter's forward SHT."""
+    return (cfg.fuse_norm_sht and cfg.normalization_layer == "instance_norm"
+            and cfg.filter_type == "non-linear" and cfg.spectral_transform == "sht")
 
 
 class FourierNeuralOperatorNet(nn.Module):
@@ -124,7 +129,6 @@ class FourierNeuralOperatorNet(nn.Module):
 
     def __init__(self, cfg: SFNOConfig, device=None, seed: int = 0):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.device = device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -135,7 +139,7 @@ class FourierNeuralOperatorNet(nn.Module):
         dtype = torch_dtype(cfg.compute_dtype)
         self.dtype = dtype
         self.out_dtype = torch_dtype(cfg.output_dtype)
-        self.want_stats = cfg.fuse_norm_sht
+        self.want_stats = _want_stats(cfg)
         self.encoder = Mlp(
             cfg.in_chans, cfg.embed_dim, cfg.embed_dim, output_bias=False,
             dtype=dtype, use_pallas=cfg.pallas_grid_mlp,

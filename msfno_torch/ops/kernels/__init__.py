@@ -12,7 +12,8 @@ kernel's plain PyTorch version, used for tensors on the CPU, and a launch
 counter: a CUDA tensor always goes to the kernel, or the wrapper raises.
 The forward wrappers are `torch.autograd.Function`s whose backward is what
 the JAX package's `custom_vjp` does: a backward kernel (`*_bwd`) where the
-JAX package has one, else the VJP of the fp32 reference.
+JAX package has one, else the VJP of the fp32 reference; the two DFT
+kernels, which JAX cannot differentiate, raise in their backward.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 KERNELS = ("spectral_mlp", "grid_mlp", "gcn_layer", "grid_encoder_spectral",
-           "spectral_decoder", "gcn_layer_bwd", "spectral_decoder_bwd", "spectral_mlp_bwd")
+           "spectral_decoder", "gcn_layer_bwd", "spectral_decoder_bwd", "spectral_mlp_bwd",
+           "dft_analysis", "dft_synthesis")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,12 +1,19 @@
-"""Real spherical harmonic transforms on the matmul-DFT path.
+"""Real spherical harmonic transforms.
 
 Port of msfno_tpu/ops/sht.py (torch_harmonics RealSHT / InverseRealSHT
 semantics as used by the reference, MSFNO/Models/sfno/sfnonet.py:532-555):
 
-    forward:  truncated longitude DFT as one matmul against the merged
-              [C | -S] matrix  ->  associated-Legendre matmul per order m
+    forward:  truncated longitude DFT  ->  associated-Legendre matmul per
+              order m
     inverse:  Legendre synthesis per order m (merged [re | im] layout)  ->
-              one matmul against the merged [Ci; -Si] matrix
+              truncated inverse longitude DFT
+
+The longitude stage follows `lon_dft`, with the JAX package's conditions:
+"matmul" is one matmul against the merged [C | -S] / [Ci; -Si] matrix,
+"pallas" the hand-written dft_analysis / dft_synthesis kernels (forward
+only: they have no gradient, as in JAX); both apply while mmax <= nlon/2 +
+1, and otherwise, or with "fft", the transform runs torch.fft.rfft / irfft
+(norm="forward"), truncated and zero-padded.
 
 Layout is channels-last: grids are (B, H, W, C).  A spectral array is one
 fp32 tensor of shape (2, B, L, M, C) holding [re, im], the layout the
@@ -27,9 +34,13 @@ import functools
 import numpy as np
 import torch
 
+from msfno_torch.ops.kernels import dft_analysis as dft_a
+from msfno_torch.ops.kernels import dft_synthesis as dft_s
 from msfno_torch.ops.legendre import legendre_matrix
 from msfno_torch.ops.quadrature import grid_quadrature
 from msfno_torch.runtime import mxu_matmul
+
+LON_DFTS = ("matmul", "pallas", "fft")
 
 
 def _resolve_modes(nlat: int, nlon: int, lmax, mmax) -> tuple[int, int]:
@@ -110,29 +121,41 @@ class _Transform:
         # "float32": true fp32 matmuls; "bfloat16": bf16 operands, fp32
         # accumulation (runtime.mxu_matmul says where torch rounds more)
         self.mxu_dtype = mxu_dtype
-        if lon_dft != "matmul":
-            raise NotImplementedError(
-                f"lon_dft={lon_dft!r}: only the matmul DFT is ported; the "
-                "dft_analysis/dft_synthesis kernels (lon_dft='pallas') and "
-                "the rfft path come in a later slice"
-            )
-        if self.mmax > self.nlon // 2 + 1:
-            raise NotImplementedError(
-                "mmax > nlon/2 + 1 needs the rfft path, which comes in a "
-                "later slice"
-            )
+        if lon_dft not in LON_DFTS:
+            raise ValueError(f"lon_dft={lon_dft!r}: expected one of {LON_DFTS}")
         self._consts: dict = {}
 
-    def _const(self, name: str, device) -> torch.Tensor:
+    @property
+    def dft_path(self) -> str:
+        """The longitude stage that runs: `lon_dft` where the truncated DFT
+        applies (mmax <= nlon/2 + 1), else the rfft path "fft"."""
+        if self.lon_dft != "fft" and self.mmax <= self.nlon // 2 + 1:
+            return self.lon_dft
+        return "fft"
+
+    def _const(self, name: str, device, build=None) -> torch.Tensor:
+        """Constant `name` on `device`, made once: `build()` when given (a
+        kernel operand derived from other constants), else `_numpy(name)`."""
         key = (name, torch.device(device))
         t = self._consts.get(key)
         if t is None:
             # a normal tensor even when first asked for under inference_mode:
             # kernels cache operands derived from it (runtime.DerivedCache)
             with torch.inference_mode(False):
-                t = torch.from_numpy(np.ascontiguousarray(self._numpy(name))).to(device)
+                t = (build() if build is not None else
+                     torch.from_numpy(np.ascontiguousarray(self._numpy(name))).to(device))
             self._consts[key] = t
         return t
+
+    def _dft_kernel_operands(self, kernel, names, device):
+        """The DFT matrices `names` on `device` and, on a card, the kernel's
+        prepared operand for this transform's mxu dtype."""
+        p, q = (self._const(n, device) for n in names)
+        prepared = None
+        if torch.device(device).type == "cuda":
+            prepared = self._const(f"{kernel.__name__}/{self.mxu_dtype}", device,
+                                   lambda: kernel.prepare(p, q, self.mxu_dtype))
+        return p, q, prepared
 
     def _numpy(self, name: str) -> np.ndarray:
         raise KeyError(name)
@@ -164,6 +187,8 @@ class RealSHT(_Transform):
             return self.merged_analysis.T  # (2M, W)
         if name == "merged":
             return self.merged_analysis  # (W, 2M)
+        if name in ("cmat", "smat"):
+            return _dft_analysis_matrices(self.nlon, self.mmax)[name == "smat"]  # (W, M)
         if name == "s0":
             # analysis of a constant field: only m = 0 is excited, with this
             # (lmax,) profile (SpectralAttentionS2's norm_affine fold)
@@ -193,10 +218,22 @@ class RealSHT(_Transform):
                 f"expected (B, {self.nlat}, {self.nlon}, C), got {tuple(x.shape)}"
             )
         b, h, w, c = x.shape
-        cs_t = self._const("merged_t", x.device)  # (2M, W)
-        # longitude analysis, one matmul per latitude row: (2M, W) @ (W, C);
-        # the Legendre matmul takes the GEMM's output dtype as it is
-        f = mxu_matmul(cs_t, x.reshape(b * h, w, c), self.mxu_dtype, out_dtype=None)
+        path = self.dft_path
+        if path == "matmul":
+            cs_t = self._const("merged_t", x.device)  # (2M, W)
+            # longitude analysis, one matmul per latitude row: (2M, W) @ (W,
+            # C); the Legendre matmul takes the GEMM's output dtype as it is
+            f = mxu_matmul(cs_t, x.reshape(b * h, w, c), self.mxu_dtype, out_dtype=None)
+        elif path == "pallas":
+            cmat, smat, at = self._dft_kernel_operands(dft_a, ("cmat", "smat"), x.device)
+            f = dft_a.dft_analysis(x, cmat, smat, self.mxu_dtype, prepared=at)
+        else:
+            if self.mmax > w // 2 + 1:
+                # the JAX package fails here too, in its Legendre einsum
+                raise ValueError(f"mmax={self.mmax} exceeds the {w // 2 + 1} rfft "
+                                 f"frequencies of nlon={w}")
+            fh = torch.fft.rfft(x.float(), dim=-2, norm="forward")[..., : self.mmax, :]
+            f = torch.cat([fh.real, fh.imag], dim=-2)
         return self.legendre_stacked(f.reshape(b, h, 2 * self.mmax, c))
 
 
@@ -237,11 +274,16 @@ class InverseRealSHT(_Transform):
             return self.merged_matrix_t  # (W, 2M)
         if name == "omega":
             return self.mode_power_weights  # (2M,)
+        if name in ("ci", "si"):
+            return _dft_synthesis_matrices(self.nlon, self.mmax)[name == "si"]  # (M, W)
         return super()._numpy(name)
 
     def synthesis_hm(self, coeffs: torch.Tensor) -> torch.Tensor:
         """Legendre synthesis only: (2, B, L, M, C) -> the (B, H, 2M, C) fp32
-        stacked [re | im] intermediate that the merged inverse DFT consumes."""
+        stacked [re | im] intermediate that the merged inverse DFT consumes.
+        Only on the matmul path, as in the JAX package."""
+        if self.dft_path != "matmul":
+            raise ValueError("synthesis_hm requires the matmul DFT path")
         return self._synthesis_hm(coeffs, torch.float32)
 
     def _synthesis_hm(self, coeffs: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -261,8 +303,28 @@ class InverseRealSHT(_Transform):
 
     def __call__(self, coeffs: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
         """(2, B, L, M, C) -> (B, H, W, C) in `out_dtype` (fp32 by default)."""
+        path = self.dft_path
+        if path == "fft":
+            return self._irfft(coeffs).to(out_dtype)
         hm = self._synthesis_hm(coeffs, None)
         b, h, two_m, c = hm.shape
-        mat_t = self._const("merged_t", hm.device)  # (W, 2M)
-        x = mxu_matmul(mat_t, hm.reshape(b * h, two_m, c), self.mxu_dtype, out_dtype)
+        if path == "pallas":
+            ci, si, at = self._dft_kernel_operands(dft_s, ("ci", "si"), hm.device)
+            x = dft_s.dft_synthesis(hm, ci, si, self.mxu_dtype, out_dtype, prepared=at)
+        else:
+            mat_t = self._const("merged_t", hm.device)  # (W, 2M)
+            x = mxu_matmul(mat_t, hm.reshape(b * h, two_m, c), self.mxu_dtype, out_dtype)
         return x.reshape(b, h, self.nlon, c)
+
+    def _irfft(self, coeffs: torch.Tensor) -> torch.Tensor:
+        """The rfft path's inverse: the Legendre synthesis zero-padded to the
+        nlon/2 + 1 frequencies (irfft cuts a longer one, as jnp's does), then
+        irfft with norm="forward" (the 1/nlon was applied in the analysis)."""
+        hm = self._synthesis_hm(coeffs, torch.float32)
+        m = self.mmax
+        xm = torch.complex(hm[:, :, :m], hm[:, :, m:])
+        nfreq = self.nlon // 2 + 1
+        if m < nfreq:
+            pad = xm.new_zeros(xm.shape[:2] + (nfreq - m, xm.shape[-1]))
+            xm = torch.cat([xm, pad], dim=-2)
+        return torch.fft.irfft(xm, n=self.nlon, dim=-2, norm="forward")

@@ -1,5 +1,6 @@
-"""The port's training losses against the JAX package's: every ported
-`get_loss` entry, value and gradient, on the same numpy inputs."""
+"""The port's training losses against the JAX package's: every `get_loss`
+entry, value and gradient, on the same numpy inputs (the spectral family
+also with its SHT truncated to a model's modes, and its options)."""
 
 import jax
 import jax.numpy as jnp
@@ -57,9 +58,56 @@ def test_default_is_relative_squared():
     assert float(tl.get_loss("L2Sphere_noSine")(p, t)) == float(want)
 
 
-def test_unported_losses_raise():
-    for name in ("SpectralL2Sphere", "SpectralSphere", "H1Sphere"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tl.get_loss(name)
+SPECTRAL = ("SpectralL2Sphere", "SpectralSphere", "H1Sphere")
+
+
+@pytest.mark.parametrize("name", SPECTRAL)
+def test_spectral_losses_truncated_to_the_model_match_jax(name):
+    """`get_loss(name, model_cfg)`: the loss SHT at the model's modes_lat /
+    modes_lon (12x24 grid, scale 2: lmax 6, mmax 7)."""
+    from msfno_torch.config import SFNOConfig
+    from msfno_tpu.utils.config import SFNOConfig as JConfig
+
+    kw = dict(img_size=(12, 24), scale_factor=2)
+    prd, tar = _inputs(seed=3)
+    fj = jl.get_loss(name, JConfig(**kw))
+    vj, gj = jax.value_and_grad(lambda p: fj(p, jnp.asarray(tar)))(jnp.asarray(prd))
+    p = torch.from_numpy(prd).requires_grad_(True)
+    vt = tl.get_loss(name, SFNOConfig(**kw))(p, torch.from_numpy(tar))
+    vt.backward()
+    assert tl._loss_sht(12, 24, 6, 7).lmax == 6
+    assert abs(vt.item() - float(vj)) <= 1e-6 * abs(float(vj))
+    err = rel(p.grad, gj)
+    print(f"parity loss {name} (truncated) grad rel_l2={err:.3e}")
+    assert err <= 1e-6
+
+
+@pytest.mark.parametrize("kw", [dict(relative=True, squared=True),
+                                dict(relative=True, squared=False),
+                                dict(relative=False, squared=False)])
+@pytest.mark.parametrize("fn", ["spectral_l2loss_sphere", "spectral_loss_sphere"])
+def test_spectral_loss_options_match_jax(fn, kw):
+    from msfno_tpu.ops.sht import RealSHT as JSHT
+
+    prd, tar = _inputs(seed=4)
+    sht_kw = dict(lmax=8, mmax=9, grid="equiangular")
+    vj = getattr(jl, fn)(JSHT(12, 24, **sht_kw), jnp.asarray(prd), jnp.asarray(tar), **kw)
+    vt = getattr(tl, fn)(tl.RealSHT(12, 24, **sht_kw), torch.from_numpy(prd),
+                         torch.from_numpy(tar), **kw)
+    assert rel(vt, vj) <= 1e-6
+
+
+def test_h1_loss_unsquared_matches_jax():
+    from msfno_tpu.ops.sht import RealSHT as JSHT
+
+    prd, tar = _inputs(seed=5)
+    vj = jl.h1loss_sphere(JSHT(12, 24, grid="equiangular"), jnp.asarray(prd),
+                          jnp.asarray(tar), squared=False)
+    vt = tl.h1loss_sphere(tl.RealSHT(12, 24, grid="equiangular"), torch.from_numpy(prd),
+                          torch.from_numpy(tar), squared=False)
+    assert rel(vt, vj) <= 1e-6
+
+
+def test_unknown_loss_raises():
     with pytest.raises(ValueError):
         tl.get_loss("nope")

@@ -36,8 +36,10 @@ SERVING = dataclasses.replace(
 FUSED = dict(fuse_encoder_dft=True, fuse_decoder_tail=True)
 FUSED_FP32 = dataclasses.replace(FP32, **FUSED)
 FUSED_SERVING = dataclasses.replace(SERVING, **FUSED)
-# a serving step launches none of the backward kernels
-NO_BACKWARD = {"gcn_layer_bwd": 0, "spectral_decoder_bwd": 0, "spectral_mlp_bwd": 0}
+# a serving step launches none of the backward kernels, and no net runs the
+# lon_dft="pallas" DFT kernels
+NO_BACKWARD = {"gcn_layer_bwd": 0, "spectral_decoder_bwd": 0, "spectral_mlp_bwd": 0,
+               "dft_analysis": 0, "dft_synthesis": 0}
 
 
 def rel_l2(a, b):

@@ -101,6 +101,40 @@ def test_bf16_knob_stays_near_fp32():
 
 
 @pytest.mark.parametrize("lon_dft", ["pallas", "fft"])
+@pytest.mark.parametrize("kw", GRIDS)
+def test_longitude_paths_match_jax(kw, lon_dft):
+    """The dft_analysis / dft_synthesis kernels' path (plain versions here,
+    JAX's Pallas kernels in interpret mode) and the rfft path."""
+    sht = _jax_sht()
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, kw["nlat"], kw["nlon"], 3)).astype(np.float32)
+    jf, ji = sht.RealSHT(**kw, lon_dft=lon_dft), sht.InverseRealSHT(**kw, lon_dft=lon_dft)
+    tf, ti = RealSHT(**kw, lon_dft=lon_dft), InverseRealSHT(**kw, lon_dft=lon_dft)
+    assert tf.dft_path == ti.dft_path == lon_dft
+    zj = _spectral(jf(x))
+    name = f"{lon_dft}[{kw['grid']}]"
+    assert report(f"RealSHT {name}", rel_l2(tf(torch.from_numpy(x)), zj)) <= 1e-5
+    c = rng.standard_normal(zj.shape).astype(np.float32)
+    yt = ti(torch.from_numpy(c))
+    assert report(f"InverseRealSHT {name}", rel_l2(yt, ji(c[0] + 1j * c[1]))) <= 1e-5
+
+
+@pytest.mark.parametrize("lon_dft", ["pallas", "fft"])
 def test_unported_longitude_paths_raise(lon_dft):
-    with pytest.raises(NotImplementedError):
-        RealSHT(8, 16, lon_dft=lon_dft)
+    """What the JAX package refuses on these paths, the port refuses too:
+    synthesis_hm off the matmul path, and the forward with mmax past the
+    nlon/2 + 1 frequencies (where "pallas" and "matmul" fall back to rfft)."""
+    sht = _jax_sht()
+    kw = dict(nlat=8, nlon=16, lon_dft=lon_dft)
+    c = np.zeros((2, 1, 8, 9, 2), np.float32)
+    with pytest.raises(ValueError):
+        sht.InverseRealSHT(**kw).synthesis_hm(c[0] + 1j * c[1])
+    with pytest.raises(ValueError, match="matmul"):
+        InverseRealSHT(**kw).synthesis_hm(torch.from_numpy(c))
+    x = np.zeros((1, 8, 16, 2), np.float32)
+    with pytest.raises(Exception):
+        sht.RealSHT(**kw, mmax=12)(x)
+    big = RealSHT(**kw, mmax=12)
+    assert big.dft_path == "fft"
+    with pytest.raises(ValueError, match="mmax"):
+        big(torch.from_numpy(x))

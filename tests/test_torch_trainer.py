@@ -255,6 +255,5 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         TTrainer(dataclasses.replace(from_json(to_json(CFG)), drop_rate=0.1), TTrainConfig(),
                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        TTrainer(from_json(to_json(CFG)), TTrainConfig(loss_fn="SpectralL2Sphere"),
-                 device="cpu")
+    # the spectral losses are ported (tests/test_torch_trainer_spectral_loss.py)
+    TTrainer(from_json(to_json(CFG)), TTrainConfig(loss_fn="SpectralL2Sphere"), device="cpu")
