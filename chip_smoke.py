@@ -11,7 +11,7 @@ Phases (any failure raises, and the script exits non-zero):
      every output), and the two longitude-DFT kernels at the shapes of the
      net's transforms (fp32 and bf16 operands, fp32 and bf16 inputs), with
      times (CUDA events), the bound, the error and, for the DFT kernels, the
-     time of the one torch.matmul of the port's matmul path;
+     time of one PyTorch call of the same function (`dft_library_call`);
   4. the full-width filmed SFNO (721x1440x73, 12 blocks, embed 256, GCN FiLM
      generator over a (1, 28, 180, 360) SST history; seeded random weights)
      on both serving paths, `serving_config()` (fused head and tail) and
@@ -442,17 +442,45 @@ def _dtype_tag(dt) -> str:
     return "fp32" if dt == torch.float32 else "bf16"
 
 
+def dft_library_call(merged_t, x, mxu):
+    """One PyTorch call that computes a DFT kernel's function on the same
+    inputs (fp32 output), for `library_ms`: fp32 operands, torch.matmul with
+    TF32 off; bf16 operands, one torch.bmm of the bf16 merged matrix
+    (expanded over the rows) against bf16 x with fp32 output
+    (`aten::bmm.dtype`: bf16 products, fp32 sums).  The cast of an fp32 x is
+    part of the call.  Returns (the call, None) or (None, why the card's
+    PyTorch refuses it)."""
+    import torch
+
+    from msfno_torch.runtime import mxu_matmul
+
+    if mxu != "bfloat16":
+        return (lambda: mxu_matmul(merged_t, x, mxu, out_dtype=None)), None
+    a = merged_t.to(torch.bfloat16).expand(x.shape[0], -1, -1)
+
+    def call():
+        return torch.bmm(a, x.to(torch.bfloat16), out_dtype=torch.float32)
+
+    try:
+        y = call()
+    except (RuntimeError, TypeError) as e:
+        return None, f"{type(e).__name__}: {e}"
+    if y.dtype != torch.float32:
+        return None, f"torch.bmm(out_dtype=torch.float32) returned {y.dtype}"
+    return call, None
+
+
 def dft_sites(dev, name):
     """One DFT kernel at each of its sites, with fp32 and bf16 operands and
-    fp32 and bf16 inputs; the library call is the port's matmul path, one
-    torch.matmul against the merged DFT matrix (fp32 without TF32, or
-    bf16)."""
+    fp32 and bf16 inputs; the library call is `dft_library_call`.  The
+    bound counts the operations of the even/odd fold (half the dense
+    2 * rows * m_out * k_in * c, for both operand types) and each input and
+    output byte once."""
     import torch
 
     from msfno_torch.ops.kernels import dft_analysis as ak
     from msfno_torch.ops.kernels import dft_synthesis as sk
     from msfno_torch.ops.sht import InverseRealSHT, RealSHT
-    from msfno_torch.runtime import mxu_matmul
 
     analysis = name == "dft_analysis"
     rn, _ = _randn(dev, 10 if analysis else 11)
@@ -471,14 +499,19 @@ def dft_sites(dev, name):
                 at = mod.prepare(p, q, mxu)  # what the transform caches
                 kind = "bf16" if mxu == "bfloat16" else "fp32"
                 work = (nbytes(x, p, q) + rows * m_out * c * 4,
-                        {kind: 2 * rows * m_out * k_in * c})
+                        {kind: rows * m_out * k_in * c})
                 kern = ak.dft_analysis if analysis else sk.dft_synthesis
                 plain = ak.dft_analysis_plain if analysis else sk.dft_synthesis_plain
-                recs.append(check_site(
+                library_fn, why = dft_library_call(merged_t, x, mxu)
+                rec = check_site(
                     name, f"{site}/{mxu}/{_dtype_tag(dt)}-in",
                     lambda: kern(x, p, q, mxu, prepared=at), lambda: plain(x, p, q, mxu), work,
-                    10, library_fn=lambda: mxu_matmul(merged_t, x, mxu, out_dtype=None)))
-                del x, at
+                    10, library_fn=library_fn)
+                if why is not None:
+                    rec["library_error"] = why
+                    log(json.dumps({"site": rec["site"], "library_error": why}))
+                recs.append(rec)
+                del x, at, library_fn
         del base, t
     return recs
 
@@ -913,8 +946,10 @@ def main() -> int:
                         "launches_train_step_multi_step_1": train[name]}
             what = f"one 6-hour step of the fused path (sum over its launches), {STEPS}-step " \
                    "rollout counts"
-        tot = lambda key: sum(per.get(r["site"], 0) * r[key] for r in mine)
-        by_bytes = sum(per.get(r["site"], 0) * r["bound_ms"] for r in mine
+        main_sites = [r for r in mine if per.get(r["site"], 0)]
+        has_library = name in DFT_MAIN and all(r["library_ms"] is not None for r in main_sites)
+        tot = lambda key: sum(per[r["site"]] * r[key] for r in main_sites)  # noqa: E731
+        by_bytes = sum(per[r["site"]] * r["bound_ms"] for r in main_sites
                        if r["bound_by"] == "bytes")
         kernels.append(dict(
             name=name, route="cuda", source=f"msfno_torch/csrc/{name}.cu",
@@ -923,7 +958,7 @@ def main() -> int:
             rel_l2=max(r["rel_l2"] for r in mine), tol=TOL[name],
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
             bound_by="bytes" if by_bytes >= tot("bound_ms") / 2 else "operations",
-            library_ms=tot("library_ms") if name in DFT_MAIN else None, per=what,
+            library_ms=tot("library_ms") if has_library else None, per=what,
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

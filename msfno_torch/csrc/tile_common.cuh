@@ -2,11 +2,14 @@
 // cp.async copies, bf16 WMMA tile GEMMs with fp32 accumulation, row-tile
 // staging into shared memory, the exact GELU and its derivative, the first
 // MLP layer into a bf16 hidden tile, the fixed-order reduces of per-block
-// partials, and a split-K bf16 GEMM for the backward kernels' weight
-// gradients.
+// partials, a split-K bf16 GEMM for the backward kernels' weight gradients,
+// and (at the end) Hopper's pieces: TMA tensor maps and bulk copies,
+// mbarrier rings, named barriers and bf16 wgmma with its shared-memory
+// descriptors.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -465,6 +468,213 @@ gemm_bf16(const __nv_bfloat16* __restrict__ A, long long lda,
     }
     __syncwarp();
   }
+}
+
+// ---------------------------------------------------------------------------
+// Hopper (sm_90a): TMA, bulk copies, mbarrier rings, wgmma.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier that completes a phase after `count` arrivals (and the
+// transaction bytes announced by expect_tx).  Initialise from one thread,
+// then fence_barrier_init() and a block barrier before any use.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+// one arrival that also announces `bytes` of TMA / bulk-copy transactions
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// waits until the phase of parity `parity` has completed (the n-th
+// completion of a barrier has parity n & 1); a wait of more than 10 s traps
+// (a launch error) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint64_t t0 = 0;
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if ((n & 1023) == 1023) {
+      uint64_t t;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+      if (t0 == 0) t0 = t;
+      else if (t - t0 > 10000000000ull) __trap();
+    }
+  }
+}
+
+// orders this thread's generic shared-memory accesses before later
+// async-proxy ones (TMA writes, wgmma reads) of the block
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `n` threads, whole warps
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// TMA tile loads into shared memory, completing on `bar`; coordinates
+// innermost first, in elements
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x0, int x1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x0),
+         "r"(x1) : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x0, int x1, int x2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x0),
+         "r"(x1), "r"(x2) : "memory");
+}
+// one contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(smem_u32(bar)) : "memory");
+}
+
+// wgmma operand descriptor of a bf16 tile in the 128-byte swizzle that a
+// SWIZZLE_128B tensor map writes (rows of 128 bytes, 1024-byte aligned
+// 8-row atoms).  K-major operand: sbo = 1024 (8 rows), lbo unused; a K-step
+// of 16 advances the start by 32 bytes.  MN-major operand: lbo = the bytes
+// between 64-element MN chunks, sbo = 1024 (8 K-rows); a K-step of 16
+// advances the start by 2048 bytes.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= 1ull << 62;  // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// moves registers between warpgroups (each warpgroup executes it whole):
+// a producer gives some up, the consumers take them
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// keeps the compiler from moving accumulator accesses across a wgmma
+__device__ __forceinline__ void fence_operand(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x 128 fp32, the warpgroup's accumulator fragment) (+)= A (64 x 16
+// bf16) @ B (16 x 128 bf16), both from shared memory by descriptor: A
+// K-major, B K-major (TRANS_B 0) or MN-major (TRANS_B 1); scale_d 0
+// overwrites d.  Thread t of the warpgroup holds d[4q + 2h + e] at row 16
+// (t / 32) + (t % 32) / 4 + 8 h, column 8 q + 2 (t % 4) + e.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// Host: a TMA tensor map (CUtensorMap) of a `rank`-dimensional array at
+// device address `base`: dims and box innermost first, in elements;
+// strides (rank - 1 of them) of the outer dimensions in bytes, multiples of
+// 16.  Boxes past the array's edge are filled with zeros.
+// cuTensorMapEncodeTiled (a CUDA driver API function) is taken through the
+// runtime's entry-point query, so the library links against the runtime
+// alone.  Returns a CUDA error
+// code, 0 on success.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                           const void* base, const uint64_t* dims, const uint64_t* strides,
+                           const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], e[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    e[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, b, e,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

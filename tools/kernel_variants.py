@@ -10,7 +10,11 @@ NAME=VALUE overrides of the kernel source's <NAME>_OVERRIDE macros
 msfno_torch/_build/variants/, loaded in place of the kernel's library and
 timed at the call sites of chip_smoke.py (CUDA events, the kernel against
 its plain version).  Prints ptxas' register and spill report per variant and
-one JSON line per (variant, site) with the card's name and power limit.
+one JSON line per (variant, site) with the card's name and power limit: the
+kernel's, the plain version's and (where chip_smoke.py has one) the library
+call's time and the bound.  The DFT kernels' tiles, for example:
+
+    python3 tools/kernel_variants.py dft_analysis base DFT_STAGES=3 base
 Repeat "base" at the end to see the run-to-run spread.
 """
 
@@ -59,6 +63,8 @@ def main(argv) -> int:
         kernels._LIBS[name] = ctypes.CDLL(str(lib))
         for rec in chip_smoke.SITES[name](dev):
             print(json.dumps({"variant": var, "site": rec["site"], "ms": rec["ms"],
+                              "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"],
+                              "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                               "rel_l2": rec["rel_l2"], "card": card}))
         torch.cuda.empty_cache()
     return 0
