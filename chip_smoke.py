@@ -8,7 +8,8 @@ Phases (any failure raises, and the script exits non-zero):
   2. build the ten CUDA kernels from msfno_torch/csrc, one nvcc per source;
   3. each kernel against its plain PyTorch version at the shapes of the
      serving step and of the fine-tune step (the three backward kernels,
-     every output), and the two longitude-DFT kernels at the shapes of the
+     every output; gcn_layer and gcn_layer_bwd also on the fp32 operands of
+     the JAX exact and balanced tiers, within 1e-5), and the two longitude-DFT kernels at the shapes of the
      net's transforms (fp32 and bf16 operands, fp32 and bf16 inputs), with
      times (CUDA events), the bound, the error and, for the DFT kernels, the
      time of one PyTorch call of the same function (`dft_library_call`);
@@ -44,6 +45,12 @@ Phases (any failure raises, and the script exits non-zero):
      the dense linear filter on the SHT and on the FFT at 2 blocks, whose
      per-block weights are 3.8 and 7.6 GB) against its `exact_config` twin
      (rel-L2 <= 3e-2, finite), with the launches the JAX gates give them.
+ 10. one full-width step of the JAX exact tier (`SFNOConfig(film=FilmConfig(
+     film_gen_type="gcn_custom"))` at its defaults) and of the balanced tier
+     (`balanced_config()`): fp32 activations, the generator's gcn_layer on
+     fp32 operands (exactly 7 launches, no other kernel), against the
+     `exact_config` twin (exact: step rel-L2 <= 1e-4, gamma / beta <= 1e-5;
+     balanced: step <= 3e-2), with the ms per step.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device it exits with 1 and
 prints no result.
@@ -132,14 +139,14 @@ def nbytes(*tensors) -> int:
 
 
 def check_site(name, site, kernel_fn, plain_fn, work, iters, time_fn=None, compare=None,
-               library_fn=None):
+               library_fn=None, tol=None):
     """Kernel against plain version on the same inputs; times and bound.
     `time_fn`, when given, is the call the main path makes (timed in place
     of `kernel_fn`, which may compute more outputs for the check);
     `compare(out_k, out_p) -> (error, extra record)` replaces the largest
     rel-L2 over the outputs as the error held to the tolerance;
     `library_fn`, when given, is one PyTorch call that computes the same
-    function, timed as `library_ms`."""
+    function, timed as `library_ms`; `tol` replaces the kernel's TOL."""
     import torch
 
     with torch.inference_mode():
@@ -159,13 +166,14 @@ def check_site(name, site, kernel_fn, plain_fn, work, iters, time_fn=None, compa
         plain = cuda_ms(plain_fn, max(1, iters // 4), warmup=1)
         library = cuda_ms(library_fn, iters) if library_fn is not None else None
     b_ms, by = bound_ms(*work)
+    tol = TOL[name] if tol is None else tol
     rec = dict(kernel=name, site=site, rel_l2=err, rel_l2_each=errs, max_abs_err=max_abs,
-               tol=TOL[name], ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+               tol=tol, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
                library_ms=library, **extra)
     log(json.dumps(rec))
-    if not err <= TOL[name]:
+    if not err <= tol:
         raise AssertionError(f"{name}[{site}] disagrees with its plain version: "
-                             f"rel-L2 {err:.3e} > {TOL[name]}")
+                             f"rel-L2 {err:.3e} > {tol}")
     return rec
 
 
@@ -239,34 +247,50 @@ def grid_mlp_sites(dev):
     return recs
 
 
+# fp32-operand sites (the JAX exact and balanced tiers' generator): true
+# fp32 FMA, so the plain version is matched to fp32 rounding
+FP32_TOL = 1e-5
+
+
 def gcn_layer_sites(dev):
     """gcn_layer at the generator's shapes: conv1 (c_in = 1, fp32 outer
-    product) and a 512 -> 512 layer with its residual."""
+    product) and a 512 -> 512 layer with its residual, on bf16 operands and
+    activations (the serving tier) and on fp32 ones (sites "*/fp32": the
+    exact and balanced tiers)."""
     import torch
 
     from msfno_torch.ops.kernels import gcn_layer as gk
 
     rn, g = _randn(dev, 3)
-    bf = torch.bfloat16
-    mask = (torch.rand((1, 180, 360, 1), device=dev, generator=g) > 0.3).to(bf)
-    dinv = (torch.rsqrt(1.0 + 8.0 * mask.float())).to(bf)
     recs = []
-    for site, c_in in (("conv1", 1), ("conv", 512)):
-        x = rn(1, 180, 360, c_in, dtype=bf)
-        wt = rn(c_in, 512, scale=1.0 / c_in ** 0.5)
-        b = rn(512, scale=0.1)
-        res = rn(1, 180, 360, 512, dtype=bf) if c_in > 1 else None
-        wk = wt.to(bf) if c_in > 1 else None
-        px = 180 * 360
-        ops = ({"bf16": 2 * px * c_in * 512, "fp32": 12 * px * 512} if c_in > 1
-               else {"fp32": 15 * px * 512})
-        work = (nbytes(x, wk if c_in > 1 else wt, b, dinv, mask, res) + px * 512 * 2, ops)
-        recs.append(check_site(
-            "gcn_layer", site,
-            lambda: gk.gcn_layer(x, wt, b, dinv, mask, residual=res, prepared=wk),
-            lambda: gk.gcn_layer_reference(x, wt, b, dinv, mask, residual=res),
-            work, 10))
-        del x, wt, b, res, wk
+    for dt in (torch.bfloat16, torch.float32):
+        mask = (torch.rand((1, 180, 360, 1), device=dev, generator=g) > 0.3).to(dt)
+        dinv = (torch.rsqrt(1.0 + 8.0 * mask.float())).to(dt)
+        f32 = dt == torch.float32
+        mxu = "float32" if f32 else "bfloat16"
+        for site, c_in in (("conv1", 1), ("conv", 512)):
+            x = rn(1, 180, 360, c_in, dtype=dt)
+            wt = rn(c_in, 512, scale=1.0 / c_in ** 0.5)
+            b = rn(512, scale=0.1)
+            res = rn(1, 180, 360, 512, dtype=dt) if c_in > 1 else None
+            wk = wt.to(dt) if c_in > 1 else None
+            px = 180 * 360
+            if c_in == 1:
+                ops = {"fp32": 15 * px * 512}
+            elif f32:
+                ops = {"fp32": 2 * px * c_in * 512 + 12 * px * 512}
+            else:
+                ops = {"bf16": 2 * px * c_in * 512, "fp32": 12 * px * 512}
+            work = (nbytes(x, wk if c_in > 1 else wt, b, dinv, mask, res)
+                    + px * 512 * dt.itemsize, ops)
+            recs.append(check_site(
+                "gcn_layer", site + ("/fp32" if f32 else ""),
+                lambda: gk.gcn_layer(x, wt, b, dinv, mask, residual=res, mxu_dtype=mxu,
+                                     prepared=wk),
+                lambda: gk.gcn_layer_reference(x, wt, b, dinv, mask, residual=res,
+                                               mxu_dtype=mxu),
+                work, 10, tol=FP32_TOL if f32 else None))
+            del x, wt, b, res, wk
     return recs
 
 
@@ -324,35 +348,44 @@ def spectral_decoder_sites(dev):
 def gcn_layer_bwd_sites(dev):
     """gcn_layer_bwd at the generator's shapes, every output (dx, dW, db):
     conv1 (c_in = 1; the path asks for no dx there) and a 512 -> 512 layer
-    with its residual, g in bf16 as the bf16 layer output's cotangent."""
+    with its residual, g in bf16 as the bf16 layer output's cotangent; and
+    the same on fp32 operands and activations (sites "*/fp32")."""
     import torch
 
     from msfno_torch.ops.kernels import gcn_layer_bwd as gb
 
     rn, g = _randn(dev, 6)
-    bf = torch.bfloat16
-    mask = (torch.rand((1, 180, 360, 1), device=dev, generator=g) > 0.3).to(bf)
-    dinv = (torch.rsqrt(1.0 + 8.0 * mask.float())).to(bf)
     recs = []
-    for site, c_in in (("conv1", 1), ("conv", 512)):
-        x = rn(1, 180, 360, c_in, dtype=bf)
-        wt = rn(c_in, 512, scale=1.0 / c_in ** 0.5)
-        res = rn(1, 180, 360, 512, dtype=bf) if c_in > 1 else None
-        y = (rn(1, 180, 360, 512) + (res.float() if res is not None else 0.0)).to(bf)
-        gy = rn(1, 180, 360, 512, scale=1e-3, dtype=bf)
-        wk = wt.to(bf)
-        px = 180 * 360
-        need_dx = c_in > 1
-        ops = {"bf16": 4 * px * c_in * 512, "fp32": 30 * px * 512}
-        work = (nbytes(gy, y, res, x, dinv, mask, wk) + 4 * px * c_in * need_dx
-                + 4 * (c_in * 512 + 512), ops)
-        recs.append(check_site(
-            "gcn_layer_bwd", site,
-            lambda: gb.gcn_layer_bwd(gy, y, res, x, wt, dinv, mask, prepared=wk),
-            lambda: gb.gcn_layer_bwd_reference(gy, y, res, x, wt, dinv, mask), work, 10,
-            time_fn=lambda: gb.gcn_layer_bwd(gy, y, res, x, wt, dinv, mask, need_dx=need_dx,
-                                             prepared=wk)))
-        del x, wt, res, y, gy, wk
+    for dt in (torch.bfloat16, torch.float32):
+        mask = (torch.rand((1, 180, 360, 1), device=dev, generator=g) > 0.3).to(dt)
+        dinv = (torch.rsqrt(1.0 + 8.0 * mask.float())).to(dt)
+        f32 = dt == torch.float32
+        mxu = "float32" if f32 else "bfloat16"
+        for site, c_in in (("conv1", 1), ("conv", 512)):
+            x = rn(1, 180, 360, c_in, dtype=dt)
+            wt = rn(c_in, 512, scale=1.0 / c_in ** 0.5)
+            res = rn(1, 180, 360, 512, dtype=dt) if c_in > 1 else None
+            y = (rn(1, 180, 360, 512) + (res.float() if res is not None else 0.0)).to(dt)
+            gy = rn(1, 180, 360, 512, scale=1e-3, dtype=dt)
+            wk = wt.to(dt)
+            px = 180 * 360
+            need_dx = c_in > 1
+            kind = "fp32" if f32 else "bf16"
+            ops = {kind: 4 * px * c_in * 512}
+            ops["fp32"] = ops.get("fp32", 0) + 30 * px * 512
+            work = (nbytes(gy, y, res, x, dinv, mask, wk) + 4 * px * c_in * need_dx
+                    + 4 * (c_in * 512 + 512), ops)
+            recs.append(check_site(
+                "gcn_layer_bwd", site + ("/fp32" if f32 else ""),
+                lambda: gb.gcn_layer_bwd(gy, y, res, x, wt, dinv, mask, mxu_dtype=mxu,
+                                         prepared=wk),
+                lambda: gb.gcn_layer_bwd_reference(gy, y, res, x, wt, dinv, mask,
+                                                   mxu_dtype=mxu),
+                work, 10, tol=FP32_TOL if f32 else None,
+                time_fn=lambda: gb.gcn_layer_bwd(gy, y, res, x, wt, dinv, mask,
+                                                 mxu_dtype=mxu, need_dx=need_dx,
+                                                 prepared=wk)))
+            del x, wt, res, y, gy, wk
     return recs
 
 
@@ -603,10 +636,11 @@ def finetune(dev, ms: int):
     loss_p, dmod_p, dgen_p = film_grads(plain, pstate, era5, sst)
     del plain, pstate
     torch.cuda.empty_cache()
-    # the same kernel path with the generator's activations in fp32 (its
-    # gcn_layer off): isolates the bf16 generator's own drift
+    # the same kernel path with the generator's activations in fp32, through
+    # the gcn_layer / gcn_layer_bwd kernels' fp32-operand path at full
+    # width: isolates the bf16 generator's own drift
     gen32 = finetune_config(film=dataclasses.replace(
-        finetune_config().film, compute_dtype="float32", pallas_gcn=False))
+        finetune_config().film, compute_dtype="float32"))
     tr32 = Trainer(gen32, tcfg, device=dev)
     tr32.model.load_state_dict(fp32_weights)
     del fp32_weights
@@ -785,6 +819,93 @@ def spectral_configs(dev, smi):
     return recs
 
 
+# phase 10: the JAX exact and balanced tiers (`__graft_entry__._flagship_cfg()`
+# and `(balanced=True)`): fp32 activations, the generator's gcn_layer on fp32
+# operands, no other kernel; the exact tier's generator output (gamma, beta)
+# and step against the plain path, the balanced tier's step within the
+# bf16-matmul class (JAX's own balanced-vs-exact figure is 0.9%)
+TIER_TOL = {"exact": 1e-4, "balanced": 3e-2}
+TIER_FILM_TOL = 1e-5
+
+
+def tier_configs() -> dict:
+    from msfno_torch.config import FilmConfig, SFNOConfig, balanced_config
+
+    return {"exact": SFNOConfig(film=FilmConfig(film_gen_type="gcn_custom")),
+            "balanced": balanced_config()}
+
+
+def _step_and_film(net, x0, sst):
+    """One step of `net` and its FiLM generator's output."""
+    import torch
+
+    mods = []
+    hook = net.film_gen.register_forward_hook(lambda m, i, out: mods.append(out))
+    try:
+        with torch.inference_mode():
+            y = net(x0, sst)
+    finally:
+        hook.remove()
+    return y, mods[0]
+
+
+def jax_tiers(dev, smi):
+    """Phase 10: one full-width step of each tier against its exact_config
+    twin with the same weights, exactly 7 gcn_layer launches and no other
+    kernel, and the ms per step.  Returns the records by tier."""
+    import torch
+
+    from msfno_torch.config import exact_config
+    from msfno_torch.models import FourierNeuralOperatorNetFilmed
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    recs = {}
+    for name, cfg in tier_configs().items():
+        net = FourierNeuralOperatorNetFilmed(cfg, device=dev, seed=0)
+        # a seeded random film head: the init's all-ones head makes every
+        # gamma and beta the same sum, which hides the generator's error
+        head = net.film_gen.film_gen.head_film.weight
+        with torch.no_grad():
+            head.copy_(torch.randn(head.shape, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(5))
+                       / head.shape[1] ** 0.5)
+        x0, sst, _ = model_inputs(cfg, dev, 1)
+        reset_launch_counts()
+        y_k, film_k = _step_and_film(net, x0, sst)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        with torch.inference_mode():
+            step_ms = cuda_ms(lambda: net(x0, sst), 3, warmup=1)
+        weights = net.state_dict()
+        del net
+        plain = FourierNeuralOperatorNetFilmed(exact_config(cfg), device=dev, seed=1)
+        plain.load_state_dict(weights)
+        del weights
+        y_p, film_p = _step_and_film(plain, x0, sst)
+        del plain
+        err, film_err = rel_l2(y_k, y_p), rel_l2(film_k, film_p)
+        finite = bool(torch.isfinite(y_k).all())
+        want = {k: 0 for k in counts}
+        want["gcn_layer"] = 1 + cfg.film.model_depth
+        rec = dict(phase="jax_tier", tier=name, card=smi, shape=list(y_k.shape),
+                   rel_l2_vs_exact_config=err, tol=TIER_TOL[name],
+                   film_rel_l2_vs_exact_config=film_err,
+                   film_tol=TIER_FILM_TOL if name == "exact" else None, finite=finite,
+                   launches={k: v for k, v in counts.items() if v}, step_ms=step_ms,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(json.dumps(rec))
+        del y_k, y_p, film_k, film_p, x0, sst
+        torch.cuda.empty_cache()
+        if not (err <= TIER_TOL[name] and finite
+                and (name != "exact" or film_err <= TIER_FILM_TOL)):
+            raise AssertionError(f"{name} tier vs exact_config: step rel-L2 {err:.3e}, "
+                                 f"gamma/beta {film_err:.3e}, finite {finite}")
+        if counts != want:
+            raise AssertionError(f"{name} tier: launches {counts} (want {want})")
+        recs[name] = rec
+    return recs
+
+
 def model_inputs(cfg, dev, steps):
     import torch
 
@@ -918,6 +1039,10 @@ def main() -> int:
     # phase 9: the other spectral configurations at full width
     torch.cuda.reset_peak_memory_stats()
     spectral_configs(dev, smi)
+    torch.cuda.empty_cache()
+
+    # phase 10: the JAX exact and balanced tiers at full width
+    tiers = jax_tiers(dev, smi)
     log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
 
     kernels = []
@@ -944,6 +1069,9 @@ def main() -> int:
             launches = {"launches": counts["fused"][name],
                         "launches_unfused_path": counts["unfused"][name],
                         "launches_train_step_multi_step_1": train[name]}
+            if name == "gcn_layer":
+                launches.update({f"launches_jax_{t}_tier_step": r["launches"].get(name, 0)
+                                 for t, r in tiers.items()})
             what = f"one 6-hour step of the fused path (sum over its launches), {STEPS}-step " \
                    "rollout counts"
         main_sites = [r for r in mine if per.get(r["site"], 0)]

@@ -239,6 +239,24 @@ def serving_config(**overrides) -> SFNOConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
+def balanced_config(**overrides) -> SFNOConfig:
+    """The JAX package's balanced tier (`__graft_entry__._flagship_cfg(
+    balanced=True)`) with `checkpointing_block=False`, as in
+    `serving_config`: fp32 activations, one-pass bf16 matmuls in the
+    spectral filter and the SHT, no spectral or grid-MLP kernel, and the
+    FiLM generator at its defaults (`pallas_gcn=True` on fp32 operands: the
+    gcn_layer kernel's fp32 path).  The JAX exact tier is
+    `SFNOConfig(film=FilmConfig(film_gen_type="gcn_custom"))` at its
+    defaults."""
+    cfg = SFNOConfig(
+        film=FilmConfig(film_gen_type="gcn_custom"),
+        compute_dtype="float32",
+        spectral_mxu_dtype="bfloat16",
+        sht_mxu_dtype="bfloat16",
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
 def exact_config(cfg: SFNOConfig) -> SFNOConfig:
     """`cfg` with every knob at fp32 and every kernel off: the plain fp32
     path the kernel path is held against."""

@@ -1,0 +1,370 @@
+// Row GEMMs shared by spectral_mlp.cu, gcn_layer.cu and gcn_layer_bwd.cu.
+//
+// wgmma_gemm: C = epi(A @ B), A (M x K) and B (K x N) bf16, row-major, fp32
+// accumulation on wgmma (sm_90a).  A block owns a WGM_BM x WGM_BN tile.  A
+// producer warp keeps a ring of WGM_STAGES stages in flight by TMA: the A
+// tile (128 rows x 64 K, K-major, one box) and the B tile (64 K x WGM_BN,
+// MN-major, boxes of 64 x 64), both in the 128-byte swizzle that wgmma
+// reads.  Two consumer warpgroups own 64 rows each and
+// issue WGM_BN / 128 m64n128k16 wgmmas per K-step of 16, keeping one
+// stage's wgmmas in flight while they wait for the next (a stage is
+// released one stage late).  The
+// epilogue functor `epi(d, row0, rows, col0)` gets each 64 x 128 fp32
+// accumulator fragment in registers.  TMA fills boxes past M, N and K with
+// zeros, so any shape whose rows are 16-byte multiples works.
+//
+// gemm_f32: C = A @ B (optionally each row scaled) in true fp32 FMA on the
+// CUDA cores (no TF32), A and B read as fp32 or bf16 values, either one
+// stored transposed; blockIdx.z splits K into partial products.  A block
+// owns a 128 x 128 tile, 8 x 8 per thread, K in double-buffered slabs of 8
+// (the next slab's loads in registers while the current one is multiplied).
+// Tunables: WGM_BN, WGM_STAGES (wgmma_gemm).
+
+#pragma once
+
+#include <climits>
+
+#include "tile_common.cuh"
+
+namespace {
+
+#ifndef WGM_BN_OVERRIDE
+#define WGM_BN_OVERRIDE 256
+#endif
+#ifndef WGM_STAGES_OVERRIDE
+#define WGM_STAGES_OVERRIDE 0
+#endif
+
+constexpr int WGM_BM = 128;                       // rows per block
+constexpr int WGM_BN = WGM_BN_OVERRIDE;           // columns per block
+constexpr int WGM_NB = WGM_BN / 128;              // m64n128 accumulators per consumer
+constexpr int WGM_BK = 64;                        // K per stage: one 128-byte bf16 row
+constexpr int WGM_A_BYTES = WGM_BM * WGM_BK * 2;  // 16 KB
+constexpr int WGM_B_BYTES = WGM_BK * WGM_BN * 2;  // WGM_BN / 64 boxes of 8 KB
+constexpr int WGM_SLOT = WGM_A_BYTES + WGM_B_BYTES;
+constexpr int WGM_STAGES = WGM_STAGES_OVERRIDE ? WGM_STAGES_OVERRIDE : 200 * 1024 / WGM_SLOT;
+constexpr int WGM_SMEM = 1024 + WGM_STAGES * WGM_SLOT + 2 * WGM_STAGES * 8;
+constexpr int WGM_CONSUMERS = 256;                // two consumer warpgroups
+constexpr int WGM_THREADS = WGM_CONSUMERS + 128;  // and a producer warpgroup (one warp works)
+static_assert(WGM_BN % 128 == 0 && WGM_BN <= 256, "WGM_BN is 128 or 256");
+static_assert(WGM_SMEM <= 232448, "the ring does not fit in shared memory");
+
+// Stores a warpgroup's 64 x 128 accumulator fragment (the layout of
+// wgmma_m64n128k16): element (r, c), c = col0 + fragment column, goes to
+// lo[(row0 + r) * ld + c] for c < split, else hi[(row0 + r) * ld + c - split],
+// for r < n_rows and c < n_cols.  With `vec` (ld, split and n_cols multiples
+// of 4, 16-byte aligned fp32 or 8-byte aligned bf16 rows) lane pairs trade
+// halves so that each thread writes 4 consecutive columns as one vector.
+template <typename OUT_T>
+__device__ __forceinline__ void store_acc(const float (&d)[64], OUT_T* lo, OUT_T* hi, int split,
+                                          long long ld, long long row0, int n_rows, int col0,
+                                          int n_cols, bool vec) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4;
+  const bool odd = lane & 1;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const float* dq = d + 4 * q;
+    if (vec) {
+      // even lanes: row r0, odd lanes: row r0 + 8; 4 channels each
+      const float s0 = odd ? dq[0] : dq[2], s1 = odd ? dq[1] : dq[3];
+      const float g0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+      const float g1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      float v[4] = {dq[0], dq[1], g0, g1};
+      if (odd) {
+        v[0] = g0; v[1] = g1; v[2] = dq[2]; v[3] = dq[3];
+      }
+      const int row = r0 + (odd ? 8 : 0);
+      const int col = col0 + 8 * q + 4 * ((lane % 4) / 2);
+      if (row >= n_rows || col >= n_cols) continue;
+      OUT_T* p = col < split ? lo + (row0 + row) * ld + col : hi + (row0 + row) * ld + (col - split);
+      if constexpr (sizeof(OUT_T) == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        alignas(8) __nv_bfloat16 packed[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) packed[j] = __float2bfloat16_rn(v[j]);
+        *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(packed);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e / 2);
+        const int col = col0 + 8 * q + 2 * (lane % 4) + (e % 2);
+        if (row >= n_rows || col >= n_cols) continue;
+        OUT_T* p = col < split ? lo + (row0 + row) * ld + col
+                               : hi + (row0 + row) * ld + (col - split);
+        if constexpr (sizeof(OUT_T) == 4) *p = dq[e];
+        else *p = __float2bfloat16_rn(dq[e]);
+      }
+    }
+  }
+}
+
+// the fragment's rows of this thread: r0 (d[4q + e], e < 2) and r0 + 8
+__device__ __forceinline__ int acc_row0() {
+  const int t = threadIdx.x % 128;
+  return 16 * (t / 32) + (t % 32) / 4;
+}
+// the fragment's column of d[4q + 2h + e]
+__device__ __forceinline__ int acc_col(int q, int e) {
+  return 8 * q + 2 * (threadIdx.x % 4) + e;
+}
+
+// The consumer warpgroups of wgmma_gemm: warpgroup g owns rows [m0 + 64 g,
+// m0 + 64 g + 64) of the tile; hands each accumulator fragment to `epi`.
+template <class Epi>
+__device__ __forceinline__ void consume(char* smem, uint64_t* full, uint64_t* empty, int m,
+                                        int n, int n_k, int m0, int n0, int warp, int lane,
+                                        const Epi& epi) {
+  reg_alloc<232>();
+  const int g = warp / 4;
+  float acc[WGM_NB][64];
+#pragma unroll
+  for (int i = 0; i < WGM_NB; ++i)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[i][j] = 0.f;
+  for (int s = 0; s < n_k; ++s) {
+    const int slot = s % WGM_STAGES;
+    char* sb = smem + slot * WGM_SLOT;
+    mbar_wait(full + slot, (s / WGM_STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < WGM_NB; ++i) fence_operand(acc[i]);
+#pragma unroll
+    for (int ks = 0; ks < WGM_BK / 16; ++ks) {
+      const uint64_t da = wgmma_desc(sb + g * 8192 + ks * 32, 16, 1024);
+#pragma unroll
+      for (int i = 0; i < WGM_NB; ++i) {
+        const uint64_t db =
+            wgmma_desc(sb + WGM_A_BYTES + 2 * i * 8192 + ks * 2048, 8192, 1024);
+        wgmma_m64n128k16<1>(acc[i], da, db, (s > 0 || ks > 0) ? 1 : 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's wgmmas are done: release its slot
+#pragma unroll
+    for (int i = 0; i < WGM_NB; ++i) fence_operand(acc[i]);
+    if (s > 0 && lane == 0) mbar_arrive(empty + (s - 1) % WGM_STAGES);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < WGM_NB; ++i) fence_operand(acc[i]);
+  const long long row0 = (long long)m0 + 64 * g;
+  const int rows = (int)min(64LL, (long long)m - row0);
+  if (rows <= 0) return;
+#pragma unroll
+  for (int i = 0; i < WGM_NB; ++i)
+    if (n0 + 128 * i < n) epi(acc[i], row0, rows, n0 + 128 * i);
+}
+
+template <class Epi>
+__global__ void __launch_bounds__(WGM_THREADS, 1)
+    wgmma_gemm(const __grid_constant__ CUtensorMap a_map,
+               const __grid_constant__ CUtensorMap b_map, int m, int n, int k, Epi epi) {
+  extern __shared__ char smem_raw[];
+  char* smem = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WGM_STAGES * WGM_SLOT);
+  uint64_t* empty = full + WGM_STAGES;
+  const int n0 = blockIdx.x * WGM_BN;
+  const int m0 = blockIdx.y * WGM_BM;
+  const int n_k = (k + WGM_BK - 1) / WGM_BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WGM_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, WGM_CONSUMERS / 32);  // every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= WGM_CONSUMERS / 32) {  // the producer warpgroup
+    reg_dealloc<40>();
+    if (warp == WGM_CONSUMERS / 32) {
+      for (int s = 0; s < n_k; ++s) {
+        const int slot = s % WGM_STAGES;
+        char* sb = smem + slot * WGM_SLOT;
+        if (s >= WGM_STAGES) mbar_wait(empty + slot, (s / WGM_STAGES - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(full + slot, WGM_SLOT);
+          tma_load_2d(sb, &a_map, full + slot, s * WGM_BK, m0);
+#pragma unroll
+          for (int b = 0; b < WGM_BN / 64; ++b)
+            tma_load_2d(sb + WGM_A_BYTES + b * 8192, &b_map, full + slot, n0 + 64 * b,
+                        s * WGM_BK);
+        }
+        __syncwarp();
+      }
+    }
+  } else {
+    consume(smem, full, empty, m, n, n_k, m0, n0, warp, lane, epi);
+  }
+}
+
+// C = epi(A @ B): a (m x k, leading dimension lda), b (k x n, ldb), bf16,
+// 16-byte aligned, lda and ldb multiples of 8.  Returns a CUDA error code.
+template <class Epi>
+int wgmma_gemm_launch(const void* a, long long lda, const void* b, long long ldb, int m, int n,
+                      int k, const Epi& epi, cudaStream_t stream) {
+  if (m < 1 || n < 1 || k < 1 || lda % 8 || ldb % 8 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 || (m + WGM_BM - 1) / WGM_BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap a_map, b_map;
+  const uint64_t a_dims[2] = {(uint64_t)k, (uint64_t)m};
+  const uint64_t a_strides[1] = {(uint64_t)lda * 2};
+  const uint32_t a_box[2] = {WGM_BK, WGM_BM};
+  int err = make_tensor_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, a_dims, a_strides,
+                            a_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  const uint64_t b_dims[2] = {(uint64_t)n, (uint64_t)k};
+  const uint64_t b_strides[1] = {(uint64_t)ldb * 2};
+  const uint32_t b_box[2] = {64, WGM_BK};
+  err = make_tensor_map(&b_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, b_dims, b_strides, b_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  static bool smem_set = false;  // once per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(wgmma_gemm<Epi>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               WGM_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  dim3 grid((n + WGM_BN - 1) / WGM_BN, (m + WGM_BM - 1) / WGM_BM);
+  wgmma_gemm<Epi><<<grid, WGM_THREADS, WGM_SMEM, stream>>>(a_map, b_map, m, n, k, epi);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32 FMA GEMM
+
+// two blocks per SM: one (255 registers, no spill) ran 27% slower on the
+// H100 at the generator's 512 -> 512 layer (tools/kernel_variants.py)
+constexpr int F32_BM = 128, F32_BN = 128, F32_BK = 8, F32_THREADS = 256, F32_MINB = 2;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// C (M x N, leading dimension ldc) = A (M x K) @ B (K x N), each row m then
+// multiplied by row_scale[m] (fp32 or bf16, rs_bf16) when given.  A_T: A
+// is stored as its (K x M) transpose; B_T: B as its (N x K) transpose; lda,
+// ldb are the stored rows' lengths.  Split z of blockIdx.z takes K range
+// [z k_split, (z + 1) k_split) and writes C + z * M * ldc.
+template <bool A_T, bool B_T, typename TA, typename TB>
+__global__ void __launch_bounds__(F32_THREADS, F32_MINB)
+    gemm_f32(const TA* __restrict__ A, long long lda, const TB* __restrict__ B, long long ldb,
+             float* __restrict__ C, long long ldc, int M, int N, long long K, long long k_split,
+             const void* row_scale, int rs_bf16) {
+  __shared__ __align__(16) float as[2][F32_BK][F32_BM];
+  __shared__ __align__(16) float bs[2][F32_BK][F32_BN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * F32_BM, n0 = blockIdx.x * F32_BN;
+  const long long kb = (long long)blockIdx.z * k_split;
+  const long long ke = kb + k_split < K ? kb + k_split : K;
+  // this thread's 4 values of each slab: (m or n, 4 consecutive k) where K
+  // is the stored rows' contiguous extent, else (k, 4 consecutive m or n)
+  const int a_i = A_T ? tid / 32 : tid / 2, a_j = A_T ? (tid % 32) * 4 : (tid % 2) * 4;
+  const int b_i = B_T ? tid / 2 : tid / 32, b_j = B_T ? (tid % 2) * 4 : (tid % 32) * 4;
+  float ra[4], rb[4];
+  auto load = [&](long long k0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!A_T) {
+        const long long kk = k0 + a_j + j;
+        ra[j] = (m0 + a_i < M && kk < ke) ? to_float(A[(long long)(m0 + a_i) * lda + kk]) : 0.f;
+      } else {
+        const long long kk = k0 + a_i;
+        ra[j] = (kk < ke && m0 + a_j + j < M) ? to_float(A[kk * lda + m0 + a_j + j]) : 0.f;
+      }
+      if (!B_T) {
+        const long long kk = k0 + b_i;
+        rb[j] = (kk < ke && n0 + b_j + j < N) ? to_float(B[kk * ldb + n0 + b_j + j]) : 0.f;
+      } else {
+        const long long kk = k0 + b_j + j;
+        rb[j] = (n0 + b_i < N && kk < ke) ? to_float(B[(long long)(n0 + b_i) * ldb + kk]) : 0.f;
+      }
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!A_T) as[buf][a_j + j][a_i] = ra[j];
+      else as[buf][a_i][a_j + j] = ra[j];
+      if (!B_T) bs[buf][b_i][b_j + j] = rb[j];
+      else bs[buf][b_j + j][b_i] = rb[j];
+    }
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int n_slabs = ke > kb ? (int)((ke - kb + F32_BK - 1) / F32_BK) : 0;
+  if (n_slabs > 0) {
+    load(kb);
+    store(0);
+    __syncthreads();
+  }
+  for (int s = 0; s < n_slabs; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < n_slabs) load(kb + (long long)(s + 1) * F32_BK);
+#pragma unroll
+    for (int k = 0; k < F32_BK; ++k) {
+      float a[8], b[8];
+      *reinterpret_cast<float4*>(a) = *reinterpret_cast<const float4*>(&as[buf][k][ty * 4]);
+      *reinterpret_cast<float4*>(a + 4) =
+          *reinterpret_cast<const float4*>(&as[buf][k][64 + ty * 4]);
+      *reinterpret_cast<float4*>(b) = *reinterpret_cast<const float4*>(&bs[buf][k][tx * 4]);
+      *reinterpret_cast<float4*>(b + 4) =
+          *reinterpret_cast<const float4*>(&bs[buf][k][64 + tx * 4]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (s + 1 < n_slabs) store(buf ^ 1);  // that buffer was last read a slab ago
+    __syncthreads();
+  }
+  float* out = C + (long long)blockIdx.z * M * ldc;
+  const bool vec = ldc % 4 == 0 && reinterpret_cast<uintptr_t>(C) % 16 == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (m >= M) continue;
+    float sc = 1.f;
+    if (row_scale) sc = load_act(row_scale, m, rs_bf16);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * h + tx * 4;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = row_scale ? acc[i][4 * h + j] * sc : acc[i][4 * h + j];
+      float* p = out + (long long)m * ldc + n;
+      if (vec && n + 3 < N) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < N) p[j] = v[j];
+      }
+    }
+  }
+}
+
+template <bool A_T, bool B_T, typename TA, typename TB>
+int gemm_f32_launch(const TA* a, long long lda, const TB* b, long long ldb, float* c,
+                    long long ldc, int m, int n, long long k, int splits, const void* row_scale,
+                    int rs_bf16, cudaStream_t stream) {
+  if (m < 1 || n < 1 || k < 1 || splits < 1 || (m + F32_BM - 1) / F32_BM > 65535 ||
+      splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long k_split = (k + splits - 1) / splits;
+  dim3 grid((n + F32_BN - 1) / F32_BN, (m + F32_BM - 1) / F32_BM, splits);
+  gemm_f32<A_T, B_T, TA, TB><<<grid, F32_THREADS, 0, stream>>>(a, lda, b, ldb, c, ldc, m, n, k,
+                                                              k_split, row_scale, rs_bf16);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

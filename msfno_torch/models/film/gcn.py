@@ -58,7 +58,7 @@ class GraphConvolution(nn.Module):
     def forward(self, x, mask, dinv_sqrt, residual=None):
         if self.fuse:
             prepared = None
-            if x.is_cuda and x.shape[-1] > 1:
+            if x.is_cuda and x.shape[-1] > 1 and self.mxu_dtype == "bfloat16":
                 prepared = self._cache.get(
                     "w", (self.weight,),
                     lambda: self.weight.to(torch.bfloat16).contiguous(),

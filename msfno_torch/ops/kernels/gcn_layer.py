@@ -6,11 +6,15 @@ Replaces msfno_tpu/ops/pallas/gcn_layer.py:gcn_layer:
     out = residual + leaky_relu((box3(x @ W * d) * d + b) * mask, slope)
 
 with box3 the 3x3 neighbour sum (periodic in longitude, zero past the poles)
-and d = D^{-1/2}.  Bound on the H100 at the generator's shapes: a 512 -> 512
-layer is ~3.4e10 FLOP against ~200 MB of bf16 traffic (see the kernel
-source).  Its gradient is the `gcn_layer_bwd` kernel (JAX `_bwd`,
-gcn_layer.py:396-421): dx, dW and db from the kernel, g itself for the
-residual, none for dinv and mask (functions of the SST's NaN pattern).
+and d = D^{-1/2}.  The kernel runs it in two passes, mirrored by
+`gcn_t_pass` (t = x @ W * d in fp32) and `gcn_stencil_pass`; "float32" and
+"tensorfloat" knobs take fp32 operands (true fp32 FMA), "bfloat16" bf16
+operands.  Bound on the H100 at the generator's shapes, a 512 -> 512
+layer: ~200 MB of bf16 traffic (0.06 ms), or 3.4e10 fp32 FMA operations
+(0.51 ms) on fp32 operands (see the kernel source).  Its gradient is the
+`gcn_layer_bwd` kernel (JAX `_bwd`, gcn_layer.py:396-421): dx, dW and db
+from the kernel, g itself for the residual, none for dinv and mask
+(functions of the SST's NaN pattern).
 """
 
 from __future__ import annotations
@@ -37,23 +41,37 @@ def box3(v: torch.Tensor) -> torch.Tensor:
     return rows + torch.roll(rows, 1, dims=-2) + torch.roll(rows, -1, dims=-2)
 
 
-def gcn_layer_reference(x, w, b, dinv, mask, residual=None, slope=0.01,
-                        mxu_dtype="bfloat16", out_dtype=None):
-    """Plain version of `_ref_gcn_layer` (msfno_tpu/ops/pallas/gcn_layer.py:
-    362-377) with the kernel's rounding points: for c_in > 1, x and W are
-    rounded to `mxu_dtype` before an fp32-accumulated product; c_in == 1 is
-    an fp32 outer product.  Everything after the product is fp32."""
-    c_in = x.shape[-1]
-    if c_in == 1:
+def gcn_t_pass(x, w, dinv, mxu_dtype="bfloat16") -> torch.Tensor:
+    """The kernel's first pass, t = (x @ W) * dinv in fp32: for c_in > 1 x
+    and W rounded to `mxu_dtype` before an fp32-accumulated product; c_in
+    == 1 an fp32 outer product."""
+    if x.shape[-1] == 1:
         sup = x.float() * w.float()[0]
     else:
         sup = mxu_round(x, mxu_dtype) @ mxu_round(w, mxu_dtype)
+    return sup * dinv.float()
+
+
+def gcn_stencil_pass(t, b, dinv, mask, residual=None, slope=0.01,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """The kernel's second pass on an fp32 t: residual + leaky_relu((box3(t)
+    * dinv + b) * mask), in fp32, cast to `out_dtype`."""
     d = dinv.float()
-    agg = (box3(sup * d) * d + b.float()) * mask.float()
+    agg = (box3(t) * d + b.float()) * mask.float()
     y = torch.where(agg >= 0, agg, slope * agg)
     if residual is not None:
         y = y + residual.float()
-    return y.to(torch_dtype(out_dtype) if out_dtype is not None else x.dtype)
+    return y.to(out_dtype)
+
+
+def gcn_layer_reference(x, w, b, dinv, mask, residual=None, slope=0.01,
+                        mxu_dtype="bfloat16", out_dtype=None):
+    """Plain version of `_ref_gcn_layer` (msfno_tpu/ops/pallas/gcn_layer.py:
+    362-377) with the kernel's rounding points and passes: `gcn_t_pass` then
+    `gcn_stencil_pass`."""
+    od = torch_dtype(out_dtype) if out_dtype is not None else x.dtype
+    return gcn_stencil_pass(gcn_t_pass(x, w, dinv, mxu_dtype), b, dinv, mask, residual,
+                            slope, od)
 
 
 def _act(t: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -70,7 +88,8 @@ def gcn_layer(x, w, b, dinv, mask, residual=None, slope: float = 0.01,
     residual: optional (B, H, W, F) added after the activation.  Returns
     (B, H, W, F) in `out_dtype` (default x.dtype).  A CPU tensor takes the
     plain version, forward and backward; a CUDA tensor launches the kernels
-    or raises.  `prepared` is an optional cached bf16 copy of w (c_in > 1)."""
+    or raises.  `prepared` is an optional cached copy of w (c_in > 1) in the
+    operand dtype (bf16, or fp32 for "float32" and "tensorfloat")."""
     return _GcnLayer.apply(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype,
                            prepared)
 
@@ -115,17 +134,18 @@ def _forward(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype, prepare
             or (residual is not None and residual.shape != (bsz, h, wd, f))):
         raise ValueError("gcn_layer: operand shapes do not match x (B, H, W, C_in) "
                          f"{tuple(x.shape)} and w (C_in, F) {tuple(w.shape)}")
-    if c_in > 1 and mxu_dtype != "bfloat16":
-        raise NotImplementedError(
-            "gcn_layer: the CUDA kernel takes bf16 operands; an fp32 kernel "
-            f"({mxu_dtype!r}) comes in a later slice; set pallas_gcn=False "
-            "for an fp32 generator"
-        )
+    f32_ops = _fp32_operands(mxu_dtype)
     if c_in == 1:
         wk = w.float().reshape(-1).contiguous()
+        xk, x_bf16 = _act(x)
+    elif f32_ops:
+        wk = prepared if prepared is not None else w.float().contiguous()
+        xk, x_bf16 = x.float().contiguous(), 0
     else:
         wk = prepared if prepared is not None else w.to(torch.bfloat16).contiguous()
-    xk, x_bf16 = _act(x)
+        xk, x_bf16 = x.to(torch.bfloat16).contiguous(), 1
+    if xk.data_ptr() % 16:  # TMA reads 16-byte aligned rows
+        xk = xk.clone()
     dk, d_bf16 = _act(dinv)
     mk, m_bf16 = _act(mask)
     if d_bf16 != m_bf16:
@@ -135,18 +155,35 @@ def _forward(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype, prepare
     if od not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gcn_layer: unsupported out dtype {od}")
     out = torch.empty((bsz, h, wd, f), dtype=od, device=x.device)
+    # t = (x @ W) * dinv, fp32, rows padded to 4 values (16-byte loads)
+    ldt = -(-f // 4) * 4
+    t = (torch.empty((bsz * h * wd, ldt), device=x.device, dtype=torch.float32)
+         if c_in > 1 else None)
     bk = b.float().contiguous()
-    fn = library("gcn_layer").gcn_layer_bf16
+    fn = library("gcn_layer").gcn_layer
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci] * 9 + [ctypes.c_float, vp]
+    fn.argtypes = [vp] * 8 + [ci] * 11 + [ctypes.c_float, vp]
     fn.restype = ci
     status = fn(
         xk.data_ptr(), wk.data_ptr(), bk.data_ptr(), dk.data_ptr(), mk.data_ptr(),
         rk.data_ptr() if rk is not None else None, out.data_ptr(),
-        bsz, h, wd, c_in, f, x_bf16, d_bf16, r_bf16, int(od == torch.bfloat16),
-        slope, stream_ptr(x),
+        t.data_ptr() if t is not None else None,
+        bsz, h, wd, c_in, f, ldt, x_bf16, d_bf16, r_bf16, int(od == torch.bfloat16),
+        int(f32_ops), slope, stream_ptr(x),
     )
     check(status, "gcn_layer")
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def _fp32_operands(mxu_dtype: str) -> bool:
+    """The kernels' operand type for a matmul knob: "float32" and
+    "tensorfloat" take fp32 operands (true fp32 FMA, as
+    `kernel_mxu_dtype`, msfno_tpu/ops/pallas/__init__.py:1-10, maps
+    them), "bfloat16" bf16 operands."""
+    if mxu_dtype in ("float32", "tensorfloat"):
+        return True
+    if mxu_dtype == "bfloat16":
+        return False
+    raise ValueError(f"unknown mxu dtype {mxu_dtype!r}")

@@ -10,8 +10,8 @@ forward y = residual + leaky_relu((box3(x @ W * d) * d + b) * mask, slope):
 
 with dsup, W and x rounded to the matmul operand dtype before the products,
 fp32 accumulation.  The residual's cotangent is g itself (the caller's).
-Bound on the H100 at a 512 -> 512 layer: memory traffic (see the kernel
-source).
+Bound on the H100 at a 512 -> 512 layer: memory traffic on bf16 operands,
+fp32 FMA operations on fp32 operands (see the kernel source).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from msfno_torch.ops.kernels import check, library, stream_ptr
-from msfno_torch.ops.kernels.gcn_layer import _act, box3
+from msfno_torch.ops.kernels.gcn_layer import _act, _fp32_operands, box3
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -52,16 +52,12 @@ def gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope: float = 0.01,
     `_gcn_layer_bwd_call` contract).  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel or raises.  Without `need_dx` the kernel
     skips dx and returns None for it.  `prepared` is an optional cached bf16
-    copy of w (c_in > 1)."""
+    copy of w (c_in > 1) in the operand dtype: bf16, or fp32 for the
+    "float32" and "tensorfloat" knobs."""
     if g.device.type == "cpu":
         return gcn_layer_bwd_reference(g, y, residual, x, w, dinv, mask, slope, mxu_dtype)
     if g.device.type != "cuda":
         raise ValueError(f"gcn_layer_bwd: unsupported device {g.device}")
-    if mxu_dtype != "bfloat16":
-        raise NotImplementedError(
-            "gcn_layer_bwd: the CUDA kernel takes bf16 operands; an fp32 kernel "
-            f"({mxu_dtype!r}) comes in a later slice"
-        )
     bsz, h, wd, f = g.shape
     c_in = x.shape[-1]
     if (w.shape != (c_in, f) or y.shape != g.shape or x.shape[:3] != g.shape[:3]
@@ -70,42 +66,46 @@ def gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope: float = 0.01,
         raise ValueError("gcn_layer_bwd: operand shapes do not match g (B, H, W, F) "
                          f"{tuple(g.shape)}, x (B, H, W, C_in) {tuple(x.shape)} and "
                          f"w (C_in, F) {tuple(w.shape)}")
-    if f % 8 or (c_in > 1 and c_in % 8):
-        raise ValueError(f"gcn_layer_bwd: F {f} (and C_in {c_in} > 1) must be multiples of 8")
+    f32_ops = _fp32_operands(mxu_dtype)
+    if f % 8 or (c_in > 1 and c_in % 8 and not f32_ops):
+        raise ValueError(f"gcn_layer_bwd: F {f} (and, on bf16 operands, C_in {c_in} > 1) "
+                         "must be multiples of 8")
     dev = g.device
     gk, g_bf16 = _act(g)
     yk, y_bf16 = _act(y)
     rk, r_bf16 = _act(residual) if residual is not None else (None, 0)
     dk, d_bf16 = _act(dinv)
     mk = mask.to(dk.dtype).contiguous()
+    op_dtype = torch.float32 if f32_ops else torch.bfloat16
     if c_in > 1:
-        xk, x_bf16 = x.to(torch.bfloat16).contiguous(), 1
-        wk = prepared if prepared is not None else w.to(torch.bfloat16).contiguous()
+        xk, x_bf16 = x.to(op_dtype).contiguous(), int(not f32_ops)
+        wk = prepared if prepared is not None else w.to(op_dtype).contiguous()
     else:
         xk, x_bf16 = _act(x)
-        wk = w.to(torch.bfloat16).reshape(1, f).contiguous()
+        wk = w.to(op_dtype).reshape(1, f).contiguous()
     n_px = bsz * h * wd
-    tiles = -(-c_in // 64) * -(-f // 64)
+    tile = 128 if f32_ops else 64  # the dW GEMM's tile edge
+    tiles = -(-c_in // tile) * -(-f // tile)
     splits = 1 if c_in == 1 else max(1, min(n_px // 1024, -(-_SM_WAVE // tiles)))
     dx = torch.empty((bsz, h, wd, c_in), device=dev) if need_dx else None
     dw = torch.empty((c_in, f), device=dev)
     db = torch.empty((f,), device=dev)
-    dsup = torch.empty((bsz, h, wd, f), dtype=torch.bfloat16, device=dev)
+    dsup = torch.empty((bsz, h, wd, f), dtype=op_dtype, device=dev)
     part_db = torch.empty((bsz * h, f), device=dev)
     part_dw = torch.empty((bsz * h, f) if c_in == 1 else (splits, c_in, f), device=dev)
 
     lib = library("gcn_layer_bwd")
-    lib.gcn_layer_bwd_bf16.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                                       ctypes.c_void_p]
-    lib.gcn_layer_bwd_bf16.restype = ctypes.c_int
+    lib.gcn_layer_bwd.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                  ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                                  ctypes.c_void_p]
+    lib.gcn_layer_bwd.restype = ctypes.c_int
     ptrs = (ctypes.c_void_p * 13)(*[
         t.data_ptr() if t is not None else None
         for t in (gk, yk, rk, xk, wk, dk, mk, dx, dw, db, dsup, part_db, part_dw)
     ])
-    ints = (ctypes.c_longlong * 11)(bsz, h, wd, c_in, f, g_bf16, y_bf16, r_bf16, x_bf16,
-                                    d_bf16, splits)
-    status = lib.gcn_layer_bwd_bf16(ptrs, ints, slope, stream_ptr(g))
+    ints = (ctypes.c_longlong * 12)(bsz, h, wd, c_in, f, g_bf16, y_bf16, r_bf16, x_bf16,
+                                    d_bf16, splits, int(f32_ops))
+    status = lib.gcn_layer_bwd(ptrs, ints, slope, stream_ptr(g))
     check(status, "gcn_layer_bwd")
     global LAUNCHES
     LAUNCHES += 1

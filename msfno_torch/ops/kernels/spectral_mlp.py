@@ -8,7 +8,9 @@ the `wout` projection (reference SpectralAttentionS2.forward_mlp,
 MSFNO/Models/sfno/layers.py:615-631).
 
 Bound on the H100 at the serving shapes: operations (see the kernel source);
-one launch is ~9.1e10 FLOP in the 4-product form.  Its gradient is what the
+one launch is ~9.1e10 FLOP in the 4-product form.  `spectral_mlp_layers`
+mirrors the kernel's algebra (one packed GEMM per layer, the hidden state
+handed on in bf16).  Its gradient is what the
 JAX `_bwd` (spectral_mlp.py:485-507) does: on the bf16 path dx from the
 `spectral_mlp_bwd` kernel; the weights' gradients, only when asked for (and
 dx off the bf16 path), from the VJP of the fp32 reference `_ref_flat`.
@@ -47,20 +49,46 @@ def spectral_mlp_reference(z: torch.Tensor, weights, negative_slope: float = 0.0
     return torch.stack([hr, hi])
 
 
+def packed_matrix(w: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """P = [[wr, wi], [-wi, wr]] of one (in, out, 2) complex weight, so that
+    [hr | hi] @ P = [hr wr - hi wi | hr wi + hi wr], in `dtype`."""
+    wr, wi = w[..., 0].float(), w[..., 1].float()
+    return torch.cat(
+        [torch.cat([wr, wi], dim=1), torch.cat([-wi, wr], dim=1)], dim=0
+    ).to(dtype)
+
+
 def pack_weights(weights) -> tuple[torch.Tensor, list[int], list[int]]:
-    """The kernel's weight buffer: P_l = [[wr, wi], [-wi, wr]] per layer, in
-    bf16, concatenated; with the layer widths and element offsets."""
+    """The kernel's weight buffer: `packed_matrix` per layer, in bf16,
+    concatenated; with the layer widths and element offsets."""
     dims = [int(weights[0].shape[0])] + [int(w.shape[1]) for w in weights]
     parts, offs, off = [], [], 0
     for w in weights:
-        wr, wi = w[..., 0].float(), w[..., 1].float()
-        packed = torch.cat(
-            [torch.cat([wr, wi], dim=1), torch.cat([-wi, wr], dim=1)], dim=0
-        ).to(torch.bfloat16)
+        packed = packed_matrix(w)
         parts.append(packed.reshape(-1))
         offs.append(off)
         off += packed.numel()
     return torch.cat(parts).contiguous(), dims, offs
+
+
+def spectral_mlp_layers(z: torch.Tensor, weights, negative_slope: float = 0.0,
+                        mxu_dtype: str = "float32") -> torch.Tensor:
+    """Mirror of the kernel's algebra: one packed GEMM per layer with the
+    hidden state handed from layer to layer as [re | im] rows rounded to
+    the operand dtype (bf16: once per layer, as the kernel's epilogue
+    does), fp32 accumulation, the LeakyReLU on the real half of every
+    hidden layer, fp32 re and im out."""
+    h = mxu_round(torch.cat([z[0], z[1]], dim=-1), mxu_dtype)
+    for idx, w in enumerate(weights):
+        d_out = w.shape[1]
+        y = h @ mxu_round(packed_matrix(w, torch.float32), mxu_dtype)
+        if idx < len(weights) - 1:
+            y = torch.cat([torch.where(y[..., :d_out] >= 0, y[..., :d_out],
+                                       negative_slope * y[..., :d_out]), y[..., d_out:]], -1)
+            h = mxu_round(y, mxu_dtype)
+        else:
+            h = y
+    return torch.stack([h[..., :h.shape[-1] // 2], h[..., h.shape[-1] // 2:]])
 
 
 def spectral_mlp(z: torch.Tensor, weights, negative_slope: float = 0.0,
@@ -128,18 +156,20 @@ def _forward(z, weights, negative_slope, mxu_dtype, packed):
         x = x.clone()
     n = x.shape[1]
     out = torch.empty((2, n, dims[-1]), device=z.device, dtype=torch.float32)
+    # the hidden states, [re | im] bf16 rows, in turn
+    hidden = torch.empty((2, n * 2 * max(dims)), device=z.device, dtype=torch.bfloat16)
     fn = library("spectral_mlp").spectral_mlp_bf16
     vp = ctypes.c_void_p
     fn.argtypes = [vp, vp, vp, ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, vp, vp,
-                   ctypes.c_int, ctypes.c_float, vp]
+                   ctypes.c_int, ctypes.c_float, vp, vp, vp]
     fn.restype = ctypes.c_int
     n_layers = len(dims) - 1
     status = fn(
         x[0].data_ptr(), x[1].data_ptr(), wbuf.data_ptr(),
         (ctypes.c_int * len(dims))(*dims), (ctypes.c_longlong * n_layers)(*offs),
         n_layers, out[0].data_ptr(), out[1].data_ptr(), n, negative_slope,
-        stream_ptr(z),
+        hidden[0].data_ptr(), hidden[1].data_ptr(), stream_ptr(z),
     )
     check(status, "spectral_mlp")
     global LAUNCHES

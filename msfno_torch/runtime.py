@@ -62,20 +62,60 @@ def mxu_matmul(a: torch.Tensor, b: torch.Tensor, mxu_dtype: str,
     """`torch.matmul` under a matmul knob of the JAX package.
 
     "float32" (and "tensorfloat") is a true fp32 matmul.  "bfloat16" is a
-    bf16 x bf16 GEMM with fp32 accumulation whose output torch rounds to
-    bf16; the JAX package's one-pass bf16 matmul keeps an fp32 output.  On
-    the SHT's chain that extra rounding is nearly free: every DFT output
-    feeds a Legendre matmul that rounds its operand to bf16 anyway, the
-    Legendre analysis feeds the spectral kernel, which stages its input in
-    bf16, and the grid-space result is cast to the bf16 activation dtype.
-    The result is cast to `out_dtype`; None keeps the GEMM's own dtype."""
+    bf16 x bf16 GEMM with fp32 accumulation.  With `out_dtype` fp32 it
+    keeps an fp32 output, as the JAX package's one-pass bf16 matmul
+    (`preferred_element_type`) does: on a card one `torch.bmm(...,
+    out_dtype=torch.float32)`, on the CPU an fp32 matmul of the
+    bf16-rounded operands (bf16 x bf16 products are exact in fp32: the
+    same function).  With `out_dtype` None or bf16 the GEMM's output is
+    bf16, which costs nothing where the result feeds a matmul that rounds
+    its operand to bf16 anyway (a DFT output into the Legendre matmul, the
+    Legendre synthesis into the inverse DFT)."""
     if mxu_dtype == "bfloat16":
-        y = torch.matmul(a.to(torch.bfloat16), b.to(torch.bfloat16))
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if out_dtype != torch.float32:
+            y = torch.matmul(a16, b16)
+        elif a.is_cuda:
+            y = _bmm_fp32_out(a16, b16)
+        else:
+            y = torch.matmul(a16.float(), b16.float())
     elif mxu_dtype in ("float32", "tensorfloat"):
         y = torch.matmul(a.float(), b.float())
     else:
         raise ValueError(f"unknown mxu dtype {mxu_dtype!r}")
     return y if out_dtype is None else y.to(out_dtype)
+
+
+def _bmm_fp32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bf16 (..., m, k) and (..., k, n), broadcast over the leading
+    dimensions, as one bf16 GEMM with fp32 sums and fp32 output."""
+    if a.dim() < 2 or b.dim() < 2:
+        raise ValueError("mxu_matmul takes matrices (at least 2-D)")
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b3 = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    y = _Bf16BmmFp32Out.apply(a3, b3)
+    return y.reshape(*batch, a.shape[-2], b.shape[-1])
+
+
+class _Bf16BmmFp32Out(torch.autograd.Function):
+    """bf16 batched product with fp32 output (`torch.bmm(..., out_dtype=)`
+    has no derivative).  The gradients are the bf16 GEMMs that autograd
+    ran through the bf16-output product before: the cotangent rounded to
+    bf16, bf16 output."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g16 = g.to(torch.bfloat16)
+        da = torch.bmm(g16, b.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        db = torch.bmm(a.transpose(1, 2), g16) if ctx.needs_input_grad[1] else None
+        return da, db
 
 
 class DerivedCache:

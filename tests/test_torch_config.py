@@ -67,6 +67,28 @@ def test_finetune_config_is_the_jax_bench_configuration():
     assert tcfg.finetune_train_config(multi_step_training=1).multi_step_training == 1
 
 
+def test_balanced_config_is_the_jax_balanced_tier():
+    """balanced_config() is _flagship_cfg(balanced=True) field for field but
+    for checkpointing_block; the default SFNOConfig with the gcn_custom
+    generator is the exact tier, _flagship_cfg() (compared by JSON), again
+    but for checkpointing_block."""
+    pytest.importorskip("jax")
+    import __graft_entry__
+    from msfno_tpu.utils import config as jcfg
+
+    want = dataclasses.replace(__graft_entry__._flagship_cfg(balanced=True),
+                               checkpointing_block=False)
+    assert jcfg.from_json(tcfg.to_json(tcfg.balanced_config())) == want
+    assert tcfg.balanced_config().film.pallas_gcn
+    assert tcfg.balanced_config().film.compute_dtype == "float32"
+    exact = tcfg.SFNOConfig(film=tcfg.FilmConfig(film_gen_type="gcn_custom"))
+    want = dataclasses.replace(__graft_entry__._flagship_cfg(tiny=False),
+                               checkpointing_block=False)
+    assert tcfg.to_json(exact) == jcfg.to_json(want)
+    # exact_config stays the plain path the kernels are held against
+    assert not tcfg.exact_config(tcfg.balanced_config()).film.pallas_gcn
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, msfno_torch, msfno_torch.config, msfno_torch.convert, "

@@ -134,3 +134,73 @@ def test_kernel_matches_plain(cuda, shape, residual):
     assert tk.LAUNCHES == before + 1
     # bf16 output rounding on both sides, fp32 sums in another order
     assert rel_l2(yk.float().cpu(), yp.float().cpu()) <= 1e-2
+
+
+@pytest.mark.parametrize("mxu", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,residual", [((1, 7, 16, 1, 16), True),
+                                            ((2, 9, 16, 8, 24), True),
+                                            ((1, 5, 12, 16, 8), False)])
+def test_two_pass_mirror_matches_jax_kernel(mxu, shape, residual):
+    """The kernel's two passes, t = (x W) d in fp32 then the stencil, against
+    the Pallas kernel (interpret mode) on the same operand dtype."""
+    _jax()
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.gcn_layer import gcn_layer as jax_gcn_layer
+
+    ops = _case(*shape, residual, seed=2)
+    yj = _call(jax_gcn_layer, ops, jnp.asarray, mxu_dtype=mxu, out_dtype="float32")
+    t = {k: torch.from_numpy(v) for k, v in ops.items()}
+    tt = tk.gcn_t_pass(t["x"], t["w"], t["dinv"], mxu)
+    assert tt.dtype == torch.float32
+    yt = tk.gcn_stencil_pass(tt, t["b"], t["dinv"], t["mask"], t.get("residual"))
+    assert report(f"gcn_layer two-pass mirror[c_in={shape[3]}, {mxu}]",
+                  rel_l2(yt, yj)) <= 1e-5
+
+
+def _on_card(ops, dev, mxu):
+    dt = torch.float32 if mxu == "float32" else torch.bfloat16
+    return {k: torch.from_numpy(v).to(dev).to(torch.float32 if k in ("w", "b") else dt)
+            for k, v in ops.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in", [1, 512])
+@pytest.mark.parametrize("residual", [False, True])
+def test_fp32_kernel_matches_plain(cuda, c_in, residual):
+    """fp32 operands (the JAX exact and balanced tiers' generator): true fp32
+    FMA, fp32 in and out, sums in another order only."""
+    from msfno_torch.runtime import exact_fp32_matmuls
+
+    exact_fp32_matmuls()
+    ops = _case(1, 45, 360, c_in, 512, residual, seed=7)
+    t = _on_card(ops, cuda, "float32")
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        yk = _call(tk.gcn_layer, t, lambda a: a, mxu_dtype="float32")
+        torch.cuda.synchronize()
+        yp = _call(tk.gcn_layer_reference, t, lambda a: a, mxu_dtype="float32")
+    assert tk.LAUNCHES == before + 1 and yk.dtype == torch.float32
+    assert rel_l2(yk.cpu(), yp.cpu()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,residual", [((1, 5, 3, 16, 32), True),
+                                            ((2, 9, 400, 64, 96), True),
+                                            ((1, 13, 257, 24, 40), False),
+                                            ((1, 7, 100, 20, 36), True),   # c_in % 8 != 0
+                                            ((1, 3, 50, 12, 30), True),    # F % 4 != 0
+                                            ((1, 11, 33, 1, 20), True)])
+def test_kernel_ragged_sizes(cuda, mxu, shape, residual):
+    """Odd H, W from 3 to 400, widths that fill no tile."""
+    from msfno_torch.runtime import exact_fp32_matmuls
+
+    exact_fp32_matmuls()
+    ops = _case(*shape, residual, seed=8)
+    t = _on_card(ops, cuda, mxu)
+    with torch.inference_mode():
+        yk = _call(tk.gcn_layer, t, lambda a: a, mxu_dtype=mxu)
+        torch.cuda.synchronize()
+        yp = _call(tk.gcn_layer_reference, t, lambda a: a, mxu_dtype=mxu)
+    assert yk.shape == yp.shape and yk.dtype == yp.dtype
+    assert rel_l2(yk.float().cpu(), yp.float().cpu()) <= (1e-5 if mxu == "float32" else 1e-2)

@@ -128,3 +128,27 @@ def test_kernel_matches_plain(cuda, shape, residual):
         assert a.shape == b.shape and a.dtype == torch.float32
         # one-ulp bf16 flips of dsup, fp32 sums in another order
         assert rel_l2(a.cpu(), b.cpu()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in", [1, 512])
+@pytest.mark.parametrize("residual", [False, True])
+def test_fp32_kernel_matches_plain(cuda, c_in, residual):
+    """fp32 operands: dsup is not rounded, dx and dW are fp32 FMA GEMMs (dW
+    split over pixel ranges, added in a fixed order); every output within
+    1e-5 of the plain version."""
+    from msfno_torch.runtime import exact_fp32_matmuls
+
+    exact_fp32_matmuls()
+    ops = _case(1, 45, 360, c_in, 512, residual, seed=5)
+    t = {k: torch.from_numpy(v).to(cuda) if v is not None else None for k, v in ops.items()}
+    args = (t["g"], t["y"], t["residual"], t["x"], t["w"], t["dinv"], t["mask"])
+    before = tb.LAUNCHES
+    with torch.inference_mode():
+        k = tb.gcn_layer_bwd(*args, mxu_dtype="float32")
+        torch.cuda.synchronize()
+        p = tb.gcn_layer_bwd_reference(*args, mxu_dtype="float32")
+    assert tb.LAUNCHES == before + 1
+    for a, b in zip(k, p):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert rel_l2(a.cpu(), b.cpu()) <= 1e-5

@@ -76,6 +76,46 @@ def test_analysis_and_synthesis_match_jax(kw):
                   _spectral(jf.legendre_stacked(f))) <= 1e-5
 
 
+def _bf16(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("kw", GRIDS)
+def test_bf16_synthesis_hm_keeps_fp32_output(kw):
+    """The fused tail's hm on bf16 operands: JAX's one-pass bf16 matmul
+    keeps an fp32 output (preferred_element_type).  XLA on the CPU runs it
+    in full fp32, so the TPU's bf16 operand rounding is handed to JAX's
+    function as its input (bf16-rounded coefficients and pct2).  An hm
+    rounded to bf16 misses by ~1e-3."""
+    sht = _jax_sht()
+    rng = np.random.default_rng(3)
+    ti = InverseRealSHT(**kw, mxu_dtype="bfloat16")
+    ji = sht.InverseRealSHT(**kw, mxu_dtype="bfloat16")
+    ji.__dict__["pct2"] = _bf16(ji.pct2)
+    c = rng.standard_normal((2, 2, ti.lmax, ti.mmax, 5)).astype(np.float32)
+    c16 = _bf16(c)
+    hm = ti.synthesis_hm(torch.from_numpy(c))
+    assert hm.dtype == torch.float32
+    assert report(f"synthesis_hm bf16[{kw['grid']}]",
+                  rel_l2(hm, ji.synthesis_hm(c16[0] + 1j * c16[1]))) <= 1e-6
+
+
+def test_mxu_matmul_bf16_fp32_output():
+    """bf16 operands, fp32 sums and an fp32 output, broadcast as matmul
+    does: the fp64 product of the bf16-rounded operands within 1e-6."""
+    from msfno_torch.runtime import mxu_matmul
+
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((6, 40, 33)).astype(np.float32)
+    b = rng.standard_normal((3, 1, 33, 7)).astype(np.float32)
+    want = np.matmul(_bf16(a).astype(np.float64), _bf16(b).astype(np.float64))
+    y = mxu_matmul(torch.from_numpy(a), torch.from_numpy(b), "bfloat16")
+    assert y.dtype == torch.float32 and y.shape == want.shape
+    assert rel_l2(y, want) <= 1e-6
+    assert mxu_matmul(torch.from_numpy(a), torch.from_numpy(b), "bfloat16",
+                      out_dtype=None).dtype == torch.bfloat16
+
+
 def test_round_trip_band_limited():
     kw = dict(nlat=16, nlon=32, grid="legendre-gauss", spectral_rescale=1e5)
     tf, ti = RealSHT(**kw), InverseRealSHT(**kw)

@@ -105,3 +105,44 @@ def test_kernel_matches_plain(cuda, n_rows, c, hidden):
         yp = tk.spectral_mlp_reference(z, wt, mxu_dtype="bfloat16")
     assert tk.LAUNCHES == before + 1
     assert rel_l2(yk.cpu(), yp.cpu()) <= 1e-3
+
+
+@pytest.mark.parametrize("mxu,tol", [("float32", 1e-5), ("bfloat16", 1e-3)])
+def test_layer_mirror_matches_jax_kernel(mxu, tol):
+    """The kernel's algebra: one packed GEMM per layer, the [re | im] hidden
+    state handed on rounded to the operand dtype; against the Pallas packed
+    kernel (interpret mode) at bf16 and the JAX function at fp32."""
+    jnp, jk = _jax()
+    x, ws = _inputs((40,), 32, 64, 3, seed=3)
+    if mxu == "bfloat16":
+        flat = []
+        for w in ws:
+            flat += [jnp.asarray(w[..., 0]), jnp.asarray(w[..., 1])]
+        yr, yi = jk._packed_call(jnp.asarray(x[0]), jnp.asarray(x[1]), *flat,
+                                 mxu_dtype="bfloat16", interpret=True)
+    else:
+        yj = jk.spectral_mlp(jnp.asarray(x[0]) + 1j * jnp.asarray(x[1]),
+                             [jnp.asarray(w) for w in ws], mxu_dtype="float32")
+        yr, yi = np.real(yj), np.imag(yj)
+    yt = tk.spectral_mlp_layers(torch.from_numpy(x), [torch.from_numpy(w) for w in ws],
+                                0.0, mxu)
+    assert yt.shape == (2, 40, 32)
+    assert report(f"spectral_mlp layer mirror[{mxu}] re", rel_l2(yt[0], yr)) <= tol
+    assert report(f"spectral_mlp layer mirror[{mxu}] im", rel_l2(yt[1], yi)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,c,hidden", [(1, 16, 16), (127, 16, 48), (129, 48, 112),
+                                             (1000, 512, 512), (14521, 16, 512),
+                                             (300, 256, 32)])
+def test_kernel_ragged_sizes(cuda, n_rows, c, hidden):
+    """Row counts that fill no 128-row tile, widths 16 to 512."""
+    x, ws = _inputs((n_rows,), c, hidden, 3, seed=4)
+    z = torch.from_numpy(x).to(cuda)
+    wt = [torch.from_numpy(w).to(cuda) for w in ws]
+    with torch.inference_mode():
+        yk = tk.spectral_mlp(z, wt, mxu_dtype="bfloat16")
+        torch.cuda.synchronize()
+        yp = tk.spectral_mlp_reference(z, wt, mxu_dtype="bfloat16")
+    assert yk.shape == yp.shape == (2, n_rows, c)
+    assert rel_l2(yk.cpu(), yp.cpu()) <= 1e-3

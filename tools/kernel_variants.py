@@ -15,7 +15,13 @@ kernel's, the plain version's and (where chip_smoke.py has one) the library
 call's time and the bound.  The DFT kernels' tiles, for example:
 
     python3 tools/kernel_variants.py dft_analysis base DFT_STAGES=3 base
-Repeat "base" at the end to see the run-to-run spread.
+Repeat "base" at the end to see the run-to-run spread.  With --profile,
+each variant's sites also run under torch.profiler, and one JSON line per
+CUDA kernel (the kernel's own launches and the plain version's alike) gives
+its calls and mean device time: how a wrapper call's time splits over the
+launches it makes.
+
+    python3 tools/kernel_variants.py --profile spectral_mlp base
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ def main(argv) -> int:
     from msfno_torch.ops import kernels
     from msfno_torch.runtime import resolve_device
 
+    profile = "--profile" in argv
+    argv = [a for a in argv if a != "--profile"]
     name, variants = argv[0], argv[1:] or ["base"]
     dev = resolve_device()
     card = subprocess.run(
@@ -61,7 +69,23 @@ def main(argv) -> int:
             return 1
     for var, lib, _ in procs:
         kernels._LIBS[name] = ctypes.CDLL(str(lib))
-        for rec in chip_smoke.SITES[name](dev):
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                recs = chip_smoke.SITES[name](dev)
+            for ev in prof.key_averages():
+                if ev.device_type != torch.autograd.DeviceType.CUDA or not ev.count:
+                    continue
+                dev_us = getattr(ev, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = ev.self_cuda_time_total
+                print(json.dumps({"variant": var, "cuda_kernel": ev.key[:120], "calls": ev.count,
+                                  "mean_us": dev_us / ev.count, "card": card}))
+        else:
+            recs = chip_smoke.SITES[name](dev)
+        for rec in recs:
             print(json.dumps({"variant": var, "site": rec["site"], "ms": rec["ms"],
                               "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"],
                               "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

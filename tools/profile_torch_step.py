@@ -62,10 +62,16 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
         print(json.dumps({"path": path, "op": key[:90], "ms_per_step": ms,
                           "calls_per_step": count,
                           "share_of_busy": ms / busy if busy else None}))
-    # a backward kernel's library holds more than one CUDA kernel: gcn's dsup
-    # pass, split-K GEMMs and reduces (the tail's backward runs its GEMMs
-    # only for weight gradients, which the fine-tune step does not ask for)
-    kernel_keys = {"gcn_layer_bwd": ("gcn_bwd_", "gemm_bf16", "sum_rows"),
+    # a kernel's library may hold more than one CUDA kernel: spectral_mlp's
+    # cast pass and per-layer GEMMs, gcn_layer's GEMM and stencil passes,
+    # gcn's backward dsup pass, split-K GEMMs and reduces (the tail's
+    # backward runs its GEMMs only for weight gradients, which the fine-tune
+    # step does not ask for); the namespace keeps cuBLAS's names out
+    ns = "(anonymous namespace)::"
+    kernel_keys = {"spectral_mlp": (ns + "stage_input", ns + "HiddenEpi>", ns + "OutEpi>"),
+                   "gcn_layer": (ns + "gcn_stencil", ns + "TEpi>", ns + "gemm_f32<false, false"),
+                   "gcn_layer_bwd": (ns + "gcn_bwd_", ns + "gemm_bf16<", ns + "sum_rows",
+                                     ns + "gemm_f32<false, true", ns + "gemm_f32<true, false"),
                    "spectral_decoder_bwd": ("decoder_bwd_", "hm_to_bf16"),
                    "spectral_mlp_bwd": ("spectral_mlp_bwd_kernel",)}
     for name in KERNELS:
