@@ -1,0 +1,326 @@
+// Chained wgmma GEMMs over 128-row tiles, shared by grid_encoder_spectral.cu
+// (the encoder MLP pass) and spectral_decoder.cu (the fused tail).
+//
+// The kernels are persistent: a block per SM walks its tiles of CH_BM = 128
+// rows (pixels), and every GEMM of the chain has N <= 256.  Four consumer
+// warpgroups split a tile's 128 x 256 output: warpgroup (m, n) owns rows
+// [64 m, 64 m + 64) and columns [128 n, 128 n + 128), one m64n128 fp32
+// accumulator (64 registers a thread) that every GEMM of the chain reuses.
+// Sixteen warps share the epilogues, whose CUDA-core work (the GELU, the
+// statistics, the conversions) outweighs the tensor-core work at these
+// widths.  One warp of a producer warpgroup streams each GEMM's B operand
+// (K x N, row-major bf16: the weights, or the tail's t rows) through an
+// mbarrier ring of 64-K stages by TMA, as boxes of 64 x 64 in the 128-byte
+// swizzle, MN-major, exactly as row_gemm.cuh's wgmma_gemm loads its
+// weights.  The ring runs across the GEMMs of the chain and across tiles,
+// so the next GEMM's (and the next tile's) operands arrive while the
+// current one computes.
+//
+// A GEMM's A operand is the block's "A tile": 128 rows x up to 7 K-chunks
+// of 64 bf16, K-major in the 128-byte swizzle (a_tile_offset), the layout a
+// SWIZZLE_128B TMA box of 64 x 128 writes.  The epilogue of one GEMM writes
+// the next GEMM's A operand there (frag_to_a_tile): the two warpgroups of a
+// row half write their column halves once both have retired their wgmmas
+// (pair_sync), and sync again before the next GEMM reads them.  Raw
+// activations (fp32 or bf16 rows of any width) come through the ring and
+// enter the tile through rows_to_a_tile.
+//
+// Also: the exact GELU on a branch-free erf, TMA tensor stores
+// (tma_store_3d) and their bulk-group waits, tensor-map prefetch.
+
+#pragma once
+
+#include "row_gemm.cuh"
+
+namespace {
+
+constexpr int CH_BM = 128;                    // rows per tile
+constexpr int CH_BK = 64;                     // K per ring stage: one 128-byte bf16 row
+constexpr int CH_CHUNK = CH_BM * CH_BK * 2;   // 16 KB: one K-chunk of the A tile
+constexpr int CH_BOX = CH_BK * 64 * 2;        // 8 KB: one 64 x 64 B box
+constexpr int CH_CONSUMERS = 512;             // four consumer warpgroups
+// and a producer warpgroup (one warp works): 640 threads, 96 registers
+// each at launch (an SM sub-partition's 16K registers hold 5 warps of 96).
+// setmaxnreg moves 72 a thread from the producer to the consumers: 24 and
+// 112.
+constexpr int CH_THREADS = CH_CONSUMERS + 128;
+#define CH_KERNEL __global__ void __launch_bounds__(CH_THREADS, 1)
+__device__ __forceinline__ void producer_regs() { reg_dealloc<24>(); }
+__device__ __forceinline__ void consumer_regs() { reg_alloc<112>(); }
+
+// A consumer thread's place: warpgroup (m, n), its thread t and warp w
+struct Role {
+  int m, n, t, w;
+  __device__ __forceinline__ Role()
+      : m(threadIdx.x / 256), n(threadIdx.x / 128 % 2), t(threadIdx.x % 128),
+        w(threadIdx.x / 32 % 4) {}
+};
+
+// named barriers: 1 all consumers; 2 + m the two warpgroups of row half m;
+// 4 + warpgroup one warpgroup
+__device__ __forceinline__ void consumers_sync() { named_bar_sync(1, CH_CONSUMERS); }
+__device__ __forceinline__ void pair_sync(const Role& r) { named_bar_sync(2 + r.m, 256); }
+__device__ __forceinline__ void wg_sync(const Role& r) { named_bar_sync(4 + 2 * r.m + r.n, 128); }
+
+// gelu_exact(v) with erf as a branch-free rational approximation (Eigen's
+// f32 erf: x clamped to [-4, 4], an odd degree-13 numerator over an even
+// degree-8 denominator; within 4.2e-7 of erf on [-6, 6], its plain mirror
+// ops/kernels/grid_encoder_spectral.py:erf_rational is tested against
+// erf).  CUDA's erff branches on |x|, which slowed these epilogues, whose
+// result is rounded to bf16.
+__device__ __forceinline__ float gelu_rational(float v) {
+  const float x = fminf(fmaxf(v * 0.70710678118654752f, -4.f), 4.f);
+  const float x2 = x * x;
+  float p = fmaf(x2, -2.72614225801306e-10f, 2.77068142495902e-08f);
+  p = fmaf(x2, p, -2.10102402082508e-06f);
+  p = fmaf(x2, p, -5.69250639462346e-05f);
+  p = fmaf(x2, p, -7.34990630326855e-04f);
+  p = fmaf(x2, p, -2.95459980854025e-03f);
+  p = fmaf(x2, p, -1.60960333262415e-02f);
+  float q = fmaf(x2, -1.45660718464996e-05f, -2.13374055278905e-04f);
+  q = fmaf(x2, q, -1.68282697438203e-03f);
+  q = fmaf(x2, q, -7.37332916720468e-03f);
+  q = fmaf(x2, q, -1.42647390514189e-02f);
+  return 0.5f * v * (1.f + __fdividef(x * p, q));
+}
+
+// The dynamic shared memory from its first 1024-byte boundary (the
+// 128-byte swizzle's atoms), offset from the array itself so that the
+// compiler keeps knowing every access through it is to shared memory.
+__device__ __forceinline__ char* smem_base_1024(char* smem_raw) {
+  return smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+}
+
+// byte offset of element (row, k) of the A tile: K-chunk k / 64, 128-byte
+// rows, 16-byte units swizzled by the row's low three bits
+__device__ __forceinline__ int a_tile_offset(int row, int k) {
+  return (k / 64) * CH_CHUNK + row * 128 + ((((k % 64) / 8) ^ (row & 7)) * 16) + (k % 8) * 2;
+}
+
+// Writes a warpgroup's 64 x 128 accumulator fragment d (the layout of
+// wgmma_m64n128k16) as bf16(f(value, column)) into rows [row0, row0 + 64)
+// and columns [col0, col0 + 128) of the A tile below n_cols (even).
+template <class F>
+__device__ __forceinline__ void frag_to_a_tile(const float (&d)[64], char* tile, int row0,
+                                               int col0, int n_cols, const F& f) {
+  const int r = row0 + acc_row0();
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int col = col0 + acc_col(q, 0);
+    if (col >= n_cols) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(tile + a_tile_offset(r + 8 * h, col)) =
+          __floats2bfloat162_rn(f(d[4 * q + 2 * h], col), f(d[4 * q + 2 * h + 1], col + 1));
+  }
+}
+
+// 64 rows of `width` raw values each (row pitch `width`, in shared or
+// device memory) into rows [row0, row0 + 64) and columns [k_off, k_off +
+// width) of the A tile as bf16, zeros from row row0 + n_valid on and in
+// columns up to the next multiple of 16 (the K-steps read them); k_off a
+// multiple of 16.  Thread tid of n_threads takes every n_threads-th (row,
+// 8-column group).  The caller fences (fence_proxy_async) and syncs before
+// a wgmma reads it.
+template <typename IN_T>
+__device__ __forceinline__ void rows_to_a_tile(const IN_T* src, int n_valid, int width,
+                                               char* tile, int row0, int k_off, int tid,
+                                               int n_threads) {
+  const int groups = (width + 15) / 16 * 2;
+  for (int e = tid; e < 64 * groups; e += n_threads) {
+    const int row = e / groups, j = e % groups;
+    alignas(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = 8 * j + i;
+      v[i] = __float2bfloat16_rn(row < n_valid && k < width
+                                     ? to_float(src[(long long)row * width + k])
+                                     : 0.f);
+    }
+    *reinterpret_cast<uint4*>(tile + a_tile_offset(row0 + row, k_off + 8 * j)) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// The ring of B stages: `stages` slots of slot_bytes, a full and an empty
+// barrier per slot.
+struct Ring {
+  char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int slot_bytes, stages;
+};
+
+// Thread 0, before the block barrier that precedes any use.
+__device__ __forceinline__ void ring_init(const Ring& r) {
+  for (int s = 0; s < r.stages; ++s) {
+    mbar_init(r.full + s, 1);
+    mbar_init(r.empty + s, CH_CONSUMERS / 32);  // every consumer warp
+  }
+}
+
+// Producer: waits until ring stage s's slot is free and returns it; its
+// full barrier is r.full + s % r.stages.
+__device__ __forceinline__ char* ring_acquire(const Ring& r, int s) {
+  const int slot = s % r.stages;
+  if (s >= r.stages) mbar_wait(r.empty + slot, (s / r.stages - 1) & 1);
+  return r.slots + slot * r.slot_bytes;
+}
+
+// Producer lane: the B boxes of one stage, columns [0, n) of K rows [k0, k0
+// + 64) of a row-major (K x N) bf16 matrix, 64 columns a box (z >= 0: of
+// matrix z of a 3-D map), announced on bar
+__device__ __forceinline__ void load_b_boxes(char* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int n, int k0, int z) {
+  const int boxes = (n + 63) / 64;
+  mbar_expect_tx(bar, boxes * CH_BOX);
+  for (int b = 0; b < boxes; ++b) {
+    if (z >= 0) tma_load_3d(dst + b * CH_BOX, map, bar, 64 * b, k0, z);
+    else tma_load_2d(dst + b * CH_BOX, map, bar, 64 * b, k0);
+  }
+}
+
+// Raw rows through the ring: two stages carry the raw rows of the tile's
+// two row halves (64 rows of row_bytes each, from src, n_rows of them
+// valid), each as one bulk copy when it fits a slot and is 16-byte aligned
+// (raw_bytes > 0), else the consumers read them from device memory.
+__device__ __forceinline__ uint32_t raw_bytes(const void* src, int n_rows, int row_bytes,
+                                              int slot_bytes) {
+  const uint32_t bytes = (uint32_t)max(n_rows, 0) * row_bytes;
+  return bytes > 0 && bytes % 16 == 0 && bytes <= (uint32_t)slot_bytes &&
+                 reinterpret_cast<uintptr_t>(src) % 16 == 0
+             ? bytes
+             : 0;
+}
+
+// Producer lane: ring stage s (already acquired, slot sb) with the raw rows
+// of one half
+__device__ __forceinline__ void load_raw(const Ring& r, int s, char* sb, const void* src,
+                                         int n_rows, int row_bytes) {
+  uint64_t* full = r.full + s % r.stages;
+  const uint32_t bytes = raw_bytes(src, n_rows, row_bytes, r.slot_bytes);
+  if (bytes) {
+    mbar_expect_tx(full, bytes);
+    bulk_load(sb, src, bytes, full);
+  } else {
+    mbar_arrive(full);
+  }
+}
+
+// Consumers of row half m (two warpgroups): its raw rows (ring stage s + m;
+// src: the half's first row in device memory, n_rows valid) into rows [64
+// m, 64 m + 64), columns [k_off, k_off + width) of the A tile; each warp
+// releases the stage twice (the other half's warps do not arrive on it).
+// Returns the ring stage after the two.
+template <typename IN_T>
+__device__ __forceinline__ int raw_to_a_tile(const Ring& r, int s, const Role& ro,
+                                             const IN_T* src, int n_rows, int width, char* tile,
+                                             int k_off) {
+  const int slot = (s + ro.m) % r.stages;
+  mbar_wait(r.full + slot, ((s + ro.m) / r.stages) & 1);
+  const bool bulk = raw_bytes(src, n_rows, width * (int)sizeof(IN_T), r.slot_bytes) > 0;
+  rows_to_a_tile<IN_T>(bulk ? reinterpret_cast<const IN_T*>(r.slots + slot * r.slot_bytes)
+                            : src,
+                       n_rows, width, tile, 64 * ro.m, k_off, ro.n * 128 + ro.t, 256);
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) {
+    mbar_arrive(r.empty + slot);
+    mbar_arrive(r.empty + slot);
+  }
+  return s + 2;
+}
+
+// KS K-steps of 16 of one stage: acc (+)= A (64 rows at a, K-major) @ B
+// (128 columns at b, MN-major); `first` overwrites acc at the first step
+template <int KS>
+__device__ __forceinline__ void stage_mma(float (&acc)[64], const char* a, const char* b,
+                                          bool first) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_m64n128k16<1>(acc, wgmma_desc(a + ks * 32, 16, 1024),
+                        wgmma_desc(b + ks * 2048, CH_BOX, 1024), (first && ks == 0) ? 0 : 1);
+}
+
+// Consumer warpgroup (m, n): one GEMM of the chain over ring stages [s, s +
+// ceil(k / 64)), acc = A[rows of m] @ B[:, columns of n], A's K-chunk j at
+// a_of(j, slot), B's boxes at the slot's start (an inactive warpgroup, whose
+// columns are past N, waits for each stage and releases it).  A stage runs
+// its K-steps of 16 below k (k a multiple of 16) with no branch between
+// its wgmmas.  Keeps one stage's wgmmas in flight while it waits for the
+// next; releases each slot when its wgmmas have retired, the last one
+// before it returns.  Returns the next ring stage.
+template <class AOf>
+__device__ __forceinline__ int chain_gemm(float (&acc)[64], const Ring& r, int s, int k,
+                                          const AOf& a_of, const Role& ro, bool active) {
+  const int lane = threadIdx.x % 32;
+  const int n_stages = (k + CH_BK - 1) / CH_BK;
+  if (!active) {
+    for (int j = 0; j < n_stages; ++j, ++s) {
+      mbar_wait(r.full + s % r.stages, (s / r.stages) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(r.empty + s % r.stages);
+    }
+    return s;
+  }
+  for (int j = 0; j < n_stages; ++j, ++s) {
+    const int slot = s % r.stages;
+    char* sb = r.slots + slot * r.slot_bytes;
+    mbar_wait(r.full + slot, (s / r.stages) & 1);
+    const char* a = a_of(j, sb) + ro.m * 8192;
+    const char* b = sb + ro.n * 2 * CH_BOX;
+    wgmma_fence();
+    fence_operand(acc);
+    switch (min(CH_BK, k - CH_BK * j) / 16) {
+      case 1: stage_mma<1>(acc, a, b, j == 0); break;
+      case 2: stage_mma<2>(acc, a, b, j == 0); break;
+      case 3: stage_mma<3>(acc, a, b, j == 0); break;
+      default: stage_mma<4>(acc, a, b, j == 0); break;
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operand(acc);
+    if (j > 0 && lane == 0) mbar_arrive(r.empty + (s - 1) % r.stages);
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  if (lane == 0) mbar_arrive(r.empty + (s - 1) % r.stages);
+  return s;
+}
+
+// brings a tensor map's descriptor into the cache before its first load
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// TMA tile store from shared memory (coordinates innermost first, in
+// elements; parts of the box past the tensor's edges are not written), in
+// this thread's bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int x0,
+                                             int x1, int x2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(x0), "r"(x1), "r"(x2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Host: a 2-D (rows x cols, row-major, ld elements a row) or 3-D (z x rows
+// x cols) bf16 tensor map of boxes box_rows x box_cols in the 128-byte
+// swizzle.  Returns a CUDA error code.
+inline int bf16_map(CUtensorMap* map, const void* base, int rows, int cols, long long ld,
+                    int box_rows, int box_cols, long long z = 0) {
+  if (reinterpret_cast<uintptr_t>(base) % 16 || ld % 8) return (int)cudaErrorInvalidValue;
+  const uint64_t dims[3] = {(uint64_t)cols, (uint64_t)rows, (uint64_t)z};
+  const uint64_t strides[2] = {(uint64_t)ld * 2, (uint64_t)ld * 2 * rows};
+  const uint32_t box[3] = {(uint32_t)box_cols, (uint32_t)box_rows, 1};
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, z > 0 ? 3 : 2, base, dims,
+                         strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+}  // namespace

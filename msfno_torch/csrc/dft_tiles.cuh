@@ -528,4 +528,201 @@ int raw_source(RawSource* src, CUtensorMap* map, const void* base, long long row
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the dense forward DFT on wgmma (dft_analysis.cu; grid_encoder_spectral.cu
+// runs it on its bf16 encoder output, with a bf16 f)
+//
+// f[r] = at @ x[r] for every latitude row r: at the prepared bf16 operand
+// (2M padded to BF16_TILE, W padded to BF16_K), x raw fp32 or bf16, f in
+// OUT_T.  A block owns one row and 128 channels and holds all 2M <= 256
+// modes: two consumer warpgroups of two m64n128 accumulators each.  A
+// producer warp keeps a ring of stages in flight by TMA (STAGES_OPT of them;
+// 0 fills 192 KB): the operand tile (256 modes x 64 longitudes, K-major)
+// and the raw x slab; the consumers convert the slab to the MN-major
+// swizzled B operand, then run 4 K-steps of wgmma.
+
+struct WgAnalysisArgs {
+  RawSource x;  // (rows, w, c)
+  void* out;    // (rows, two_m, c) of OUT_T
+  long long rows;
+  int w, two_m, c, m_tiles, c_tiles, n_k;
+  int vec;  // 16-byte output vectors
+};
+
+template <typename IN_T, int STAGES_OPT>
+struct AnalysisSmem {
+  static constexpr int A_BYTES = BF16_TILE * BF16_K * 2;  // 4 boxes of 64 modes x 64 longitudes
+  static constexpr int SLOT = A_BYTES + BF16_K * WG_BN * (int)sizeof(IN_T);
+  static constexpr int STAGES = STAGES_OPT ? STAGES_OPT : 192 * 1024 / SLOT;
+  static constexpr int B_BYTES = BF16_K * WG_BN * 2;  // one converted B operand
+  static constexpr int BYTES = 1024 + STAGES * SLOT + 2 * B_BYTES + 2 * STAGES * 8;
+};
+
+// two consumer warpgroups and a producer warpgroup, of which one warp
+// works: 384 threads, so that setmaxnreg can give the consumers 232
+// registers (their 128 accumulators) and the producer 40
+constexpr int ANALYSIS_THREADS = WG_CONSUMERS + 128;
+
+// DIRECT (bf16 x, grid_encoder_spectral.cu): x_map is a 128-byte-swizzled
+// map of 64 x 64 boxes, which TMA writes as the MN-major B operand itself:
+// no conversion, and one stage's wgmmas stay in flight.
+template <typename IN_T, typename OUT_T, int STAGES_OPT, bool DIRECT = false>
+__global__ void __launch_bounds__(ANALYSIS_THREADS, 1)
+    analysis_wgmma(const __grid_constant__ CUtensorMap a_map,
+                   const __grid_constant__ CUtensorMap x_map, WgAnalysisArgs a) {
+  using S = AnalysisSmem<IN_T, STAGES_OPT>;
+  extern __shared__ char smem_raw[];
+  char* smem = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  char* bbuf = smem + S::STAGES * S::SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bbuf + 2 * S::B_BYTES);
+  uint64_t* empty = full + S::STAGES;
+  // (row, mode tile, channel tile), channel tiles fastest
+  const long long bid = blockIdx.x;
+  const int c0 = (int)(bid % a.c_tiles) * WG_BN;
+  const long long rest = bid / a.c_tiles;
+  const int mt = (int)(rest % a.m_tiles);
+  const long long r = rest / a.m_tiles;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= WG_CONSUMERS / 32) {  // the producer warpgroup
+    reg_dealloc<40>();
+    if (warp > WG_CONSUMERS / 32) return;
+    for (int s = 0; s < a.n_k; ++s) {
+      const int slot = s % S::STAGES;
+      char* sb = smem + slot * S::SLOT;
+      if (s >= S::STAGES) mbar_wait(empty + slot, (s / S::STAGES - 1) & 1);
+      const int k0 = s * BF16_K;
+      if (lane == 0) {
+        // DIRECT: the boxes that start below c (the rest of B is not stored)
+        const int boxes = c0 + 64 < a.c ? 2 : 1;
+        mbar_expect_tx(full + slot,
+                       S::A_BYTES + (DIRECT ? boxes * 8192 : raw_tx_bytes<IN_T>(a.x, k0)));
+        for (int b = 0; b < 4; ++b)
+          tma_load_2d(sb + b * 8192, &a_map, full + slot, k0, mt * BF16_TILE + 64 * b);
+        if constexpr (DIRECT) {
+          for (int h = 0; h < boxes; ++h)
+            tma_load_3d(sb + S::A_BYTES + h * 8192, &x_map, full + slot, c0 + 64 * h, k0,
+                        (int)r);
+        } else {
+          raw_fetch<IN_T>(a.x, &x_map, sb + S::A_BYTES, full + slot, r, k0, c0);
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // consumers: warpgroup g holds modes [128 g, 128 g + 128) of the tile
+  reg_alloc<232>();
+  const int g = warp / 4;
+  const bool dense = a.x.mode == RAW_TMA;
+  const int pitch = dense ? WG_BN : a.c;
+  float acc[2][64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+  for (int s = 0; s < a.n_k; ++s) {
+    const int slot = s % S::STAGES;
+    char* sb = smem + slot * S::SLOT;
+    char* bs = bbuf + (s & 1) * S::B_BYTES;
+    mbar_wait(full + slot, (s / S::STAGES) & 1);
+    if constexpr (DIRECT) {
+      bs = sb + S::A_BYTES;
+    } else {
+      // the other B buffer may still be read by the other warpgroup's
+      // previous wgmma; this one was last read two slabs ago
+      stage_b<IN_T>(raw_slab<IN_T>(a.x, sb + S::A_BYTES, r, s * BF16_K), pitch,
+                    min(BF16_K, a.w - s * BF16_K), pitch, bs, BF16_K * 128, 0, threadIdx.x,
+                    WG_CONSUMERS, dense);
+      fence_proxy_async();
+      named_bar_sync(1, WG_CONSUMERS);
+    }
+    wgmma_fence();
+    fence_operand(acc[0]);
+    fence_operand(acc[1]);
+#pragma unroll
+    for (int ks = 0; ks < BF16_K / 16; ++ks) {
+      const uint64_t db = wgmma_desc(bs + ks * 2048, BF16_K * 128, 1024);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint64_t da = wgmma_desc(sb + (2 * g + i) * 8192 + ks * 32, 16, 1024);
+        wgmma_m64n128k16<1>(acc[i], da, db, (s > 0 || ks > 0) ? 1 : 0);
+      }
+    }
+    wgmma_commit();
+    if constexpr (DIRECT) {
+      wgmma_wait<1>();  // the previous stage's wgmmas are done: release its slot
+      fence_operand(acc[0]);
+      fence_operand(acc[1]);
+      if (s > 0 && lane == 0) mbar_arrive(empty + (s - 1) % S::STAGES);
+    } else {
+      wgmma_wait<0>();
+      fence_operand(acc[0]);
+      fence_operand(acc[1]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);
+    }
+  }
+  if constexpr (DIRECT) {
+    wgmma_wait<0>();
+    fence_operand(acc[0]);
+    fence_operand(acc[1]);
+  }
+  OUT_T* out = reinterpret_cast<OUT_T*>(a.out) + r * a.two_m * a.c;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row0 = mt * BF16_TILE + 128 * g + 64 * i;
+    if (row0 < a.two_m)
+      store_fragment<OUT_T>(acc[i], out, row0, min(64, a.two_m - row0), c0, a.c, a.vec, false);
+  }
+}
+
+template <typename IN_T, typename OUT_T, int STAGES_OPT>
+int launch_analysis_wgmma(const void* at, const void* x, OUT_T* out, long long rows, int w,
+                          int m, int c, int at_rows, int at_cols, cudaStream_t stream) {
+  using S = AnalysisSmem<IN_T, STAGES_OPT>;
+  WgAnalysisArgs a{};
+  a.out = out;
+  a.rows = rows;
+  a.w = w;
+  a.two_m = 2 * m;
+  a.c = c;
+  a.m_tiles = (2 * m + BF16_TILE - 1) / BF16_TILE;
+  a.n_k = (w + BF16_K - 1) / BF16_K;
+  if (rows < 1 || w < 1 || m < 1 || c < 1 || at_rows != a.m_tiles * BF16_TILE ||
+      at_cols != a.n_k * BF16_K)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap a_map, x_map;
+  memset(&x_map, 0, sizeof(x_map));
+  const uint64_t a_dims[2] = {(uint64_t)at_cols, (uint64_t)at_rows};
+  const uint64_t a_strides[1] = {(uint64_t)at_cols * 2};
+  const uint32_t a_box[2] = {BF16_K, 64};
+  int err = make_tensor_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, at, a_dims, a_strides,
+                            a_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  if ((err = raw_source<IN_T>(&a.x, &x_map, x, rows, w, c))) return err;
+  a.c_tiles = a.x.mode == RAW_TMA ? (c + WG_BN - 1) / WG_BN : 1;
+  a.vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long blocks = rows * a.m_tiles * a.c_tiles;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = analysis_wgmma<IN_T, OUT_T, STAGES_OPT>;
+  static bool smem_set = false;  // once per kernel
+  if (!smem_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  kernel<<<(unsigned)blocks, ANALYSIS_THREADS, S::BYTES, stream>>>(a_map, x_map, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace

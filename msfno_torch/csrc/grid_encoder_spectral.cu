@@ -1,5 +1,5 @@
 // Fused encoder MLP + positional embedding + instance-norm statistics +
-// truncated forward longitude DFT, bf16 tensor-core GEMMs (sm_90a).
+// truncated forward longitude DFT, bf16 wgmma GEMMs (sm_90a).
 //
 // Replaces msfno_tpu/ops/pallas/grid_mlp.py:grid_encoder_spectral (the
 // Pallas `_grid_encoder_spectral_call` TPU kernel).  Per pixel row of a
@@ -11,331 +11,456 @@
 //
 // with x, h and y rounded to bf16 before each GEMM, cs (W, 2M) the merged
 // [C | -S] analysis matrix in bf16, and f rounded to the output dtype at
-// the write.  The 721 x 1440 x 256 grid-space encoder output never reaches
-// device memory.
+// the write.
 //
 // Bound on the H100 at the serving shapes: x (1, 721, 1440, 73) fp32 303 MB
 // + pe (721, 1440, 256) bf16 531 MB + f (1, 721, 242, 256) bf16 89 MB ~0.92
 // GB -> 0.28 ms; 2 * 1,038,240 * (73*256 + 256*256 + 242*256) = 3.0e11 FLOP
 // -> 0.31 ms at 989 TFLOP/s bf16: operations, with the bytes nearly as large.
 //
-// Design: the TPU kernel keeps a whole latitude row of y (1440 x 256 fp32,
-// 1.47 MB) in VMEM and carries the statistics across its sequential grid;
-// neither carries over.  Here a block of 16 warps owns one latitude row and
-// one 128-channel slice of C; W1 and its slice of W2 stay in shared memory
-// while it walks the row in 64-pixel chunks (the last chunk of 1440 =
-// 22*64 + 32 is ragged and masked).  Per chunk it copies the chunk's pe rows
-// to shared memory with cp.async while it stages x as bf16 and recomputes
-// the first layer (73 -> 256) into a bf16 shared tile (+13% FLOPs at the
-// serving shapes); computes its 128 output channels of the second layer
-// (two warps per column tile, each on half the rows), adds pe, keeps the
-// fp32 column sums in registers; rounds y to bf16 in shared memory and
-// accumulates the (2M x 128) fp32 DFT product cs[chunk]^T @ y in registers,
-// each warp one of the 16 mode row tiles (2M <= 256), cs streaming from L2
-// as col-major A fragments.  Measured on the H100 at the serving shapes
-// (tools/kernel_variants.py): 8 warps owning 2 mode tiles each needed 250
-// registers and took 10.3 ms; 16 warps 8.4 ms; resident weights 7.7 ms; the
-// pe prefetch 6.7 ms.  The
-// statistics follow grid_mlp.cu: each block writes its row's column sums,
-// and a second small kernel adds the H rows of each sample in a fixed order
-// (deterministic, no atomics).
+// Design: two passes, both on wgmma.  The TPU kernel keeps a latitude row
+// of y in VMEM; 227 KB of shared memory cannot hold one beside the weights,
+// so y (bf16, the DFT's operand) goes through device memory: 531 MB written
+// and read back, ~0.32 ms of bytes, for a pass-2 GEMM that streams its
+// operand once per block instead of once per 64 pixels.
+//
+// 1. Encoder MLP (enc_mlp, persistent): a tile is 128 consecutive pixels of
+//    one sample (chain_gemm.cuh; the last tile of a sample is ragged).  The
+//    tile's x is one contiguous run (128 x 73 x 4 B = 37 KB at the serving
+//    shapes): each row half comes through the TMA ring as one bulk copy and
+//    is converted by its two consumer warpgroups to the bf16 A tile (K = 73
+//    -> 80).  Layer 1 (73 -> 256) on wgmma; its epilogue adds b1,
+//    applies the exact GELU and writes bf16 h over x in the A tile.  Layer
+//    2 (256 -> 256) on wgmma; W1 and W2 stream through the same ring.  The
+//    tile's pe (bf16) comes by TMA into 64 KB of its own while the GEMMs
+//    run; layer 2's epilogue adds it (y = h W2 + pe in fp32), takes the fp32
+//    column sums of y and y^2 over each warp's 16 rows (valid rows only, a
+//    fixed-order shuffle tree), then over the 8 warps in order, into a (B,
+//    tiles, C) array (through its pe boxes once they are read), and writes
+//    bf16 y over h, stored to a (B, H*W, C) scratch by TMA (the ragged edge
+//    is clipped).  Two small kernels (tile_reduce here, then
+//    tile_common.cuh's stats_reduce) add each sample's partials in a fixed
+//    order: deterministic, no atomics.
+// 2. Forward DFT: dft_tiles.cuh's analysis_wgmma (the dft_analysis kernel's
+//    bf16 path) on the bf16 y, whose 64 x 64 boxes TMA writes as the wgmma
+//    B operand itself (DIRECT), writing f in the output dtype.
+//
+// Measured on the H100 (tools/kernel_variants.py --profile): the DFT pass
+// took 0.39 ms converting raw slabs, 0.28 ms with DIRECT.  Pass 1 runs at
+// 2.6x its byte bound: its epilogues' CUDA-core work (the GELU of 32K
+// values a tile, the statistics, the conversions) and its two GEMMs take
+// turns within a block.
+//
+// Tunables (tools/kernel_variants.py): ENC_STAGES (ring depth of pass 1),
+// ENC_DFT_STAGES (ring depth of pass 2; 0 fills 192 KB).
 
-#include "tile_common.cuh"
+#include "chain_gemm.cuh"
+#include "dft_tiles.cuh"
 
 namespace {
 
-constexpr int CHUNK = 64;                // pixels of a row per pass
-constexpr int ROW_TILES = CHUNK / 16;
-#ifndef WARPS_OVERRIDE
-#define WARPS_OVERRIDE 16
+#ifndef ENC_STAGES_OVERRIDE
+#define ENC_STAGES_OVERRIDE 3
 #endif
-constexpr int WARPS = WARPS_OVERRIDE;
-constexpr int PAD = 8;
-constexpr int PREFETCH = 2;
-#ifndef CB_OVERRIDE
-#define CB_OVERRIDE 128
+#ifndef ENC_DFT_STAGES_OVERRIDE
+#define ENC_DFT_STAGES_OVERRIDE 0
 #endif
-constexpr int CB = CB_OVERRIDE;          // output channels per block
-constexpr int CT_MAX = CB / 16;          // their column tiles (<= WARPS)
-#ifndef MINB_OVERRIDE
-#define MINB_OVERRIDE 1
-#endif
-constexpr int MIN_BLOCKS = MINB_OVERRIDE;  // resident blocks per SM (register cap)
-constexpr int M2P_MAX = 256;             // 2M, padded
-// DFT accumulators: the 16 mode row tiles x CT_MAX column tiles split over
-// the warps, MT_PER_WARP mode tiles (strided by N_MGROUPS) and CT_PER_WARP
-// consecutive column tiles each
-#ifndef DFT_MT_OVERRIDE
-#define DFT_MT_OVERRIDE (M2P_MAX / 16 / WARPS)
-#endif
-constexpr int MT_PER_WARP = DFT_MT_OVERRIDE;
-constexpr int N_MGROUPS = M2P_MAX / 16 / MT_PER_WARP;
-constexpr int CT_PER_WARP = CT_MAX * N_MGROUPS / WARPS;
-static_assert(N_MGROUPS * MT_PER_WARP * 16 == M2P_MAX && WARPS % N_MGROUPS == 0 &&
-              CT_PER_WARP * WARPS == CT_MAX * N_MGROUPS, "DFT tile split");
-// second layer: FC2_SPLIT warps share a column tile, each on its own rows
-constexpr int FC2_SPLIT = WARPS / CT_MAX;
-constexpr int FC2_ROW_TILES = ROW_TILES / FC2_SPLIT;
-static_assert(FC2_SPLIT * CT_MAX == WARPS && FC2_ROW_TILES * FC2_SPLIT == ROW_TILES,
-              "CB / 16 must divide WARPS, and WARPS / (CB / 16) must divide CHUNK / 16");
+constexpr int ENC_STAGES = ENC_STAGES_OVERRIDE;
+constexpr int ENC_SLOT = 4 * CH_BOX;        // 32 KB: the B boxes of N <= 256
+constexpr int ENC_TILE = 4 * CH_CHUNK;      // 64 KB: x (K <= 256), then h, then y
+constexpr int ENC_PE_HALF = 4 * CH_BOX;     // 32 KB: a warpgroup's 64 rows of bf16 pe
+constexpr int ENC_SMEM = 1024 + ENC_TILE + 2 * ENC_PE_HALF + ENC_STAGES * ENC_SLOT +
+                         256 * 4 + (2 * ENC_STAGES + 2) * 8;
+static_assert(ENC_SMEM <= 232448, "pass 1 does not fit in shared memory");
 
 struct EncArgs {
-  const void* x;                 // (B, H, W, c_in)
-  const __nv_bfloat16* w1;       // (k1p, hidden), zero rows past c_in
-  const float* b1;               // (hidden,)
-  const __nv_bfloat16* w2;       // (hidden, c)
-  const void* pe;                // (H, W, c) or null
-  const __nv_bfloat16* cs;       // (w_pad, m2p), zero rows past W and columns past two_m
-  void* f;                       // (B, H, two_m, c)
-  float* part_sum;               // (B, H, c): one row's column sums
+  const void* x;        // (B, hw, c_in)
+  const float* b1;      // (hidden,)
+  const void* pe;       // (hw, c) or null
+  float* part_sum;      // (B, tiles, c): each tile's column sums
   float* part_sq;
-  int H, W, c_in, k1p, hidden, c, two_m, m2p;
-  int x_bf16, pe_bf16, f_bf16, has_pe;
-  int ldx, ldh, ldy, ldp;        // ldp in bytes
+  long long hw;         // pixels per sample
+  int c_in, k1p, hidden, c, tiles, bsz;
 };
 
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-grid_encoder_spectral_kernel(EncArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // CHUNK x ldx
-  __nv_bfloat16* hs = xs + CHUNK * a.ldx;                            // CHUNK x ldh
-  __nv_bfloat16* ys = hs + CHUNK * a.ldh;                            // CHUNK x ldy
-  __nv_bfloat16* w1s = ys + CHUNK * a.ldy;                           // k1p x ldh: W1
-  __nv_bfloat16* w2s = w1s + a.k1p * a.ldh;                          // hidden x ldy: W2 slice
-  // this chunk's pe rows of the block's channels, raw: CHUNK x ldp bytes
-  unsigned char* pes = reinterpret_cast<unsigned char*>(w2s + a.hidden * a.ldy);
-  float* scratch = reinterpret_cast<float*>(pes + CHUNK * a.ldp);    // WARPS x 256
-  float* col_part = scratch + WARPS * 256;                           // 2 x FC2_SPLIT x CB
+enum PeMode { PE_NONE = 0, PE_BF16 = 1, PE_F32 = 2 };  // bf16 pe comes by TMA
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int c0 = blockIdx.x * CB;
-  const int n_ct = min(CB, a.c - c0) / 16;
-  const int h = blockIdx.y;
-  const long long bh = (long long)blockIdx.z * a.H + h;
-  const long long px0 = bh * a.W;            // first pixel of this row in x
-  const long long pe0 = (long long)h * a.W;  // first pixel of this row in pe
-  const int n_mt = a.m2p / 16;
-  float* my = scratch + warp * 256;
-  // the weights stay in shared memory across the row's chunks; visible
-  // after the first barrier
-  copy_tile_bf16(w1s, a.ldh, a.w1, a.hidden, a.k1p, a.hidden);
-  copy_tile_bf16(w2s, a.ldy, a.w2 + c0, a.c, a.hidden, n_ct * 16);
+// byte offset of element (row, col) in a warpgroup's TMA-loaded bf16 pe:
+// 64-column boxes of 64 rows, 128-byte rows in the 128-byte swizzle
+__device__ __forceinline__ int box_offset(int row, int col) {
+  return (col / 64) * CH_BOX + row * 128 + ((((col % 64) / 8) ^ (row & 7)) * 16) + (col % 8) * 2;
+}
 
-  const int mg = warp % N_MGROUPS;               // mode tiles mg + u * N_MGROUPS
-  const int ct0 = (warp / N_MGROUPS) * CT_PER_WARP;  // column tiles ct0 + j
-  FragC acc_f[MT_PER_WARP][CT_PER_WARP];
-#pragma unroll
-  for (int u = 0; u < MT_PER_WARP; ++u)
-#pragma unroll
-    for (int j = 0; j < CT_PER_WARP; ++j) wmma::fill_fragment(acc_f[u][j], 0.f);
-  // second-layer work of this warp: column tile fct, row tiles from fr0;
-  // the column sums of its rows, lane % 16 its column
-  const int fct = warp % CT_MAX;
-  const int fg = warp / CT_MAX;
-  const int fr0 = fg * FC2_ROW_TILES * 16;
-  float csum = 0.f, csq = 0.f;
-
-  for (int w0 = 0; w0 < a.W; w0 += CHUNK) {
-    const int rows = min(CHUNK, a.W - w0);
-    __syncthreads();  // the previous chunk's tiles are no longer read
-
-    // the chunk's pe rows go to shared memory while x is staged and the
-    // first layer runs
-    const int pe_size = a.pe_bf16 ? 2 : 4;
-    if (a.has_pe) {
-      const int vpr = n_ct * pe_size;  // 16-byte vectors per row: n_ct * 16 values
-      const unsigned char* src = reinterpret_cast<const unsigned char*>(a.pe) +
-                                 ((pe0 + w0) * a.c + c0) * pe_size;
-      for (int v = threadIdx.x; v < rows * vpr; v += blockDim.x) {
-        const int r = v / vpr, q = v - r * vpr;
-        cp_async16(pes + r * a.ldp + q * 16, src + (long long)r * a.c * pe_size + q * 16, 16);
-      }
-    }
-    cp_async_commit();
-
-    // stage x as bf16: padding columns and rows past the end are zero
-    for (int idx = threadIdx.x; idx < CHUNK * a.k1p; idx += blockDim.x) {
-      const int r = idx / a.k1p;
-      const int k = idx - r * a.k1p;
-      if (r >= rows || k >= a.c_in) xs[r * a.ldx + k] = __float2bfloat16_rn(0.f);
-    }
-    if (a.x_bf16)
-      stage_tile<true>(xs, a.ldx, 0, a.x, (px0 + w0) * a.c_in, rows, a.c_in, nullptr, nullptr);
-    else
-      stage_tile<false>(xs, a.ldx, 0, a.x, (px0 + w0) * a.c_in, rows, a.c_in, nullptr, nullptr);
-    __syncthreads();
-
-    // first layer, all hidden channels: hs = bf16(gelu(xs @ w1 + b1))
-    mlp_hidden<ROW_TILES, PREFETCH>(xs, a.ldx, a.k1p, w1s, a.ldh, a.b1, a.hidden, hs, a.ldh,
-                                    my, warp, lane, WARPS);
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // second layer, this block's channels: y = hs @ w2 [+ pe]; statistics
-    // of the fp32 y, then ys = bf16(y) with zero rows past the end
-    if (fct < n_ct) {
-      FragC acc[FC2_ROW_TILES];
-      tile_gemm<FC2_ROW_TILES, PREFETCH>(acc, hs + fr0 * a.ldh, a.ldh, w2s, a.ldy, fct * 16,
-                                         a.hidden);
-      const int col = fct * 16 + (lane % 16);
-#pragma unroll
-      for (int i = 0; i < FC2_ROW_TILES; ++i) {
-        wmma::store_matrix_sync(my, acc[i], 16, wmma::mem_row_major);
-        __syncwarp();
-        float extra[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int row = fr0 + i * 16 + lane / 16 + 2 * j;
-          extra[j] = (a.has_pe && row < rows)
-                         ? load_act(pes + row * a.ldp, col, a.pe_bf16)
-                         : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int row = fr0 + i * 16 + lane / 16 + 2 * j;
-          float y = 0.f;
-          if (row < rows) {
-            y = my[lane + 32 * j] + extra[j];
-            csum += y;
-            csq += y * y;
-          }
-          ys[row * a.ldy + col] = __float2bfloat16_rn(y);
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-
-    // forward DFT of the chunk: acc_f[u][j] += cs[w0:w0+CHUNK, mt]^T @ ys[:, ct]
-#pragma unroll
-    for (int k = 0; k < CHUNK; k += 16) {
-      FragACol ca[MT_PER_WARP];
-#pragma unroll
-      for (int u = 0; u < MT_PER_WARP; ++u) {
-        const int mt = mg + u * N_MGROUPS;
-        if (mt < n_mt)
-          wmma::load_matrix_sync(ca[u], a.cs + (long long)(w0 + k) * a.m2p + mt * 16, a.m2p);
-      }
-#pragma unroll
-      for (int j = 0; j < CT_PER_WARP; ++j) {
-        if (ct0 + j < n_ct) {
-          FragB yb;
-          wmma::load_matrix_sync(yb, ys + k * a.ldy + (ct0 + j) * 16, a.ldy);
-#pragma unroll
-          for (int u = 0; u < MT_PER_WARP; ++u)
-            if (mg + u * N_MGROUPS < n_mt) wmma::mma_sync(acc_f[u][j], ca[u], yb, acc_f[u][j]);
-        }
-      }
-    }
-  }
-
-  // f rows of this warp's mode tiles, rounded at the write
-#pragma unroll
-  for (int u = 0; u < MT_PER_WARP; ++u) {
-    const int mt = mg + u * N_MGROUPS;
-    if (mt >= n_mt) continue;
-#pragma unroll
-    for (int j = 0; j < CT_PER_WARP; ++j) {
-      if (ct0 + j >= n_ct) continue;
-      wmma::store_matrix_sync(my, acc_f[u][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = mt * 16 + e / 16;
-        if (m < a.two_m) {
-          const long long o = (bh * a.two_m + m) * a.c + c0 + (ct0 + j) * 16 + (e % 16);
-          if (a.f_bf16)
-            reinterpret_cast<__nv_bfloat16*>(a.f)[o] = __float2bfloat16_rn(my[e]);
-          else
-            reinterpret_cast<float*>(a.f)[o] = my[e];
-        }
-      }
-      __syncwarp();
-    }
-  }
-
-  // this row's column sums: lanes l and l + 16 hold two row halves of a
-  // warp's rows, and the FC2_SPLIT warps of a column tile are added in order
-  csum += __shfl_down_sync(0xffffffffu, csum, 16);
-  csq += __shfl_down_sync(0xffffffffu, csq, 16);
-  if (fct < n_ct && lane < 16) {
-    col_part[fg * CB + fct * 16 + lane] = csum;
-    col_part[(FC2_SPLIT + fg) * CB + fct * 16 + lane] = csq;
+template <typename IN_T, int PE>
+CH_KERNEL
+    enc_mlp(const __grid_constant__ CUtensorMap w1_map,
+            const __grid_constant__ CUtensorMap w2_map,
+            const __grid_constant__ CUtensorMap pe_map,
+            const __grid_constant__ CUtensorMap y_map, EncArgs a) {
+  extern __shared__ char smem_raw[];
+  char* tile = smem_base_1024(smem_raw);
+  char* pe_s = tile + ENC_TILE;
+  float* b1_s = reinterpret_cast<float*>(pe_s + 2 * ENC_PE_HALF + ENC_STAGES * ENC_SLOT);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(b1_s + 256);
+  const Ring ring{pe_s + 2 * ENC_PE_HALF, bars, bars + ENC_STAGES, ENC_SLOT, ENC_STAGES};
+  uint64_t* pe_full = bars + 2 * ENC_STAGES;  // a tile's pe has landed
+  uint64_t* pe_free = pe_full + 1;            // every consumer warp is done with it
+  const int n1 = (a.k1p + CH_BK - 1) / CH_BK, n2 = (a.hidden + CH_BK - 1) / CH_BK;
+  const int n_tiles = a.tiles * a.bsz;
+  if (threadIdx.x == 0) {
+    ring_init(ring);
+    mbar_init(pe_full, 1);
+    mbar_init(pe_free, CH_CONSUMERS / 32);
+    fence_barrier_init();
   }
   __syncthreads();
-  for (int col = threadIdx.x; col < n_ct * 16; col += blockDim.x) {
-    float ps = 0.f, pq = 0.f;
-    for (int g = 0; g < FC2_SPLIT; ++g) {
-      ps += col_part[g * CB + col];
-      pq += col_part[(FC2_SPLIT + g) * CB + col];
+
+  if (threadIdx.x >= CH_CONSUMERS) {  // the producer warpgroup: one warp works
+    producer_regs();
+    if (threadIdx.x >= CH_CONSUMERS + 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      prefetch_map(&w1_map);
+      prefetch_map(&w2_map);
+      prefetch_map(&y_map);
+      if (PE == PE_BF16) prefetch_map(&pe_map);
     }
-    a.part_sum[bh * a.c + c0 + col] = ps;
-    a.part_sq[bh * a.c + c0 + col] = pq;
+    // per tile, ring stages: the raw x of the two row halves, W1's, then
+    // (after the tile's pe) W2's
+    int s = 0;
+    for (int tl = blockIdx.x, it = 0; tl < n_tiles; tl += gridDim.x, ++it) {
+      const long long p0 = (long long)(tl % a.tiles) * CH_BM;
+      const int n_valid = (int)min((long long)CH_BM, a.hw - p0);
+      const IN_T* xsrc =
+          reinterpret_cast<const IN_T*>(a.x) + ((long long)(tl / a.tiles) * a.hw + p0) * a.c_in;
+      for (int j = 0; j < 2 + n1 + n2; ++j, ++s) {
+        if (PE == PE_BF16 && j == 2 + n1) {  // the tile's pe, zeros past the sample's end
+          if (it > 0) mbar_wait(pe_free, (it - 1) & 1);
+          if (lane == 0) {
+            const int halves = n_valid > 64 ? 2 : 1, boxes = (a.c + 63) / 64;
+            mbar_expect_tx(pe_full, halves * boxes * CH_BOX);
+            for (int h = 0; h < halves; ++h)
+              for (int k = 0; k < boxes; ++k)
+                tma_load_2d(pe_s + h * ENC_PE_HALF + k * CH_BOX, &pe_map, pe_full, 64 * k,
+                            (int)(p0 + 64 * h));
+          }
+        }
+        char* sb = ring_acquire(ring, s);
+        if (lane == 0) {
+          uint64_t* full = ring.full + s % ring.stages;
+          if (j < 2) {
+            load_raw(ring, s, sb, xsrc + 64 * j * a.c_in, min(64, n_valid - 64 * j),
+                     a.c_in * (int)sizeof(IN_T));
+          } else {
+            const bool l1 = j < 2 + n1;
+            const int n = l1 ? a.hidden : a.c;
+            load_b_boxes(sb, l1 ? &w1_map : &w2_map, full, n,
+                         CH_BK * (l1 ? j - 2 : j - 2 - n1), -1);
+          }
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup (m, n) owns tile rows [64 m, 64 m + 64) and columns
+  // [128 n, 128 n + 128)
+  consumer_regs();
+  const Role ro;
+  const int lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < a.hidden; i += CH_CONSUMERS) b1_s[i] = a.b1[i];
+  auto a_tile = [&](int j, char*) { return tile + j * CH_CHUNK; };
+  auto gelu_b1 = [b1_s](float v, int col) { return gelu_rational(v + b1_s[col]); };
+  const bool h_cols = 128 * ro.n < a.hidden, y_cols = 128 * ro.n < a.c;
+  const char* my_pe = pe_s + ro.m * ENC_PE_HALF;
+  const int r0 = acc_row0();  // the warpgroup's rows r0 and r0 + 8
+  float acc[64];
+  int s = 0;
+  for (int tl = blockIdx.x, it = 0; tl < n_tiles; tl += gridDim.x, ++it) {
+    const int ti = tl % a.tiles, b = tl / a.tiles;
+    const long long p0 = (long long)ti * CH_BM;
+    const int n_valid = (int)min((long long)CH_BM, a.hw - p0);
+    const IN_T* xsrc = reinterpret_cast<const IN_T*>(a.x) + ((long long)b * a.hw + p0) * a.c_in;
+    s = raw_to_a_tile<IN_T>(ring, s, ro, xsrc + 64 * ro.m * a.c_in,
+                            min(64, n_valid - 64 * ro.m), a.c_in, tile, 0);
+    fence_proxy_async();
+    consumers_sync();  // the A tile's x (and, the first time, b1 in shared memory)
+
+    // layer 1, then h = bf16(gelu(x W1 + b1)) over x
+    s = chain_gemm(acc, ring, s, a.k1p, a_tile, ro, h_cols);
+    pair_sync(ro);  // the pair's layer-1 wgmmas have read x
+    if (h_cols) frag_to_a_tile(acc, tile, 64 * ro.m, 128 * ro.n, a.hidden, gelu_b1);
+    fence_proxy_async();
+    pair_sync(ro);
+
+    // layer 2: y = h W2 + pe; column sums of the fp32 y over the valid rows,
+    // bf16 y over h
+    s = chain_gemm(acc, ring, s, a.hidden, a_tile, ro, y_cols);
+    pair_sync(ro);  // the pair's layer-2 wgmmas have read h
+    if (PE == PE_BF16) mbar_wait(pe_full, it & 1);
+    // this warp's column sums over its 16 rows: after the shuffle tree every
+    // lane holds its column pair's; lane l keeps those of q = l / 4 + 8 i
+    float keep[2][4];
+    if (y_cols) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int col = 128 * ro.n + acc_col(q, 0);
+        const bool col_ok = col < a.c;
+        float y[4];  // rows r0, r0 + 8; columns col, col + 1
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 8 * h;
+          // bf16 pe past the valid rows and columns is not used
+          float2 pe = make_float2(0.f, 0.f);
+          if (PE == PE_BF16)
+            pe = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(my_pe + box_offset(row, col)));
+          else if (PE == PE_F32 && col_ok && 64 * ro.m + row < n_valid)
+            pe = *reinterpret_cast<const float2*>(reinterpret_cast<const float*>(a.pe) +
+                                                  (p0 + 64 * ro.m + row) * a.c + col);
+          y[2 * h] = acc[4 * q + 2 * h] + pe.x;
+          y[2 * h + 1] = acc[4 * q + 2 * h + 1] + pe.y;
+        }
+        const bool v0 = 64 * ro.m + r0 < n_valid, v1 = 64 * ro.m + r0 + 8 < n_valid;
+        float st[4] = {(v0 ? y[0] : 0.f) + (v1 ? y[2] : 0.f),
+                       (v0 ? y[1] : 0.f) + (v1 ? y[3] : 0.f),
+                       (v0 ? y[0] * y[0] : 0.f) + (v1 ? y[2] * y[2] : 0.f),
+                       (v0 ? y[1] * y[1] : 0.f) + (v1 ? y[3] * y[3] : 0.f)};
+#pragma unroll
+        for (int sh = 4; sh < 32; sh *= 2)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[e] += __shfl_xor_sync(0xffffffffu, st[e], sh);
+        if (q % 8 == lane / 4) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) keep[q / 8][e] = st[e];
+        }
+        if (col_ok) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<__nv_bfloat162*>(
+                tile + a_tile_offset(64 * ro.m + r0 + 8 * h, col)) =
+                __floats2bfloat162_rn(y[2 * h], y[2 * h + 1]);
+        }
+      }
+    }
+    fence_proxy_async();
+    wg_sync(ro);  // the warpgroup is done with its pe
+    // the warpgroup's bf16 y: its two 64 x 64 boxes, clipped at the edges
+    const bool store = ro.t == 0 && y_cols && p0 + 64 * ro.m < a.hw;
+    if (store) {
+      for (int j = 2 * ro.n; j < min(2 * ro.n + 2, (a.c + 63) / 64); ++j)
+        tma_store_3d(&y_map, tile + j * CH_CHUNK + ro.m * 8192, 64 * j, (int)(p0 + 64 * ro.m),
+                     b);
+      bulk_commit();
+    }
+    // the warps' sums over the warpgroup's pe boxes, (4 warps, 2, 128)
+    float* wpart = reinterpret_cast<float*>(pe_s + ro.m * ENC_PE_HALF + ro.n * 2 * CH_BOX);
+    if (y_cols) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int cl = 8 * (8 * i + lane / 4) + 2 * (lane % 4);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          wpart[(2 * ro.w) * 128 + cl + e] = keep[i][e];
+          wpart[(2 * ro.w + 1) * 128 + cl + e] = keep[i][2 + e];
+        }
+      }
+    }
+    consumers_sync();
+    // the tile's column sums: the 8 row warps (4 m + w) in order
+    for (int col = threadIdx.x; col < a.c; col += CH_CONSUMERS) {
+      float ps = 0.f, pq = 0.f;
+      for (int r = 0; r < 8; ++r) {
+        const float* src = reinterpret_cast<const float*>(pe_s + (r / 4) * ENC_PE_HALF +
+                                                          (col / 128) * 2 * CH_BOX) +
+                           (r % 4) * 256 + col % 128;
+        ps += src[0];
+        pq += src[128];
+      }
+      const long long o = ((long long)b * a.tiles + ti) * a.c + col;
+      a.part_sum[o] = ps;
+      a.part_sq[o] = pq;
+    }
+    fence_proxy_async();  // before TMA overwrites the partials with the next tile's pe
+    __syncwarp();
+    if (PE == PE_BF16 && lane == 0) mbar_arrive(pe_free);
+    if (store) bulk_wait_read();
+    consumers_sync();  // the A tile takes the next tile's x
   }
 }
 
-enum Ptr { P_X, P_W1, P_B1, P_W2, P_PE, P_CS, P_F, P_PART_SUM, P_PART_SQ, P_SSUM, P_SSQ,
-           N_PTRS };
-enum Int { I_B, I_H, I_W, I_C_IN, I_K1P, I_HIDDEN, I_C, I_TWO_M, I_M2P, I_W_PAD, I_X_BF16,
-           I_PE_BF16, I_F_BF16, I_HAS_PE, N_INTS };
+// The first level of the partials' fixed-order sum: block (x, b, grp) adds
+// partial rows [grp * per, grp * per + per) of columns [32 x, 32 x + 32) of
+// sample b in stats_reduce's order (thread row ty takes rows ty, ty + 8,
+// ...; then the 8 sums in order) into (B, groups, c); stats_reduce adds
+// the groups.  (stats_reduce alone, one block a column slice, took 118 us
+// over 8111 rows.)
+__global__ void tile_reduce(const float* __restrict__ part_sum,
+                            const float* __restrict__ part_sq, int tiles, int per, int c,
+                            float* __restrict__ grp_sum, float* __restrict__ grp_sq) {
+  __shared__ float sh_sum[8][32];
+  __shared__ float sh_sq[8][32];
+  const int b = blockIdx.y, grp = blockIdx.z;
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  const int t1 = min(tiles, (grp + 1) * per);
+  float s = 0.f, q = 0.f;
+  if (col < c) {
+    for (int i = grp * per + threadIdx.y; i < t1; i += 8) {
+      const long long j = ((long long)b * tiles + i) * c + col;
+      s += part_sum[j];
+      q += part_sq[j];
+    }
+  }
+  sh_sum[threadIdx.y][threadIdx.x] = s;
+  sh_sq[threadIdx.y][threadIdx.x] = q;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < c) {
+    float ts = 0.f, tq = 0.f;
+    for (int r = 0; r < 8; ++r) {
+      ts += sh_sum[r][threadIdx.x];
+      tq += sh_sq[r][threadIdx.x];
+    }
+    const long long o = ((long long)b * gridDim.z + grp) * c + col;
+    grp_sum[o] = ts;
+    grp_sq[o] = tq;
+  }
+}
+
+template <typename IN_T, int PE>
+int launch_enc_mlp(const void* w1, const void* w2, void* y, EncArgs a, int bsz,
+                   cudaStream_t stream) {
+  CUtensorMap w1_map, w2_map, pe_map, y_map;
+  memset(&pe_map, 0, sizeof(pe_map));
+  int err = bf16_map(&w1_map, w1, a.k1p, a.hidden, a.hidden, CH_BK, 64);
+  if (!err) err = bf16_map(&w2_map, w2, a.hidden, a.c, a.c, CH_BK, 64);
+  if (!err) err = bf16_map(&y_map, y, (int)a.hw, a.c, a.c, 64, 64, bsz);
+  if (!err && PE == PE_BF16) err = bf16_map(&pe_map, a.pe, (int)a.hw, a.c, a.c, 64, 64);
+  if (err) return err;
+  static bool smem_set = false;  // once per kernel
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        enc_mlp<IN_T, PE>, cudaFuncAttributeMaxDynamicSharedMemorySize, ENC_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  // persistent: one block per SM walks the tiles
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long blocks = min((long long)bsz * a.tiles, (long long)max(sms, 1));
+  enc_mlp<IN_T, PE><<<(unsigned)blocks, CH_THREADS, ENC_SMEM, stream>>>(w1_map, w2_map, pe_map,
+                                                                       y_map, a);
+  return (int)cudaGetLastError();
+}
+
+// Pass 2: f = [C | -S]^T y per latitude row, y (rows, w, c) bf16 read by
+// TMA as the wgmma B operand itself (analysis_wgmma's DIRECT mode)
+template <typename OUT_T>
+int launch_dft(const void* at, const void* y, OUT_T* out, long long rows, int w, int m, int c,
+               int at_rows, int at_cols, cudaStream_t stream) {
+  using S = AnalysisSmem<__nv_bfloat16, ENC_DFT_STAGES_OVERRIDE>;
+  WgAnalysisArgs a{};
+  a.out = out;
+  a.rows = rows;
+  a.w = w;
+  a.two_m = 2 * m;
+  a.c = c;
+  a.m_tiles = (2 * m + BF16_TILE - 1) / BF16_TILE;
+  a.n_k = (w + BF16_K - 1) / BF16_K;
+  a.c_tiles = (c + WG_BN - 1) / WG_BN;
+  a.vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long blocks = rows * a.m_tiles * a.c_tiles;
+  if (rows < 1 || w < 1 || c % 8 || at_rows != a.m_tiles * BF16_TILE ||
+      at_cols != a.n_k * BF16_K || blocks > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap a_map, y_map;
+  int err = bf16_map(&a_map, at, at_rows, at_cols, at_cols, 64, BF16_K);
+  if (!err) err = bf16_map(&y_map, y, w, c, c, BF16_K, 64, rows);
+  if (err) return err;
+  auto kernel = analysis_wgmma<__nv_bfloat16, OUT_T, ENC_DFT_STAGES_OVERRIDE, true>;
+  static bool smem_set = false;  // once per kernel
+  if (!smem_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  kernel<<<(unsigned)blocks, ANALYSIS_THREADS, S::BYTES, stream>>>(a_map, y_map, a);
+  return (int)cudaGetLastError();
+}
+
+template <typename IN_T>
+int launch_enc(int pe, const void* w1, const void* w2, void* y, const EncArgs& a, int bsz,
+               cudaStream_t stream) {
+  return pe == PE_BF16  ? launch_enc_mlp<IN_T, PE_BF16>(w1, w2, y, a, bsz, stream)
+         : pe == PE_F32 ? launch_enc_mlp<IN_T, PE_F32>(w1, w2, y, a, bsz, stream)
+                        : launch_enc_mlp<IN_T, PE_NONE>(w1, w2, y, a, bsz, stream);
+}
+
+enum Ptr { P_X, P_W1, P_B1, P_W2, P_PE, P_CST, P_Y, P_F, P_PART_SUM, P_PART_SQ, P_GRP_SUM,
+           P_GRP_SQ, P_SSUM, P_SSQ, N_PTRS };
+enum Int { I_B, I_H, I_W, I_C_IN, I_K1P, I_HIDDEN, I_C, I_TWO_M, I_CST_ROWS, I_CST_COLS,
+           I_X_BF16, I_PE_BF16, I_F_BF16, I_GROUPS, N_INTS };
 
 }  // namespace
 
-// Rows of the cs operand must be padded to a multiple of this (zero rows).
-extern "C" int grid_encoder_spectral_chunk() { return CHUNK; }
+// The tiles that shape the prepared DFT operand (those of dft_analysis:
+// 2: BF16_K, 3: BF16_TILE).
+extern "C" int grid_encoder_spectral_tile(int i) { return dft_tile(i); }
 
-// ptrs and ints follow the Ptr and Int enums above; part_sum/part_sq hold
-// B * H * c floats.
+// ptrs and ints follow the Ptr and Int enums above: y is the (B, H*W, c)
+// bf16 scratch, part_sum/part_sq hold B * tiles * c floats (tiles =
+// ceil(H*W / 128)), grp_sum/grp_sq B * groups * c (the partials are added
+// in `groups` runs of ceil(tiles / groups)), cst is the (cst_rows,
+// cst_cols) bf16 DFT operand [C | -S]^T of dft_analysis.
 extern "C" int grid_encoder_spectral_bf16(const void* const* ptrs, const long long* ints,
                                           void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   EncArgs a;
   a.x = ptrs[P_X];
-  a.w1 = (const __nv_bfloat16*)ptrs[P_W1];
   a.b1 = (const float*)ptrs[P_B1];
-  a.w2 = (const __nv_bfloat16*)ptrs[P_W2];
   a.pe = ptrs[P_PE];
-  a.cs = (const __nv_bfloat16*)ptrs[P_CS];
-  a.f = (void*)ptrs[P_F];
   a.part_sum = (float*)ptrs[P_PART_SUM];
   a.part_sq = (float*)ptrs[P_PART_SQ];
-  const int b = (int)ints[I_B];
-  a.H = (int)ints[I_H];
-  a.W = (int)ints[I_W];
+  const long long bsz = ints[I_B], h = ints[I_H], w = ints[I_W];
+  a.hw = h * w;
   a.c_in = (int)ints[I_C_IN];
   a.k1p = (int)ints[I_K1P];
   a.hidden = (int)ints[I_HIDDEN];
   a.c = (int)ints[I_C];
-  a.two_m = (int)ints[I_TWO_M];
-  a.m2p = (int)ints[I_M2P];
-  const long long w_pad = ints[I_W_PAD];
-  a.x_bf16 = (int)ints[I_X_BF16];
-  a.pe_bf16 = (int)ints[I_PE_BF16];
-  a.f_bf16 = (int)ints[I_F_BF16];
-  a.has_pe = (int)ints[I_HAS_PE];
-  if (b < 1 || b > 65535 || a.H < 1 || a.H > 65535 || a.W < 1 || w_pad % CHUNK ||
-      w_pad < a.W || a.c_in < 1 || a.k1p < a.c_in || a.k1p % 16 || a.hidden < 16 ||
-      a.hidden % 16 || a.c < 16 || a.c % 16 || a.two_m < 1 || a.m2p < a.two_m ||
-      a.m2p % 16 || a.m2p > M2P_MAX)
+  const int two_m = (int)ints[I_TWO_M];
+  if (bsz < 1 || bsz > 65535 || h < 1 || w < 1 || a.hw > INT_MAX || a.c_in < 1 ||
+      a.k1p < a.c_in || a.k1p % 16 || a.k1p > 4 * CH_BK || a.hidden < 16 || a.hidden % 16 ||
+      a.hidden > 256 || a.c < 16 || a.c % 16 || a.c > 256 || two_m < 2 || two_m % 2)
     return (int)cudaErrorInvalidValue;
-  a.ldx = a.k1p + PAD;
-  a.ldh = a.hidden + PAD;
-  a.ldy = CB + PAD;
-  a.ldp = CB * (a.pe_bf16 ? 2 : 4) + 16;
-  const size_t smem = ((size_t)CHUNK * (a.ldx + a.ldh + a.ldy) + (size_t)a.k1p * a.ldh +
-                       (size_t)a.hidden * a.ldy) *
-                          sizeof(__nv_bfloat16) +
-                      (size_t)CHUNK * a.ldp +
-                      ((size_t)WARPS * 256 + 2 * FC2_SPLIT * CB) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(grid_encoder_spectral_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.c + CB - 1) / CB, a.H, b);
-  grid_encoder_spectral_kernel<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 rgrid((a.c + 31) / 32, b);
-  stats_reduce<<<rgrid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
-      a.part_sum, a.part_sq, a.H, a.c, (float*)ptrs[P_SSUM], (float*)ptrs[P_SSQ]);
+  a.tiles = (int)((a.hw + CH_BM - 1) / CH_BM);
+  a.bsz = (int)bsz;
+  void* y = (void*)ptrs[P_Y];
+  const int pe = a.pe == nullptr ? PE_NONE : ints[I_PE_BF16] ? PE_BF16 : PE_F32;
+  int err = ints[I_X_BF16]
+                ? launch_enc<__nv_bfloat16>(pe, ptrs[P_W1], ptrs[P_W2], y, a, (int)bsz, st)
+                : launch_enc<float>(pe, ptrs[P_W1], ptrs[P_W2], y, a, (int)bsz, st);
+  if (err) return err;
+  const int rows = (int)(bsz * h), cr = (int)ints[I_CST_ROWS], cc = (int)ints[I_CST_COLS];
+  using bf = __nv_bfloat16;
+  err = ints[I_F_BF16]
+            ? launch_dft<bf>(ptrs[P_CST], y, (bf*)ptrs[P_F], rows, (int)w, two_m / 2, a.c, cr, cc,
+                             st)
+            : launch_dft<float>(ptrs[P_CST], y, (float*)ptrs[P_F], rows, (int)w, two_m / 2, a.c,
+                                cr, cc, st);
+  if (err) return err;
+  // the tiles' partials, added in runs, then the runs
+  const int n_part = a.tiles;
+  const int groups = (int)ints[I_GROUPS], per = (n_part + groups - 1) / groups;
+  if (groups < 1 || (long long)per * (groups - 1) >= n_part) return (int)cudaErrorInvalidValue;
+  float* grp_sum = (float*)ptrs[P_GRP_SUM];
+  float* grp_sq = (float*)ptrs[P_GRP_SQ];
+  dim3 rgrid((a.c + 31) / 32, (unsigned)bsz);
+  tile_reduce<<<dim3(rgrid.x, rgrid.y, groups), dim3(32, 8), 0, st>>>(
+      a.part_sum, a.part_sq, n_part, per, a.c, grp_sum, grp_sq);
+  if ((err = (int)cudaGetLastError())) return err;
+  stats_reduce<<<rgrid, dim3(32, 8), 0, st>>>(grp_sum, grp_sq, groups, a.c,
+                                              (float*)ptrs[P_SSUM], (float*)ptrs[P_SSQ]);
   return (int)cudaGetLastError();
 }

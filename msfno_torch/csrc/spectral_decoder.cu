@@ -1,5 +1,5 @@
 // Fused inverse longitude DFT + norm/FiLM affine + big-skip decoder MLP,
-// bf16 tensor-core GEMMs (sm_90a).
+// bf16 wgmma GEMMs (sm_90a).
 //
 // Replaces msfno_tpu/ops/pallas/spectral_decoder.py:spectral_decoder (the
 // Pallas `_spectral_decoder_call` TPU kernel).  Per latitude row (b, h):
@@ -18,59 +18,68 @@
 // 303 MB ~0.79 GB -> 0.23 ms; 2 * 1,038,240 * (242*256 + 329*256 + 256*73)
 // = 3.4e11 FLOP -> 0.35 ms at 989 TFLOP/s bf16: operations.
 //
-// Design: grid_mlp's big-skip decoder with an inverse-DFT prologue.  A small
-// first kernel writes t = bf16(hm * a) once, (B, H, 256, C) with zero rows
-// past 2M = 242 (94.5 MB at the serving shapes).  The main kernel's block
-// owns one latitude row and a 64-longitude chunk (1440 = 22*64 + 32: the
-// last chunk is ragged and masked).  Per 64-row K-slab it copies the slab of
-// t and the chunk's (64 x 64) Mt slab into shared memory with cp.async and
-// accumulates the (64 x C) x = Mt[chunk] @ t in registers (each warp owns 2
-// of the 16 channel tiles, so C <= 256).  It adds b, rounds x to bf16 into
-// the MLP's input tile beside the bf16 skip, then runs the two MLP layers as
-// grid_mlp.cu does (shared tile_common.cuh), writing y straight to device
-// memory.  The t slabs and the hidden tile share one shared-memory region.
-// Measured on the H100 at the serving shapes (tools/kernel_variants.py,
-// chip_smoke.py): registers capped for two resident blocks per SM (6.4 ms,
-// against 10.0 ms with one block and 224 registers); the bf16 t copied by
-// cp.async instead of hm * a converted in the block (4.34 vs 5.81 ms).  Each t row (128 KB) is read by the 23 blocks
-// of its latitude, ~2.2 GB of L2 traffic per call; keeping t rows on chip
-// across chunks is left to a later change.
+// Design: a small first kernel writes t = bf16(hm * a) once, (B, H, m2p, C)
+// with zero rows past 2M (94.5 MB at the serving shapes; folding a into Mt
+// would move the rounding point).  The main kernel (persistent,
+// chain_gemm.cuh) runs three chained wgmma GEMMs per tile of 128 longitudes
+// of one latitude row (1440 = 11 * 128 + 32: TMA zero-fills the last
+// tile's loads and its stores are masked), so each row's t is read by 12
+// tiles:
+//   (1) x = Mt[tile] @ t_row: Mt's tile (128 x m2p, K-major) comes by TMA
+//       into K-chunks 0-3 of the A tile as soon as the previous tile's
+//       GEMMs are done with them; t_row (m2p x C, MN-major boxes of 64 x
+//       64) streams through the ring; the epilogue adds b and writes bf16 x
+//       over Mt;
+//   (2) h = [x | skip] @ W1 (K = C + 80): the tile's skip is one
+//       contiguous run (128 x 73 x 4 B = 37 KB); each row half comes
+//       through the ring as one bulk copy and is converted by its two
+//       consumer warpgroups to bf16 columns [C, C + 80) of the A tile; the
+//       epilogue adds b1, applies the exact GELU and writes bf16 h over x;
+//   (3) y = h @ W2 + b2 (N = c_out <= 96, one m64n128 wgmma per K-step on
+//       zero-filled columns); the fp32 tile goes through K-chunks 4-6 of
+//       the A tile (rows of c_out, as in device memory, clear of the next
+//       tile's Mt) and out as one contiguous run of coalesced 16-byte
+//       stores.
+// The ring carries t's boxes, the raw skip and the two weight matrices in
+// one sequence of stages, so each arrives while the step before computes.
+// L2 traffic per tile: Mt 64 KB + t 128 KB + W1 168 KB + W2 64 KB (8652
+// tiles: ~3.7 GB per call).  The epilogues (the GELU of 32K values a
+// tile, the skip conversion, the output) and the three GEMMs take turns
+// within a block, and one block fills an SM (the A tile and the ring fill
+// shared memory, the accumulators the registers): 1.41 ms on the H100
+// (tools/kernel_variants.py --profile), 4.2x the operations bound.
+//
+// Tunables (tools/kernel_variants.py): DEC_STAGES (ring depth of 32 KB
+// stages beside the 112 KB A tile; at most 3).
 
-#include "tile_common.cuh"
+#include "chain_gemm.cuh"
 
 namespace {
 
-constexpr int CHUNK = 64;                // longitudes per block
-constexpr int ROW_TILES = CHUNK / 16;
-#ifndef WARPS_OVERRIDE
-#define WARPS_OVERRIDE 8
+#ifndef DEC_STAGES_OVERRIDE
+#define DEC_STAGES_OVERRIDE 3
 #endif
-constexpr int WARPS = WARPS_OVERRIDE;
-constexpr int PAD = 8;
-constexpr int PREFETCH = 2;
-constexpr int SLAB = 64;                 // rows of t per staging pass
-constexpr int C_MAX = 256;
-constexpr int XCT_PER_WARP = C_MAX / 16 / WARPS;  // x column tiles per warp
-#ifndef MINB_OVERRIDE
-#define MINB_OVERRIDE 2
-#endif
-constexpr int MIN_BLOCKS = MINB_OVERRIDE;  // resident blocks per SM (register cap)
+constexpr int DEC_STAGES = DEC_STAGES_OVERRIDE;
+constexpr int DEC_SLOT = 4 * CH_BOX;            // 32 KB: the B boxes of N <= 256
+// 112 KB: Mt, then [x | skip] (K <= 384), then h; the fp32 output tile in
+// K-chunks 4-6 (c_out <= 96)
+constexpr int DEC_TILE = 7 * CH_CHUNK;
+constexpr int DEC_BIAS = 3 * 256;                // b, b1, b2 in shared memory (floats)
+constexpr int DEC_SMEM = 1024 + DEC_TILE + DEC_STAGES * DEC_SLOT + DEC_BIAS * 4 +
+                         (2 * DEC_STAGES + 2) * 8;
+static_assert(DEC_SMEM <= 232448, "the tail does not fit in shared memory");
 
 struct DecArgs {
-  const void* hm;                // (B, H, two_m, c)
-  __nv_bfloat16* t;              // (B, H, m2p, c) scratch: bf16(hm * a), zero rows past two_m
-  const float* aff_a;            // (B, c)
-  const float* aff_b;            // (B, c)
-  const __nv_bfloat16* mt;       // (w_pad, m2p), zero rows past W and columns past two_m
-  const void* skip;              // (B, H, W, s)
-  const __nv_bfloat16* w1;       // (k1p, hidden): rows [0, c) main, [cmp, cmp + s) skip
-  const float* b1;
-  const __nv_bfloat16* w2;       // (hidden, n2p): zero columns past c_out
-  const float* b2;
-  void* out;                     // (B, H, W, c_out)
-  int H, W, two_m, m2p, c, s, cmp, k1p, hidden, c_out, n2p;
-  int hm_bf16, skip_bf16, out_bf16, has_b2;
-  int ldx, ldh, ldt;
+  const void* hm;         // (B, H, two_m, c)
+  __nv_bfloat16* t;       // (B, H, m2p, c) scratch: bf16(hm * a), zero rows past two_m
+  const float* aff_a;     // (B, c)
+  const float* aff_b;     // (B, c)
+  const void* skip;       // (B, H, W, s)
+  const float* b1;        // (hidden,)
+  const float* b2;        // (c_out,) or null
+  void* out;              // (B, H, W, c_out)
+  int H, W, tiles, rows, two_m, m2p, c, s, k1p, hidden, c_out, n2p;
+  int hm_bf16, out_bf16;
 };
 
 // t = bf16(hm * a) per (sample, channel), rows [two_m, m2p) zero: 8
@@ -92,68 +101,179 @@ __global__ void scale_to_bf16(DecArgs a, long long n_vec) {
   *reinterpret_cast<uint4*>(a.t + e0) = *reinterpret_cast<const uint4*>(out);
 }
 
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) spectral_decoder_kernel(DecArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // CHUNK x ldx
-  __nv_bfloat16* region = xs + CHUNK * a.ldx;  // t slab (SLAB x ldt), then hs (CHUNK x ldh)
-  __nv_bfloat16* ts = region;
-  __nv_bfloat16* hs = region;
-  const int region_elems = max(SLAB * a.ldt, CHUNK * a.ldh);
-  __nv_bfloat16* ms = region + region_elems;                         // CHUNK x (SLAB + PAD): Mt slab
-  float* scratch = reinterpret_cast<float*>(ms + CHUNK * (SLAB + PAD));  // WARPS x 256
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int w0 = blockIdx.x * CHUNK;
-  const int rows = min(CHUNK, a.W - w0);
-  const long long bh = (long long)blockIdx.z * a.H + blockIdx.y;
-  const float* sb = a.aff_b + (long long)blockIdx.z * a.c;
-  float* my = scratch + warp * 256;
-
-  // inverse DFT of the chunk: x = Mt[w0:w0+CHUNK] @ t, t staged per K-slab
-  FragC acc_x[ROW_TILES][XCT_PER_WARP];
-  chunk_inverse_dft<ROW_TILES, XCT_PER_WARP, SLAB>(acc_x, a.t + bh * a.m2p * a.c, a.mt, w0,
-                                                   a.m2p, a.c, ts, a.ldt, ms, warp, WARPS);
-
-  // MLP input tile: [bf16(x + b) | bf16(skip)], zero padding and zero skip
-  // rows past the end (x rows past the end are b: finite, never written)
-  stage_decoder_input<ROW_TILES, XCT_PER_WARP>(xs, a.ldx, acc_x, nullptr, sb, a.c, a.cmp, a.s,
-                                               a.k1p, a.skip, a.skip_bf16, (bh * a.W + w0) * a.s,
-                                               rows, my, warp, lane, WARPS);
-  __syncthreads();  // xs complete; every warp is past its reads of the t slab
-
-  // first layer over [x | skip]: hs = bf16(gelu(xs @ w1 + b1))
-  mlp_hidden<ROW_TILES, PREFETCH>(xs, a.ldx, a.k1p, a.w1, a.hidden, a.b1, a.hidden, hs,
-                                  a.ldh, my,
-                                  warp, lane, WARPS);
+template <typename IN_T>
+CH_KERNEL
+    spectral_decoder_tiles(const __grid_constant__ CUtensorMap mt_map,
+                           const __grid_constant__ CUtensorMap t_map,
+                           const __grid_constant__ CUtensorMap w1_map,
+                           const __grid_constant__ CUtensorMap w2_map, DecArgs a) {
+  extern __shared__ char smem_raw[];
+  char* tile = smem_base_1024(smem_raw);
+  float* bias = reinterpret_cast<float*>(tile + DEC_TILE + DEC_STAGES * DEC_SLOT);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bias + DEC_BIAS);
+  const Ring ring{tile + DEC_TILE, bars, bars + DEC_STAGES, DEC_SLOT, DEC_STAGES};
+  uint64_t* mt_full = bars + 2 * DEC_STAGES;  // a tile's Mt has landed in the A tile
+  uint64_t* mt_free = mt_full + 1;            // every consumer warp is done with its h
+  const int n1 = (a.m2p + CH_BK - 1) / CH_BK, n2 = (a.k1p + CH_BK - 1) / CH_BK;
+  const int n3 = (a.hidden + CH_BK - 1) / CH_BK;
+  const long long n_tiles = (long long)a.rows * a.tiles;
+  if (threadIdx.x == 0) {
+    ring_init(ring);
+    mbar_init(mt_full, 1);
+    mbar_init(mt_free, CH_CONSUMERS / 32);
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  // second layer + b2, straight to device memory
-  for (int ct = warp; ct < a.n2p / 16; ct += WARPS) {
-    FragC acc[ROW_TILES];
-    tile_gemm<ROW_TILES, PREFETCH>(acc, hs, a.ldh, a.w2, a.n2p, ct * 16, a.hidden);
-    const int col = ct * 16 + (lane % 16);
-    const bool col_ok = col < a.c_out;
-    const float b2 = (a.has_b2 && col_ok) ? a.b2[col] : 0.f;
+  if (threadIdx.x >= CH_CONSUMERS) {  // the producer warpgroup: one warp works
+    producer_regs();
+    if (threadIdx.x >= CH_CONSUMERS + 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      prefetch_map(&mt_map);
+      prefetch_map(&t_map);
+      prefetch_map(&w1_map);
+      prefetch_map(&w2_map);
+    }
+    // per tile: Mt's 128 x m2p tile into the A tile (once the last tile's
+    // GEMMs are done with it), then ring stages: t's, the raw skip of the
+    // two row halves, W1's, W2's
+    int s = 0, it = 0;
+    for (long long tl = blockIdx.x; tl < n_tiles; tl += gridDim.x, ++it) {
+      const long long bh = tl / a.tiles;  // b * H + h
+      const int w0 = (int)(tl % a.tiles) * CH_BM;
+      const int n_valid = min(CH_BM, a.W - w0);
+      const IN_T* ssrc = reinterpret_cast<const IN_T*>(a.skip) + (bh * a.W + w0) * a.s;
+      if (it > 0) mbar_wait(mt_free, (it - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(mt_full, n1 * CH_CHUNK);
+        for (int j = 0; j < n1; ++j)
+          tma_load_2d(tile + j * CH_CHUNK, &mt_map, mt_full, CH_BK * j, w0);
+      }
+      for (int j = 0; j < n1 + 2 + n2 + n3; ++j, ++s) {
+        char* sb = ring_acquire(ring, s);
+        if (lane == 0) {
+          uint64_t* full = ring.full + s % ring.stages;
+          if (j < n1) {
+            load_b_boxes(sb, &t_map, full, a.c, CH_BK * j, (int)bh);
+          } else if (j < n1 + 2) {
+            const int half = j - n1;
+            load_raw(ring, s, sb, ssrc + 64 * half * a.s, min(64, n_valid - 64 * half),
+                     a.s * (int)sizeof(IN_T));
+          } else if (j < n1 + 2 + n2) {
+            load_b_boxes(sb, &w1_map, full, a.hidden, CH_BK * (j - n1 - 2), -1);
+          } else {
+            load_b_boxes(sb, &w2_map, full, a.n2p, CH_BK * (j - n1 - 2 - n2), -1);
+          }
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup (m, n) owns tile rows [64 m, 64 m + 64) and columns
+  // [128 n, 128 n + 128)
+  consumer_regs();
+  const Role ro;
+  if (threadIdx.x < 256) {  // b1 and b2 in shared memory; b per sample below
+    bias[256 + threadIdx.x] = threadIdx.x < a.hidden ? a.b1[threadIdx.x] : 0.f;
+    bias[512 + threadIdx.x] = threadIdx.x < a.c_out && a.b2 ? a.b2[threadIdx.x] : 0.f;
+  }
+  auto a_tile = [&](int j, char*) { return tile + j * CH_CHUNK; };
+  auto add_b = [bias](float v, int col) { return v + bias[col]; };
+  const float* b1 = bias + 256;
+  auto gelu_b1 = [b1](float v, int col) { return gelu_rational(v + b1[col]); };
+  const bool x_cols = 128 * ro.n < a.c, h_cols = 128 * ro.n < a.hidden;
+  // the output tile goes through K-chunks 4-6, clear of the next tile's Mt
+  float* ys = reinterpret_cast<float*>(tile + 4 * CH_CHUNK) + 64 * ro.m * a.c_out;
+  float acc[64];
+  int s = 0, it = 0;
+  long long b_cur = -1;
+  for (long long tl = blockIdx.x; tl < n_tiles; tl += gridDim.x, ++it) {
+    const long long bh = tl / a.tiles;
+    const int w0 = (int)(tl % a.tiles) * CH_BM;
+    const int n_valid = min(CH_BM, a.W - w0);
+    const IN_T* ssrc = reinterpret_cast<const IN_T*>(a.skip) + (bh * a.W + w0) * a.s;
+    if (bh / a.H != b_cur) {  // this sample's b
+      b_cur = bh / a.H;
+      if (threadIdx.x < 256)
+        bias[threadIdx.x] = threadIdx.x < a.c ? a.aff_b[b_cur * a.c + threadIdx.x] : 0.f;
+    }
+    consumers_sync();  // the biases; the last tile's output is out of the A tile
+    // (1) x = Mt[tile] t_row; then, over the pair's rows of Mt, bf16(x + b)
+    // into columns [0, c) and the bf16 skip into [c, c + s)
+    mbar_wait(mt_full, it & 1);
+    s = chain_gemm(acc, ring, s, a.m2p, a_tile, ro, x_cols);
+    pair_sync(ro);  // the pair's wgmmas have read Mt
+    if (x_cols) frag_to_a_tile(acc, tile, 64 * ro.m, 128 * ro.n, a.c, add_b);
+    s = raw_to_a_tile<IN_T>(ring, s, ro, ssrc + 64 * ro.m * a.s, min(64, n_valid - 64 * ro.m),
+                            a.s, tile, a.c);
+    fence_proxy_async();
+    pair_sync(ro);
+
+    // (2) h = bf16(gelu([x | skip] W1 + b1)) over x
+    s = chain_gemm(acc, ring, s, a.k1p, a_tile, ro, h_cols);
+    pair_sync(ro);  // the pair's wgmmas have read [x | skip]
+    if (h_cols) frag_to_a_tile(acc, tile, 64 * ro.m, 128 * ro.n, a.hidden, gelu_b1);
+    fence_proxy_async();
+    pair_sync(ro);
+
+    // (3) y = h W2 + b2 (N = n2p <= 128: the n = 0 warpgroups), through
+    // shared memory (rows of c_out fp32) to out
+    s = chain_gemm(acc, ring, s, a.hidden, a_tile, ro, ro.n == 0);
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(mt_free);  // the next tile's Mt may come
+    consumers_sync();  // every warpgroup is done reading [x | skip] and h
+    if (ro.n == 0) {
+      const int r0 = acc_row0();
 #pragma unroll
-    for (int i = 0; i < ROW_TILES; ++i) {
-      wmma::store_matrix_sync(my, acc[i], 16, wmma::mem_row_major);
-      __syncwarp();
+      for (int q = 0; q < 16; ++q) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int row = i * 16 + lane / 16 + 2 * j;
-        if (row < rows && col_ok) {
-          const long long o = (bh * a.W + w0 + row) * a.c_out + col;
-          const float y = my[lane + 32 * j] + b2;
-          if (a.out_bf16)
-            reinterpret_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16_rn(y);
-          else
-            reinterpret_cast<float*>(a.out)[o] = y;
+        for (int e = 0; e < 2; ++e) {
+          const int col = acc_col(q, e);
+          if (col >= a.c_out) continue;
+          const float b2 = bias[512 + col];
+          ys[r0 * a.c_out + col] = acc[4 * q + e] + b2;
+          ys[(r0 + 8) * a.c_out + col] = acc[4 * q + 2 + e] + b2;
         }
       }
-      __syncwarp();
+    }
+    pair_sync(ro);
+    const int rows = min(64, n_valid - 64 * ro.m), t = ro.n * 128 + ro.t;
+    if (rows > 0) {
+      const int n = rows * a.c_out;
+      const long long o = (bh * a.W + w0 + 64 * ro.m) * a.c_out;
+      if (a.out_bf16) {
+        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(a.out) + o;
+        for (int i = t; i < n; i += 256) dst[i] = __float2bfloat16_rn(ys[i]);
+      } else {
+        float* dst = reinterpret_cast<float*>(a.out) + o;
+        if (reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+          for (int i = t; i < n / 4; i += 256)
+            reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(ys)[i];
+          for (int i = n / 4 * 4 + t; i < n; i += 256) dst[i] = ys[i];
+        } else {
+          for (int i = t; i < n; i += 256) dst[i] = ys[i];
+        }
+      }
     }
   }
+}
+
+template <typename IN_T>
+int launch_tiles(const CUtensorMap* maps, const DecArgs& a, long long blocks,
+                 cudaStream_t stream) {
+  static bool smem_set = false;  // once per kernel
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        spectral_decoder_tiles<IN_T>, cudaFuncAttributeMaxDynamicSharedMemorySize, DEC_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  spectral_decoder_tiles<IN_T><<<(unsigned)blocks, CH_THREADS, DEC_SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
+  return (int)cudaGetLastError();
 }
 
 enum Ptr { P_HM, P_A, P_B, P_MT, P_SKIP, P_W1, P_B1, P_W2, P_B2, P_OUT, P_T, N_PTRS };
@@ -163,21 +283,19 @@ enum Int { I_B, I_H, I_W, I_TWO_M, I_M2P, I_W_PAD, I_C, I_S, I_CMP, I_K1P, I_HID
 }  // namespace
 
 // Rows of the Mt operand must be padded to a multiple of this (zero rows).
-extern "C" int spectral_decoder_chunk() { return CHUNK; }
+extern "C" int spectral_decoder_chunk() { return CH_BK; }
 
 // ptrs and ints follow the Ptr and Int enums above.
 extern "C" int spectral_decoder_bf16(const void* const* ptrs, const long long* ints,
                                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   DecArgs a;
   a.hm = ptrs[P_HM];
   a.aff_a = (const float*)ptrs[P_A];
   a.aff_b = (const float*)ptrs[P_B];
-  a.mt = (const __nv_bfloat16*)ptrs[P_MT];
   a.skip = ptrs[P_SKIP];
-  a.w1 = (const __nv_bfloat16*)ptrs[P_W1];
   a.b1 = (const float*)ptrs[P_B1];
-  a.w2 = (const __nv_bfloat16*)ptrs[P_W2];
-  a.b2 = (const float*)ptrs[P_B2];
+  a.b2 = ints[I_HAS_B2] ? (const float*)ptrs[P_B2] : nullptr;
   a.out = (void*)ptrs[P_OUT];
   a.t = (__nv_bfloat16*)ptrs[P_T];
   const int b = (int)ints[I_B];
@@ -188,36 +306,38 @@ extern "C" int spectral_decoder_bf16(const void* const* ptrs, const long long* i
   const long long w_pad = ints[I_W_PAD];
   a.c = (int)ints[I_C];
   a.s = (int)ints[I_S];
-  a.cmp = (int)ints[I_CMP];
+  const int cmp = (int)ints[I_CMP];
   a.k1p = (int)ints[I_K1P];
   a.hidden = (int)ints[I_HIDDEN];
   a.c_out = (int)ints[I_C_OUT];
   a.n2p = (int)ints[I_N2P];
   a.hm_bf16 = (int)ints[I_HM_BF16];
-  a.skip_bf16 = (int)ints[I_SKIP_BF16];
   a.out_bf16 = (int)ints[I_OUT_BF16];
-  a.has_b2 = (int)ints[I_HAS_B2];
-  if (b < 1 || b > 65535 || a.H < 1 || a.H > 65535 || a.W < 1 || w_pad % CHUNK ||
-      w_pad < a.W || a.two_m < 1 || a.m2p < a.two_m || a.m2p % 16 || a.c < 16 || a.c % 16 ||
-      a.c > C_MAX || a.cmp != a.c || a.s < 1 || a.k1p < a.cmp + a.s || a.k1p % 16 ||
-      a.hidden < 16 || a.hidden % 16 || a.c_out < 1 || a.n2p < a.c_out || a.n2p % 16)
+  const int skip_bf16 = (int)ints[I_SKIP_BF16];
+  if (b < 1 || a.H < 1 || a.W < 1 || w_pad % CH_BK || w_pad < a.W || a.two_m < 1 ||
+      a.m2p < a.two_m || a.m2p % 16 || a.c < 16 || a.c % 16 || a.c > 256 || cmp != a.c ||
+      a.s < 1 || a.k1p < a.c + a.s || a.k1p % 16 || a.k1p > DEC_TILE / CH_CHUNK * CH_BK ||
+      a.m2p > 4 * CH_BK || a.hidden < 16 || a.hidden % 16 || a.hidden > 256 || a.c_out < 1 ||
+      a.n2p < a.c_out ||
+      a.n2p % 16 || a.n2p > 96)
     return (int)cudaErrorInvalidValue;
-  a.ldx = a.k1p + PAD;
-  a.ldh = a.hidden + PAD;
-  a.ldt = a.c + PAD;
-  const size_t region = (size_t)(SLAB * a.ldt > CHUNK * a.ldh ? SLAB * a.ldt : CHUNK * a.ldh);
-  const size_t smem = ((size_t)CHUNK * a.ldx + region + (size_t)CHUNK * (SLAB + PAD)) *
-                          sizeof(__nv_bfloat16) +
-                      (size_t)WARPS * 256 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(spectral_decoder_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  a.tiles = (a.W + CH_BM - 1) / CH_BM;
+  a.rows = b * a.H;
+  // persistent: one block per SM walks the tiles
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long blocks = min((long long)a.rows * a.tiles, (long long)max(sms, 1));
+  CUtensorMap maps[4];
+  int err = bf16_map(&maps[0], ptrs[P_MT], (int)w_pad, a.m2p, a.m2p, CH_BM, CH_BK);
+  if (!err) err = bf16_map(&maps[1], a.t, a.m2p, a.c, a.c, CH_BK, 64, (long long)b * a.H);
+  if (!err) err = bf16_map(&maps[2], ptrs[P_W1], a.k1p, a.hidden, a.hidden, CH_BK, 64);
+  if (!err) err = bf16_map(&maps[3], ptrs[P_W2], a.hidden, a.n2p, a.n2p, CH_BK, 64);
+  if (err) return err;
   const long long n_vec = (long long)b * a.H * a.m2p * a.c / 8;
-  scale_to_bf16<<<(unsigned)((n_vec + 255) / 256), 256, 0, (cudaStream_t)stream>>>(a, n_vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.W + CHUNK - 1) / CHUNK, a.H, b);
-  spectral_decoder_kernel<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  scale_to_bf16<<<(unsigned)((n_vec + 255) / 256), 256, 0, st>>>(a, n_vec);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return skip_bf16 ? launch_tiles<__nv_bfloat16>(maps, a, blocks, st)
+                   : launch_tiles<float>(maps, a, blocks, st);
 }

@@ -12,10 +12,15 @@ counterpart lives in grid_mlp.py).  Per pixel, then per latitude row:
 with cs (W, 2M) the merged [C | -S] analysis matrix (`RealSHT.merged_analysis`)
 and f the stacked [re | im] longitude modes that `RealSHT.legendre_stacked`
 completes into the forward SHT.  The grid-space encoder output is never
-stored.  Bound on the H100 at the serving shapes: operations (see the kernel
-source).  The JAX package has no backward kernel here: its gradient is the
-VJP of `_ref_encoder_spectral` (grid_mlp.py:521-560: fp32 MLP, y and cs
-rounded before the DFT), and so it is here.
+stored in fp32: the kernel runs in two passes (see its source), the
+encoder MLP over 128-pixel tiles with per-tile column sums of y and y^2
+added in a fixed order, writing bf16 y, then the bf16 forward DFT of
+`dft_analysis` on it.  `encoder_mlp_tiles`, `tile_stats_reduce` and
+`dft_pass` are plain mirrors of that decomposition (tests only).  Bound on
+the H100 at the serving shapes: operations (see the kernel source).  The
+JAX package has no backward kernel here: its gradient is the VJP of
+`_ref_encoder_spectral` (grid_mlp.py:521-560: fp32 MLP, y and cs rounded
+before the DFT), and so it is here.
 """
 
 from __future__ import annotations
@@ -25,14 +30,18 @@ import ctypes
 import torch
 
 from msfno_torch.ops.kernels import check, library, reference_vjp, stream_ptr
+from msfno_torch.ops.kernels.dft_analysis import BF16_K, BF16_TILE, _ceil, aligned, check_operand
 from msfno_torch.ops.kernels.grid_mlp import _act, _pad16, grid_mlp_reference, prepare_weights
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
 
-# the longitude chunk of both DFT kernels (CHUNK in their sources): the rows
-# of their DFT operand are zero-padded to a multiple of it
+# the K-stage of the tail's kernels (CH_BK / CHUNK in spectral_decoder.cu and
+# spectral_decoder_bwd.cu): the rows of their Mt operand are zero-padded to a
+# multiple of it
 DFT_ROW_MULTIPLE = 64
+TILE_ROWS = 128  # pixels per tile of the encoder MLP pass (CH_BM, chain_gemm.cuh)
+REDUCE_GROUPS = 64  # runs of partials the kernel adds first, then adds the runs
 
 
 def grid_encoder_spectral_reference(x, w1, b1, w2, pe, cs, mxu_dtype="bfloat16",
@@ -54,8 +63,100 @@ def grid_encoder_spectral_reference(x, w1, b1, w2, pe, cs, mxu_dtype="bfloat16",
     return f.reshape(bsz, h, -1, c).to(od), ssum, ssq
 
 
+def encoder_mlp_tiles(x, w1, b1, w2, pe, mxu_dtype="bfloat16", tile=TILE_ROWS):
+    """Plain mirror of the kernel's first pass (tests only): per sample, the
+    encoder MLP with the kernel's rounding points over tiles of `tile`
+    consecutive pixels of the flattened (H*W) grid, the last one ragged.
+    Returns (y rounded to `mxu_dtype`, (B, H*W, C); each tile's column sums
+    of the unrounded y and y^2, each (B, tiles, C) fp32: the sums over its
+    8 groups of 16 rows, added in order)."""
+    bsz, h, w, _ = x.shape
+    y = grid_mlp_reference(x, w1, b1, w2, pe=pe, mxu_dtype=mxu_dtype, out_dtype="float32")
+    y = y.reshape(bsz, h * w, -1)
+    tiles = -(-h * w // tile)
+    pad = y.new_zeros((bsz, tiles * tile - h * w, y.shape[-1]))
+    yt = torch.cat([y, pad], dim=1).reshape(bsz, tiles, tile // 16, 16, -1)
+    s, q = yt.sum(3), (yt * yt).sum(3)
+    ps, pq = s[:, :, 0], q[:, :, 0]
+    for r in range(1, tile // 16):
+        ps, pq = ps + s[:, :, r], pq + q[:, :, r]
+    return mxu_round(y, mxu_dtype), ps, pq
+
+
+def _reduce_groups(n: int) -> tuple[int, int]:
+    """(runs, partials per run) of the kernel's two-level sum of n partials."""
+    per = -(-n // min(REDUCE_GROUPS, n))
+    return -(-n // per), per
+
+
+def _strided_sum(part: torch.Tensor) -> torch.Tensor:
+    """(B, n, C) -> (B, C) in `stats_reduce`'s order (tile_common.cuh):
+    rows i, i + 8, ... for each i < 8, then the 8 sums in order."""
+    lanes = part.new_zeros((part.shape[0], 8, part.shape[2]))
+    for i in range(part.shape[1]):
+        lanes[:, i % 8] += part[:, i]
+    out = part.new_zeros((part.shape[0], part.shape[2]))
+    for i in range(8):
+        out += lanes[:, i]
+    return out
+
+
+def tile_stats_reduce(part: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of the kernel's fixed-order sum of its (B, n, C)
+    partials (tests only): each run of partials (`_reduce_groups`) in
+    `stats_reduce`'s order, then the runs in that order."""
+    groups, per = _reduce_groups(part.shape[1])
+    runs = [_strided_sum(part[:, g * per:(g + 1) * per]) for g in range(groups)]
+    return _strided_sum(torch.stack(runs, dim=1))
+
+
+def dft_pass(y, cs, w, mxu_dtype="bfloat16", out_dtype=None):
+    """Plain mirror of the kernel's second pass (tests only): the forward DFT
+    of the rounded y (B, H*W, C) per latitude row, through the prepared
+    [C | -S]^T operand of `prepare`, f rounded to `out_dtype` (default
+    bf16).  Returns (B, H, 2M, C)."""
+    bsz, hw, c = y.shape
+    two_m = cs.shape[1]
+    cst = _dft_operand(cs).float() if mxu_dtype == "bfloat16" else cs.t().float()
+    f = torch.matmul(cst[:two_m, :w], y.float().reshape(bsz * (hw // w), w, c))
+    od = torch_dtype(out_dtype or "bfloat16")
+    return f.reshape(bsz, hw // w, two_m, c).to(od)
+
+
+def _dft_operand(cs: torch.Tensor) -> torch.Tensor:
+    """[C | -S]^T (2M padded to BF16_TILE, W padded to BF16_K) in bf16: the
+    operand of the bf16 DFT pass, as `dft_analysis.prepare` builds it."""
+    w, two_m = cs.shape
+    out = cs.new_zeros((_ceil(two_m, BF16_TILE), _ceil(w, BF16_K)), dtype=torch.float32)
+    out[:two_m, :w] = cs.t()
+    return out.to(torch.bfloat16)
+
+
+# the numerator (odd, x^1 .. x^13) and denominator (even, x^0 .. x^8)
+# coefficients of the kernels' f32 erf (chain_gemm.cuh:gelu_rational)
+_ERF_P = (-1.60960333262415e-02, -2.95459980854025e-03, -7.34990630326855e-04,
+          -5.69250639462346e-05, -2.10102402082508e-06, 2.77068142495902e-08,
+          -2.72614225801306e-10)
+_ERF_Q = (-1.42647390514189e-02, -7.37332916720468e-03, -1.68282697438203e-03,
+          -2.13374055278905e-04, -1.45660718464996e-05)
+
+
+def erf_rational(x: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of the erf inside the head's and tail's GELU (tests
+    only): x clamped to [-4, 4], an odd rational approximation in fp32."""
+    x = x.float().clamp(-4.0, 4.0)
+    x2 = x * x
+    p = torch.full_like(x, _ERF_P[-1])
+    for c in reversed(_ERF_P[:-1]):
+        p = p * x2 + c
+    q = torch.full_like(x, _ERF_Q[-1])
+    for c in reversed(_ERF_Q[:-1]):
+        q = q * x2 + c
+    return x * p / q
+
+
 def pad_dft_matrix(mat: torch.Tensor) -> torch.Tensor:
-    """A DFT kernel's (W, 2M) operand in bf16, zero-padded to
+    """The tail kernels' (W, 2M) Mt operand in bf16, zero-padded to
     (DFT_ROW_MULTIPLE-multiple rows, 16-multiple columns)."""
     w, two_m = mat.shape
     w_pad = -(-w // DFT_ROW_MULTIPLE) * DFT_ROW_MULTIPLE
@@ -66,8 +167,9 @@ def pad_dft_matrix(mat: torch.Tensor) -> torch.Tensor:
 
 def prepare(w1, w2, cs):
     """The kernel's bf16 operands: `grid_mlp.prepare_weights` of the MLP and
-    the padded DFT matrix."""
-    return (*prepare_weights(w1, w2, w1.shape[0]), pad_dft_matrix(cs))
+    the DFT pass's [C | -S]^T operand (as `dft_analysis.prepare` builds its
+    bf16 one)."""
+    return (*prepare_weights(w1, w2, w1.shape[0]), _dft_operand(cs))
 
 
 def grid_encoder_spectral(x, w1, b1, w2, pe, cs, mxu_dtype="bfloat16", out_dtype=None,
@@ -133,41 +235,47 @@ def _forward(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared):
         raise ValueError("grid_encoder_spectral: operand shapes do not match x "
                          "(B, H, W, C_in), w1 (C_in, hidden), w2 (hidden, C), "
                          "pe (H, W, C) and cs (W, 2M)")
-    if hidden % 16 or c % 16:
+    if hidden % 16 or c % 16 or max(c_in, hidden, c) > 256:
         raise ValueError(f"grid_encoder_spectral: hidden {hidden} and C {c} must be "
-                         "multiples of 16")
+                         f"multiples of 16, and C_in {c_in}, hidden and C at most 256")
     if prepared is None:
         prepared = prepare(w1, w2, cs)
-    w1p, w2p, csp = prepared
+    w1p, w2p, cst = prepared
     od = torch_dtype(out_dtype or "bfloat16")
     if od not in (torch.float32, torch.bfloat16):
         raise ValueError(f"grid_encoder_spectral: unsupported out dtype {od}")
     xf, x_bf16 = _act(x)
+    xf = aligned(xf)
     pef, pe_bf16 = _act(pe) if pe is not None else (None, 0)
-    if pef is not None and pef.data_ptr() % 16:  # the kernel copies pe rows in 16-byte vectors
-        pef = pef.clone()
+    if pef is not None:  # bf16 pe comes by TMA, fp32 pe in pairs
+        pef = aligned(pef)
     b1f = b1.float().contiguous()
     dev = x.device
+    tiles = -(-h * w // TILE_ROWS)
+    y = torch.empty((bsz, h * w, c), dtype=torch.bfloat16, device=dev)  # bf16 y, pass 1 -> 2
     f = torch.empty((bsz, h, two_m, c), dtype=od, device=dev)
-    part_sum = torch.empty((bsz, h, c), device=dev)
+    groups, _ = _reduce_groups(tiles)
+    part_sum = torch.empty((bsz, tiles, c), device=dev)
     part_sq = torch.empty_like(part_sum)
+    grp_sum = torch.empty((bsz, groups, c), device=dev)
+    grp_sq = torch.empty_like(grp_sum)
     ssum = torch.empty((bsz, c), device=dev)
     ssq = torch.empty_like(ssum)
 
     lib = library("grid_encoder_spectral")
+    check_operand("grid_encoder_spectral", lib, cst,
+                  (_ceil(two_m, BF16_TILE), _ceil(w, BF16_K)), bf16_ops=1)
     lib.grid_encoder_spectral_bf16.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     lib.grid_encoder_spectral_bf16.restype = ctypes.c_int
-    lib.grid_encoder_spectral_chunk.restype = ctypes.c_int
-    if lib.grid_encoder_spectral_chunk() != DFT_ROW_MULTIPLE:
-        raise RuntimeError("grid_encoder_spectral: kernel chunk and DFT_ROW_MULTIPLE differ")
-    ptrs = (ctypes.c_void_p * 11)(*[
+    ptrs = (ctypes.c_void_p * 14)(*[
         t.data_ptr() if t is not None else None
-        for t in (xf, w1p, b1f, w2p, pef, csp, f, part_sum, part_sq, ssum, ssq)
+        for t in (xf, w1p, b1f, w2p, pef, cst, y, f, part_sum, part_sq, grp_sum, grp_sq, ssum,
+                  ssq)
     ])
     ints = (ctypes.c_longlong * 14)(
-        bsz, h, w, c_in, w1p.shape[0], hidden, c, two_m, csp.shape[1], csp.shape[0],
-        x_bf16, pe_bf16, int(od == torch.bfloat16), int(pe is not None),
+        bsz, h, w, c_in, w1p.shape[0], hidden, c, two_m, cst.shape[0], cst.shape[1],
+        x_bf16, pe_bf16, int(od == torch.bfloat16), groups,
     )
     status = lib.grid_encoder_spectral_bf16(ptrs, ints, stream_ptr(x))
     check(status, "grid_encoder_spectral")

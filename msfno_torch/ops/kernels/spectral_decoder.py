@@ -13,8 +13,10 @@ with hm the Legendre-synthesis intermediate (B, H, 2M, C)
 (`InverseRealSHT.synthesis_hm`), Mt (W, 2M) the transposed merged synthesis
 matrix (`InverseRealSHT.merged_matrix_t`) and (a, b) the combined norm + FiLM
 affine per (sample, channel): a per-channel affine commutes with the DFT.
-The grid field is never stored.  Bound on the H100 at the serving shapes:
-operations (see the kernel source).  Its gradient is the
+The grid field is never stored: the kernel chains three GEMMs per tile of
+128 longitudes of a row (see its source); `decoder_tiles` is a plain
+mirror of that chain (tests only).  Bound on the H100 at the serving
+shapes: operations (see the kernel source).  Its gradient is the
 `spectral_decoder_bwd` kernel (JAX `_bwd`, spectral_decoder.py:412-438):
 dhm, dskip, da, db and the weight gradients; none for Mt, a constant.
 """
@@ -26,7 +28,8 @@ import ctypes
 import torch
 
 from msfno_torch.ops.kernels import check, library, stream_ptr
-from msfno_torch.ops.kernels.grid_encoder_spectral import DFT_ROW_MULTIPLE, pad_dft_matrix
+from msfno_torch.ops.kernels.grid_encoder_spectral import (
+    DFT_ROW_MULTIPLE, TILE_ROWS, pad_dft_matrix)
 from msfno_torch.ops.kernels.grid_mlp import _act, grid_mlp_reference, prepare_weights
 from msfno_torch.runtime import mxu_round, torch_dtype
 
@@ -48,6 +51,29 @@ def spectral_decoder_reference(hm, skip, mt, a, b, w1, b1, w2, b2=None,
     x = x.reshape(bsz, h, w, c) + b.float()[:, None, None, :]
     return grid_mlp_reference(x, w1, b1, w2, b2, skip=skip, mxu_dtype=mxu_dtype,
                               out_dtype=out_dtype or "float32")
+
+
+def decoder_tiles(hm, skip, mt, a, b, w1, b1, w2, b2=None, mxu_dtype="bfloat16",
+                  out_dtype=None, tile=TILE_ROWS):
+    """Plain mirror of the kernel's chain (tests only): per tile of `tile`
+    longitudes of each row (the last one ragged), (1) x = Mt[tile] t + b with
+    t = bf16(hm * a), (2) h = bf16(gelu([bf16(x) | bf16(skip)] W1 + b1)),
+    (3) y = h W2 + b2, with the kernel's rounding points.  Same signature and
+    returns as `spectral_decoder`."""
+    bsz, h, two_m, c = hm.shape
+    w = mt.shape[0]
+    r = lambda v: mxu_round(v, mxu_dtype)
+    t = r(hm.float() * a.float()[:, None, None, :])
+    mtr, w1r, w2r = r(mt.float()), r(w1.float()), r(w2.float())
+    outs = []
+    for w0 in range(0, w, tile):
+        x = torch.matmul(mtr[w0:w0 + tile], t) + b.float()[:, None, None, :]
+        k = torch.cat([r(x), r(skip[:, :, w0:w0 + tile].float())], dim=-1)
+        hid = r(torch.nn.functional.gelu(torch.matmul(k, w1r) + b1.float(),
+                                         approximate="none"))
+        y = torch.matmul(hid, w2r)
+        outs.append(y + b2.float() if b2 is not None else y)
+    return torch.cat(outs, dim=2).to(torch_dtype(out_dtype or "float32"))
 
 
 def spectral_grid_stats(hm: torch.Tensor, omega: torch.Tensor):
@@ -131,9 +157,9 @@ def _forward(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype, prepared)
         raise ValueError("spectral_decoder: operand shapes do not match hm (B, H, 2M, C), "
                          "skip (B, H, W, S), mt (W, 2M), a/b (B, C), w1 (C + S, hidden) "
                          "and w2 (hidden, C_out)")
-    if c % 16 or hidden % 16:
+    if c % 16 or hidden % 16 or c > 256 or hidden > 256 or c_out > 96 or s > 128:
         raise ValueError(f"spectral_decoder: C {c} and hidden {hidden} must be "
-                         "multiples of 16")
+                         "multiples of 16 and at most 256, C_out at most 96, S at most 128")
     if prepared is None:
         prepared = prepare(w1, w2, mt, c)
     w1p, w2p, mtp = prepared

@@ -104,26 +104,77 @@ def test_legendre_stacked_completes_the_forward_sht():
                   rel_l2(sht.legendre_stacked(f), sht(y))) <= 1e-5
 
 
+@pytest.mark.parametrize("mxu", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pe", [None, "float32", "bfloat16"])
+def test_two_pass_mirror_matches_jax_kernel(pe, mxu):
+    # the kernel's decomposition: the encoder MLP over 128-pixel tiles of
+    # each sample (B = 2, H*W = 5 * 160 = 6 * 128 + 32: the last tile
+    # ragged), per-tile column sums added in the fixed order of
+    # stats_reduce, then the DFT pass on the rounded y.  Tolerance 1e-5
+    # with fp32 operands (fp32 sums in another order); 1e-3 with bf16 ones
+    # (bf16 products are exact in fp32 on both sides, so only a rare
+    # one-ulp flip of a rounded h, y or f where a sum sits on a rounding
+    # boundary differs)
+    jnp, jax_enc = _jax()
+    ops = _case(seed=11, b=2, h=5, w=160, c_in=5, hidden=16, c=16, mmax=9, pe=pe is not None)
+    tol = 1e-5 if mxu == "float32" else 1e-3
+    out = "float32" if mxu == "float32" else "bfloat16"
+    pe_j = None if pe is None else jnp.asarray(ops["pe"], getattr(jnp, pe))
+    fj, sj, qj = jax_enc(*(jnp.asarray(ops[k]) for k in ("x", "w1", "b1", "w2")), pe_j,
+                         jnp.asarray(ops["cs"]), mxu_dtype=mxu, out_dtype=getattr(jnp, out),
+                         interpret=True)
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in ops.items()}
+    pe_t = None if pe is None else t["pe"].to(getattr(torch, pe))
+    y, part_sum, part_sq = tk.encoder_mlp_tiles(t["x"], t["w1"], t["b1"], t["w2"], pe_t, mxu)
+    assert part_sum.shape == (2, 7, 16)
+    f = tk.dft_pass(y, t["cs"], 160, mxu, out)
+    ssum, ssq = tk.tile_stats_reduce(part_sum), tk.tile_stats_reduce(part_sq)
+    assert f.shape == fj.shape == (2, 5, 18, 16)
+    for part, a, b in (("f", f.float(), np.asarray(fj, np.float32)), ("ssum", ssum, sj),
+                       ("ssq", ssq, qj)):
+        assert report(f"grid_encoder_spectral two-pass[pe={pe}, {mxu}] {part}",
+                      rel_l2(a, b)) <= tol
+
+
+def test_rational_erf_matches_erf():
+    # the head's and tail's GELU take erf as a branch-free rational function
+    # (chain_gemm.cuh:gelu_rational); its error against erf stays below
+    # 5e-7 in fp32, under a tenth of a bf16 ulp at 1, so the GELU rounded
+    # to bf16 differs from the exact one only where it sits within that of
+    # a rounding boundary
+    x = torch.linspace(-6.0, 6.0, 200001, dtype=torch.float64)
+    err = (tk.erf_rational(x).double() - torch.erf(x)).abs().max().item()
+    print(f"rational erf max abs err {err:.2e}")
+    assert err <= 5e-7
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [
-    # ragged last chunk, two channel blocks (the second one partial), 2M = 60
-    dict(b=2, h=3, w=100, c_in=7, hidden=64, c=160, mmax=30),
+@pytest.mark.parametrize("shape,pe,out", [
+    # a ragged last tile (300 = 2 * 128 + 44 pixels a sample), two channel
+    # halves (the second one partial), 2M = 60
+    (dict(b=2, h=3, w=100, c_in=7, hidden=64, c=160, mmax=30), "bfloat16", "bfloat16"),
     # the serving step's 2M = 242 (padded to 256) at 73 -> 256 -> 256
-    dict(b=1, h=2, w=240, c_in=73, hidden=256, c=256, mmax=121),
+    (dict(b=1, h=2, w=240, c_in=73, hidden=256, c=256, mmax=121), "bfloat16", "bfloat16"),
+    # W = 160, B = 2, C = 64 and 256, c_in 73, pe fp32 / none, f fp32 / bf16
+    (dict(b=2, h=3, w=160, c_in=73, hidden=256, c=64, mmax=40), "float32", "float32"),
+    (dict(b=2, h=2, w=160, c_in=73, hidden=256, c=256, mmax=80), None, "bfloat16"),
+    (dict(b=2, h=3, w=160, c_in=73, hidden=128, c=256, mmax=80), "float32", "bfloat16"),
 ])
-def test_kernel_matches_plain(cuda, shape):
-    ops = _case(seed=7, **shape)
-    t = {k: torch.from_numpy(v).to(cuda) for k, v in ops.items()}
-    t["pe"] = t["pe"].to(torch.bfloat16)
+def test_kernel_matches_plain(cuda, shape, pe, out):
+    ops = _case(seed=7, pe=pe is not None, **shape)
+    t = {k: None if v is None else torch.from_numpy(v).to(cuda) for k, v in ops.items()}
+    if pe is not None:
+        t["pe"] = t["pe"].to(getattr(torch, pe))
     args = [t[k] for k in ("x", "w1", "b1", "w2", "pe", "cs")]
     before = tk.LAUNCHES
     with torch.inference_mode():
-        fk, sk, qk = tk.grid_encoder_spectral(*args, mxu_dtype="bfloat16")
+        fk, sk, qk = tk.grid_encoder_spectral(*args, mxu_dtype="bfloat16", out_dtype=out)
         torch.cuda.synchronize()
-        fp, sp, qp = tk.grid_encoder_spectral_reference(*args, mxu_dtype="bfloat16")
+        fp, sp, qp = tk.grid_encoder_spectral_reference(*args, mxu_dtype="bfloat16",
+                                                        out_dtype=out)
     assert tk.LAUNCHES == before + 1
-    assert fk.shape == fp.shape and fk.dtype == torch.bfloat16
+    assert fk.shape == fp.shape and fk.dtype == getattr(torch, out)
     # one-ulp bf16 flips of hidden values; the statistics are fp32 sums in
-    # another order (row partials added in a fixed order)
+    # another order (tile partials added in a fixed order)
     assert rel_l2(fk.float().cpu(), fp.float().cpu()) <= 1e-2
     assert rel_l2(sk.cpu(), sp.cpu()) <= 1e-4 and rel_l2(qk.cpu(), qp.cpu()) <= 1e-4

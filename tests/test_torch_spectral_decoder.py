@@ -81,6 +81,24 @@ def test_plain_matches_jax_kernel_bf16():
     assert report("spectral_decoder[bf16]", rel_l2(yt, yj)) <= 1e-2
 
 
+@pytest.mark.parametrize("mxu", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b2", [True, False])
+def test_tile_chain_mirror_matches_jax_kernel(b2, mxu):
+    # the kernel's decomposition: three chained GEMMs per tile of 128
+    # longitudes (W = 160: the last tile ragged), B = 2.  Tolerance 1e-5
+    # with fp32 operands (fp32 sums in another order); 1e-3 with bf16 ones
+    # (bf16 products are exact in fp32 on both sides, so only a rare
+    # one-ulp flip of a rounded x or h where a sum sits on a rounding
+    # boundary differs)
+    jnp, jk = _jax()
+    ops = _case(seed=13, b=2, h=4, w=160, mmax=9, c=16, s=5, hidden=16, c_out=5, b2=b2)
+    yj = _call(jk.spectral_decoder, ops, jnp.asarray, mxu_dtype=mxu, interpret=True)
+    yt = _call(tk.decoder_tiles, ops, torch.from_numpy, mxu_dtype=mxu)
+    assert yt.shape == yj.shape == (2, 4, 160, 5) and yt.dtype == torch.float32
+    tol = 1e-5 if mxu == "float32" else 1e-3
+    assert report(f"spectral_decoder tile chain[b2={b2}, {mxu}]", rel_l2(yt, yj)) <= tol
+
+
 def test_spectral_grid_stats():
     jnp, jk = _jax()
     itrans = InverseRealSHT(8, 32, lmax=8, mmax=9)
@@ -97,24 +115,52 @@ def test_spectral_grid_stats():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [
-    # ragged last chunk, 2M = 60, C = 32, no b2
-    dict(b=2, h=3, w=100, mmax=30, c=32, s=5, hidden=48, c_out=5, b2=False),
+@pytest.mark.parametrize("shape,out", [
+    # ragged last tile, 2M = 60, C = 32, no b2
+    (dict(b=2, h=3, w=100, mmax=30, c=32, s=5, hidden=48, c_out=5, b2=False), "float32"),
     # the serving step's widths: 2M = 242 (padded to 256), 256 + 73 -> 256 -> 73
-    dict(b=1, h=2, w=240, mmax=121, c=256, s=73, hidden=256, c_out=73),
+    (dict(b=1, h=2, w=240, mmax=121, c=256, s=73, hidden=256, c_out=73), "float32"),
+    # W = 160 (128 + 32), B = 2, C = 64 and 256, c_out = 73, bf16 and fp32 out
+    (dict(b=2, h=3, w=160, mmax=40, c=64, s=73, hidden=256, c_out=73), "bfloat16"),
+    (dict(b=2, h=2, w=160, mmax=80, c=256, s=73, hidden=256, c_out=73), "float32"),
+    (dict(b=2, h=2, w=160, mmax=80, c=256, s=73, hidden=128, c_out=73, b2=False),
+     "bfloat16"),
 ])
-def test_kernel_matches_plain(cuda, shape):
+def test_kernel_matches_plain(cuda, shape, out):
     ops = _case(seed=7, **shape)
     args = [None if ops[k] is None else torch.from_numpy(ops[k]).to(cuda) for k in NAMES]
     before = tk.LAUNCHES
     with torch.inference_mode():
-        yk = tk.spectral_decoder(*args, mxu_dtype="bfloat16")
+        yk = tk.spectral_decoder(*args, mxu_dtype="bfloat16", out_dtype=out)
         torch.cuda.synchronize()
-        yp = tk.spectral_decoder_reference(*args, mxu_dtype="bfloat16")
+        yp = tk.spectral_decoder_reference(*args, mxu_dtype="bfloat16", out_dtype=out)
     assert tk.LAUNCHES == before + 1
-    assert yk.shape == yp.shape and yk.dtype == torch.float32
+    assert yk.shape == yp.shape and yk.dtype == getattr(torch, out)
     # one-ulp bf16 flips of x or hidden values, fp32 sums in another order
-    assert rel_l2(yk.cpu(), yp.cpu()) <= 1e-2
+    assert rel_l2(yk.float().cpu(), yp.float().cpu()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_prepared_reaches_the_backward(cuda):
+    """The forward's cached `prepare` tuple, handed on to
+    spectral_decoder_bwd at the serving widths after a forward launch: the
+    gradients match the plain backward's."""
+    from msfno_torch.ops.kernels import spectral_decoder_bwd as tb
+
+    ops = _case(seed=9, b=1, h=2, w=160, mmax=80, c=256, s=73, hidden=256, c_out=73)
+    args = [None if ops[k] is None else torch.from_numpy(ops[k]).to(cuda) for k in NAMES]
+    prepared = tk.prepare(args[5], args[7], args[2], 256)
+    args[0].requires_grad_(True)
+    args[1].requires_grad_(True)
+    y = tk.spectral_decoder(*args, prepared=prepared)
+    g = torch.randn(y.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    before = tb.LAUNCHES
+    dhm, dskip = torch.autograd.grad(y, (args[0], args[1]), g)
+    assert tb.LAUNCHES == before + 1
+    want = tb.spectral_decoder_bwd_reference(g, *[a.detach() if a is not None else None
+                                                  for a in args])
+    assert rel_l2(dhm.cpu(), want[0].cpu()) <= 1e-2
+    assert rel_l2(dskip.cpu(), want[1].cpu()) <= 1e-2
 
 
 @pytest.mark.cuda

@@ -66,9 +66,14 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
     # cast pass and per-layer GEMMs, gcn_layer's GEMM and stencil passes,
     # gcn's backward dsup pass, split-K GEMMs and reduces (the tail's
     # backward runs its GEMMs only for weight gradients, which the fine-tune
-    # step does not ask for); the namespace keeps cuBLAS's names out
+    # step does not ask for), the head's MLP pass, DFT pass (the DIRECT
+    # analysis_wgmma) and partials' reduce, the tail's t pre-pass and tile
+    # kernel; the namespace keeps cuBLAS's names out
     ns = "(anonymous namespace)::"
     kernel_keys = {"spectral_mlp": (ns + "stage_input", ns + "HiddenEpi>", ns + "OutEpi>"),
+                   "grid_encoder_spectral": (ns + "enc_mlp<", ", true>(CUtensorMap_st",
+                                             ns + "tile_reduce"),
+                   "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16"),
                    "gcn_layer": (ns + "gcn_stencil", ns + "TEpi>", ns + "gemm_f32<false, false"),
                    "gcn_layer_bwd": (ns + "gcn_bwd_", ns + "gemm_bf16<", ns + "sum_rows",
                                      ns + "gemm_f32<false, true", ns + "gemm_f32<true, false"),
