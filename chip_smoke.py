@@ -392,7 +392,9 @@ def gcn_layer_bwd_sites(dev):
 def spectral_decoder_bwd_sites(dev):
     """spectral_decoder_bwd at the fused tail's shapes, every output (dhm,
     dskip, da, db, dW1, db1, dW2); timed as the film fine-tune step calls it,
-    without the weight gradients."""
+    without the weight gradients, and its bound counts that call's
+    operations (6.46e11 FLOP, not the 8.6e11 with dW1 and dW2; the kernel
+    source states both)."""
     from msfno_torch.ops.kernels import spectral_decoder as dk
     from msfno_torch.ops.kernels import spectral_decoder_bwd as db_
 

@@ -1,5 +1,7 @@
 // Chained wgmma GEMMs over 128-row tiles, shared by grid_encoder_spectral.cu
-// (the encoder MLP pass) and spectral_decoder.cu (the fused tail).
+// (the encoder MLP pass), spectral_decoder.cu (the fused tail) and
+// spectral_decoder_bwd.cu (the tail's backward, which runs its GEMMs on
+// m64n64 accumulators and releases the ring its own way: see chain_gemm).
 //
 // The kernels are persistent: a block per SM walks its tiles of CH_BM = 128
 // rows (pixels), and every GEMM of the chain has N <= 256.  Four consumer
@@ -25,8 +27,9 @@
 // activations (fp32 or bf16 rows of any width) come through the ring and
 // enter the tile through rows_to_a_tile.
 //
-// Also: the exact GELU on a branch-free erf, TMA tensor stores
-// (tma_store_3d) and their bulk-group waits, tensor-map prefetch.
+// Also: the exact GELU on a branch-free erf, zero_cols, TMA tensor
+// stores (tma_store_3d) and their bulk-group waits, tensor-map and L2
+// prefetch.
 
 #pragma once
 
@@ -97,15 +100,16 @@ __device__ __forceinline__ int a_tile_offset(int row, int k) {
   return (k / 64) * CH_CHUNK + row * 128 + ((((k % 64) / 8) ^ (row & 7)) * 16) + (k % 8) * 2;
 }
 
-// Writes a warpgroup's 64 x 128 accumulator fragment d (the layout of
-// wgmma_m64n128k16) as bf16(f(value, column)) into rows [row0, row0 + 64)
-// and columns [col0, col0 + 128) of the A tile below n_cols (even).
-template <class F>
-__device__ __forceinline__ void frag_to_a_tile(const float (&d)[64], char* tile, int row0,
+// Writes a warpgroup's 64 x 128 (NACC 64) or 64 x 64 (NACC 32) accumulator
+// fragment d (the layout of wgmma_m64n128k16 / m64n64k16) as bf16(f(value,
+// column)) into rows [row0, row0 + 64) and columns [col0, col0 + NACC * 2)
+// of the A tile below n_cols (even).
+template <int NACC, class F>
+__device__ __forceinline__ void frag_to_a_tile(const float (&d)[NACC], char* tile, int row0,
                                                int col0, int n_cols, const F& f) {
   const int r = row0 + acc_row0();
 #pragma unroll
-  for (int q = 0; q < 16; ++q) {
+  for (int q = 0; q < NACC / 4; ++q) {
     const int col = col0 + acc_col(q, 0);
     if (col >= n_cols) continue;
 #pragma unroll
@@ -114,6 +118,21 @@ __device__ __forceinline__ void frag_to_a_tile(const float (&d)[64], char* tile,
           __floats2bfloat162_rn(f(d[4 * q + 2 * h], col), f(d[4 * q + 2 * h + 1], col + 1));
   }
 }
+
+// Columns [from, to) of rows [row0, row0 + 64) of an A tile set to zero
+// (from a multiple of 8): chain_gemm runs every K-step of a stage, so A's
+// columns past a GEMM's K up to the stage's end must be finite (B's rows
+// there are zero).  Thread tid of n_threads.
+__device__ __forceinline__ void zero_cols(char* tile, int row0, int from, int to, int tid,
+                                          int n_threads) {
+  const int units = (to - from) / 8;
+  for (int e = tid; e < 64 * units; e += n_threads) {
+    const int r = e / units, u = e - r * units;
+    *reinterpret_cast<uint4*>(tile + a_tile_offset(row0 + r, from + 8 * u)) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+__host__ __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // 64 rows of `width` raw values each (row pitch `width`, in shared or
 // device memory) into rows [row0, row0 + 64) and columns [k_off, k_off +
@@ -209,56 +228,88 @@ __device__ __forceinline__ void load_raw(const Ring& r, int s, char* sb, const v
 
 // Consumers of row half m (two warpgroups): its raw rows (ring stage s + m;
 // src: the half's first row in device memory, n_rows valid) into rows [64
-// m, 64 m + 64), columns [k_off, k_off + width) of the A tile; each warp
-// releases the stage twice (the other half's warps do not arrive on it).
+// m, 64 m + 64), columns [k_off, k_off + width) of the A tile.  Every warp
+// waits for both stages in turn and releases each: a warp that skipped one
+// of a slot's phases could later take the next phase's parity for done.
 // Returns the ring stage after the two.
 template <typename IN_T>
 __device__ __forceinline__ int raw_to_a_tile(const Ring& r, int s, const Role& ro,
                                              const IN_T* src, int n_rows, int width, char* tile,
                                              int k_off) {
-  const int slot = (s + ro.m) % r.stages;
-  mbar_wait(r.full + slot, ((s + ro.m) / r.stages) & 1);
-  const bool bulk = raw_bytes(src, n_rows, width * (int)sizeof(IN_T), r.slot_bytes) > 0;
-  rows_to_a_tile<IN_T>(bulk ? reinterpret_cast<const IN_T*>(r.slots + slot * r.slot_bytes)
-                            : src,
-                       n_rows, width, tile, 64 * ro.m, k_off, ro.n * 128 + ro.t, 256);
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) {
-    mbar_arrive(r.empty + slot);
-    mbar_arrive(r.empty + slot);
+  for (int h = 0; h < 2; ++h, ++s) {
+    const int slot = s % r.stages;
+    mbar_wait(r.full + slot, (s / r.stages) & 1);
+    if (h == ro.m) {
+      const bool bulk = raw_bytes(src, n_rows, width * (int)sizeof(IN_T), r.slot_bytes) > 0;
+      rows_to_a_tile<IN_T>(bulk ? reinterpret_cast<const IN_T*>(r.slots + slot * r.slot_bytes)
+                                : src,
+                           n_rows, width, tile, 64 * ro.m, k_off, ro.n * 128 + ro.t, 256);
+    }
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(r.empty + slot);
   }
-  return s + 2;
+  return s;
 }
 
 // KS K-steps of 16 of one stage: acc (+)= A (64 rows at a, K-major) @ B
-// (128 columns at b, MN-major); `first` overwrites acc at the first step
-template <int KS>
-__device__ __forceinline__ void stage_mma(float (&acc)[64], const char* a, const char* b,
+// (NACC * 2 columns at b, MN-major); `first` overwrites acc at the first step
+template <int KS, int NACC>
+__device__ __forceinline__ void stage_mma(float (&acc)[NACC], const char* a, const char* b,
                                           bool first) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    wgmma_m64n128k16<1>(acc, wgmma_desc(a + ks * 32, 16, 1024),
-                        wgmma_desc(b + ks * 2048, CH_BOX, 1024), (first && ks == 0) ? 0 : 1);
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint64_t da = wgmma_desc(a + ks * 32, 16, 1024);
+    const uint64_t db = wgmma_desc(b + ks * 2048, CH_BOX, 1024);
+    if constexpr (NACC == 64) wgmma_m64n128k16<1>(acc, da, db, (first && ks == 0) ? 0 : 1);
+    else wgmma_m64n64k16<1>(acc, da, db, (first && ks == 0) ? 0 : 1);
+  }
 }
 
+// The ring's default release: lane 0 of each consumer warp arrives on the
+// stage's empty barrier, which the producer waits on.
+struct ArriveEmpty {
+  static constexpr int chunks = 1;  // see chain_gemm
+  const Ring& r;
+  __device__ __forceinline__ void operator()(int s) const { mbar_arrive(r.empty + s % r.stages); }
+};
+
 // Consumer warpgroup (m, n): one GEMM of the chain over ring stages [s, s +
-// ceil(k / 64)), acc = A[rows of m] @ B[:, columns of n], A's K-chunk j at
-// a_of(j, slot), B's boxes at the slot's start (an inactive warpgroup, whose
-// columns are past N, waits for each stage and releases it).  A stage runs
-// its K-steps of 16 below k (k a multiple of 16) with no branch between
-// its wgmmas.  Keeps one stage's wgmmas in flight while it waits for the
-// next; releases each slot when its wgmmas have retired, the last one
-// before it returns.  Returns the next ring stage.
-template <class AOf>
-__device__ __forceinline__ int chain_gemm(float (&acc)[64], const Ring& r, int s, int k,
-                                          const AOf& a_of, const Role& ro, bool active) {
+// ceil(k / (64 chunks))), acc = A[rows of m] @ B[:, columns of n], A's
+// K-chunk j at a_of(j, slot), B's boxes at the slot's start, NACC / 32 of
+// them a warpgroup (an inactive warpgroup, whose columns are past N, waits
+// for each stage and releases it).  A stage holds Release::chunks K-chunks
+// of 64 (A's chunks a_of(chunks * j + c), B's boxes of chunk c after those
+// of the chunks before it), so that a stage's fixed costs (the barrier
+// wait, draining its wgmmas) are paid once for more work.  A stage runs
+// all its K-steps of 16, with no branch between its wgmmas: ptxas
+// serializes wgmmas that a runtime switch over the K-step count separates
+// (C7520, a wait after each).  So the caller keeps B's rows past k zero
+// (TMA zero-fills rows past a tensor's end) and A's columns past k, up to
+// the stage's end, finite (zero_cols).  Each stage's wgmmas retire before
+// the next stage is waited for, and the stage is released at once: one
+// more stage of the ring loads while the warp waits (on the H100 this beat
+// keeping a stage's wgmmas in flight while waiting for the next: the head
+// 1.31 against 1.35 ms, the tail 1.41 against 1.47, the tail's backward
+// 4.21 against 4.55).  `release(stage)` is called by lane 0 of each warp
+// once the warp is done with that stage (default: ArriveEmpty).  Returns
+// the next ring stage.
+template <int NACC, class AOf, class Release>
+__device__ __forceinline__ int chain_gemm(float (&acc)[NACC], const Ring& r, int s, int k,
+                                          const AOf& a_of, const Role& ro, bool active,
+                                          const Release& release) {
+  constexpr int CHUNKS = Release::chunks;
+  // the accumulator's last access before this GEMM's wgmmas, where every
+  // thread passes: else ptxas places the wgmma fence it inserts on whatever
+  // divergent path (an epilogue's masked store) read acc last, and
+  // serializes every wgmma of the kernel (C7520: a wait after each)
+  fence_operand(acc);
   const int lane = threadIdx.x % 32;
-  const int n_stages = (k + CH_BK - 1) / CH_BK;
+  const int n_stages = (k + CHUNKS * CH_BK - 1) / (CHUNKS * CH_BK);
   if (!active) {
     for (int j = 0; j < n_stages; ++j, ++s) {
       mbar_wait(r.full + s % r.stages, (s / r.stages) & 1);
       __syncwarp();
-      if (lane == 0) mbar_arrive(r.empty + s % r.stages);
+      if (lane == 0) release(s);
     }
     return s;
   }
@@ -266,25 +317,31 @@ __device__ __forceinline__ int chain_gemm(float (&acc)[64], const Ring& r, int s
     const int slot = s % r.stages;
     char* sb = r.slots + slot * r.slot_bytes;
     mbar_wait(r.full + slot, (s / r.stages) & 1);
-    const char* a = a_of(j, sb) + ro.m * 8192;
-    const char* b = sb + ro.n * 2 * CH_BOX;
     wgmma_fence();
     fence_operand(acc);
-    switch (min(CH_BK, k - CH_BK * j) / 16) {
-      case 1: stage_mma<1>(acc, a, b, j == 0); break;
-      case 2: stage_mma<2>(acc, a, b, j == 0); break;
-      case 3: stage_mma<3>(acc, a, b, j == 0); break;
-      default: stage_mma<4>(acc, a, b, j == 0); break;
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      const int kc = CHUNKS * j + c;
+      const char* a = a_of(kc, sb) + ro.m * 8192;
+      const char* b = sb + (2 * c + ro.n) * (NACC / 32) * CH_BOX;
+      stage_mma<4, NACC>(acc, a, b, j == 0 && c == 0);
     }
     wgmma_commit();
-    wgmma_wait<1>();
+    wgmma_wait<0>();
     fence_operand(acc);
-    if (j > 0 && lane == 0) mbar_arrive(r.empty + (s - 1) % r.stages);
+    if (lane == 0) release(s);
   }
-  wgmma_wait<0>();
-  fence_operand(acc);
-  if (lane == 0) mbar_arrive(r.empty + (s - 1) % r.stages);
   return s;
+}
+template <int NACC, class AOf>
+__device__ __forceinline__ int chain_gemm(float (&acc)[NACC], const Ring& r, int s, int k,
+                                          const AOf& a_of, const Role& ro, bool active) {
+  return chain_gemm(acc, r, s, k, a_of, ro, active, ArriveEmpty{r});
+}
+
+// brings the 128-byte line at p into L2
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
 }
 
 // brings a tensor map's descriptor into the cache before its first load

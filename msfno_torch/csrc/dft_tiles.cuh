@@ -547,6 +547,10 @@ struct WgAnalysisArgs {
   long long rows;
   int w, two_m, c, m_tiles, c_tiles, n_k;
   int vec;  // 16-byte output vectors
+  // null, or (rows / scale_rows, c): out[r] is scaled per channel by row r /
+  // scale_rows of it (the tail's backward: dhm = a[b] * Mt^T dxa)
+  const float* scale;
+  long long scale_rows;
 };
 
 template <typename IN_T, int STAGES_OPT>
@@ -677,6 +681,21 @@ __global__ void __launch_bounds__(ANALYSIS_THREADS, 1)
     fence_operand(acc[1]);
   }
   OUT_T* out = reinterpret_cast<OUT_T*>(a.out) + r * a.two_m * a.c;
+  if (a.scale) {
+    const float* sc = a.scale + (r / a.scale_rows) * a.c;
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * q + 2 * (threadIdx.x % 4) + e;
+        const float v = col < a.c ? sc[col] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[i][4 * q + e] *= v;
+          acc[i][4 * q + 2 + e] *= v;
+        }
+      }
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row0 = mt * BF16_TILE + 128 * g + 64 * i;
@@ -722,6 +741,57 @@ int launch_analysis_wgmma(const void* at, const void* x, OUT_T* out, long long r
     smem_set = true;
   }
   kernel<<<(unsigned)blocks, ANALYSIS_THREADS, S::BYTES, stream>>>(a_map, x_map, a);
+  return (int)cudaGetLastError();
+}
+
+// The DIRECT bf16 forward DFT: f[r] = at @ y[r] per row, y (rows, w, c)
+// bf16 read by TMA as the wgmma B operand itself; optionally scaled per
+// (row / scale_rows, channel).  grid_encoder_spectral.cu's DFT pass and
+// spectral_decoder_bwd.cu's transposed DFT.
+template <typename OUT_T, int STAGES_OPT>
+int launch_analysis_direct(const void* at, const void* y, OUT_T* out, long long rows, int w,
+                           int m, int c, int at_rows, int at_cols, const float* scale,
+                           long long scale_rows, cudaStream_t stream) {
+  using S = AnalysisSmem<__nv_bfloat16, STAGES_OPT>;
+  WgAnalysisArgs a{};
+  a.out = out;
+  a.rows = rows;
+  a.w = w;
+  a.two_m = 2 * m;
+  a.c = c;
+  a.m_tiles = (2 * m + BF16_TILE - 1) / BF16_TILE;
+  a.n_k = (w + BF16_K - 1) / BF16_K;
+  a.c_tiles = (c + WG_BN - 1) / WG_BN;
+  a.vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  a.scale = scale;
+  a.scale_rows = scale_rows;
+  const long long blocks = rows * a.m_tiles * a.c_tiles;
+  if (rows < 1 || w < 1 || c % 8 || at_rows != a.m_tiles * BF16_TILE ||
+      at_cols != a.n_k * BF16_K || blocks > INT_MAX || (scale && scale_rows < 1) ||
+      reinterpret_cast<uintptr_t>(at) % 16 || reinterpret_cast<uintptr_t>(y) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap a_map, y_map;
+  const uint64_t a_dims[2] = {(uint64_t)at_cols, (uint64_t)at_rows};
+  const uint64_t a_strides[1] = {(uint64_t)at_cols * 2};
+  const uint32_t a_box[2] = {BF16_K, 64};
+  int err = make_tensor_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, at, a_dims, a_strides,
+                            a_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  const uint64_t y_dims[3] = {(uint64_t)c, (uint64_t)w, (uint64_t)rows};
+  const uint64_t y_strides[2] = {(uint64_t)c * 2, (uint64_t)c * 2 * w};
+  const uint32_t y_box[3] = {64, BF16_K, 1};
+  err = make_tensor_map(&y_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y, y_dims, y_strides, y_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  auto kernel = analysis_wgmma<__nv_bfloat16, OUT_T, STAGES_OPT, true>;
+  static bool smem_set = false;  // once per kernel
+  if (!smem_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  kernel<<<(unsigned)blocks, ANALYSIS_THREADS, S::BYTES, stream>>>(a_map, y_map, a);
   return (int)cudaGetLastError();
 }
 

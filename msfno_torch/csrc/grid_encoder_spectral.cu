@@ -38,8 +38,8 @@
 //    fixed-order shuffle tree), then over the 8 warps in order, into a (B,
 //    tiles, C) array (through its pe boxes once they are read), and writes
 //    bf16 y over h, stored to a (B, H*W, C) scratch by TMA (the ragged edge
-//    is clipped).  Two small kernels (tile_reduce here, then
-//    tile_common.cuh's stats_reduce) add each sample's partials in a fixed
+//    is clipped).  Two small kernels (tile_common.cuh's tile_reduce, then
+//    stats_reduce) add each sample's partials in a fixed
 //    order: deterministic, no atomics.
 // 2. Forward DFT: dft_tiles.cuh's analysis_wgmma (the dft_analysis kernel's
 //    bf16 path) on the bf16 y, whose 64 x 64 boxes TMA writes as the wgmma
@@ -184,6 +184,8 @@ CH_KERNEL
     const IN_T* xsrc = reinterpret_cast<const IN_T*>(a.x) + ((long long)b * a.hw + p0) * a.c_in;
     s = raw_to_a_tile<IN_T>(ring, s, ro, xsrc + 64 * ro.m * a.c_in,
                             min(64, n_valid - 64 * ro.m), a.c_in, tile, 0);
+    // finite A past k1p and hidden (chain_gemm runs whole stages)
+    zero_cols(tile, 64 * ro.m, a.k1p, round_up(a.k1p, CH_BK), ro.n * 128 + ro.t, 256);
     fence_proxy_async();
     consumers_sync();  // the A tile's x (and, the first time, b1 in shared memory)
 
@@ -191,6 +193,7 @@ CH_KERNEL
     s = chain_gemm(acc, ring, s, a.k1p, a_tile, ro, h_cols);
     pair_sync(ro);  // the pair's layer-1 wgmmas have read x
     if (h_cols) frag_to_a_tile(acc, tile, 64 * ro.m, 128 * ro.n, a.hidden, gelu_b1);
+    zero_cols(tile, 64 * ro.m, a.hidden, round_up(a.hidden, CH_BK), ro.n * 128 + ro.t, 256);
     fence_proxy_async();
     pair_sync(ro);
 
@@ -290,43 +293,6 @@ CH_KERNEL
   }
 }
 
-// The first level of the partials' fixed-order sum: block (x, b, grp) adds
-// partial rows [grp * per, grp * per + per) of columns [32 x, 32 x + 32) of
-// sample b in stats_reduce's order (thread row ty takes rows ty, ty + 8,
-// ...; then the 8 sums in order) into (B, groups, c); stats_reduce adds
-// the groups.  (stats_reduce alone, one block a column slice, took 118 us
-// over 8111 rows.)
-__global__ void tile_reduce(const float* __restrict__ part_sum,
-                            const float* __restrict__ part_sq, int tiles, int per, int c,
-                            float* __restrict__ grp_sum, float* __restrict__ grp_sq) {
-  __shared__ float sh_sum[8][32];
-  __shared__ float sh_sq[8][32];
-  const int b = blockIdx.y, grp = blockIdx.z;
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  const int t1 = min(tiles, (grp + 1) * per);
-  float s = 0.f, q = 0.f;
-  if (col < c) {
-    for (int i = grp * per + threadIdx.y; i < t1; i += 8) {
-      const long long j = ((long long)b * tiles + i) * c + col;
-      s += part_sum[j];
-      q += part_sq[j];
-    }
-  }
-  sh_sum[threadIdx.y][threadIdx.x] = s;
-  sh_sq[threadIdx.y][threadIdx.x] = q;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < c) {
-    float ts = 0.f, tq = 0.f;
-    for (int r = 0; r < 8; ++r) {
-      ts += sh_sum[r][threadIdx.x];
-      tq += sh_sq[r][threadIdx.x];
-    }
-    const long long o = ((long long)b * gridDim.z + grp) * c + col;
-    grp_sum[o] = ts;
-    grp_sq[o] = tq;
-  }
-}
-
 template <typename IN_T, int PE>
 int launch_enc_mlp(const void* w1, const void* w2, void* y, EncArgs a, int bsz,
                    cudaStream_t stream) {
@@ -351,42 +317,6 @@ int launch_enc_mlp(const void* w1, const void* w2, void* y, EncArgs a, int bsz,
   const long long blocks = min((long long)bsz * a.tiles, (long long)max(sms, 1));
   enc_mlp<IN_T, PE><<<(unsigned)blocks, CH_THREADS, ENC_SMEM, stream>>>(w1_map, w2_map, pe_map,
                                                                        y_map, a);
-  return (int)cudaGetLastError();
-}
-
-// Pass 2: f = [C | -S]^T y per latitude row, y (rows, w, c) bf16 read by
-// TMA as the wgmma B operand itself (analysis_wgmma's DIRECT mode)
-template <typename OUT_T>
-int launch_dft(const void* at, const void* y, OUT_T* out, long long rows, int w, int m, int c,
-               int at_rows, int at_cols, cudaStream_t stream) {
-  using S = AnalysisSmem<__nv_bfloat16, ENC_DFT_STAGES_OVERRIDE>;
-  WgAnalysisArgs a{};
-  a.out = out;
-  a.rows = rows;
-  a.w = w;
-  a.two_m = 2 * m;
-  a.c = c;
-  a.m_tiles = (2 * m + BF16_TILE - 1) / BF16_TILE;
-  a.n_k = (w + BF16_K - 1) / BF16_K;
-  a.c_tiles = (c + WG_BN - 1) / WG_BN;
-  a.vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const long long blocks = rows * a.m_tiles * a.c_tiles;
-  if (rows < 1 || w < 1 || c % 8 || at_rows != a.m_tiles * BF16_TILE ||
-      at_cols != a.n_k * BF16_K || blocks > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap a_map, y_map;
-  int err = bf16_map(&a_map, at, at_rows, at_cols, at_cols, 64, BF16_K);
-  if (!err) err = bf16_map(&y_map, y, w, c, c, BF16_K, 64, rows);
-  if (err) return err;
-  auto kernel = analysis_wgmma<__nv_bfloat16, OUT_T, ENC_DFT_STAGES_OVERRIDE, true>;
-  static bool smem_set = false;  // once per kernel
-  if (!smem_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
-  }
-  kernel<<<(unsigned)blocks, ANALYSIS_THREADS, S::BYTES, stream>>>(a_map, y_map, a);
   return (int)cudaGetLastError();
 }
 
@@ -445,10 +375,12 @@ extern "C" int grid_encoder_spectral_bf16(const void* const* ptrs, const long lo
   const int rows = (int)(bsz * h), cr = (int)ints[I_CST_ROWS], cc = (int)ints[I_CST_COLS];
   using bf = __nv_bfloat16;
   err = ints[I_F_BF16]
-            ? launch_dft<bf>(ptrs[P_CST], y, (bf*)ptrs[P_F], rows, (int)w, two_m / 2, a.c, cr, cc,
-                             st)
-            : launch_dft<float>(ptrs[P_CST], y, (float*)ptrs[P_F], rows, (int)w, two_m / 2, a.c,
-                                cr, cc, st);
+            ? launch_analysis_direct<bf, ENC_DFT_STAGES_OVERRIDE>(
+                  ptrs[P_CST], y, (bf*)ptrs[P_F], rows, (int)w, two_m / 2, a.c, cr, cc, nullptr,
+                  1, st)
+            : launch_analysis_direct<float, ENC_DFT_STAGES_OVERRIDE>(
+                  ptrs[P_CST], y, (float*)ptrs[P_F], rows, (int)w, two_m / 2, a.c, cr, cc,
+                  nullptr, 1, st);
   if (err) return err;
   // the tiles' partials, added in runs, then the runs
   const int n_part = a.tiles;

@@ -1,11 +1,14 @@
-// Row GEMMs shared by spectral_mlp.cu, gcn_layer.cu and gcn_layer_bwd.cu.
+// Row GEMMs shared by spectral_mlp.cu, spectral_mlp_bwd.cu, gcn_layer.cu and
+// gcn_layer_bwd.cu.
 //
 // wgmma_gemm: C = epi(A @ B), A (M x K) and B (K x N) bf16, row-major, fp32
 // accumulation on wgmma (sm_90a).  A block owns a WGM_BM x WGM_BN tile.  A
 // producer warp keeps a ring of WGM_STAGES stages in flight by TMA: the A
 // tile (128 rows x 64 K, K-major, one box) and the B tile (64 K x WGM_BN,
 // MN-major, boxes of 64 x 64), both in the 128-byte swizzle that wgmma
-// reads.  Two consumer warpgroups own 64 rows each and
+// reads.  With B_T, B is given as its (N x K) row-major transpose and read
+// K-major (boxes of 128 N x 64 K, the A tile's layout): the product with a
+// stored matrix's transpose needs no transposed copy.  Two consumer warpgroups own 64 rows each and
 // issue WGM_BN / 128 m64n128k16 wgmmas per K-step of 16, keeping one
 // stage's wgmmas in flight while they wait for the next (a stage is
 // released one stage late).  The
@@ -49,21 +52,22 @@ constexpr int WGM_THREADS = WGM_CONSUMERS + 128;  // and a producer warpgroup (o
 static_assert(WGM_BN % 128 == 0 && WGM_BN <= 256, "WGM_BN is 128 or 256");
 static_assert(WGM_SMEM <= 232448, "the ring does not fit in shared memory");
 
-// Stores a warpgroup's 64 x 128 accumulator fragment (the layout of
-// wgmma_m64n128k16): element (r, c), c = col0 + fragment column, goes to
+// Stores a warpgroup's 64 x 128 (NACC 64) or 64 x 64 (NACC 32) accumulator
+// fragment (the layout of wgmma_m64n128k16 / m64n64k16): element (r, c), c
+// = col0 + fragment column, goes to
 // lo[(row0 + r) * ld + c] for c < split, else hi[(row0 + r) * ld + c - split],
 // for r < n_rows and c < n_cols.  With `vec` (ld, split and n_cols multiples
 // of 4, 16-byte aligned fp32 or 8-byte aligned bf16 rows) lane pairs trade
 // halves so that each thread writes 4 consecutive columns as one vector.
-template <typename OUT_T>
-__device__ __forceinline__ void store_acc(const float (&d)[64], OUT_T* lo, OUT_T* hi, int split,
-                                          long long ld, long long row0, int n_rows, int col0,
-                                          int n_cols, bool vec) {
+template <typename OUT_T, int NACC>
+__device__ __forceinline__ void store_acc(const float (&d)[NACC], OUT_T* lo, OUT_T* hi,
+                                          int split, long long ld, long long row0, int n_rows,
+                                          int col0, int n_cols, bool vec) {
   const int t = threadIdx.x % 128, lane = t % 32;
   const int r0 = 16 * (t / 32) + lane / 4;
   const bool odd = lane & 1;
 #pragma unroll
-  for (int q = 0; q < 16; ++q) {
+  for (int q = 0; q < NACC / 4; ++q) {
     const float* dq = d + 4 * q;
     if (vec) {
       // even lanes: row r0, odd lanes: row r0 + 8; 4 channels each
@@ -113,7 +117,7 @@ __device__ __forceinline__ int acc_col(int q, int e) {
 
 // The consumer warpgroups of wgmma_gemm: warpgroup g owns rows [m0 + 64 g,
 // m0 + 64 g + 64) of the tile; hands each accumulator fragment to `epi`.
-template <class Epi>
+template <bool B_T, class Epi>
 __device__ __forceinline__ void consume(char* smem, uint64_t* full, uint64_t* empty, int m,
                                         int n, int n_k, int m0, int n0, int warp, int lane,
                                         const Epi& epi) {
@@ -137,8 +141,9 @@ __device__ __forceinline__ void consume(char* smem, uint64_t* full, uint64_t* em
 #pragma unroll
       for (int i = 0; i < WGM_NB; ++i) {
         const uint64_t db =
-            wgmma_desc(sb + WGM_A_BYTES + 2 * i * 8192 + ks * 2048, 8192, 1024);
-        wgmma_m64n128k16<1>(acc[i], da, db, (s > 0 || ks > 0) ? 1 : 0);
+            B_T ? wgmma_desc(sb + WGM_A_BYTES + i * 16384 + ks * 32, 16, 1024)
+                : wgmma_desc(sb + WGM_A_BYTES + 2 * i * 8192 + ks * 2048, 8192, 1024);
+        wgmma_m64n128k16<B_T ? 0 : 1>(acc[i], da, db, (s > 0 || ks > 0) ? 1 : 0);
       }
     }
     wgmma_commit();
@@ -158,7 +163,7 @@ __device__ __forceinline__ void consume(char* smem, uint64_t* full, uint64_t* em
     if (n0 + 128 * i < n) epi(acc[i], row0, rows, n0 + 128 * i);
 }
 
-template <class Epi>
+template <class Epi, bool B_T>
 __global__ void __launch_bounds__(WGM_THREADS, 1)
     wgmma_gemm(const __grid_constant__ CUtensorMap a_map,
                const __grid_constant__ CUtensorMap b_map, int m, int n, int k, Epi epi) {
@@ -190,22 +195,30 @@ __global__ void __launch_bounds__(WGM_THREADS, 1)
         if (lane == 0) {
           mbar_expect_tx(full + slot, WGM_SLOT);
           tma_load_2d(sb, &a_map, full + slot, s * WGM_BK, m0);
+          if (B_T) {
 #pragma unroll
-          for (int b = 0; b < WGM_BN / 64; ++b)
-            tma_load_2d(sb + WGM_A_BYTES + b * 8192, &b_map, full + slot, n0 + 64 * b,
-                        s * WGM_BK);
+            for (int b = 0; b < WGM_BN / 128; ++b)
+              tma_load_2d(sb + WGM_A_BYTES + b * 16384, &b_map, full + slot, s * WGM_BK,
+                          n0 + 128 * b);
+          } else {
+#pragma unroll
+            for (int b = 0; b < WGM_BN / 64; ++b)
+              tma_load_2d(sb + WGM_A_BYTES + b * 8192, &b_map, full + slot, n0 + 64 * b,
+                          s * WGM_BK);
+          }
         }
         __syncwarp();
       }
     }
   } else {
-    consume(smem, full, empty, m, n, n_k, m0, n0, warp, lane, epi);
+    consume<B_T>(smem, full, empty, m, n, n_k, m0, n0, warp, lane, epi);
   }
 }
 
-// C = epi(A @ B): a (m x k, leading dimension lda), b (k x n, ldb), bf16,
-// 16-byte aligned, lda and ldb multiples of 8.  Returns a CUDA error code.
-template <class Epi>
+// C = epi(A @ B): a (m x k, leading dimension lda), b (k x n, ldb; with B_T
+// its transpose, n x k), bf16, 16-byte aligned, lda and ldb multiples of 8.
+// Returns a CUDA error code.
+template <class Epi, bool B_T = false>
 int wgmma_gemm_launch(const void* a, long long lda, const void* b, long long ldb, int m, int n,
                       int k, const Epi& epi, cudaStream_t stream) {
   if (m < 1 || n < 1 || k < 1 || lda % 8 || ldb % 8 || reinterpret_cast<uintptr_t>(a) % 16 ||
@@ -218,22 +231,22 @@ int wgmma_gemm_launch(const void* a, long long lda, const void* b, long long ldb
   int err = make_tensor_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, a_dims, a_strides,
                             a_box, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
-  const uint64_t b_dims[2] = {(uint64_t)n, (uint64_t)k};
+  const uint64_t b_dims[2] = {(uint64_t)(B_T ? k : n), (uint64_t)(B_T ? n : k)};
   const uint64_t b_strides[1] = {(uint64_t)ldb * 2};
-  const uint32_t b_box[2] = {64, WGM_BK};
+  const uint32_t b_box[2] = {B_T ? (uint32_t)WGM_BK : 64u, B_T ? 128u : (uint32_t)WGM_BK};
   err = make_tensor_map(&b_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, b_dims, b_strides, b_box,
                         CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
   static bool smem_set = false;  // once per instantiation
   if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(wgmma_gemm<Epi>,
+    const cudaError_t e = cudaFuncSetAttribute(wgmma_gemm<Epi, B_T>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                WGM_SMEM);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
   dim3 grid((n + WGM_BN - 1) / WGM_BN, (m + WGM_BM - 1) / WGM_BM);
-  wgmma_gemm<Epi><<<grid, WGM_THREADS, WGM_SMEM, stream>>>(a_map, b_map, m, n, k, epi);
+  wgmma_gemm<Epi, B_T><<<grid, WGM_THREADS, WGM_SMEM, stream>>>(a_map, b_map, m, n, k, epi);
   return (int)cudaGetLastError();
 }
 

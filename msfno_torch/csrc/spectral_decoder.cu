@@ -209,6 +209,8 @@ CH_KERNEL
     if (x_cols) frag_to_a_tile(acc, tile, 64 * ro.m, 128 * ro.n, a.c, add_b);
     s = raw_to_a_tile<IN_T>(ring, s, ro, ssrc + 64 * ro.m * a.s, min(64, n_valid - 64 * ro.m),
                             a.s, tile, a.c);
+    // finite A past k1p (the last tile's output went through these chunks)
+    zero_cols(tile, 64 * ro.m, a.k1p, round_up(a.k1p, CH_BK), ro.n * 128 + ro.t, 256);
     fence_proxy_async();
     pair_sync(ro);
 
@@ -216,6 +218,7 @@ CH_KERNEL
     s = chain_gemm(acc, ring, s, a.k1p, a_tile, ro, h_cols);
     pair_sync(ro);  // the pair's wgmmas have read [x | skip]
     if (h_cols) frag_to_a_tile(acc, tile, 64 * ro.m, 128 * ro.n, a.hidden, gelu_b1);
+    zero_cols(tile, 64 * ro.m, a.hidden, round_up(a.hidden, CH_BK), ro.n * 128 + ro.t, 256);
     fence_proxy_async();
     pair_sync(ro);
 

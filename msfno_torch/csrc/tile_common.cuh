@@ -344,6 +344,43 @@ __global__ void stats_reduce(const float* __restrict__ part_sum,
   }
 }
 
+// The first level of the partials' fixed-order sum: block (x, b, grp) adds
+// partial rows [grp * per, grp * per + per) of columns [32 x, 32 x + 32) of
+// sample b in stats_reduce's order (thread row ty takes rows ty, ty + 8,
+// ...; then the 8 sums in order) into (B, groups, c); stats_reduce adds
+// the groups.  (stats_reduce alone, one block a column slice, took 118 us
+// over the head's 8111 rows on the H100.)
+__global__ void tile_reduce(const float* __restrict__ part_sum,
+                            const float* __restrict__ part_sq, int tiles, int per, int c,
+                            float* __restrict__ grp_sum, float* __restrict__ grp_sq) {
+  __shared__ float sh_sum[8][32];
+  __shared__ float sh_sq[8][32];
+  const int b = blockIdx.y, grp = blockIdx.z;
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  const int t1 = min(tiles, (grp + 1) * per);
+  float s = 0.f, q = 0.f;
+  if (col < c) {
+    for (int i = grp * per + threadIdx.y; i < t1; i += 8) {
+      const long long j = ((long long)b * tiles + i) * c + col;
+      s += part_sum[j];
+      q += part_sq[j];
+    }
+  }
+  sh_sum[threadIdx.y][threadIdx.x] = s;
+  sh_sq[threadIdx.y][threadIdx.x] = q;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < c) {
+    float ts = 0.f, tq = 0.f;
+    for (int r = 0; r < 8; ++r) {
+      ts += sh_sum[r][threadIdx.x];
+      tq += sh_sq[r][threadIdx.x];
+    }
+    const long long o = ((long long)b * gridDim.z + grp) * c + col;
+    grp_sum[o] = ts;
+    grp_sq[o] = tq;
+  }
+}
+
 // out[j] = sum over i of part[i * n_cols + j], i in order: the fixed-order
 // reduce of per-block or per-split partials.  Launch with n_cols threads.
 __global__ void sum_rows(const float* __restrict__ part, int n_rows, int n_cols,
@@ -593,9 +630,10 @@ __device__ __forceinline__ void reg_alloc() {
 }
 
 // keeps the compiler from moving accumulator accesses across a wgmma
-__device__ __forceinline__ void fence_operand(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // d (64 x 128 fp32, the warpgroup's accumulator fragment) (+)= A (64 x 16
@@ -628,6 +666,26 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
+// the m64n64k16 form of wgmma_m64n128k16: d is the warpgroup's 64 x 64
+// fragment (32 registers a thread), the same layout for q < 8
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
 // Host: a TMA tensor map (CUtensorMap) of a `rank`-dimensional array at
 // device address `base`: dims and box innermost first, in elements;
 // strides (rank - 1 of them) of the outer dimensions in bytes, multiples of
@@ -641,20 +699,27 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-inline EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
+typedef CUresult (*CtxGetCurrentFn)(CUcontext*);
+
+// a driver API function by name, nullptr where the driver lacks it
+inline void* driver_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
+  const cudaError_t e = cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
 #else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &q);
+  const cudaError_t e = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
 #endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
+  return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static const EncodeTiledFn fn = (EncodeTiledFn)driver_fn("cuTensorMapEncodeTiled");
+  return fn;
+}
+
+inline CtxGetCurrentFn ctx_get_current_fn() {
+  static const CtxGetCurrentFn fn = (CtxGetCurrentFn)driver_fn("cuCtxGetCurrent");
   return fn;
 }
 
@@ -662,7 +727,16 @@ inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                            const void* base, const uint64_t* dims, const uint64_t* strides,
                            const uint32_t* box, CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const CtxGetCurrentFn get_ctx = ctx_get_current_fn();
+  if (fn == nullptr || get_ctx == nullptr) return (int)cudaErrorSymbolNotFound;
+  // the encode needs a current context on this thread (a backward pass runs
+  // on autograd's own thread, maybe before any runtime call there): where
+  // there is none, make the device's primary context current
+  CUcontext ctx = nullptr;
+  if (get_ctx(&ctx) != CUDA_SUCCESS) return (int)cudaErrorInvalidDevice;
+  int dev = 0;
+  if (ctx == nullptr && (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess))
+    return (int)cudaErrorInvalidDevice;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], e[5];
   for (int i = 0; i < rank; ++i) {

@@ -29,7 +29,7 @@ import torch
 
 from msfno_torch.ops.kernels import check, library, stream_ptr
 from msfno_torch.ops.kernels.grid_encoder_spectral import (
-    DFT_ROW_MULTIPLE, TILE_ROWS, pad_dft_matrix)
+    DFT_ROW_MULTIPLE, TILE_ROWS, _dft_operand, pad_dft_matrix)
 from msfno_torch.ops.kernels.grid_mlp import _act, grid_mlp_reference, prepare_weights
 from msfno_torch.runtime import mxu_round, torch_dtype
 
@@ -94,9 +94,14 @@ def spectral_grid_stats(hm: torch.Tensor, omega: torch.Tensor):
 
 
 def prepare(w1, w2, mt, c_main: int):
-    """The kernel's bf16 operands: `grid_mlp.prepare_weights` of the MLP (main
-    rows, then the skip rows) and the padded Mt."""
-    return (*prepare_weights(w1, w2, c_main), pad_dft_matrix(mt))
+    """The kernels' bf16 operands, built once: `grid_mlp.prepare_weights` of
+    the MLP (main rows, then the skip rows) and the padded Mt for the
+    forward; the transposes of both weights and Mt^T (as the head's DFT pass
+    takes its operand) for the `spectral_decoder_bwd` kernel (~1.0 MB at the
+    serving widths)."""
+    w1p, w2p = prepare_weights(w1, w2, c_main)
+    return (w1p, w2p, pad_dft_matrix(mt), w1p.t().contiguous(), w2p.t().contiguous(),
+            _dft_operand(mt))
 
 
 def spectral_decoder(hm, skip, mt, a, b, w1, b1, w2, b2=None, mxu_dtype="bfloat16",
@@ -162,7 +167,7 @@ def _forward(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype, prepared)
                          "multiples of 16 and at most 256, C_out at most 96, S at most 128")
     if prepared is None:
         prepared = prepare(w1, w2, mt, c)
-    w1p, w2p, mtp = prepared
+    w1p, w2p, mtp = prepared[:3]
     od = torch_dtype(out_dtype or "float32")
     if od not in (torch.float32, torch.bfloat16):
         raise ValueError(f"spectral_decoder: unsupported out dtype {od}")

@@ -11,9 +11,14 @@ Per latitude row, recomputing the forward from its inputs:
     da, db = sums of dxa * x_raw, dxa;  dW1, db1, dW2, db2
 
 with every product's operands rounded to the matmul operand dtype and fp32
-accumulation.  GELU is exact (erf) where the JAX kernels use the A&S 7.1.26
-erf polynomial (<= 1.5e-7 absolute), the choice the forward kernels made.
-Bound on the H100 at the serving shapes: operations (see the kernel source).
+accumulation.  The plain version's GELU is exact (erf); the kernel's GELU
+derivative is the JAX backward kernel's (Phi from the A&S 7.1.26 erf
+polynomial, <= 1.5e-7 absolute) and its recomputed GELU the forward
+kernels' branch-free rational erf.  Bound on the H100
+at the serving shapes: operations (see the kernel source).  The kernel runs
+a tile pass over 128-longitude tiles of each row, then the transposed DFT
+(dhm) as a pass of its own; `decoder_bwd_tiles` is a plain mirror of the
+two passes (tests only).
 """
 
 from __future__ import annotations
@@ -24,13 +29,16 @@ import math
 import torch
 
 from msfno_torch.ops.kernels import check, library, stream_ptr
-from msfno_torch.ops.kernels.grid_encoder_spectral import DFT_ROW_MULTIPLE
+from msfno_torch.ops.kernels.dft_analysis import BF16_K, BF16_TILE, aligned, check_operand
+from msfno_torch.ops.kernels.grid_encoder_spectral import (
+    DFT_ROW_MULTIPLE, REDUCE_GROUPS, TILE_ROWS)
 from msfno_torch.ops.kernels.grid_mlp import _act
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
 
 _SM_WAVE = 4 * 132  # blocks that fill the card's SMs a few times over
+_SUM_RUN = 1024  # rows of g per partial of db2's fixed-order column sums
 
 
 def gelu_grad(z: torch.Tensor) -> torch.Tensor:
@@ -74,6 +82,70 @@ def spectral_decoder_bwd_reference(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
             flat(gf).sum(0) if b2 is not None else None)
 
 
+_ERF_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+_ERF_P = 0.3275911
+
+
+def gelu_grad_as7126(z: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of the kernel's GELU derivative (tests only), as the JAX
+    backward kernel computes it: Phi(z) + z phi(z) with Phi from the A&S
+    7.1.26 erf (<= 1.5e-7 absolute), whose exp(-z^2 / 2) is phi's too."""
+    t = 1.0 / (1.0 + _ERF_P * z.abs() * (1.0 / math.sqrt(2.0)))
+    poly = t * (_ERF_A[0] + t * (_ERF_A[1] + t * (_ERF_A[2] + t * (_ERF_A[3] + t * _ERF_A[4]))))
+    e = torch.exp(-0.5 * z * z)
+    cdf = 0.5 * (1.0 + torch.sign(z) * (1.0 - poly * e))
+    return cdf + z * e * (1.0 / math.sqrt(2.0 * math.pi))
+
+
+def decoder_bwd_tiles(g, hm, skip, mt, a, b, w1, b1, w2, b2=None, mxu_dtype="bfloat16",
+                      need_weights=True, tile=TILE_ROWS):
+    """Plain mirror of the kernel's two passes (tests only).  Pass A, per
+    tile of `tile` longitudes of each row (the last one ragged): x_raw =
+    Mt[tile] t with t = bf16(hm); [xa | skip] with xa = bf16(x_raw a + b);
+    z1 = [xa | skip] W1 + b1 and dh1 = bf16(g) W2^T, dz1 = dh1 gelu'(z1)
+    (A&S 7.1.26's erf, as JAX); [dxa | dskip] = bf16(dz1) [W1a | W1b]^T; the tile's
+    column sums of dxa x_raw (fp32 dxa against the fp32 x_raw above: JAX's
+    rounding point) and of dxa.  Pass B: dhm = a (Mt^T bf16(dxa)) per row.
+    The weight gradients from the tiles' bf16 operands.  Same signature and
+    returns as `spectral_decoder_bwd`."""
+    bsz, h, two_m, c = hm.shape
+    wd = mt.shape[0]
+    r = lambda v: mxu_round(v, mxu_dtype)  # noqa: E731
+    t = r(hm.float())
+    mtr, w1r, w2r = r(mt.float()), r(w1.float()), r(w2.float())
+    a4, b4 = a.float()[:, None, None, :], b.float()[:, None, None, :]
+    gf = g.float()
+    dxas, dskips, da_parts, db_parts = [], [], [], []
+    xins, dzs, h1s = [], [], []
+    for w0 in range(0, wd, tile):
+        x_raw = torch.matmul(mtr[w0:w0 + tile], t)
+        xin = torch.cat([r(x_raw * a4 + b4), r(skip[:, :, w0:w0 + tile].float())], dim=-1)
+        z1 = xin @ w1r + b1.float()
+        dz1 = (r(gf[:, :, w0:w0 + tile]) @ w2r.t()) * gelu_grad_as7126(z1)
+        dzm = r(dz1)
+        dxa = dzm @ w1r[:c].t()
+        dskips.append(dzm @ w1r[c:].t())
+        dxas.append(dxa)
+        da_parts.append((dxa * x_raw).sum(2))
+        db_parts.append(dxa.sum(2))
+        xins.append(xin)
+        dzs.append(dz1)
+        h1s.append(r(torch.nn.functional.gelu(z1, approximate="none")))
+    cat = lambda ts: torch.cat(ts, dim=2)  # noqa: E731
+    dxa = cat(dxas)
+    dhm = torch.matmul(mtr.t(), r(dxa)) * a4
+    da = torch.stack(da_parts, 2).sum((1, 2))
+    db = torch.stack(db_parts, 2).sum((1, 2))
+    if not need_weights:
+        return dhm, cat(dskips), da, db, None, None, None, None
+    flat = lambda ts: cat(ts).flatten(0, 2)  # noqa: E731
+    dz = flat(dzs)
+    dw1 = flat(xins).t() @ r(dz)
+    dw2 = flat(h1s).t() @ r(gf.reshape(-1, gf.shape[-1]))
+    return (dhm, cat(dskips), da, db, dw1, dz.sum(0), dw2,
+            gf.reshape(-1, gf.shape[-1]).sum(0) if b2 is not None else None)
+
+
 def spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
                          mxu_dtype="bfloat16", need_weights=True, prepared=None):
     """Gradients of `spectral_decoder` for the cotangent g (the JAX
@@ -103,55 +175,65 @@ def spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
         raise ValueError("spectral_decoder_bwd: operand shapes do not match hm (B, H, 2M, C), "
                          "skip (B, H, W, S), g (B, H, W, C_out), mt (W, 2M), a/b (B, C), "
                          "w1 (C + S, hidden) and w2 (hidden, C_out)")
-    if c % 16 or hidden % 16:
+    if c % 16 or hidden % 16 or c > 256 or hidden > 256 or c_out > 96 or s > 128:
         raise ValueError(f"spectral_decoder_bwd: C {c} and hidden {hidden} must be "
-                         "multiples of 16")
+                         "multiples of 16 and at most 256, C_out at most 96, S at most 128")
     if prepared is None:
         prepared = prepare(w1, w2, mt, c)
-    w1p, w2p, mtp = prepared
+    w1p, w2p, mtp, w1t, w2t, mtt = prepared
     k1p, n2p, m2p = w1p.shape[0], w2p.shape[1], mtp.shape[1]
-    gk, g_bf16 = _act(g)
+    gk, skk = aligned(g.float()), aligned(skip.float())  # the kernel reads fp32 rows
     hmk, hm_bf16 = _act(hm)
-    skk, skip_bf16 = _act(skip)
     af, bf = a.float().contiguous(), b.float().contiguous()
     b1f = b1.float().contiguous()
     dev = g.device
     lib = library("spectral_decoder_bwd")
     lib.spectral_decoder_bwd_chunk.restype = ctypes.c_int
+    lib.spectral_decoder_bwd_tile_rows.restype = ctypes.c_int
+    lib.spectral_decoder_bwd_xr_floats.restype = ctypes.c_int
     if lib.spectral_decoder_bwd_chunk() != DFT_ROW_MULTIPLE:
         raise RuntimeError("spectral_decoder_bwd: kernel chunk and DFT_ROW_MULTIPLE differ")
-    n_chunks = -(-wd // DFT_ROW_MULTIPLE)
+    check_operand("spectral_decoder_bwd", lib, mtt,
+                  (-(-two_m // BF16_TILE) * BF16_TILE, -(-wd // BF16_K) * BF16_K), True)
+    n_tiles = bsz * h * -(-wd // lib.spectral_decoder_bwd_tile_rows())
     n_px = bsz * h * wd
     empty = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
     dhm, dskip = empty(bsz, h, two_m, c), empty(bsz, h, wd, s)
     da, db = empty(bsz, c), empty(bsz, c)
     t = empty(bsz, h, m2p, c, dtype=torch.bfloat16)
     dxa = empty(n_px, c, dtype=torch.bfloat16)
-    part_da, part_db = empty(bsz, h * n_chunks, c), empty(bsz, h * n_chunks, c)
-    weights = [None] * 11  # dw1p, db1, dw2p, db2p, xin, h1, gb, dz, part_db1, part_db2, part_w
-    splits = 1
+    part_da, part_db = empty(n_tiles, c), empty(n_tiles, c)
+    # the tile pass is persistent, one block per SM; each keeps its tile's
+    # fp32 x_raw in a scratch of its own
+    blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    xr = empty(blocks, lib.spectral_decoder_bwd_xr_floats())
+    # dw1p, db1, dw2p, db2, xin, h1, gb, dz, part_db1, part_db2, part_w
+    weights = [None] * 11
+    splits, sum_run = 1, _SUM_RUN
     if need_weights:
         tiles = -(-max(k1p, hidden) // 64) * -(-max(hidden, n2p) // 64)
         splits = max(1, min(n_px // 4096, -(-_SM_WAVE // tiles)))
         bf16 = torch.bfloat16
-        weights = [empty(k1p, hidden), empty(hidden), empty(hidden, n2p), empty(n2p),
+        weights = [empty(k1p, hidden), empty(hidden), empty(hidden, n2p), empty(c_out),
                    empty(n_px, k1p, dtype=bf16), empty(n_px, hidden, dtype=bf16),
                    empty(n_px, n2p, dtype=bf16), empty(n_px, hidden, dtype=bf16),
-                   empty(bsz * h * n_chunks, hidden), empty(bsz * h * n_chunks, n2p),
+                   empty(n_tiles * 8, hidden), empty(-(-n_px // sum_run), c_out),
                    empty(splits, max(k1p, n2p) * hidden)]
-    dw1p, db1, dw2p, db2p, xin, h1, gb, dz, part_db1, part_db2, part_w = weights
+    dw1p, db1, dw2p, db2, xin, h1, gb, dz, part_db1, part_db2, part_w = weights
     lib.spectral_decoder_bwd_bf16.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     lib.spectral_decoder_bwd_bf16.restype = ctypes.c_int
-    ptrs = (ctypes.c_void_p * 28)(*[
+    # the first level of da's and db's sums: at most REDUCE_GROUPS runs
+    grp_da, grp_db = empty(bsz, REDUCE_GROUPS, c), empty(bsz, REDUCE_GROUPS, c)
+    ptrs = (ctypes.c_void_p * 33)(*[
         p.data_ptr() if p is not None else None
-        for p in (gk, hmk, skk, af, bf, mtp, w1p, b1f, w2p, dhm, dskip, da, db, dw1p, db1,
-                  dw2p, db2p, t, dxa, part_da, part_db, xin, h1, gb, dz, part_db1, part_db2,
-                  part_w)
+        for p in (gk, hmk, skk, af, bf, mtp, w1p, b1f, w2t, w1t, mtt, dhm, dskip, da, db, dw1p,
+                  db1, dw2p, db2, t, dxa, part_da, part_db, xin, h1, gb, dz, part_db1,
+                  part_db2, part_w, grp_da, grp_db, xr)
     ])
-    ints = (ctypes.c_longlong * 18)(
-        bsz, h, wd, two_m, m2p, mtp.shape[0], c, s, c, k1p, hidden, c_out, n2p, hm_bf16,
-        skip_bf16, g_bf16, int(need_weights), splits,
+    ints = (ctypes.c_longlong * 20)(
+        bsz, h, wd, two_m, m2p, mtp.shape[0], c, s, k1p, hidden, c_out, n2p, mtt.shape[0],
+        mtt.shape[1], hm_bf16, int(need_weights), splits, sum_run, REDUCE_GROUPS, blocks,
     )
     status = lib.spectral_decoder_bwd_bf16(ptrs, ints, stream_ptr(g))
     check(status, "spectral_decoder_bwd")
@@ -160,5 +242,4 @@ def spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
     if not need_weights:
         return dhm, dskip, da, db, None, None, None, None
     dw1 = torch.cat([dw1p[:c], dw1p[c:c + s]])
-    return (dhm, dskip, da, db, dw1, db1, dw2p[:, :c_out],
-            db2p[:c_out] if b2 is not None else None)
+    return dhm, dskip, da, db, dw1, db1, dw2p[:, :c_out], db2 if b2 is not None else None

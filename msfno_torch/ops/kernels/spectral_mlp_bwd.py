@@ -7,7 +7,10 @@ layer, then run the transposed chain g <- (g @ P_l^T) * m_{l-1} back to the
 input, with P_l = [[wr, wi], [-wi, wr]] the packed complex weight.  The
 weight gradients are not part of the kernel: `spectral_mlp`'s backward takes
 them from the fp32 reference's VJP, as the JAX `_bwd` does.  Bound on the
-H100 at the serving shapes: operations (see the kernel source).
+H100 at the serving shapes: operations (see the kernel source).  The kernel
+is one GEMM per layer (three recomputed, four transposed) with each hidden
+layer's derivative kept as packed mask bits; `spectral_mlp_bwd_layers` is a
+plain mirror of that sequence (tests only).
 """
 
 from __future__ import annotations
@@ -58,6 +61,60 @@ def spectral_mlp_bwd_reference(z, g, weights, negative_slope: float = 0.0,
     return torch.stack([gk[:, :c_in], gk[:, c_in:]]).reshape(2, *lead, c_in)
 
 
+def pack_mask(neg: torch.Tensor) -> torch.Tensor:
+    """The kernel's mask words of a (rows, d_out) bool: per row 4 words per
+    128 columns, word 4 (col // 128) + (col % 8) // 2 holding column col at
+    bit 2 ((col % 128) // 8) + col % 2 (the wgmma accumulator fragment's
+    layout: a lane quad's columns).  Returns (rows, words) int64."""
+    rows, d_out = neg.shape
+    col = torch.arange(d_out, device=neg.device)
+    word = 4 * (col // 128) + (col % 8) // 2
+    bit = 2 * ((col % 128) // 8) + col % 2
+    words = torch.zeros((rows, 4 * -(-d_out // 128)), dtype=torch.int64, device=neg.device)
+    return words.index_add_(1, word, neg.long() << bit)
+
+
+def unpack_mask(words: torch.Tensor, d_out: int) -> torch.Tensor:
+    """The (rows, d_out) bool that `pack_mask` packed into `words`."""
+    col = torch.arange(d_out, device=words.device)
+    word = 4 * (col // 128) + (col % 8) // 2
+    bit = 2 * ((col % 128) // 8) + col % 2
+    return ((words[:, word] >> bit) & 1).bool()
+
+
+def spectral_mlp_bwd_layers(z, g, weights, negative_slope: float = 0.0,
+                            mxu_dtype: str = "bfloat16") -> torch.Tensor:
+    """Plain mirror of the kernel's sequence (tests only): [re | im] rows
+    rounded to `mxu_dtype`; the recompute z_l = h_l @ P_l, its real-half
+    signs kept as `pack_mask` words and h_{l+1} = LeakyReLU on the real half,
+    rounded per layer; then g_l = g_{l+1} @ P_l^T, times bf16(slope) where
+    the unpacked mask of layer l-1 is set, rounded per layer; dx fp32.  Same
+    signature and returns as `spectral_mlp_bwd`."""
+    c_in, c_out = z.shape[-1], g.shape[-1]
+    lead = z.shape[1:-1]
+    r = lambda v: mxu_round(v, mxu_dtype)  # noqa: E731
+    ps = [_packed(w, mxu_dtype) for w in weights]
+    h = r(torch.cat([z[0].reshape(-1, c_in), z[1].reshape(-1, c_in)], dim=1).float())
+    masks = []
+    for w, p in zip(weights[:-1], ps[:-1]):
+        zl = h @ p
+        d_out = w.shape[1]
+        neg = zl[:, :d_out] < 0
+        masks.append(pack_mask(neg))
+        h = r(torch.cat([torch.where(neg, negative_slope * zl[:, :d_out], zl[:, :d_out]),
+                         zl[:, d_out:]], dim=1))
+    slope_m = mxu_round(torch.tensor(negative_slope), "bfloat16").item()
+    gk = r(torch.cat([g[0].reshape(-1, c_out), g[1].reshape(-1, c_out)], dim=1).float())
+    for idx in range(len(ps) - 1, -1, -1):
+        gk = gk @ ps[idx].t()
+        if idx > 0:
+            d_in = weights[idx].shape[0]
+            neg = unpack_mask(masks[idx - 1], d_in)
+            gk = r(torch.cat([torch.where(neg, gk[:, :d_in] * slope_m, gk[:, :d_in]),
+                              gk[:, d_in:]], dim=1))
+    return torch.stack([gk[:, :c_in], gk[:, c_in:]]).reshape(2, *lead, c_in)
+
+
 def spectral_mlp_bwd(z, g, weights, negative_slope: float = 0.0,
                      mxu_dtype: str = "bfloat16", packed=None) -> torch.Tensor:
     """dx of `spectral_mlp` at z (2, ..., C_in) for the cotangent g (2, ...,
@@ -88,17 +145,29 @@ def spectral_mlp_bwd(z, g, weights, negative_slope: float = 0.0,
     gg = gg if gg.data_ptr() % 16 == 0 else gg.clone()
     n = x.shape[1]
     dx = torch.empty((2, n, c_in), device=z.device, dtype=torch.float32)
-    fn = library("spectral_mlp_bwd").spectral_mlp_bwd_bf16
+    lib = library("spectral_mlp_bwd")
+    lib.spectral_mlp_bwd_mask_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.spectral_mlp_bwd_mask_bytes.restype = ctypes.c_longlong
+    n_layers = len(dims) - 1
+    # scratch: the [re | im] bf16 rows in turn, and each hidden layer's mask
+    hidden = torch.empty((2, n * 2 * max(dims)), device=z.device, dtype=torch.bfloat16)
+    mask_offs, mask_bytes = [], 0
+    for d_out in dims[1:-1]:
+        mask_offs.append(mask_bytes)
+        mask_bytes += -(-lib.spectral_mlp_bwd_mask_bytes(n, d_out) // 16) * 16
+    masks = torch.empty(max(mask_bytes, 16), device=z.device, dtype=torch.uint8)
+    fn = lib.spectral_mlp_bwd_bf16
     vp = ctypes.c_void_p
     fn.argtypes = [vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, vp, vp, ctypes.c_int,
-                   ctypes.c_float, vp]
+                   ctypes.c_float, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), vp]
     fn.restype = ctypes.c_int
-    n_layers = len(dims) - 1
     status = fn(
         x[0].data_ptr(), x[1].data_ptr(), gg[0].data_ptr(), gg[1].data_ptr(), wbuf.data_ptr(),
         (ctypes.c_int * len(dims))(*dims), (ctypes.c_longlong * n_layers)(*offs), n_layers,
-        dx[0].data_ptr(), dx[1].data_ptr(), n, negative_slope, stream_ptr(z),
+        dx[0].data_ptr(), dx[1].data_ptr(), n, negative_slope, hidden[0].data_ptr(),
+        hidden[1].data_ptr(), masks.data_ptr(),
+        (ctypes.c_longlong * max(1, len(mask_offs)))(*mask_offs), stream_ptr(z),
     )
     check(status, "spectral_mlp_bwd")
     global LAUNCHES

@@ -71,6 +71,35 @@ def test_plain_bwd_matches_jax_kernel(b2, mxu, tol):
         assert report(f"spectral_decoder_bwd[b2={b2},{mxu}] {name}", rel_l2(a, b)) <= tol
 
 
+@pytest.mark.parametrize("need_weights", [True, False])
+@pytest.mark.parametrize("mxu,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("b2", [True, False])
+def test_tile_mirror_matches_jax_kernel(b2, mxu, tol, need_weights):
+    """The kernel's two passes (`decoder_bwd_tiles`: 128-longitude tiles, the
+    last one ragged at W = 160, x_raw's fp32 bits for da, then the
+    transposed DFT) against the JAX Pallas backward kernel, every output."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.spectral_decoder import _spectral_decoder_bwd_call
+
+    ops = _case(b2=b2, seed=3, b=2, h=3, w=160, mmax=20, c=16, s=5, hidden=24, c_out=4)
+    j = {k: jnp.asarray(v) if v is not None else None for k, v in ops.items()}
+    outj = _spectral_decoder_bwd_call(
+        j["g"], j["hm"], j["skip"], j["a"], j["b"], j["mt"], j["w1"], j["b1"], j["w2"],
+        j["b2"], has_b2=b2, mxu_dtype=mxu, interpret=True)
+    t = {k: torch.from_numpy(v) if v is not None else None for k, v in ops.items()}
+    outt = tb.decoder_bwd_tiles(t["g"], *(t[k] for k in NAMES), mxu_dtype=mxu,
+                                need_weights=need_weights)
+    assert all(d is None for d in outt[4:]) == (not need_weights)
+    assert (outt[-1] is None) == (not (b2 and need_weights))
+    for name, a, b in zip(OUTS, outt, outj):
+        if a is None:
+            continue
+        b = np.reshape(b, a.shape)
+        tag = f"decoder_bwd_tiles[b2={b2},{mxu},w={need_weights}] {name}"
+        assert report(tag, rel_l2(a, b)) <= tol
+
+
 @pytest.mark.parametrize("b2", [True, False])
 def test_function_matches_jax_grad(b2):
     """The autograd Function (plain backward on the CPU) against jax.grad of
@@ -105,6 +134,8 @@ def test_function_matches_jax_grad(b2):
 @pytest.mark.parametrize("shape", [
     dict(b=2, h=3, w=100, mmax=30, c=32, s=5, hidden=48, c_out=5, b2=True),
     dict(b=1, h=2, w=240, mmax=121, c=256, s=73, hidden=256, c_out=73, b2=False),
+    # the widths the wrapper takes at most (those of the forward)
+    dict(b=1, h=2, w=300, mmax=100, c=256, s=128, hidden=256, c_out=96, b2=True),
 ])
 def test_kernel_matches_plain(cuda, shape):
     ops = _case(seed=7, **shape)

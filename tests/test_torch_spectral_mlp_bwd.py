@@ -73,6 +73,45 @@ def test_plain_bwd_matches_jax_kernel(layers, slope, mxu, tol):
     assert report(f"spectral_mlp_bwd[{layers},slope={slope},{mxu}]", err) <= tol
 
 
+def test_mask_words_round_trip():
+    """`pack_mask` puts every column of a width that is not a multiple of 128
+    in its own bit (the fragment layout), and `unpack_mask` gives it back."""
+    rng = np.random.default_rng(3)
+    neg = torch.from_numpy(rng.random((5, 272)) < 0.5)
+    words = tb.pack_mask(neg)
+    assert words.shape == (5, 12) and int(words.max()) < 2 ** 32
+    assert torch.equal(tb.unpack_mask(words, 272), neg)
+    one = torch.zeros((1, 272), dtype=torch.bool)
+    one[0, 128 + 8 * 3 + 2 * 1 + 1] = True  # block 1, q 3, lane quad 1, e 1
+    assert tb.pack_mask(one)[0].tolist() == [0] * 5 + [1 << 7] + [0] * 6
+
+
+@pytest.mark.parametrize("mxu,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("slope", [0.0, 0.1])
+@pytest.mark.parametrize("layers", list(DIMS))
+def test_layer_mirror_matches_jax_kernel(layers, slope, mxu, tol):
+    """The kernel's GEMM sequence (`spectral_mlp_bwd_layers`: one packed GEMM
+    per layer, masks packed to bits and unpacked, rounding per layer) against
+    the JAX Pallas backward kernel, on a row count that is not a multiple of
+    the kernel's 128-row tiles."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.spectral_mlp import _packed_bwd_call
+
+    x2, g2, ws = _case(DIMS[layers], n=200, seed=4)
+    flat = []
+    for w in ws:
+        flat += [jnp.asarray(w[..., 0]), jnp.asarray(w[..., 1])]
+    dxr, dxi = _packed_bwd_call(jnp.asarray(x2[..., 0]), jnp.asarray(x2[..., 1]),
+                                jnp.asarray(g2[..., 0]), jnp.asarray(g2[..., 1]), *flat,
+                                negative_slope=slope, interpret=True, mxu_dtype=mxu)
+    dx = tb.spectral_mlp_bwd_layers(_pairs(x2), _pairs(g2), [torch.from_numpy(w) for w in ws],
+                                    slope, mxu)
+    assert dx.shape == (2, 200, 16)
+    err = rel_l2(dx, np.stack([np.asarray(dxr), np.asarray(dxi)]))
+    assert report(f"spectral_mlp_bwd_layers[{layers},slope={slope},{mxu}]", err) <= tol
+
+
 @pytest.mark.parametrize("mxu,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
 @pytest.mark.parametrize("slope", [0.0, 0.1])
 @pytest.mark.parametrize("layers", list(DIMS))

@@ -9,7 +9,8 @@ NAME=VALUE overrides of the kernel source's <NAME>_OVERRIDE macros
 (msfno_torch/csrc/<kernel>.cu).  Every variant is built with nvcc into
 msfno_torch/_build/variants/, loaded in place of the kernel's library and
 timed at the call sites of chip_smoke.py (CUDA events, the kernel against
-its plain version).  Prints ptxas' register and spill report per variant and
+its plain version).  Prints ptxas' register and spill report per variant
+(with any C7520 line: wgmmas serialized) and
 one JSON line per (variant, site) with the card's name and power limit: the
 kernel's, the plain version's and (where chip_smoke.py has one) the library
 call's time and the bound.  The DFT kernels' tiles, for example:
@@ -62,7 +63,8 @@ def main(argv) -> int:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for var, lib, proc in procs:
         log, _ = proc.communicate()
-        report = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        report = [ln.strip() for ln in log.splitlines()
+                  if "registers" in ln or "spill" in ln or "C7520" in ln]
         print(json.dumps({"variant": var, "rc": proc.returncode, "ptxas": report}))
         if proc.returncode != 0:
             print(log[-3000:])

@@ -63,22 +63,28 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
                           "calls_per_step": count,
                           "share_of_busy": ms / busy if busy else None}))
     # a kernel's library may hold more than one CUDA kernel: spectral_mlp's
-    # cast pass and per-layer GEMMs, gcn_layer's GEMM and stencil passes,
-    # gcn's backward dsup pass, split-K GEMMs and reduces (the tail's
-    # backward runs its GEMMs only for weight gradients, which the fine-tune
-    # step does not ask for), the head's MLP pass, DFT pass (the DIRECT
-    # analysis_wgmma) and partials' reduce, the tail's t pre-pass and tile
-    # kernel; the namespace keeps cuBLAS's names out
+    # cast pass and per-layer GEMMs, its backward's casts and the recompute
+    # and transposed GEMMs, gcn_layer's GEMM and stencil passes, gcn's
+    # backward dsup pass, split-K GEMMs and reduces (the tail's backward
+    # runs its GEMMs only for weight gradients, which the fine-tune step does
+    # not ask for), the head's MLP pass, DFT pass (the DIRECT analysis_wgmma,
+    # bf16 f) and partials' reduce (tile_reduce: also the tail backward's, a
+    # few us), the tail's t pre-pass and tile kernel, the tail backward's
+    # pre-pass, tile kernel and transposed DFT (the DIRECT analysis_wgmma,
+    # fp32 dhm); the namespace keeps cuBLAS's names out
     ns = "(anonymous namespace)::"
-    kernel_keys = {"spectral_mlp": (ns + "stage_input", ns + "HiddenEpi>", ns + "OutEpi>"),
-                   "grid_encoder_spectral": (ns + "enc_mlp<", ", true>(CUtensorMap_st",
+    direct = "analysis_wgmma<__nv_bfloat16, "  # + the output type, ", 0, true>"
+    kernel_keys = {"spectral_mlp": (ns + "stage_input", ns + "HiddenEpi,", ns + "OutEpi,"),
+                   "grid_encoder_spectral": (ns + "enc_mlp<", direct + "__nv_bfloat16, 0, true>",
                                              ns + "tile_reduce"),
                    "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16"),
-                   "gcn_layer": (ns + "gcn_stencil", ns + "TEpi>", ns + "gemm_f32<false, false"),
+                   "gcn_layer": (ns + "gcn_stencil", ns + "TEpi,", ns + "gemm_f32<false, false"),
                    "gcn_layer_bwd": (ns + "gcn_bwd_", ns + "gemm_bf16<", ns + "sum_rows",
                                      ns + "gemm_f32<false, true", ns + "gemm_f32<true, false"),
-                   "spectral_decoder_bwd": ("decoder_bwd_", "hm_to_bf16"),
-                   "spectral_mlp_bwd": ("spectral_mlp_bwd_kernel",)}
+                   "spectral_decoder_bwd": ("decoder_bwd_", "hm_to_bf16",
+                                            direct + "float, 0, true>"),
+                   "spectral_mlp_bwd": (ns + "stage_grad_rows", ns + "RecomputeEpi,",
+                                        ns + "ChainEpi,", ns + "InputGradEpi,")}
     for name in KERNELS:
         keys = kernel_keys.get(name, (f"{name}_kernel",))
         mine = [r for r in rows if any(k in r[1] for k in keys)]
