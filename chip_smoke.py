@@ -7,7 +7,8 @@ Phases (any failure raises, and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the ten CUDA kernels from msfno_torch/csrc, one nvcc per source;
   3. each kernel against its plain PyTorch version at the shapes of the
-     serving step and of the fine-tune step (the three backward kernels,
+     serving step (grid_mlp also with the inner MLP's fold of
+     `fuse_inner_mlp`) and of the fine-tune step (the three backward kernels,
      every output; gcn_layer and gcn_layer_bwd also on the fp32 operands of
      the JAX exact and balanced tiers, within 1e-5), and the two longitude-DFT kernels at the shapes of the
      net's transforms (fp32 and bf16 operands, fp32 and bf16 inputs), with
@@ -209,7 +210,9 @@ def spectral_mlp_sites(dev):
 
 def grid_mlp_sites(dev):
     """grid_mlp at its three call sites: encoder (+pe, +stats), inner block
-    MLP (+b2), big-skip decoder (+skip)."""
+    MLP (+b2), big-skip decoder (+skip); and the inner MLP with the folded
+    norm + FiLM affine and the residual of `fuse_inner_mlp=True`
+    ("inner_fold", which no serving path of SITE_COUNTS launches)."""
     import torch
 
     from msfno_torch.ops.kernels import grid_mlp as mk
@@ -227,6 +230,11 @@ def grid_mlp_sites(dev):
         "decoder": dict(x=rn(1, h, w, 256, dtype=bf), skip=rn(1, h, w, 73),
                         w1=rn(329, 256, scale=0.05), b1=rn(256, scale=0.1),
                         w2=rn(256, 73, scale=0.06), out_dtype="float32"),
+        "inner_fold": dict(x=rn(1, 120, 240, 256, dtype=bf), w1=rn(256, 512, scale=0.06),
+                           b1=rn(512, scale=0.1), w2=rn(512, 256, scale=0.04),
+                           b2=rn(256, scale=0.1),
+                           affine=(1.0 + rn(1, 256, scale=0.1), rn(1, 256, scale=0.1)),
+                           residual=rn(1, 120, 240, 256, dtype=bf), out_dtype="bfloat16"),
     }
     recs = []
     for site, ops in sites.items():
@@ -236,7 +244,8 @@ def grid_mlp_sites(dev):
         rows = x.numel() // c_main
         out_bytes = rows * w2.shape[1] * (2 if ops["out_dtype"] == "bfloat16" else 4)
         flops = 2 * rows * (w1.shape[0] * w1.shape[1] + w2.shape[0] * w2.shape[1])
-        work = (nbytes(x, ops.get("skip"), ops.get("pe"), b1, ops.get("b2"))
+        work = (nbytes(x, ops.get("skip"), ops.get("pe"), b1, ops.get("b2"),
+                       ops.get("residual"), *ops.get("affine", ()))
                 + (w1.numel() + w2.numel()) * 2 + out_bytes, {"bf16": flops})
         recs.append(check_site(
             "grid_mlp", site,

@@ -1,6 +1,6 @@
 // Chained wgmma GEMMs over 128-row tiles, shared by grid_encoder_spectral.cu
-// (the encoder MLP pass), spectral_decoder.cu (the fused tail) and
-// spectral_decoder_bwd.cu (the tail's backward, which runs its GEMMs on
+// (the encoder MLP pass), grid_mlp.cu (the pointwise MLP), spectral_decoder.cu
+// (the fused tail) and spectral_decoder_bwd.cu (the tail's backward, which runs its GEMMs on
 // m64n64 accumulators and releases the ring its own way: see chain_gemm).
 //
 // The kernels are persistent: a block per SM walks its tiles of CH_BM = 128
@@ -100,6 +100,13 @@ __device__ __forceinline__ int a_tile_offset(int row, int k) {
   return (k / 64) * CH_CHUNK + row * 128 + ((((k % 64) / 8) ^ (row & 7)) * 16) + (k % 8) * 2;
 }
 
+// byte offset of element (row, col) of 64 rows of bf16 loaded by TMA as
+// 64-column boxes (a warpgroup's pe in grid_encoder_spectral.cu and
+// grid_mlp.cu): 128-byte rows in the 128-byte swizzle
+__device__ __forceinline__ int box_offset(int row, int col) {
+  return (col / 64) * CH_BOX + row * 128 + ((((col % 64) / 8) ^ (row & 7)) * 16) + (col % 8) * 2;
+}
+
 // Writes a warpgroup's 64 x 128 (NACC 64) or 64 x 64 (NACC 32) accumulator
 // fragment d (the layout of wgmma_m64n128k16 / m64n64k16) as bf16(f(value,
 // column)) into rows [row0, row0 + 64) and columns [col0, col0 + NACC * 2)
@@ -138,23 +145,41 @@ __host__ __device__ __forceinline__ int round_up(int v, int m) { return (v + m -
 // device memory) into rows [row0, row0 + 64) and columns [k_off, k_off +
 // width) of the A tile as bf16, zeros from row row0 + n_valid on and in
 // columns up to the next multiple of 16 (the K-steps read them); k_off a
-// multiple of 16.  Thread tid of n_threads takes every n_threads-th (row,
-// 8-column group).  The caller fences (fence_proxy_async) and syncs before
-// a wgmma reads it.
+// multiple of 16.  With aff_a, value v of column k enters as v * aff_a[k] +
+// aff_b[k] in fp32 (two roundings, as the plain version), then rounded.
+// Thread tid of n_threads takes every n_threads-th (row, 8-column group).
+// The caller fences (fence_proxy_async) and syncs before a wgmma reads it.
 template <typename IN_T>
 __device__ __forceinline__ void rows_to_a_tile(const IN_T* src, int n_valid, int width,
                                                char* tile, int row0, int k_off, int tid,
-                                               int n_threads) {
+                                               int n_threads, const float* aff_a = nullptr,
+                                               const float* aff_b = nullptr) {
   const int groups = (width + 15) / 16 * 2;
+  if constexpr (std::is_same<IN_T, __nv_bfloat16>::value) {
+    // bf16 rows of whole 16-byte vectors: copied, not converted
+    if (aff_a == nullptr && width % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+      for (int e = tid; e < 64 * groups; e += n_threads) {
+        const int row = e / groups, j = e % groups;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (row < n_valid && 8 * j < width)
+          v = *reinterpret_cast<const uint4*>(src + (long long)row * width + 8 * j);
+        *reinterpret_cast<uint4*>(tile + a_tile_offset(row0 + row, k_off + 8 * j)) = v;
+      }
+      return;
+    }
+  }
   for (int e = tid; e < 64 * groups; e += n_threads) {
     const int row = e / groups, j = e % groups;
     alignas(16) __nv_bfloat16 v[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int k = 8 * j + i;
-      v[i] = __float2bfloat16_rn(row < n_valid && k < width
-                                     ? to_float(src[(long long)row * width + k])
-                                     : 0.f);
+      float u = 0.f;
+      if (row < n_valid && k < width) {
+        u = to_float(src[(long long)row * width + k]);
+        if (aff_a) u = __fadd_rn(__fmul_rn(u, aff_a[k]), aff_b[k]);  // no FMA: the plain rounding
+      }
+      v[i] = __float2bfloat16_rn(u);
     }
     *reinterpret_cast<uint4*>(tile + a_tile_offset(row0 + row, k_off + 8 * j)) =
         *reinterpret_cast<const uint4*>(v);
@@ -186,16 +211,16 @@ __device__ __forceinline__ char* ring_acquire(const Ring& r, int s) {
   return r.slots + slot * r.slot_bytes;
 }
 
-// Producer lane: the B boxes of one stage, columns [0, n) of K rows [k0, k0
-// + 64) of a row-major (K x N) bf16 matrix, 64 columns a box (z >= 0: of
-// matrix z of a 3-D map), announced on bar
+// Producer lane: the B boxes of one stage, columns [n0, n0 + n) of K rows
+// [k0, k0 + 64) of a row-major (K x N) bf16 matrix, 64 columns a box (z >=
+// 0: of matrix z of a 3-D map), announced on bar
 __device__ __forceinline__ void load_b_boxes(char* dst, const CUtensorMap* map, uint64_t* bar,
-                                             int n, int k0, int z) {
+                                             int n, int k0, int z, int n0 = 0) {
   const int boxes = (n + 63) / 64;
   mbar_expect_tx(bar, boxes * CH_BOX);
   for (int b = 0; b < boxes; ++b) {
-    if (z >= 0) tma_load_3d(dst + b * CH_BOX, map, bar, 64 * b, k0, z);
-    else tma_load_2d(dst + b * CH_BOX, map, bar, 64 * b, k0);
+    if (z >= 0) tma_load_3d(dst + b * CH_BOX, map, bar, n0 + 64 * b, k0, z);
+    else tma_load_2d(dst + b * CH_BOX, map, bar, n0 + 64 * b, k0);
   }
 }
 
@@ -228,14 +253,16 @@ __device__ __forceinline__ void load_raw(const Ring& r, int s, char* sb, const v
 
 // Consumers of row half m (two warpgroups): its raw rows (ring stage s + m;
 // src: the half's first row in device memory, n_rows valid) into rows [64
-// m, 64 m + 64), columns [k_off, k_off + width) of the A tile.  Every warp
-// waits for both stages in turn and releases each: a warp that skipped one
-// of a slot's phases could later take the next phase's parity for done.
+// m, 64 m + 64), columns [k_off, k_off + width) of the A tile (through the
+// affine aff_a, aff_b when given: rows_to_a_tile).  Every warp waits for
+// both stages in turn and releases each: a warp that skipped one of a
+// slot's phases could later take the next phase's parity for done.
 // Returns the ring stage after the two.
 template <typename IN_T>
 __device__ __forceinline__ int raw_to_a_tile(const Ring& r, int s, const Role& ro,
                                              const IN_T* src, int n_rows, int width, char* tile,
-                                             int k_off) {
+                                             int k_off, const float* aff_a = nullptr,
+                                             const float* aff_b = nullptr) {
   for (int h = 0; h < 2; ++h, ++s) {
     const int slot = s % r.stages;
     mbar_wait(r.full + slot, (s / r.stages) & 1);
@@ -243,7 +270,8 @@ __device__ __forceinline__ int raw_to_a_tile(const Ring& r, int s, const Role& r
       const bool bulk = raw_bytes(src, n_rows, width * (int)sizeof(IN_T), r.slot_bytes) > 0;
       rows_to_a_tile<IN_T>(bulk ? reinterpret_cast<const IN_T*>(r.slots + slot * r.slot_bytes)
                                 : src,
-                           n_rows, width, tile, 64 * ro.m, k_off, ro.n * 128 + ro.t, 256);
+                           n_rows, width, tile, 64 * ro.m, k_off, ro.n * 128 + ro.t, 256, aff_a,
+                           aff_b);
     }
     __syncwarp();
     if (threadIdx.x % 32 == 0) mbar_arrive(r.empty + slot);

@@ -85,12 +85,6 @@ struct EncArgs {
 
 enum PeMode { PE_NONE = 0, PE_BF16 = 1, PE_F32 = 2 };  // bf16 pe comes by TMA
 
-// byte offset of element (row, col) in a warpgroup's TMA-loaded bf16 pe:
-// 64-column boxes of 64 rows, 128-byte rows in the 128-byte swizzle
-__device__ __forceinline__ int box_offset(int row, int col) {
-  return (col / 64) * CH_BOX + row * 128 + ((((col % 64) / 8) ^ (row & 7)) * 16) + (col % 8) * 2;
-}
-
 template <typename IN_T, int PE>
 CH_KERNEL
     enc_mlp(const __grid_constant__ CUtensorMap w1_map,

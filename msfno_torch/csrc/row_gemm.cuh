@@ -8,7 +8,12 @@
 // MN-major, boxes of 64 x 64), both in the 128-byte swizzle that wgmma
 // reads.  With B_T, B is given as its (N x K) row-major transpose and read
 // K-major (boxes of 128 N x 64 K, the A tile's layout): the product with a
-// stored matrix's transpose needs no transposed copy.  Two consumer warpgroups own 64 rows each and
+// stored matrix's transpose needs no transposed copy.  With A_T, A is given
+// as its (K x M) row-major transpose and read MN-major (boxes of 64 M x 64
+// K, the B tile's layout): x^T dsup of the GCN backward needs no copy of
+// x^T.  blockIdx.z splits K into ranges of k_split (a multiple of WGM_BK):
+// split z writes its partial product through the epilogue, which reads
+// blockIdx.z.  Two consumer warpgroups own 64 rows each and
 // issue WGM_BN / 128 m64n128k16 wgmmas per K-step of 16, keeping one
 // stage's wgmmas in flight while they wait for the next (a stage is
 // released one stage late).  The
@@ -117,7 +122,7 @@ __device__ __forceinline__ int acc_col(int q, int e) {
 
 // The consumer warpgroups of wgmma_gemm: warpgroup g owns rows [m0 + 64 g,
 // m0 + 64 g + 64) of the tile; hands each accumulator fragment to `epi`.
-template <bool B_T, class Epi>
+template <bool B_T, bool A_T, class Epi>
 __device__ __forceinline__ void consume(char* smem, uint64_t* full, uint64_t* empty, int m,
                                         int n, int n_k, int m0, int n0, int warp, int lane,
                                         const Epi& epi) {
@@ -137,13 +142,14 @@ __device__ __forceinline__ void consume(char* smem, uint64_t* full, uint64_t* em
     for (int i = 0; i < WGM_NB; ++i) fence_operand(acc[i]);
 #pragma unroll
     for (int ks = 0; ks < WGM_BK / 16; ++ks) {
-      const uint64_t da = wgmma_desc(sb + g * 8192 + ks * 32, 16, 1024);
+      const uint64_t da = A_T ? wgmma_desc(sb + g * 8192 + ks * 2048, 8192, 1024)
+                              : wgmma_desc(sb + g * 8192 + ks * 32, 16, 1024);
 #pragma unroll
       for (int i = 0; i < WGM_NB; ++i) {
         const uint64_t db =
             B_T ? wgmma_desc(sb + WGM_A_BYTES + i * 16384 + ks * 32, 16, 1024)
                 : wgmma_desc(sb + WGM_A_BYTES + 2 * i * 8192 + ks * 2048, 8192, 1024);
-        wgmma_m64n128k16<B_T ? 0 : 1>(acc[i], da, db, (s > 0 || ks > 0) ? 1 : 0);
+        wgmma_m64n128k16<B_T ? 0 : 1, A_T ? 1 : 0>(acc[i], da, db, (s > 0 || ks > 0) ? 1 : 0);
       }
     }
     wgmma_commit();
@@ -163,10 +169,11 @@ __device__ __forceinline__ void consume(char* smem, uint64_t* full, uint64_t* em
     if (n0 + 128 * i < n) epi(acc[i], row0, rows, n0 + 128 * i);
 }
 
-template <class Epi, bool B_T>
+template <class Epi, bool B_T, bool A_T>
 __global__ void __launch_bounds__(WGM_THREADS, 1)
     wgmma_gemm(const __grid_constant__ CUtensorMap a_map,
-               const __grid_constant__ CUtensorMap b_map, int m, int n, int k, Epi epi) {
+               const __grid_constant__ CUtensorMap b_map, int m, int n, int k, int k_split,
+               Epi epi) {
   extern __shared__ char smem_raw[];
   char* smem = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                        ~static_cast<uintptr_t>(1023));
@@ -174,7 +181,8 @@ __global__ void __launch_bounds__(WGM_THREADS, 1)
   uint64_t* empty = full + WGM_STAGES;
   const int n0 = blockIdx.x * WGM_BN;
   const int m0 = blockIdx.y * WGM_BM;
-  const int n_k = (k + WGM_BK - 1) / WGM_BK;
+  const int k0 = blockIdx.z * k_split;  // this split's K range: [k0, k0 + k_split)
+  const int n_k = (max(min(k_split, k - k0), 0) + WGM_BK - 1) / WGM_BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < WGM_STAGES; ++s) {
@@ -194,40 +202,48 @@ __global__ void __launch_bounds__(WGM_THREADS, 1)
         if (s >= WGM_STAGES) mbar_wait(empty + slot, (s / WGM_STAGES - 1) & 1);
         if (lane == 0) {
           mbar_expect_tx(full + slot, WGM_SLOT);
-          tma_load_2d(sb, &a_map, full + slot, s * WGM_BK, m0);
+          const int kk = k0 + s * WGM_BK;
+          if (A_T) {
+            tma_load_2d(sb, &a_map, full + slot, m0, kk);
+            tma_load_2d(sb + 8192, &a_map, full + slot, m0 + 64, kk);
+          } else {
+            tma_load_2d(sb, &a_map, full + slot, kk, m0);
+          }
           if (B_T) {
 #pragma unroll
             for (int b = 0; b < WGM_BN / 128; ++b)
-              tma_load_2d(sb + WGM_A_BYTES + b * 16384, &b_map, full + slot, s * WGM_BK,
-                          n0 + 128 * b);
+              tma_load_2d(sb + WGM_A_BYTES + b * 16384, &b_map, full + slot, kk, n0 + 128 * b);
           } else {
 #pragma unroll
             for (int b = 0; b < WGM_BN / 64; ++b)
-              tma_load_2d(sb + WGM_A_BYTES + b * 8192, &b_map, full + slot, n0 + 64 * b,
-                          s * WGM_BK);
+              tma_load_2d(sb + WGM_A_BYTES + b * 8192, &b_map, full + slot, n0 + 64 * b, kk);
           }
         }
         __syncwarp();
       }
     }
   } else {
-    consume<B_T>(smem, full, empty, m, n, n_k, m0, n0, warp, lane, epi);
+    consume<B_T, A_T>(smem, full, empty, m, n, n_k, m0, n0, warp, lane, epi);
   }
 }
 
-// C = epi(A @ B): a (m x k, leading dimension lda), b (k x n, ldb; with B_T
-// its transpose, n x k), bf16, 16-byte aligned, lda and ldb multiples of 8.
-// Returns a CUDA error code.
-template <class Epi, bool B_T = false>
+// C = epi(A @ B): a (m x k, leading dimension lda; with A_T its transpose,
+// k x m), b (k x n, ldb; with B_T its transpose, n x k), bf16, 16-byte
+// aligned, lda and ldb multiples of 8.  `splits` > 1 splits K into that
+// many ranges of whole stages (blockIdx.z; a split past the end writes
+// zeros).  Returns a CUDA error code.
+template <class Epi, bool B_T = false, bool A_T = false>
 int wgmma_gemm_launch(const void* a, long long lda, const void* b, long long ldb, int m, int n,
-                      int k, const Epi& epi, cudaStream_t stream) {
+                      int k, const Epi& epi, cudaStream_t stream, int splits = 1) {
   if (m < 1 || n < 1 || k < 1 || lda % 8 || ldb % 8 || reinterpret_cast<uintptr_t>(a) % 16 ||
-      reinterpret_cast<uintptr_t>(b) % 16 || (m + WGM_BM - 1) / WGM_BM > 65535)
+      reinterpret_cast<uintptr_t>(b) % 16 || (m + WGM_BM - 1) / WGM_BM > 65535 || splits < 1 ||
+      splits > 65535)
     return (int)cudaErrorInvalidValue;
+  const int k_split = ((k + splits - 1) / splits + WGM_BK - 1) / WGM_BK * WGM_BK;
   CUtensorMap a_map, b_map;
-  const uint64_t a_dims[2] = {(uint64_t)k, (uint64_t)m};
+  const uint64_t a_dims[2] = {(uint64_t)(A_T ? m : k), (uint64_t)(A_T ? k : m)};
   const uint64_t a_strides[1] = {(uint64_t)lda * 2};
-  const uint32_t a_box[2] = {WGM_BK, WGM_BM};
+  const uint32_t a_box[2] = {A_T ? 64u : (uint32_t)WGM_BK, A_T ? (uint32_t)WGM_BK : WGM_BM};
   int err = make_tensor_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, a_dims, a_strides,
                             a_box, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
@@ -239,14 +255,15 @@ int wgmma_gemm_launch(const void* a, long long lda, const void* b, long long ldb
   if (err) return err;
   static bool smem_set = false;  // once per instantiation
   if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(wgmma_gemm<Epi, B_T>,
+    const cudaError_t e = cudaFuncSetAttribute(wgmma_gemm<Epi, B_T, A_T>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                WGM_SMEM);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
-  dim3 grid((n + WGM_BN - 1) / WGM_BN, (m + WGM_BM - 1) / WGM_BM);
-  wgmma_gemm<Epi, B_T><<<grid, WGM_THREADS, WGM_SMEM, stream>>>(a_map, b_map, m, n, k, epi);
+  dim3 grid((n + WGM_BN - 1) / WGM_BN, (m + WGM_BM - 1) / WGM_BM, splits);
+  wgmma_gemm<Epi, B_T, A_T><<<grid, WGM_THREADS, WGM_SMEM, stream>>>(a_map, b_map, m, n, k,
+                                                                     k_split, epi);
   return (int)cudaGetLastError();
 }
 

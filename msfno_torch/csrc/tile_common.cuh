@@ -1,11 +1,8 @@
 // Device pieces shared by the kernels of msfno_torch/csrc: activation loads,
-// cp.async copies, bf16 WMMA tile GEMMs with fp32 accumulation, row-tile
-// staging into shared memory, the exact GELU and its derivative, the first
-// MLP layer into a bf16 hidden tile, the fixed-order reduces of per-block
-// partials, a split-K bf16 GEMM for the backward kernels' weight gradients,
-// and (at the end) Hopper's pieces: TMA tensor maps and bulk copies,
-// mbarrier rings, named barriers and bf16 wgmma with its shared-memory
-// descriptors.
+// cp.async copies, the fixed-order reduces of per-block partials, a split-K
+// bf16 WMMA GEMM (the tail's backward weight gradients), and (at the end)
+// Hopper's pieces: TMA tensor maps and bulk copies, mbarrier rings, named
+// barriers and bf16 wgmma with its shared-memory descriptors.
 
 #pragma once
 
@@ -21,9 +18,6 @@ namespace {
 
 using namespace nvcuda;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 __device__ __forceinline__ float load_act(const void* p, long long i, int bf16) {
@@ -46,274 +40,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-__device__ __forceinline__ float gelu_exact(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// d/dv gelu_exact(v) = Phi(v) + v * phi(v)
-__device__ __forceinline__ float gelu_exact_grad(float v) {
-  const float cdf = 0.5f * (1.f + erff(v * 0.70710678118654752f));
-  return cdf + v * 0.3989422804014327f * expf(-0.5f * v * v);
-}
-
-// acc[i] = a_smem[i-th row tile] @ b_global[:, col0:col0+16] over k_dim;
-// PREFETCH weight fragments are in flight from L2 at any time
-template <int ROW_TILES, int PREFETCH>
-__device__ __forceinline__ void tile_gemm(FragC (&acc)[ROW_TILES],
-                                          const __nv_bfloat16* a_smem, int lda,
-                                          const __nv_bfloat16* b, int ldb, int col0,
-                                          int k_dim) {
-#pragma unroll
-  for (int i = 0; i < ROW_TILES; ++i) wmma::fill_fragment(acc[i], 0.f);
-  FragB bq[PREFETCH];
-#pragma unroll
-  for (int u = 0; u < PREFETCH; ++u)
-    if (u * 16 < k_dim) wmma::load_matrix_sync(bq[u], b + (long long)u * 16 * ldb + col0, ldb);
-  for (int k0 = 0; k0 < k_dim; k0 += 16 * PREFETCH) {
-#pragma unroll
-    for (int u = 0; u < PREFETCH; ++u) {
-      const int k = k0 + u * 16;
-      if (k < k_dim) {
-#pragma unroll
-        for (int i = 0; i < ROW_TILES; ++i) {
-          FragA a;
-          wmma::load_matrix_sync(a, a_smem + i * 16 * lda + k, lda);
-          wmma::mma_sync(acc[i], a, bq[u], acc[i]);
-        }
-        const int kn = k + 16 * PREFETCH;
-        if (kn < k_dim)
-          wmma::load_matrix_sync(bq[u], b + (long long)kn * ldb + col0, ldb);
-      }
-    }
-  }
-}
-
-// Copies rows [0, rows) x columns [0, c) of a row-major (., c) tile that
-// starts at element `base` of `src` into shared columns [col0, col0 + c),
-// rounded to bf16, optionally through the per-channel affine x * aff_a +
-// aff_b (aff_b null: scale only).  The tile is one contiguous run of
-// rows * c values, read as 16-byte vectors when aligned, four in flight.
-template <bool BF16>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* xs, int ldx, int col0,
-                                           const void* src, long long base, int rows,
-                                           int c, const float* aff_a, const float* aff_b) {
-  constexpr int vw = BF16 ? 8 : 4;  // values per 16-byte vector
-  const int count = rows * c;
-  const char* p0 = reinterpret_cast<const char*>(src) + base * (BF16 ? 2 : 4);
-  const bool vec = reinterpret_cast<uintptr_t>(p0) % 16 == 0;
-  const int n_vec = vec ? count / vw : 0;
-#pragma unroll 4
-  for (int v = threadIdx.x; v < n_vec; v += blockDim.x) {
-    const uint4 raw = reinterpret_cast<const uint4*>(p0)[v];
-    float vals[vw];
-    if constexpr (BF16) {
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vals[e] = __bfloat162float(h[e]);
-    } else {
-      const float* f = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) vals[e] = f[e];
-    }
-#pragma unroll
-    for (int e = 0; e < vw; ++e) {
-      const int idx = v * vw + e;
-      const int r = idx / c, k = idx - r * c;
-      float x = vals[e];
-      if (aff_a) x = x * aff_a[k] + (aff_b ? aff_b[k] : 0.f);
-      xs[r * ldx + col0 + k] = __float2bfloat16_rn(x);
-    }
-  }
-  for (int idx = n_vec * vw + threadIdx.x; idx < count; idx += blockDim.x) {
-    const int r = idx / c, k = idx - r * c;
-    float x = load_act(src, base + idx, BF16);
-    if (aff_a) x = x * aff_a[k] + (aff_b ? aff_b[k] : 0.f);
-    xs[r * ldx + col0 + k] = __float2bfloat16_rn(x);
-  }
-}
-
-// First MLP layer of a (16 * ROW_TILES)-row tile: hs = bf16(gelu(xs @ w1 +
-// b1)), w1 (k1p, hidden) bf16 with leading dimension ldw, in device or
-// shared memory.  The block's n_warps warps split the hidden column tiles;
-// `my` is the warp's 256-float scratch.
-template <int ROW_TILES, int PREFETCH>
-__device__ __forceinline__ void mlp_hidden(const __nv_bfloat16* xs, int ldx, int k1p,
-                                           const __nv_bfloat16* w1, int ldw, const float* b1,
-                                           int hidden, __nv_bfloat16* hs, int ldh,
-                                           float* my, int warp, int lane, int n_warps) {
-  for (int ct = warp; ct < hidden / 16; ct += n_warps) {
-    FragC acc[ROW_TILES];
-    tile_gemm<ROW_TILES, PREFETCH>(acc, xs, ldx, w1, ldw, ct * 16, k1p);
-#pragma unroll
-    for (int i = 0; i < ROW_TILES; ++i) {
-      wmma::store_matrix_sync(my, acc[i], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = i * 16 + e / 16;
-        const int col = ct * 16 + (e % 16);
-        hs[row * ldh + col] = __float2bfloat16_rn(gelu_exact(my[e] + b1[col]));
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// Copies the (rows, cols) bf16 block at `src` (leading dimension lds) into
-// shared memory with leading dimension ldd, as 16-byte vectors: cols, lds,
-// ldd and the source offset are multiples of 8 elements.
-__device__ __forceinline__ void copy_tile_bf16(__nv_bfloat16* dst, int ldd,
-                                               const __nv_bfloat16* src, long long lds,
-                                               int rows, int cols) {
-  const int vpr = cols / 8;  // vectors per row
-  for (int v = threadIdx.x; v < rows * vpr; v += blockDim.x) {
-    const int r = v / vpr, c = (v - r * vpr) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) =
-        *reinterpret_cast<const uint4*>(src + r * lds + c);
-  }
-}
-
-// Weight rows [k0, k0 + KS) of a (k_dim, n_dim) bf16 matrix into a shared
-// slab with leading dimension ldb, as 16-byte cp.async copies (n_dim is a
-// multiple of 8); commits the group.
-template <int KS>
-__device__ __forceinline__ void stage_weight_rows(const __nv_bfloat16* w, int k0, int n_dim,
-                                                  __nv_bfloat16* slab, int ldb) {
-  const int vpr = n_dim / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < KS * vpr; i += blockDim.x) {
-    const int r = i / vpr, c = (i - r * vpr) * 8;
-    cp_async16(slab + r * ldb + c, w + (long long)(k0 + r) * n_dim + c, 16);
-  }
-  cp_async_commit();
-}
-
-// Rows [row0, row0 + TILE_ROWS) of a (2, n_rows, c) fp32 [re, im] pair as
-// bf16 [re | im] shared rows with leading dimension ld; rows past `rows`
-// are zero.  The rows are one contiguous, 16-byte aligned run of each half,
-// read as float4 (c is a multiple of 4).
-template <int TILE_ROWS>
-__device__ __forceinline__ void stage_complex_rows(const float* re, const float* im,
-                                                   long long row0, int rows, int c,
-                                                   __nv_bfloat16* dst, int ld) {
-  const float4* vr4 = reinterpret_cast<const float4*>(re + row0 * c);
-  const float4* vi4 = reinterpret_cast<const float4*>(im + row0 * c);
-  for (int v = threadIdx.x; v < TILE_ROWS * c / 4; v += blockDim.x) {
-    const int r = (4 * v) / c;
-    const int col = 4 * v - r * c;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (r < rows) {
-      a = vr4[v];
-      b = vi4[v];
-    }
-    __nv_bfloat16* p = dst + r * ld + col;
-    p[0] = __float2bfloat16_rn(a.x); p[1] = __float2bfloat16_rn(a.y);
-    p[2] = __float2bfloat16_rn(a.z); p[3] = __float2bfloat16_rn(a.w);
-    p += c;
-    p[0] = __float2bfloat16_rn(b.x); p[1] = __float2bfloat16_rn(b.y);
-    p[2] = __float2bfloat16_rn(b.z); p[3] = __float2bfloat16_rn(b.w);
-  }
-}
-
-// The inverse longitude DFT of a (16 * ROW_TILES)-pixel chunk of one
-// latitude row: acc[i][u] = Mt[w0 + 16 i .., :] @ t[:, 16 ct ..] over K =
-// m2p, ct = warp + u * n_warps (< c / 16).  t: the row's (m2p, c) bf16
-// operand in device memory; mt: (w_pad, m2p) bf16.  K-slabs of SLAB rows of
-// t (into ts, leading dimension ldt) and of the chunk's Mt (into ms,
-// leading dimension SLAB + 8) go through shared memory by cp.async.  Starts
-// and ends with every thread past its shared reads (a barrier before the
-// first copy; the caller syncs before reusing ts or ms).
-template <int ROW_TILES, int XCT, int SLAB>
-__device__ __forceinline__ void chunk_inverse_dft(FragC (&acc)[ROW_TILES][XCT],
-                                                  const __nv_bfloat16* t, const __nv_bfloat16* mt,
-                                                  int w0, int m2p, int c, __nv_bfloat16* ts,
-                                                  int ldt, __nv_bfloat16* ms, int warp,
-                                                  int n_warps) {
-  constexpr int LDM = SLAB + 8;
-  const int n_xct = c / 16;
-#pragma unroll
-  for (int i = 0; i < ROW_TILES; ++i)
-#pragma unroll
-    for (int u = 0; u < XCT; ++u) wmma::fill_fragment(acc[i][u], 0.f);
-  for (int k0 = 0; k0 < m2p; k0 += SLAB) {
-    const int kn = min(SLAB, m2p - k0);
-    __syncthreads();  // the previous slab is no longer read
-    const __nv_bfloat16* tsrc = t + (long long)k0 * c;
-    const int tv = c / 8;
-    for (int v = threadIdx.x; v < kn * tv; v += blockDim.x) {
-      const int r = v / tv, q = (v - r * tv) * 8;
-      cp_async16(ts + r * ldt + q, tsrc + (long long)r * c + q, 16);
-    }
-    const __nv_bfloat16* msrc = mt + (long long)w0 * m2p + k0;
-    const int mv = kn / 8;
-    for (int v = threadIdx.x; v < 16 * ROW_TILES * mv; v += blockDim.x) {
-      const int r = v / mv, q = (v - r * mv) * 8;
-      cp_async16(ms + r * LDM + q, msrc + (long long)r * m2p + q, 16);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int k = 0; k < kn; k += 16) {
-      FragA ma[ROW_TILES];
-#pragma unroll
-      for (int i = 0; i < ROW_TILES; ++i)
-        wmma::load_matrix_sync(ma[i], ms + i * 16 * LDM + k, LDM);
-#pragma unroll
-      for (int u = 0; u < XCT; ++u) {
-        const int ct = warp + u * n_warps;
-        if (ct < n_xct) {
-          FragB tb;
-          wmma::load_matrix_sync(tb, ts + k * ldt + ct * 16, ldt);
-#pragma unroll
-          for (int i = 0; i < ROW_TILES; ++i) wmma::mma_sync(acc[i][u], ma[i], tb, acc[i][u]);
-        }
-      }
-    }
-  }
-}
-
-// The big-skip MLP's input tile of a chunk: columns [0, c) bf16(x * sa +
-// sb) from the inverse-DFT accumulators (sa null: x + sb), columns [cmp,
-// cmp + s) bf16(skip) of the chunk's `rows` pixels (skip rows start at
-// element skip0), zeros elsewhere and in the skip rows past `rows`.  `my`
-// is the warp's 256-float scratch.  The caller syncs before reading xs.
-template <int ROW_TILES, int XCT>
-__device__ __forceinline__ void stage_decoder_input(
-    __nv_bfloat16* xs, int ldx, FragC (&acc)[ROW_TILES][XCT], const float* sa, const float* sb,
-    int c, int cmp, int s, int k1p, const void* skip, int skip_bf16, long long skip0, int rows,
-    float* my, int warp, int lane, int n_warps) {
-  const int n_xct = c / 16;
-#pragma unroll
-  for (int u = 0; u < XCT; ++u) {
-    const int ct = warp + u * n_warps;
-    if (ct >= n_xct) continue;
-#pragma unroll
-    for (int i = 0; i < ROW_TILES; ++i) {
-      wmma::store_matrix_sync(my, acc[i][u], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = i * 16 + e / 16;
-        const int col = ct * 16 + (e % 16);
-        const float x = sa ? my[e] * sa[col] : my[e];
-        xs[row * ldx + col] = __float2bfloat16_rn(x + sb[col]);
-      }
-      __syncwarp();
-    }
-  }
-  const int skip_end = cmp + s;
-  for (int idx = threadIdx.x; idx < 16 * ROW_TILES * (k1p - c); idx += blockDim.x) {
-    const int r = idx / (k1p - c);
-    const int k = c + (idx - r * (k1p - c));
-    if (k < cmp || k >= skip_end || r >= rows) xs[r * ldx + k] = __float2bfloat16_rn(0.f);
-  }
-  if (skip_bf16)
-    stage_tile<true>(xs, ldx, cmp, skip, skip0, rows, s, nullptr, nullptr);
-  else
-    stage_tile<false>(xs, ldx, cmp, skip, skip0, rows, s, nullptr, nullptr);
-}
-
 // Adds each sample's per-block column partials (n_samples, n_blocks, c_out)
 // in a fixed order: thread (tx, ty) sums blocks ty, ty + 8, ... of column
 // bx*32 + tx, then the 8 partial sums are added in ty order.  Launch with
-// grid ((c_out + 31) / 32, n_samples) and block (32, 8).
+// grid ((c_out + 31) / 32, n_samples) and block (32, 8).  part_sq and ssq
+// may be null: one sum only.
 __global__ void stats_reduce(const float* __restrict__ part_sum,
                              const float* __restrict__ part_sq,
                              int n_blocks, int c_out,
@@ -327,7 +58,7 @@ __global__ void stats_reduce(const float* __restrict__ part_sum,
     for (int i = threadIdx.y; i < n_blocks; i += 8) {
       const long long j = ((long long)s * n_blocks + i) * c_out + c;
       a += part_sum[j];
-      b += part_sq[j];
+      if (part_sq) b += part_sq[j];
     }
   }
   sh_sum[threadIdx.y][threadIdx.x] = a;
@@ -340,7 +71,7 @@ __global__ void stats_reduce(const float* __restrict__ part_sum,
       tb += sh_sq[t][threadIdx.x];
     }
     ssum[(long long)s * c_out + c] = ta;
-    ssq[(long long)s * c_out + c] = tb;
+    if (ssq) ssq[(long long)s * c_out + c] = tb;
   }
 }
 
@@ -363,7 +94,7 @@ __global__ void tile_reduce(const float* __restrict__ part_sum,
     for (int i = grp * per + threadIdx.y; i < t1; i += 8) {
       const long long j = ((long long)b * tiles + i) * c + col;
       s += part_sum[j];
-      q += part_sq[j];
+      if (part_sq) q += part_sq[j];
     }
   }
   sh_sum[threadIdx.y][threadIdx.x] = s;
@@ -377,7 +108,7 @@ __global__ void tile_reduce(const float* __restrict__ part_sum,
     }
     const long long o = ((long long)b * gridDim.z + grp) * c + col;
     grp_sum[o] = ts;
-    grp_sq[o] = tq;
+    if (grp_sq) grp_sq[o] = tq;
   }
 }
 
@@ -638,10 +369,11 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 
 // d (64 x 128 fp32, the warpgroup's accumulator fragment) (+)= A (64 x 16
 // bf16) @ B (16 x 128 bf16), both from shared memory by descriptor: A
-// K-major, B K-major (TRANS_B 0) or MN-major (TRANS_B 1); scale_d 0
-// overwrites d.  Thread t of the warpgroup holds d[4q + 2h + e] at row 16
-// (t / 32) + (t % 32) / 4 + 8 h, column 8 q + 2 (t % 4) + e.
-template <int TRANS_B>
+// K-major (TRANS_A 0) or MN-major (TRANS_A 1), B K-major (TRANS_B 0) or
+// MN-major (TRANS_B 1); scale_d 0 overwrites d.  Thread t of the warpgroup
+// holds d[4q + 2h + e] at row 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 q +
+// 2 (t % 4) + e.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
                                                  int scale_d) {
   asm volatile(
@@ -651,7 +383,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -663,12 +395,12 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // the m64n64k16 form of wgmma_m64n128k16: d is the warpgroup's 64 x 64
 // fragment (32 registers a thread), the same layout for q < 8
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
                                                 int scale_d) {
   asm volatile(
@@ -676,14 +408,14 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // Host: a TMA tensor map (CUtensorMap) of a `rank`-dimensional array at

@@ -147,6 +147,39 @@ def reference_vjp(fn, inputs, needs, grads):
     return out
 
 
+def strided_sum(part: torch.Tensor) -> torch.Tensor:
+    """(B, n, C) -> (B, C) in the order of `stats_reduce` (csrc/tile_common.cuh),
+    the kernels' fixed-order reduce of per-block partials: rows i, i + 8, ...
+    for each i < 8, then the 8 sums in order.  A plain mirror for the
+    tests."""
+    lanes = part.new_zeros((part.shape[0], 8, part.shape[2]))
+    for i in range(part.shape[1]):
+        lanes[:, i % 8] += part[:, i]
+    out = part.new_zeros((part.shape[0], part.shape[2]))
+    for i in range(8):
+        out += lanes[:, i]
+    return out
+
+
+REDUCE_GROUPS = 64  # runs of partials the kernels add first, then add the runs
+
+
+def reduce_groups(n: int) -> tuple[int, int]:
+    """(runs, partials per run) of the kernels' two-level sum of n partials
+    (`tile_reduce`, then `stats_reduce`)."""
+    per = -(-n // min(REDUCE_GROUPS, n))
+    return -(-n // per), per
+
+
+def tile_stats_reduce(part: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of the kernels' two-level fixed-order sum of their (B, n,
+    C) partials (tests only): each run of partials (`reduce_groups`) in
+    `stats_reduce`'s order, then the runs in that order."""
+    groups, per = reduce_groups(part.shape[1])
+    runs = [strided_sum(part[:, g * per:(g + 1) * per]) for g in range(groups)]
+    return strided_sum(torch.stack(runs, dim=1))
+
+
 def _wrappers() -> dict:
     import importlib
 

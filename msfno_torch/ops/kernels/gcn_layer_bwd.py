@@ -11,7 +11,10 @@ forward y = residual + leaky_relu((box3(x @ W * d) * d + b) * mask, slope):
 with dsup, W and x rounded to the matmul operand dtype before the products,
 fp32 accumulation.  The residual's cotangent is g itself (the caller's).
 Bound on the H100 at a 512 -> 512 layer: memory traffic on bf16 operands,
-fp32 FMA operations on fp32 operands (see the kernel source).
+fp32 FMA operations on fp32 operands (see the kernel source).  The kernel
+walks strips of latitude rows for dsup and splits dW over pixel ranges;
+`dsup_strip_walk`, `dw_split_k` and `gcn_layer_bwd_passes` are plain
+mirrors of that decomposition (tests only).
 """
 
 from __future__ import annotations
@@ -20,13 +23,21 @@ import ctypes
 
 import torch
 
-from msfno_torch.ops.kernels import check, library, stream_ptr
+from msfno_torch.ops.kernels import (check, library, reduce_groups, stream_ptr,
+                                     tile_stats_reduce)
 from msfno_torch.ops.kernels.gcn_layer import _act, _fp32_operands, box3
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
 
-_SM_WAVE = 4 * 132  # blocks that fill the card's SMs a few times over
+STRIP_ROWS = 8  # latitude rows a block of the dsup pass emits (DS_ROWS, gcn_layer_bwd.cu)
+SEGMENT = 30  # longitudes a block of the dsup pass emits (DS_PIX - 2)
+SPLIT_CHUNK = 64  # the dW split ranges are whole K stages of this many pixels (WGM_BK)
+# the dW GEMM's output tile: wgmma_gemm's 128 x 256 (bf16 operands), one
+# block an SM, splits x tiles at most the card's 132 SMs, one wave (against
+# two: half the partials to add, the same GEMM time); gemm_f32's 128 x 128
+# (fp32), two blocks an SM, at least two waves
+_DW_TILE = {False: (128, 256), True: (128, 128)}
 
 
 def gcn_layer_bwd_reference(g, y, residual, x, w, dinv, mask, slope=0.01,
@@ -36,14 +47,106 @@ def gcn_layer_bwd_reference(g, y, residual, x, w, dinv, mask, slope=0.01,
     C_in); w: (C_in, F); dinv, mask: (B, H, W, 1).  Returns (dx (B, H, W,
     C_in), dw (C_in, F), db (F,)), all fp32."""
     c_in, f = w.shape
-    yr = y.float() - (residual.float() if residual is not None else 0.0)
-    act = torch.where(yr >= 0, 1.0, slope)
     d = dinv.float()
-    dagg = g.float() * act * mask.float()
+    dagg = _dagg(g, y, residual, mask, slope)
     dsup = mxu_round(box3(dagg * d) * d, mxu_dtype)
     dx = dsup @ mxu_round(w, mxu_dtype).t()
     dw = mxu_round(x, mxu_dtype).reshape(-1, c_in).t() @ dsup.reshape(-1, f)
     return dx, dw, dagg.reshape(-1, f).sum(0)
+
+
+def _dagg(g, y, residual, mask, slope):
+    yr = y.float() - (residual.float() if residual is not None else 0.0)
+    return g.float() * torch.where(yr >= 0, 1.0, slope) * mask.float()
+
+
+def dsup_strip_walk(g, y, residual, x, dinv, mask, slope=0.01, mxu_dtype="bfloat16",
+                    strip=STRIP_ROWS, segment=SEGMENT):
+    """Plain mirror of the kernel's dsup pass (tests only): each strip of
+    `strip` latitude rows walks its rows with the halo row above and below,
+    dagg * d computed once a row and the two previous rows carried; a row's
+    vertical sum (own + above) + below, its longitude taps (own + left) +
+    right, times d, rounded to `mxu_dtype`.  Returns (dsup (B, H, W, F),
+    the column sums of dagg over each row's segments of `segment` longitudes
+    (B*H*segments, F) and, for c_in == 1, of bf16(x) * dsup (the same
+    shape), else None)."""
+    bsz, h, wd, f = g.shape
+    segs = -(-wd // segment)
+    dagg = _dagg(g, y, residual, mask, slope)
+    dbx = dagg * dinv.float()
+    xr = mxu_round(x, mxu_dtype).float() if x.shape[-1] == 1 else None
+    zero = torch.zeros_like(dbx[:, 0])
+    dsup = torch.empty_like(dbx)
+    part_db = torch.empty((bsz, h, segs, f))
+    part_dw = torch.empty((bsz, h, segs, f)) if xr is not None else None
+
+    def seg_sums(v):  # (B, W, F) -> (B, segments, F)
+        return torch.stack([v[:, s * segment:(s + 1) * segment].sum(1) for s in range(segs)], 1)
+
+    for r0 in range(0, h, strip):
+        r1 = min(h, r0 + strip)
+        prev = cur = zero
+        for j in range(r0 - 1, r1 + 1):
+            nxt = dbx[:, j] if 0 <= j < h else zero
+            if r0 <= j < r1:
+                part_db[:, j] = seg_sums(dagg[:, j])
+            if j > r0:
+                v = cur + prev + nxt
+                ds = mxu_round((v + torch.roll(v, 1, 1) + torch.roll(v, -1, 1))
+                               * dinv.float()[:, j - 1], mxu_dtype).float()
+                dsup[:, j - 1] = ds
+                if part_dw is not None:
+                    part_dw[:, j - 1] = seg_sums(xr[:, j - 1] * ds)
+            prev, cur = cur, nxt
+    flat = lambda t: t.reshape(-1, f) if t is not None else None  # noqa: E731
+    return dsup, flat(part_db), flat(part_dw)
+
+
+def dw_split_k(x, dsup, splits: int, chunk: int = SPLIT_CHUNK):
+    """Plain mirror of the kernel's dW (tests only): x^T dsup of (n, c_in) and
+    (n, F) over `splits` pixel ranges of ceil(n / splits) rounded up to a
+    multiple of `chunk` (a range past the end is empty), each an fp32
+    partial, added in order."""
+    n = x.shape[0]
+    k_split = -(-(-(-n // splits)) // chunk) * chunk
+    out = x.new_zeros((x.shape[1], dsup.shape[1]), dtype=torch.float32)
+    for z in range(splits):
+        xs, ds = x[z * k_split:(z + 1) * k_split], dsup[z * k_split:(z + 1) * k_split]
+        out = out + xs.float().t() @ ds.float()
+    return out
+
+
+def dw_splits(n_px: int, c_in: int, f: int, f32_ops: bool) -> int:
+    """The kernel's split count of dW over pixel ranges (see `_DW_TILE`),
+    each split at least 1024 pixels."""
+    if c_in == 1:
+        return 1
+    tm, tn = _DW_TILE[f32_ops]
+    tiles = -(-c_in // tm) * -(-f // tn)
+    splits = -(-4 * 132 // tiles) if f32_ops else 132 // tiles
+    return max(1, min(n_px // 1024, splits))
+
+
+def gcn_layer_bwd_passes(g, y, residual, x, w, dinv, mask, slope=0.01, mxu_dtype="bfloat16",
+                         strip=STRIP_ROWS, segment=SEGMENT, splits=None):
+    """Plain mirror of the kernel's passes (tests only): `dsup_strip_walk`,
+    dx = dsup W^T, dW by `dw_split_k` (c_in == 1: the per-row-segment
+    partials), the partials added in `tile_stats_reduce`'s order.  Returns
+    (dx, dw, db) as `gcn_layer_bwd`."""
+    c_in, f = w.shape
+    dsup, part_db, part_dw = dsup_strip_walk(g, y, residual, x, dinv, mask, slope, mxu_dtype,
+                                             strip, segment)
+    db = tile_stats_reduce(part_db[None])[0]
+    wr = mxu_round(w, mxu_dtype).float()
+    dx = dsup @ wr.t()
+    if c_in == 1:
+        return dx, tile_stats_reduce(part_dw[None]), db
+    n, f32_ops = dsup.numel() // f, _fp32_operands(mxu_dtype)
+    if splits is None:
+        splits = dw_splits(n, c_in, f, f32_ops)
+    xr = mxu_round(x, mxu_dtype).float().reshape(n, c_in)
+    # fp32 operands: the FMA GEMM splits K into ranges of ceil(n / splits)
+    return dx, dw_split_k(xr, dsup.reshape(n, f), splits, 1 if f32_ops else SPLIT_CHUNK), db
 
 
 def gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope: float = 0.01,
@@ -71,9 +174,11 @@ def gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope: float = 0.01,
         raise ValueError(f"gcn_layer_bwd: F {f} (and, on bf16 operands, C_in {c_in} > 1) "
                          "must be multiples of 8")
     dev = g.device
-    gk, g_bf16 = _act(g)
-    yk, y_bf16 = _act(y)
-    rk, r_bf16 = _act(residual) if residual is not None else (None, 0)
+    acts = [_act(t)[0] for t in (g, y, residual) if t is not None]
+    if len({t.dtype for t in acts}) > 1:  # the kernel reads them in one type
+        acts = [t.float() for t in acts]
+    gk, yk, rk = acts if residual is not None else (*acts, None)
+    act_bf16 = int(gk.dtype == torch.bfloat16)
     dk, d_bf16 = _act(dinv)
     mk = mask.to(dk.dtype).contiguous()
     op_dtype = torch.float32 if f32_ops else torch.bfloat16
@@ -84,27 +189,32 @@ def gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope: float = 0.01,
         xk, x_bf16 = _act(x)
         wk = w.to(op_dtype).reshape(1, f).contiguous()
     n_px = bsz * h * wd
-    tile = 128 if f32_ops else 64  # the dW GEMM's tile edge
-    tiles = -(-c_in // tile) * -(-f // tile)
-    splits = 1 if c_in == 1 else max(1, min(n_px // 1024, -(-_SM_WAVE // tiles)))
+    splits = dw_splits(n_px, c_in, f, f32_ops)
     dx = torch.empty((bsz, h, wd, c_in), device=dev) if need_dx else None
     dw = torch.empty((c_in, f), device=dev)
     db = torch.empty((f,), device=dev)
-    dsup = torch.empty((bsz, h, wd, f), dtype=op_dtype, device=dev)
-    part_db = torch.empty((bsz * h, f), device=dev)
-    part_dw = torch.empty((bsz * h, f) if c_in == 1 else (splits, c_in, f), device=dev)
-
+    # conv1 without dx needs no dsup: its dW comes from the dsup pass
+    dsup = (torch.empty((bsz, h, wd, f), dtype=op_dtype, device=dev)
+            if c_in > 1 or need_dx else None)
     lib = library("gcn_layer_bwd")
+    lib.gcn_layer_bwd_segments.argtypes = [ctypes.c_int]
+    lib.gcn_layer_bwd_segments.restype = ctypes.c_int
+    rows = bsz * h * lib.gcn_layer_bwd_segments(wd)  # the dsup pass's partials
+    groups, _ = reduce_groups(rows)
+    part_db = torch.empty((rows, f), device=dev)
+    part_dw = torch.empty((rows, f) if c_in == 1 else (splits, c_in, f), device=dev)
+    grp = torch.empty((2 if c_in == 1 else 1, groups, f), device=dev)
     lib.gcn_layer_bwd.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                                   ctypes.c_void_p]
     lib.gcn_layer_bwd.restype = ctypes.c_int
-    ptrs = (ctypes.c_void_p * 13)(*[
+    ptrs = (ctypes.c_void_p * 15)(*[
         t.data_ptr() if t is not None else None
-        for t in (gk, yk, rk, xk, wk, dk, mk, dx, dw, db, dsup, part_db, part_dw)
+        for t in (gk, yk, rk, xk, wk, dk, mk, dx, dw, db, dsup, part_db, part_dw, grp[0],
+                  grp[-1])
     ])
-    ints = (ctypes.c_longlong * 12)(bsz, h, wd, c_in, f, g_bf16, y_bf16, r_bf16, x_bf16,
-                                    d_bf16, splits, int(f32_ops))
+    ints = (ctypes.c_longlong * 11)(bsz, h, wd, c_in, f, act_bf16, x_bf16, d_bf16, splits,
+                                    int(f32_ops), groups)
     status = lib.gcn_layer_bwd(ptrs, ints, slope, stream_ptr(g))
     check(status, "gcn_layer_bwd")
     global LAUNCHES

@@ -31,7 +31,10 @@ import torch
 
 from msfno_torch.ops.kernels import check, library, reference_vjp, stream_ptr
 from msfno_torch.ops.kernels.dft_analysis import BF16_K, BF16_TILE, _ceil, aligned, check_operand
-from msfno_torch.ops.kernels.grid_mlp import _act, _pad16, grid_mlp_reference, prepare_weights
+# REDUCE_GROUPS and tile_stats_reduce are re-exported for the tail's modules and the tests
+from msfno_torch.ops.kernels import REDUCE_GROUPS, reduce_groups, tile_stats_reduce  # noqa: F401
+from msfno_torch.ops.kernels.grid_mlp import (TILE_ROWS, _act, _pad16, grid_mlp_reference,
+                                              prepare_weights)
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -40,8 +43,6 @@ LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_c
 # spectral_decoder_bwd.cu): the rows of their Mt operand are zero-padded to a
 # multiple of it
 DFT_ROW_MULTIPLE = 64
-TILE_ROWS = 128  # pixels per tile of the encoder MLP pass (CH_BM, chain_gemm.cuh)
-REDUCE_GROUPS = 64  # runs of partials the kernel adds first, then adds the runs
 
 
 def grid_encoder_spectral_reference(x, w1, b1, w2, pe, cs, mxu_dtype="bfloat16",
@@ -81,33 +82,6 @@ def encoder_mlp_tiles(x, w1, b1, w2, pe, mxu_dtype="bfloat16", tile=TILE_ROWS):
     for r in range(1, tile // 16):
         ps, pq = ps + s[:, :, r], pq + q[:, :, r]
     return mxu_round(y, mxu_dtype), ps, pq
-
-
-def _reduce_groups(n: int) -> tuple[int, int]:
-    """(runs, partials per run) of the kernel's two-level sum of n partials."""
-    per = -(-n // min(REDUCE_GROUPS, n))
-    return -(-n // per), per
-
-
-def _strided_sum(part: torch.Tensor) -> torch.Tensor:
-    """(B, n, C) -> (B, C) in `stats_reduce`'s order (tile_common.cuh):
-    rows i, i + 8, ... for each i < 8, then the 8 sums in order."""
-    lanes = part.new_zeros((part.shape[0], 8, part.shape[2]))
-    for i in range(part.shape[1]):
-        lanes[:, i % 8] += part[:, i]
-    out = part.new_zeros((part.shape[0], part.shape[2]))
-    for i in range(8):
-        out += lanes[:, i]
-    return out
-
-
-def tile_stats_reduce(part: torch.Tensor) -> torch.Tensor:
-    """Plain mirror of the kernel's fixed-order sum of its (B, n, C)
-    partials (tests only): each run of partials (`_reduce_groups`) in
-    `stats_reduce`'s order, then the runs in that order."""
-    groups, per = _reduce_groups(part.shape[1])
-    runs = [_strided_sum(part[:, g * per:(g + 1) * per]) for g in range(groups)]
-    return _strided_sum(torch.stack(runs, dim=1))
 
 
 def dft_pass(y, cs, w, mxu_dtype="bfloat16", out_dtype=None):
@@ -254,7 +228,7 @@ def _forward(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared):
     tiles = -(-h * w // TILE_ROWS)
     y = torch.empty((bsz, h * w, c), dtype=torch.bfloat16, device=dev)  # bf16 y, pass 1 -> 2
     f = torch.empty((bsz, h, two_m, c), dtype=od, device=dev)
-    groups, _ = _reduce_groups(tiles)
+    groups, _ = reduce_groups(tiles)
     part_sum = torch.empty((bsz, tiles, c), device=dev)
     part_sq = torch.empty_like(part_sum)
     grp_sum = torch.empty((bsz, groups, c), device=dev)

@@ -7,9 +7,14 @@ Replaces msfno_tpu/ops/pallas/grid_mlp.py:grid_mlp.  Per pixel:
 
 with optional per-sample sum(y) and sum(y^2) of the fp32 y before it is
 rounded to the output dtype.  Bound on the H100 at the full-resolution call
-sites: memory traffic (see the kernel source).  The JAX package has no
-backward kernel here: its gradient is the VJP of the fp32 pre-rounding
-reference (`_ref_mlp_f32`, grid_mlp.py:306-395), and so it is here.
+sites: memory traffic; at the inner block MLP: operations (see the kernel
+source).  The kernel walks tiles of 128 rows of one sample, runs a hidden
+width above 256 as two passes of the first GEMM, and adds per-tile
+statistics partials in a fixed order: `mlp_tiles` and
+`ops.kernels.tile_stats_reduce` are plain mirrors of that decomposition
+(tests only).  The JAX package has no backward kernel here: its gradient is
+the VJP of the fp32 pre-rounding reference (`_ref_mlp_f32`,
+grid_mlp.py:306-395), and so it is here.
 """
 
 from __future__ import annotations
@@ -19,10 +24,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from msfno_torch.ops.kernels import check, library, reference_vjp, stream_ptr
+from msfno_torch.ops.kernels import check, library, reduce_groups, reference_vjp, stream_ptr
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
+
+TILE_ROWS = 128  # rows a tile of the chained-GEMM kernels (CH_BM, chain_gemm.cuh)
+HIDDEN_PASS = 256  # the first GEMM's N a pass (GM_HALF, grid_mlp.cu)
 
 
 def _pad16(n: int) -> int:
@@ -77,6 +85,56 @@ def grid_mlp_reference(x, w1, b1, w2, b2=None, skip=None, pe=None,
         return out
     ys = y.reshape(-1, stats_rows, c_out)
     return out, ys.sum(1), (ys * ys).sum(1)
+
+
+def mlp_tiles(x, w1, b1, w2, b2=None, skip=None, pe=None, mxu_dtype="bfloat16",
+              stats_rows=None, affine=None, residual=None, tile=TILE_ROWS,
+              half=HIDDEN_PASS):
+    """Plain mirror of the kernel's tile chain (tests only): per sample (of
+    `stats_rows` rows, or of the affine's rows, else one), tiles of `tile`
+    consecutive rows, the last one ragged; the first GEMM in passes of
+    `half` hidden columns, the second GEMM over h's K-chunks in order, the
+    epilogue in the plain version's order.  Returns (y fp32 (rows, C_out);
+    each tile's column sums of y and y^2 over its groups of 16 rows, added in
+    order, each (samples, tiles, C_out))."""
+    _check_options(stats_rows, affine, pe, residual)
+    xf = _flat(x).float()
+    n, c_main = xf.shape
+    samples = (affine[0].shape[0] if affine is not None
+               else n // stats_rows if stats_rows is not None else 1)
+    rps = n // samples
+    hidden, c_out = w1.shape[1], w2.shape[1]
+    w1r, w2r = mxu_round(w1, mxu_dtype).float(), mxu_round(w2, mxu_dtype).float()
+    tiles = -(-rps // tile)
+    y = torch.empty((n, c_out))
+    part_sum = torch.zeros((samples, tiles, c_out))
+    part_sq = torch.zeros_like(part_sum)
+    for smp in range(samples):
+        for ti in range(tiles):
+            rows = slice(smp * rps + ti * tile, smp * rps + min(rps, (ti + 1) * tile))
+            u = xf[rows]
+            if affine is not None:
+                a, b = (t.reshape(samples, -1).float()[smp] for t in affine)
+                u = u * a + b
+            u = mxu_round(u, mxu_dtype).float()
+            if skip is not None:
+                u = torch.cat([u, mxu_round(_flat(skip)[rows], mxu_dtype).float()], dim=1)
+            hs = [F.gelu(u @ w1r[:, j:j + half] + b1.float()[j:j + half], approximate="none")
+                  for j in range(0, hidden, half)]
+            h = mxu_round(torch.cat(hs, dim=1), mxu_dtype).float()
+            yt = h @ w2r
+            if b2 is not None:
+                yt = yt + b2.float()
+            if pe is not None:
+                pf = _flat(pe).float()
+                yt = yt + pf[torch.arange(rows.start, rows.stop) % pf.shape[0]]
+            if residual is not None:
+                yt = yt + _flat(residual).float()[rows]
+            y[rows] = yt
+            for g in range(0, yt.shape[0], 16):
+                part_sum[smp, ti] += yt[g:g + 16].sum(0)
+                part_sq[smp, ti] += (yt[g:g + 16] * yt[g:g + 16]).sum(0)
+    return y, part_sum, part_sq
 
 
 def prepare_weights(w1, w2, c_main: int):
@@ -165,9 +223,14 @@ def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affi
     xf, x_bf16 = _act(_flat(x))
     n = xf.shape[0]
     hidden, c_out = w1.shape[1], w2.shape[1]
-    if hidden % 16:
-        raise ValueError(f"grid_mlp: hidden width {hidden} must be a multiple of 16")
     c_skip = w1.shape[0] - c_main
+    k1p = _pad16(c_main) + (_pad16(c_skip) if c_skip else 0)
+    if (hidden % 16 or hidden > 2 * HIDDEN_PASS or c_out > 256 or k1p > 448
+            or (hidden > HIDDEN_PASS and k1p > HIDDEN_PASS)):
+        raise ValueError(f"grid_mlp: hidden width {hidden} must be a multiple of 16 and at "
+                         f"most {2 * HIDDEN_PASS}, C_out {c_out} at most 256, the padded "
+                         f"input width {k1p} at most 448 (at most {HIDDEN_PASS} for a "
+                         f"hidden width above {HIDDEN_PASS})")
     if (skip is None) != (c_skip == 0):
         raise ValueError("grid_mlp: w1 rows must equal C_main (+ C_skip with skip)")
     if prepared is None:
@@ -206,39 +269,41 @@ def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affi
         pe_rows = pef.shape[0]
         if n % pe_rows:
             raise ValueError(f"pixel count {n} not a multiple of pe rows {pe_rows}")
+        if stats_rows is None:  # tiles of one pe table each: its bf16 rows come by TMA
+            n_samples, rows_per_sample = n // pe_rows, pe_rows
     rsf, res_bf16 = _act(_flat(residual)) if residual is not None else (None, 0)
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous() if b2 is not None else None
 
     lib = library("grid_mlp")
-    lib.grid_mlp_n_blocks.argtypes = [ctypes.c_longlong]
-    lib.grid_mlp_n_blocks.restype = ctypes.c_int
     lib.grid_mlp_bf16.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     lib.grid_mlp_bf16.restype = ctypes.c_int
-    ssum = ssq = part_sum = part_sq = None
+    ssum = ssq = part_sum = part_sq = grp_sum = grp_sq = None
+    groups = 1
     if stats_rows is not None:
-        n_blocks = lib.grid_mlp_n_blocks(rows_per_sample)
-        part_sum = torch.empty((n_samples, n_blocks, c_out), device=dev)
+        tiles = -(-rows_per_sample // TILE_ROWS)
+        groups, _ = reduce_groups(tiles)
+        part_sum = torch.empty((n_samples, tiles, c_out), device=dev)
         part_sq = torch.empty_like(part_sum)
+        grp_sum = torch.empty((n_samples, groups, c_out), device=dev)
+        grp_sq = torch.empty_like(grp_sum)
         ssum = torch.empty((n_samples, c_out), device=dev)
         ssq = torch.empty_like(ssum)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    ptrs = (ctypes.c_void_p * 15)(*[
+    ptrs = (ctypes.c_void_p * 17)(*[
         ptr(xf), ptr(skf), ptr(aff_a), ptr(aff_b), ptr(w1p), ptr(b1f), ptr(w2p),
         ptr(b2f), ptr(pef), ptr(rsf), ptr(out), ptr(part_sum), ptr(part_sq),
-        ptr(ssum), ptr(ssq),
+        ptr(grp_sum), ptr(grp_sq), ptr(ssum), ptr(ssq),
     ])
     cmp = _pad16(c_main)
-    ints = (ctypes.c_longlong * 21)(
+    ints = (ctypes.c_longlong * 16)(
         n_samples, rows_per_sample, pe_rows, c_main, c_skip, cmp, w1p.shape[0],
         hidden, c_out, w2p.shape[1], x_bf16, skip_bf16, pe_bf16, res_bf16,
-        int(od == torch.bfloat16), int(skip is not None), int(affine is not None),
-        int(b2 is not None), int(pe is not None), int(residual is not None),
-        int(stats_rows is not None),
+        int(od == torch.bfloat16), groups,
     )
     status = lib.grid_mlp_bf16(ptrs, ints, stream_ptr(x))
     check(status, "grid_mlp")

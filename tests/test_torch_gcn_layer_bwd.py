@@ -77,6 +77,55 @@ def test_plain_bwd_matches_jax_kernel(shape, residual, mxu, tol):
         assert report(f"gcn_layer_bwd[c_in={shape[3]},{mxu}] {name}", rel_l2(a, b)) <= tol
 
 
+# (B, H, W, C_in, F), residual, strip height, longitude segment, the JAX
+# kernel's tile_h: H not a multiple of the strip; one strip per JAX tile; W
+# odd, and not a multiple of the segment; a strip taller than H; c_in 1 and
+# 16
+PASS_CASES = [((1, 7, 15, 16, 16), True, 3, 6, 7),
+              ((2, 8, 16, 1, 16), False, 4, 62, 4),
+              ((1, 9, 15, 1, 24), True, 4, 4, 3),
+              ((2, 6, 17, 16, 16), False, 8, 5, 2)]
+
+
+@pytest.mark.parametrize("mxu,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("shape,residual,strip,segment,tile_h", PASS_CASES)
+def test_pass_mirror_matches_jax_kernel(shape, residual, strip, segment, tile_h, mxu, tol):
+    """The kernel's decomposition (`gcn_layer_bwd_passes`: the dsup strip
+    walk with its carried rows and per-row-segment partials, dW split over
+    three pixel ranges and added in order, the partials in stats_reduce's
+    order) against the Pallas backward (interpret mode), slope 0.01."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.gcn_layer import _gcn_layer_bwd_call
+
+    ops = _case(*shape, residual, seed=7)
+    j = {k: jnp.asarray(v) if v is not None else None for k, v in ops.items()}
+    ref = _gcn_layer_bwd_call(
+        j["g"], j["y"], j["residual"], j["x"], j["dinv"], j["mask"], j["w"].T,
+        has_residual=residual, slope=0.01, mxu_dtype=mxu, interpret=True, tile_h=tile_h)
+    t = {k: torch.from_numpy(v) if v is not None else None for k, v in ops.items()}
+    got = tb.gcn_layer_bwd_passes(t["g"], t["y"], t["residual"], t["x"], t["w"], t["dinv"],
+                                  t["mask"], 0.01, mxu, strip=strip, segment=segment,
+                                  splits=3)
+    for name, a, b in zip(("dx", "dw", "db"), got, (ref[0], ref[1], np.ravel(ref[2]))):
+        assert a.shape == np.shape(b)
+        assert report(f"gcn_layer_bwd passes[{shape},strip={strip},seg={segment},{mxu}] "
+                      f"{name}",
+                      rel_l2(a, b)) <= tol
+
+
+def test_dw_split_ranges():
+    """dW's split ranges are whole 64-pixel stages, a range past the end
+    empty, and their partials add up to the product."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((200, 8)).astype(np.float32))
+    d = torch.from_numpy(rng.standard_normal((200, 16)).astype(np.float32))
+    for splits in (1, 3, 5):  # 5 splits of 64 pixels: the last one is empty
+        assert rel_l2(tb.dw_split_k(x, d, splits), x.t() @ d) <= 1e-6
+    assert tb.dw_splits(180 * 360, 512, 512, False) == 16
+    assert tb.dw_splits(180 * 360, 1, 512, False) == 1
+
+
 @pytest.mark.parametrize("shape,residual", SHAPES)
 def test_function_matches_jax_grad(shape, residual):
     """The autograd Function (plain backward on the CPU) against jax.grad of

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from msfno_torch.ops.kernels import grid_mlp as tk
+from msfno_torch.ops.kernels import tile_stats_reduce
 
 torch.set_num_threads(2)
 
@@ -103,6 +104,53 @@ def test_bf16_out_and_pe_match_jax_kernel():
     # one-ulp bf16 flips of the hidden activation or the output
     assert rel_l2(yt.float(), np.asarray(yj, np.float32)) <= 1e-2
     assert rel_l2(st, sj) <= 1e-3 and rel_l2(qt, qj) <= 1e-3
+
+
+# the kernel's tiles at test size: 32 rows (the last of a sample's 48
+# ragged), the inner MLP's hidden width 32 in two passes of 16
+MIRROR_TILE, MIRROR_HALF = 32, 16
+
+
+@pytest.mark.parametrize("mxu,tol", [("float32", 1e-5), ("bfloat16", 1e-3)])
+@pytest.mark.parametrize("name", ["encoder", "inner", "decoder", "fold"])
+def test_tile_mirror_matches_jax_kernel(name, mxu, tol):
+    """The kernel's tile chain (`mlp_tiles`: tiles of one sample, the first
+    GEMM in hidden passes, per-tile statistics partials added by
+    `tile_stats_reduce`) against the Pallas `_grid_mlp_call` (interpret
+    mode)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.grid_mlp import _grid_mlp_call
+
+    ops = _case(name, seed=11)
+    x = ops["x"].reshape(-1, ops["x"].shape[-1])
+    n, c_out = x.shape[0], ops["w2"].shape[1]
+    rows = ops.get("stats_rows", 0)
+    aff = ops.get("affine")
+    def j(k):
+        return jnp.asarray(ops[k].reshape(-1, ops[k].shape[-1])) if k in ops else None
+
+    out = _grid_mlp_call(
+        jnp.asarray(x), j("skip"), jnp.asarray(ops["w1"]), jnp.asarray(ops["b1"]),
+        jnp.asarray(ops["w2"]), j("b2"), j("pe"),
+        jnp.asarray(aff[0]) if aff else None, jnp.asarray(aff[1]) if aff else None,
+        j("residual"), has_skip="skip" in ops, has_b2="b2" in ops, has_pe="pe" in ops,
+        pe_rows=ops["pe"].shape[0] * ops["pe"].shape[1] if "pe" in ops else 0,
+        mxu_dtype=mxu, interpret=True, tile_n=8, stats_rows=rows,
+        aff_rows=n // aff[0].shape[0] if aff else 0, has_res="residual" in ops)
+    yj, sums = (out[0], out[1:]) if rows else (out, ())
+    t = lambda k: torch.from_numpy(ops[k]) if k in ops else None  # noqa: E731
+    y, part_sum, part_sq = tk.mlp_tiles(
+        t("x"), t("w1"), t("b1"), t("w2"), t("b2"), t("skip"), t("pe"), mxu,
+        stats_rows=rows or None, residual=t("residual"), tile=MIRROR_TILE, half=MIRROR_HALF,
+        affine=tuple(torch.from_numpy(a) for a in aff) if aff else None)
+    if rows:
+        assert rows % MIRROR_TILE and part_sum.shape[1] == -(-rows // MIRROR_TILE)  # ragged
+    assert y.shape == (n, c_out)
+    assert report(f"grid_mlp tiles[{name},{mxu}]", rel_l2(y, yj)) <= tol
+    for part, got, want in zip(("ssum", "ssq"), (part_sum, part_sq), sums):
+        assert report(f"grid_mlp tiles[{name},{mxu}] {part}",
+                      rel_l2(tile_stats_reduce(got), want)) <= tol
 
 
 @pytest.mark.parametrize("bad", ["residual+stats", "affine+pe"])

@@ -2,7 +2,7 @@
 """A/B of compile-time variants of one CUDA kernel at the serving step's
 shapes, on one card, in one process.
 
-    python3 tools/kernel_variants.py grid_mlp base PREFETCH=1 TILE_ROWS=32,PREFETCH=2 base
+    python3 tools/kernel_variants.py gcn_layer_bwd base DS_ROWS=12 DS_ROWS=6,DS_FB=32,DS_PPT=4 base
 
 Each variant is "base" (the source as it stands) or comma-separated
 NAME=VALUE overrides of the kernel source's <NAME>_OVERRIDE macros
@@ -13,8 +13,10 @@ its plain version).  Prints ptxas' register and spill report per variant
 (with any C7520 line: wgmmas serialized) and
 one JSON line per (variant, site) with the card's name and power limit: the
 kernel's, the plain version's and (where chip_smoke.py has one) the library
-call's time and the bound.  The DFT kernels' tiles, for example:
+call's time and the bound.  The ring depth of grid_mlp, or the DFT kernels'
+tiles, for example:
 
+    python3 tools/kernel_variants.py grid_mlp base GM_STAGES=2 base
     python3 tools/kernel_variants.py dft_analysis base DFT_STAGES=3 base
 Repeat "base" at the end to see the run-to-run spread.  With --profile,
 each variant's sites also run under torch.profiler, and one JSON line per
@@ -22,7 +24,7 @@ CUDA kernel (the kernel's own launches and the plain version's alike) gives
 its calls and mean device time: how a wrapper call's time splits over the
 launches it makes.
 
-    python3 tools/kernel_variants.py --profile spectral_mlp base
+    python3 tools/kernel_variants.py --profile gcn_layer_bwd base
 """
 
 from __future__ import annotations

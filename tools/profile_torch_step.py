@@ -64,22 +64,24 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
                           "share_of_busy": ms / busy if busy else None}))
     # a kernel's library may hold more than one CUDA kernel: spectral_mlp's
     # cast pass and per-layer GEMMs, its backward's casts and the recompute
-    # and transposed GEMMs, gcn_layer's GEMM and stencil passes, gcn's
-    # backward dsup pass, split-K GEMMs and reduces (the tail's backward
-    # runs its GEMMs only for weight gradients, which the fine-tune step does
-    # not ask for), the head's MLP pass, DFT pass (the DIRECT analysis_wgmma,
-    # bf16 f) and partials' reduce (tile_reduce: also the tail backward's, a
-    # few us), the tail's t pre-pass and tile kernel, the tail backward's
-    # pre-pass, tile kernel and transposed DFT (the DIRECT analysis_wgmma,
-    # fp32 dhm); the namespace keeps cuBLAS's names out
+    # and transposed GEMMs, grid_mlp's tile kernel, gcn_layer's GEMM and
+    # stencil passes, gcn's backward dsup pass, dx and split-K dW GEMMs
+    # (StoreEpi) and dW reduce (sum_rows: the tail's backward runs its GEMMs
+    # only for weight gradients, which the fine-tune step does not ask for),
+    # the head's MLP pass and DFT pass (the DIRECT analysis_wgmma, bf16 f),
+    # the tail's t pre-pass and tile kernel, the tail backward's pre-pass,
+    # tile kernel and transposed DFT (the DIRECT analysis_wgmma, fp32 dhm);
+    # the partials' reduces that several kernels share (tile_reduce,
+    # stats_reduce: a few us a call) count under none.  The namespace keeps
+    # cuBLAS's names out
     ns = "(anonymous namespace)::"
     direct = "analysis_wgmma<__nv_bfloat16, "  # + the output type, ", 0, true>"
     kernel_keys = {"spectral_mlp": (ns + "stage_input", ns + "HiddenEpi,", ns + "OutEpi,"),
-                   "grid_encoder_spectral": (ns + "enc_mlp<", direct + "__nv_bfloat16, 0, true>",
-                                             ns + "tile_reduce"),
+                   "grid_mlp": (ns + "mlp_tiles<",),
+                   "grid_encoder_spectral": (ns + "enc_mlp<", direct + "__nv_bfloat16, 0, true>"),
                    "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16"),
                    "gcn_layer": (ns + "gcn_stencil", ns + "TEpi,", ns + "gemm_f32<false, false"),
-                   "gcn_layer_bwd": (ns + "gcn_bwd_", ns + "gemm_bf16<", ns + "sum_rows",
+                   "gcn_layer_bwd": (ns + "gcn_bwd_", ns + "StoreEpi,", ns + "sum_rows",
                                      ns + "gemm_f32<false, true", ns + "gemm_f32<true, false"),
                    "spectral_decoder_bwd": ("decoder_bwd_", "hm_to_bf16",
                                             direct + "float, 0, true>"),
