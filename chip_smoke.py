@@ -51,7 +51,17 @@ Phases (any failure raises, and the script exits non-zero):
      (`balanced_config()`): fp32 activations, the generator's gcn_layer on
      fp32 operands (exactly 7 launches, no other kernel), against the
      `exact_config` twin (exact: step rel-L2 <= 1e-4, gamma / beta <= 1e-5;
-     balanced: step <= 3e-2), with the ms per step.
+     balanced: step <= 3e-2), with the ms per step;
+ 11. the fp32-kernel tier (`fp32_kernel_config()`: the exact tier with every
+     kernel on, JAX's `--use-pallas --pallas-grid-mlp --grid-mlp-mxu-dtype
+     float32`), fused and unfused, built through the registry
+     (`get_model("sfno", "film", cfg=...)`): one step against its
+     `exact_config` twin (1e-4, gamma / beta 1e-5), exactly 12 / 11 / 1 / 1
+     / 7 launches a step (unfused 12 / 13 / 0 / 0 / 7) in the step and in a
+     2-step `running` forecast, finite outputs, and the median ms per step
+     of both paths and of the exact tier, timed in turns.
+Phase 3 also holds every forward kernel on the fp32 operands of that tier
+(sites "*/fp32") to 1e-5.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device it exits with 1 and
 prints no result.
@@ -97,6 +107,19 @@ SITE_COUNTS = {
 }
 PER_STEP = {path: {name: sum(sites.values()) for name, sites in kernels.items()}
             for path, kernels in SITE_COUNTS.items()}
+# the same for the fp32-kernel tier (phase 11): every forward kernel on the
+# fp32-operand sites of phase 3
+_COMMON_F32 = {"spectral_mlp": {"block/fp32": 12},
+               "gcn_layer": {"conv1/fp32": 1, "conv/fp32": 6}}
+FP32_SITE_COUNTS = {
+    "fused": {**_COMMON_F32, "grid_mlp": {"inner/fp32": 11},
+              "grid_encoder_spectral": {"head/fp32": 1}, "spectral_decoder": {"tail/fp32": 1}},
+    "unfused": {**_COMMON_F32, "grid_mlp": {"encoder/fp32": 1, "inner/fp32": 11,
+                                            "decoder/fp32": 1},
+                "grid_encoder_spectral": {}, "spectral_decoder": {}},
+}
+FP32_PER_STEP = {path: {name: sum(sites.values()) for name, sites in kernels.items()}
+                 for path, kernels in FP32_SITE_COUNTS.items()}
 # the phase 3 sites that the lon_dft="pallas" round trips of phase 8 launch:
 # x fp32 in; the synthesis reads the Legendre GEMM's output, fp32 or bf16
 DFT_MAIN = {"dft_analysis": {"trans_down/float32/fp32-in": 1, "trans_down/bfloat16/fp32-in": 1},
@@ -198,14 +221,25 @@ def spectral_mlp_sites(dev):
     dims = [256, 512, 512, 512, 256]
     z = rn(2, 1, 120, 121, 256)
     ws = [rn(dims[i], dims[i + 1], 2, scale=0.05) for i in range(4)]
-    packed = sk.pack_weights(ws)
     n = 120 * 121
-    flops = sum(8 * n * dims[i] * dims[i + 1] for i in range(4))
-    work = (nbytes(z) * 2 + sum(w.numel() * 2 for w in ws), {"bf16": flops})
-    return [check_site(
-        "spectral_mlp", "block",
-        lambda: sk.spectral_mlp(z, ws, 0.0, "bfloat16", packed=packed),
-        lambda: sk.spectral_mlp_reference(z, ws, 0.0, "bfloat16"), work, 20)]
+    # the least work is the TPU kernel's Karatsuba form (`_karatsuba_call`):
+    # three real products a complex layer, on the operand type, and the fp32
+    # sums hr + hi, k1 - k3 and k1 + k2; the CUDA kernels run the packed
+    # 4-product form, 4/3 of these products
+    products = sum(6 * n * dims[i] * dims[i + 1] for i in range(4))
+    adds = sum(n * (dims[i] + 2 * dims[i + 1]) for i in range(4))
+    recs = []
+    for mxu, kind in (("bfloat16", "bf16"), ("float32", "fp32")):
+        packed = sk.pack_weights(ws, mxu)
+        ops = {"fp32": products + adds} if kind == "fp32" else {"bf16": products, "fp32": adds}
+        # each weight value once (the packed matrix holds it twice)
+        work = (nbytes(z) * 2 + nbytes(packed[0]) // 2, ops)
+        recs.append(check_site(
+            "spectral_mlp", "block" + ("/fp32" if kind == "fp32" else ""),
+            lambda: sk.spectral_mlp(z, ws, 0.0, mxu, packed=packed),
+            lambda: sk.spectral_mlp_reference(z, ws, 0.0, mxu), work,
+            20 if kind == "bf16" else 5, tol=FP32_TOL if kind == "fp32" else None))
+    return recs
 
 
 def grid_mlp_sites(dev):
@@ -236,23 +270,35 @@ def grid_mlp_sites(dev):
                            affine=(1.0 + rn(1, 256, scale=0.1), rn(1, 256, scale=0.1)),
                            residual=rn(1, 120, 240, 256, dtype=bf), out_dtype="bfloat16"),
     }
+    # the fp32-kernel tier's sites: the same shapes, fp32 activations, pe
+    # and outputs (its compute dtype)
+    f32 = lambda v: v.float() if isinstance(v, torch.Tensor) else v  # noqa: E731
+    for site in list(sites):
+        sites[site + "/fp32"] = {
+            k: (tuple(map(f32, v)) if isinstance(v, tuple) else f32(v))
+            for k, v in sites[site].items()}
+        sites[site + "/fp32"]["out_dtype"] = "float32"
     recs = []
     for site, ops in sites.items():
+        mxu, kind = ("float32", "fp32") if site.endswith("/fp32") else ("bfloat16", "bf16")
         x, w1, b1, w2 = ops.pop("x"), ops.pop("w1"), ops.pop("b1"), ops.pop("w2")
         c_main = x.shape[-1]
-        prepared = mk.prepare_weights(w1, w2, c_main)
+        prepared = mk.prepare_weights(w1, w2, c_main, mxu)
         rows = x.numel() // c_main
         out_bytes = rows * w2.shape[1] * (2 if ops["out_dtype"] == "bfloat16" else 4)
         flops = 2 * rows * (w1.shape[0] * w1.shape[1] + w2.shape[0] * w2.shape[1])
         work = (nbytes(x, ops.get("skip"), ops.get("pe"), b1, ops.get("b2"),
                        ops.get("residual"), *ops.get("affine", ()))
-                + (w1.numel() + w2.numel()) * 2 + out_bytes, {"bf16": flops})
+                + (w1.numel() + w2.numel()) * prepared[0].element_size() + out_bytes,
+                {kind: flops})
         recs.append(check_site(
             "grid_mlp", site,
-            lambda: mk.grid_mlp(x, w1, b1, w2, mxu_dtype="bfloat16", prepared=prepared, **ops),
-            lambda: mk.grid_mlp_reference(x, w1, b1, w2, mxu_dtype="bfloat16", **ops),
-            work, 10))
-        del x, w1, b1, w2, prepared, ops
+            lambda: mk.grid_mlp(x, w1, b1, w2, mxu_dtype=mxu, prepared=prepared, **ops),
+            lambda: mk.grid_mlp_reference(x, w1, b1, w2, mxu_dtype=mxu, **ops),
+            work, 10 if kind == "bf16" else 4, tol=FP32_TOL if kind == "fp32" else None))
+        del x, w1, b1, w2, prepared
+        sites[site] = None
+        torch.cuda.empty_cache()
     return recs
 
 
@@ -326,10 +372,24 @@ def grid_encoder_spectral_sites(dev):
     n, two_m = h * w, cs.shape[1]
     flops = 2 * n * (73 * c + c * c + two_m * c)
     work = (nbytes(x, pe, w1, b1, w2, cs) + h * two_m * c * 2, {"bf16": flops})
-    return [check_site(
+    recs = [check_site(
         "grid_encoder_spectral", "head",
         lambda: ek.grid_encoder_spectral(x, w1, b1, w2, pe, cs, prepared=prepared),
         lambda: ek.grid_encoder_spectral_reference(x, w1, b1, w2, pe, cs), work, 10)]
+    # the fp32-kernel tier: fp32 pe and f; its DFT pass folds (dft_analysis's
+    # fp32 kernel), so the bound counts the fold's half of the DFT's
+    # operations, as phase 3's DFT sites do
+    pe = pe.float()
+    prepared = ek.prepare(w1, w2, cs, "float32")
+    flops = 2 * n * (73 * c + c * c) + h * two_m * w * c
+    work = (nbytes(x, pe, w1, b1, w2, cs) + h * two_m * c * 4, {"fp32": flops})
+    recs.append(check_site(
+        "grid_encoder_spectral", "head/fp32",
+        lambda: ek.grid_encoder_spectral(x, w1, b1, w2, pe, cs, "float32", "float32",
+                                         prepared=prepared),
+        lambda: ek.grid_encoder_spectral_reference(x, w1, b1, w2, pe, cs, "float32",
+                                                   "float32"), work, 4, tol=FP32_TOL))
+    return recs
 
 
 def spectral_decoder_sites(dev):
@@ -348,10 +408,22 @@ def spectral_decoder_sites(dev):
     n = h * w
     flops = 2 * n * (two_m * c + (c + 73) * c + c * 73)
     work = (nbytes(hm, skip, mt, a, b, w1, b1, w2) + n * 73 * 4, {"bf16": flops})
-    return [check_site(
+    recs = [check_site(
         "spectral_decoder", "tail",
         lambda: dk.spectral_decoder(hm, skip, mt, a, b, w1, b1, w2, prepared=prepared),
         lambda: dk.spectral_decoder_reference(hm, skip, mt, a, b, w1, b1, w2), work, 10)]
+    # the fp32-kernel tier: its inverse DFT folds (dft_synthesis's fp32
+    # kernel), so the bound counts the fold's half of the DFT's operations
+    prepared = dk.prepare(w1, w2, mt, c, "float32")
+    flops = 2 * n * ((c + 73) * c + c * 73) + n * two_m * c
+    work = (nbytes(hm, skip, mt, a, b, w1, b1, w2) + n * 73 * 4, {"fp32": flops})
+    recs.append(check_site(
+        "spectral_decoder", "tail/fp32",
+        lambda: dk.spectral_decoder(hm, skip, mt, a, b, w1, b1, w2, mxu_dtype="float32",
+                                    prepared=prepared),
+        lambda: dk.spectral_decoder_reference(hm, skip, mt, a, b, w1, b1, w2,
+                                              mxu_dtype="float32"), work, 4, tol=FP32_TOL))
+    return recs
 
 
 def gcn_layer_bwd_sites(dev):
@@ -873,13 +945,7 @@ def jax_tiers(dev, smi):
     recs = {}
     for name, cfg in tier_configs().items():
         net = FourierNeuralOperatorNetFilmed(cfg, device=dev, seed=0)
-        # a seeded random film head: the init's all-ones head makes every
-        # gamma and beta the same sum, which hides the generator's error
-        head = net.film_gen.film_gen.head_film.weight
-        with torch.no_grad():
-            head.copy_(torch.randn(head.shape, device=dev,
-                                   generator=torch.Generator(device=dev).manual_seed(5))
-                       / head.shape[1] ** 0.5)
+        _random_film_head(net, dev)
         x0, sst, _ = model_inputs(cfg, dev, 1)
         reset_launch_counts()
         y_k, film_k = _step_and_film(net, x0, sst)
@@ -915,6 +981,116 @@ def jax_tiers(dev, smi):
             raise AssertionError(f"{name} tier: launches {counts} (want {want})")
         recs[name] = rec
     return recs
+
+
+def _random_film_head(net, dev):
+    """A seeded random film head: the init's all-ones head makes every gamma
+    and beta the same sum, which hides the generator's error."""
+    import torch
+
+    head = net.film_gen.film_gen.head_film.weight
+    with torch.no_grad():
+        head.copy_(torch.randn(head.shape, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(5))
+                   / head.shape[1] ** 0.5)
+
+
+FP32_TIER_STEPS = 2  # steps of the `running` forecast of phase 11
+
+
+def fp32_kernel_tier(dev, smi):
+    """Phase 11: the fp32-kernel tier, fused and unfused, through the
+    registry's wrapper: one step against the exact_config twin with the
+    same weights, the exact launch counts in that step and in a
+    FP32_TIER_STEPS-step `running` forecast, then the ms per step of both
+    paths and of the JAX exact tier (same weights), timed in turns.
+    Returns the records by path and the timing record."""
+    import numpy as np
+    import torch
+
+    from msfno_torch.config import exact_config, fp32_kernel_config
+    from msfno_torch.models import FourierNeuralOperatorNetFilmed
+    from msfno_torch.models.registry import get_model
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfgs = {"fused": fp32_kernel_config(),
+            "unfused": fp32_kernel_config(fuse_encoder_dft=False, fuse_decoder_tail=False)}
+    wraps, recs = {}, {}
+    x0, sst, sst_seq = model_inputs(cfgs["fused"], dev, FP32_TIER_STEPS)
+    for path, cfg in cfgs.items():
+        wrap = get_model("sfno", "film", cfg=cfg, device=dev, seed=0)
+        net = wrap.module
+        if path == "fused":
+            _random_film_head(net, dev)
+            if not (net.fuse_dft and net.blocks[-1].fuse_tail):
+                raise AssertionError("fp32-kernel tier: the fused head and tail do not engage")
+        else:
+            net.load_state_dict(wraps["fused"].module.state_dict())
+        wraps[path] = wrap
+        reset_launch_counts()
+        y_k, film_k = _step_and_film(net, x0, sst)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        reset_launch_counts()
+        with torch.inference_mode():
+            outs = list(wrap.running(x0, lead_time_h=6 * FP32_TIER_STEPS, sst_seq=sst_seq))
+        torch.cuda.synchronize()
+        counts_run = launch_counts()
+        plain = FourierNeuralOperatorNetFilmed(exact_config(cfg), device=dev, seed=1)
+        plain.load_state_dict(net.state_dict())
+        y_p, film_p = _step_and_film(plain, x0, sst)
+        del plain
+        err, film_err = rel_l2(y_k, y_p), rel_l2(film_k, film_p)
+        finite = bool(torch.isfinite(y_k).all()) and all(bool(np.isfinite(o).all())
+                                                         for o in outs)
+        want = {k: 0 for k in counts}
+        want.update(FP32_PER_STEP[path])
+        want_run = {k: v * FP32_TIER_STEPS for k, v in want.items()}
+        rec = dict(phase="fp32_kernel_tier", path=path, card=smi, shape=list(y_k.shape),
+                   rel_l2_vs_exact_config=err, tol=TIER_TOL["exact"],
+                   film_rel_l2_vs_exact_config=film_err, film_tol=TIER_FILM_TOL,
+                   finite=finite, launches={k: v for k, v in counts.items() if v},
+                   running_steps=len(outs),
+                   launches_running={k: v for k, v in counts_run.items() if v},
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(json.dumps(rec))
+        del y_k, y_p, film_k, film_p, outs
+        torch.cuda.empty_cache()
+        if not (err <= TIER_TOL["exact"] and film_err <= TIER_FILM_TOL and finite):
+            raise AssertionError(f"fp32-kernel tier ({path}) vs exact_config: step rel-L2 "
+                                 f"{err:.3e}, gamma/beta {film_err:.3e}, finite {finite}")
+        if counts != want or counts_run != want_run:
+            raise AssertionError(f"fp32-kernel tier ({path}): launches {counts} a step, "
+                                 f"{counts_run} in {FP32_TIER_STEPS} running steps "
+                                 f"(want {want} a step)")
+        recs[path] = rec
+    # the ms per step: chained steps, CUDA events around each, in turns
+    # with the JAX exact tier on the same weights
+    nets = {path: w.module for path, w in wraps.items()}
+    nets["exact_tier"] = FourierNeuralOperatorNetFilmed(tier_configs()["exact"], device=dev,
+                                                        seed=1)
+    nets["exact_tier"].load_state_dict(nets["fused"].state_dict())
+    times = {path: [] for path in nets}
+    order = ("fused", "unfused", "exact_tier", "exact_tier", "unfused", "fused")
+    with torch.inference_mode():
+        for path in order:
+            state = x0
+            for i in range(4):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state = nets[path](state, sst)
+                end.record()
+                torch.cuda.synchronize()
+                if i:  # the first step of a chain warms up
+                    times[path].append(start.elapsed_time(end))
+    timing = dict(phase="fp32_kernel_tier_step_time", card=smi, order=list(order),
+                  median_ms={p: statistics.median(t) for p, t in times.items()}, ms=times,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(json.dumps(timing))
+    del nets, wraps, state, x0, sst, sst_seq
+    torch.cuda.empty_cache()
+    return recs, timing
 
 
 def model_inputs(cfg, dev, steps):
@@ -1054,6 +1230,13 @@ def main() -> int:
 
     # phase 10: the JAX exact and balanced tiers at full width
     tiers = jax_tiers(dev, smi)
+    torch.cuda.reset_peak_memory_stats()
+
+    # phase 11: the fp32-kernel tier at full width, fused and unfused
+    f32_tier, f32_times = fp32_kernel_tier(dev, smi)
+    log(json.dumps({"phase": "step_time_fp32_kernel_tier_vs_exact_tier", "card": smi,
+                    "median_ms": f32_times["median_ms"],
+                    "exact_tier_phase_10_ms": tiers["exact"]["step_ms"]}))
     log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
 
     kernels = []
@@ -1083,8 +1266,20 @@ def main() -> int:
             if name == "gcn_layer":
                 launches.update({f"launches_jax_{t}_tier_step": r["launches"].get(name, 0)
                                  for t, r in tiers.items()})
+            launches.update({f"launches_fp32_kernel_tier_{p}_step": r["launches"].get(name, 0)
+                             for p, r in f32_tier.items()})
             what = f"one 6-hour step of the fused path (sum over its launches), {STEPS}-step " \
                    "rollout counts"
+        f32_per = FP32_SITE_COUNTS["fused"].get(name, {})
+        if f32_per:
+            # the fp32-operand sites, summed over one fused step of the
+            # fp32-kernel tier
+            f32_sites = [r for r in mine if f32_per.get(r["site"], 0)]
+            f32_tot = lambda key: sum(f32_per[r["site"]] * r[key] for r in f32_sites)  # noqa: E731
+            launches["fp32_kernel_tier_step"] = dict(
+                sites=f32_per, ms=f32_tot("ms"), plain_ms=f32_tot("plain_ms"),
+                bound_ms=f32_tot("bound_ms"), rel_l2=max(r["rel_l2"] for r in f32_sites),
+                tol=FP32_TOL)
         main_sites = [r for r in mine if per.get(r["site"], 0)]
         has_library = name in DFT_MAIN and all(r["library_ms"] is not None for r in main_sites)
         tot = lambda key: sum(per[r["site"]] * r[key] for r in main_sites)  # noqa: E731

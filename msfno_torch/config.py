@@ -257,6 +257,20 @@ def balanced_config(**overrides) -> SFNOConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
+def fp32_kernel_config(**overrides) -> SFNOConfig:
+    """The JAX exact tier (`SFNOConfig(film=FilmConfig(film_gen_type=
+    "gcn_custom"))`) with every kernel on, as the JAX CLI's `--use-pallas
+    --pallas-grid-mlp --grid-mlp-mxu-dtype float32` runs it: fp32
+    activations, the SHT on fp32, and the spectral_mlp, grid_mlp,
+    gcn_layer kernels and the fused head and tail on fp32 operands (true
+    fp32 FMA).  `fp32_kernel_config(fuse_encoder_dft=False,
+    fuse_decoder_tail=False)` is the same tier with the head and tail
+    unfused."""
+    cfg = SFNOConfig(film=FilmConfig(film_gen_type="gcn_custom"), use_pallas=True,
+                     pallas_grid_mlp=True, grid_mlp_mxu_dtype="float32")
+    return dataclasses.replace(cfg, **overrides)
+
+
 def exact_config(cfg: SFNOConfig) -> SFNOConfig:
     """`cfg` with every knob at fp32 and every kernel off: the plain fp32
     path the kernel path is held against."""

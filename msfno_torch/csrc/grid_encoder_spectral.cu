@@ -53,9 +53,21 @@
 //
 // Tunables (tools/kernel_variants.py): ENC_STAGES (ring depth of pass 1),
 // ENC_DFT_STAGES (ring depth of pass 2; 0 fills 192 KB).
+//
+// fp32 operands (the "float32" and "tensorfloat" knobs):
+// grid_encoder_spectral_f32, in true fp32 FMA on the CUDA cores, nothing
+// rounded before f.  Also two passes: the encoder MLP of mlp_f32.cuh (two
+// gemm_f32 launches, h through device memory, pe and the statistics' tile
+// partials in the second GEMM's epilogue, then the fixed-order reduces)
+// writes fp32 y, and the fp32 forward DFT of dft_analysis
+// (dft_tiles.cuh:fold_rows, the even/odd fold: half the dense
+// multiply-adds) reads it.  Bound on the H100: 3.0e11 FLOP (the DFT
+// unfolded) at 67 TFLOP/s, 4.48 ms.  y's round trip, 2 x 1.06 GB, is
+// ~0.64 ms at the HBM rate, and h's the same.
 
 #include "chain_gemm.cuh"
 #include "dft_tiles.cuh"
+#include "mlp_f32.cuh"
 
 namespace {
 
@@ -389,4 +401,38 @@ extern "C" int grid_encoder_spectral_bf16(const void* const* ptrs, const long lo
   stats_reduce<<<rgrid, dim3(32, 8), 0, st>>>(grp_sum, grp_sq, groups, a.c,
                                               (float*)ptrs[P_SSUM], (float*)ptrs[P_SSQ]);
   return (int)cudaGetLastError();
+}
+
+// The fp32-operand head.  ptrs and ints begin with the encoder MLP's
+// MlpPtr / MlpInt layouts (mlp_f32.cuh: out is the (B, H*W, c) fp32 y
+// scratch, with statistics); then ptrs: the fp32 fold operand of
+// dft_analysis.prepare (at_rows, at_cols), f (B, H, 2M, c); ints: B, H, W,
+// the modes M, at_rows, at_cols, f_bf16.
+extern "C" int grid_encoder_spectral_f32(const void* const* ptrs, const long long* ints,
+                                         void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const MlpF32 mlp = mlp_f32_args(ptrs, ints);
+  const long long* v = ints + MLP_INTS;
+  const long long bsz = v[0], h = v[1], w = v[2];
+  const int m = (int)v[3], at_rows = (int)v[4], at_cols = (int)v[5];
+  if (bsz < 1 || h < 1 || w < 2 || m < 1 || mlp.out_bf16 || mlp.samples != bsz ||
+      mlp.rps != h * w || !mlp.part_sum)
+    return (int)cudaErrorInvalidValue;
+  int err = mlp_f32_run(mlp, st);
+  if (err) return err;
+  FoldArgs a{};
+  a.at = (const float*)ptrs[MLP_PTRS];
+  a.b = mlp.out;
+  a.out = (void*)ptrs[MLP_PTRS + 1];
+  a.rows = bsz * h;
+  a.w = (int)w;
+  a.m = m;
+  a.c = mlp.c_out;
+  a.kh = a.w / 2 + 1;
+  a.k_dim = a.kh;
+  a.k_pad = at_rows;
+  a.tiles = (m + FOLD_TILE - 1) / FOLD_TILE;
+  if (at_cols != a.tiles * 2 * FOLD_TILE) return (int)cudaErrorInvalidValue;
+  return v[6] ? fold_launch<true, float, __nv_bfloat16>(a, st)
+              : fold_launch<true, float, float>(a, st);
 }

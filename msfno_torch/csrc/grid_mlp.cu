@@ -63,8 +63,15 @@
 //
 // Tunables (tools/kernel_variants.py): GM_STAGES (the most ring stages; as
 // many as fit below it: 4 left the encoder and decoder sites within 1% of 3).
+//
+// fp32 operands (the "float32" and "tensorfloat" knobs): grid_mlp_f32, every
+// option of the bf16 kernel in true fp32 FMA on the CUDA cores, as two
+// gemm_f32 launches with h through device memory (mlp_f32.cuh).  Bound on
+// the H100 at 67 TFLOP/s: the inner MLP 1.51e10 FLOP, 0.225 ms; encoder
+// 1.75e11, 2.61 ms; decoder 2.14e11, 3.19 ms: operations.
 
 #include "chain_gemm.cuh"
+#include "mlp_f32.cuh"
 
 namespace {
 
@@ -553,4 +560,10 @@ extern "C" int grid_mlp_bf16(const void* const* ptrs, const long long* ints, voi
   stats_reduce<<<rgrid, dim3(32, 8), 0, st>>>(grp_sum, grp_sq, groups, a.c_out,
                                               (float*)ptrs[P_SSUM], (float*)ptrs[P_SSQ]);
   return (int)cudaGetLastError();
+}
+
+// The fp32-operand MLP: ptrs and ints in the MlpPtr and MlpInt layouts of
+// mlp_f32.cuh.
+extern "C" int grid_mlp_f32(const void* const* ptrs, const long long* ints, void* stream) {
+  return mlp_f32_run(mlp_f32_args(ptrs, ints), (cudaStream_t)stream);
 }

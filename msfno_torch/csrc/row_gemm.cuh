@@ -1,5 +1,6 @@
-// Row GEMMs shared by spectral_mlp.cu, spectral_mlp_bwd.cu, gcn_layer.cu and
-// gcn_layer_bwd.cu.
+// Row GEMMs shared by spectral_mlp.cu, spectral_mlp_bwd.cu, gcn_layer.cu,
+// gcn_layer_bwd.cu and (gemm_f32, through mlp_f32.cuh) the fp32 paths of
+// grid_mlp.cu, grid_encoder_spectral.cu and spectral_decoder.cu.
 //
 // wgmma_gemm: C = epi(A @ B), A (M x K) and B (K x N) bf16, row-major, fp32
 // accumulation on wgmma (sm_90a).  A block owns a WGM_BM x WGM_BN tile.  A
@@ -21,11 +22,15 @@
 // accumulator fragment in registers.  TMA fills boxes past M, N and K with
 // zeros, so any shape whose rows are 16-byte multiples works.
 //
-// gemm_f32: C = A @ B (optionally each row scaled) in true fp32 FMA on the
-// CUDA cores (no TF32), A and B read as fp32 or bf16 values, either one
-// stored transposed; blockIdx.z splits K into partial products.  A block
-// owns a 128 x 128 tile, 8 x 8 per thread, K in double-buffered slabs of 8
-// (the next slab's loads in registers while the current one is multiplied).
+// gemm_f32: epi(A @ B) in true fp32 FMA on the CUDA cores (no TF32).  A is
+// a functor of (m, k) (a stored fp32 or bf16 matrix, either way round, or
+// rows assembled from several inputs), B a stored fp32 or bf16 matrix,
+// either way round; the epilogue functor gets each thread's 8 x 8
+// accumulators (gemm_f32_launch: C = A @ B, rows optionally scaled).  A
+// block owns a 128 x 128 tile of one row segment (a sample), 8 x 8 per
+// thread, K in double-buffered slabs of 8 (the next slab's loads in
+// registers while the current one is multiplied); blockIdx.z splits K into
+// partial products.
 // Tunables: WGM_BN, WGM_STAGES (wgmma_gemm).
 
 #pragma once
@@ -277,20 +282,86 @@ constexpr int F32_BM = 128, F32_BN = 128, F32_BK = 8, F32_THREADS = 256, F32_MIN
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// C (M x N, leading dimension ldc) = A (M x K) @ B (K x N), each row m then
-// multiplied by row_scale[m] (fp32 or bf16, rs_bf16) when given.  A_T: A
-// is stored as its (K x M) transpose; B_T: B as its (N x K) transpose; lda,
-// ldb are the stored rows' lengths.  Split z of blockIdx.z takes K range
-// [z k_split, (z + 1) k_split) and writes C + z * M * ldc.
-template <bool A_T, bool B_T, typename TA, typename TB>
+// A's element (m, k) from a stored matrix of T: row-major (m, k), or with
+// A_T its (K x M) transpose, rows of ld elements.  gemm_f32's A operand is
+// any functor `a(m, k, seg)` (seg: the block's row segment).
+template <bool A_T, typename T>
+struct F32Matrix {
+  const T* p;
+  long long ld;
+  __device__ __forceinline__ float operator()(long long m, long long k, int) const {
+    return to_float(__ldg(A_T ? p + k * ld + m : p + m * ld + k));
+  }
+};
+
+// A block's output tile: rows [m0, m_end) of row segment `seg` (its tile
+// `tile`), columns [n0, n0 + F32_BN), K split z.  Thread (ty, tx) holds
+// acc[i][j] for row m0 + row(i) and column n0 + col(j).
+struct F32Tile {
+  int m0, m_end, n0, seg, tile, z, ty, tx;
+  __device__ __forceinline__ int row(int i) const { return i < 4 ? ty * 4 + i : 60 + ty * 4 + i; }
+  __device__ __forceinline__ int col(int j) const { return 64 * (j / 4) + tx * 4 + j % 4; }
+};
+
+// The plain epilogue: acc to C + z M ldc (split z's partial product), each
+// row m multiplied by row_scale[m] (fp32 or bf16, rs_bf16) when given
+struct F32Store {
+  float* C;
+  long long ldc, M;
+  int N;
+  const void* row_scale;
+  int rs_bf16;
+  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
+    float* out = C + (long long)t.z * M * ldc;
+    const bool vec = ldc % 4 == 0 && reinterpret_cast<uintptr_t>(C) % 16 == 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long m = t.m0 + t.row(i);
+      if (m >= t.m_end) continue;
+      float sc = 1.f;
+      if (row_scale) sc = load_act(row_scale, m, rs_bf16);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = t.n0 + t.col(4 * h);
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = row_scale ? acc[i][4 * h + j] * sc : acc[i][4 * h + j];
+        float* p = out + m * ldc + n;
+        if (vec && n + 3 < N) {
+          *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (n + j < N) p[j] = v[j];
+        }
+      }
+    }
+  }
+};
+
+// epi(A @ B) with A (M x K) given by the functor `a` and B (K x N, ldb;
+// B_T: its (N x K) transpose) of TB.  The rows fall into segments of
+// seg_rows each (samples); a block's tile never crosses a segment's end,
+// so an epilogue can reduce over a tile of one sample.  A_T chooses
+// the threads' load pattern (k fastest, or m fastest, for a transposed
+// A).  blockIdx.x walks (row tile, column tile), columns fastest, so the
+// blocks of one row tile run side by side and share its rows in L2; split
+// z of blockIdx.z takes K range [z k_split, (z + 1) k_split).
+template <bool A_T, bool B_T, class ALoad, typename TB, class Epi>
 __global__ void __launch_bounds__(F32_THREADS, F32_MINB)
-    gemm_f32(const TA* __restrict__ A, long long lda, const TB* __restrict__ B, long long ldb,
-             float* __restrict__ C, long long ldc, int M, int N, long long K, long long k_split,
-             const void* row_scale, int rs_bf16) {
+    gemm_f32(ALoad a_of, const TB* __restrict__ B, long long ldb, int N, long long K,
+             long long k_split, int seg_rows, int seg_tiles, int n_tiles, Epi epi) {
   __shared__ __align__(16) float as[2][F32_BK][F32_BM];
   __shared__ __align__(16) float bs[2][F32_BK][F32_BN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * F32_BM, n0 = blockIdx.x * F32_BN;
+  // 32-bit row indices (the launcher checks M), and only m0, seg and the
+  // tile's valid rows live through the K loop (the epilogue's F32Tile is
+  // built after it): registers are at the 128 of two blocks an SM
+  const int row_tile = blockIdx.x / n_tiles;
+  const int seg = row_tile / seg_tiles, tile = row_tile % seg_tiles;
+  const int m0 = seg * seg_rows + tile * F32_BM;
+  const int rows = min(F32_BM, (seg + 1) * seg_rows - m0);
+  const int n0 = (int)(blockIdx.x % n_tiles) * F32_BN;
   const long long kb = (long long)blockIdx.z * k_split;
   const long long ke = kb + k_split < K ? kb + k_split : K;
   // this thread's 4 values of each slab: (m or n, 4 consecutive k) where K
@@ -303,10 +374,10 @@ __global__ void __launch_bounds__(F32_THREADS, F32_MINB)
     for (int j = 0; j < 4; ++j) {
       if (!A_T) {
         const long long kk = k0 + a_j + j;
-        ra[j] = (m0 + a_i < M && kk < ke) ? to_float(A[(long long)(m0 + a_i) * lda + kk]) : 0.f;
+        ra[j] = (a_i < rows && kk < ke) ? a_of(m0 + a_i, kk, seg) : 0.f;
       } else {
         const long long kk = k0 + a_i;
-        ra[j] = (kk < ke && m0 + a_j + j < M) ? to_float(A[kk * lda + m0 + a_j + j]) : 0.f;
+        ra[j] = (kk < ke && a_j + j < rows) ? a_of(m0 + a_j + j, kk, seg) : 0.f;
       }
       if (!B_T) {
         const long long kk = k0 + b_i;
@@ -357,44 +428,41 @@ __global__ void __launch_bounds__(F32_THREADS, F32_MINB)
     if (s + 1 < n_slabs) store(buf ^ 1);  // that buffer was last read a slab ago
     __syncthreads();
   }
-  float* out = C + (long long)blockIdx.z * M * ldc;
-  const bool vec = ldc % 4 == 0 && reinterpret_cast<uintptr_t>(C) % 16 == 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-    float sc = 1.f;
-    if (row_scale) sc = load_act(row_scale, m, rs_bf16);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + 64 * h + tx * 4;
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = row_scale ? acc[i][4 * h + j] * sc : acc[i][4 * h + j];
-      float* p = out + (long long)m * ldc + n;
-      if (vec && n + 3 < N) {
-        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n + j < N) p[j] = v[j];
-      }
-    }
-  }
+  const F32Tile t{m0, m0 + rows, n0, seg, tile, (int)blockIdx.z, ty, tx};
+  epi(acc, t);
 }
 
+// Launches gemm_f32 over m = segments * seg_rows rows (seg_rows 0: one
+// segment of m rows), m < 2^31.  Returns a CUDA error code.
+template <bool A_T, bool B_T, class ALoad, typename TB, class Epi>
+int gemm_f32_run(const ALoad& a, const TB* b, long long ldb, long long m, int n, long long k,
+                 int splits, long long seg_rows, const Epi& epi, cudaStream_t stream) {
+  if (seg_rows == 0) seg_rows = m;
+  if (m < 1 || m > INT_MAX - F32_BM || n < 1 || k < 1 || splits < 1 || splits > 65535 ||
+      seg_rows < 1 || m % seg_rows)
+    return (int)cudaErrorInvalidValue;
+  const long long seg_tiles = (seg_rows + F32_BM - 1) / F32_BM;
+  const int n_tiles = (n + F32_BN - 1) / F32_BN;
+  const long long blocks = m / seg_rows * seg_tiles * n_tiles;  // blockIdx.x: an int
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const long long k_split = (k + splits - 1) / splits;
+  dim3 grid((unsigned)blocks, 1, splits);
+  gemm_f32<A_T, B_T, ALoad, TB, Epi><<<grid, F32_THREADS, 0, stream>>>(
+      a, b, ldb, n, k, k_split, (int)seg_rows, (int)seg_tiles, n_tiles, epi);
+  return (int)cudaGetLastError();
+}
+
+// C (M x N, leading dimension ldc) = A (M x K) @ B (K x N), each row m then
+// multiplied by row_scale[m] (fp32 or bf16, rs_bf16) when given.  A_T: A
+// is stored as its (K x M) transpose; B_T: B as its (N x K) transpose; lda,
+// ldb are the stored rows' lengths.  Split z takes K range [z k_split, (z +
+// 1) k_split) and writes C + z * M * ldc.
 template <bool A_T, bool B_T, typename TA, typename TB>
 int gemm_f32_launch(const TA* a, long long lda, const TB* b, long long ldb, float* c,
                     long long ldc, int m, int n, long long k, int splits, const void* row_scale,
                     int rs_bf16, cudaStream_t stream) {
-  if (m < 1 || n < 1 || k < 1 || splits < 1 || (m + F32_BM - 1) / F32_BM > 65535 ||
-      splits > 65535)
-    return (int)cudaErrorInvalidValue;
-  const long long k_split = (k + splits - 1) / splits;
-  dim3 grid((n + F32_BN - 1) / F32_BN, (m + F32_BM - 1) / F32_BM, splits);
-  gemm_f32<A_T, B_T, TA, TB><<<grid, F32_THREADS, 0, stream>>>(a, lda, b, ldb, c, ldc, m, n, k,
-                                                              k_split, row_scale, rs_bf16);
-  return (int)cudaGetLastError();
+  return gemm_f32_run<A_T, B_T>(F32Matrix<A_T, TA>{a, lda}, b, ldb, m, n, k, splits, 0,
+                                F32Store{c, ldc, m, n, row_scale, rs_bf16}, stream);
 }
 
 }  // namespace

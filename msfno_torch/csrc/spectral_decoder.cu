@@ -51,8 +51,22 @@
 //
 // Tunables (tools/kernel_variants.py): DEC_STAGES (ring depth of 32 KB
 // stages beside the 112 KB A tile; at most 3).
+//
+// fp32 operands (the "float32" and "tensorfloat" knobs): spectral_decoder_f32,
+// in true fp32 FMA on the CUDA cores.  The fp32 inverse DFT of
+// dft_synthesis (dft_tiles.cuh:fold_rows, the even/odd fold) writes the
+// unscaled grid field Mt @ hm, fp32, to a (B, H, W, C) scratch; then the
+// decoder MLP of mlp_f32.cuh (two gemm_f32 launches) reads it with a and b
+// as its per-sample input affine, a * (Mt @ hm) + b: a per-channel scale
+// commutes with the DFT, and where the plain version scales hm first the
+// sums differ by rounding only (nothing is rounded to bf16 here).  Bound on
+// the H100: 3.4e11 FLOP (the DFT unfolded) at 67 TFLOP/s, 5.07 ms; the grid
+// field's round trip (2 x 1.06 GB) and h's are ~0.64 ms each at the HBM
+// rate.
 
 #include "chain_gemm.cuh"
+#include "dft_tiles.cuh"
+#include "mlp_f32.cuh"
 
 namespace {
 
@@ -288,6 +302,10 @@ enum Int { I_B, I_H, I_W, I_TWO_M, I_M2P, I_W_PAD, I_C, I_S, I_CMP, I_K1P, I_HID
 // Rows of the Mt operand must be padded to a multiple of this (zero rows).
 extern "C" int spectral_decoder_chunk() { return CH_BK; }
 
+// The tiles that shape the fp32 path's fold operand (0: FOLD_K, 1:
+// FOLD_TILE, 2: BF16_K, 3: BF16_TILE), as dft_synthesis_tile.
+extern "C" int spectral_decoder_tile(int i) { return dft_tile(i); }
+
 // ptrs and ints follow the Ptr and Int enums above.
 extern "C" int spectral_decoder_bf16(const void* const* ptrs, const long long* ints,
                                      void* stream) {
@@ -343,4 +361,39 @@ extern "C" int spectral_decoder_bf16(const void* const* ptrs, const long long* i
   if (e != cudaSuccess) return (int)e;
   return skip_bf16 ? launch_tiles<__nv_bfloat16>(maps, a, blocks, st)
                    : launch_tiles<float>(maps, a, blocks, st);
+}
+
+// The fp32-operand tail.  ptrs and ints begin with the decoder MLP's
+// MlpPtr / MlpInt layouts (mlp_f32.cuh: x is the (B, H*W, c) fp32 grid
+// field scratch that the DFT writes, aff_a / aff_b are a and b, the skip
+// its second input); then ptrs: the fp32 fold operand of
+// dft_synthesis.prepare (at_rows, at_cols), hm (B, H, 2M, c); ints: B, H,
+// W, the modes M, at_rows, at_cols, hm_bf16.
+extern "C" int spectral_decoder_f32(const void* const* ptrs, const long long* ints,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const MlpF32 mlp = mlp_f32_args(ptrs, ints);
+  const long long* v = ints + MLP_INTS;
+  const long long bsz = v[0], h = v[1], w = v[2];
+  const int m = (int)v[3], at_rows = (int)v[4], at_cols = (int)v[5];
+  if (bsz < 1 || h < 1 || w < 2 || m < 1 || mlp.x_bf16 || mlp.samples != bsz ||
+      mlp.rps != h * w || !mlp.aff_a)
+    return (int)cudaErrorInvalidValue;
+  FoldArgs a{};
+  a.at = (const float*)ptrs[MLP_PTRS];
+  a.b = ptrs[MLP_PTRS + 1];
+  a.out = (void*)mlp.x;
+  a.rows = bsz * h;
+  a.w = (int)w;
+  a.m = m;
+  a.c = mlp.c_main;
+  a.kh = a.w / 2 + 1;
+  a.k_dim = m;
+  a.k_pad = at_rows;
+  a.tiles = (a.kh + FOLD_TILE - 1) / FOLD_TILE;
+  if (at_cols != a.tiles * 2 * FOLD_TILE) return (int)cudaErrorInvalidValue;
+  int err = v[6] ? fold_launch<false, __nv_bfloat16, float>(a, st)
+                 : fold_launch<false, float, float>(a, st);
+  if (err) return err;
+  return mlp_f32_run(mlp, st);
 }

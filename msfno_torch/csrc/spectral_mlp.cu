@@ -17,9 +17,10 @@
 // dot: the same point).
 //
 // Bound on the H100: one launch at the serving shapes (14,520 rows,
-// 256 -> 512 -> 512 -> 512 -> 256) is ~9.1e10 FLOP against ~30 MB of
+// 256 -> 512 -> 512 -> 512 -> 256) needs ~6.9e10 FLOP in the TPU kernel's
+// Karatsuba form (this packed form does 9.1e10) against ~30 MB of
 // activations and ~6 MB of weights, so it is bound by tensor-core
-// operations (~0.09 ms at the bf16 dense peak), not by memory.
+// operations (~0.07 ms at the bf16 dense peak), not by memory.
 //
 // Design: the TPU kernel keeps all ~6 MB of weights resident in VMEM; a
 // Hopper SM has at most 227 KB, and keeping the hidden state of a row tile
@@ -36,6 +37,18 @@
 //
 // Tunables (tools/kernel_variants.py): WGM_BN (128 or 256 columns per
 // block) and WGM_STAGES (ring depth; 0 fills 200 KB), in row_gemm.cuh.
+//
+// fp32 operands (the "float32" and "tensorfloat" knobs, the JAX package's
+// default `spectral_mxu_dtype`): spectral_mlp_f32, the same packed
+// 4-product layers in true fp32 FMA on the CUDA cores (no TF32, nothing
+// rounded), one row_gemm.cuh:gemm_f32 launch a layer with the epilogues
+// HiddenF32 / OutF32.  The first layer's A functor reads xr and xi in
+// place (no cast pass); the hidden states are fp32 [re | im] rows.  Bound
+// on the H100: the Karatsuba form's 6.9e10 FLOP at 67 TFLOP/s, 1.02 ms;
+// this kernel's four products do 9.1e10 (1.36 ms at that rate).
+// The hidden state, 14,520 x 1024 x 4 B = 59 MB, exceeds the 50 MB L2;
+// its round trip (~0.04 ms a layer at the HBM rate) is far below the
+// operations.
 
 #include "row_gemm.cuh"
 
@@ -91,7 +104,102 @@ struct OutEpi {
   }
 };
 
+// the fp32 first layer's A: row m's [xr | xi]
+struct ComplexRows {
+  const float* re;
+  const float* im;
+  int d;
+  __device__ __forceinline__ float operator()(long long m, long long k, int) const {
+    return k < d ? __ldg(re + m * d + k) : __ldg(im + m * d + (k - d));
+  }
+};
+
+// fp32 hidden layer: LeakyReLU on the real half, fp32 rows of 2 d_out
+struct HiddenF32 {
+  float* h;
+  int d_out;
+  float slope;
+  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
+    const int n2 = 2 * d_out;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long m = t.m0 + t.row(i);
+      if (m >= t.m_end) continue;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int n = t.n0 + t.col(4 * q);
+        if (n >= n2) continue;  // d_out % 16 == 0: a quad is whole
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] = acc[i][4 * q + j];
+          if (n < d_out && v[j] < 0.f) v[j] *= slope;
+        }
+        *reinterpret_cast<float4*>(h + m * n2 + n) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+};
+
+// fp32 last layer: re (columns < d_out) and im apart
+struct OutF32 {
+  float* re;
+  float* im;
+  int d_out;
+  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long m = t.m0 + t.row(i);
+      if (m >= t.m_end) continue;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int n = t.n0 + t.col(4 * q);
+        if (n >= 2 * d_out) continue;
+        float* p = n < d_out ? re + m * d_out + n : im + m * d_out + (n - d_out);
+        *reinterpret_cast<float4*>(p) =
+            make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+      }
+    }
+  }
+};
+
+int check_dims(const int* d, const long long* off, int n_layers, int n_rows) {
+  if (n_layers < 1 || n_layers > MAX_LAYERS || n_rows < 1) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l <= n_layers; ++l)
+    if (d[l] <= 0 || d[l] % 16 != 0) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < n_layers; ++l)
+    if (off[l] % 8) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
+
+// As spectral_mlp_bf16, on fp32 operands: wbuf holds the packed fp32
+// weights, h_a and h_b are fp32 scratch of n_rows * 2 * max(d) each.
+extern "C" int spectral_mlp_f32(const void* xr, const void* xi, const void* wbuf, const int* d,
+                                const long long* off, int n_layers, void* out_r, void* out_i,
+                                int n_rows, float slope, void* h_a, void* h_b, void* stream) {
+  if (int err = check_dims(d, off, n_layers, n_rows)) return err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* w = (const float*)wbuf;
+  for (int l = 0; l < n_layers; ++l) {
+    const float* a = (const float*)(l % 2 == 1 ? h_a : h_b);  // layer l - 1's output
+    float* next = (float*)(l % 2 == 0 ? h_a : h_b);
+    const int k = 2 * d[l], n = 2 * d[l + 1];
+    // the A functor: the input's [xr | xi] (first layer), else layer l - 1's rows
+    auto layer = [&](const auto& x) {
+      return l == n_layers - 1
+                 ? gemm_f32_run<false, false>(x, w + off[l], n, n_rows, n, k, 1, 0,
+                                              OutF32{(float*)out_r, (float*)out_i, d[l + 1]}, st)
+                 : gemm_f32_run<false, false>(x, w + off[l], n, n_rows, n, k, 1, 0,
+                                              HiddenF32{next, d[l + 1], slope}, st);
+    };
+    const int err = l == 0 ? layer(ComplexRows{(const float*)xr, (const float*)xi, d[0]})
+                           : layer(F32Matrix<false, float>{a, k});
+    if (err) return err;
+  }
+  return 0;
+}
 
 // xr, xi: (n_rows, d[0]) fp32, 16-byte aligned; wbuf: packed bf16 weights,
 // layer l at off[l] with shape (2 d[l], 2 d[l+1]); out_r, out_i: (n_rows,
@@ -101,11 +209,7 @@ extern "C" int spectral_mlp_bf16(const void* xr, const void* xi, const void* wbu
                                  const int* d, const long long* off, int n_layers,
                                  void* out_r, void* out_i, int n_rows, float slope, void* h_a,
                                  void* h_b, void* stream) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS || n_rows < 1) return (int)cudaErrorInvalidValue;
-  for (int l = 0; l <= n_layers; ++l)
-    if (d[l] <= 0 || d[l] % 16 != 0) return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < n_layers; ++l)
-    if (off[l] % 8) return (int)cudaErrorInvalidValue;
+  if (int err = check_dims(d, off, n_layers, n_rows)) return err;
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n4 = (long long)n_rows * d[0] / 4;
   const long long blocks = (n4 + 255) / 256;

@@ -145,7 +145,7 @@ class Mlp(nn.Module):
             if x.is_cuda:
                 prepared = self._cache.get(
                     "weights", (fc1.weight, fc2.weight),
-                    lambda: prepare_weights(w1, w2, x.shape[-1]),
+                    lambda: prepare_weights(w1, w2, x.shape[-1], self.mxu_dtype),
                 )
             aff2d = None
             if affine is not None:
@@ -188,7 +188,7 @@ class Mlp(nn.Module):
         if x.is_cuda:
             prepared = self._cache.get(
                 "spectral", (fc1.weight, fc2.weight, cs),
-                lambda: enc_kernel.prepare(w1, w2, cs),
+                lambda: enc_kernel.prepare(w1, w2, cs, self.mxu_dtype),
             )
         f, ssum, ssq = enc_kernel.grid_encoder_spectral(
             x, w1, fc1.bias, w2, pe, cs, mxu_dtype=self.mxu_dtype,
@@ -233,7 +233,7 @@ class BigSkipMlp(nn.Module):
             if hm.is_cuda:
                 prepared = self._cache.get(
                     "spectral", (fc1.weight, fc2.weight, mt),
-                    lambda: dec_kernel.prepare(w1, w2, mt, self.in_main),
+                    lambda: dec_kernel.prepare(w1, w2, mt, self.in_main, self.mxu_dtype),
                 )
             return dec_kernel.spectral_decoder(
                 hm, residual, mt, a, b, w1, fc1.bias, w2, fc2.bias,
@@ -245,7 +245,7 @@ class BigSkipMlp(nn.Module):
             if x.is_cuda:
                 prepared = self._cache.get(
                     "weights", (fc1.weight, fc2.weight),
-                    lambda: prepare_weights(w1, w2, self.in_main),
+                    lambda: prepare_weights(w1, w2, self.in_main, self.mxu_dtype),
                 )
             y = grid_mlp(x, w1, fc1.bias, w2, b2=fc2.bias, skip=residual,
                          mxu_dtype=self.mxu_dtype, out_dtype=self.out_dtype,
@@ -396,7 +396,8 @@ class SpectralAttentionS2(nn.Module):
             ws = self.weights()
             packed = None
             if z.is_cuda:
-                packed = self._cache.get("packed", ws, lambda: pack_weights(ws))
+                packed = self._cache.get("packed", ws,
+                                         lambda: pack_weights(ws, self.mxu_dtype))
             z = spectral_mlp(z, ws, 0.0, self.mxu_dtype, packed=packed)
         else:
             z = self._mlp(z)

@@ -116,6 +116,38 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
 
 
+def kernel_operand(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(contiguous tensor, is_bf16) in a dtype the kernels read: bf16 stays,
+    any other dtype becomes fp32."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        t = t.float()
+    return t.contiguous(), int(t.dtype == torch.bfloat16)
+
+
+def operand_dtype(mxu_dtype: str) -> torch.dtype:
+    """The kernels' operand type for a matmul knob: bf16 for "bfloat16";
+    fp32 for "float32" and "tensorfloat" (true fp32 FMA on the CUDA cores,
+    no TF32: the JAX package's `kernel_mxu_dtype`,
+    msfno_tpu/ops/pallas/__init__.py:1-10, maps both to its fp32
+    kernels)."""
+    if mxu_dtype == "bfloat16":
+        return torch.bfloat16
+    if mxu_dtype in ("float32", "tensorfloat"):
+        return torch.float32
+    raise ValueError(f"unknown mxu dtype {mxu_dtype!r}")
+
+
+def check_prepared(name: str, tensors, mxu_dtype: str) -> None:
+    """Raise unless the prepared operands `tensors` are of the operand type
+    of `mxu_dtype`: a bf16 pack never reaches an fp32 kernel, nor the
+    reverse."""
+    want = operand_dtype(mxu_dtype)
+    got = {t.dtype for t in tensors}
+    if got != {want}:
+        raise ValueError(f"{name}: prepared operands of {sorted(map(str, got))} for "
+                         f"{mxu_dtype!r} operands ({want}): pass prepare(..., {mxu_dtype!r})")
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -161,6 +193,7 @@ def strided_sum(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
+TILE_ROWS = 128  # rows a statistics tile (CH_BM, chain_gemm.cuh; F32_BM, row_gemm.cuh)
 REDUCE_GROUPS = 64  # runs of partials the kernels add first, then add the runs
 
 
@@ -169,6 +202,18 @@ def reduce_groups(n: int) -> tuple[int, int]:
     (`tile_reduce`, then `stats_reduce`)."""
     per = -(-n // min(REDUCE_GROUPS, n))
     return -(-n // per), per
+
+
+def stats_scratch(samples: int, rows_per_sample: int, c: int, dev):
+    """The kernels' statistics buffers for samples of `rows_per_sample` rows
+    and c channels: ([part_sum, part_sq] (samples, tiles, c) per 128-row
+    tile, [grp_sum, grp_sq] (samples, groups, c) per run of tiles, [ssum,
+    ssq] (samples, c)), and the number of runs (`reduce_groups`)."""
+    tiles = -(-rows_per_sample // TILE_ROWS)
+    groups, _ = reduce_groups(tiles)
+    bufs = [torch.empty(shape, device=dev) for shape in
+            [(samples, tiles, c)] * 2 + [(samples, groups, c)] * 2 + [(samples, c)] * 2]
+    return bufs, groups
 
 
 def tile_stats_reduce(part: torch.Tensor) -> torch.Tensor:

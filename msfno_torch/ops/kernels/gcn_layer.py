@@ -23,7 +23,8 @@ import ctypes
 
 import torch
 
-from msfno_torch.ops.kernels import check, library, stream_ptr
+from msfno_torch.ops.kernels import (check, kernel_operand, library, operand_dtype,
+                                     stream_ptr)
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -72,12 +73,6 @@ def gcn_layer_reference(x, w, b, dinv, mask, residual=None, slope=0.01,
     od = torch_dtype(out_dtype) if out_dtype is not None else x.dtype
     return gcn_stencil_pass(gcn_t_pass(x, w, dinv, mxu_dtype), b, dinv, mask, residual,
                             slope, od)
-
-
-def _act(t: torch.Tensor) -> tuple[torch.Tensor, int]:
-    if t.dtype not in (torch.float32, torch.bfloat16):
-        t = t.float()
-    return t.contiguous(), int(t.dtype == torch.bfloat16)
 
 
 def gcn_layer(x, w, b, dinv, mask, residual=None, slope: float = 0.01,
@@ -134,10 +129,10 @@ def _forward(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype, prepare
             or (residual is not None and residual.shape != (bsz, h, wd, f))):
         raise ValueError("gcn_layer: operand shapes do not match x (B, H, W, C_in) "
                          f"{tuple(x.shape)} and w (C_in, F) {tuple(w.shape)}")
-    f32_ops = _fp32_operands(mxu_dtype)
+    f32_ops = operand_dtype(mxu_dtype) == torch.float32
     if c_in == 1:
         wk = w.float().reshape(-1).contiguous()
-        xk, x_bf16 = _act(x)
+        xk, x_bf16 = kernel_operand(x)
     elif f32_ops:
         wk = prepared if prepared is not None else w.float().contiguous()
         xk, x_bf16 = x.float().contiguous(), 0
@@ -146,11 +141,11 @@ def _forward(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype, prepare
         xk, x_bf16 = x.to(torch.bfloat16).contiguous(), 1
     if xk.data_ptr() % 16:  # TMA reads 16-byte aligned rows
         xk = xk.clone()
-    dk, d_bf16 = _act(dinv)
-    mk, m_bf16 = _act(mask)
+    dk, d_bf16 = kernel_operand(dinv)
+    mk, m_bf16 = kernel_operand(mask)
     if d_bf16 != m_bf16:
         mk = mk.to(dk.dtype)
-    rk, r_bf16 = _act(residual) if residual is not None else (None, 0)
+    rk, r_bf16 = kernel_operand(residual) if residual is not None else (None, 0)
     od = torch_dtype(out_dtype) if out_dtype is not None else x.dtype
     if od not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gcn_layer: unsupported out dtype {od}")
@@ -175,15 +170,3 @@ def _forward(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype, prepare
     global LAUNCHES
     LAUNCHES += 1
     return out
-
-
-def _fp32_operands(mxu_dtype: str) -> bool:
-    """The kernels' operand type for a matmul knob: "float32" and
-    "tensorfloat" take fp32 operands (true fp32 FMA, as
-    `kernel_mxu_dtype`, msfno_tpu/ops/pallas/__init__.py:1-10, maps
-    them), "bfloat16" bf16 operands."""
-    if mxu_dtype in ("float32", "tensorfloat"):
-        return True
-    if mxu_dtype == "bfloat16":
-        return False
-    raise ValueError(f"unknown mxu dtype {mxu_dtype!r}")

@@ -23,9 +23,9 @@ import ctypes
 
 import torch
 
-from msfno_torch.ops.kernels import (check, library, reduce_groups, stream_ptr,
-                                     tile_stats_reduce)
-from msfno_torch.ops.kernels.gcn_layer import _act, _fp32_operands, box3
+from msfno_torch.ops.kernels import (check, kernel_operand, library, operand_dtype,
+                                     reduce_groups, stream_ptr, tile_stats_reduce)
+from msfno_torch.ops.kernels.gcn_layer import box3
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -141,7 +141,7 @@ def gcn_layer_bwd_passes(g, y, residual, x, w, dinv, mask, slope=0.01, mxu_dtype
     dx = dsup @ wr.t()
     if c_in == 1:
         return dx, tile_stats_reduce(part_dw[None]), db
-    n, f32_ops = dsup.numel() // f, _fp32_operands(mxu_dtype)
+    n, f32_ops = dsup.numel() // f, operand_dtype(mxu_dtype) == torch.float32
     if splits is None:
         splits = dw_splits(n, c_in, f, f32_ops)
     xr = mxu_round(x, mxu_dtype).float().reshape(n, c_in)
@@ -169,24 +169,24 @@ def gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope: float = 0.01,
         raise ValueError("gcn_layer_bwd: operand shapes do not match g (B, H, W, F) "
                          f"{tuple(g.shape)}, x (B, H, W, C_in) {tuple(x.shape)} and "
                          f"w (C_in, F) {tuple(w.shape)}")
-    f32_ops = _fp32_operands(mxu_dtype)
+    f32_ops = operand_dtype(mxu_dtype) == torch.float32
     if f % 8 or (c_in > 1 and c_in % 8 and not f32_ops):
         raise ValueError(f"gcn_layer_bwd: F {f} (and, on bf16 operands, C_in {c_in} > 1) "
                          "must be multiples of 8")
     dev = g.device
-    acts = [_act(t)[0] for t in (g, y, residual) if t is not None]
+    acts = [kernel_operand(t)[0] for t in (g, y, residual) if t is not None]
     if len({t.dtype for t in acts}) > 1:  # the kernel reads them in one type
         acts = [t.float() for t in acts]
     gk, yk, rk = acts if residual is not None else (*acts, None)
     act_bf16 = int(gk.dtype == torch.bfloat16)
-    dk, d_bf16 = _act(dinv)
+    dk, d_bf16 = kernel_operand(dinv)
     mk = mask.to(dk.dtype).contiguous()
     op_dtype = torch.float32 if f32_ops else torch.bfloat16
     if c_in > 1:
         xk, x_bf16 = x.to(op_dtype).contiguous(), int(not f32_ops)
         wk = prepared if prepared is not None else w.to(op_dtype).contiguous()
     else:
-        xk, x_bf16 = _act(x)
+        xk, x_bf16 = kernel_operand(x)
         wk = w.to(op_dtype).reshape(1, f).contiguous()
     n_px = bsz * h * wd
     splits = dw_splits(n_px, c_in, f, f32_ops)

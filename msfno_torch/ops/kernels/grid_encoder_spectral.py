@@ -15,8 +15,11 @@ completes into the forward SHT.  The grid-space encoder output is never
 stored in fp32: the kernel runs in two passes (see its source), the
 encoder MLP over 128-pixel tiles with per-tile column sums of y and y^2
 added in a fixed order, writing bf16 y, then the bf16 forward DFT of
-`dft_analysis` on it.  `encoder_mlp_tiles`, `tile_stats_reduce` and
-`dft_pass` are plain mirrors of that decomposition (tests only).  Bound on
+`dft_analysis` on it.  On fp32 operands ("float32", "tensorfloat") the
+same two passes run in true fp32 FMA: the encoder MLP of csrc/mlp_f32.cuh
+writes fp32 y, and the fp32 DFT of `dft_analysis` (the even/odd fold)
+reads it.  `encoder_mlp_tiles`, `tile_stats_reduce` and `dft_pass` are
+plain mirrors of that decomposition (tests only).  Bound on
 the H100 at the serving shapes: operations (see the kernel source).  The
 JAX package has no backward kernel here: its gradient is the VJP of
 `_ref_encoder_spectral` (grid_mlp.py:521-560: fp32 MLP, y and cs rounded
@@ -29,12 +32,15 @@ import ctypes
 
 import torch
 
-from msfno_torch.ops.kernels import check, library, reference_vjp, stream_ptr
-from msfno_torch.ops.kernels.dft_analysis import BF16_K, BF16_TILE, _ceil, aligned, check_operand
+from msfno_torch.ops.kernels import (TILE_ROWS, check, check_prepared, kernel_operand, library,
+                                     mlp_f32, operand_dtype, reference_vjp, stats_scratch,
+                                     stream_ptr)
+from msfno_torch.ops.kernels import dft_analysis
+from msfno_torch.ops.kernels.dft_analysis import (BF16_K, BF16_TILE, FOLD_K, FOLD_TILE, _ceil,
+                                                  aligned, check_operand)
 # REDUCE_GROUPS and tile_stats_reduce are re-exported for the tail's modules and the tests
-from msfno_torch.ops.kernels import REDUCE_GROUPS, reduce_groups, tile_stats_reduce  # noqa: F401
-from msfno_torch.ops.kernels.grid_mlp import (TILE_ROWS, _act, _pad16, grid_mlp_reference,
-                                              prepare_weights)
+from msfno_torch.ops.kernels import REDUCE_GROUPS, tile_stats_reduce  # noqa: F401
+from msfno_torch.ops.kernels.grid_mlp import _pad16, grid_mlp_reference, prepare_weights
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -87,12 +93,16 @@ def encoder_mlp_tiles(x, w1, b1, w2, pe, mxu_dtype="bfloat16", tile=TILE_ROWS):
 def dft_pass(y, cs, w, mxu_dtype="bfloat16", out_dtype=None):
     """Plain mirror of the kernel's second pass (tests only): the forward DFT
     of the rounded y (B, H*W, C) per latitude row, through the prepared
-    [C | -S]^T operand of `prepare`, f rounded to `out_dtype` (default
-    bf16).  Returns (B, H, 2M, C)."""
+    operand of `prepare` (bf16: [C | -S]^T; fp32: the even/odd fold of
+    `dft_analysis`), f rounded to `out_dtype` (default bf16).  Returns
+    (B, H, 2M, C)."""
     bsz, hw, c = y.shape
     two_m = cs.shape[1]
-    cst = _dft_operand(cs).float() if mxu_dtype == "bfloat16" else cs.t().float()
-    f = torch.matmul(cst[:two_m, :w], y.float().reshape(bsz * (hw // w), w, c))
+    rows = y.float().reshape(bsz * (hw // w), w, c)
+    if mxu_dtype == "bfloat16":
+        f = torch.matmul(_dft_operand(cs).float()[:two_m, :w], rows)
+    else:
+        f = dft_analysis.dft_analysis_folded(rows, *_analysis_pair(cs))
     od = torch_dtype(out_dtype or "bfloat16")
     return f.reshape(bsz, hw // w, two_m, c).to(od)
 
@@ -139,11 +149,22 @@ def pad_dft_matrix(mat: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def prepare(w1, w2, cs):
-    """The kernel's bf16 operands: `grid_mlp.prepare_weights` of the MLP and
-    the DFT pass's [C | -S]^T operand (as `dft_analysis.prepare` builds its
-    bf16 one)."""
-    return (*prepare_weights(w1, w2, w1.shape[0]), _dft_operand(cs))
+def _analysis_pair(cs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(C, S), each (W, M), of the merged [C | -S] analysis matrix."""
+    m = cs.shape[1] // 2
+    return cs[:, :m], -cs[:, m:]
+
+
+def prepare(w1, w2, cs, mxu_dtype="bfloat16"):
+    """The kernel's operands for `mxu_dtype`: `grid_mlp.prepare_weights` of
+    the MLP and the DFT pass's operand (bf16: [C | -S]^T, as
+    `dft_analysis.prepare` builds its bf16 one; fp32: the fold's half
+    matrices of `dft_analysis.prepare`)."""
+    if operand_dtype(mxu_dtype) == torch.float32:
+        at = dft_analysis.prepare(*_analysis_pair(cs), mxu_dtype)
+    else:
+        at = _dft_operand(cs)
+    return (*prepare_weights(w1, w2, w1.shape[0], mxu_dtype), at)
 
 
 def grid_encoder_spectral(x, w1, b1, w2, pe, cs, mxu_dtype="bfloat16", out_dtype=None,
@@ -196,11 +217,7 @@ def _forward(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared):
         return grid_encoder_spectral_reference(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encoder_spectral: unsupported device {x.device}")
-    if mxu_dtype != "bfloat16":
-        raise NotImplementedError(
-            "grid_encoder_spectral: the CUDA kernel takes bf16 operands; an "
-            f"fp32 kernel ({mxu_dtype!r}) comes in a later slice"
-        )
+    f32 = operand_dtype(mxu_dtype) == torch.float32
     bsz, h, w, c_in = x.shape
     hidden, c = w1.shape[1], w2.shape[1]
     two_m = cs.shape[1]
@@ -209,32 +226,28 @@ def _forward(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared):
         raise ValueError("grid_encoder_spectral: operand shapes do not match x "
                          "(B, H, W, C_in), w1 (C_in, hidden), w2 (hidden, C), "
                          "pe (H, W, C) and cs (W, 2M)")
-    if hidden % 16 or c % 16 or max(c_in, hidden, c) > 256:
+    if not f32 and (hidden % 16 or c % 16 or max(c_in, hidden, c) > 256):
         raise ValueError(f"grid_encoder_spectral: hidden {hidden} and C {c} must be "
                          f"multiples of 16, and C_in {c_in}, hidden and C at most 256")
     if prepared is None:
-        prepared = prepare(w1, w2, cs)
+        prepared = prepare(w1, w2, cs, mxu_dtype)
+    check_prepared("grid_encoder_spectral", prepared, mxu_dtype)
     w1p, w2p, cst = prepared
     od = torch_dtype(out_dtype or "bfloat16")
     if od not in (torch.float32, torch.bfloat16):
         raise ValueError(f"grid_encoder_spectral: unsupported out dtype {od}")
-    xf, x_bf16 = _act(x)
+    if f32:
+        return _forward_f32(x, w1p, b1, w2p, pe, cst, two_m, od)
+    xf, x_bf16 = kernel_operand(x)
     xf = aligned(xf)
-    pef, pe_bf16 = _act(pe) if pe is not None else (None, 0)
+    pef, pe_bf16 = kernel_operand(pe) if pe is not None else (None, 0)
     if pef is not None:  # bf16 pe comes by TMA, fp32 pe in pairs
         pef = aligned(pef)
     b1f = b1.float().contiguous()
     dev = x.device
-    tiles = -(-h * w // TILE_ROWS)
     y = torch.empty((bsz, h * w, c), dtype=torch.bfloat16, device=dev)  # bf16 y, pass 1 -> 2
     f = torch.empty((bsz, h, two_m, c), dtype=od, device=dev)
-    groups, _ = reduce_groups(tiles)
-    part_sum = torch.empty((bsz, tiles, c), device=dev)
-    part_sq = torch.empty_like(part_sum)
-    grp_sum = torch.empty((bsz, groups, c), device=dev)
-    grp_sq = torch.empty_like(grp_sum)
-    ssum = torch.empty((bsz, c), device=dev)
-    ssq = torch.empty_like(ssum)
+    (part_sum, part_sq, grp_sum, grp_sq, ssum, ssq), groups = stats_scratch(bsz, h * w, c, dev)
 
     lib = library("grid_encoder_spectral")
     check_operand("grid_encoder_spectral", lib, cst,
@@ -253,6 +266,29 @@ def _forward(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared):
     )
     status = lib.grid_encoder_spectral_bf16(ptrs, ints, stream_ptr(x))
     check(status, "grid_encoder_spectral")
+    global LAUNCHES
+    LAUNCHES += 1
+    return f, ssum, ssq
+
+
+def _forward_f32(x, w1p, b1, w2p, pe, at, two_m, od):
+    """The fp32-operand kernel: the encoder MLP into an fp32 y scratch, then
+    the folded forward DFT of y (csrc/grid_encoder_spectral.cu)."""
+    bsz, h, w, c_in = x.shape
+    c = w2p.shape[1]
+    lib = library("grid_encoder_spectral")
+    check_operand("grid_encoder_spectral", lib, at,
+                  (_ceil(w // 2 + 1, FOLD_K), 2 * FOLD_TILE * -(-(two_m // 2) // FOLD_TILE)),
+                  bf16_ops=0)
+    xf, _ = kernel_operand(x)
+    y = torch.empty((bsz * h * w, c), device=x.device)  # fp32 y, pass 1 -> 2
+    f = torch.empty((bsz, h, two_m, c), dtype=od, device=x.device)
+    ptrs, ints, _keep, (ssum, ssq) = mlp_f32.mlp_args(
+        xf.reshape(-1, c_in), w1p, b1, w2p, pe=pe, out=y, samples=bsz, stats=True)
+    ptrs += [at.data_ptr(), f.data_ptr()]
+    ints += [bsz, h, w, two_m // 2, at.shape[0], at.shape[1], int(od == torch.bfloat16)]
+    mlp_f32.launch("grid_encoder_spectral", "grid_encoder_spectral_f32", ptrs, ints,
+                   stream_ptr(x))
     global LAUNCHES
     LAUNCHES += 1
     return f, ssum, ssq

@@ -12,7 +12,10 @@ source).  The kernel walks tiles of 128 rows of one sample, runs a hidden
 width above 256 as two passes of the first GEMM, and adds per-tile
 statistics partials in a fixed order: `mlp_tiles` and
 `ops.kernels.tile_stats_reduce` are plain mirrors of that decomposition
-(tests only).  The JAX package has no backward kernel here: its gradient is
+(tests only).  On fp32 operands ("float32", "tensorfloat") the kernel is
+two fp32 FMA GEMMs with h through device memory (csrc/mlp_f32.cuh): the
+same tiles of 128 rows of one sample and the same fixed-order statistics,
+in one pass over the hidden width (`mlp_tiles` with `half` = hidden).  The JAX package has no backward kernel here: its gradient is
 the VJP of the fp32 pre-rounding reference (`_ref_mlp_f32`,
 grid_mlp.py:306-395), and so it is here.
 """
@@ -24,12 +27,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from msfno_torch.ops.kernels import check, library, reduce_groups, reference_vjp, stream_ptr
+from msfno_torch.ops.kernels import (TILE_ROWS, check, check_prepared, kernel_operand,
+                                     library, mlp_f32, operand_dtype, reference_vjp,
+                                     stats_scratch, stream_ptr)
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
 
-TILE_ROWS = 128  # rows a tile of the chained-GEMM kernels (CH_BM, chain_gemm.cuh)
 HIDDEN_PASS = 256  # the first GEMM's N a pass (GM_HALF, grid_mlp.cu)
 
 
@@ -137,10 +141,13 @@ def mlp_tiles(x, w1, b1, w2, b2=None, skip=None, pe=None, mxu_dtype="bfloat16",
     return y, part_sum, part_sq
 
 
-def prepare_weights(w1, w2, c_main: int):
-    """The kernel's bf16 weights: W1 as (k1p, hidden) with the main rows
-    padded to a multiple of 16 and the skip rows after them, W2 as
-    (hidden, n2p) with zero columns past c_out."""
+def prepare_weights(w1, w2, c_main: int, mxu_dtype: str = "bfloat16"):
+    """The kernel's weights for `mxu_dtype`.  bf16 operands: W1 as (k1p,
+    hidden) with the main rows padded to a multiple of 16 and the skip rows
+    after them, W2 as (hidden, n2p) with zero columns past c_out.  fp32
+    operands: W1 and W2 as they are, contiguous fp32."""
+    if operand_dtype(mxu_dtype) == torch.float32:
+        return w1.float().contiguous(), w2.float().contiguous()
     hidden, c_out = w1.shape[1], w2.shape[1]
     c_skip = w1.shape[0] - c_main
     cmp = _pad16(c_main)
@@ -152,13 +159,6 @@ def prepare_weights(w1, w2, c_main: int):
     w2p = torch.zeros((hidden, _pad16(c_out)), dtype=torch.bfloat16, device=w2.device)
     w2p[:, :c_out] = w2
     return w1p, w2p
-
-
-def _act(t: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """(contiguous tensor, is_bf16) in a dtype the kernel reads."""
-    if t.dtype not in (torch.float32, torch.bfloat16):
-        t = t.float()
-    return t.contiguous(), int(t.dtype == torch.bfloat16)
 
 
 def grid_mlp(x, w1, b1, w2, b2=None, skip=None, pe=None, mxu_dtype="bfloat16",
@@ -213,20 +213,15 @@ def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affi
     if x.device.type != "cuda":
         raise ValueError(f"grid_mlp: unsupported device {x.device}")
     _check_options(stats_rows, affine, pe, residual)
-    if mxu_dtype != "bfloat16":
-        raise NotImplementedError(
-            "grid_mlp: the CUDA kernel takes bf16 operands; an fp32 kernel "
-            f"({mxu_dtype!r}) comes in a later slice; set pallas_grid_mlp="
-            "False for the exact tier"
-        )
+    f32 = operand_dtype(mxu_dtype) == torch.float32
     lead, c_main = x.shape[:-1], x.shape[-1]
-    xf, x_bf16 = _act(_flat(x))
+    xf, x_bf16 = kernel_operand(_flat(x))
     n = xf.shape[0]
     hidden, c_out = w1.shape[1], w2.shape[1]
     c_skip = w1.shape[0] - c_main
     k1p = _pad16(c_main) + (_pad16(c_skip) if c_skip else 0)
-    if (hidden % 16 or hidden > 2 * HIDDEN_PASS or c_out > 256 or k1p > 448
-            or (hidden > HIDDEN_PASS and k1p > HIDDEN_PASS)):
+    if not f32 and (hidden % 16 or hidden > 2 * HIDDEN_PASS or c_out > 256 or k1p > 448
+                    or (hidden > HIDDEN_PASS and k1p > HIDDEN_PASS)):
         raise ValueError(f"grid_mlp: hidden width {hidden} must be a multiple of 16 and at "
                          f"most {2 * HIDDEN_PASS}, C_out {c_out} at most 256, the padded "
                          f"input width {k1p} at most 448 (at most {HIDDEN_PASS} for a "
@@ -234,7 +229,8 @@ def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affi
     if (skip is None) != (c_skip == 0):
         raise ValueError("grid_mlp: w1 rows must equal C_main (+ C_skip with skip)")
     if prepared is None:
-        prepared = prepare_weights(w1, w2, c_main)
+        prepared = prepare_weights(w1, w2, c_main, mxu_dtype)
+    check_prepared("grid_mlp", prepared, mxu_dtype)
     w1p, w2p = prepared
     dev = x.device
     od = torch_dtype(out_dtype or "float32")
@@ -262,16 +258,25 @@ def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affi
                                        or aff_b.shape != aff_a.shape))):
         raise ValueError("grid_mlp: operand shapes do not match x (..., C_main), "
                          "w1 (C_main + C_skip, hidden) and w2 (hidden, C_out)")
-    skf, skip_bf16 = _act(_flat(skip)) if skip is not None else (None, 0)
+    if pe is not None and n % _flat(pe).shape[0]:
+        raise ValueError(f"pixel count {n} not a multiple of pe rows {_flat(pe).shape[0]}")
+    global LAUNCHES
+    if f32:
+        ptrs, ints, _keep, stats = mlp_f32.mlp_args(
+            xf, w1p, b1, w2p, b2, skip=skip, pe=pe, affine=(aff_a, aff_b), residual=residual,
+            out=out, samples=n_samples, stats=stats_rows is not None)
+        mlp_f32.launch("grid_mlp", "grid_mlp_f32", ptrs, ints, stream_ptr(x))
+        LAUNCHES += 1
+        out = out.reshape(*lead, c_out)
+        return out if stats is None else (out, *stats)
+    skf, skip_bf16 = kernel_operand(_flat(skip)) if skip is not None else (None, 0)
     pef, pe_bf16, pe_rows = None, 0, 0
     if pe is not None:
-        pef, pe_bf16 = _act(_flat(pe))
+        pef, pe_bf16 = kernel_operand(_flat(pe))
         pe_rows = pef.shape[0]
-        if n % pe_rows:
-            raise ValueError(f"pixel count {n} not a multiple of pe rows {pe_rows}")
         if stats_rows is None:  # tiles of one pe table each: its bf16 rows come by TMA
             n_samples, rows_per_sample = n // pe_rows, pe_rows
-    rsf, res_bf16 = _act(_flat(residual)) if residual is not None else (None, 0)
+    rsf, res_bf16 = kernel_operand(_flat(residual)) if residual is not None else (None, 0)
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous() if b2 is not None else None
 
@@ -279,17 +284,11 @@ def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affi
     lib.grid_mlp_bf16.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     lib.grid_mlp_bf16.restype = ctypes.c_int
-    ssum = ssq = part_sum = part_sq = grp_sum = grp_sq = None
+    part_sum, part_sq, grp_sum, grp_sq, ssum, ssq = [None] * 6
     groups = 1
     if stats_rows is not None:
-        tiles = -(-rows_per_sample // TILE_ROWS)
-        groups, _ = reduce_groups(tiles)
-        part_sum = torch.empty((n_samples, tiles, c_out), device=dev)
-        part_sq = torch.empty_like(part_sum)
-        grp_sum = torch.empty((n_samples, groups, c_out), device=dev)
-        grp_sq = torch.empty_like(grp_sum)
-        ssum = torch.empty((n_samples, c_out), device=dev)
-        ssq = torch.empty_like(ssum)
+        (part_sum, part_sq, grp_sum, grp_sq, ssum, ssq), groups = stats_scratch(
+            n_samples, rows_per_sample, c_out, dev)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -307,7 +306,6 @@ def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affi
     )
     status = lib.grid_mlp_bf16(ptrs, ints, stream_ptr(x))
     check(status, "grid_mlp")
-    global LAUNCHES
     LAUNCHES += 1
     out = out.reshape(*lead, c_out)
     if stats_rows is None:

@@ -15,8 +15,12 @@ matrix (`InverseRealSHT.merged_matrix_t`) and (a, b) the combined norm + FiLM
 affine per (sample, channel): a per-channel affine commutes with the DFT.
 The grid field is never stored: the kernel chains three GEMMs per tile of
 128 longitudes of a row (see its source); `decoder_tiles` is a plain
-mirror of that chain (tests only).  Bound on the H100 at the serving
-shapes: operations (see the kernel source).  Its gradient is the
+mirror of that chain (tests only).  On fp32 operands ("float32",
+"tensorfloat") the kernel runs in true fp32 FMA: the fp32 inverse DFT of
+`dft_synthesis` (the even/odd fold) writes the unscaled field Mt @ hm, and
+the decoder MLP of csrc/mlp_f32.cuh reads it with (a, b) as its input
+affine; `decoder_f32_passes` is its plain mirror.  Bound on the H100 at
+the serving shapes: operations (see the kernel source).  Its gradient is the
 `spectral_decoder_bwd` kernel (JAX `_bwd`, spectral_decoder.py:412-438):
 dhm, dskip, da, db and the weight gradients; none for Mt, a constant.
 """
@@ -27,10 +31,13 @@ import ctypes
 
 import torch
 
-from msfno_torch.ops.kernels import check, library, stream_ptr
+from msfno_torch.ops.kernels import (check, check_prepared, kernel_operand, library, mlp_f32,
+                                     operand_dtype, stream_ptr)
+from msfno_torch.ops.kernels import dft_synthesis
+from msfno_torch.ops.kernels.dft_analysis import FOLD_K, FOLD_TILE, _ceil, aligned, check_operand
 from msfno_torch.ops.kernels.grid_encoder_spectral import (
     DFT_ROW_MULTIPLE, TILE_ROWS, _dft_operand, pad_dft_matrix)
-from msfno_torch.ops.kernels.grid_mlp import _act, grid_mlp_reference, prepare_weights
+from msfno_torch.ops.kernels.grid_mlp import grid_mlp_reference, prepare_weights
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -76,6 +83,26 @@ def decoder_tiles(hm, skip, mt, a, b, w1, b1, w2, b2=None, mxu_dtype="bfloat16",
     return torch.cat(outs, dim=2).to(torch_dtype(out_dtype or "float32"))
 
 
+def _synthesis_pair(mt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Ci, Si), each (M, W), of the transposed merged synthesis matrix
+    Mt = [Ci; -Si]^T."""
+    m = mt.shape[1] // 2
+    return mt[:, :m].t(), -mt[:, m:].t()
+
+
+def decoder_f32_passes(hm, skip, mt, a, b, w1, b1, w2, b2=None, out_dtype=None):
+    """Plain mirror of the fp32-operand kernel (tests only): the folded
+    inverse DFT of the unscaled hm (`dft_synthesis.dft_synthesis_folded`),
+    then the decoder MLP with (a, b) as its per-sample input affine, all in
+    fp32.  Same returns as `spectral_decoder`."""
+    bsz, h, two_m, c = hm.shape
+    w = mt.shape[0]
+    x = dft_synthesis.dft_synthesis_folded(hm.float(), *_synthesis_pair(mt.float()))
+    return grid_mlp_reference(x.reshape(bsz, h, w, c), w1, b1, w2, b2, skip=skip,
+                              mxu_dtype="float32", out_dtype=out_dtype or "float32",
+                              affine=(a.float(), b.float()))
+
+
 def spectral_grid_stats(hm: torch.Tensor, omega: torch.Tensor):
     """Exact instance-norm statistics of the unstored grid field
     x = Mt @ hm: by DFT orthogonality (omega = diag(M M^T) / W,
@@ -93,12 +120,17 @@ def spectral_grid_stats(hm: torch.Tensor, omega: torch.Tensor):
     return mean, mean_sq
 
 
-def prepare(w1, w2, mt, c_main: int):
-    """The kernels' bf16 operands, built once: `grid_mlp.prepare_weights` of
-    the MLP (main rows, then the skip rows) and the padded Mt for the
-    forward; the transposes of both weights and Mt^T (as the head's DFT pass
-    takes its operand) for the `spectral_decoder_bwd` kernel (~1.0 MB at the
-    serving widths)."""
+def prepare(w1, w2, mt, c_main: int, mxu_dtype="bfloat16"):
+    """The kernels' operands for `mxu_dtype`, built once.  bf16:
+    `grid_mlp.prepare_weights` of the MLP (main rows, then the skip rows)
+    and the padded Mt for the forward; the transposes of both weights and
+    Mt^T (as the head's DFT pass takes its operand) for the
+    `spectral_decoder_bwd` kernel (~1.0 MB at the serving widths).  fp32:
+    the fp32 weights and the fold's half matrices of
+    `dft_synthesis.prepare` (the forward only)."""
+    if operand_dtype(mxu_dtype) == torch.float32:
+        return (*prepare_weights(w1, w2, c_main, mxu_dtype),
+                dft_synthesis.prepare(*_synthesis_pair(mt), mxu_dtype))
     w1p, w2p = prepare_weights(w1, w2, c_main)
     return (w1p, w2p, pad_dft_matrix(mt), w1p.t().contiguous(), w2p.t().contiguous(),
             _dft_operand(mt))
@@ -148,11 +180,7 @@ def _forward(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype, prepared)
                                           out_dtype)
     if hm.device.type != "cuda":
         raise ValueError(f"spectral_decoder: unsupported device {hm.device}")
-    if mxu_dtype != "bfloat16":
-        raise NotImplementedError(
-            "spectral_decoder: the CUDA kernel takes bf16 operands; an fp32 "
-            f"kernel ({mxu_dtype!r}) comes in a later slice"
-        )
+    f32 = operand_dtype(mxu_dtype) == torch.float32
     bsz, h, two_m, c = hm.shape
     w, s = skip.shape[-2], skip.shape[-1]
     hidden, c_out = w1.shape[1], w2.shape[1]
@@ -162,17 +190,21 @@ def _forward(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype, prepared)
         raise ValueError("spectral_decoder: operand shapes do not match hm (B, H, 2M, C), "
                          "skip (B, H, W, S), mt (W, 2M), a/b (B, C), w1 (C + S, hidden) "
                          "and w2 (hidden, C_out)")
-    if c % 16 or hidden % 16 or c > 256 or hidden > 256 or c_out > 96 or s > 128:
+    if not f32 and (c % 16 or hidden % 16 or c > 256 or hidden > 256 or c_out > 96
+                    or s > 128):
         raise ValueError(f"spectral_decoder: C {c} and hidden {hidden} must be "
                          "multiples of 16 and at most 256, C_out at most 96, S at most 128")
     if prepared is None:
-        prepared = prepare(w1, w2, mt, c)
+        prepared = prepare(w1, w2, mt, c, mxu_dtype)
     w1p, w2p, mtp = prepared[:3]
+    check_prepared("spectral_decoder", (w1p, w2p, mtp), mxu_dtype)
     od = torch_dtype(out_dtype or "float32")
     if od not in (torch.float32, torch.bfloat16):
         raise ValueError(f"spectral_decoder: unsupported out dtype {od}")
-    hmf, hm_bf16 = _act(hm)
-    skf, skip_bf16 = _act(skip)
+    if f32:
+        return _forward_f32(hm, skip, a, b, w1p, b1, w2p, b2, mtp, od, w)
+    hmf, hm_bf16 = kernel_operand(hm)
+    skf, skip_bf16 = kernel_operand(skip)
     af, bf = a.float().contiguous(), b.float().contiguous()
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous() if b2 is not None else None
@@ -198,6 +230,31 @@ def _forward(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype, prepared)
     )
     status = lib.spectral_decoder_bf16(ptrs, ints, stream_ptr(hm))
     check(status, "spectral_decoder")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
+
+
+def _forward_f32(hm, skip, a, b, w1p, b1, w2p, b2, at, od, w):
+    """The fp32-operand kernel: the folded inverse DFT of hm into an fp32
+    grid-field scratch, then the decoder MLP with (a, b) as its input
+    affine (csrc/spectral_decoder.cu)."""
+    bsz, h, two_m, c = hm.shape
+    c_out = w2p.shape[1]
+    lib = library("spectral_decoder")
+    check_operand("spectral_decoder", lib, at,
+                  (_ceil(two_m // 2, FOLD_K), 2 * FOLD_TILE * -(-(w // 2 + 1) // FOLD_TILE)),
+                  bf16_ops=0)
+    hmf, hm_bf16 = kernel_operand(hm)
+    hmf = aligned(hmf)
+    xg = torch.empty((bsz * h * w, c), device=hm.device)  # the grid field Mt @ hm
+    out = torch.empty((bsz, h, w, c_out), dtype=od, device=hm.device)
+    affine = (a.float().contiguous(), b.float().contiguous())
+    ptrs, ints, _keep, _ = mlp_f32.mlp_args(xg, w1p, b1, w2p, b2, skip=skip, affine=affine,
+                                            out=out, samples=bsz)
+    ptrs += [at.data_ptr(), hmf.data_ptr()]
+    ints += [bsz, h, w, two_m // 2, at.shape[0], at.shape[1], hm_bf16]
+    mlp_f32.launch("spectral_decoder", "spectral_decoder_f32", ptrs, ints, stream_ptr(hm))
     global LAUNCHES
     LAUNCHES += 1
     return out

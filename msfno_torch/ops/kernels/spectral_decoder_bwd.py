@@ -28,11 +28,10 @@ import math
 
 import torch
 
-from msfno_torch.ops.kernels import check, library, stream_ptr
+from msfno_torch.ops.kernels import check, kernel_operand, library, stream_ptr
 from msfno_torch.ops.kernels.dft_analysis import BF16_K, BF16_TILE, aligned, check_operand
 from msfno_torch.ops.kernels.grid_encoder_spectral import (
     DFT_ROW_MULTIPLE, REDUCE_GROUPS, TILE_ROWS)
-from msfno_torch.ops.kernels.grid_mlp import _act
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -161,8 +160,9 @@ def spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
         raise ValueError(f"spectral_decoder_bwd: unsupported device {g.device}")
     if mxu_dtype != "bfloat16":
         raise NotImplementedError(
-            "spectral_decoder_bwd: the CUDA kernel takes bf16 operands; an fp32 "
-            f"kernel ({mxu_dtype!r}) comes in a later slice"
+            "spectral_decoder_bwd: the CUDA kernel takes bf16 operands; its fp32 "
+            f"kernel ({mxu_dtype!r}), and with it training the fp32-operand tail, "
+            "is the next slice of the port"
         )
     from msfno_torch.ops.kernels.spectral_decoder import prepare
 
@@ -183,7 +183,7 @@ def spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
     w1p, w2p, mtp, w1t, w2t, mtt = prepared
     k1p, n2p, m2p = w1p.shape[0], w2p.shape[1], mtp.shape[1]
     gk, skk = aligned(g.float()), aligned(skip.float())  # the kernel reads fp32 rows
-    hmk, hm_bf16 = _act(hm)
+    hmk, hm_bf16 = kernel_operand(hm)
     af, bf = a.float().contiguous(), b.float().contiguous()
     b1f = b1.float().contiguous()
     dev = g.device

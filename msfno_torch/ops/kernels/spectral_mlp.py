@@ -8,9 +8,11 @@ the `wout` projection (reference SpectralAttentionS2.forward_mlp,
 MSFNO/Models/sfno/layers.py:615-631).
 
 Bound on the H100 at the serving shapes: operations (see the kernel source);
-one launch is ~9.1e10 FLOP in the 4-product form.  `spectral_mlp_layers`
-mirrors the kernel's algebra (one packed GEMM per layer, the hidden state
-handed on in bf16).  Its gradient is what the
+one launch is ~9.1e10 FLOP in the 4-product form.  bf16 operands run on
+wgmma, fp32 operands ("float32", "tensorfloat": the JAX package's default
+knob) on the CUDA cores in true fp32 FMA.  `spectral_mlp_layers` mirrors
+the kernel's algebra (one packed GEMM per layer, the hidden state handed on
+rounded to the operand dtype).  Its gradient is what the
 JAX `_bwd` (spectral_mlp.py:485-507) does: on the bf16 path dx from the
 `spectral_mlp_bwd` kernel; the weights' gradients, only when asked for (and
 dx off the bf16 path), from the VJP of the fp32 reference `_ref_flat`.
@@ -22,7 +24,8 @@ import ctypes
 
 import torch
 
-from msfno_torch.ops.kernels import check, library, reference_vjp, stream_ptr
+from msfno_torch.ops.kernels import (check, check_prepared, library, operand_dtype,
+                                     reference_vjp, stream_ptr)
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -58,13 +61,16 @@ def packed_matrix(w: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     ).to(dtype)
 
 
-def pack_weights(weights) -> tuple[torch.Tensor, list[int], list[int]]:
-    """The kernel's weight buffer: `packed_matrix` per layer, in bf16,
-    concatenated; with the layer widths and element offsets."""
+def pack_weights(weights, mxu_dtype: str = "bfloat16"
+                 ) -> tuple[torch.Tensor, list[int], list[int]]:
+    """The kernel's weight buffer: `packed_matrix` per layer in the operand
+    type of `mxu_dtype`, concatenated; with the layer widths and element
+    offsets."""
+    dt = operand_dtype(mxu_dtype)
     dims = [int(weights[0].shape[0])] + [int(w.shape[1]) for w in weights]
     parts, offs, off = [], [], 0
     for w in weights:
-        packed = packed_matrix(w)
+        packed = packed_matrix(w, dt)
         parts.append(packed.reshape(-1))
         offs.append(off)
         off += packed.numel()
@@ -96,9 +102,9 @@ def spectral_mlp(z: torch.Tensor, weights, negative_slope: float = 0.0,
     """Spectral MLP over z (2, ..., C_in) fp32 -> (2, ..., C_out) fp32.
 
     A CPU tensor takes the plain version, forward and backward; a CUDA tensor
-    launches the kernels (bf16 operands, fp32 accumulation) or raises.
-    `packed` is an optional `pack_weights(weights)` result cached by the
-    caller."""
+    launches the kernels (operands of `mxu_dtype`, fp32 accumulation) or
+    raises.  `packed` is an optional `pack_weights(weights, mxu_dtype)`
+    result cached by the caller."""
     return _SpectralMlp.apply(z, negative_slope, mxu_dtype, packed, *weights)
 
 
@@ -137,15 +143,11 @@ def _forward(z, weights, negative_slope, mxu_dtype, packed):
         return spectral_mlp_reference(z, weights, negative_slope, mxu_dtype)
     if z.device.type != "cuda":
         raise ValueError(f"spectral_mlp: unsupported device {z.device}")
-    if mxu_dtype != "bfloat16":
-        raise NotImplementedError(
-            "spectral_mlp: the CUDA kernel takes bf16 operands; an fp32 "
-            f"kernel ({mxu_dtype!r}) comes in a later slice; set "
-            "use_pallas=False for the exact tier"
-        )
+    dt = operand_dtype(mxu_dtype)
     if packed is None:
-        packed = pack_weights(weights)
+        packed = pack_weights(weights, mxu_dtype)
     wbuf, dims, offs = packed
+    check_prepared("spectral_mlp", (wbuf,), mxu_dtype)
     lead = z.shape[1:-1]
     c_in = z.shape[-1]
     if c_in != dims[0] or any(d % 16 for d in dims):
@@ -156,9 +158,10 @@ def _forward(z, weights, negative_slope, mxu_dtype, packed):
         x = x.clone()
     n = x.shape[1]
     out = torch.empty((2, n, dims[-1]), device=z.device, dtype=torch.float32)
-    # the hidden states, [re | im] bf16 rows, in turn
-    hidden = torch.empty((2, n * 2 * max(dims)), device=z.device, dtype=torch.bfloat16)
-    fn = library("spectral_mlp").spectral_mlp_bf16
+    # the hidden states, [re | im] rows of the operand type, in turn
+    hidden = torch.empty((2, n * 2 * max(dims)), device=z.device, dtype=dt)
+    lib = library("spectral_mlp")
+    fn = lib.spectral_mlp_bf16 if dt == torch.bfloat16 else lib.spectral_mlp_f32
     vp = ctypes.c_void_p
     fn.argtypes = [vp, vp, vp, ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, vp, vp,

@@ -89,6 +89,25 @@ def test_balanced_config_is_the_jax_balanced_tier():
     assert not tcfg.exact_config(tcfg.balanced_config()).film.pallas_gcn
 
 
+def test_fp32_kernel_config_is_the_jax_exact_tier_with_every_kernel():
+    """fp32_kernel_config() is the exact tier, _flagship_cfg(), with the JAX
+    CLI's `--use-pallas --pallas-grid-mlp --grid-mlp-mxu-dtype float32`
+    (every kernel on fp32 operands), compared by JSON, but for
+    checkpointing_block."""
+    pytest.importorskip("jax")
+    import __graft_entry__
+    from msfno_tpu.utils import config as jcfg
+
+    want = dataclasses.replace(__graft_entry__._flagship_cfg(tiny=False),
+                               checkpointing_block=False, use_pallas=True,
+                               pallas_grid_mlp=True, grid_mlp_mxu_dtype="float32")
+    assert tcfg.to_json(tcfg.fp32_kernel_config()) == jcfg.to_json(want)
+    cfg = tcfg.fp32_kernel_config()
+    assert {cfg.spectral_mxu_dtype, cfg.grid_mlp_mxu_dtype, cfg.compute_dtype,
+            cfg.film.compute_dtype} == {"float32"}
+    assert cfg.fuse_encoder_dft and cfg.fuse_decoder_tail and cfg.film.pallas_gcn
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, msfno_torch, msfno_torch.config, msfno_torch.convert, "

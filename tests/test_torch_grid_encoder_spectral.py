@@ -178,3 +178,57 @@ def test_kernel_matches_plain(cuda, shape, pe, out):
     # another order (tile partials added in a fixed order)
     assert rel_l2(fk.float().cpu(), fp.float().cpu()) <= 1e-2
     assert rel_l2(sk.cpu(), sp.cpu()) <= 1e-4 and rel_l2(qk.cpu(), qp.cpu()) <= 1e-4
+
+
+def test_tensorfloat_is_float32_on_cpu():
+    ops = _case(seed=6)
+    a = _call(tk.grid_encoder_spectral, ops, torch.from_numpy, mxu_dtype="tensorfloat",
+              out_dtype="float32")
+    b = _call(tk.grid_encoder_spectral, ops, torch.from_numpy, mxu_dtype="float32",
+              out_dtype="float32")
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_prepare_fp32():
+    """fp32 operands: the MLP's weights as they are and the fold operand of
+    dft_analysis for the (C, S) pair of cs; a bf16 pack is refused."""
+    from msfno_torch.ops.kernels import check_prepared
+    from msfno_torch.ops.kernels import dft_analysis as ak
+
+    t = {k: torch.from_numpy(v) for k, v in _case().items()}
+    w1p, w2p, at = tk.prepare(t["w1"], t["w2"], t["cs"], "float32")
+    m = t["cs"].shape[1] // 2
+    assert torch.equal(w1p, t["w1"]) and torch.equal(w2p, t["w2"])
+    assert torch.equal(at, ak.prepare(t["cs"][:, :m], -t["cs"][:, m:], "float32"))
+    check_prepared("grid_encoder_spectral", (w1p, w2p, at), "tensorfloat")
+    with pytest.raises(ValueError):
+        check_prepared("grid_encoder_spectral", tk.prepare(t["w1"], t["w2"], t["cs"]),
+                       "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("shape,pe,out", [
+    (dict(b=2, h=3, w=100, c_in=7, hidden=64, c=160, mmax=30), "float32", "float32"),
+    # the serving step's widths, 2M = 242
+    (dict(b=1, h=2, w=240, c_in=73, hidden=256, c=256, mmax=121), "float32", "float32"),
+    (dict(b=2, h=3, w=160, c_in=73, hidden=256, c=64, mmax=40), "bfloat16", "bfloat16"),
+    (dict(b=2, h=2, w=160, c_in=73, hidden=128, c=256, mmax=80), None, "float32"),
+])
+def test_fp32_kernel_matches_plain(cuda, shape, pe, out, mxu):
+    # true fp32 FMA on both sides (the DFT folded on the card): the sums'
+    # order only; a bf16 f rounds the same fp32 value on both sides
+    ops = _case(seed=7, pe=pe is not None, **shape)
+    t = {k: None if v is None else torch.from_numpy(v).to(cuda) for k, v in ops.items()}
+    if pe is not None:
+        t["pe"] = t["pe"].to(getattr(torch, pe))
+    args = [t[k] for k in ("x", "w1", "b1", "w2", "pe", "cs")]
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        fk, sk, qk = tk.grid_encoder_spectral(*args, mxu_dtype=mxu, out_dtype=out)
+        torch.cuda.synchronize()
+        fp, sp, qp = tk.grid_encoder_spectral_reference(*args, mxu_dtype=mxu, out_dtype=out)
+    assert tk.LAUNCHES == before + 1
+    assert fk.shape == fp.shape and fk.dtype == getattr(torch, out)
+    assert rel_l2(fk.float().cpu(), fp.float().cpu()) <= (1e-5 if out == "float32" else 1e-3)
+    assert rel_l2(sk.cpu(), sp.cpu()) <= 1e-5 and rel_l2(qk.cpu(), qp.cpu()) <= 1e-5

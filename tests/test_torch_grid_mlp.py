@@ -118,6 +118,12 @@ def test_tile_mirror_matches_jax_kernel(name, mxu, tol):
     GEMM in hidden passes, per-tile statistics partials added by
     `tile_stats_reduce`) against the Pallas `_grid_mlp_call` (interpret
     mode)."""
+    _check_tile_mirror(name, mxu, tol, MIRROR_HALF)
+
+
+def _check_tile_mirror(name, mxu, tol, half):
+    """`mlp_tiles` (hidden passes of `half`) against the Pallas
+    `_grid_mlp_call` (interpret mode) at one call site."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from msfno_tpu.ops.pallas.grid_mlp import _grid_mlp_call
@@ -142,15 +148,24 @@ def test_tile_mirror_matches_jax_kernel(name, mxu, tol):
     t = lambda k: torch.from_numpy(ops[k]) if k in ops else None  # noqa: E731
     y, part_sum, part_sq = tk.mlp_tiles(
         t("x"), t("w1"), t("b1"), t("w2"), t("b2"), t("skip"), t("pe"), mxu,
-        stats_rows=rows or None, residual=t("residual"), tile=MIRROR_TILE, half=MIRROR_HALF,
+        stats_rows=rows or None, residual=t("residual"), tile=MIRROR_TILE, half=half,
         affine=tuple(torch.from_numpy(a) for a in aff) if aff else None)
     if rows:
         assert rows % MIRROR_TILE and part_sum.shape[1] == -(-rows // MIRROR_TILE)  # ragged
     assert y.shape == (n, c_out)
-    assert report(f"grid_mlp tiles[{name},{mxu}]", rel_l2(y, yj)) <= tol
+    assert report(f"grid_mlp tiles[{name},{mxu},half={half}]", rel_l2(y, yj)) <= tol
     for part, got, want in zip(("ssum", "ssq"), (part_sum, part_sq), sums):
-        assert report(f"grid_mlp tiles[{name},{mxu}] {part}",
+        assert report(f"grid_mlp tiles[{name},{mxu},half={half}] {part}",
                       rel_l2(tile_stats_reduce(got), want)) <= tol
+
+
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("name", ["encoder", "inner", "decoder", "fold"])
+def test_fp32_tile_mirror_matches_jax_kernel(name, mxu):
+    """The fp32 kernel's decomposition (csrc/mlp_f32.cuh): the whole hidden
+    width in one GEMM, tiles of one sample, per-tile statistics partials
+    added in the fixed order; "tensorfloat" takes the same fp32 kernel."""
+    _check_tile_mirror(name, mxu, 1e-5, half=32)
 
 
 @pytest.mark.parametrize("bad", ["residual+stats", "affine+pe"])
@@ -183,3 +198,63 @@ def test_kernel_matches_plain(cuda, name):
         assert rel_l2(yk[2].cpu(), yp[2].cpu()) <= 1e-4
         yk, yp = yk[0], yp[0]
     assert rel_l2(yk.float().cpu(), yp.float().cpu()) <= 1e-2
+
+
+@pytest.mark.parametrize("name", ["encoder", "inner", "decoder", "fold"])
+def test_tensorfloat_is_float32_on_cpu(name):
+    ops = _case(name, seed=6)
+    a = _call(tk.grid_mlp, ops, torch.from_numpy, mxu_dtype="tensorfloat")
+    b = _call(tk.grid_mlp, ops, torch.from_numpy, mxu_dtype="float32")
+    for u, v in zip(*((o if isinstance(o, tuple) else (o,)) for o in (a, b))):
+        assert torch.equal(u, v)
+
+
+def test_prepare_weights_fp32():
+    """fp32 operands take W1 and W2 as they are (no padding, no rounding);
+    a bf16 pack is refused for them."""
+    from msfno_torch.ops.kernels import check_prepared
+
+    ops = _case("decoder")
+    w1, w2 = torch.from_numpy(ops["w1"]), torch.from_numpy(ops["w2"])
+    w1p, w2p = tk.prepare_weights(w1, w2, 16, "float32")
+    assert torch.equal(w1p, w1) and torch.equal(w2p, w2) and w1p.dtype == torch.float32
+    check_prepared("grid_mlp", (w1p, w2p), "tensorfloat")
+    with pytest.raises(ValueError):
+        check_prepared("grid_mlp", tk.prepare_weights(w1, w2, 16), "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("name,io", [
+    ("encoder", "fp32"), ("inner", "fp32"), ("decoder", "fp32"), ("fold", "fp32"),
+    # bf16 x, skip, pe and residual as stored, bf16 output
+    ("encoder", "bf16"), ("decoder", "bf16"), ("fold", "bf16"),
+])
+def test_fp32_kernel_matches_plain(cuda, name, io, mxu):
+    # true fp32 FMA on both sides: the sums' order only; bf16 storage is
+    # read as it is on both sides, and a bf16 output rounds the same y
+    ops = _case(name, seed=5, big=True)
+    bf = io == "bf16"
+
+    def to(a):
+        t = torch.from_numpy(a).to(cuda)
+        return t.to(torch.bfloat16) if bf and t.dim() > 1 else t
+
+    kw = dict(mxu_dtype=mxu, out_dtype="bfloat16" if bf else "float32")
+    ops = {k: (tuple(torch.from_numpy(a).to(cuda) for a in v) if k == "affine" else v)
+           for k, v in ops.items()}
+    w = {k: torch.from_numpy(ops.pop(k)).to(cuda) for k in ("w1", "b1", "w2")}
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        args = {k: to(v) if isinstance(v, np.ndarray) else v for k, v in ops.items()}
+        yk = tk.grid_mlp(args.pop("x"), w["w1"], w["b1"], w["w2"], **args, **kw)
+        torch.cuda.synchronize()
+        args = {k: to(v) if isinstance(v, np.ndarray) else v for k, v in ops.items()}
+        yp = tk.grid_mlp_reference(args.pop("x"), w["w1"], w["b1"], w["w2"], **args, **kw)
+    assert tk.LAUNCHES == before + 1
+    yk, yp = ((o,) if not isinstance(o, tuple) else o for o in (yk, yp))
+    assert yk[0].dtype == yp[0].dtype
+    # a bf16 output differs where the fp32 y's sums sit on a rounding boundary
+    assert rel_l2(yk[0].float().cpu(), yp[0].float().cpu()) <= (1e-3 if bf else 1e-5)
+    for a, b in zip(yk[1:], yp[1:]):
+        assert rel_l2(a.cpu(), b.cpu()) <= 1e-5

@@ -202,3 +202,40 @@ def test_fused_kernel_path_matches_plain_path(cuda):
                       "grid_encoder_spectral": 1, "spectral_decoder": 1, **NO_BACKWARD}
     assert torch.isfinite(yk).all()
     assert rel_l2(yk.cpu(), yp.cpu()) <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg,counts", [
+    # JAX's `--use-pallas --pallas-grid-mlp --grid-mlp-mxu-dtype float32` at
+    # the small size: every kernel on fp32 operands; unfused, the encoder,
+    # the two inner MLPs and the decoder are grid_mlp sites
+    ("fp32", FP32, {"spectral_mlp": 3, "grid_mlp": 4, "gcn_layer": 3,
+                    "grid_encoder_spectral": 0, "spectral_decoder": 0}),
+    ("fused fp32", FUSED_FP32, {"spectral_mlp": 3, "grid_mlp": 2, "gcn_layer": 3,
+                                "grid_encoder_spectral": 1, "spectral_decoder": 1}),
+])
+def test_fp32_kernel_path_matches_plain_path(cuda, name, cfg, counts):
+    """The fp32-operand kernel tier against its exact_config twin (the plain
+    path, same weights) on the card: the exact tier's limits, 1e-4 for the
+    step and 1e-5 for the FiLM generator's gamma and beta."""
+    from msfno_torch.config import exact_config
+
+    x, sst = inputs(cfg, seed=3)
+    net = FourierNeuralOperatorNetFilmed(cfg, device=cuda, seed=1)
+    plain = FourierNeuralOperatorNetFilmed(exact_config(cfg), device=cuda)
+    plain.load_state_dict(net.state_dict())
+    xt, st = torch.from_numpy(x).to(cuda), torch.from_numpy(sst).to(cuda)
+    films = []
+    hooks = [m.film_gen.register_forward_hook(lambda mod, i, out: films.append(out))
+             for m in (net, plain)]
+    with torch.inference_mode():
+        reset_launch_counts()
+        yk = net(xt, st)
+        got = launch_counts()
+        yp = plain(xt, st)
+    for h in hooks:
+        h.remove()
+    assert got == {**counts, **NO_BACKWARD}
+    assert torch.isfinite(yk).all()
+    assert report(f"fp32 kernel path[{name}] vs plain", rel_l2(yk.cpu(), yp.cpu())) <= 1e-4
+    assert rel_l2(films[0].cpu(), films[1].cpu()) <= 1e-5

@@ -183,3 +183,81 @@ def test_cuda_input_with_grad_raises(cuda):
                                                   for a in args])
     assert rel_l2(dhm.cpu(), want[0].cpu()) <= 1e-2
     assert rel_l2(da.cpu(), want[2].cpu()) <= 1e-2
+
+
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("b2", [True, False])
+def test_fp32_passes_mirror_matches_jax_kernel(b2, mxu):
+    """The fp32 kernel's algebra: the folded inverse DFT of the unscaled hm,
+    then the decoder MLP with (a, b) as its input affine (a scale folded
+    past the DFT), against the Pallas kernel (interpret mode) on fp32
+    operands; W = 160, an odd W / 2 + 1 = 81 of half longitudes."""
+    jnp, jk = _jax()
+    ops = _case(seed=14, b=2, h=4, w=160, mmax=9, c=16, s=5, hidden=16, c_out=5, b2=b2)
+    yj = _call(jk.spectral_decoder, ops, jnp.asarray, mxu_dtype=mxu, interpret=True)
+    yt = _call(tk.decoder_f32_passes, ops, torch.from_numpy)
+    assert yt.shape == yj.shape == (2, 4, 160, 5) and yt.dtype == torch.float32
+    assert report(f"spectral_decoder fp32 passes[b2={b2}, {mxu}]", rel_l2(yt, yj)) <= 1e-5
+
+
+def test_tensorfloat_is_float32_on_cpu():
+    ops = _case(seed=6)
+    a = _call(tk.spectral_decoder, ops, torch.from_numpy, mxu_dtype="tensorfloat")
+    assert torch.equal(a, _call(tk.spectral_decoder, ops, torch.from_numpy,
+                                mxu_dtype="float32"))
+
+
+def test_prepare_fp32():
+    """fp32 operands: the MLP's weights as they are and the fold operand of
+    dft_synthesis for the (Ci, Si) pair of Mt; a bf16 pack is refused."""
+    from msfno_torch.ops.kernels import check_prepared
+    from msfno_torch.ops.kernels import dft_synthesis as sk
+
+    t = {k: torch.from_numpy(v) for k, v in _case().items()}
+    w1p, w2p, at = tk.prepare(t["w1"], t["w2"], t["mt"], 8, "float32")
+    m = t["mt"].shape[1] // 2
+    assert torch.equal(w1p, t["w1"]) and torch.equal(w2p, t["w2"])
+    assert torch.equal(at, sk.prepare(t["mt"][:, :m].t(), -t["mt"][:, m:].t(), "float32"))
+    check_prepared("spectral_decoder", (w1p, w2p, at), "tensorfloat")
+    with pytest.raises(ValueError):
+        check_prepared("spectral_decoder", tk.prepare(t["w1"], t["w2"], t["mt"], 8)[:3],
+                       "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("shape,hm_dtype,out", [
+    (dict(b=2, h=3, w=100, mmax=30, c=32, s=5, hidden=48, c_out=5, b2=False), "float32",
+     "float32"),
+    # the serving step's widths: 2M = 242, 256 + 73 -> 256 -> 73
+    (dict(b=1, h=2, w=240, mmax=121, c=256, s=73, hidden=256, c_out=73), "float32",
+     "float32"),
+    (dict(b=2, h=3, w=160, mmax=40, c=64, s=73, hidden=256, c_out=73), "bfloat16",
+     "bfloat16"),
+])
+def test_fp32_kernel_matches_plain(cuda, shape, hm_dtype, out, mxu):
+    # true fp32 FMA on both sides: the sums' order only (the card folds the
+    # DFT and scales after it); a bf16 output rounds the same fp32 value
+    ops = _case(seed=7, **shape)
+    args = [None if ops[k] is None else torch.from_numpy(ops[k]).to(cuda) for k in NAMES]
+    args[0] = args[0].to(getattr(torch, hm_dtype))
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        yk = tk.spectral_decoder(*args, mxu_dtype=mxu, out_dtype=out)
+        torch.cuda.synchronize()
+        yp = tk.spectral_decoder_reference(*args, mxu_dtype=mxu, out_dtype=out)
+    assert tk.LAUNCHES == before + 1
+    assert yk.shape == yp.shape and yk.dtype == getattr(torch, out)
+    assert rel_l2(yk.float().cpu(), yp.float().cpu()) <= (1e-5 if out == "float32" else 1e-3)
+
+
+@pytest.mark.cuda
+def test_fp32_backward_raises(cuda):
+    """Training through the fp32 tail is the next slice's kernel: its
+    backward raises on the card instead of running the plain path."""
+    ops = _case(c=16, hidden=16)
+    args = [None if ops[k] is None else torch.from_numpy(ops[k]).to(cuda) for k in NAMES]
+    args[0].requires_grad_(True)
+    y = tk.spectral_decoder(*args, mxu_dtype="float32")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        torch.autograd.grad(y.sum(), args[0])

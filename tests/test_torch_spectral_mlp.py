@@ -146,3 +146,63 @@ def test_kernel_ragged_sizes(cuda, n_rows, c, hidden):
         yp = tk.spectral_mlp_reference(z, wt, mxu_dtype="bfloat16")
     assert yk.shape == yp.shape == (2, n_rows, c)
     assert rel_l2(yk.cpu(), yp.cpu()) <= 1e-3
+
+
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+def test_fp32_layer_mirror_matches_jax_karatsuba_kernel(mxu):
+    """The fp32 kernel's algebra (the packed 4-product layers, fp32 hidden
+    state) against the Pallas Karatsuba kernel that the JAX package runs at
+    its default fp32 knob (interpret mode); "tensorfloat" is fp32 there
+    too."""
+    jnp, jk = _jax()
+    x, ws = _inputs((300,), 32, 64, 3, seed=5)
+    flat = []
+    for w in ws:
+        flat += [jnp.asarray(w[..., 0]), jnp.asarray(w[..., 1])]
+    yr, yi = jk._karatsuba_call(jnp.asarray(x[0]), jnp.asarray(x[1]), *flat, mxu_dtype=mxu,
+                                interpret=True, tile_n=128)
+    yt = tk.spectral_mlp_layers(torch.from_numpy(x), [torch.from_numpy(w) for w in ws], 0.0,
+                                mxu)
+    assert report(f"spectral_mlp fp32 layers vs karatsuba[{mxu}] re", rel_l2(yt[0], yr)) <= 1e-5
+    assert report(f"spectral_mlp fp32 layers vs karatsuba[{mxu}] im", rel_l2(yt[1], yi)) <= 1e-5
+
+
+def test_tensorfloat_is_float32_on_cpu():
+    x, ws = _inputs((3, 7), 16, 32, 2, seed=6)
+    z, wt = torch.from_numpy(x), [torch.from_numpy(w) for w in ws]
+    assert torch.equal(tk.spectral_mlp(z, wt, 0.1, "tensorfloat"),
+                       tk.spectral_mlp(z, wt, 0.1, "float32"))
+
+
+def test_pack_weights_fp32():
+    """The fp32 kernel's weight buffer: the same packed layout in fp32,
+    nothing rounded; a bf16 pack is refused for fp32 operands."""
+    from msfno_torch.ops.kernels import check_prepared
+
+    _, ws = _inputs((1,), 16, 32, 1)
+    wt = [torch.from_numpy(w) for w in ws]
+    buf, dims, offs = tk.pack_weights(wt, "float32")
+    assert buf.dtype == torch.float32 and dims == [16, 32, 16] and offs == [0, 32 * 64]
+    assert torch.equal(buf[: 32 * 64].reshape(32, 64), tk.packed_matrix(wt[0], torch.float32))
+    check_prepared("spectral_mlp", (buf,), "tensorfloat")
+    with pytest.raises(ValueError):
+        check_prepared("spectral_mlp", (tk.pack_weights(wt)[0],), "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("n_rows,c,hidden", [(127, 16, 48), (1000, 64, 128),
+                                             (14520, 256, 512)])
+def test_fp32_kernel_matches_plain(cuda, n_rows, c, hidden, mxu):
+    # true fp32 FMA on both sides: the sums' order only
+    x, ws = _inputs((n_rows,), c, hidden, 3, seed=2)
+    z = torch.from_numpy(x).to(cuda)
+    wt = [torch.from_numpy(w).to(cuda) for w in ws]
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        yk = tk.spectral_mlp(z, wt, 0.01, mxu)
+        torch.cuda.synchronize()
+        yp = tk.spectral_mlp_reference(z, wt, 0.01, mxu)
+    assert tk.LAUNCHES == before + 1
+    assert yk.shape == yp.shape == (2, n_rows, c)
+    assert rel_l2(yk.cpu(), yp.cpu()) <= 1e-5

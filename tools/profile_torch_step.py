@@ -3,6 +3,7 @@
 the PyTorch port goes, on a CUDA card.
 
     python3 tools/profile_torch_step.py [--steps N] [--trace FILE]
+    python3 tools/profile_torch_step.py --tier fp32 [--steps N] [--trace FILE]
     python3 tools/profile_torch_step.py --train [--steps N] [--trace FILE]
 
 Serving: builds the full-width filmed SFNO of
@@ -15,6 +16,12 @@ per step, and the wall and device-busy time per step with the device's idle
 share; then both paths' median step times from CUDA events, timed in turns
 (fused, unfused, unfused, fused) in the same process, and the card's name
 and power limit.
+
+--tier fp32: the same for the fp32-kernel tier (`fp32_kernel_config()`,
+the JAX exact tier with every kernel on fp32 operands), fused and unfused.
+Its grid_mlp, head and tail share the fp32 MLP's GEMM kernels
+(csrc/mlp_f32.cuh), so their device time is reported together as
+"fp32_mlp"; the head's and tail's DFT passes apart.
 
 --train: the same for the FiLM fine-tune train step (`Trainer._train_step`
 of `finetune_config()` / `finetune_train_config()`: film-only, bf16 frozen
@@ -30,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -71,25 +79,34 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
     # the head's MLP pass and DFT pass (the DIRECT analysis_wgmma, bf16 f),
     # the tail's t pre-pass and tile kernel, the tail backward's pre-pass,
     # tile kernel and transposed DFT (the DIRECT analysis_wgmma, fp32 dhm);
-    # the partials' reduces that several kernels share (tile_reduce,
-    # stats_reduce: a few us a call) count under none.  The namespace keeps
-    # cuBLAS's names out
-    ns = "(anonymous namespace)::"
-    direct = "analysis_wgmma<__nv_bfloat16, "  # + the output type, ", 0, true>"
-    kernel_keys = {"spectral_mlp": (ns + "stage_input", ns + "HiddenEpi,", ns + "OutEpi,"),
+    # on fp32 operands, spectral_mlp's gemm_f32 layers, the fp32 MLP's two
+    # gemm_f32 launches that grid_mlp, the head and the tail share
+    # ("fp32_mlp"), the head's and the tail's folded DFT passes; the
+    # partials' reduces that several kernels share (tile_reduce,
+    # stats_reduce: a few us a call) count under none.  The keys are regular
+    # expressions; the namespace keeps cuBLAS's names out
+    ns = re.escape("(anonymous namespace)::")
+    direct = re.escape("analysis_wgmma<__nv_bfloat16, ")  # + the output type, ", 0, true>"
+    kernel_keys = {"spectral_mlp": (ns + "stage_input", ns + "HiddenEpi,", ns + "OutEpi,",
+                                    ns + "HiddenF32>", ns + "OutF32>"),
                    "grid_mlp": (ns + "mlp_tiles<",),
-                   "grid_encoder_spectral": (ns + "enc_mlp<", direct + "__nv_bfloat16, 0, true>"),
-                   "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16"),
-                   "gcn_layer": (ns + "gcn_stencil", ns + "TEpi,", ns + "gemm_f32<false, false"),
+                   "fp32_mlp": (ns + "MlpHidden>", ns + "MlpOut>"),
+                   "grid_encoder_spectral": (ns + "enc_mlp<",
+                                             direct + re.escape("__nv_bfloat16, 0, true>"),
+                                             ns + "fold_rows<true"),
+                   "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16",
+                                        ns + "fold_rows<false"),
+                   "gcn_layer": (ns + "gcn_stencil", ns + "TEpi,",
+                                 ns + "gemm_f32<false, false.*F32Store>"),
                    "gcn_layer_bwd": (ns + "gcn_bwd_", ns + "StoreEpi,", ns + "sum_rows",
                                      ns + "gemm_f32<false, true", ns + "gemm_f32<true, false"),
                    "spectral_decoder_bwd": ("decoder_bwd_", "hm_to_bf16",
-                                            direct + "float, 0, true>"),
+                                            direct + re.escape("float, 0, true>")),
                    "spectral_mlp_bwd": (ns + "stage_grad_rows", ns + "RecomputeEpi,",
                                         ns + "ChainEpi,", ns + "InputGradEpi,")}
-    for name in KERNELS:
+    for name in (*KERNELS, "fp32_mlp"):
         keys = kernel_keys.get(name, (f"{name}_kernel",))
-        mine = [r for r in rows if any(k in r[1] for k in keys)]
+        mine = [r for r in rows if any(re.search(k, r[1]) for k in keys)]
         print(json.dumps({"path": path, "kernel": name,
                           "ms_per_step": sum(r[0] for r in mine),
                           "calls_per_step": sum(r[2] for r in mine)}))
@@ -183,16 +200,19 @@ def main() -> int:
     import torch
 
     from chip_smoke import model_inputs
-    from msfno_torch.config import serving_config
+    from msfno_torch.config import fp32_kernel_config, serving_config
     from msfno_torch.models import FourierNeuralOperatorNetFilmed
     from msfno_torch.runtime import resolve_device
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--tier", choices=("serving", "fp32"), default="serving",
+                    help="the serving tier (bf16) or the fp32-kernel tier")
     ap.add_argument("--train", action="store_true",
                     help="profile the fine-tune train step instead of the serving step")
     args = ap.parse_args()
+    make_cfg = fp32_kernel_config if args.tier == "fp32" else serving_config
     dev = resolve_device()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -200,11 +220,11 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     if args.train:
         return train_main(args, card)
-    nets = {"fused": FourierNeuralOperatorNetFilmed(serving_config(), device=dev, seed=0)}
+    nets = {"fused": FourierNeuralOperatorNetFilmed(make_cfg(), device=dev, seed=0)}
     nets["unfused"] = FourierNeuralOperatorNetFilmed(
-        serving_config(fuse_encoder_dft=False, fuse_decoder_tail=False), device=dev)
+        make_cfg(fuse_encoder_dft=False, fuse_decoder_tail=False), device=dev)
     nets["unfused"].load_state_dict(nets["fused"].state_dict())
-    x0, _, sst_seq = model_inputs(serving_config(), dev, args.steps)
+    x0, _, sst_seq = model_inputs(make_cfg(), dev, args.steps)
     for path, net in nets.items():
         prof = profile_path(net, sst_seq, args.steps, path)
         if args.trace and path == "fused":
@@ -222,7 +242,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 if i:
                     times[path].append(start.elapsed_time(end))
-    print(json.dumps({"card": card,
+    print(json.dumps({"card": card, "tier": args.tier,
                       "median_step_ms": {p: statistics.median(t) for p, t in times.items()},
                       "step_ms": times}))
     return 0
