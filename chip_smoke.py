@@ -10,7 +10,9 @@ Phases (any failure raises, and the script exits non-zero):
      serving step (grid_mlp also with the inner MLP's fold of
      `fuse_inner_mlp`) and of the fine-tune step (the three backward kernels,
      every output; gcn_layer and gcn_layer_bwd also on the fp32 operands of
-     the JAX exact and balanced tiers, within 1e-5), and the two longitude-DFT kernels at the shapes of the
+     the JAX exact and balanced tiers, within 1e-5; bounds of the head, the
+     tail and its backward with the DFTs folded, the least work), and the
+     two longitude-DFT kernels at the shapes of the
      net's transforms (fp32 and bf16 operands, fp32 and bf16 inputs), with
      times (CUDA events), the bound, the error and, for the DFT kernels, the
      time of one PyTorch call of the same function (`dft_library_call`);
@@ -59,9 +61,19 @@ Phases (any failure raises, and the script exits non-zero):
      `exact_config` twin (1e-4, gamma / beta 1e-5), exactly 12 / 11 / 1 / 1
      / 7 launches a step (unfused 12 / 13 / 0 / 0 / 7) in the step and in a
      2-step `running` forecast, finite outputs, and the median ms per step
-     of both paths and of the exact tier, timed in turns.
-Phase 3 also holds every forward kernel on the fp32 operands of that tier
-(sites "*/fp32") to 1e-5.
+     of both paths and of the exact tier, timed in turns;
+ 12. the fp32-kernel tier's FiLM fine-tune step at full width through
+     `Trainer` (`fp32_kernel_config(output_dtype="float32")`,
+     `finetune_train_config(multi_step_training=0|1, bf16_frozen_params=
+     False)`): the loss (1e-5 relative) and the film gradient at the
+     modulation and at the generator's parameters (1e-4) of one step
+     against its `exact_config` twin with the same weights, the check of
+     descent of phase 7, exactly 12 / 11 / 1 / 1 / 7 forward launches per
+     rollout step and 7 / 1 / 0 gcn_layer_bwd / spectral_decoder_bwd /
+     spectral_mlp_bwd launches per train step with 0 (14 / 2 / 0 with 1),
+     the median ms per train step and the peak memory.
+Phase 3 also holds every forward kernel and the tail's backward on the fp32
+operands of that tier (sites "*/fp32") to 1e-5.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device it exits with 1 and
 prints no result.
@@ -120,6 +132,10 @@ FP32_SITE_COUNTS = {
 }
 FP32_PER_STEP = {path: {name: sum(sites.values()) for name, sites in kernels.items()}
                  for path, kernels in FP32_SITE_COUNTS.items()}
+# the backward kernels' fp32-operand sites in one train step of that tier
+# with multi_step_training=1 (phase 12)
+FP32_TRAIN_SITES = {"gcn_layer_bwd": {"conv1/fp32": 2, "conv/fp32": 12},
+                    "spectral_decoder_bwd": {"tail/fp32": 2}}
 # the phase 3 sites that the lon_dft="pallas" round trips of phase 8 launch:
 # x fp32 in; the synthesis reads the Legendre GEMM's output, fp32 or bf16
 DFT_MAIN = {"dft_analysis": {"trans_down/float32/fp32-in": 1, "trans_down/bfloat16/fp32-in": 1},
@@ -370,18 +386,18 @@ def grid_encoder_spectral_sites(dev):
     w1, b1, w2 = rn(73, c, scale=0.1), rn(c, scale=0.1), rn(c, c, scale=0.06)
     prepared = ek.prepare(w1, w2, cs)
     n, two_m = h * w, cs.shape[1]
-    flops = 2 * n * (73 * c + c * c + two_m * c)
+    # the least work folds the DFT (half the dense product's operations), as
+    # phase 3's DFT sites count it; the bf16 kernel runs the dense product
+    flops = 2 * n * (73 * c + c * c) + h * two_m * w * c
     work = (nbytes(x, pe, w1, b1, w2, cs) + h * two_m * c * 2, {"bf16": flops})
     recs = [check_site(
         "grid_encoder_spectral", "head",
         lambda: ek.grid_encoder_spectral(x, w1, b1, w2, pe, cs, prepared=prepared),
         lambda: ek.grid_encoder_spectral_reference(x, w1, b1, w2, pe, cs), work, 10)]
-    # the fp32-kernel tier: fp32 pe and f; its DFT pass folds (dft_analysis's
-    # fp32 kernel), so the bound counts the fold's half of the DFT's
-    # operations, as phase 3's DFT sites do
+    # the fp32-kernel tier: fp32 pe and f (its DFT pass is dft_analysis's
+    # fp32 fold)
     pe = pe.float()
     prepared = ek.prepare(w1, w2, cs, "float32")
-    flops = 2 * n * (73 * c + c * c) + h * two_m * w * c
     work = (nbytes(x, pe, w1, b1, w2, cs) + h * two_m * c * 4, {"fp32": flops})
     recs.append(check_site(
         "grid_encoder_spectral", "head/fp32",
@@ -406,16 +422,16 @@ def spectral_decoder_sites(dev):
     w1, b1, w2 = rn(c + 73, c, scale=0.05), rn(c, scale=0.1), rn(c, 73, scale=0.06)
     prepared = dk.prepare(w1, w2, mt, c)
     n = h * w
-    flops = 2 * n * (two_m * c + (c + 73) * c + c * 73)
+    # the least work folds the inverse DFT (half the dense product's
+    # operations); the bf16 kernel runs the dense product
+    flops = 2 * n * ((c + 73) * c + c * 73) + n * two_m * c
     work = (nbytes(hm, skip, mt, a, b, w1, b1, w2) + n * 73 * 4, {"bf16": flops})
     recs = [check_site(
         "spectral_decoder", "tail",
         lambda: dk.spectral_decoder(hm, skip, mt, a, b, w1, b1, w2, prepared=prepared),
         lambda: dk.spectral_decoder_reference(hm, skip, mt, a, b, w1, b1, w2), work, 10)]
-    # the fp32-kernel tier: its inverse DFT folds (dft_synthesis's fp32
-    # kernel), so the bound counts the fold's half of the DFT's operations
+    # the fp32-kernel tier (its inverse DFT is dft_synthesis's fp32 fold)
     prepared = dk.prepare(w1, w2, mt, c, "float32")
-    flops = 2 * n * ((c + 73) * c + c * 73) + n * two_m * c
     work = (nbytes(hm, skip, mt, a, b, w1, b1, w2) + n * 73 * 4, {"fp32": flops})
     recs.append(check_site(
         "spectral_decoder", "tail/fp32",
@@ -472,10 +488,16 @@ def gcn_layer_bwd_sites(dev):
 
 def spectral_decoder_bwd_sites(dev):
     """spectral_decoder_bwd at the fused tail's shapes, every output (dhm,
-    dskip, da, db, dW1, db1, dW2); timed as the film fine-tune step calls it,
-    without the weight gradients, and its bound counts that call's
-    operations (6.46e11 FLOP, not the 8.6e11 with dW1 and dW2; the kernel
-    source states both)."""
+    dskip, da, db, dW1, db1, dW2), on bf16 operands ("tail") and on fp32
+    ones ("tail/fp32", the fp32-kernel tier); timed as the film fine-tune
+    step calls it, without the weight gradients, and its bound counts that
+    call's least work: the two DFTs folded (half the dense products'
+    operations), the MLP's recompute, dh1, dxa and dskip, 5.17e11 FLOP (not
+    the 7.31e11 with dW1 and dW2; the kernel source states both).  The fp32
+    site also records the film-only call's peak of device memory above its
+    inputs."""
+    import torch
+
     from msfno_torch.ops.kernels import spectral_decoder as dk
     from msfno_torch.ops.kernels import spectral_decoder_bwd as db_
 
@@ -487,16 +509,33 @@ def spectral_decoder_bwd_sites(dev):
     a, b = 1.0 + rn(1, c, scale=0.1), rn(1, c, scale=0.1)
     w1, b1, w2 = rn(c + 73, c, scale=0.05), rn(c, scale=0.1), rn(c, 73, scale=0.06)
     gy = rn(1, h, w, 73, scale=1e-6)
-    prepared = dk.prepare(w1, w2, mt, c)
     n = h * w
-    flops = 2 * n * (2 * two_m * c + 2 * (c + 73) * c + c * 73)
-    work = (nbytes(gy, hm, skip, mt, a, b, w1, b1, w2) + nbytes(hm, skip), {"bf16": flops})
+    flops = 2 * n * (2 * (c + 73) * c + c * 73) + 2 * n * two_m * c
     args = (gy, hm, skip, mt, a, b, w1, b1, w2)
-    return [check_site(
-        "spectral_decoder_bwd", "tail",
-        lambda: db_.spectral_decoder_bwd(*args, prepared=prepared),
-        lambda: db_.spectral_decoder_bwd_reference(*args), work, 5,
-        time_fn=lambda: db_.spectral_decoder_bwd(*args, need_weights=False, prepared=prepared))]
+    recs = []
+    for mxu, kind in (("bfloat16", "bf16"), ("float32", "fp32")):
+        prepared = dk.prepare(w1, w2, mt, c, mxu)
+        work = (nbytes(gy, hm, skip, mt, a, b, w1, b1, w2) + nbytes(hm, skip), {kind: flops})
+        call = lambda need: db_.spectral_decoder_bwd(  # noqa: E731
+            *args, mxu_dtype=mxu, need_weights=need, prepared=prepared)
+        rec = check_site(
+            "spectral_decoder_bwd", "tail" + ("/fp32" if kind == "fp32" else ""),
+            lambda: call(True), lambda: db_.spectral_decoder_bwd_reference(*args, mxu_dtype=mxu),
+            work, 5 if kind == "bf16" else 4, time_fn=lambda: call(False),
+            tol=FP32_TOL if kind == "fp32" else None)
+        if kind == "fp32":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                call(False)
+            torch.cuda.synchronize()
+            rec["call_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            log(json.dumps({"kernel": rec["kernel"], "site": rec["site"],
+                            "call_peak_gib": rec["call_peak_gib"]}))
+        recs.append(rec)
+        del prepared
+    return recs
 
 
 def spectral_mlp_bwd_sites(dev):
@@ -691,13 +730,11 @@ def film_grads(tr, state, era5, sst):
 def finetune(dev, ms: int):
     """Phase 7 for one configuration: the bench's fine-tune step
     (`finetune_config()`, `finetune_train_config(multi_step_training=ms)`)
-    at full width.  Returns its record and the step's launch counts."""
-    import numpy as np
+    at full width.  Returns its record (with the step's launch counts)."""
     import torch
 
     from msfno_torch.config import exact_config, finetune_config, finetune_train_config
     from msfno_torch.data.synthetic import gen_batch
-    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
     from msfno_torch.training.trainer import Trainer
 
     torch.cuda.reset_peak_memory_stats()
@@ -746,8 +783,26 @@ def finetune(dev, ms: int):
                              f"at the generator's parameters (fp32 / bf16 generator "
                              f"activations); loss {loss_err:.3e}")
 
-    # a check of descent: DESCENT_STEPS optimizer steps on this one batch at
-    # lr 1e-3; the launch counts of the first step, CUDA events around each
+    want = {name: n * (ms + 1) for name, n in PER_STEP["fused"].items()}
+    want.update(TRAIN_BWD[ms])
+    rec = descent_check(tr, state, era5, sst, want, f"fine-tune ms={ms}")
+    rec["multi_step_training"] = ms
+    del tr, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def descent_check(tr, state, era5, sst, want, label):
+    """DESCENT_STEPS optimizer steps of `tr` on this one batch at its lr
+    (1e-3): the loss falls, stays finite, the film parameters move and the
+    frozen weights stay bit-identical.  The launch counts of the first step,
+    read just around it, must be `want` (every other kernel: none); CUDA
+    events around each step.  Returns the record."""
+    import numpy as np
+    import torch
+
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+
     frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
     film0 = {k: p.detach().clone() for k, p in state.trainable.items()}
     losses, times, counts = [], [], None
@@ -769,20 +824,77 @@ def finetune(dev, ms: int):
     frozen_same = all(torch.equal(p, frozen0[k]) for k, p in state.frozen.items())
     film_moved = any(not torch.equal(p, film0[k]) for k, p in state.trainable.items())
     finite = all(np.isfinite(v) for v in losses + [final])
-    want = {name: 0 for name in counts}  # the DFT kernels: none
-    want.update({name: n * (ms + 1) for name, n in PER_STEP["fused"].items()})
-    want.update(TRAIN_BWD[ms])
-    rec = dict(phase="descent_check", multi_step_training=ms, lr=1e-3, losses=losses,
+    want = {name: want.get(name, 0) for name in counts}
+    rec = dict(phase="descent_check", label=label, lr=tr.tcfg.learning_rate, losses=losses,
                loss_after_last_step=final, finite=finite, film_params_changed=film_moved,
                frozen_bit_identical=frozen_same, launches_per_train_step=counts,
                train_step_ms=times, median_train_step_ms=statistics.median(times),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     log(json.dumps(rec))
     if not (final < losses[0] and finite and film_moved and frozen_same):
-        raise AssertionError(f"fine-tune ms={ms} descent check failed: {rec}")
+        raise AssertionError(f"{label} descent check failed: {rec}")
     if counts != want:
-        raise AssertionError(f"fine-tune ms={ms}: launches {counts} (want {want})")
-    del tr, state, frozen0, film0
+        raise AssertionError(f"{label}: launches {counts} (want {want})")
+    return rec
+
+
+# phase 12: the fp32-kernel tier's FiLM fine-tune step against the fp32
+# plain path: fp32 throughout, so the exact tier's limits (loss, and the
+# film gradient at the modulation and at the generator's parameters)
+FP32_TRAIN_BWD = {0: {"gcn_layer_bwd": 7, "spectral_decoder_bwd": 1},
+                  1: {"gcn_layer_bwd": 14, "spectral_decoder_bwd": 2}}
+FP32_TRAIN_LOSS_TOL, FP32_TRAIN_GRAD_TOL = 1e-5, 1e-4
+
+
+def fp32_tier_finetune(dev, ms: int):
+    """Phase 12 for one configuration: `fp32_kernel_config(output_dtype=
+    "float32")` + `finetune_train_config(multi_step_training=ms,
+    bf16_frozen_params=False)` at full width through `Trainer` (a seeded
+    random film head, as phase 11's): the loss and the film gradient of one
+    step against `exact_config` of the same model with the same weights,
+    then `descent_check` with the tier's launches (the forward kernels'
+    fp32 sites (ms + 1) times, gcn_layer_bwd and spectral_decoder_bwd on
+    fp32 operands, no spectral_mlp_bwd: off bf16 its backward is the
+    reference VJP in both packages).  Returns its record."""
+    import torch
+
+    from msfno_torch.config import exact_config, finetune_train_config, fp32_kernel_config
+    from msfno_torch.data.synthetic import gen_batch
+    from msfno_torch.training.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = fp32_kernel_config(output_dtype="float32")
+    tcfg = finetune_train_config(multi_step_training=ms, bf16_frozen_params=False,
+                                 learning_rate=1e-3)
+    tr = Trainer(cfg, tcfg, device=dev)
+    _random_film_head(tr.model, dev)
+    if not (tr.model.fuse_dft and tr.model.blocks[-1].fuse_tail):
+        raise AssertionError("fp32-kernel tier: the fused head and tail do not engage")
+    state = tr.init_state()
+    era5, sst = tr._device_batch(gen_batch(tr.cfg, 1, ms, seed=12))
+    loss_k, dmod_k, dgen_k = film_grads(tr, state, era5, sst)
+    plain = Trainer(exact_config(cfg), tcfg, device=dev)
+    plain.model.load_state_dict(tr.model.state_dict())
+    loss_p, dmod_p, dgen_p = film_grads(plain, plain.init_state(), era5, sst)
+    del plain
+    torch.cuda.empty_cache()
+    mod_err, gen_err = rel_l2(dmod_k, dmod_p), rel_l2(dgen_k, dgen_p)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    rec = dict(phase="fp32_tier_finetune", multi_step_training=ms, loss=loss_k,
+               loss_exact_config=loss_p, loss_rel_err=loss_err, loss_tol=FP32_TRAIN_LOSS_TOL,
+               film_modulation_grad_rel_l2=mod_err, film_generator_grad_rel_l2=gen_err,
+               film_grad_tol=FP32_TRAIN_GRAD_TOL)
+    log(json.dumps(rec))
+    if not (loss_err <= FP32_TRAIN_LOSS_TOL and mod_err <= FP32_TRAIN_GRAD_TOL
+            and gen_err <= FP32_TRAIN_GRAD_TOL):
+        raise AssertionError(f"fp32-kernel tier fine-tune ms={ms} vs exact_config: loss "
+                             f"{loss_err:.3e}, film gradient rel-L2 {mod_err:.3e} at the "
+                             f"modulation, {gen_err:.3e} at the generator's parameters")
+    want = {name: n * (ms + 1) for name, n in FP32_PER_STEP["fused"].items()}
+    want.update(FP32_TRAIN_BWD[ms])
+    rec.update(descent_check(tr, state, era5, sst, want, f"fp32-kernel tier fine-tune ms={ms}"))
+    rec["phase"] = "fp32_tier_finetune"
+    del tr, state, era5, sst
     torch.cuda.empty_cache()
     return rec
 
@@ -1237,6 +1349,16 @@ def main() -> int:
     log(json.dumps({"phase": "step_time_fp32_kernel_tier_vs_exact_tier", "card": smi,
                     "median_ms": f32_times["median_ms"],
                     "exact_tier_phase_10_ms": tiers["exact"]["step_ms"]}))
+
+    # phase 12: the fp32-kernel tier's fine-tune step at full width, with
+    # multi_step_training 0 and 1
+    f32_tuned = {ms: fp32_tier_finetune(dev, ms) for ms in (0, 1)}
+    log(json.dumps({"phase": "train_step_time_fp32_kernel_tier", "card": smi,
+                    "median_ms": {f"multi_step_training={ms}": r["median_train_step_ms"]
+                                  for ms, r in f32_tuned.items()},
+                    "peak_mem_gib": {f"multi_step_training={ms}": r["peak_mem_gib"]
+                                     for ms, r in f32_tuned.items()},
+                    "seconds_total": time.time() - t_start}))
     log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
 
     kernels = []
@@ -1257,6 +1379,8 @@ def main() -> int:
                    "spectral_mlp_bwd": {"block": 12}}[name]
             launches = {"launches": train[name],
                         "launches_multi_step_0": tuned[0]["launches_per_train_step"][name]}
+            launches.update({f"launches_fp32_kernel_tier_train_step_multi_step_{ms}":
+                             r["launches_per_train_step"][name] for ms, r in f32_tuned.items()})
             what = "one fine-tune train step with multi_step_training=1 (sum over its launches)"
         else:
             per = SITE_COUNTS["fused"][name]
@@ -1270,13 +1394,17 @@ def main() -> int:
                              for p, r in f32_tier.items()})
             what = f"one 6-hour step of the fused path (sum over its launches), {STEPS}-step " \
                    "rollout counts"
-        f32_per = FP32_SITE_COUNTS["fused"].get(name, {})
-        if f32_per:
-            # the fp32-operand sites, summed over one fused step of the
-            # fp32-kernel tier
+        # the fp32-operand sites, summed over one fused step of the
+        # fp32-kernel tier (forward kernels) or over its train step with
+        # multi_step_training=1 (backward kernels)
+        for key, f32_per in (("fp32_kernel_tier_step", FP32_SITE_COUNTS["fused"].get(name)),
+                             ("fp32_kernel_tier_train_step_multi_step_1",
+                              FP32_TRAIN_SITES.get(name))):
+            if not f32_per:
+                continue
             f32_sites = [r for r in mine if f32_per.get(r["site"], 0)]
-            f32_tot = lambda key: sum(f32_per[r["site"]] * r[key] for r in f32_sites)  # noqa: E731
-            launches["fp32_kernel_tier_step"] = dict(
+            f32_tot = lambda k: sum(f32_per[r["site"]] * r[k] for r in f32_sites)  # noqa: E731
+            launches[key] = dict(
                 sites=f32_per, ms=f32_tot("ms"), plain_ms=f32_tot("plain_ms"),
                 bound_ms=f32_tot("bound_ms"), rel_l2=max(r["rel_l2"] for r in f32_sites),
                 tol=FP32_TOL)

@@ -71,18 +71,6 @@ extern "C" int dft_analysis(const void* at, const void* x, float* out, long long
                         at, x, out, rows, w, m, c, at_rows, at_cols, s)
                   : launch_analysis_wgmma<float, float, DFT_STAGES_OVERRIDE>(
                         at, x, out, rows, w, m, c, at_rows, at_cols, s);
-  FoldArgs a{};
-  a.at = reinterpret_cast<const float*>(at);
-  a.b = x;
-  a.out = out;
-  a.rows = rows;
-  a.w = w;
-  a.m = m;
-  a.c = c;
-  a.kh = w / 2 + 1;
-  a.k_dim = a.kh;
-  a.k_pad = at_rows;
-  a.tiles = (m + FOLD_TILE - 1) / FOLD_TILE;
-  if (at_cols != a.tiles * 2 * FOLD_TILE) return (int)cudaErrorInvalidValue;
-  return x_bf16 ? fold_launch<true, bf, float>(a, s) : fold_launch<true, float, float>(a, s);
+  return x_bf16 ? fold_launch<true, bf, float>(at, x, out, rows, w, m, c, at_rows, at_cols, s)
+                : fold_launch<true, float, float>(at, x, out, rows, w, m, c, at_rows, at_cols, s);
 }

@@ -229,20 +229,7 @@ template <typename IN_T, typename OUT_T>
 int launch(const void* at, const void* hm, void* out, long long rows, int w, int m, int c,
            int at_rows, int at_cols, int bf16_ops, cudaStream_t s) {
   if (bf16_ops) return launch_wgmma<IN_T, OUT_T>(at, hm, out, rows, w, m, c, at_rows, at_cols, s);
-  FoldArgs a{};
-  a.at = reinterpret_cast<const float*>(at);
-  a.b = hm;
-  a.out = out;
-  a.rows = rows;
-  a.w = w;
-  a.m = m;
-  a.c = c;
-  a.kh = w / 2 + 1;
-  a.k_dim = m;
-  a.k_pad = at_rows;
-  a.tiles = (a.kh + FOLD_TILE - 1) / FOLD_TILE;
-  if (at_cols != a.tiles * 2 * FOLD_TILE) return (int)cudaErrorInvalidValue;
-  return fold_launch<false, IN_T, OUT_T>(a, s);
+  return fold_launch<false, IN_T, OUT_T>(at, hm, out, rows, w, m, c, at_rows, at_cols, s);
 }
 
 }  // namespace

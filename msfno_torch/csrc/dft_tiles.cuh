@@ -340,12 +340,31 @@ __global__ void __launch_bounds__(FOLD_THREADS, FOLD_MINB_OVERRIDE) fold_rows(Fo
   }
 }
 
-// Launches fold_rows: 16-byte vectors of the input and the output where all
-// their rows start 16-byte aligned and every 8-channel group is whole
+// Launches fold_rows over `rows` rows of `w` longitudes, `m` modes and `c`
+// channels: the analysis reads in (rows, w, c) and writes out (rows, 2m,
+// c) fp32, the synthesis reads in (rows, 2m, c) and writes out (rows, w,
+// c); `at` is the prepared operand (at_rows x at_cols).  16-byte vectors of
+// the input and the output where all their rows start 16-byte aligned and
+// every 8-channel group is whole.  Returns a CUDA error code.
 template <bool ANALYSIS, typename IN_T, typename OUT_T>
-int fold_launch(FoldArgs a, cudaStream_t stream) {
+int fold_launch(const void* at, const void* in, void* out, long long rows, int w, int m, int c,
+                int at_rows, int at_cols, cudaStream_t stream) {
+  FoldArgs a{};
+  a.at = reinterpret_cast<const float*>(at);
+  a.b = in;
+  a.out = out;
+  a.rows = rows;
+  a.w = w;
+  a.m = m;
+  a.c = c;
+  a.kh = w / 2 + 1;
+  a.k_dim = ANALYSIS ? a.kh : m;
+  a.k_pad = at_rows;
+  a.tiles = ((ANALYSIS ? m : a.kh) + FOLD_TILE - 1) / FOLD_TILE;
   const int want_pad = (a.k_dim + FOLD_K - 1) / FOLD_K * FOLD_K;
-  if (a.rows < 1 || a.w < 2 || a.m < 1 || a.c < 1 || a.k_pad != want_pad) return (int)cudaErrorInvalidValue;
+  if (a.rows < 1 || a.w < 2 || a.m < 1 || a.c < 1 || a.k_pad != want_pad ||
+      at_cols != a.tiles * 2 * FOLD_TILE)
+    return (int)cudaErrorInvalidValue;
   a.c_tiles = (a.c + FOLD_BN - 1) / FOLD_BN;
   const long long blocks = a.rows * ((a.tiles + FOLD_GROUP - 1) / FOLD_GROUP) * a.c_tiles;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;

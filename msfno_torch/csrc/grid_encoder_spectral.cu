@@ -15,8 +15,10 @@
 //
 // Bound on the H100 at the serving shapes: x (1, 721, 1440, 73) fp32 303 MB
 // + pe (721, 1440, 256) bf16 531 MB + f (1, 721, 242, 256) bf16 89 MB ~0.92
-// GB -> 0.28 ms; 2 * 1,038,240 * (73*256 + 256*256 + 242*256) = 3.0e11 FLOP
-// -> 0.31 ms at 989 TFLOP/s bf16: operations, with the bytes nearly as large.
+// GB -> 0.28 ms; the least work folds the DFT (half the dense product's
+// operations; this kernel runs it dense): 2 * 1,038,240 * (73*256 +
+// 256*256) + 1,038,240 * 242*256 = 2.39e11 FLOP -> 0.24 ms at 989 TFLOP/s
+// bf16: bytes, with the operations nearly as large.
 //
 // Design: two passes, both on wgmma.  The TPU kernel keeps a latitude row
 // of y in VMEM; 227 KB of shared memory cannot hold one beside the weights,
@@ -61,8 +63,8 @@
 // partials in the second GEMM's epilogue, then the fixed-order reduces)
 // writes fp32 y, and the fp32 forward DFT of dft_analysis
 // (dft_tiles.cuh:fold_rows, the even/odd fold: half the dense
-// multiply-adds) reads it.  Bound on the H100: 3.0e11 FLOP (the DFT
-// unfolded) at 67 TFLOP/s, 4.48 ms.  y's round trip, 2 x 1.06 GB, is
+// multiply-adds) reads it.  Bound on the H100: 2.39e11 FLOP (the DFT
+// folded) at 67 TFLOP/s, 3.57 ms.  y's round trip, 2 x 1.06 GB, is
 // ~0.64 ms at the HBM rate, and h's the same.
 
 #include "chain_gemm.cuh"
@@ -420,19 +422,10 @@ extern "C" int grid_encoder_spectral_f32(const void* const* ptrs, const long lon
     return (int)cudaErrorInvalidValue;
   int err = mlp_f32_run(mlp, st);
   if (err) return err;
-  FoldArgs a{};
-  a.at = (const float*)ptrs[MLP_PTRS];
-  a.b = mlp.out;
-  a.out = (void*)ptrs[MLP_PTRS + 1];
-  a.rows = bsz * h;
-  a.w = (int)w;
-  a.m = m;
-  a.c = mlp.c_out;
-  a.kh = a.w / 2 + 1;
-  a.k_dim = a.kh;
-  a.k_pad = at_rows;
-  a.tiles = (m + FOLD_TILE - 1) / FOLD_TILE;
-  if (at_cols != a.tiles * 2 * FOLD_TILE) return (int)cudaErrorInvalidValue;
-  return v[6] ? fold_launch<true, float, __nv_bfloat16>(a, st)
-              : fold_launch<true, float, float>(a, st);
+  const void* at = ptrs[MLP_PTRS];
+  void* f = (void*)ptrs[MLP_PTRS + 1];
+  return v[6] ? fold_launch<true, float, __nv_bfloat16>(at, mlp.out, f, bsz * h, (int)w, m,
+                                                        mlp.c_out, at_rows, at_cols, st)
+              : fold_launch<true, float, float>(at, mlp.out, f, bsz * h, (int)w, m, mlp.c_out,
+                                                at_rows, at_cols, st);
 }

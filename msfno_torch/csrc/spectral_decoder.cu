@@ -15,8 +15,10 @@
 //
 // Bound on the H100 at the serving shapes: hm (1, 721, 242, 256) fp32 179
 // MB + skip (1, 721, 1440, 73) fp32 303 MB + out (1, 721, 1440, 73) fp32
-// 303 MB ~0.79 GB -> 0.23 ms; 2 * 1,038,240 * (242*256 + 329*256 + 256*73)
-// = 3.4e11 FLOP -> 0.35 ms at 989 TFLOP/s bf16: operations.
+// 303 MB ~0.79 GB -> 0.23 ms; the least work folds the inverse DFT (half
+// the dense product's operations; this kernel runs it dense): 2 *
+// 1,038,240 * (329*256 + 256*73) + 1,038,240 * 242*256 = 2.78e11 FLOP ->
+// 0.28 ms at 989 TFLOP/s bf16: operations.
 //
 // Design: a small first kernel writes t = bf16(hm * a) once, (B, H, m2p, C)
 // with zero rows past 2M (94.5 MB at the serving shapes; folding a into Mt
@@ -60,7 +62,7 @@
 // as its per-sample input affine, a * (Mt @ hm) + b: a per-channel scale
 // commutes with the DFT, and where the plain version scales hm first the
 // sums differ by rounding only (nothing is rounded to bf16 here).  Bound on
-// the H100: 3.4e11 FLOP (the DFT unfolded) at 67 TFLOP/s, 5.07 ms; the grid
+// the H100: 2.78e11 FLOP (the DFT folded) at 67 TFLOP/s, 4.15 ms; the grid
 // field's round trip (2 x 1.06 GB) and h's are ~0.64 ms each at the HBM
 // rate.
 
@@ -379,21 +381,13 @@ extern "C" int spectral_decoder_f32(const void* const* ptrs, const long long* in
   if (bsz < 1 || h < 1 || w < 2 || m < 1 || mlp.x_bf16 || mlp.samples != bsz ||
       mlp.rps != h * w || !mlp.aff_a)
     return (int)cudaErrorInvalidValue;
-  FoldArgs a{};
-  a.at = (const float*)ptrs[MLP_PTRS];
-  a.b = ptrs[MLP_PTRS + 1];
-  a.out = (void*)mlp.x;
-  a.rows = bsz * h;
-  a.w = (int)w;
-  a.m = m;
-  a.c = mlp.c_main;
-  a.kh = a.w / 2 + 1;
-  a.k_dim = m;
-  a.k_pad = at_rows;
-  a.tiles = (a.kh + FOLD_TILE - 1) / FOLD_TILE;
-  if (at_cols != a.tiles * 2 * FOLD_TILE) return (int)cudaErrorInvalidValue;
-  int err = v[6] ? fold_launch<false, __nv_bfloat16, float>(a, st)
-                 : fold_launch<false, float, float>(a, st);
+  const void* at = ptrs[MLP_PTRS];
+  const void* hm = ptrs[MLP_PTRS + 1];
+  void* x = (void*)mlp.x;
+  int err = v[6] ? fold_launch<false, __nv_bfloat16, float>(at, hm, x, bsz * h, (int)w, m,
+                                                            mlp.c_main, at_rows, at_cols, st)
+                 : fold_launch<false, float, float>(at, hm, x, bsz * h, (int)w, m, mlp.c_main,
+                                                    at_rows, at_cols, st);
   if (err) return err;
   return mlp_f32_run(mlp, st);
 }

@@ -19,12 +19,14 @@
 // (chain_gemm.cuh).
 //
 // Bound on the H100 at the serving shapes (g and skip (1, 721, 1440, 73)
-// fp32, hm (1, 721, 242, 256) fp32).  Without the weight gradients, as the
-// FiLM fine-tune step calls it: 2 * 1,038,240 * (2*242*256 + 2*329*256 +
-// 256*73) = 6.46e11 FLOP -> 0.653 ms at 989 TFLOP/s bf16; with them (dW1,
-// dW2 add 329*256 + 256*73): 8.6e11 FLOP -> 0.87 ms.  Bytes: ~1.3 GB (g,
-// skip, dskip, hm, dhm) -> 0.38 ms.  Operations bound it; chip_smoke.py
-// phase 3 divides by the first (0.653 ms), the call it times.
+// fp32, hm (1, 721, 242, 256) fp32), counting the least work, which folds
+// both DFTs (half the dense products' operations; this kernel runs them
+// dense).  Without the weight gradients, as the FiLM fine-tune step calls
+// it: 2 * 1,038,240 * (2*329*256 + 256*73) + 2 * 1,038,240 * 242*256 =
+// 5.17e11 FLOP -> 0.523 ms at 989 TFLOP/s bf16; with them (dW1, dW2 add 2 *
+// 1,038,240 * (329*256 + 256*73)): 7.31e11 FLOP -> 0.74 ms.  Bytes: ~1.3
+// GB (g, skip, dskip, hm, dhm) -> 0.38 ms.  Operations bound it;
+// chip_smoke.py phase 3 divides by the first (0.523 ms), the call it times.
 //
 // Design: the TPU kernel recomputes one latitude row in VMEM and
 // accumulates da, db and the weight gradients in output blocks revisited by
@@ -95,9 +97,40 @@
 // 32K values a tile, dskip's staging.
 //
 // Tunable (tools/kernel_variants.py): DBW_STAGES, the ring's depth.
+//
+// fp32 operands ("float32", "tensorfloat"; spectral_decoder_bwd_f32): the
+// same gradients with nothing rounded, in true fp32 FMA on the CUDA cores
+// (no TF32), and the JAX kernel's gelu' (A&S 7.1.26).  Bound at the serving
+// shapes, film-only (no weight gradients), with the DFTs folded: recompute
+// and dhm 2 * n * 2M * C / 2 = 1.29e11 FLOP, the MLP's recompute, dh1, dxa
+// and dskip 2 * n * (2 (C + S) hidden + hidden C_out) = 3.89e11: 5.17e11
+// FLOP -> 7.72 ms at 67 TFLOP/s (operations); with dW1 and dW2 7.31e11 ->
+// 10.9 ms.  A 128-row x 512 fp32 tile does not fit a block's shared memory
+// (the bf16 design's chain), so the passes go through device memory, each
+// a launch of row_gemm.cuh:gemm_f32 or of dft_tiles.cuh's fold, as the
+// fp32 forward (spectral_decoder.cu) runs:
+//   1. x_raw = Mt @ hm: the synthesis fold into an fp32 scratch xg (n x C);
+//   2. z1 = [a x_raw + b | skip] @ W1 + b1 (mlp_f32.cuh's MlpInput, the
+//      rows' segments the samples) into a scratch z (n x hidden);
+//   3. dz1 = (g @ W2^T) * gelu'(z1), over z1 in place;
+//   4. [dxa | dskip] = dz1 @ [W1a | W1b]^T: dskip stored, the per-(sample,
+//      128-row tile) partials of sum dxa * x_raw and sum dxa (fp32 dxa
+//      against the fp32 x_raw: JAX's rounding point), then a * dxa over
+//      x_raw in xg (a per-channel scale commutes with the DFT);
+//   5. da, db: tile_reduce in runs, then stats_reduce (fixed order);
+//   6. dhm = Mt^T @ (a dxa): the analysis fold, whose operand is
+//      dft_analysis.prepare of Mt's cos columns and its negated sin
+//      columns (even and odd in longitude, as the fold needs).
+// With need_w, while z holds z1: dW2 = gelu(z1)^T g (the forward's GELU)
+// and db2 = sum g; while xg holds x_raw: dW1 = [xa | skip]^T dz1 and db1 =
+// sum dz1.  Each dW is gemm_f32 with a transposed A functor over pixel
+// ranges (blockIdx.z) into partials added in order by sum_rows, each bias
+// gradient the column sums of runs of rows, then the runs: no atomics,
+// deterministic.  Scratch: xg and z, 2 x 1.06 GB at the serving shapes.
 
 #include "chain_gemm.cuh"
 #include "dft_tiles.cuh"
+#include "mlp_f32.cuh"
 
 namespace {
 
@@ -667,6 +700,168 @@ enum Int { I_B, I_H, I_W, I_TWO_M, I_M2P, I_W_PAD, I_C, I_S, I_K1P, I_HIDDEN, I_
            I_MTT_ROWS, I_MTT_COLS, I_HM_BF16, I_NEED_W, I_SPLITS, I_SUM_RUN,
            I_GROUPS, I_BLOCKS, N_INTS };
 
+// ---------------------------------------------------------------------------
+// fp32 operands: a chain of passes on row_gemm.cuh:gemm_f32 (see the note at
+// the top)
+
+// pass 2's epilogue: z1 = acc + b1, fp32 rows of `hidden`
+struct Z1Store {
+  float* z;
+  const float* b1;
+  int hidden;
+  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long m = t.m0 + t.row(i);
+      if (m >= t.m_end) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = t.n0 + t.col(j);
+        if (n < hidden) z[m * hidden + n] = acc[i][j] + b1[n];
+      }
+    }
+  }
+};
+
+// pass 3's epilogue: dz1 = acc * gelu'(z1), over z1 in place (each element
+// is read and written by one thread)
+struct DzStore {
+  float* z;
+  int hidden;
+  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long m = t.m0 + t.row(i);
+      if (m >= t.m_end) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = t.n0 + t.col(j);
+        if (n >= hidden) continue;
+        float* p = z + m * hidden + n;
+        *p = acc[i][j] * gelu_grad_as(*p);
+      }
+    }
+  }
+};
+
+// pass 4's epilogue, [dxa | dskip] = acc: columns n < c are dxa, read
+// against x_raw (the grid field, fp32) into the tile's column sums of dxa *
+// x_raw and of dxa (each thread its 8 rows, then the 16 row groups in
+// order through shared memory: one partial per (sample, tile, column)),
+// then stored as a[sample] * dxa over x_raw (each element read and written
+// by one thread); columns c <= n < c + s are dskip
+struct DxStore {
+  float* xg;
+  float* dskip;
+  const float* aff_a;
+  float* part_da;
+  float* part_db;
+  int c, s, tiles;
+  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
+    float sa[8], sb[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sa[j] = sb[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long m = t.m0 + t.row(i);
+      if (m >= t.m_end) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = t.n0 + t.col(j);
+        const float d = acc[i][j];
+        if (n < c) {
+          float* p = xg + m * c + n;
+          sa[j] = fmaf(d, *p, sa[j]);
+          sb[j] += d;
+          *p = d * aff_a[(long long)t.seg * c + n];
+        } else if (n < c + s) {
+          dskip[m * s + (n - c)] = d;
+        }
+      }
+    }
+    if (t.n0 >= c) return;  // the block's columns are all dskip's
+    __shared__ float sh_a[16][F32_BN];
+    __shared__ float sh_b[16][F32_BN];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sh_a[t.ty][t.col(j)] = sa[j];
+      sh_b[t.ty][t.col(j)] = sb[j];
+    }
+    __syncthreads();
+    const int col = threadIdx.x;
+    if (col < F32_BN && t.n0 + col < c) {
+      float ta = 0.f, tb = 0.f;
+      for (int r = 0; r < 16; ++r) {
+        ta += sh_a[r][col];
+        tb += sh_b[r][col];
+      }
+      const long long i = ((long long)t.seg * tiles + t.tile) * c + t.n0 + col;
+      part_da[i] = ta;
+      part_db[i] = tb;
+    }
+  }
+};
+
+// dW1's A (with A_T: element (j, k) of [xa | skip]^T): channel j of pixel
+// k, the affine of pixel k's sample applied to the main channels
+struct XinT {
+  const float* x;
+  const void* skip;
+  const float* aff_a;
+  const float* aff_b;
+  int rps, c_main, c_skip, skip_bf16;
+  __device__ __forceinline__ float operator()(long long j, long long k, int) const {
+    if (j < c_main) {
+      const long long i = (long long)((int)k / rps) * c_main + j;
+      return fmaf(aff_a[i], x[k * c_main + j], aff_b[i]);
+    }
+    return load_act(skip, k * c_skip + (j - c_main), skip_bf16);
+  }
+};
+
+// dW2's A (with A_T): gelu(z1) of hidden unit j at pixel k, the forward
+// kernels' GELU
+struct GeluT {
+  const float* z;
+  int hidden;
+  __device__ __forceinline__ float operator()(long long j, long long k, int) const {
+    return gelu_rational(z[k * hidden + j]);
+  }
+};
+
+// dW = A^T-functor x B over the pixels, split into `splits` ranges of
+// pixels whose partial products (splits, rows, cols) are then added in
+// order: deterministic
+template <class ALoad>
+int weight_grad(const ALoad& a, const float* b, int rows, int cols, long long n_px, int splits,
+                float* part, float* out, cudaStream_t st) {
+  int err = gemm_f32_run<true, false>(a, b, cols, rows, cols, n_px, splits, 0,
+                                      F32Store{part, cols, rows, cols, nullptr, 0}, st);
+  if (err) return err;
+  sum_rows<<<(rows * cols + 255) / 256, 256, 0, st>>>(part, splits, rows * cols, out);
+  return (int)cudaGetLastError();
+}
+
+// the column sums of x (n_rows, c) fp32: runs of `run` rows, then the runs
+// in order
+int column_sums(const float* x, long long n_rows, int c, int run, float* part, float* out,
+                cudaStream_t st) {
+  const long long runs = (n_rows + run - 1) / run;
+  if (runs > INT_MAX || c > 1024) return (int)cudaErrorInvalidValue;
+  col_sums<<<(unsigned)runs, (c + 31) / 32 * 32, 0, st>>>(x, n_rows, c, run, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  sum_rows<<<(c + 255) / 256, 256, 0, st>>>(part, (int)runs, c, out);
+  return (int)cudaGetLastError();
+}
+
+enum F32Ptr { Q_G, Q_HM, Q_SKIP, Q_A, Q_B, Q_AT_SYN, Q_AT_ANA, Q_W1, Q_B1, Q_W2, Q_DHM, Q_DSKIP,
+              Q_DA, Q_DB, Q_DW1, Q_DB1, Q_DW2, Q_DB2, Q_XG, Q_Z, Q_PART_DA, Q_PART_DB,
+              Q_GRP_DA, Q_GRP_DB, Q_PART_W, Q_PART_DB1, Q_PART_DB2, N_F32_PTRS };
+enum F32Int { J_B, J_H, J_W, J_M, J_C, J_S, J_HIDDEN, J_C_OUT, J_SYN_ROWS, J_SYN_COLS,
+              J_ANA_ROWS, J_ANA_COLS, J_HM_BF16, J_SKIP_BF16, J_NEED_W, J_GROUPS, J_SPLITS_W1,
+              J_SPLITS_W2, J_SUM_RUN, N_F32_INTS };
+
 }  // namespace
 
 // Rows of the Mt operand must be padded to a multiple of this (zero rows).
@@ -810,13 +1005,103 @@ extern "C" int spectral_decoder_bwd_bf16(const void* const* ptrs, const long lon
                                                    (float*)ptrs[P_DB1]);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   // db2: the column sums of g
-  const long long g_runs = (n_px + sum_run - 1) / sum_run;
-  if (g_runs > INT_MAX || a.c_out > 1024) return (int)cudaErrorInvalidValue;
-  float* part_db2 = (float*)ptrs[P_PART_DB2];
-  col_sums<<<(unsigned)g_runs, (a.c_out + 31) / 32 * 32, 0, st>>>(a.g, n_px, a.c_out, sum_run,
-                                                                 part_db2);
+  return column_sums(a.g, n_px, a.c_out, sum_run, (float*)ptrs[P_PART_DB2], (float*)ptrs[P_DB2],
+                     st);
+}
+
+// The fp32-operand backward.  ptrs and ints follow the F32Ptr and F32Int
+// enums above.  g (B, H, W, c_out) fp32; hm (B, H, 2M, c) and skip (B, H,
+// W, s) fp32 or bf16 (hm_bf16, skip_bf16); a, b (B, c); at_syn, at_ana: the
+// fp32 fold operands of dft_synthesis.prepare of Mt's (Ci, Si) and of
+// dft_analysis.prepare of (Mt's cos columns, its negated sin columns); w1
+// (c + s, hidden), b1, w2 (hidden, c_out) fp32.  Outputs: dhm (B, H, 2M,
+// c), dskip (B, H, W, s), da, db (B, c); with need_w dw1 (c + s, hidden),
+// db1 (hidden), dw2 (hidden, c_out), db2 (c_out; null: none).  Scratch:
+// xg (B*H*W, c) and z (B*H*W, hidden) fp32; part_da, part_db (B, tiles, c)
+// with tiles = ceil(H*W / 128), grp_da, grp_db (B, groups, c); with
+// need_w part_w (max(splits_w1 * (c + s) * hidden, splits_w2 * hidden *
+// c_out) floats), part_db1 (ceil(B*H*W / sum_run), hidden), part_db2
+// (ceil(B*H*W / sum_run), c_out).
+extern "C" int spectral_decoder_bwd_f32(const void* const* ptrs, const long long* ints,
+                                        void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long bsz = ints[J_B], h = ints[J_H], w = ints[J_W];
+  const int m = (int)ints[J_M], c = (int)ints[J_C], s = (int)ints[J_S];
+  const int hidden = (int)ints[J_HIDDEN], c_out = (int)ints[J_C_OUT];
+  const int hm_bf16 = (int)ints[J_HM_BF16], skip_bf16 = (int)ints[J_SKIP_BF16];
+  const int need_w = (int)ints[J_NEED_W], groups = (int)ints[J_GROUPS];
+  const int splits_w1 = (int)ints[J_SPLITS_W1], splits_w2 = (int)ints[J_SPLITS_W2];
+  const int sum_run = (int)ints[J_SUM_RUN];
+  const long long rps = h * w, n_px = bsz * rps;
+  const long long tiles = (rps + F32_BM - 1) / F32_BM;
+  if (bsz < 1 || h < 1 || w < 2 || m < 1 || c < 1 || s < 1 || hidden < 1 || c_out < 1 ||
+      n_px > INT_MAX - F32_BM || groups < 1 || (need_w && (splits_w1 < 1 || splits_w2 < 1 ||
+                                                           sum_run < 1)))
+    return (int)cudaErrorInvalidValue;
+  const float* g = (const float*)ptrs[Q_G];
+  const float* aff_a = (const float*)ptrs[Q_A];
+  const float* aff_b = (const float*)ptrs[Q_B];
+  const float* w1 = (const float*)ptrs[Q_W1];
+  const float* w2 = (const float*)ptrs[Q_W2];
+  float* xg = (float*)ptrs[Q_XG];
+  float* z = (float*)ptrs[Q_Z];
+  float* part_w = (float*)ptrs[Q_PART_W];
+  // 1. x_raw = Mt @ hm, the folded inverse DFT, into xg
+  int err = hm_bf16 ? fold_launch<false, __nv_bfloat16, float>(
+                          ptrs[Q_AT_SYN], ptrs[Q_HM], xg, bsz * h, (int)w, m, c,
+                          (int)ints[J_SYN_ROWS], (int)ints[J_SYN_COLS], st)
+                    : fold_launch<false, float, float>(
+                          ptrs[Q_AT_SYN], ptrs[Q_HM], xg, bsz * h, (int)w, m, c,
+                          (int)ints[J_SYN_ROWS], (int)ints[J_SYN_COLS], st);
+  if (err) return err;
+  // 2. z1 = [a x_raw + b | skip] @ W1 + b1 into z
+  const MlpInput xin{xg, ptrs[Q_SKIP], aff_a, aff_b, c, s, 0, skip_bf16};
+  err = gemm_f32_run<false, false>(xin, w1, hidden, n_px, hidden, c + s, 1, rps,
+                                   Z1Store{z, (const float*)ptrs[Q_B1], hidden}, st);
+  if (err) return err;
+  if (need_w) {  // dW2 = gelu(z1)^T g and db2 = sum g, while z holds z1
+    err = weight_grad(GeluT{z, hidden}, g, hidden, c_out, n_px, splits_w2, part_w,
+                      (float*)ptrs[Q_DW2], st);
+    if (!err && ptrs[Q_DB2])
+      err = column_sums(g, n_px, c_out, sum_run, (float*)ptrs[Q_PART_DB2], (float*)ptrs[Q_DB2],
+                        st);
+    if (err) return err;
+  }
+  // 3. dz1 = (g @ W2^T) * gelu'(z1) over z (W2 stored (hidden, c_out): B_T)
+  err = gemm_f32_run<false, true>(F32Matrix<false, float>{g, c_out}, w2, c_out, n_px, hidden,
+                                  c_out, 1, rps, DzStore{z, hidden}, st);
+  if (err) return err;
+  if (need_w) {  // dW1 = [xa | skip]^T dz1 and db1 = sum dz1, while xg holds x_raw
+    err = weight_grad(XinT{xg, ptrs[Q_SKIP], aff_a, aff_b, (int)rps, c, s, skip_bf16}, z,
+                      c + s, hidden, n_px, splits_w1, part_w, (float*)ptrs[Q_DW1], st);
+    if (!err)
+      err = column_sums(z, n_px, hidden, sum_run, (float*)ptrs[Q_PART_DB1], (float*)ptrs[Q_DB1],
+                        st);
+    if (err) return err;
+  }
+  // 4. [dxa | dskip] = dz1 @ [W1a | W1b]^T (W1 stored (c + s, hidden): B_T);
+  //    da / db partials, a * dxa over xg
+  float* part_da = (float*)ptrs[Q_PART_DA];
+  float* part_db = (float*)ptrs[Q_PART_DB];
+  err = gemm_f32_run<false, true>(
+      F32Matrix<false, float>{z, hidden}, w1, hidden, n_px, c + s, hidden, 1, rps,
+      DxStore{xg, (float*)ptrs[Q_DSKIP], aff_a, part_da, part_db, c, s, (int)tiles}, st);
+  if (err) return err;
+  // 5. da, db: each sample's partials in runs, then the runs
+  const int per = (int)((tiles + groups - 1) / groups);
+  if ((long long)per * (groups - 1) >= tiles) return (int)cudaErrorInvalidValue;
+  float* grp_da = (float*)ptrs[Q_GRP_DA];
+  float* grp_db = (float*)ptrs[Q_GRP_DB];
+  const dim3 rgrid((c + 31) / 32, (unsigned)bsz);
+  tile_reduce<<<dim3(rgrid.x, rgrid.y, groups), dim3(32, 8), 0, st>>>(
+      part_da, part_db, (int)tiles, per, c, grp_da, grp_db);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  stats_reduce<<<rgrid, dim3(32, 8), 0, st>>>(grp_da, grp_db, groups, c, (float*)ptrs[Q_DA],
+                                              (float*)ptrs[Q_DB]);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  sum_rows<<<(a.c_out + 255) / 256, 256, 0, st>>>(part_db2, (int)g_runs, a.c_out,
-                                                  (float*)ptrs[P_DB2]);
-  return (int)cudaGetLastError();
+  // 6. dhm = Mt^T @ (a dxa), the folded forward DFT
+  return fold_launch<true, float, float>(ptrs[Q_AT_ANA], xg, (void*)ptrs[Q_DHM], bsz * h,
+                                         (int)w, m, c, (int)ints[J_ANA_ROWS],
+                                         (int)ints[J_ANA_COLS], st);
 }

@@ -21,8 +21,9 @@ mirror of that chain (tests only).  On fp32 operands ("float32",
 the decoder MLP of csrc/mlp_f32.cuh reads it with (a, b) as its input
 affine; `decoder_f32_passes` is its plain mirror.  Bound on the H100 at
 the serving shapes: operations (see the kernel source).  Its gradient is the
-`spectral_decoder_bwd` kernel (JAX `_bwd`, spectral_decoder.py:412-438):
-dhm, dskip, da, db and the weight gradients; none for Mt, a constant.
+`spectral_decoder_bwd` kernel (JAX `_bwd`, spectral_decoder.py:412-438),
+on bf16 and on fp32 operands: dhm, dskip, da, db and the weight
+gradients; none for Mt, a constant.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 
 from msfno_torch.ops.kernels import (check, check_prepared, kernel_operand, library, mlp_f32,
                                      operand_dtype, stream_ptr)
-from msfno_torch.ops.kernels import dft_synthesis
+from msfno_torch.ops.kernels import dft_analysis, dft_synthesis
 from msfno_torch.ops.kernels.dft_analysis import FOLD_K, FOLD_TILE, _ceil, aligned, check_operand
 from msfno_torch.ops.kernels.grid_encoder_spectral import (
     DFT_ROW_MULTIPLE, TILE_ROWS, _dft_operand, pad_dft_matrix)
@@ -90,6 +91,14 @@ def _synthesis_pair(mt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return mt[:, :m].t(), -mt[:, m:].t()
 
 
+def _transposed_pair(mt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(C, S), each (W, M), with Mt^T = [C | -S]^T: the forward DFT's
+    matrices of the transposed product Mt^T @ x that the backward's dhm
+    takes (Mt's cos columns, and its sin columns negated)."""
+    m = mt.shape[1] // 2
+    return mt[:, :m], -mt[:, m:]
+
+
 def decoder_f32_passes(hm, skip, mt, a, b, w1, b1, w2, b2=None, out_dtype=None):
     """Plain mirror of the fp32-operand kernel (tests only): the folded
     inverse DFT of the unscaled hm (`dft_synthesis.dft_synthesis_folded`),
@@ -127,10 +136,13 @@ def prepare(w1, w2, mt, c_main: int, mxu_dtype="bfloat16"):
     Mt^T (as the head's DFT pass takes its operand) for the
     `spectral_decoder_bwd` kernel (~1.0 MB at the serving widths).  fp32:
     the fp32 weights and the fold's half matrices of
-    `dft_synthesis.prepare` (the forward only)."""
+    `dft_synthesis.prepare` for the forward, and for the backward's dhm
+    those of `dft_analysis.prepare` of the transposed product (~0.75 MB
+    each at the serving widths)."""
     if operand_dtype(mxu_dtype) == torch.float32:
         return (*prepare_weights(w1, w2, c_main, mxu_dtype),
-                dft_synthesis.prepare(*_synthesis_pair(mt), mxu_dtype))
+                dft_synthesis.prepare(*_synthesis_pair(mt), mxu_dtype),
+                dft_analysis.prepare(*_transposed_pair(mt), mxu_dtype))
     w1p, w2p = prepare_weights(w1, w2, c_main)
     return (w1p, w2p, pad_dft_matrix(mt), w1p.t().contiguous(), w2p.t().contiguous(),
             _dft_operand(mt))

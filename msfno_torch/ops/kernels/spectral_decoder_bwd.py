@@ -15,10 +15,13 @@ accumulation.  The plain version's GELU is exact (erf); the kernel's GELU
 derivative is the JAX backward kernel's (Phi from the A&S 7.1.26 erf
 polynomial, <= 1.5e-7 absolute) and its recomputed GELU the forward
 kernels' branch-free rational erf.  Bound on the H100
-at the serving shapes: operations (see the kernel source).  The kernel runs
-a tile pass over 128-longitude tiles of each row, then the transposed DFT
-(dhm) as a pass of its own; `decoder_bwd_tiles` is a plain mirror of the
-two passes (tests only).
+at the serving shapes: operations (see the kernel source).  On bf16
+operands the kernel runs a tile pass over 128-longitude tiles of each row,
+then the transposed DFT (dhm) as a pass of its own; `decoder_bwd_tiles` is
+a plain mirror of the two passes (tests only).  On fp32 operands
+("float32", "tensorfloat": true fp32 FMA, nothing rounded) it runs a chain
+of fp32 passes through device memory, the DFTs folded;
+`decoder_bwd_f32_passes` is its plain mirror (tests only).
 """
 
 from __future__ import annotations
@@ -27,11 +30,15 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
-from msfno_torch.ops.kernels import check, kernel_operand, library, stream_ptr
-from msfno_torch.ops.kernels.dft_analysis import BF16_K, BF16_TILE, aligned, check_operand
+from msfno_torch.ops.kernels import (check, check_prepared, kernel_operand, library, mlp_f32,
+                                     operand_dtype, stats_scratch, stream_ptr,
+                                     tile_stats_reduce)
+from msfno_torch.ops.kernels.dft_analysis import (BF16_K, BF16_TILE, FOLD_K, FOLD_TILE, _ceil,
+                                                  aligned, check_operand, dft_analysis_folded)
 from msfno_torch.ops.kernels.grid_encoder_spectral import (
-    DFT_ROW_MULTIPLE, REDUCE_GROUPS, TILE_ROWS)
+    DFT_ROW_MULTIPLE, REDUCE_GROUPS, TILE_ROWS, erf_rational)
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -145,6 +152,49 @@ def decoder_bwd_tiles(g, hm, skip, mt, a, b, w1, b1, w2, b2=None, mxu_dtype="bfl
             gf.reshape(-1, gf.shape[-1]).sum(0) if b2 is not None else None)
 
 
+def decoder_bwd_f32_passes(g, hm, skip, mt, a, b, w1, b1, w2, b2=None, need_weights=True,
+                           tile=TILE_ROWS):
+    """Plain mirror of the fp32-operand kernel's passes (tests only), all in
+    fp32: (1) x_raw = Mt @ hm by the folded inverse DFT; (2) z1 = [a x_raw +
+    b | skip] W1 + b1; (3) dz1 = (g W2^T) gelu'(z1) (A&S 7.1.26's erf, as
+    JAX); (4) [dxa | dskip] = dz1 [W1a | W1b]^T, and per (sample, `tile`
+    pixels, the last one ragged) the sums of dxa x_raw and of dxa; (5) da,
+    db: those partials in the kernels' fixed order; (6) dhm = Mt^T (a dxa)
+    by the folded forward DFT.  The weight gradients: dW1 = [xa | skip]^T
+    dz1, dW2 = gelu(z1)^T g with the forward kernels' rational-erf GELU,
+    db1 and db2 column sums.  Same signature and returns as
+    `spectral_decoder_bwd` (fp32 operands)."""
+    from msfno_torch.ops.kernels.spectral_decoder import _synthesis_pair, _transposed_pair
+    from msfno_torch.ops.kernels.dft_synthesis import dft_synthesis_folded
+
+    bsz, h, two_m, c = hm.shape
+    wd = mt.shape[0]
+    hidden = w1.shape[1]
+    mtf = mt.float()
+    x_raw = dft_synthesis_folded(hm.float(), *_synthesis_pair(mtf)).reshape(bsz, h * wd, c)
+    af, bf = a.float()[:, None, :], b.float()[:, None, :]
+    xin = torch.cat([x_raw * af + bf, skip.float().reshape(bsz, h * wd, -1)], dim=-1)
+    z1 = xin @ w1.float() + b1.float()
+    gf = g.float().reshape(bsz, h * wd, -1)
+    dz = (gf @ w2.float().t()) * gelu_grad_as7126(z1)
+    dx = dz @ w1.float().t()
+    dxa = dx[..., :c]
+
+    def tile_sums(t):  # (B, tiles, C) partials over `tile` pixels of a sample
+        t = F.pad(t, (0, 0, 0, -t.shape[1] % tile))
+        return t.reshape(bsz, -1, tile, c).sum(2)
+
+    da, db = tile_stats_reduce(tile_sums(dxa * x_raw)), tile_stats_reduce(tile_sums(dxa))
+    dhm = dft_analysis_folded((dxa * af).reshape(bsz * h, wd, c), *_transposed_pair(mtf))
+    grads = (dhm.reshape(hm.shape), dx[..., c:].reshape(*skip.shape[:3], -1), da, db)
+    if not need_weights:
+        return (*grads, None, None, None, None)
+    h1 = 0.5 * z1 * (1.0 + erf_rational(z1 * (1.0 / math.sqrt(2.0))))
+    flat = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+    return (*grads, flat(xin).t() @ flat(dz), flat(dz).sum(0).reshape(hidden),
+            flat(h1).t() @ flat(gf), flat(gf).sum(0) if b2 is not None else None)
+
+
 def spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
                          mxu_dtype="bfloat16", need_weights=True, prepared=None):
     """Gradients of `spectral_decoder` for the cotangent g (the JAX
@@ -158,14 +208,9 @@ def spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
                                               mxu_dtype)
     if g.device.type != "cuda":
         raise ValueError(f"spectral_decoder_bwd: unsupported device {g.device}")
-    if mxu_dtype != "bfloat16":
-        raise NotImplementedError(
-            "spectral_decoder_bwd: the CUDA kernel takes bf16 operands; its fp32 "
-            f"kernel ({mxu_dtype!r}), and with it training the fp32-operand tail, "
-            "is the next slice of the port"
-        )
     from msfno_torch.ops.kernels.spectral_decoder import prepare
 
+    f32 = operand_dtype(mxu_dtype) == torch.float32
     bsz, h, two_m, c = hm.shape
     wd, s = skip.shape[-2], skip.shape[-1]
     hidden, c_out = w1.shape[1], w2.shape[1]
@@ -175,11 +220,15 @@ def spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
         raise ValueError("spectral_decoder_bwd: operand shapes do not match hm (B, H, 2M, C), "
                          "skip (B, H, W, S), g (B, H, W, C_out), mt (W, 2M), a/b (B, C), "
                          "w1 (C + S, hidden) and w2 (hidden, C_out)")
-    if c % 16 or hidden % 16 or c > 256 or hidden > 256 or c_out > 96 or s > 128:
+    if not f32 and (c % 16 or hidden % 16 or c > 256 or hidden > 256 or c_out > 96
+                    or s > 128):
         raise ValueError(f"spectral_decoder_bwd: C {c} and hidden {hidden} must be "
                          "multiples of 16 and at most 256, C_out at most 96, S at most 128")
     if prepared is None:
-        prepared = prepare(w1, w2, mt, c)
+        prepared = prepare(w1, w2, mt, c, mxu_dtype)
+    check_prepared("spectral_decoder_bwd", prepared, mxu_dtype)
+    if f32:
+        return _bwd_f32(g, hm, skip, a, b, b1, b2, prepared, need_weights)
     w1p, w2p, mtp, w1t, w2t, mtt = prepared
     k1p, n2p, m2p = w1p.shape[0], w2p.shape[1], mtp.shape[1]
     gk, skk = aligned(g.float()), aligned(skip.float())  # the kernel reads fp32 rows
@@ -243,3 +292,54 @@ def spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
         return dhm, dskip, da, db, None, None, None, None
     dw1 = torch.cat([dw1p[:c], dw1p[c:c + s]])
     return dhm, dskip, da, db, dw1, db1, dw2p[:, :c_out], db2 if b2 is not None else None
+
+
+def _bwd_f32(g, hm, skip, a, b, b1, b2, prepared, need_weights):
+    """The fp32-operand kernel (csrc/spectral_decoder_bwd.cu,
+    `spectral_decoder_bwd_f32`): its passes through an fp32 grid-field
+    scratch and an fp32 hidden scratch, then the folded forward DFT."""
+    w1p, w2p, at_syn, at_ana = prepared
+    bsz, h, two_m, c = hm.shape
+    wd, s = skip.shape[-2], skip.shape[-1]
+    hidden, c_out = w2p.shape
+    m, kh = two_m // 2, wd // 2 + 1
+    lib = library("spectral_decoder_bwd")
+    check_operand("spectral_decoder_bwd", lib, at_syn,
+                  (_ceil(m, FOLD_K), 2 * FOLD_TILE * -(-kh // FOLD_TILE)), bf16_ops=0)
+    check_operand("spectral_decoder_bwd", lib, at_ana,
+                  (_ceil(kh, FOLD_K), 2 * FOLD_TILE * -(-m // FOLD_TILE)), bf16_ops=0)
+    dev = g.device
+    n_px = bsz * h * wd
+    empty = lambda *shape: torch.empty(shape, device=dev)  # noqa: E731
+    gk = aligned(g.float())
+    hmk, hm_bf16 = kernel_operand(hm)
+    skk, skip_bf16 = kernel_operand(skip)
+    af, bf = a.float().contiguous(), b.float().contiguous()
+    dhm, dskip = empty(bsz, h, two_m, c), empty(bsz, h, wd, s)
+    # (part_da, part_db) per 128-pixel tile, (grp_da, grp_db), (da, db)
+    sums, groups = stats_scratch(bsz, h * wd, c, dev)
+    xg, z = empty(n_px, c), empty(n_px, hidden)  # the grid field; z1, then dz1
+    # dw1, db1, dw2, db2, part_w, part_db1, part_db2
+    weights = [None] * 7
+    splits = (1, 1)
+    if need_weights:
+        # pixel ranges that give each dW GEMM a few waves of 128 x 128 tiles
+        splits = tuple(max(1, min(n_px // 4096, -(-_SM_WAVE // (-(-r // 128) * -(-k // 128)))))
+                       for r, k in ((c + s, hidden), (hidden, c_out)))
+        runs = -(-n_px // _SUM_RUN)
+        weights = [empty(c + s, hidden), empty(hidden), empty(hidden, c_out),
+                   empty(c_out) if b2 is not None else None,
+                   empty(max(splits[0] * (c + s) * hidden, splits[1] * hidden * c_out)),
+                   empty(runs, hidden), empty(runs, c_out)]
+    dw1, db1, dw2, db2, part_w, part_db1, part_db2 = weights
+    ptrs = [t.data_ptr() if t is not None else None for t in (
+        gk, hmk, skk, af, bf, at_syn, at_ana, w1p, b1.float().contiguous(), w2p, dhm, dskip,
+        sums[4], sums[5], dw1, db1, dw2, db2, xg, z, sums[0], sums[1], sums[2], sums[3],
+        part_w, part_db1, part_db2)]
+    ints = [bsz, h, wd, m, c, s, hidden, c_out, *at_syn.shape, *at_ana.shape, hm_bf16,
+            skip_bf16, int(need_weights), groups, *splits, _SUM_RUN]
+    mlp_f32.launch("spectral_decoder_bwd", "spectral_decoder_bwd_f32", ptrs, ints,
+                   stream_ptr(g))
+    global LAUNCHES
+    LAUNCHES += 1
+    return dhm, dskip, sums[4], sums[5], dw1, db1, dw2, db2

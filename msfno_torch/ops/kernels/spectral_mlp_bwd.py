@@ -127,8 +127,9 @@ def spectral_mlp_bwd(z, g, weights, negative_slope: float = 0.0,
         raise ValueError(f"spectral_mlp_bwd: unsupported device {z.device}")
     if mxu_dtype != "bfloat16":
         raise NotImplementedError(
-            "spectral_mlp_bwd: the CUDA kernel takes bf16 operands; an fp32 "
-            f"kernel ({mxu_dtype!r}) comes in a later slice"
+            f"spectral_mlp_bwd: the CUDA kernel takes bf16 operands, not {mxu_dtype!r}: "
+            "off bf16 the gradient of spectral_mlp is the reference VJP, in this "
+            "package as in the JAX package (msfno_tpu/ops/pallas/spectral_mlp.py:487)"
         )
     if packed is None:
         packed = pack_weights(weights)

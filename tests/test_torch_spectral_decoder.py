@@ -208,17 +208,21 @@ def test_tensorfloat_is_float32_on_cpu():
 
 
 def test_prepare_fp32():
-    """fp32 operands: the MLP's weights as they are and the fold operand of
-    dft_synthesis for the (Ci, Si) pair of Mt; a bf16 pack is refused."""
+    """fp32 operands: the MLP's weights as they are, the fold operand of
+    dft_synthesis for the (Ci, Si) pair of Mt and, for the backward's dhm,
+    the fold operand of dft_analysis for Mt's cos columns and its negated
+    sin columns; a bf16 pack is refused."""
     from msfno_torch.ops.kernels import check_prepared
+    from msfno_torch.ops.kernels import dft_analysis as ak
     from msfno_torch.ops.kernels import dft_synthesis as sk
 
     t = {k: torch.from_numpy(v) for k, v in _case().items()}
-    w1p, w2p, at = tk.prepare(t["w1"], t["w2"], t["mt"], 8, "float32")
+    w1p, w2p, at, at_bwd = tk.prepare(t["w1"], t["w2"], t["mt"], 8, "float32")
     m = t["mt"].shape[1] // 2
     assert torch.equal(w1p, t["w1"]) and torch.equal(w2p, t["w2"])
     assert torch.equal(at, sk.prepare(t["mt"][:, :m].t(), -t["mt"][:, m:].t(), "float32"))
-    check_prepared("spectral_decoder", (w1p, w2p, at), "tensorfloat")
+    assert torch.equal(at_bwd, ak.prepare(t["mt"][:, :m], -t["mt"][:, m:], "float32"))
+    check_prepared("spectral_decoder", (w1p, w2p, at, at_bwd), "tensorfloat")
     with pytest.raises(ValueError):
         check_prepared("spectral_decoder", tk.prepare(t["w1"], t["w2"], t["mt"], 8)[:3],
                        "float32")
@@ -252,12 +256,23 @@ def test_fp32_kernel_matches_plain(cuda, shape, hm_dtype, out, mxu):
 
 
 @pytest.mark.cuda
-def test_fp32_backward_raises(cuda):
-    """Training through the fp32 tail is the next slice's kernel: its
-    backward raises on the card instead of running the plain path."""
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+def test_fp32_backward_launches_kernel(cuda, mxu):
+    """Training through the fp32 tail: its backward launches the fp32
+    spectral_decoder_bwd kernel once a call and gives the plain fp32
+    gradients."""
+    from msfno_torch.ops.kernels import spectral_decoder_bwd as tb
+
     ops = _case(c=16, hidden=16)
     args = [None if ops[k] is None else torch.from_numpy(ops[k]).to(cuda) for k in NAMES]
-    args[0].requires_grad_(True)
-    y = tk.spectral_decoder(*args, mxu_dtype="float32")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        torch.autograd.grad(y.sum(), args[0])
+    leaves = {n: v.requires_grad_(True) for n, v in zip(NAMES, args)
+              if n != "mt" and v is not None}
+    y = tk.spectral_decoder(*args, mxu_dtype=mxu)
+    before = tb.LAUNCHES
+    gk = torch.autograd.grad(y.sum(), list(leaves.values()))
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES == before + 1
+    yp = tk.spectral_decoder_reference(*args, mxu_dtype="float32")
+    gp = torch.autograd.grad(yp.sum(), list(leaves.values()))
+    for n, a, b in zip(leaves, gk, gp):
+        assert rel_l2(a.cpu(), b.cpu()) <= 1e-5, n

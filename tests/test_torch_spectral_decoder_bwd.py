@@ -100,6 +100,37 @@ def test_tile_mirror_matches_jax_kernel(b2, mxu, tol, need_weights):
         assert report(tag, rel_l2(a, b)) <= tol
 
 
+@pytest.mark.parametrize("need_weights", [True, False])
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("b2", [True, False])
+def test_f32_passes_mirror_matches_jax_kernel(b2, mxu, need_weights):
+    """The fp32 kernel's passes (`decoder_bwd_f32_passes`: the folded
+    inverse DFT, the MLP's GEMMs, da / db over 128-pixel tiles of each
+    sample in the kernels' fixed order, the last tile ragged at W = 160, the
+    folded forward DFT for dhm) against the JAX Pallas backward kernel on
+    fp32 operands, every output; "tensorfloat" runs the same fp32 kernel."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.spectral_decoder import _spectral_decoder_bwd_call
+
+    ops = _case(b2=b2, seed=3, b=2, h=3, w=160, mmax=20, c=16, s=5, hidden=24, c_out=4)
+    j = {k: jnp.asarray(v) if v is not None else None for k, v in ops.items()}
+    outj = _spectral_decoder_bwd_call(
+        j["g"], j["hm"], j["skip"], j["a"], j["b"], j["mt"], j["w1"], j["b1"], j["w2"],
+        j["b2"], has_b2=b2, mxu_dtype=mxu, interpret=True)
+    t = {k: torch.from_numpy(v) if v is not None else None for k, v in ops.items()}
+    outt = tb.decoder_bwd_f32_passes(t["g"], *(t[k] for k in NAMES),
+                                     need_weights=need_weights)
+    assert all(d is None for d in outt[4:]) == (not need_weights)
+    assert (outt[-1] is None) == (not (b2 and need_weights))
+    for name, a, b in zip(OUTS, outt, outj):
+        if a is None:
+            continue
+        b = np.reshape(b, a.shape)
+        tag = f"decoder_bwd_f32_passes[b2={b2},{mxu},w={need_weights}] {name}"
+        assert report(tag, rel_l2(a, b)) <= 1e-5
+
+
 @pytest.mark.parametrize("b2", [True, False])
 def test_function_matches_jax_grad(b2):
     """The autograd Function (plain backward on the CPU) against jax.grad of
@@ -153,5 +184,42 @@ def test_kernel_matches_plain(cuda, shape):
             continue
         # one-ulp bf16 flips, fp32 sums in another order
         assert rel_l2(a.cpu(), b.cpu()) <= 1e-2, name
+        if c is not None:
+            assert torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("shape", [
+    # widths the bf16 kernel refuses (C, hidden not multiples of 16), bf16 hm
+    dict(b=2, h=3, w=100, mmax=30, c=24, s=5, hidden=40, c_out=5, b2=True, hm="bfloat16"),
+    # the serving step's widths: 2M = 242, 256 + 73 -> 256 -> 73, ragged W
+    dict(b=1, h=2, w=1440, mmax=121, c=256, s=73, hidden=256, c_out=73, b2=False),
+    dict(b=2, h=2, w=160, mmax=40, c=64, s=73, hidden=256, c_out=73, b2=True),
+])
+def test_fp32_kernel_matches_plain(cuda, shape, mxu):
+    """The fp32 kernel against the plain fp32 backward, every output, with
+    and without the weight gradients: true fp32 FMA on both sides, only the
+    sums' order (the folds, the fixed-order reduces) differs."""
+    shape = dict(shape)
+    hm_dtype = getattr(torch, shape.pop("hm", "float32"))
+    ops = _case(seed=7, **shape)
+    t = {k: torch.from_numpy(v).to(cuda) if v is not None else None for k, v in ops.items()}
+    t["hm"] = t["hm"].to(hm_dtype)
+    args = (t["g"], *(t[n] for n in NAMES))
+    before = tb.LAUNCHES
+    with torch.inference_mode():
+        k = tb.spectral_decoder_bwd(*args, mxu_dtype=mxu)
+        torch.cuda.synchronize()
+        assert tb.LAUNCHES == before + 1
+        p = tb.spectral_decoder_bwd_reference(*args, mxu_dtype="float32")
+        k_path = tb.spectral_decoder_bwd(*args, mxu_dtype=mxu, need_weights=False)
+    assert tb.LAUNCHES == before + 2
+    assert all(d is None for d in k_path[4:])
+    assert (k[-1] is None) == (not shape["b2"])
+    for name, a, b, c in zip(OUTS, k, p, k_path):
+        if b is None:
+            continue
+        assert rel_l2(a.cpu(), b.cpu()) <= 1e-5, name
         if c is not None:
             assert torch.equal(a, c), name

@@ -4,7 +4,7 @@ the PyTorch port goes, on a CUDA card.
 
     python3 tools/profile_torch_step.py [--steps N] [--trace FILE]
     python3 tools/profile_torch_step.py --tier fp32 [--steps N] [--trace FILE]
-    python3 tools/profile_torch_step.py --train [--steps N] [--trace FILE]
+    python3 tools/profile_torch_step.py --train [--tier fp32] [--steps N] [--trace FILE]
 
 Serving: builds the full-width filmed SFNO of
 `msfno_torch.config.serving_config()` (the fused head and tail) and the same
@@ -21,13 +21,19 @@ and power limit.
 the JAX exact tier with every kernel on fp32 operands), fused and unfused.
 Its grid_mlp, head and tail share the fp32 MLP's GEMM kernels
 (csrc/mlp_f32.cuh), so their device time is reported together as
-"fp32_mlp"; the head's and tail's DFT passes apart.
+"fp32_mlp"; the folded DFT passes by direction, "dft_fold_analysis" (the
+head's DFT, and in a train step the tail backward's dhm) and
+"dft_fold_synthesis" (the tail's inverse DFT, and in a train step the tail
+backward's recompute of it).
 
 --train: the same for the FiLM fine-tune train step (`Trainer._train_step`
 of `finetune_config()` / `finetune_train_config()`: film-only, bf16 frozen
-backbone, Adam) with multi_step_training 0 and 1, each on one fixed
-synthetic batch: two warm-up steps, N profiled steps, then the median train
-step times from CUDA events in turns (0, 1, 1, 0).
+backbone, Adam; with --tier fp32, `fp32_kernel_config(output_dtype=
+"float32")` / `finetune_train_config(bf16_frozen_params=False)`, the
+fp32-kernel tier with its fp32 frozen weights) with multi_step_training 0
+and 1, each on one fixed synthetic batch: two warm-up steps, N profiled
+steps, then the median train step times from CUDA events in turns (0, 1,
+1, 0).
 
 With --trace, writes the first path's Chrome trace to FILE.
 """
@@ -81,7 +87,10 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
     # tile kernel and transposed DFT (the DIRECT analysis_wgmma, fp32 dhm);
     # on fp32 operands, spectral_mlp's gemm_f32 layers, the fp32 MLP's two
     # gemm_f32 launches that grid_mlp, the head and the tail share
-    # ("fp32_mlp"), the head's and the tail's folded DFT passes; the
+    # ("fp32_mlp"), the tail backward's three gemm_f32 passes (z1, dz1,
+    # [dxa | dskip]; gcn_layer_bwd's fp32 GEMMs are those with the plain
+    # F32Store epilogue); the folded DFT passes, whose kernels the head, the
+    # tail and the tail's backward share, by direction ("dft_fold_*"); the
     # partials' reduces that several kernels share (tile_reduce,
     # stats_reduce: a few us a call) count under none.  The keys are regular
     # expressions; the namespace keeps cuBLAS's names out
@@ -91,20 +100,22 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
                                     ns + "HiddenF32>", ns + "OutF32>"),
                    "grid_mlp": (ns + "mlp_tiles<",),
                    "fp32_mlp": (ns + "MlpHidden>", ns + "MlpOut>"),
+                   "dft_fold_analysis": (ns + "fold_rows<true",),
+                   "dft_fold_synthesis": (ns + "fold_rows<false",),
                    "grid_encoder_spectral": (ns + "enc_mlp<",
-                                             direct + re.escape("__nv_bfloat16, 0, true>"),
-                                             ns + "fold_rows<true"),
-                   "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16",
-                                        ns + "fold_rows<false"),
+                                             direct + re.escape("__nv_bfloat16, 0, true>")),
+                   "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16"),
                    "gcn_layer": (ns + "gcn_stencil", ns + "TEpi,",
                                  ns + "gemm_f32<false, false.*F32Store>"),
                    "gcn_layer_bwd": (ns + "gcn_bwd_", ns + "StoreEpi,", ns + "sum_rows",
-                                     ns + "gemm_f32<false, true", ns + "gemm_f32<true, false"),
+                                     ns + "gemm_f32<false, true.*F32Store>",
+                                     ns + "gemm_f32<true, false.*F32Store>"),
                    "spectral_decoder_bwd": ("decoder_bwd_", "hm_to_bf16",
-                                            direct + re.escape("float, 0, true>")),
+                                            direct + re.escape("float, 0, true>"),
+                                            ns + "Z1Store>", ns + "DzStore>", ns + "DxStore>"),
                    "spectral_mlp_bwd": (ns + "stage_grad_rows", ns + "RecomputeEpi,",
                                         ns + "ChainEpi,", ns + "InputGradEpi,")}
-    for name in (*KERNELS, "fp32_mlp"):
+    for name in (*KERNELS, "fp32_mlp", "dft_fold_analysis", "dft_fold_synthesis"):
         keys = kernel_keys.get(name, (f"{name}_kernel",))
         mine = [r for r in rows if any(re.search(k, r[1]) for k in keys)]
         print(json.dumps({"path": path, "kernel": name,
@@ -160,13 +171,17 @@ def profile_train(trainer, state, batch, steps: int, path: str):
 def train_main(args, card) -> int:
     import torch
 
-    from msfno_torch.config import finetune_config, finetune_train_config
+    from msfno_torch.config import finetune_config, finetune_train_config, fp32_kernel_config
     from msfno_torch.data.synthetic import gen_batch
     from msfno_torch.training.trainer import Trainer
 
+    fp32 = args.tier == "fp32"
+    cfg = fp32_kernel_config(output_dtype="float32") if fp32 else finetune_config()
     runs = {}
     for ms in (0, 1):
-        tr = Trainer(finetune_config(), finetune_train_config(multi_step_training=ms))
+        tcfg = finetune_train_config(multi_step_training=ms, **(
+            {"bf16_frozen_params": False} if fp32 else {}))
+        tr = Trainer(cfg, tcfg)
         runs[ms] = (tr, tr.init_state(), gen_batch(tr.cfg, 1, ms, seed=11))
     for ms, (tr, state, batch) in runs.items():
         torch.cuda.reset_peak_memory_stats()
@@ -188,7 +203,7 @@ def train_main(args, card) -> int:
             torch.cuda.synchronize()
             if i:
                 times[ms].append(start.elapsed_time(end))
-    print(json.dumps({"card": card,
+    print(json.dumps({"card": card, "tier": args.tier,
                       "median_train_step_ms": {f"multi_step_training={ms}": statistics.median(t)
                                                for ms, t in times.items()},
                       "train_step_ms": {f"multi_step_training={ms}": t
