@@ -5,7 +5,10 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the ten CUDA kernels from msfno_torch/csrc, one nvcc per source;
+  2. build the ten CUDA kernels from msfno_torch/csrc, one nvcc per source,
+     and print ptxas' registers and spills of every instantiation of the
+     split-precision fp32 core (row_gemm.cuh:gemm_tf32x3), failing on a
+     C7520 line (wgmmas serialized) there;
   3. each kernel against its plain PyTorch version at the shapes of the
      serving step (grid_mlp also with the inner MLP's fold of
      `fuse_inner_mlp`) and of the fine-tune step (the three backward kernels,
@@ -73,7 +76,10 @@ Phases (any failure raises, and the script exits non-zero):
      spectral_mlp_bwd launches per train step with 0 (14 / 2 / 0 with 1),
      the median ms per train step and the peak memory.
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
-operands of that tier (sites "*/fp32") to 1e-5.
+operands of that tier (sites "*/fp32") to 1e-5.  Bounds count the products
+of matrix products on fp32 operands at 495 / 3 TFLOP/s, three TF32
+tensor-core passes (their least time on this card: `PEAK_OPS_PER_S`), and
+elementwise fp32 work at 67 TFLOP/s.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device it exits with 1 and
 prints no result.
@@ -83,13 +89,19 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}  # dense, H100 SXM data sheet
+# dense, H100 SXM data sheet.  "fp32_product": the products of matrix
+# products on fp32 operands.  Their least time on this card is three TF32
+# tensor-core passes over hi / lo splits (495 / 3 TFLOP/s, fp32-class:
+# csrc/row_gemm.cuh:gemm_tf32x3), whatever route a kernel takes; "fp32":
+# elementwise fp32 work, on the CUDA cores' FMA rate.
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "fp32_product": 495e12 / 3}
 STEPS = 4
 TOL = {"spectral_mlp": 1e-3, "grid_mlp": 1e-2, "gcn_layer": 1e-2,
        "grid_encoder_spectral": 1e-2, "spectral_decoder": 1e-2, "gcn_layer_bwd": 1e-2,
@@ -145,6 +157,48 @@ DFT_MAIN = {"dft_analysis": {"trans_down/float32/fp32-in": 1, "trans_down/bfloat
 
 def log(*args):
     print(*args, flush=True)
+
+
+# the split-precision core's epilogue and A functors, as ptxas' mangled
+# names spell them
+TF3_PARTS = ("ComplexRows", "F32Matrix", "MlpInput", "HiddenF32", "OutF32", "TcStore",
+             "Z1Store", "DzStore", "DxStore")
+
+
+def ptxas_tf32x3(logs: dict) -> dict:
+    """ptxas' report (nvcc -Xptxas -v) of every instantiation of the
+    split-precision core (csrc/row_gemm.cuh:gemm_tf32x3) in the libraries
+    built in this run: registers, stack, spill stores and loads, and the
+    C7520 lines (ptxas serialized the function's wgmmas) that name one.
+    Raises on such a line."""
+    funcs, c7520, func = {}, [], None
+    for lib, text in logs.items():
+        for line in text.splitlines():
+            m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+            if m:
+                func = m.group(1)
+            if "C7520" in line and "gemm_tf32x3" in line:
+                c7520.append(line.strip())
+            if not func or "gemm_tf32x3" not in func:
+                continue
+            tail = func.split("gemm_tf32x3", 1)[1]
+            bn = re.match(r"ILi(\d+)E", tail)
+            parts = sorted((tail.index(p), p) for p in TF3_PARTS if p in tail)
+            key = f"{lib}: gemm_tf32x3<{bn.group(1) if bn else '?'}, " \
+                  f"{', '.join(p for _, p in parts)}>"
+            rec = funcs.setdefault(key, {})
+            if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", line):
+                rec.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            if m := re.search(r"Used (\d+) registers", line):
+                rec["registers"] = int(m.group(1))
+    rec = {"phase": "ptxas_gemm_tf32x3", "libraries": sorted(logs),
+           "functions": funcs, "c7520": c7520}
+    log(json.dumps(rec))
+    if c7520:
+        raise AssertionError(f"ptxas serialized gemm_tf32x3's wgmmas: {c7520}")
+    return rec
 
 
 def rel_l2(a, b) -> float:
@@ -247,9 +301,10 @@ def spectral_mlp_sites(dev):
     recs = []
     for mxu, kind in (("bfloat16", "bf16"), ("float32", "fp32")):
         packed = sk.pack_weights(ws, mxu)
-        ops = {"fp32": products + adds} if kind == "fp32" else {"bf16": products, "fp32": adds}
-        # each weight value once (the packed matrix holds it twice)
-        work = (nbytes(z) * 2 + nbytes(packed[0]) // 2, ops)
+        ops = {"fp32_product" if kind == "fp32" else "bf16": products, "fp32": adds}
+        # each weight value once in the operand type (the packed matrix holds
+        # it twice, and the fp32 pack as hi and lo halves)
+        work = (nbytes(z) * 2 + sum(w.numel() for w in ws) * (2 if kind == "bf16" else 4), ops)
         recs.append(check_site(
             "spectral_mlp", "block" + ("/fp32" if kind == "fp32" else ""),
             lambda: sk.spectral_mlp(z, ws, 0.0, mxu, packed=packed),
@@ -306,7 +361,7 @@ def grid_mlp_sites(dev):
         work = (nbytes(x, ops.get("skip"), ops.get("pe"), b1, ops.get("b2"),
                        ops.get("residual"), *ops.get("affine", ()))
                 + (w1.numel() + w2.numel()) * prepared[0].element_size() + out_bytes,
-                {kind: flops})
+                {"fp32_product" if kind == "fp32" else kind: flops})
         recs.append(check_site(
             "grid_mlp", site,
             lambda: mk.grid_mlp(x, w1, b1, w2, mxu_dtype=mxu, prepared=prepared, **ops),
@@ -318,8 +373,10 @@ def grid_mlp_sites(dev):
     return recs
 
 
-# fp32-operand sites (the JAX exact and balanced tiers' generator): true
-# fp32 FMA, so the plain version is matched to fp32 rounding
+# fp32-operand sites (the JAX exact and balanced tiers' generator, the
+# fp32-kernel tier): fp32-class products (true fp32 FMA, or three TF32
+# passes over hi / lo splits), so the plain version is matched to fp32
+# rounding
 FP32_TOL = 1e-5
 
 
@@ -349,7 +406,7 @@ def gcn_layer_sites(dev):
             if c_in == 1:
                 ops = {"fp32": 15 * px * 512}
             elif f32:
-                ops = {"fp32": 2 * px * c_in * 512 + 12 * px * 512}
+                ops = {"fp32_product": 2 * px * c_in * 512, "fp32": 12 * px * 512}
             else:
                 ops = {"bf16": 2 * px * c_in * 512, "fp32": 12 * px * 512}
             work = (nbytes(x, wk if c_in > 1 else wt, b, dinv, mask, res)
@@ -398,7 +455,7 @@ def grid_encoder_spectral_sites(dev):
     # fp32 fold)
     pe = pe.float()
     prepared = ek.prepare(w1, w2, cs, "float32")
-    work = (nbytes(x, pe, w1, b1, w2, cs) + h * two_m * c * 4, {"fp32": flops})
+    work = (nbytes(x, pe, w1, b1, w2, cs) + h * two_m * c * 4, {"fp32_product": flops})
     recs.append(check_site(
         "grid_encoder_spectral", "head/fp32",
         lambda: ek.grid_encoder_spectral(x, w1, b1, w2, pe, cs, "float32", "float32",
@@ -432,7 +489,7 @@ def spectral_decoder_sites(dev):
         lambda: dk.spectral_decoder_reference(hm, skip, mt, a, b, w1, b1, w2), work, 10)]
     # the fp32-kernel tier (its inverse DFT is dft_synthesis's fp32 fold)
     prepared = dk.prepare(w1, w2, mt, c, "float32")
-    work = (nbytes(hm, skip, mt, a, b, w1, b1, w2) + n * 73 * 4, {"fp32": flops})
+    work = (nbytes(hm, skip, mt, a, b, w1, b1, w2) + n * 73 * 4, {"fp32_product": flops})
     recs.append(check_site(
         "spectral_decoder", "tail/fp32",
         lambda: dk.spectral_decoder(hm, skip, mt, a, b, w1, b1, w2, mxu_dtype="float32",
@@ -467,9 +524,7 @@ def gcn_layer_bwd_sites(dev):
             wk = wt.to(dt)
             px = 180 * 360
             need_dx = c_in > 1
-            kind = "fp32" if f32 else "bf16"
-            ops = {kind: 4 * px * c_in * 512}
-            ops["fp32"] = ops.get("fp32", 0) + 30 * px * 512
+            ops = {"fp32_product" if f32 else "bf16": 4 * px * c_in * 512, "fp32": 30 * px * 512}
             work = (nbytes(gy, y, res, x, dinv, mask, wk) + 4 * px * c_in * need_dx
                     + 4 * (c_in * 512 + 512), ops)
             recs.append(check_site(
@@ -515,7 +570,8 @@ def spectral_decoder_bwd_sites(dev):
     recs = []
     for mxu, kind in (("bfloat16", "bf16"), ("float32", "fp32")):
         prepared = dk.prepare(w1, w2, mt, c, mxu)
-        work = (nbytes(gy, hm, skip, mt, a, b, w1, b1, w2) + nbytes(hm, skip), {kind: flops})
+        work = (nbytes(gy, hm, skip, mt, a, b, w1, b1, w2) + nbytes(hm, skip),
+                {"fp32_product" if kind == "fp32" else kind: flops})
         call = lambda need: db_.spectral_decoder_bwd(  # noqa: E731
             *args, mxu_dtype=mxu, need_weights=need, prepared=prepared)
         rec = check_site(
@@ -652,7 +708,7 @@ def dft_sites(dev, name):
             for dt in (torch.float32, torch.bfloat16):
                 x = base.to(dt)
                 at = mod.prepare(p, q, mxu)  # what the transform caches
-                kind = "bf16" if mxu == "bfloat16" else "fp32"
+                kind = "bf16" if mxu == "bfloat16" else "fp32_product"
                 work = (nbytes(x, p, q) + rows * m_out * c * 4,
                         {kind: rows * m_out * k_in * c})
                 kern = ak.dft_analysis if analysis else sk.dft_synthesis
@@ -1245,10 +1301,11 @@ def main() -> int:
                     "python": sys.version.split()[0]}))
     dev = resolve_device()  # CUDA, with TF32 off: "float32" means true fp32
 
-    # phase 2
+    # phase 2, with ptxas' report of the split-precision core
     t0 = time.time()
-    build()
+    logs = build(verbose=True)
     log(json.dumps({"phase": "build", "seconds": time.time() - t0}))
+    ptxas_tf32x3(logs)
 
     # phase 3
     recs = kernel_checks(dev)

@@ -262,8 +262,10 @@ def fp32_kernel_config(**overrides) -> SFNOConfig:
     "gcn_custom"))`) with every kernel on, as the JAX CLI's `--use-pallas
     --pallas-grid-mlp --grid-mlp-mxu-dtype float32` runs it: fp32
     activations, the SHT on fp32, and the spectral_mlp, grid_mlp,
-    gcn_layer kernels and the fused head and tail on fp32 operands (true
-    fp32 FMA).  `fp32_kernel_config(fuse_encoder_dft=False,
+    gcn_layer kernels and the fused head and tail on fp32 operands
+    (fp32-class products: true fp32 FMA, or three TF32 tensor-core passes
+    in spectral_mlp and the tail's backward).
+    `fp32_kernel_config(fuse_encoder_dft=False,
     fuse_decoder_tail=False)` is the same tier with the head and tail
     unfused."""
     cfg = SFNOConfig(film=FilmConfig(film_gen_type="gcn_custom"), use_pallas=True,

@@ -52,9 +52,38 @@ struct MlpInput {
       const float v = load_act(x, m * c_main + k, x_bf16);
       if (!aff_a) return v;
       const long long i = (long long)seg * c_main + k;
-      return aff_a[i] * v + aff_b[i];
+      return fmaf(aff_a[i], v, aff_b[i]);
     }
     return load_act(skip, m * c_skip + (k - c_main), skip_bf16);
+  }
+  // raw elements (m, k .. k + 3), k a multiple of 4 (gemm_tf32x3's loader):
+  // one 16-byte load where the quad lies in 16-byte aligned fp32 rows of x
+  // or of the skip, else four scalar loads; loads only, `finish` applies
+  // the affine once they are needed
+  __device__ __forceinline__ float4 quad(long long m, long long k, int) const {
+    const auto al = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+    if (k + 3 < c_main && !x_bf16 && (c_main & 3) == 0 && al(x))
+      return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(x) +
+                                                   m * c_main + k));
+    if (k >= c_main && !skip_bf16 && (c_skip & 3) == 0 && al(skip))
+      return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(skip) +
+                                                   m * c_skip + (k - c_main)));
+    float r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = k + i < c_main ? load_act(x, m * c_main + k + i, x_bf16)
+                            : load_act(skip, m * c_skip + (k + i - c_main), skip_bf16);
+    return make_float4(r[0], r[1], r[2], r[3]);
+  }
+  // the affine on a quad's main channels
+  __device__ __forceinline__ float4 finish(float4 v, long long k, int seg) const {
+    if (!aff_a || k >= c_main) return v;
+    float r[4] = {v.x, v.y, v.z, v.w};
+    const long long i = (long long)seg * c_main + k;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (k + e < c_main) r[e] = fmaf(__ldg(aff_a + i + e), r[e], __ldg(aff_b + i + e));
+    return make_float4(r[0], r[1], r[2], r[3]);
   }
 };
 

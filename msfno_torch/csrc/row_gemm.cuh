@@ -1,6 +1,8 @@
 // Row GEMMs shared by spectral_mlp.cu, spectral_mlp_bwd.cu, gcn_layer.cu,
 // gcn_layer_bwd.cu and (gemm_f32, through mlp_f32.cuh) the fp32 paths of
-// grid_mlp.cu, grid_encoder_spectral.cu and spectral_decoder.cu.
+// grid_mlp.cu, grid_encoder_spectral.cu and spectral_decoder.cu;
+// gemm_tf32x3 runs the fp32 paths of spectral_mlp.cu and
+// spectral_decoder_bwd.cu.
 //
 // wgmma_gemm: C = epi(A @ B), A (M x K) and B (K x N) bf16, row-major, fp32
 // accumulation on wgmma (sm_90a).  A block owns a WGM_BM x WGM_BN tile.  A
@@ -31,7 +33,45 @@
 // thread, K in double-buffered slabs of 8 (the next slab's loads in
 // registers while the current one is multiplied); blockIdx.z splits K into
 // partial products.
-// Tunables: WGM_BN, WGM_STAGES (wgmma_gemm).
+//
+// gemm_tf32x3: epi(A @ B) with fp32 operands and fp32 accumulation as three
+// TF32 wgmma passes (split precision).  The least time of an fp32-class
+// product on the H100 is three TF32 tensor-core passes (495 / 3 = 165
+// TFLOP/s, against 67 TFLOP/s of fp32 FMA on the CUDA cores): x = hi + lo
+// with hi = rna_tf32(x) and lo = rna_tf32(x - hi) (|x - hi - lo| <= 2^-22
+// |x|), and a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first;
+// only a_lo b_lo (< 2^-22 |a b|) is dropped, about 21 of fp32's 24
+// significand bits kept.  Its contract is gemm_f32's: A a functor of (m, k,
+// seg), rows in segments that no tile crosses, split z taking a range of
+// K.  B is a prepared weight: the hi and lo halves of its (N x K)
+// transpose, fp32 rows padded with zeros to a 16-byte multiple (tf32 wgmma
+// has no transpose: both operands are read K-major).
+//   Persistent: a block a multiprocessor walks output tiles of 128 rows x
+// BN columns (112 or 128) with two consumer warpgroups of 64 rows each and
+// a loader warpgroup.  The loader fills a ring of TF3_STAGES stages of K =
+// 32 (one 128-byte swizzled row): A_hi, A_lo, B_hi, B_lo, and runs on into
+// the next tile while the consumers run a tile's epilogue (the tail
+// backward's passes have 3 to 11 stages a tile; as one block a tile, each
+// paid its prologue and epilogue with the tensor cores idle).  B comes by
+// TMA.  A comes from the loader's threads, which evaluate the functor
+// (16-byte loads where the rows allow), split each value and store both
+// halves K-major in the 128-byte swizzle.  A does not come by TMA: the tail
+// backward assembles its A from several tensors, some 73 fp32 wide, a row
+// stride TMA cannot take, and no split copy of an activation goes to
+// device memory.  The functor gives `quad(m, k, seg)`, four raw values
+// (loads only, so that a stage's loads are in flight together), and
+// `finish(v, k, seg)`, which turns them into A's values once they are
+// needed, besides its scalar call.
+//   Each consumer issues, per stage, lo.hi and hi.lo of its four k8 steps,
+// then their hi.hi, into an m64nBN accumulator that each stage starts
+// afresh, and adds it to a second one on the CUDA cores once the stage's
+// wgmmas are done.  The tensor cores add into their accumulator with
+// truncation: over a K = 1024 product's 384 wgmmas into one accumulator
+// that cost 1.9e-5 rel-L2 against true fp32 on the H100 (the spectral_mlp
+// block); a stage of 12 wgmmas from zero, then one round-to-nearest fp32
+// add, keeps the fp32 class.  The second set of accumulators is why BN
+// stops at 128.  The epilogue functor gets the summed fragment (TcTile).
+// Tunables: WGM_BN, WGM_STAGES (wgmma_gemm); TF3_STAGES (gemm_tf32x3).
 
 #pragma once
 
@@ -292,6 +332,18 @@ struct F32Matrix {
   __device__ __forceinline__ float operator()(long long m, long long k, int) const {
     return to_float(__ldg(A_T ? p + k * ld + m : p + m * ld + k));
   }
+  // elements (m, k .. k + 3), k a multiple of 4 (gemm_tf32x3's loader): one
+  // 16-byte load where the rows are 16-byte aligned fp32 rows; `finish`
+  // turns a quad into A's values (here: as it is)
+  __device__ __forceinline__ float4 quad(long long m, long long k, int seg) const {
+    if constexpr (!A_T && std::is_same<T, float>::value) {
+      if ((ld & 3) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0)
+        return __ldg(reinterpret_cast<const float4*>(p + m * ld + k));
+    }
+    const F32Matrix& a = *this;
+    return make_float4(a(m, k, seg), a(m, k + 1, seg), a(m, k + 2, seg), a(m, k + 3, seg));
+  }
+  __device__ __forceinline__ float4 finish(float4 v, long long, int) const { return v; }
 };
 
 // A block's output tile: rows [m0, m_end) of row segment `seg` (its tile
@@ -463,6 +515,288 @@ int gemm_f32_launch(const TA* a, long long lda, const TB* b, long long ldb, floa
                     int rs_bf16, cudaStream_t stream) {
   return gemm_f32_run<A_T, B_T>(F32Matrix<A_T, TA>{a, lda}, b, ldb, m, n, k, splits, 0,
                                 F32Store{c, ldc, m, n, row_scale, rs_bf16}, stream);
+}
+
+
+// ---------------------------------------------------------------------------
+// Split-precision TF32 GEMM (see the note at the top)
+
+#ifndef TF3_STAGES_OVERRIDE
+#define TF3_STAGES_OVERRIDE 0
+#endif
+
+constexpr int TF3_BM = 128, TF3_BK = 32;          // rows a block; K a stage (128 bytes)
+constexpr int TF3_A_BYTES = TF3_BM * TF3_BK * 4;  // 16 KB, each of A_hi and A_lo
+constexpr int TF3_CONSUMERS = 256;                // two consumer warpgroups
+constexpr int TF3_THREADS = TF3_CONSUMERS + 128;  // and the loader warpgroup
+// setmaxnreg: 2 x 184 + 136 = 504 of the 512 a thread of each warpgroup
+// may hold at one block an SM; the loader keeps two stages of A in flight,
+// a consumer two m64n128 accumulators
+constexpr int TF3_LOADER_REGS = 136, TF3_CONSUMER_REGS = 184;
+
+template <int BN>
+struct Tf3Ring {
+  static_assert(BN == 112 || BN == 128, "BN is 112 or 128");
+  static constexpr int B_BYTES = BN * TF3_BK * 4;  // each of B_hi and B_lo
+  static constexpr int SLOT = 2 * TF3_A_BYTES + 2 * B_BYTES;
+  static constexpr int STAGES =
+      TF3_STAGES_OVERRIDE ? TF3_STAGES_OVERRIDE : 200 * 1024 / SLOT;
+  static constexpr int SCRATCH = 2 * 8 * BN * 4;  // the epilogue's (TcTile::smem)
+  static constexpr int SMEM = 1024 + STAGES * SLOT + SCRATCH + 2 * STAGES * 8;
+  static_assert(SMEM <= 232448, "the ring does not fit in shared memory");
+};
+
+// A gemm_tf32x3 block's output tile as its epilogue sees it: rows [m0,
+// m_end) of row segment `seg` (its tile `tile`), columns [n0, n0 + BN), K
+// split z.  Each consumer thread holds a wgmma fragment: acc[v] belongs to
+// tile row row(v) and column n0 + col(v), and acc[v], acc[v + 1] (v even)
+// to two adjacent columns of one row.  Every consumer thread calls the
+// epilogue, rows past m_end included; `sync()` is a barrier over them,
+// and `smem` is the epilogue's shared memory, 2 x 8 x BN floats, the same
+// for each of a block's tiles.
+struct TcTile {
+  int m0, m_end, n0, seg, tile, z, r0, c0;
+  float* smem;
+  __device__ __forceinline__ int row(int v) const { return r0 + 8 * ((v >> 1) & 1); }
+  __device__ __forceinline__ int col(int v) const { return c0 + 8 * (v >> 2) + (v & 1); }
+  __device__ __forceinline__ void sync() const { named_bar_sync(1, TF3_CONSUMERS); }
+};
+
+// the byte offset of (row r, fp32 chunk c = k / 4) in a 128-row x 32 K
+// tile in the 128-byte swizzle
+__device__ __forceinline__ int tf3_offset(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// The tiles of one gemm_tf32x3 launch: tile id walks (split z, row tile,
+// column tile), columns fastest, so that the blocks working side by side
+// share a row tile's A in L2.  A row tile never crosses a segment's end.
+struct Tf3Grid {
+  int k, k_split, seg_rows, seg_tiles, row_tiles, n_tiles, bn, count;
+  struct Tile {
+    int m0, rows, seg, tile, n0, z, kb, ke, n_k;
+  };
+  __device__ __forceinline__ Tile operator()(int id) const {
+    Tile t;
+    const int per_z = row_tiles * n_tiles, rest = id % per_z, row_tile = rest / n_tiles;
+    t.z = id / per_z;
+    t.seg = row_tile / seg_tiles;
+    t.tile = row_tile % seg_tiles;
+    t.m0 = t.seg * seg_rows + t.tile * TF3_BM;
+    t.rows = min(TF3_BM, (t.seg + 1) * seg_rows - t.m0);
+    t.n0 = (rest % n_tiles) * bn;
+    t.kb = t.z * k_split;
+    t.ke = min(k, t.kb + k_split);
+    t.n_k = t.ke > t.kb ? (t.ke - t.kb + TF3_BK - 1) / TF3_BK : 0;
+    return t;
+  }
+};
+
+// The loader warpgroup: for each stage of each of the block's tiles, the A
+// functor's values of the tile's rows (zeros past the segment's end and
+// past K), split into hi and lo and stored K-major in the swizzle, and B's
+// hi and lo boxes by TMA.  Thread t fills 16-byte chunk t % 8 of rows t / 8
+// + 16 j, j < 8; the next stage's raw quads (the next tile's first, at a
+// tile's end) are loaded before this one's are finished and stored (a
+// quad that K cuts is the functor's finished scalars).
+template <int BN, class ALoad>
+__device__ __forceinline__ void tf3_load(char* smem, uint64_t* full, uint64_t* empty,
+                                         const CUtensorMap* bh_map, const CUtensorMap* bl_map,
+                                         const ALoad& a_of, const Tf3Grid& grid) {
+  using R = Tf3Ring<BN>;
+  using Tile = Tf3Grid::Tile;
+  reg_dealloc<TF3_LOADER_REGS>();
+  const int t = threadIdx.x - TF3_CONSUMERS, c = t % 8, r0 = t / 8;
+  auto fetch = [&](const Tile& tl, int s, float4 (&v)[8]) {
+    const int k = tl.kb + s * TF3_BK + 4 * c;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = r0 + 16 * j;
+      v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r >= tl.rows || k >= tl.ke) continue;
+      if (k + 3 < tl.ke) {
+        v[j] = a_of.quad(tl.m0 + r, k, tl.seg);
+      } else {
+        v[j].x = a_of(tl.m0 + r, k, tl.seg);
+        if (k + 1 < tl.ke) v[j].y = a_of(tl.m0 + r, k + 1, tl.seg);
+        if (k + 2 < tl.ke) v[j].z = a_of(tl.m0 + r, k + 2, tl.seg);
+      }
+    }
+  };
+  // the block's first tile with a stage, and after (id, s) the next stage
+  auto first_from = [&](int id, Tile& tl) {
+    for (; id < grid.count; id += gridDim.x)
+      if ((tl = grid(id)).n_k > 0) break;
+    return id;
+  };
+  Tile cur_t;
+  int id = first_from(blockIdx.x, cur_t), s = 0;
+  if (id >= grid.count) return;
+  float4 cur[8], nxt[8];
+  fetch(cur_t, 0, cur);
+  for (int gs = 0;; ++gs) {  // gs: the block's stage count, across its tiles
+    Tile nxt_t = cur_t;
+    int nxt_id = id, nxt_s = s + 1;
+    if (nxt_s == cur_t.n_k) {
+      nxt_s = 0;
+      nxt_id = first_from(id + gridDim.x, nxt_t);
+    }
+    const bool more = nxt_id < grid.count;
+    if (more) fetch(nxt_t, nxt_s, nxt);
+    const int slot = gs % R::STAGES;
+    char* sb = smem + slot * R::SLOT;
+    if (gs >= R::STAGES) mbar_wait(empty + slot, (gs / R::STAGES - 1) & 1);
+    const int kk = cur_t.kb + s * TF3_BK;
+    if (t == 0) {
+      mbar_expect_tx(full + slot, 2 * R::B_BYTES);
+      tma_load_2d(sb + 2 * TF3_A_BYTES, bh_map, full + slot, kk, cur_t.n0);
+      tma_load_2d(sb + 2 * TF3_A_BYTES + R::B_BYTES, bl_map, full + slot, kk, cur_t.n0);
+    }
+    const int k = kk + 4 * c;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 x = k + 3 < cur_t.ke && r0 + 16 * j < cur_t.rows
+                           ? a_of.finish(cur[j], k, cur_t.seg) : cur[j];
+      const float4 hi = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
+      const float4 lo = make_float4(tf32_rna(x.x - hi.x), tf32_rna(x.y - hi.y),
+                                    tf32_rna(x.z - hi.z), tf32_rna(x.w - hi.w));
+      const int off = tf3_offset(r0 + 16 * j, c);
+      *reinterpret_cast<float4*>(sb + off) = hi;
+      *reinterpret_cast<float4*>(sb + TF3_A_BYTES + off) = lo;
+    }
+    fence_proxy_async();  // the generic stores, before wgmma's async-proxy reads
+    mbar_arrive(full + slot);
+    if (!more) break;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) cur[j] = nxt[j];
+    cur_t = nxt_t;
+    id = nxt_id;
+    s = nxt_s;
+  }
+}
+
+// The consumer warpgroups, for each of the block's tiles: warpgroup g owns
+// rows [64 g, 64 g + 64) of the tile; three wgmmas per k8 step into `part`,
+// which each stage starts afresh, the small terms first; once they are
+// done, the stage is released and `part` added to `acc` (fp32, round to
+// nearest); then the epilogue on `acc`, while the loader fills the ring
+// with the next tile's stages.  While one warpgroup adds, the other's
+// wgmmas keep the tensor cores busy.
+template <int BN, class Epi>
+__device__ __forceinline__ void tf3_consume(char* smem, uint64_t* full, uint64_t* empty,
+                                            const Tf3Grid& grid, const Epi& epi) {
+  using R = Tf3Ring<BN>;
+  reg_alloc<TF3_CONSUMER_REGS>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = warp / 4;
+  float acc[BN / 2], part[BN / 2];
+  int gs = 0;  // the block's stage count, across its tiles
+  for (int id = blockIdx.x; id < grid.count; id += gridDim.x) {
+    const Tf3Grid::Tile tl = grid(id);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int s = 0; s < tl.n_k; ++s, ++gs) {
+      const int slot = gs % R::STAGES;
+      char* sb = smem + slot * R::SLOT;
+      mbar_wait(full + slot, (gs / R::STAGES) & 1);
+      wgmma_fence();
+      fence_operand(part);
+      // the small terms first: lo.hi and hi.lo of the stage's four k8
+      // steps (k8 = 32 bytes, as bf16's k16), then its hi.hi
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int ks = 0; ks < TF3_BK / 8; ++ks) {
+          char* a = sb + g * 8192 + ks * 32 + (pass == 0 ? TF3_A_BYTES : 0);
+          char* b = sb + 2 * TF3_A_BYTES + ks * 32 + (pass == 1 ? R::B_BYTES : 0);
+          wgmma_tf32<BN>(part, wgmma_desc(a, 16, 1024), wgmma_desc(b, 16, 1024),
+                         pass + ks > 0 ? 1 : 0);  // the stage's first overwrites
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(part);
+      if (lane == 0) mbar_arrive(empty + slot);  // the stage's wgmmas are done
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    }
+    const TcTile t{tl.m0, tl.m0 + tl.rows, tl.n0, tl.seg, tl.tile, tl.z,
+                   64 * g + 16 * (warp % 4) + lane / 4, 2 * (lane % 4),
+                   reinterpret_cast<float*>(smem + R::STAGES * R::SLOT)};
+    epi(acc, t);
+  }
+}
+
+// epi(A @ B) over row segments of seg_rows (see gemm_f32), persistent: a
+// block a multiprocessor walks tile ids blockIdx.x, blockIdx.x +
+// gridDim.x, ... (Tf3Grid); split z takes K range [z k_split, (z + 1)
+// k_split), k_split a multiple of TF3_BK.
+template <int BN, class ALoad, class Epi>
+__global__ void __launch_bounds__(TF3_THREADS, 1)
+    gemm_tf32x3(const __grid_constant__ CUtensorMap bh_map,
+                const __grid_constant__ CUtensorMap bl_map, ALoad a_of, Tf3Grid grid, Epi epi) {
+  using R = Tf3Ring<BN>;
+  extern __shared__ char smem_raw[];
+  char* smem = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::STAGES * R::SLOT + R::SCRATCH);
+  uint64_t* empty = full + R::STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(full + s, 128 + 1);  // every loader thread, and the TMA's expect_tx
+      mbar_init(empty + s, TF3_CONSUMERS / 32);  // every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= TF3_CONSUMERS)
+    tf3_load<BN>(smem, full, empty, &bh_map, &bl_map, a_of, grid);
+  else
+    tf3_consume<BN>(smem, full, empty, grid, epi);
+}
+
+// Launches gemm_tf32x3: epi(A @ B) over m = segments * seg_rows rows
+// (seg_rows 0: one segment of m rows), m < 2^31, A (m x k) the functor `a`,
+// B (k x n) given as the hi and lo halves of its (n x k) transpose, rows of
+// ldb fp32 (ldb >= k, a multiple of 4; 16-byte aligned: a TMA operand).
+// `splits` > 1 splits K into that many ranges of whole stages.  One block
+// a multiprocessor, at most one a tile.  Returns a CUDA error code.
+template <int BN, class ALoad, class Epi>
+int gemm_tf32x3_run(const ALoad& a, const float* b_hi, const float* b_lo, long long ldb,
+                    long long m, int n, int k, int splits, long long seg_rows, const Epi& epi,
+                    cudaStream_t stream) {
+  using R = Tf3Ring<BN>;
+  if (seg_rows == 0) seg_rows = m;
+  if (m < 1 || m > INT_MAX - TF3_BM || n < 1 || k < 1 || ldb < k || ldb % 4 || splits < 1 ||
+      splits > 65535 || seg_rows < 1 || m % seg_rows ||
+      (reinterpret_cast<uintptr_t>(b_hi) | reinterpret_cast<uintptr_t>(b_lo)) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long seg_tiles = (seg_rows + TF3_BM - 1) / TF3_BM;
+  const long long row_tiles = m / seg_rows * seg_tiles;
+  const int n_tiles = (n + BN - 1) / BN;
+  const long long count = row_tiles * n_tiles * splits;  // tile ids: ints
+  if (count > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int k_split = ((k + splits - 1) / splits + TF3_BK - 1) / TF3_BK * TF3_BK;
+  CUtensorMap maps[2];
+  const uint64_t dims[2] = {(uint64_t)k, (uint64_t)n};  // TMA writes zeros past K and N
+  const uint64_t strides[1] = {(uint64_t)ldb * 4};
+  const uint32_t box[2] = {(uint32_t)TF3_BK, (uint32_t)BN};
+  for (int i = 0; i < 2; ++i) {
+    const int err = make_tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                                    i ? b_lo : b_hi, dims, strides, box,
+                                    CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err) return err;
+  }
+  static int sms = 0;  // once per instantiation: the attribute, the card's multiprocessors
+  if (!sms) {
+    int dev = 0;
+    cudaError_t e = cudaFuncSetAttribute(gemm_tf32x3<BN, ALoad, Epi>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const Tf3Grid grid{k, k_split, (int)seg_rows, (int)seg_tiles, (int)row_tiles, n_tiles, BN,
+                     (int)count};
+  gemm_tf32x3<BN, ALoad, Epi><<<(unsigned)min(count, (long long)sms), TF3_THREADS, R::SMEM,
+                                stream>>>(maps[0], maps[1], a, grid, epi);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

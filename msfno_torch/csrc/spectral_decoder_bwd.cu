@@ -99,34 +99,47 @@
 // Tunable (tools/kernel_variants.py): DBW_STAGES, the ring's depth.
 //
 // fp32 operands ("float32", "tensorfloat"; spectral_decoder_bwd_f32): the
-// same gradients with nothing rounded, in true fp32 FMA on the CUDA cores
-// (no TF32), and the JAX kernel's gelu' (A&S 7.1.26).  Bound at the serving
-// shapes, film-only (no weight gradients), with the DFTs folded: recompute
-// and dhm 2 * n * 2M * C / 2 = 1.29e11 FLOP, the MLP's recompute, dh1, dxa
-// and dskip 2 * n * (2 (C + S) hidden + hidden C_out) = 3.89e11: 5.17e11
-// FLOP -> 7.72 ms at 67 TFLOP/s (operations); with dW1 and dW2 7.31e11 ->
-// 10.9 ms.  A 128-row x 512 fp32 tile does not fit a block's shared memory
-// (the bf16 design's chain), so the passes go through device memory, each
-// a launch of row_gemm.cuh:gemm_f32 or of dft_tiles.cuh's fold, as the
-// fp32 forward (spectral_decoder.cu) runs:
+// same gradients with nothing rounded to bf16: the MLP's three products are
+// fp32-class products in three TF32 tensor-core passes over hi / lo splits
+// (row_gemm.cuh:gemm_tf32x3, fp32 accumulation), the rest fp32 on the CUDA
+// cores, and the JAX kernel's gelu' (A&S 7.1.26).  The least time of an
+// fp32-class product on this card is three TF32 tensor-core passes (495 /
+// 3 = 165 TFLOP/s).  Bound at the serving shapes, film-only (no weight
+// gradients), with the DFTs folded: recompute and dhm 2 * n * 2M * C / 2 =
+// 1.29e11 FLOP, the MLP's recompute, dh1, dxa and dskip 2 * n * (2 (C + S)
+// hidden + hidden C_out) = 3.89e11: 5.17e11 FLOP -> 3.13 ms at 165
+// TFLOP/s (operations); with dW1 and dW2 7.31e11 -> 4.43 ms.  A 128-row x
+// 512 fp32 tile does not fit a block's shared memory (the bf16 design's
+// chain), so the passes go through device memory, each a launch of
+// gemm_tf32x3 or of dft_tiles.cuh's fold:
 //   1. x_raw = Mt @ hm: the synthesis fold into an fp32 scratch xg (n x C);
 //   2. z1 = [a x_raw + b | skip] @ W1 + b1 (mlp_f32.cuh's MlpInput, the
 //      rows' segments the samples) into a scratch z (n x hidden);
 //   3. dz1 = (g @ W2^T) * gelu'(z1), over z1 in place;
-//   4. [dxa | dskip] = dz1 @ [W1a | W1b]^T: dskip stored, the per-(sample,
-//      128-row tile) partials of sum dxa * x_raw and sum dxa (fp32 dxa
-//      against the fp32 x_raw: JAX's rounding point), then a * dxa over
-//      x_raw in xg (a per-channel scale commutes with the DFT);
+//   4. [dxa | dskip] = dz1 @ [W1a | W1b]^T on DX_BN-column tiles: dskip
+//      stored, the per-(sample, 128-row tile) partials of sum dxa * x_raw
+//      and sum dxa (fp32 dxa against the fp32 x_raw: JAX's rounding point),
+//      then a * dxa over x_raw in xg (a per-channel scale commutes with the
+//      DFT);
 //   5. da, db: tile_reduce in runs, then stats_reduce (fixed order);
 //   6. dhm = Mt^T @ (a dxa): the analysis fold, whose operand is
 //      dft_analysis.prepare of Mt's cos columns and its negated sin
 //      columns (even and odd in longitude, as the fold needs).
-// With need_w, while z holds z1: dW2 = gelu(z1)^T g (the forward's GELU)
-// and db2 = sum g; while xg holds x_raw: dW1 = [xa | skip]^T dz1 and db1 =
-// sum dz1.  Each dW is gemm_f32 with a transposed A functor over pixel
-// ranges (blockIdx.z) into partials added in order by sum_rows, each bias
-// gradient the column sums of runs of rows, then the runs: no atomics,
-// deterministic.  Scratch: xg and z, 2 x 1.06 GB at the serving shapes.
+// The three products' B operands are spectral_decoder.prepare's hi and lo
+// K-major copies (W1^T, W2, W1, rows zero-padded to 16 floats); their A
+// comes from the loader's functors (the affine [a x_raw + b | skip], g,
+// dz1: the 73-wide skip and g rows are beyond TMA).  On the CUDA cores
+// stay the two folds (dft_tiles.cuh), the fixed-order reduces, and the
+// need_w weight gradients: with need_w, while z holds z1, dW2 = gelu(z1)^T
+// g (the forward's GELU) and db2 = sum g; while xg holds x_raw, dW1 = [xa |
+// skip]^T dz1 and db1 = sum dz1.  Each dW is gemm_f32 (true fp32 FMA) with
+// a transposed A functor over pixel ranges (blockIdx.z) into partials
+// added in order by sum_rows: its B (dz1 or g over the pixels) is MN-major,
+// which tf32 wgmma cannot read, and the FiLM fine-tune step never asks for
+// it.  Each bias gradient is the column sums of runs of rows, then the
+// runs: no atomics, deterministic.  Scratch: xg and z, 2 x 1.06 GB at the
+// serving shapes.  Tunable: DX_BN, the column tile of [dxa | dskip] (112
+// or 128; z1 and dz1 take 128).
 
 #include "chain_gemm.cuh"
 #include "dft_tiles.cuh"
@@ -137,6 +150,12 @@ namespace {
 #ifndef DBW_STAGES_OVERRIDE
 #define DBW_STAGES_OVERRIDE 2
 #endif
+#ifndef DX_BN_OVERRIDE
+#define DX_BN_OVERRIDE 112
+#endif
+// 112 (3 x 112 = 336 >= 329): the pass took 3.67 ms against 4.36 at 128 on the H100
+constexpr int DX_BN = DX_BN_OVERRIDE;
+static_assert(TF3_BM == 128, "the wrapper counts da / db tiles of 128 rows (TILE_ROWS)");
 
 
 constexpr int DBW_STAGES = DBW_STAGES_OVERRIDE;
@@ -701,44 +720,80 @@ enum Int { I_B, I_H, I_W, I_TWO_M, I_M2P, I_W_PAD, I_C, I_S, I_K1P, I_HIDDEN, I_
            I_GROUPS, I_BLOCKS, N_INTS };
 
 // ---------------------------------------------------------------------------
-// fp32 operands: a chain of passes on row_gemm.cuh:gemm_f32 (see the note at
-// the top)
+// fp32 operands: a chain of passes on row_gemm.cuh:gemm_tf32x3 (see the note
+// at the top)
 
-// pass 2's epilogue: z1 = acc + b1, fp32 rows of `hidden`
+// The epilogues below load all they read (b1, z1, x_raw, a) before they
+// store anything: loads that follow stores to the same array would wait
+// for each other, and at one block an SM nothing hides that latency.
+
+// pass 2's epilogue: z1 = acc + b1, fp32 rows of `hidden` (a fragment's
+// column pair as one 8-byte store where `hidden` is even)
 struct Z1Store {
   float* z;
   const float* b1;
   int hidden;
-  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
+    float bias[NV / 2];  // the thread's columns: col(4 q + e)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long m = t.m0 + t.row(i);
-      if (m >= t.m_end) continue;
+    for (int u = 0; u < NV / 2; ++u) {
+      const int n = t.n0 + t.col(4 * (u / 2) + u % 2);
+      bias[u] = n < hidden ? __ldg(b1 + n) : 0.f;
+    }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = t.n0 + t.col(j);
-        if (n < hidden) z[m * hidden + n] = acc[i][j] + b1[n];
+    for (int v = 0; v < NV; v += 2) {
+      const long long m = t.m0 + t.row(v);
+      const int n = t.n0 + t.col(v), u = 2 * (v / 4);
+      if (m >= t.m_end || n >= hidden) continue;
+      float* p = z + m * hidden + n;
+      if (hidden % 2 == 0) {
+        *reinterpret_cast<float2*>(p) = make_float2(acc[v] + bias[u], acc[v + 1] + bias[u + 1]);
+      } else {
+        p[0] = acc[v] + bias[u];
+        if (n + 1 < hidden) p[1] = acc[v + 1] + bias[u + 1];
       }
     }
   }
 };
 
 // pass 3's epilogue: dz1 = acc * gelu'(z1), over z1 in place (each element
-// is read and written by one thread)
+// is read and written by one thread; pairs as 8-byte accesses where
+// `hidden` is even)
 struct DzStore {
   float* z;
   int hidden;
-  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
+    float z1[NV];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long m = t.m0 + t.row(i);
-      if (m >= t.m_end) continue;
+    for (int v = 0; v < NV; v += 2) {
+      const long long m = t.m0 + t.row(v);
+      const int n = t.n0 + t.col(v);
+      z1[v] = z1[v + 1] = 0.f;
+      if (m >= t.m_end || n >= hidden) continue;
+      const float* p = z + m * hidden + n;
+      if (hidden % 2 == 0) {
+        const float2 w = *reinterpret_cast<const float2*>(p);
+        z1[v] = w.x;
+        z1[v + 1] = w.y;
+      } else {
+        z1[v] = p[0];
+        if (n + 1 < hidden) z1[v + 1] = p[1];
+      }
+    }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = t.n0 + t.col(j);
-        if (n >= hidden) continue;
-        float* p = z + m * hidden + n;
-        *p = acc[i][j] * gelu_grad_as(*p);
+    for (int v = 0; v < NV; v += 2) {
+      const long long m = t.m0 + t.row(v);
+      const int n = t.n0 + t.col(v);
+      if (m >= t.m_end || n >= hidden) continue;
+      float* p = z + m * hidden + n;
+      const float d0 = acc[v] * gelu_grad_as(z1[v]), d1 = acc[v + 1] * gelu_grad_as(z1[v + 1]);
+      if (hidden % 2 == 0) {
+        *reinterpret_cast<float2*>(p) = make_float2(d0, d1);
+      } else {
+        p[0] = d0;
+        if (n + 1 < hidden) p[1] = d1;
       }
     }
   }
@@ -746,10 +801,11 @@ struct DzStore {
 
 // pass 4's epilogue, [dxa | dskip] = acc: columns n < c are dxa, read
 // against x_raw (the grid field, fp32) into the tile's column sums of dxa *
-// x_raw and of dxa (each thread its 8 rows, then the 16 row groups in
-// order through shared memory: one partial per (sample, tile, column)),
-// then stored as a[sample] * dxa over x_raw (each element read and written
-// by one thread); columns c <= n < c + s are dskip
+// x_raw and of dxa (each thread its two rows, the warp's 8 row groups by
+// xor shuffles, then the 8 consumer warps in order through shared memory:
+// one partial per (sample, tile, column)), then stored as a[sample] * dxa
+// over x_raw (each element read and written by one thread); columns c <= n
+// < c + s are dskip
 struct DxStore {
   float* xg;
   float* dskip;
@@ -757,43 +813,63 @@ struct DxStore {
   float* part_da;
   float* part_db;
   int c, s, tiles;
-  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
-    float sa[8], sb[8];
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
+    constexpr int BN = 2 * NV;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    float x_raw[NV], scale[NV / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) sa[j] = sb[j] = 0.f;
+    for (int v = 0; v < NV; ++v) {
+      const long long m = t.m0 + t.row(v);
+      const int n = t.n0 + t.col(v);
+      x_raw[v] = m < t.m_end && n < c ? xg[m * c + n] : 0.f;
+      if (v % 4 < 2)  // a[sample] of the thread's columns
+        scale[2 * (v / 4) + v % 2] = n < c ? __ldg(aff_a + (long long)t.seg * c + n) : 0.f;
+    }
+    float* sh_a = t.smem;  // (8 warps, BN)
+    float* sh_b = t.smem + 8 * BN;
+    const bool sums = t.n0 < c;  // else the tile's columns are all dskip's
+    if (sums) t.sync();  // the block's last tile has read sh_a and sh_b
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long m = t.m0 + t.row(i);
-      if (m >= t.m_end) continue;
+    for (int q = 0; q < NV / 4; ++q) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = t.n0 + t.col(j);
-        const float d = acc[i][j];
-        if (n < c) {
-          float* p = xg + m * c + n;
-          sa[j] = fmaf(d, *p, sa[j]);
-          sb[j] += d;
-          *p = d * aff_a[(long long)t.seg * c + n];
-        } else if (n < c + s) {
-          dskip[m * s + (n - c)] = d;
+      for (int e = 0; e < 2; ++e) {
+        const int n = t.n0 + t.col(4 * q + e);
+        float sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int v = 4 * q + 2 * h + e;
+          const long long m = t.m0 + t.row(v);
+          if (m >= t.m_end) continue;
+          const float d = acc[v];
+          if (n < c) {
+            sa = fmaf(d, x_raw[v], sa);
+            sb += d;
+            xg[m * c + n] = d * scale[2 * q + e];
+          } else if (n < c + s) {
+            dskip[m * s + (n - c)] = d;
+          }
+        }
+        if (!sums) continue;
+#pragma unroll
+        for (int x = 4; x < 32; x <<= 1) {
+          sa += __shfl_xor_sync(0xffffffffu, sa, x);
+          sb += __shfl_xor_sync(0xffffffffu, sb, x);
+        }
+        if (lane < 4) {
+          sh_a[warp * BN + t.col(4 * q + e)] = sa;
+          sh_b[warp * BN + t.col(4 * q + e)] = sb;
         }
       }
     }
-    if (t.n0 >= c) return;  // the block's columns are all dskip's
-    __shared__ float sh_a[16][F32_BN];
-    __shared__ float sh_b[16][F32_BN];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sh_a[t.ty][t.col(j)] = sa[j];
-      sh_b[t.ty][t.col(j)] = sb[j];
-    }
-    __syncthreads();
+    if (!sums) return;  // uniform over the tile
+    t.sync();
     const int col = threadIdx.x;
-    if (col < F32_BN && t.n0 + col < c) {
+    if (col < BN && t.n0 + col < c) {
       float ta = 0.f, tb = 0.f;
-      for (int r = 0; r < 16; ++r) {
-        ta += sh_a[r][col];
-        tb += sh_b[r][col];
+      for (int w = 0; w < TF3_CONSUMERS / 32; ++w) {
+        ta += sh_a[w * BN + col];
+        tb += sh_b[w * BN + col];
       }
       const long long i = ((long long)t.seg * tiles + t.tile) * c + t.n0 + col;
       part_da[i] = ta;
@@ -855,12 +931,12 @@ int column_sums(const float* x, long long n_rows, int c, int run, float* part, f
   return (int)cudaGetLastError();
 }
 
-enum F32Ptr { Q_G, Q_HM, Q_SKIP, Q_A, Q_B, Q_AT_SYN, Q_AT_ANA, Q_W1, Q_B1, Q_W2, Q_DHM, Q_DSKIP,
-              Q_DA, Q_DB, Q_DW1, Q_DB1, Q_DW2, Q_DB2, Q_XG, Q_Z, Q_PART_DA, Q_PART_DB,
-              Q_GRP_DA, Q_GRP_DB, Q_PART_W, Q_PART_DB1, Q_PART_DB2, N_F32_PTRS };
+enum F32Ptr { Q_G, Q_HM, Q_SKIP, Q_A, Q_B, Q_AT_SYN, Q_AT_ANA, Q_W1T_X3, Q_B1, Q_W2_X3, Q_W1_X3,
+              Q_DHM, Q_DSKIP, Q_DA, Q_DB, Q_DW1, Q_DB1, Q_DW2, Q_DB2, Q_XG, Q_Z, Q_PART_DA,
+              Q_PART_DB, Q_GRP_DA, Q_GRP_DB, Q_PART_W, Q_PART_DB1, Q_PART_DB2, N_F32_PTRS };
 enum F32Int { J_B, J_H, J_W, J_M, J_C, J_S, J_HIDDEN, J_C_OUT, J_SYN_ROWS, J_SYN_COLS,
               J_ANA_ROWS, J_ANA_COLS, J_HM_BF16, J_SKIP_BF16, J_NEED_W, J_GROUPS, J_SPLITS_W1,
-              J_SPLITS_W2, J_SUM_RUN, N_F32_INTS };
+              J_SPLITS_W2, J_SUM_RUN, J_K1_PAD, J_C_OUT_PAD, J_HIDDEN_PAD, N_F32_INTS };
 
 }  // namespace
 
@@ -1013,8 +1089,11 @@ extern "C" int spectral_decoder_bwd_bf16(const void* const* ptrs, const long lon
 // enums above.  g (B, H, W, c_out) fp32; hm (B, H, 2M, c) and skip (B, H,
 // W, s) fp32 or bf16 (hm_bf16, skip_bf16); a, b (B, c); at_syn, at_ana: the
 // fp32 fold operands of dft_synthesis.prepare of Mt's (Ci, Si) and of
-// dft_analysis.prepare of (Mt's cos columns, its negated sin columns); w1
-// (c + s, hidden), b1, w2 (hidden, c_out) fp32.  Outputs: dhm (B, H, 2M,
+// dft_analysis.prepare of (Mt's cos columns, its negated sin columns); b1
+// (hidden); the hi and lo halves (2, rows, row length) of the three
+// products' K-major B: w1t_x3 (2, hidden, k1_pad) of W1^T, w2_x3 (2,
+// hidden, c_out_pad) of W2 and w1_x3 (2, c + s, hidden_pad) of W1, each
+// row zero-padded to its length, a multiple of 4.  Outputs: dhm (B, H, 2M,
 // c), dskip (B, H, W, s), da, db (B, c); with need_w dw1 (c + s, hidden),
 // db1 (hidden), dw2 (hidden, c_out), db2 (c_out; null: none).  Scratch:
 // xg (B*H*W, c) and z (B*H*W, hidden) fp32; part_da, part_db (B, tiles, c)
@@ -1032,17 +1111,23 @@ extern "C" int spectral_decoder_bwd_f32(const void* const* ptrs, const long long
   const int need_w = (int)ints[J_NEED_W], groups = (int)ints[J_GROUPS];
   const int splits_w1 = (int)ints[J_SPLITS_W1], splits_w2 = (int)ints[J_SPLITS_W2];
   const int sum_run = (int)ints[J_SUM_RUN];
+  const long long k1_pad = ints[J_K1_PAD], c_out_pad = ints[J_C_OUT_PAD];
+  const long long hidden_pad = ints[J_HIDDEN_PAD];
   const long long rps = h * w, n_px = bsz * rps;
-  const long long tiles = (rps + F32_BM - 1) / F32_BM;
+  const long long tiles = (rps + TF3_BM - 1) / TF3_BM;
   if (bsz < 1 || h < 1 || w < 2 || m < 1 || c < 1 || s < 1 || hidden < 1 || c_out < 1 ||
-      n_px > INT_MAX - F32_BM || groups < 1 || (need_w && (splits_w1 < 1 || splits_w2 < 1 ||
+      n_px > INT_MAX - TF3_BM || groups < 1 || (need_w && (splits_w1 < 1 || splits_w2 < 1 ||
                                                            sum_run < 1)))
     return (int)cudaErrorInvalidValue;
   const float* g = (const float*)ptrs[Q_G];
   const float* aff_a = (const float*)ptrs[Q_A];
   const float* aff_b = (const float*)ptrs[Q_B];
-  const float* w1 = (const float*)ptrs[Q_W1];
-  const float* w2 = (const float*)ptrs[Q_W2];
+  // the hi and lo halves of the three products' K-major B operands
+  const float* w1t = (const float*)ptrs[Q_W1T_X3];
+  const float* w2k = (const float*)ptrs[Q_W2_X3];
+  const float* w1k = (const float*)ptrs[Q_W1_X3];
+  const long long w1t_half = hidden * k1_pad, w2k_half = hidden * c_out_pad;
+  const long long w1k_half = (c + s) * hidden_pad;
   float* xg = (float*)ptrs[Q_XG];
   float* z = (float*)ptrs[Q_Z];
   float* part_w = (float*)ptrs[Q_PART_W];
@@ -1056,8 +1141,8 @@ extern "C" int spectral_decoder_bwd_f32(const void* const* ptrs, const long long
   if (err) return err;
   // 2. z1 = [a x_raw + b | skip] @ W1 + b1 into z
   const MlpInput xin{xg, ptrs[Q_SKIP], aff_a, aff_b, c, s, 0, skip_bf16};
-  err = gemm_f32_run<false, false>(xin, w1, hidden, n_px, hidden, c + s, 1, rps,
-                                   Z1Store{z, (const float*)ptrs[Q_B1], hidden}, st);
+  err = gemm_tf32x3_run<128>(xin, w1t, w1t + w1t_half, k1_pad, n_px, hidden, c + s, 1, rps,
+                             Z1Store{z, (const float*)ptrs[Q_B1], hidden}, st);
   if (err) return err;
   if (need_w) {  // dW2 = gelu(z1)^T g and db2 = sum g, while z holds z1
     err = weight_grad(GeluT{z, hidden}, g, hidden, c_out, n_px, splits_w2, part_w,
@@ -1067,9 +1152,9 @@ extern "C" int spectral_decoder_bwd_f32(const void* const* ptrs, const long long
                         st);
     if (err) return err;
   }
-  // 3. dz1 = (g @ W2^T) * gelu'(z1) over z (W2 stored (hidden, c_out): B_T)
-  err = gemm_f32_run<false, true>(F32Matrix<false, float>{g, c_out}, w2, c_out, n_px, hidden,
-                                  c_out, 1, rps, DzStore{z, hidden}, st);
+  // 3. dz1 = (g @ W2^T) * gelu'(z1) over z (W2^T's K-major form is W2)
+  err = gemm_tf32x3_run<128>(F32Matrix<false, float>{g, c_out}, w2k, w2k + w2k_half,
+                             c_out_pad, n_px, hidden, c_out, 1, rps, DzStore{z, hidden}, st);
   if (err) return err;
   if (need_w) {  // dW1 = [xa | skip]^T dz1 and db1 = sum dz1, while xg holds x_raw
     err = weight_grad(XinT{xg, ptrs[Q_SKIP], aff_a, aff_b, (int)rps, c, s, skip_bf16}, z,
@@ -1079,13 +1164,13 @@ extern "C" int spectral_decoder_bwd_f32(const void* const* ptrs, const long long
                         st);
     if (err) return err;
   }
-  // 4. [dxa | dskip] = dz1 @ [W1a | W1b]^T (W1 stored (c + s, hidden): B_T);
+  // 4. [dxa | dskip] = dz1 @ [W1a | W1b]^T (the K-major form of W1^T is W1);
   //    da / db partials, a * dxa over xg
   float* part_da = (float*)ptrs[Q_PART_DA];
   float* part_db = (float*)ptrs[Q_PART_DB];
-  err = gemm_f32_run<false, true>(
-      F32Matrix<false, float>{z, hidden}, w1, hidden, n_px, c + s, hidden, 1, rps,
-      DxStore{xg, (float*)ptrs[Q_DSKIP], aff_a, part_da, part_db, c, s, (int)tiles}, st);
+  err = gemm_tf32x3_run<DX_BN>(
+      F32Matrix<false, float>{z, hidden}, w1k, w1k + w1k_half, hidden_pad, n_px, c + s, hidden,
+      1, rps, DxStore{xg, (float*)ptrs[Q_DSKIP], aff_a, part_da, part_db, c, s, (int)tiles}, st);
   if (err) return err;
   // 5. da, db: each sample's partials in runs, then the runs
   const int per = (int)((tiles + groups - 1) / groups);

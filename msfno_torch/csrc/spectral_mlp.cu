@@ -40,14 +40,20 @@
 //
 // fp32 operands (the "float32" and "tensorfloat" knobs, the JAX package's
 // default `spectral_mxu_dtype`): spectral_mlp_f32, the same packed
-// 4-product layers in true fp32 FMA on the CUDA cores (no TF32, nothing
-// rounded), one row_gemm.cuh:gemm_f32 launch a layer with the epilogues
-// HiddenF32 / OutF32.  The first layer's A functor reads xr and xi in
-// place (no cast pass); the hidden states are fp32 [re | im] rows.  Bound
-// on the H100: the Karatsuba form's 6.9e10 FLOP at 67 TFLOP/s, 1.02 ms;
-// this kernel's four products do 9.1e10 (1.36 ms at that rate).
+// 4-product layers as fp32-class products, each layer one
+// row_gemm.cuh:gemm_tf32x3 launch (three TF32 wgmma passes over hi / lo
+// splits, fp32 accumulation) with the epilogues HiddenF32 / OutF32.  The
+// least time of an fp32-class product on this card is three TF32
+// tensor-core passes (495 / 3 = 165 TFLOP/s).  The first layer's A functor
+// reads xr and xi in place (ComplexRows, 16-byte loads; no cast pass); the
+// hidden states are fp32 [re | im] rows; B is pack_weights' hi and lo of
+// each layer's P^T (2 d_{l+1} x 2 d_l, K-major).  Bound on the H100: the
+// Karatsuba form's 6.9e10 FLOP at 165 TFLOP/s, 0.42 ms; the packed form's
+// 9.1e10 take 0.553 ms at that rate.  Karatsuba is left out: the packed
+// form's three passes are already below the FMA Karatsuba bound (1.02 ms),
+// and its weight sums (wi - wr, wr + wi) would need splits of their own.
 // The hidden state, 14,520 x 1024 x 4 B = 59 MB, exceeds the 50 MB L2;
-// its round trip (~0.04 ms a layer at the HBM rate) is far below the
+// its round trip (~0.04 ms a layer at the HBM rate) is below the
 // operations.
 
 #include "row_gemm.cuh"
@@ -104,7 +110,8 @@ struct OutEpi {
   }
 };
 
-// the fp32 first layer's A: row m's [xr | xi]
+// the fp32 first layer's A: row m's [xr | xi] (d a multiple of 4, xr and
+// xi 16-byte aligned)
 struct ComplexRows {
   const float* re;
   const float* im;
@@ -112,6 +119,10 @@ struct ComplexRows {
   __device__ __forceinline__ float operator()(long long m, long long k, int) const {
     return k < d ? __ldg(re + m * d + k) : __ldg(im + m * d + (k - d));
   }
+  __device__ __forceinline__ float4 quad(long long m, long long k, int) const {
+    return __ldg(reinterpret_cast<const float4*>(k < d ? re + m * d + k : im + m * d + (k - d)));
+  }
+  __device__ __forceinline__ float4 finish(float4 v, long long, int) const { return v; }
 };
 
 // fp32 hidden layer: LeakyReLU on the real half, fp32 rows of 2 d_out
@@ -119,24 +130,20 @@ struct HiddenF32 {
   float* h;
   int d_out;
   float slope;
-  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
     const int n2 = 2 * d_out;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long m = t.m0 + t.row(i);
-      if (m >= t.m_end) continue;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int n = t.n0 + t.col(4 * q);
-        if (n >= n2) continue;  // d_out % 16 == 0: a quad is whole
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          v[j] = acc[i][4 * q + j];
-          if (n < d_out && v[j] < 0.f) v[j] *= slope;
-        }
-        *reinterpret_cast<float4*>(h + m * n2 + n) = make_float4(v[0], v[1], v[2], v[3]);
+    for (int v = 0; v < NV; v += 2) {
+      const long long m = t.m0 + t.row(v);
+      const int n = t.n0 + t.col(v);
+      if (m >= t.m_end || n >= n2) continue;  // d_out % 16 == 0: a pair is whole
+      float2 y = make_float2(acc[v], acc[v + 1]);
+      if (n < d_out) {
+        if (y.x < 0.f) y.x *= slope;
+        if (y.y < 0.f) y.y *= slope;
       }
+      *reinterpret_cast<float2*>(h + m * n2 + n) = y;
     }
   }
 };
@@ -146,19 +153,33 @@ struct OutF32 {
   float* re;
   float* im;
   int d_out;
-  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long m = t.m0 + t.row(i);
-      if (m >= t.m_end) continue;
+    for (int v = 0; v < NV; v += 2) {
+      const long long m = t.m0 + t.row(v);
+      const int n = t.n0 + t.col(v);
+      if (m >= t.m_end || n >= 2 * d_out) continue;
+      float* p = n < d_out ? re + m * d_out + n : im + m * d_out + (n - d_out);
+      *reinterpret_cast<float2*>(p) = make_float2(acc[v], acc[v + 1]);
+    }
+  }
+};
+
+// the core's plain epilogue (tf32x3_matmul): split z's partial product to
+// c + z m ldc
+struct TcStore {
+  float* c;
+  long long ldc, m;
+  int n;
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
+    float* out = c + (long long)t.z * m * ldc;
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int n = t.n0 + t.col(4 * q);
-        if (n >= 2 * d_out) continue;
-        float* p = n < d_out ? re + m * d_out + n : im + m * d_out + (n - d_out);
-        *reinterpret_cast<float4*>(p) =
-            make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
-      }
+    for (int v = 0; v < NV; ++v) {
+      const long long r = t.m0 + t.row(v);
+      const int col = t.n0 + t.col(v);
+      if (r < t.m_end && col < n) out[r * ldc + col] = acc[v];
     }
   }
 };
@@ -174,31 +195,55 @@ int check_dims(const int* d, const long long* off, int n_layers, int n_rows) {
 
 }  // namespace
 
-// As spectral_mlp_bf16, on fp32 operands: wbuf holds the packed fp32
-// weights, h_a and h_b are fp32 scratch of n_rows * 2 * max(d) each.
-extern "C" int spectral_mlp_f32(const void* xr, const void* xi, const void* wbuf, const int* d,
-                                const long long* off, int n_layers, void* out_r, void* out_i,
-                                int n_rows, float slope, void* h_a, void* h_b, void* stream) {
+// As spectral_mlp_bf16, on fp32 operands: w_hi and w_lo hold the hi and lo
+// halves of each layer's transposed packed weight P_l^T (2 d[l+1] x 2 d[l],
+// at off[l] in each), h_a and h_b are fp32 scratch of n_rows * 2 * max(d)
+// each.
+extern "C" int spectral_mlp_f32(const void* xr, const void* xi, const void* w_hi,
+                                const void* w_lo, const int* d, const long long* off,
+                                int n_layers, void* out_r, void* out_i, int n_rows, float slope,
+                                void* h_a, void* h_b, void* stream) {
   if (int err = check_dims(d, off, n_layers, n_rows)) return err;
+  if ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(xi)) % 16)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const float* w = (const float*)wbuf;
   for (int l = 0; l < n_layers; ++l) {
     const float* a = (const float*)(l % 2 == 1 ? h_a : h_b);  // layer l - 1's output
     float* next = (float*)(l % 2 == 0 ? h_a : h_b);
     const int k = 2 * d[l], n = 2 * d[l + 1];
+    const float* hi = (const float*)w_hi + off[l];
+    const float* lo = (const float*)w_lo + off[l];
     // the A functor: the input's [xr | xi] (first layer), else layer l - 1's rows
     auto layer = [&](const auto& x) {
       return l == n_layers - 1
-                 ? gemm_f32_run<false, false>(x, w + off[l], n, n_rows, n, k, 1, 0,
-                                              OutF32{(float*)out_r, (float*)out_i, d[l + 1]}, st)
-                 : gemm_f32_run<false, false>(x, w + off[l], n, n_rows, n, k, 1, 0,
-                                              HiddenF32{next, d[l + 1], slope}, st);
+                 ? gemm_tf32x3_run<128>(x, hi, lo, k, n_rows, n, k, 1, 0,
+                                        OutF32{(float*)out_r, (float*)out_i, d[l + 1]}, st)
+                 : gemm_tf32x3_run<128>(x, hi, lo, k, n_rows, n, k, 1, 0,
+                                        HiddenF32{next, d[l + 1], slope}, st);
     };
     const int err = l == 0 ? layer(ComplexRows{(const float*)xr, (const float*)xi, d[0]})
                            : layer(F32Matrix<false, float>{a, k});
     if (err) return err;
   }
   return 0;
+}
+
+// The split-precision core on its own (tests): c (m x n, fp32, rows of ldc)
+// = a (m x k, fp32, rows of lda) @ b, b given as the hi and lo halves of
+// its (n x k) transpose (rows of ldb), on bn-column tiles (112 or 128),
+// rows in segments of seg_rows (0: one), K in `splits` ranges whose
+// partial products go to c + z m ldc.
+extern "C" int tf32x3_matmul(const void* a, long long lda, const void* b_hi, const void* b_lo,
+                             long long ldb, void* c, long long ldc, int m, int n, int k,
+                             long long seg_rows, int splits, int bn, void* stream) {
+  const F32Matrix<false, float> x{(const float*)a, lda};
+  const TcStore out{(float*)c, ldc, m, n};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* hi = (const float*)b_hi;
+  const float* lo = (const float*)b_lo;
+  if (bn == 112) return gemm_tf32x3_run<112>(x, hi, lo, ldb, m, n, k, splits, seg_rows, out, st);
+  if (bn == 128) return gemm_tf32x3_run<128>(x, hi, lo, ldb, m, n, k, splits, seg_rows, out, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // xr, xi: (n_rows, d[0]) fp32, 16-byte aligned; wbuf: packed bf16 weights,

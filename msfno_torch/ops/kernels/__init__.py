@@ -126,10 +126,12 @@ def kernel_operand(t: torch.Tensor) -> tuple[torch.Tensor, int]:
 
 def operand_dtype(mxu_dtype: str) -> torch.dtype:
     """The kernels' operand type for a matmul knob: bf16 for "bfloat16";
-    fp32 for "float32" and "tensorfloat" (true fp32 FMA on the CUDA cores,
-    no TF32: the JAX package's `kernel_mxu_dtype`,
-    msfno_tpu/ops/pallas/__init__.py:1-10, maps both to its fp32
-    kernels)."""
+    fp32 for "float32" and "tensorfloat" (the JAX package's
+    `kernel_mxu_dtype`, msfno_tpu/ops/pallas/__init__.py:1-10, maps both to
+    its fp32 kernels).  The fp32 kernels compute fp32-class products: true
+    fp32 FMA on the CUDA cores, or, in `spectral_mlp` and the tail's
+    backward, three TF32 tensor-core passes over hi / lo splits
+    (`tf32x3`), never one TF32 pass."""
     if mxu_dtype == "bfloat16":
         return torch.bfloat16
     if mxu_dtype in ("float32", "tensorfloat"):
@@ -193,7 +195,7 @@ def strided_sum(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-TILE_ROWS = 128  # rows a statistics tile (CH_BM, chain_gemm.cuh; F32_BM, row_gemm.cuh)
+TILE_ROWS = 128  # rows a statistics tile (CH_BM, chain_gemm.cuh; F32_BM, TF3_BM, row_gemm.cuh)
 REDUCE_GROUPS = 64  # runs of partials the kernels add first, then add the runs
 
 

@@ -13,7 +13,7 @@ import torch
 
 from msfno_torch.ops.kernels import check, kernel_operand, library, stats_scratch
 
-_ENTRIES: dict = {}  # (library, entry) -> its bound ctypes function
+_ENTRIES: dict = {}  # (library handle, entry) -> its bound ctypes function
 
 
 def mlp_args(x, w1p, b1, w2p, b2=None, skip=None, pe=None, affine=(None, None),
@@ -54,13 +54,14 @@ def launch(name: str, entry: str, ptrs, ints, stream: int) -> None:
     """Call `entry` of kernel library `name` with (pointer list, integer
     list, stream) and raise on its CUDA error.  Its argument types are bound
     once."""
-    fn = _ENTRIES.get((name, entry))
+    lib = library(name)
+    fn = _ENTRIES.get((lib._handle, entry))  # the library now loaded under `name`
     if fn is None:
-        fn = getattr(library(name), entry)
+        fn = getattr(lib, entry)
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _ENTRIES[(name, entry)] = fn
+        _ENTRIES[(lib._handle, entry)] = fn
     status = fn((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(ints))(*ints),
                 stream)
     check(status, name)

@@ -39,6 +39,7 @@ from msfno_torch.ops.kernels.dft_analysis import FOLD_K, FOLD_TILE, _ceil, align
 from msfno_torch.ops.kernels.grid_encoder_spectral import (
     DFT_ROW_MULTIPLE, TILE_ROWS, _dft_operand, pad_dft_matrix)
 from msfno_torch.ops.kernels.grid_mlp import grid_mlp_reference, prepare_weights
+from msfno_torch.ops.kernels.tf32x3 import kmajor_split
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -138,11 +139,15 @@ def prepare(w1, w2, mt, c_main: int, mxu_dtype="bfloat16"):
     the fp32 weights and the fold's half matrices of
     `dft_synthesis.prepare` for the forward, and for the backward's dhm
     those of `dft_analysis.prepare` of the transposed product (~0.75 MB
-    each at the serving widths)."""
+    each at the serving widths); then the backward's split-precision B
+    operands (`tf32x3.kmajor_split`: hi and lo, K-major, rows zero-padded):
+    W1^T (hidden x (C + S)) for z1, W2 (hidden x C_out) for dz1 = g W2^T
+    and W1 ((C + S) x hidden) for [dxa | dskip] = dz1 W1^T (~1.5 MB)."""
     if operand_dtype(mxu_dtype) == torch.float32:
-        return (*prepare_weights(w1, w2, c_main, mxu_dtype),
-                dft_synthesis.prepare(*_synthesis_pair(mt), mxu_dtype),
-                dft_analysis.prepare(*_transposed_pair(mt), mxu_dtype))
+        w1p, w2p = prepare_weights(w1, w2, c_main, mxu_dtype)
+        return (w1p, w2p, dft_synthesis.prepare(*_synthesis_pair(mt), mxu_dtype),
+                dft_analysis.prepare(*_transposed_pair(mt), mxu_dtype),
+                kmajor_split(w1p), kmajor_split(w2p.t()), kmajor_split(w1p.t()))
     w1p, w2p = prepare_weights(w1, w2, c_main)
     return (w1p, w2p, pad_dft_matrix(mt), w1p.t().contiguous(), w2p.t().contiguous(),
             _dft_operand(mt))

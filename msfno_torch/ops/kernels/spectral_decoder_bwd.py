@@ -19,9 +19,10 @@ at the serving shapes: operations (see the kernel source).  On bf16
 operands the kernel runs a tile pass over 128-longitude tiles of each row,
 then the transposed DFT (dhm) as a pass of its own; `decoder_bwd_tiles` is
 a plain mirror of the two passes (tests only).  On fp32 operands
-("float32", "tensorfloat": true fp32 FMA, nothing rounded) it runs a chain
-of fp32 passes through device memory, the DFTs folded;
-`decoder_bwd_f32_passes` is its plain mirror (tests only).
+("float32", "tensorfloat": nothing rounded to bf16) it runs a chain of fp32
+passes through device memory, the DFTs folded, the MLP's three products as
+fp32-class products in three TF32 tensor-core passes over hi / lo splits
+(`tf32x3`); `decoder_bwd_f32_passes` is its plain mirror (tests only).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from msfno_torch.ops.kernels.dft_analysis import (BF16_K, BF16_TILE, FOLD_K, FOL
                                                   aligned, check_operand, dft_analysis_folded)
 from msfno_torch.ops.kernels.grid_encoder_spectral import (
     DFT_ROW_MULTIPLE, REDUCE_GROUPS, TILE_ROWS, erf_rational)
+from msfno_torch.ops.kernels.tf32x3 import matmul_tf32x3
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -155,15 +157,16 @@ def decoder_bwd_tiles(g, hm, skip, mt, a, b, w1, b1, w2, b2=None, mxu_dtype="bfl
 def decoder_bwd_f32_passes(g, hm, skip, mt, a, b, w1, b1, w2, b2=None, need_weights=True,
                            tile=TILE_ROWS):
     """Plain mirror of the fp32-operand kernel's passes (tests only), all in
-    fp32: (1) x_raw = Mt @ hm by the folded inverse DFT; (2) z1 = [a x_raw +
-    b | skip] W1 + b1; (3) dz1 = (g W2^T) gelu'(z1) (A&S 7.1.26's erf, as
-    JAX); (4) [dxa | dskip] = dz1 [W1a | W1b]^T, and per (sample, `tile`
-    pixels, the last one ragged) the sums of dxa x_raw and of dxa; (5) da,
-    db: those partials in the kernels' fixed order; (6) dhm = Mt^T (a dxa)
-    by the folded forward DFT.  The weight gradients: dW1 = [xa | skip]^T
-    dz1, dW2 = gelu(z1)^T g with the forward kernels' rational-erf GELU,
-    db1 and db2 column sums.  Same signature and returns as
-    `spectral_decoder_bwd` (fp32 operands)."""
+    fp32, the three products of (2)-(4) the split-precision product
+    (`tf32x3.matmul_tf32x3`): (1) x_raw = Mt @ hm by the folded inverse
+    DFT; (2) z1 = [a x_raw + b | skip] W1 + b1; (3) dz1 = (g W2^T) gelu'(z1)
+    (A&S 7.1.26's erf, as JAX); (4) [dxa | dskip] = dz1 [W1a | W1b]^T, and
+    per (sample, `tile` pixels, the last one ragged) the sums of dxa x_raw
+    and of dxa; (5) da, db: those partials in the kernels' fixed order; (6)
+    dhm = Mt^T (a dxa) by the folded forward DFT.  The weight gradients, in
+    true fp32: dW1 = [xa | skip]^T dz1, dW2 = gelu(z1)^T g with the forward
+    kernels' rational-erf GELU, db1 and db2 column sums.  Same signature
+    and returns as `spectral_decoder_bwd` (fp32 operands)."""
     from msfno_torch.ops.kernels.spectral_decoder import _synthesis_pair, _transposed_pair
     from msfno_torch.ops.kernels.dft_synthesis import dft_synthesis_folded
 
@@ -174,10 +177,10 @@ def decoder_bwd_f32_passes(g, hm, skip, mt, a, b, w1, b1, w2, b2=None, need_weig
     x_raw = dft_synthesis_folded(hm.float(), *_synthesis_pair(mtf)).reshape(bsz, h * wd, c)
     af, bf = a.float()[:, None, :], b.float()[:, None, :]
     xin = torch.cat([x_raw * af + bf, skip.float().reshape(bsz, h * wd, -1)], dim=-1)
-    z1 = xin @ w1.float() + b1.float()
+    z1 = matmul_tf32x3(xin, w1.float()) + b1.float()
     gf = g.float().reshape(bsz, h * wd, -1)
-    dz = (gf @ w2.float().t()) * gelu_grad_as7126(z1)
-    dx = dz @ w1.float().t()
+    dz = matmul_tf32x3(gf, w2.float().t()) * gelu_grad_as7126(z1)
+    dx = matmul_tf32x3(dz, w1.float().t())
     dxa = dx[..., :c]
 
     def tile_sums(t):  # (B, tiles, C) partials over `tile` pixels of a sample
@@ -297,8 +300,9 @@ def spectral_decoder_bwd(g, hm, skip, mt, a, b, w1, b1, w2, b2=None,
 def _bwd_f32(g, hm, skip, a, b, b1, b2, prepared, need_weights):
     """The fp32-operand kernel (csrc/spectral_decoder_bwd.cu,
     `spectral_decoder_bwd_f32`): its passes through an fp32 grid-field
-    scratch and an fp32 hidden scratch, then the folded forward DFT."""
-    w1p, w2p, at_syn, at_ana = prepared
+    scratch and an fp32 hidden scratch, then the folded forward DFT; the
+    MLP's products read the prepared hi / lo K-major weights."""
+    w1p, w2p, at_syn, at_ana, w1t_x3, w2_x3, w1_x3 = prepared
     bsz, h, two_m, c = hm.shape
     wd, s = skip.shape[-2], skip.shape[-1]
     hidden, c_out = w2p.shape
@@ -332,12 +336,16 @@ def _bwd_f32(g, hm, skip, a, b, b1, b2, prepared, need_weights):
                    empty(max(splits[0] * (c + s) * hidden, splits[1] * hidden * c_out)),
                    empty(runs, hidden), empty(runs, c_out)]
     dw1, db1, dw2, db2, part_w, part_db1, part_db2 = weights
+    if (w1t_x3.shape[:2] != (2, hidden) or w2_x3.shape[:2] != (2, hidden)
+            or w1_x3.shape[:2] != (2, c + s)):
+        raise ValueError("spectral_decoder_bwd: prepared split weights do not match the MLP")
     ptrs = [t.data_ptr() if t is not None else None for t in (
-        gk, hmk, skk, af, bf, at_syn, at_ana, w1p, b1.float().contiguous(), w2p, dhm, dskip,
-        sums[4], sums[5], dw1, db1, dw2, db2, xg, z, sums[0], sums[1], sums[2], sums[3],
-        part_w, part_db1, part_db2)]
+        gk, hmk, skk, af, bf, at_syn, at_ana, w1t_x3, b1.float().contiguous(), w2_x3, w1_x3,
+        dhm, dskip, sums[4], sums[5], dw1, db1, dw2, db2, xg, z, sums[0], sums[1], sums[2],
+        sums[3], part_w, part_db1, part_db2)]
     ints = [bsz, h, wd, m, c, s, hidden, c_out, *at_syn.shape, *at_ana.shape, hm_bf16,
-            skip_bf16, int(need_weights), groups, *splits, _SUM_RUN]
+            skip_bf16, int(need_weights), groups, *splits, _SUM_RUN, w1t_x3.shape[2],
+            w2_x3.shape[2], w1_x3.shape[2]]
     mlp_f32.launch("spectral_decoder_bwd", "spectral_decoder_bwd_f32", ptrs, ints,
                    stream_ptr(g))
     global LAUNCHES

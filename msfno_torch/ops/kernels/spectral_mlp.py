@@ -9,10 +9,11 @@ MSFNO/Models/sfno/layers.py:615-631).
 
 Bound on the H100 at the serving shapes: operations (see the kernel source);
 one launch is ~9.1e10 FLOP in the 4-product form.  bf16 operands run on
-wgmma, fp32 operands ("float32", "tensorfloat": the JAX package's default
-knob) on the CUDA cores in true fp32 FMA.  `spectral_mlp_layers` mirrors
-the kernel's algebra (one packed GEMM per layer, the hidden state handed on
-rounded to the operand dtype).  Its gradient is what the
+wgmma; fp32 operands ("float32", "tensorfloat": the JAX package's default
+knob) as fp32-class products, three TF32 wgmma passes over hi / lo splits
+(`tf32x3`).  `spectral_mlp_layers` mirrors the kernel's algebra (one packed
+GEMM per layer, the hidden state handed on rounded to the operand dtype;
+fp32 operands through the split product's mirror).  Its gradient is what the
 JAX `_bwd` (spectral_mlp.py:485-507) does: on the bf16 path dx from the
 `spectral_mlp_bwd` kernel; the weights' gradients, only when asked for (and
 dx off the bf16 path), from the VJP of the fp32 reference `_ref_flat`.
@@ -26,6 +27,7 @@ import torch
 
 from msfno_torch.ops.kernels import (check, check_prepared, library, operand_dtype,
                                      reference_vjp, stream_ptr)
+from msfno_torch.ops.kernels.tf32x3 import kmajor_split, matmul_tf32x3
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -63,18 +65,23 @@ def packed_matrix(w: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 def pack_weights(weights, mxu_dtype: str = "bfloat16"
                  ) -> tuple[torch.Tensor, list[int], list[int]]:
-    """The kernel's weight buffer: `packed_matrix` per layer in the operand
-    type of `mxu_dtype`, concatenated; with the layer widths and element
-    offsets."""
+    """The kernel's weight buffer, with the layer widths and element offsets.
+    bf16 operands: `packed_matrix` per layer in bf16, concatenated, layer l
+    at offs[l].  fp32 operands: (2, total) fp32, the hi and lo halves of
+    each layer's transposed packed matrix P^T (2 d_out x 2 d_in, K-major:
+    `tf32x3.kmajor_split`), layer l at offs[l] of each row."""
     dt = operand_dtype(mxu_dtype)
     dims = [int(weights[0].shape[0])] + [int(w.shape[1]) for w in weights]
     parts, offs, off = [], [], 0
     for w in weights:
-        packed = packed_matrix(w, dt)
-        parts.append(packed.reshape(-1))
+        if dt == torch.float32:  # 2 d_in is a multiple of 32: no pad
+            packed = kmajor_split(packed_matrix(w, torch.float32)).reshape(2, -1)
+        else:
+            packed = packed_matrix(w, dt).reshape(-1)
+        parts.append(packed)
         offs.append(off)
-        off += packed.numel()
-    return torch.cat(parts).contiguous(), dims, offs
+        off += packed.shape[-1]
+    return torch.cat(parts, dim=-1).contiguous(), dims, offs
 
 
 def spectral_mlp_layers(z: torch.Tensor, weights, negative_slope: float = 0.0,
@@ -83,11 +90,14 @@ def spectral_mlp_layers(z: torch.Tensor, weights, negative_slope: float = 0.0,
     hidden state handed from layer to layer as [re | im] rows rounded to
     the operand dtype (bf16: once per layer, as the kernel's epilogue
     does), fp32 accumulation, the LeakyReLU on the real half of every
-    hidden layer, fp32 re and im out."""
+    hidden layer, fp32 re and im out.  On fp32 operands each GEMM is the
+    split-precision product (`tf32x3.matmul_tf32x3`)."""
+    f32 = operand_dtype(mxu_dtype) == torch.float32
     h = mxu_round(torch.cat([z[0], z[1]], dim=-1), mxu_dtype)
     for idx, w in enumerate(weights):
         d_out = w.shape[1]
-        y = h @ mxu_round(packed_matrix(w, torch.float32), mxu_dtype)
+        p = mxu_round(packed_matrix(w, torch.float32), mxu_dtype)
+        y = matmul_tf32x3(h, p) if f32 else h @ p
         if idx < len(weights) - 1:
             y = torch.cat([torch.where(y[..., :d_out] >= 0, y[..., :d_out],
                                        negative_slope * y[..., :d_out]), y[..., d_out:]], -1)
@@ -161,15 +171,18 @@ def _forward(z, weights, negative_slope, mxu_dtype, packed):
     # the hidden states, [re | im] rows of the operand type, in turn
     hidden = torch.empty((2, n * 2 * max(dims)), device=z.device, dtype=dt)
     lib = library("spectral_mlp")
-    fn = lib.spectral_mlp_bf16 if dt == torch.bfloat16 else lib.spectral_mlp_f32
+    f32 = dt == torch.float32
+    fn = lib.spectral_mlp_f32 if f32 else lib.spectral_mlp_bf16
     vp = ctypes.c_void_p
-    fn.argtypes = [vp, vp, vp, ctypes.POINTER(ctypes.c_int),
+    # fp32: the weights' hi and lo halves, two pointers
+    w_ptrs = [wbuf[0].data_ptr(), wbuf[1].data_ptr()] if f32 else [wbuf.data_ptr()]
+    fn.argtypes = [vp, vp, *[vp] * len(w_ptrs), ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, vp, vp,
                    ctypes.c_int, ctypes.c_float, vp, vp, vp]
     fn.restype = ctypes.c_int
     n_layers = len(dims) - 1
     status = fn(
-        x[0].data_ptr(), x[1].data_ptr(), wbuf.data_ptr(),
+        x[0].data_ptr(), x[1].data_ptr(), *w_ptrs,
         (ctypes.c_int * len(dims))(*dims), (ctypes.c_longlong * n_layers)(*offs),
         n_layers, out[0].data_ptr(), out[1].data_ptr(), n, negative_slope,
         hidden[0].data_ptr(), hidden[1].data_ptr(), stream_ptr(z),

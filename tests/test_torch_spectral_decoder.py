@@ -211,18 +211,24 @@ def test_prepare_fp32():
     """fp32 operands: the MLP's weights as they are, the fold operand of
     dft_synthesis for the (Ci, Si) pair of Mt and, for the backward's dhm,
     the fold operand of dft_analysis for Mt's cos columns and its negated
-    sin columns; a bf16 pack is refused."""
+    sin columns; then the backward's split-precision B operands (W1^T, W2,
+    W1 as `tf32x3.kmajor_split` lays them out); a bf16 pack is refused."""
     from msfno_torch.ops.kernels import check_prepared
     from msfno_torch.ops.kernels import dft_analysis as ak
     from msfno_torch.ops.kernels import dft_synthesis as sk
+    from msfno_torch.ops.kernels.tf32x3 import kmajor_split
 
     t = {k: torch.from_numpy(v) for k, v in _case().items()}
-    w1p, w2p, at, at_bwd = tk.prepare(t["w1"], t["w2"], t["mt"], 8, "float32")
+    prepared = tk.prepare(t["w1"], t["w2"], t["mt"], 8, "float32")
+    w1p, w2p, at, at_bwd, w1t_x3, w2_x3, w1_x3 = prepared
     m = t["mt"].shape[1] // 2
     assert torch.equal(w1p, t["w1"]) and torch.equal(w2p, t["w2"])
     assert torch.equal(at, sk.prepare(t["mt"][:, :m].t(), -t["mt"][:, m:].t(), "float32"))
     assert torch.equal(at_bwd, ak.prepare(t["mt"][:, :m], -t["mt"][:, m:], "float32"))
-    check_prepared("spectral_decoder", (w1p, w2p, at, at_bwd), "tensorfloat")
+    assert torch.equal(w1t_x3, kmajor_split(t["w1"]))
+    assert torch.equal(w2_x3, kmajor_split(t["w2"].t()))
+    assert torch.equal(w1_x3, kmajor_split(t["w1"].t()))
+    check_prepared("spectral_decoder", prepared, "tensorfloat")
     with pytest.raises(ValueError):
         check_prepared("spectral_decoder", tk.prepare(t["w1"], t["w2"], t["mt"], 8)[:3],
                        "float32")

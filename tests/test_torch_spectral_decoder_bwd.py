@@ -223,3 +223,36 @@ def test_fp32_kernel_matches_plain(cuda, shape, mxu):
         assert rel_l2(a.cpu(), b.cpu()) <= 1e-5, name
         if c is not None:
             assert torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # odd widths: every A row of the three products is read by scalar loads
+    dict(b=3, h=1, w=50, mmax=10, c=20, s=7, hidden=36, c_out=9, b2=True),
+    # one pixel past a 128-pixel tile, hidden 512 (z1 and dz1 on 4 column tiles)
+    dict(b=1, h=3, w=43, mmax=12, c=16, s=73, hidden=512, c_out=73, b2=False),
+    # the serving widths on two samples of a ragged tile each
+    dict(b=2, h=1, w=1440, mmax=121, c=256, s=73, hidden=256, c_out=73, b2=True),
+])
+def test_fp32_kernel_ragged_sizes(cuda, shape):
+    """The fp32 kernel's three gemm_tf32x3 passes at ragged sizes (K = C + S,
+    C_out not multiples of the core's 32, N = C + S past its column tiles,
+    samples of a ragged last tile), every output against the true fp32 plain
+    version to 1e-5, and the film-only call's outputs equal to the full
+    call's."""
+    ops = _case(seed=9, **shape)
+    t = {k: torch.from_numpy(v).to(cuda) if v is not None else None for k, v in ops.items()}
+    args = (t["g"], *(t[n] for n in NAMES))
+    before = tb.LAUNCHES
+    with torch.inference_mode():
+        k = tb.spectral_decoder_bwd(*args, mxu_dtype="float32")
+        torch.cuda.synchronize()
+        p = tb.spectral_decoder_bwd_reference(*args, mxu_dtype="float32")
+        k_path = tb.spectral_decoder_bwd(*args, mxu_dtype="float32", need_weights=False)
+    assert tb.LAUNCHES == before + 2
+    for name, a, b, c in zip(OUTS, k, p, k_path):
+        if b is None:
+            continue
+        assert rel_l2(a.cpu(), b.cpu()) <= 1e-5, name
+        if c is not None:
+            assert torch.equal(a, c), name

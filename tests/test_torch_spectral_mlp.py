@@ -175,15 +175,23 @@ def test_tensorfloat_is_float32_on_cpu():
 
 
 def test_pack_weights_fp32():
-    """The fp32 kernel's weight buffer: the same packed layout in fp32,
-    nothing rounded; a bf16 pack is refused for fp32 operands."""
+    """The fp32 kernel's weight buffer: per layer the hi and lo halves of
+    the transposed packed matrix P^T (the split-precision core's K-major
+    B), offsets into each half; a bf16 pack is refused for fp32 operands."""
     from msfno_torch.ops.kernels import check_prepared
+    from msfno_torch.ops.kernels.tf32x3 import split_tf32
 
     _, ws = _inputs((1,), 16, 32, 1)
     wt = [torch.from_numpy(w) for w in ws]
     buf, dims, offs = tk.pack_weights(wt, "float32")
-    assert buf.dtype == torch.float32 and dims == [16, 32, 16] and offs == [0, 32 * 64]
-    assert torch.equal(buf[: 32 * 64].reshape(32, 64), tk.packed_matrix(wt[0], torch.float32))
+    assert buf.dtype == torch.float32 and buf.shape == (2, 2 * 32 * 64)
+    assert dims == [16, 32, 16] and offs == [0, 32 * 64]
+    for w, off in zip(wt, offs):
+        pt = tk.packed_matrix(w, torch.float32).t()
+        hi, lo = split_tf32(pt)
+        n = pt.numel()
+        assert torch.equal(buf[0, off:off + n].reshape(pt.shape), hi)
+        assert torch.equal(buf[1, off:off + n].reshape(pt.shape), lo)
     check_prepared("spectral_mlp", (buf,), "tensorfloat")
     with pytest.raises(ValueError):
         check_prepared("spectral_mlp", (tk.pack_weights(wt)[0],), "float32")
@@ -203,6 +211,58 @@ def test_fp32_kernel_matches_plain(cuda, n_rows, c, hidden, mxu):
         yk = tk.spectral_mlp(z, wt, 0.01, mxu)
         torch.cuda.synchronize()
         yp = tk.spectral_mlp_reference(z, wt, 0.01, mxu)
+    assert tk.LAUNCHES == before + 1
+    assert yk.shape == yp.shape == (2, n_rows, c)
+    assert rel_l2(yk.cpu(), yp.cpu()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,bn,seg_rows,splits", [
+    (1, 8, 1, 128, 0, 1),            # one row, K below a stage
+    (127, 100, 73, 128, 0, 1),       # K = 73: a ragged last stage, scalar A rows
+    (1000, 329, 256, 112, 0, 1),     # [dxa | dskip]'s 329 columns on 112-column tiles
+    (300, 256, 329, 128, 150, 1),    # two segments of 150 rows, K = 329
+    (2000, 512, 1024, 128, 0, 1),    # K = 1024: the spectral_mlp block's deepest
+    (257, 130, 200, 128, 0, 3),      # K in three ranges of whole stages
+])
+def test_tf32x3_core_matches_fp64(cuda, m, n, k, bn, seg_rows, splits):
+    """The split-precision core alone (`tf32x3.tf32x3_matmul`, csrc/row_gemm.cuh:
+    gemm_tf32x3) at ragged sizes: each entry within the fp32 class of the
+    fp64 product, (3 * 2^-22 + k * 2^-24) sum_j |a_ij| |b_jk| (the dropped
+    lo * lo, the splits' residues, fp32 sums), and its rel-L2 at most twice
+    that of a true fp32 product (TF32 off), plus the split's own 1e-6 (a
+    one-term product is exact in fp32, not in three TF32 passes)."""
+    from msfno_torch.ops.kernels.tf32x3 import tf32x3_matmul
+
+    rng = np.random.default_rng(m + n + k)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda)
+    parts = tf32x3_matmul(a, b, bn=bn, seg_rows=seg_rows, splits=splits)
+    torch.cuda.synchronize()
+    assert parts.shape == (splits, m, n)
+    got = parts.double().sum(0)
+    exact = a.double() @ b.double()
+    bound = (3 * 2.0 ** -22 + k * 2.0 ** -24) * (a.double().abs() @ b.double().abs())
+    assert bool(((got - exact).abs() <= bound).all())
+    assert rel_l2(got.cpu(), exact.cpu()) <= 2 * rel_l2((a @ b).cpu(), exact.cpu()) + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,c,hidden,n_hidden", [(1, 16, 16, 3), (129, 48, 112, 3),
+                                                      (14521, 16, 512, 1), (300, 256, 32, 2),
+                                                      (1000, 64, 64, 0)])
+def test_fp32_kernel_ragged_sizes(cuda, n_rows, c, hidden, n_hidden):
+    """The fp32 kernel (a gemm_tf32x3 launch a layer) at row counts that fill
+    no 128-row tile, widths 16 to 512, one to four layers: 1e-5 against the
+    true fp32 plain version, whose class its split products are in."""
+    x, ws = _inputs((n_rows,), c, hidden, n_hidden, seed=7)
+    z = torch.from_numpy(x).to(cuda)
+    wt = [torch.from_numpy(w).to(cuda) for w in ws]
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        yk = tk.spectral_mlp(z, wt, 0.05, "float32")
+        torch.cuda.synchronize()
+        yp = tk.spectral_mlp_reference(z, wt, 0.05, "float32")
     assert tk.LAUNCHES == before + 1
     assert yk.shape == yp.shape == (2, n_rows, c)
     assert rel_l2(yk.cpu(), yp.cpu()) <= 1e-5

@@ -85,11 +85,11 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
     # the head's MLP pass and DFT pass (the DIRECT analysis_wgmma, bf16 f),
     # the tail's t pre-pass and tile kernel, the tail backward's pre-pass,
     # tile kernel and transposed DFT (the DIRECT analysis_wgmma, fp32 dhm);
-    # on fp32 operands, spectral_mlp's gemm_f32 layers, the fp32 MLP's two
-    # gemm_f32 launches that grid_mlp, the head and the tail share
-    # ("fp32_mlp"), the tail backward's three gemm_f32 passes (z1, dz1,
-    # [dxa | dskip]; gcn_layer_bwd's fp32 GEMMs are those with the plain
-    # F32Store epilogue); the folded DFT passes, whose kernels the head, the
+    # on fp32 operands, spectral_mlp's gemm_tf32x3 layers, the fp32 MLP's
+    # two gemm_f32 launches that grid_mlp, the head and the tail share
+    # ("fp32_mlp"), the tail backward's three gemm_tf32x3 passes (z1, dz1,
+    # [dxa | dskip]; gcn_layer_bwd's fp32 GEMMs are the gemm_f32 ones with
+    # the plain F32Store epilogue); the folded DFT passes, whose kernels the head, the
     # tail and the tail's backward share, by direction ("dft_fold_*"); the
     # partials' reduces that several kernels share (tile_reduce,
     # stats_reduce: a few us a call) count under none.  The keys are regular
