@@ -7,8 +7,9 @@ Phases (any failure raises, and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the ten CUDA kernels from msfno_torch/csrc, one nvcc per source,
      and print ptxas' registers and spills of every instantiation of the
-     split-precision fp32 core (row_gemm.cuh:gemm_tf32x3), failing on a
-     C7520 line (wgmmas serialized) there;
+     split-precision fp32 core (row_gemm.cuh:gemm_tf32x3) and of the GCN
+     backward's mma.sync dW (gcn_layer_bwd.cu:dw_mma), failing on a C7520
+     line (wgmmas serialized) there;
   3. each kernel against its plain PyTorch version at the shapes of the
      serving step (grid_mlp also with the inner MLP's fold of
      `fuse_inner_mlp`) and of the fine-tune step (the three backward kernels,
@@ -76,7 +77,11 @@ Phases (any failure raises, and the script exits non-zero):
      spectral_mlp_bwd launches per train step with 0 (14 / 2 / 0 with 1),
      the median ms per train step and the peak memory.
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
-operands of that tier (sites "*/fp32") to 1e-5.  Bounds count the products
+operands of that tier (sites "*/fp32") to 1e-5; at the tail's and the GCN
+backward's fp32 sites it records the CUDA kernels one call launches
+(`route`, by torch.profiler in a child process: `chip_smoke.py --routes`)
+and fails if the fp32 FMA GEMM (`gemm_f32`) is among them or the
+split-precision one is not.  Bounds count the products
 of matrix products on fp32 operands at 495 / 3 TFLOP/s, three TF32
 tensor-core passes (their least time on this card: `PEAK_OPS_PER_S`), and
 elementwise fp32 work at 67 TFLOP/s.
@@ -162,15 +167,16 @@ def log(*args):
 # the split-precision core's epilogue and A functors, as ptxas' mangled
 # names spell them
 TF3_PARTS = ("ComplexRows", "F32Matrix", "MlpInput", "HiddenF32", "OutF32", "TcStore",
-             "Z1Store", "DzStore", "DxStore")
+             "Z1Store", "DzStore", "DxStore", "HiddenGelu", "OutStore")
 
 
 def ptxas_tf32x3(logs: dict) -> dict:
     """ptxas' report (nvcc -Xptxas -v) of every instantiation of the
-    split-precision core (csrc/row_gemm.cuh:gemm_tf32x3) in the libraries
-    built in this run: registers, stack, spill stores and loads, and the
-    C7520 lines (ptxas serialized the function's wgmmas) that name one.
-    Raises on such a line."""
+    split-precision core (csrc/row_gemm.cuh:gemm_tf32x3) and of the GCN
+    backward's split-precision dW (csrc/gcn_layer_bwd.cu:dw_mma, mma.sync)
+    in the libraries built in this run: registers, stack, spill stores and
+    loads, and the C7520 lines (ptxas serialized the function's wgmmas)
+    that name one.  Raises on such a line."""
     funcs, c7520, func = {}, [], None
     for lib, text in logs.items():
         for line in text.splitlines():
@@ -179,13 +185,16 @@ def ptxas_tf32x3(logs: dict) -> dict:
                 func = m.group(1)
             if "C7520" in line and "gemm_tf32x3" in line:
                 c7520.append(line.strip())
-            if not func or "gemm_tf32x3" not in func:
+            if not func or ("gemm_tf32x3" not in func and "dw_mma" not in func):
                 continue
-            tail = func.split("gemm_tf32x3", 1)[1]
-            bn = re.match(r"ILi(\d+)E", tail)
-            parts = sorted((tail.index(p), p) for p in TF3_PARTS if p in tail)
-            key = f"{lib}: gemm_tf32x3<{bn.group(1) if bn else '?'}, " \
-                  f"{', '.join(p for _, p in parts)}>"
+            if "dw_mma" in func:
+                key = f"{lib}: dw_mma<{'true' if 'dw_mmaILb1E' in func else 'false'}>"
+            else:
+                tail = func.split("gemm_tf32x3", 1)[1]
+                bn = re.match(r"ILi(\d+)E", tail)
+                parts = sorted((tail.index(p), p) for p in TF3_PARTS if p in tail)
+                key = f"{lib}: gemm_tf32x3<{bn.group(1) if bn else '?'}, " \
+                      f"{', '.join(p for _, p in parts)}>"
             rec = funcs.setdefault(key, {})
             if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                               r"(\d+) bytes spill loads", line):
@@ -230,6 +239,23 @@ def bound_ms(nbytes: float, ops: dict) -> tuple[float, str]:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def launched_kernels(fn) -> list:
+    """The CUDA kernels that one call of `fn` launches, by name
+    (torch.profiler; namespaces and argument lists dropped)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = set()
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+            names.add(name.removeprefix("void "))
+    return sorted(names)
 
 
 def check_site(name, site, kernel_fn, plain_fn, work, iters, time_fn=None, compare=None,
@@ -745,6 +771,88 @@ def kernel_checks(dev):
         recs += sites(dev)
         torch.cuda.empty_cache()
     return recs
+
+
+# phase 3's route checks: (kernel, site) -> (a CUDA kernel that one
+# main-path call must launch, one that it must not): on fp32 operands conv1
+# (c_in = 1) has no product, the other GCN layers' dx and dW and the tail's
+# MLP run on the split-precision core, none on the fp32 FMA GEMM
+ROUTES = {("gcn_layer_bwd", "conv1/fp32"): ("gcn_bwd_dsup", "gemm_f32"),
+          ("gcn_layer_bwd", "conv/fp32"): ("gemm_tf32x3", "gemm_f32"),
+          ("spectral_decoder", "tail/fp32"): ("gemm_tf32x3", "gemm_f32")}
+
+
+def route_calls(dev) -> dict:
+    """One main-path call of each ROUTES site, at a few latitude rows (the
+    kernels a call launches do not depend on the row count): gcn_layer_bwd
+    on fp32 operands at conv1 (no dx, as the path asks) and 512 -> 512, the
+    tail on fp32 operands at 1440 longitudes, 256 + 73 -> 256 -> 73."""
+    import torch
+
+    from msfno_torch.ops.kernels import gcn_layer_bwd as gb
+    from msfno_torch.ops.kernels import spectral_decoder as dk
+
+    rn, g = _randn(dev, 9)
+    mask = (torch.rand((1, 16, 360, 1), device=dev, generator=g) > 0.3).float()
+    dinv = torch.rsqrt(1.0 + 8.0 * mask)
+    calls = {}
+    for site, c_in in (("conv1/fp32", 1), ("conv/fp32", 512)):
+        x, wt = rn(1, 16, 360, c_in), rn(c_in, 512, scale=1.0 / c_in ** 0.5)
+        res = rn(1, 16, 360, 512) if c_in > 1 else None
+        y, gy = rn(1, 16, 360, 512), rn(1, 16, 360, 512, scale=1e-3)
+        calls[("gcn_layer_bwd", site)] = (
+            lambda gy=gy, y=y, res=res, x=x, wt=wt, c_in=c_in: gb.gcn_layer_bwd(
+                gy, y, res, x, wt, dinv, mask, mxu_dtype="float32", need_dx=c_in > 1))
+    mt = _serving_transforms()[1]._const("merged_t", dev)
+    c = 256
+    hm, skip = rn(1, 4, mt.shape[1], c, scale=0.05), rn(1, 4, mt.shape[0], 73)
+    a, b = 1.0 + rn(1, c, scale=0.1), rn(1, c, scale=0.1)
+    w1, b1, w2 = rn(c + 73, c, scale=0.05), rn(c, scale=0.1), rn(c, 73, scale=0.06)
+    prepared = dk.prepare(w1, w2, mt, c, "float32")
+    calls[("spectral_decoder", "tail/fp32")] = lambda: dk.spectral_decoder(
+        hm, skip, mt, a, b, w1, b1, w2, mxu_dtype="float32", prepared=prepared)
+    return calls
+
+
+def routes_main() -> int:
+    """`python3 chip_smoke.py --routes`: one JSON line of the CUDA kernels
+    that each ROUTES site's call launches (`launched_kernels`).  Phase 3 runs
+    it as a child process, so that the profiler's tracing never attaches to
+    the process whose later phases are timed."""
+    import torch
+
+    from msfno_torch.runtime import resolve_device
+
+    dev = resolve_device()
+    with torch.inference_mode():
+        routes = {f"{k}:{s}": launched_kernels(fn) for (k, s), fn in route_calls(dev).items()}
+    print(json.dumps(routes))
+    return 0
+
+
+def check_routes(recs) -> None:
+    """Phase 3's route check: the CUDA kernels of each ROUTES site's call,
+    from `python3 chip_smoke.py --routes` in a child process, logged and set
+    on the site's record; raises unless each site launched its kernel and
+    not the one it must not."""
+    import os
+
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--routes"],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise AssertionError(f"route check failed:\n{child.stderr[-3000:]}")
+    routes = json.loads(child.stdout.strip().splitlines()[-1])
+    for rec in recs:
+        key = (rec["kernel"], rec["site"])
+        if key not in ROUTES:
+            continue
+        rec["route"] = names = routes[f"{key[0]}:{key[1]}"]
+        log(json.dumps({"phase": "route", "kernel": key[0], "site": key[1],
+                        "cuda_kernels": names}))
+        want, banned = ROUTES[key]
+        if not any(want in n for n in names) or any(banned in n for n in names):
+            raise AssertionError(f"{key[0]}[{key[1]}] did not take its route ({want}, no "
+                                 f"{banned}): {names}")
 
 
 # backward launches per fine-tune train step (film-only, film_layers=1; the
@@ -1309,6 +1417,7 @@ def main() -> int:
 
     # phase 3
     recs = kernel_checks(dev)
+    check_routes(recs)
 
     # phase 4: both serving paths at full width against the fp32 plain path
     nets = {"fused": FourierNeuralOperatorNetFilmed(serving_config(), device=dev, seed=0)}
@@ -1464,7 +1573,8 @@ def main() -> int:
             launches[key] = dict(
                 sites=f32_per, ms=f32_tot("ms"), plain_ms=f32_tot("plain_ms"),
                 bound_ms=f32_tot("bound_ms"), rel_l2=max(r["rel_l2"] for r in f32_sites),
-                tol=FP32_TOL)
+                tol=FP32_TOL,
+                routes={r["site"]: r["route"] for r in f32_sites if r.get("route") is not None})
         main_sites = [r for r in mine if per.get(r["site"], 0)]
         has_library = name in DFT_MAIN and all(r["library_ms"] is not None for r in main_sites)
         tot = lambda key: sum(per[r["site"]] * r[key] for r in main_sites)  # noqa: E731
@@ -1487,4 +1597,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(routes_main() if sys.argv[1:] == ["--routes"] else main())

@@ -94,11 +94,16 @@ constexpr int FOLD_LDA = 2 * FOLD_TILE;
 struct FoldArgs {
   const float* at;  // prepared (k_pad, tiles * 256)
   const void* b;    // analysis x (rows, w, c); synthesis hm (rows, 2m, c)
-  void* out;        // analysis (rows, 2m, c) fp32; synthesis (rows, w, c)
-  long long rows;
+  void* out;        // analysis (rows, 2m, c) fp32; synthesis (rows, w, c); rows of ldo
+  long long rows, ldo;
   int w, m, c, kh;  // longitudes, modes, channels, w / 2 + 1
   int k_dim, k_pad; // K of the products: kh (analysis) or m (synthesis)
   int tiles, c_tiles;
+  // synthesis with AFF: out = aff_a * (Mt @ hm) + aff_b per (sample,
+  // channel), (samples, c) each, a sample aff_rows rows
+  const float* aff_a;
+  const float* aff_b;
+  long long aff_rows;
 };
 
 // One thread's share of the u and v K-slabs (FOLD_K x FOLD_BN each): the
@@ -240,7 +245,7 @@ __device__ __forceinline__ void store_row8(OUT_T* dst, const float* v, const Fol
 // A block owns one latitude row, 64 channels and FOLD_GROUP consecutive
 // output tiles, which it walks in one double-buffered stream of K-slabs:
 // the next tile's first slab is in flight while a tile ends
-template <bool ANALYSIS, int VEC, typename IN_T, typename OUT_T>
+template <bool ANALYSIS, int VEC, typename IN_T, typename OUT_T, bool AFF>
 __global__ void __launch_bounds__(FOLD_THREADS, FOLD_MINB_OVERRIDE) fold_rows(FoldArgs a) {
   __shared__ __align__(16) float as[2][FOLD_K * FOLD_LDA];
   __shared__ __align__(16) float us[2][FOLD_K * FOLD_BN];
@@ -257,7 +262,8 @@ __global__ void __launch_bounds__(FOLD_THREADS, FOLD_MINB_OVERRIDE) fold_rows(Fo
   const FoldThread th;
   const long long b_rows = ANALYSIS ? a.w : 2LL * a.m;
   const IN_T* brow = reinterpret_cast<const IN_T*>(a.b) + r * b_rows * a.c;
-  OUT_T* out = reinterpret_cast<OUT_T*>(a.out) + r * (ANALYSIS ? 2LL * a.m : (long long)a.w) * a.c;
+  OUT_T* out =
+      reinterpret_cast<OUT_T*>(a.out) + r * (ANALYSIS ? 2LL * a.m : (long long)a.w) * a.ldo;
 
   FoldSlab<ANALYSIS, VEC, IN_T> slab;
   const int n_slabs = a.k_pad / FOLD_K;
@@ -297,12 +303,23 @@ __global__ void __launch_bounds__(FOLD_THREADS, FOLD_MINB_OVERRIDE) fold_rows(Fo
       for (int i = 0; i < 8; ++i) {
         const int q = t * FOLD_TILE + th.row(i);
         if (q < a.m)
-          store_row8<VEC != 1>(out + (long long)(th.half * a.m + q) * a.c, acc[i], th, c0, a.c);
+          store_row8<VEC != 1>(out + (long long)(th.half * a.m + q) * a.ldo, acc[i], th, c0,
+                               a.c);
       }
     } else {
       // x_q = P - Q and x_{W-q} = P + Q: the second half hands Q over
       // through the free operand buffer, 64 rows at a time
       float* qs = as[cur ^ 1];  // 64 rows x 64 channels
+      float sa[8], sb[8];  // AFF: the affine of the thread's channels
+      if constexpr (AFF) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int ch = c0 + th.channel(j);
+          const long long e = r / a.aff_rows * a.c + ch;
+          sa[j] = ch < a.c ? __ldg(a.aff_a + e) : 1.f;
+          sb[j] = ch < a.c ? __ldg(a.aff_b + e) : 0.f;
+        }
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (th.half) {
@@ -328,10 +345,14 @@ __global__ void __launch_bounds__(FOLD_THREADS, FOLD_MINB_OVERRIDE) fold_rows(Fo
               const float qv = qrow[th.channel(j)];
               lo[j] = acc[4 * h + i][j] - qv;
               hi[j] = acc[4 * h + i][j] + qv;
+              if constexpr (AFF) {
+                lo[j] = fmaf(sa[j], lo[j], sb[j]);
+                hi[j] = fmaf(sa[j], hi[j], sb[j]);
+              }
             }
-            store_row8<VEC != 1>(out + (long long)q * a.c, lo, th, c0, a.c);
+            store_row8<VEC != 1>(out + (long long)q * a.ldo, lo, th, c0, a.c);
             if (q > 0 && a.w - q != q)
-              store_row8<VEC != 1>(out + (long long)(a.w - q) * a.c, hi, th, c0, a.c);
+              store_row8<VEC != 1>(out + (long long)(a.w - q) * a.ldo, hi, th, c0, a.c);
           }
         }
         __syncthreads();
@@ -343,17 +364,25 @@ __global__ void __launch_bounds__(FOLD_THREADS, FOLD_MINB_OVERRIDE) fold_rows(Fo
 // Launches fold_rows over `rows` rows of `w` longitudes, `m` modes and `c`
 // channels: the analysis reads in (rows, w, c) and writes out (rows, 2m,
 // c) fp32, the synthesis reads in (rows, 2m, c) and writes out (rows, w,
-// c); `at` is the prepared operand (at_rows x at_cols).  16-byte vectors of
-// the input and the output where all their rows start 16-byte aligned and
+// c), out's rows ldo apart (0: c); `at` is the prepared operand (at_rows x
+// at_cols).  With AFF the synthesis applies aff_a, aff_b ((samples, c)
+// each, a sample aff_rows rows) to its output.  16-byte vectors of the
+// input and the output where all their rows start 16-byte aligned and
 // every 8-channel group is whole.  Returns a CUDA error code.
-template <bool ANALYSIS, typename IN_T, typename OUT_T>
+template <bool ANALYSIS, typename IN_T, typename OUT_T, bool AFF = false>
 int fold_launch(const void* at, const void* in, void* out, long long rows, int w, int m, int c,
-                int at_rows, int at_cols, cudaStream_t stream) {
+                int at_rows, int at_cols, cudaStream_t stream, long long ldo = 0,
+                const float* aff_a = nullptr, const float* aff_b = nullptr,
+                long long aff_rows = 1) {
   FoldArgs a{};
   a.at = reinterpret_cast<const float*>(at);
   a.b = in;
   a.out = out;
   a.rows = rows;
+  a.ldo = ldo ? ldo : c;
+  a.aff_a = aff_a;
+  a.aff_b = aff_b;
+  a.aff_rows = aff_rows;
   a.w = w;
   a.m = m;
   a.c = c;
@@ -363,18 +392,20 @@ int fold_launch(const void* at, const void* in, void* out, long long rows, int w
   a.tiles = ((ANALYSIS ? m : a.kh) + FOLD_TILE - 1) / FOLD_TILE;
   const int want_pad = (a.k_dim + FOLD_K - 1) / FOLD_K * FOLD_K;
   if (a.rows < 1 || a.w < 2 || a.m < 1 || a.c < 1 || a.k_pad != want_pad ||
-      at_cols != a.tiles * 2 * FOLD_TILE)
+      at_cols != a.tiles * 2 * FOLD_TILE || a.ldo < a.c ||
+      (AFF && (ANALYSIS || !aff_a || !aff_b || aff_rows < 1)))
     return (int)cudaErrorInvalidValue;
   a.c_tiles = (a.c + FOLD_BN - 1) / FOLD_BN;
   const long long blocks = a.rows * ((a.tiles + FOLD_GROUP - 1) / FOLD_GROUP) * a.c_tiles;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const bool vec = a.c % 8 == 0 && reinterpret_cast<uintptr_t>(a.b) % 16 == 0 &&
+  const bool vec = a.c % 8 == 0 && a.ldo % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.b) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
   constexpr int V = 16 / sizeof(IN_T);
   if (vec)
-    fold_rows<ANALYSIS, V, IN_T, OUT_T><<<(unsigned)blocks, FOLD_THREADS, 0, stream>>>(a);
+    fold_rows<ANALYSIS, V, IN_T, OUT_T, AFF><<<(unsigned)blocks, FOLD_THREADS, 0, stream>>>(a);
   else
-    fold_rows<ANALYSIS, 1, IN_T, OUT_T><<<(unsigned)blocks, FOLD_THREADS, 0, stream>>>(a);
+    fold_rows<ANALYSIS, 1, IN_T, OUT_T, AFF><<<(unsigned)blocks, FOLD_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -211,13 +211,13 @@ extern "C" int gcn_layer(const void* x, const void* w, const void* bias, const v
     float* tk = (float*)t;
     using bf = __nv_bfloat16;
     if (f32_ops) {
-      err = gemm_f32_launch<false, false>((const float*)x, c_in, (const float*)w, f, tk, ldt,
+      err = gemm_f32_launch((const float*)x, c_in, (const float*)w, f, tk, ldt,
                                           (int)n_px, f, c_in, 1, dinv, dm_bf16, st);
     } else if (c_in % 8 == 0 && f % 8 == 0) {
       err = wgmma_gemm_launch(x, c_in, w, f, (int)n_px, f, c_in,
                               TEpi{tk, ldt, f, dm_bf16, dinv}, st);
     } else {
-      err = gemm_f32_launch<false, false>((const bf*)x, c_in, (const bf*)w, f, tk, ldt,
+      err = gemm_f32_launch((const bf*)x, c_in, (const bf*)w, f, tk, ldt,
                                           (int)n_px, f, c_in, 1, dinv, dm_bf16, st);
     }
     if (err) return err;

@@ -1,5 +1,6 @@
 // Backward of one masked-grid GCN layer (sm_90a): a strip-walk stencil pass
-// and two TMA + wgmma GEMMs on bf16 operands, fp32 FMA GEMMs on fp32 ones.
+// and two TMA + wgmma GEMMs on bf16 operands; on fp32 ones two
+// split-precision TF32 GEMMs (dx on wgmma, dW on mma.sync).
 //
 // Replaces msfno_tpu/ops/pallas/gcn_layer.py:_gcn_layer_bwd_call (the Pallas
 // `_make_bwd_kernel` TPU kernel).  With the forward
@@ -12,13 +13,16 @@
 //
 // No forward recompute: act' comes from the saved output.  For c_in == 1
 // (the generator's first layer) dx is a dot per pixel and dW a column sum.
-// fp32 operands (the JAX exact and balanced tiers' generator): dsup stays
-// fp32 and the products are true fp32 FMA (no TF32).
+// fp32 operands (the JAX exact, balanced and fp32-kernel tiers' generator):
+// dsup stays fp32 and the products are fp32-class: three TF32 tensor-core
+// passes over hi / lo splits, for the "float32" and "tensorfloat" knobs
+// alike.
 //
 // Bound on the H100 at a 512 -> 512 layer (1, 180, 360): g, y, res and x in
 // bf16 (4 x 66 MB) and dx in fp32 (133 MB), ~0.40 GB -> 0.12 ms at 3.35
 // TB/s; 2 GEMMs of 2 * 64,800 * 512 * 512 = 6.8e10 FLOP -> 0.07 ms: bytes.
-// fp32 operands: the same 6.8e10 FLOP at 67 TFLOP/s -> 1.0 ms: operations.
+// fp32 operands: the same 6.8e10 FLOP at 495 / 3 = 165 TFLOP/s (the least
+// time of an fp32-class product on this card) -> 0.41 ms: operations.
 //
 // Design: the TPU kernel walks the latitude tiles in grid order, computes
 // dagg * d once a row and carries the previous rows in VMEM, and
@@ -53,12 +57,27 @@
 //      (splits x c_in x F, ~1 MB a split).  Bound: x and dsup read.
 //   Then `sum_rows` adds the dW partials, and `tile_reduce` and
 //   `stats_reduce` the per-row db (and c_in == 1 dW) partials, each in a
-//   fixed order: deterministic, no atomics.  fp32 operands keep the fp32 FMA GEMM of row_gemm.cuh for both
-//   products.
+//   fixed order: deterministic, no atomics.
+// fp32 operands: the same passes, both products split-precision TF32
+// (three tensor-core passes over hi / lo splits, fp32 accumulation).
+//   dx = dsup W^T on row_gemm.cuh:gemm_tf32x3 (A: dsup's fp32 rows by
+//   16-byte loads; B: the hi / lo split of W as stored, (c_in x F) = its
+//   (N x K) K-major form, made on every call by `tf32_split_rows` into the
+//   caller's scratch: W is a trained weight that the optimizer updates in
+//   place, so no split outlives a call).
+//   dW = x^T dsup on `dw_mma`: both operands are stored pixels outermost
+//   (MN-major), which tf32 wgmma cannot read, so mma.sync.m16n8k8 TF32
+//   with fragments read from MN-major shared-memory tiles (x and dsup as
+//   stored, by cp.async), split into hi / lo in registers.  A/B on the
+//   H100 at 512 -> 512 (tools/kernel_variants.py --profile): 0.642 ms
+//   against 0.754 for a wgmma variant of gemm_tf32x3 whose loader
+//   transposed both operands into the K-major swizzle while it split
+//   them.  Split over pixel ranges into partials of 128 x 128 tiles, as
+//   many splits as make four blocks an SM (132 SMs).
 //
 // Tunables (tools/kernel_variants.py): DS_ROWS (strip height), DS_FB
 // (feature band: 8, 16 or 32), DS_PIX (longitudes a block loads); WGM_BN,
-// WGM_STAGES of row_gemm.cuh.
+// WGM_STAGES, TF3_STAGES of row_gemm.cuh; MMA_STAGES (dw_mma's ring).
 
 #include "row_gemm.cuh"
 
@@ -284,10 +303,197 @@ struct StoreEpi {
   }
 };
 
+#ifndef MMA_STAGES_OVERRIDE
+#define MMA_STAGES_OVERRIDE 3
+#endif
+
+// dW = x^T dsup on fp32 operands (see the note at the top): C (m x n) =
+// A^T B with A (k x m) and B (k x n) stored K outermost.  A block owns a
+// 128 x 128 tile of one K range (blockIdx.z) and loads 32 K rows a stage
+// of both tiles as stored, by cp.async (16-byte copies where both
+// operands' rows are 16-byte multiples, else 4-byte ones), into a ring of
+// MMA_STAGES stages whose rows are padded to 136 floats (a fragment's 32
+// loads hit 32 banks).  8 warps of 64 x 32: per k8 step each warp reads
+// its 4 A and 4 B fragments, splits them into hi / lo in registers and
+// issues lo.hi, hi.lo and hi.hi for each of its 16 m16n8 tiles into a
+// per-stage accumulator that the CUDA cores add to a second one (fp32,
+// round to nearest).  Writes split z's partial product to out + z m n.
+constexpr int MMA_BM = 128, MMA_BN = 128, MMA_BK = 32, MMA_LD = 136;
+constexpr int MMA_STAGES = MMA_STAGES_OVERRIDE;
+constexpr int MMA_THREADS = 256;
+constexpr int MMA_STAGE_FLOATS = 2 * MMA_BK * MMA_LD;
+constexpr int MMA_SMEM = MMA_STAGES * MMA_STAGE_FLOATS * 4;
+static_assert(MMA_STAGES >= 2 && MMA_SMEM <= 232448, "dw_mma's ring does not fit");
+
+// 4-byte global -> shared copy; src_bytes == 0 writes zeros without reading
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void split_u32(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = tf32_rna(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(tf32_rna(x - h));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    dw_mma(const float* __restrict__ x, int m, const float* __restrict__ d, int n, int k,
+           int k_split, float* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  const int n_tiles = (n + MMA_BN - 1) / MMA_BN;
+  const int m0 = blockIdx.x / n_tiles * MMA_BM, n0 = blockIdx.x % n_tiles * MMA_BN;
+  const int kb = blockIdx.z * k_split, ke = min(k, kb + k_split);
+  const int n_st = ke > kb ? (ke - kb + MMA_BK - 1) / MMA_BK : 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  // stage st into its slot: thread tid copies 16-byte chunks tid + 256 i
+  // (a warp: one K row of 128 floats) of both tiles; zeros past K, M, N
+  auto load = [&](int st) {
+    float* as = sm + (st % MMA_STAGES) * MMA_STAGE_FLOATS;
+    float* bs = as + MMA_BK * MMA_LD;
+    const int k0 = kb + st * MMA_BK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = tid + MMA_THREADS * i, row = c / 32, col = (c % 32) * 4, kk = k0 + row;
+      const float* pa = x + (long long)kk * m + m0 + col;
+      const float* pb = d + (long long)kk * n + n0 + col;
+      if (VEC) {  // m and n multiples of 4: a chunk is wholly in or out
+        const bool oka = kk < ke && m0 + col < m, okb = kk < ke && n0 + col < n;
+        cp_async16(as + row * MMA_LD + col, oka ? pa : x, oka ? 16 : 0);
+        cp_async16(bs + row * MMA_LD + col, okb ? pb : d, okb ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool oka = kk < ke && m0 + col + e < m, okb = kk < ke && n0 + col + e < n;
+          cp_async4(as + row * MMA_LD + col + e, oka ? pa + e : x, oka ? 4 : 0);
+          cp_async4(bs + row * MMA_LD + col + e, okb ? pb + e : d, okb ? 4 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+  for (int st = 0; st < MMA_STAGES - 1; ++st)
+    if (st < n_st) load(st);
+  for (int st = 0; st < n_st; ++st) {
+    // stage st has landed once at most min(STAGES - 2, n_st - 1 - st)
+    // later groups are pending
+    if (st + MMA_STAGES - 2 < n_st) cp_async_wait<MMA_STAGES - 2>();
+    else cp_async_wait<0>();
+    __syncthreads();  // and every warp is done with the slot refilled next
+    if (st + MMA_STAGES - 1 < n_st) load(st + MMA_STAGES - 1);
+    const float* as = sm + (st % MMA_STAGES) * MMA_STAGE_FLOATS;
+    const float* bs = as + MMA_BK * MMA_LD;
+    float part[4][4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+    for (int k8 = 0; k8 < MMA_BK; k8 += 8) {
+      // fragments (m16n8k8, row-major A, column-major B): a[0..3] at (row
+      // g, g + 8) x (k t, t + 4), b[0..1] at k t, t + 4 of column g
+      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* p = as + (k8 + t) * MMA_LD + wm + 16 * i + g;
+        split_u32(p[0], ah[i][0], al[i][0]);
+        split_u32(p[8], ah[i][1], al[i][1]);
+        split_u32(p[4 * MMA_LD], ah[i][2], al[i][2]);
+        split_u32(p[4 * MMA_LD + 8], ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* p = bs + (k8 + t) * MMA_LD + wn + 8 * j + g;
+        split_u32(p[0], bh[j][0], bl[j][0]);
+        split_u32(p[4 * MMA_LD], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // the small terms first
+          mma_tf32(part[i][j], al[i], bh[j]);
+          mma_tf32(part[i][j], ah[i], bl[j]);
+          mma_tf32(part[i][j], ah[i], bh[j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+  // d[0..3] at (row g, column 2 t, 2 t + 1), (row g + 8, the same): n even
+  float* o = out + (long long)blockIdx.z * m * n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + wm + 16 * i + g + 8 * h, c = n0 + wn + 8 * j + 2 * t;
+        if (r < m && c < n)
+          *reinterpret_cast<float2*>(o + (long long)r * n + c) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+}
+
+// x (k x m) and d (k x n) fp32, n even; out: splits x m x n partials.
+// Returns a CUDA error code.
+template <bool VEC>
+int dw_mma_run(const float* x, int m, const float* d, int n, int k, int splits, float* out,
+               cudaStream_t st) {
+  static bool smem_set = false;  // once per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(dw_mma<VEC>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               MMA_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const int k_split = ((k + splits - 1) / splits + MMA_BK - 1) / MMA_BK * MMA_BK;
+  const dim3 grid(((m + MMA_BM - 1) / MMA_BM) * ((n + MMA_BN - 1) / MMA_BN), 1, splits);
+  dw_mma<VEC><<<grid, MMA_THREADS, MMA_SMEM, st>>>(x, m, d, n, k, k_split, out);
+  return (int)cudaGetLastError();
+}
+
+int dw_mma_launch(const float* x, int m, const float* d, int n, int k, int splits, float* out,
+                  cudaStream_t st) {
+  if (m < 1 || n < 2 || n % 2 || k < 1 || splits < 1 || splits > 65535 ||
+      (long long)((m + MMA_BM - 1) / MMA_BM) * ((n + MMA_BN - 1) / MMA_BN) > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = m % 4 == 0 && n % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(d)) % 16 == 0;
+  return vec ? dw_mma_run<true>(x, m, d, n, k, splits, out, st)
+             : dw_mma_run<false>(x, m, d, n, k, splits, out, st);
+}
+
 enum Ptr { P_G, P_Y, P_RES, P_X, P_W, P_DINV, P_MASK, P_DX, P_DW, P_DB, P_DSUP, P_PART_DB,
-           P_PART_DW, P_GRP_DB, P_GRP_DW, N_PTRS };
+           P_PART_DW, P_GRP_DB, P_GRP_DW, P_W_X3, N_PTRS };
 enum Int { I_B, I_H, I_W, I_C_IN, I_F, I_ACT_BF16, I_X_BF16, I_DM_BF16, I_SPLITS, I_F32,
-           I_GROUPS, N_INTS };
+           I_GROUPS, I_F_PAD, N_INTS };
 
 }  // namespace
 
@@ -302,9 +508,11 @@ extern "C" int gcn_layer_bwd_segments(int wd) { return (wd + DS_EMIT - 1) / DS_E
 // for c_in == 1 without dx); part_db: B*H*segments*F floats; part_dw: as
 // many for c_in == 1, else splits*c_in*F; grp_db (and, for c_in == 1,
 // grp_dw): groups*F floats (the per-row partials are added in `groups` runs
-// of ceil(B*H*segments / groups)).  F is a multiple of 8; for c_in >
-// 1 on bf16 operands so is c_in, and x is a bf16 array; on fp32 operands x
-// is fp32.  W must be at least 3.
+// of ceil(B*H*segments / groups)); w_x3: for fp32 operands with c_in > 1
+// and dx, scratch of 2*c_in*f_pad floats (the split of w, rows padded to
+// f_pad, a multiple of 4 >= F).  F is a multiple of 8; for c_in > 1 on
+// bf16 operands so is c_in, and x is a bf16 array; on fp32 operands x is
+// fp32.  W must be at least 3.
 extern "C" int gcn_layer_bwd(const void* const* ptrs, const long long* ints, float slope,
                              void* stream) {
   BwdArgs a;
@@ -376,16 +584,23 @@ extern "C" int gcn_layer_bwd(const void* const* ptrs, const long long* ints, flo
     }
     return 0;
   }
+  if (n_px > INT_MAX) return (int)cudaErrorInvalidValue;
   if (f32) {
-    if (dx)  // dx (n_px x c_in) = dsup (n_px x F) @ w^T, w stored (c_in x F)
-      e = gemm_f32_launch<false, true>((const float*)a.dsup, a.f, (const float*)w, a.f, dx,
-                                       a.c_in, (int)n_px, a.c_in, a.f, 1, nullptr, 0, st);
-    if (e) return e;
+    const float* dsup = (const float*)a.dsup;
+    if (dx) {  // dx (n_px x c_in) = dsup (n_px x F) @ w^T: w stored (c_in x F) is B's (N x K)
+      float* w_x3 = (float*)ptrs[P_W_X3];
+      const long long f_pad = ints[I_F_PAD];
+      if (!w_x3 || f_pad < a.f || f_pad % 4) return (int)cudaErrorInvalidValue;
+      e = tf32_split_rows_launch((const float*)w, a.c_in, a.f, (int)f_pad, w_x3, st);
+      if (!e)
+        e = gemm_tf32x3_run<128>(F32Matrix<float>{dsup, a.f}, w_x3,
+                                 w_x3 + a.c_in * f_pad, f_pad, n_px, a.c_in, a.f, 1, 0,
+                                 TcStore{dx, a.c_in, n_px, a.c_in}, st);
+      if (e) return e;
+    }
     // dW partials (splits x c_in x F) = x^T dsup over pixel ranges
-    e = gemm_f32_launch<true, false>((const float*)a.x, a.c_in, (const float*)a.dsup, a.f,
-                                     part_dw, a.f, a.c_in, a.f, n_px, splits, nullptr, 0, st);
+    e = dw_mma_launch((const float*)a.x, a.c_in, dsup, a.f, (int)n_px, splits, part_dw, st);
   } else {
-    if (n_px > INT_MAX) return (int)cudaErrorInvalidValue;
     if (dx)  // dx (n_px x c_in) = dsup (n_px x F) @ w^T: w stored (c_in x F) is B_T's B
       e = wgmma_gemm_launch<StoreEpi, true>(
           a.dsup, a.f, w, a.f, (int)n_px, a.c_in, a.f,

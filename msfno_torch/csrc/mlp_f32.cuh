@@ -7,15 +7,16 @@
 //   y = h @ W2 [+ b2] [+ pe[row % pe_rows]] [+ res]
 //   out = round(y, out dtype);  optionally per-sample sum(y), sum(y*y)
 //
-// in true fp32 FMA on the CUDA cores (no TF32, no rounding of any operand:
-// the JAX kernels' "float32" and "tensorfloat" knobs).  x, the skip, pe and
-// the residual are read as stored, fp32 or bf16.
+// with no rounding of any operand (the JAX kernels' "float32" and
+// "tensorfloat" knobs); mlp_f32_run in true fp32 FMA on the CUDA cores.  x,
+// the skip, pe and the residual are read as stored, fp32 or bf16.
 //
-// Bound on the H100: operations at 67 TFLOP/s, e.g. the encoder site
-// (1,038,240 rows, 73 -> 256 -> 256) 1.75e11 FLOP, 2.6 ms; its bytes (x,
-// pe, y: 2.6 GB fp32) 0.8 ms.
+// Bound on the H100: operations, e.g. the encoder site (1,038,240 rows, 73
+// -> 256 -> 256) 1.75e11 FLOP, 1.06 ms at 165 TFLOP/s (an fp32-class
+// product's least time on this card; 2.6 ms at the CUDA cores' 67); its
+// bytes (x, pe, y: 2.6 GB fp32) 0.8 ms.
 //
-// Design: two launches of row_gemm.cuh:gemm_f32 (128 x 128 tiles, 8 x 8 a
+// Design of mlp_f32_run: two launches of row_gemm.cuh:gemm_f32 (128 x 128 tiles, 8 x 8 a
 // thread), h through device memory.  The first GEMM's A functor
 // (MlpInput) reads a row's x (the affine applied) and then its skip, as one
 // K = c_main + c_skip row against the unpadded fp32 W1; its epilogue adds
@@ -30,6 +31,18 @@
 // costs 2 x rows x hidden x 4 bytes (the encoder site: 2.1 GB, ~0.6 ms at
 // the HBM rate), against an operations bound several times larger; a
 // tile-resident h (the bf16 kernels' chain) is a later redesign.
+//
+// The tail (spectral_decoder.cu) takes a second runner, mlp_tf32x3_run: the
+// same two GEMMs as fp32-class products on row_gemm.cuh:gemm_tf32x3, three
+// TF32 tensor-core passes over hi / lo splits (495 / 3 = 165 TFLOP/s, the
+// least time of an fp32-class product on the H100), B the prepared hi / lo
+// K-major halves of W1^T and W2^T (tf32x3.py:kmajor_split).  The first
+// GEMM's A is the caller's functor (the tail's: [a x + b | skip | 0] rows
+// of 332 fp32, 16-byte loads), its epilogue HiddenGelu writes fp32 h.  The
+// second reads h (F32Matrix) on TAIL_OUT_BN-column tiles (80: the 73
+// output columns) and OutStore adds b2.  The tail passes no pe, residual
+// or statistics, and this runner takes none.  The head and grid_mlp keep
+// mlp_f32_run.
 
 #pragma once
 
@@ -58,8 +71,12 @@ struct MlpInput {
   }
   // raw elements (m, k .. k + 3), k a multiple of 4 (gemm_tf32x3's loader):
   // one 16-byte load where the quad lies in 16-byte aligned fp32 rows of x
-  // or of the skip, else four scalar loads; loads only, `finish` applies
-  // the affine once they are needed
+  // or of the skip, four read-only loads in fp32 skip rows of another
+  // width (the tail backward's z1 over the 73-wide skip: 4.25 against 4.44
+  // ms through load_act on the H100), else four load_act; loads only,
+  // `finish` applies the affine once they are needed (a quad of the skip
+  // taken from the two aligned vectors that hold it ran z1 1.3 ms slower:
+  // picking its elements waits for the loads, one quad after another)
   __device__ __forceinline__ float4 quad(long long m, long long k, int) const {
     const auto al = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
     if (k + 3 < c_main && !x_bf16 && (c_main & 3) == 0 && al(x))
@@ -68,6 +85,10 @@ struct MlpInput {
     if (k >= c_main && !skip_bf16 && (c_skip & 3) == 0 && al(skip))
       return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(skip) +
                                                    m * c_skip + (k - c_main)));
+    if (k >= c_main && !skip_bf16) {
+      const float* q = static_cast<const float*>(skip) + m * c_skip + (k - c_main);
+      return make_float4(__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3));
+    }
     float r[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -175,6 +196,66 @@ struct MlpOut {
   }
 };
 
+// The tail's first GEMM's epilogue on the split-precision core (TcTile):
+// h = gelu(acc + b1) as MlpHidden, fp32 rows of `hidden` (a fragment's
+// column pair as one 8-byte store where `hidden` is even)
+struct HiddenGelu {
+  float* h;
+  const float* b1;
+  int hidden;
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
+    float bias[NV / 2];  // the thread's columns: col(4 q + e)
+#pragma unroll
+    for (int u = 0; u < NV / 2; ++u) {
+      const int n = t.n0 + t.col(4 * (u / 2) + u % 2);
+      bias[u] = n < hidden ? __ldg(b1 + n) : 0.f;
+    }
+#pragma unroll
+    for (int v = 0; v < NV; v += 2) {
+      const long long m = t.m0 + t.row(v);
+      const int n = t.n0 + t.col(v), u = 2 * (v / 4);
+      if (m >= t.m_end || n >= hidden) continue;
+      float* p = h + m * hidden + n;
+      const float g0 = gelu_rational(acc[v] + bias[u]);
+      const float g1 = gelu_rational(acc[v + 1] + bias[u + 1]);
+      if (hidden % 2 == 0) {
+        *reinterpret_cast<float2*>(p) = make_float2(g0, g1);
+      } else {
+        p[0] = g0;
+        if (n + 1 < hidden) p[1] = g1;
+      }
+    }
+  }
+};
+
+// The tail's second GEMM's epilogue on the split-precision core: y = acc +
+// b2 (b2 may be null) as MlpOut without pe, residual or statistics, out in
+// fp32 or bf16, rows of c_out
+struct OutStore {
+  const float* b2;
+  void* out;
+  int c_out, out_bf16;
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
+    float bias[NV / 2];
+#pragma unroll
+    for (int u = 0; u < NV / 2; ++u) {
+      const int n = t.n0 + t.col(4 * (u / 2) + u % 2);
+      bias[u] = b2 && n < c_out ? __ldg(b2 + n) : 0.f;
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const long long m = t.m0 + t.row(v);
+      const int n = t.n0 + t.col(v);
+      if (m >= t.m_end || n >= c_out) continue;
+      const float y = acc[v] + bias[2 * (v / 4) + v % 2];
+      if (out_bf16) reinterpret_cast<__nv_bfloat16*>(out)[m * c_out + n] = __float2bfloat16_rn(y);
+      else reinterpret_cast<float*>(out)[m * c_out + n] = y;
+    }
+  }
+};
+
 // The MLP's operands.  x, skip, pe, res: fp32 or bf16 (the *_bf16 flags);
 // w1 (c_main + c_skip, hidden) and w2 (hidden, c_out) fp32 row-major; h
 // (samples * rps, hidden) fp32 scratch; part_sum / part_sq (samples, tiles,
@@ -259,12 +340,12 @@ inline int mlp_f32_run(const MlpF32& a, cudaStream_t st) {
   const long long rows = (long long)a.samples * a.rps;
   const long long tiles = (a.rps + F32_BM - 1) / F32_BM;
   MlpInput in{a.x, a.skip, a.aff_a, a.aff_b, a.c_main, a.c_skip, a.x_bf16, a.skip_bf16};
-  int err = gemm_f32_run<false, false>(in, a.w1, a.hidden, rows, a.hidden, a.c_main + a.c_skip,
+  int err = gemm_f32_run<false>(in, a.w1, a.hidden, rows, a.hidden, a.c_main + a.c_skip,
                                        1, a.rps, MlpHidden{a.h, a.b1, a.hidden}, st);
   if (err) return err;
   MlpOut out{a.b2, a.pe, a.res, a.out, a.part_sum, a.part_sq, a.pe_rows, a.c_out, (int)tiles,
              a.pe_bf16, a.res_bf16, a.out_bf16};
-  err = gemm_f32_run<false, false>(F32Matrix<false, float>{a.h, a.hidden}, a.w2, a.c_out, rows,
+  err = gemm_f32_run<false>(F32Matrix<float>{a.h, a.hidden}, a.w2, a.c_out, rows,
                                    a.c_out, a.hidden, 1, a.rps, out, st);
   if (err || !a.part_sum) return err;
   // the tiles' partials, added in runs, then the runs
@@ -277,6 +358,35 @@ inline int mlp_f32_run(const MlpF32& a, cudaStream_t st) {
   stats_reduce<<<rgrid, dim3(32, 8), 0, st>>>(a.grp_sum, a.grp_sq, a.groups, a.c_out, a.ssum,
                                               a.ssq);
   return (int)cudaGetLastError();
+}
+
+#ifndef TAIL_OUT_BN_OVERRIDE
+#define TAIL_OUT_BN_OVERRIDE 80
+#endif
+// the second GEMM's column tile: 80, 112 or 128 (one tile of the tail's 73)
+constexpr int TAIL_OUT_BN = TAIL_OUT_BN_OVERRIDE;
+
+// The tail's MLP on the split-precision core (see the note at the top): the
+// first GEMM's A the functor `in` over K = k (zeros in W1^T's pad past its
+// rows), w1_x3 the hi and lo halves (2, hidden, k1_pad) of W1^T, w2_x3
+// those (2, c_out, hid_pad) of W2^T, rows zero-padded to multiples of 4
+// floats; of `a` the hidden width, b1, h, b2 and out.  No pe, residual or
+// statistics.  Returns a CUDA error code.  (A template: the sources that
+// include this header without calling it build none of its kernels.)
+template <int OUT_BN = TAIL_OUT_BN, class ALoad>
+int mlp_tf32x3_run(const ALoad& in, int k, const MlpF32& a, const float* w1_x3,
+                   long long k1_pad, const float* w2_x3, long long hid_pad, cudaStream_t st) {
+  if (a.samples < 1 || a.rps < 1 || k < 1 || a.hidden < 1 || a.c_out < 1 || !w1_x3 || !a.b1 ||
+      !w2_x3 || !a.out || !a.h || a.pe || a.res || a.part_sum || k1_pad < k ||
+      hid_pad < a.hidden)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)a.samples * a.rps;
+  int err = gemm_tf32x3_run<128>(in, w1_x3, w1_x3 + a.hidden * k1_pad, k1_pad, rows, a.hidden,
+                                 k, 1, 0, HiddenGelu{a.h, a.b1, a.hidden}, st);
+  if (err) return err;
+  return gemm_tf32x3_run<OUT_BN>(F32Matrix<float>{a.h, a.hidden}, w2_x3,
+                                 w2_x3 + a.c_out * hid_pad, hid_pad, rows, a.c_out, a.hidden, 1,
+                                 0, OutStore{a.b2, a.out, a.c_out, a.out_bf16}, st);
 }
 
 }  // namespace

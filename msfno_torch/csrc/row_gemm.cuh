@@ -1,8 +1,10 @@
 // Row GEMMs shared by spectral_mlp.cu, spectral_mlp_bwd.cu, gcn_layer.cu,
-// gcn_layer_bwd.cu and (gemm_f32, through mlp_f32.cuh) the fp32 paths of
-// grid_mlp.cu, grid_encoder_spectral.cu and spectral_decoder.cu;
-// gemm_tf32x3 runs the fp32 paths of spectral_mlp.cu and
-// spectral_decoder_bwd.cu.
+// gcn_layer_bwd.cu and, through mlp_f32.cuh, the fp32 paths of grid_mlp.cu,
+// grid_encoder_spectral.cu and spectral_decoder.cu.  gemm_f32 runs the fp32
+// GEMM pass of gcn_layer.cu, the MLP of grid_mlp.cu and of the head, and
+// the weight gradients of spectral_decoder_bwd.cu; gemm_tf32x3 the fp32
+// paths of spectral_mlp.cu, the tail, spectral_decoder_bwd.cu and
+// gcn_layer_bwd.cu (dx).
 //
 // wgmma_gemm: C = epi(A @ B), A (M x K) and B (K x N) bf16, row-major, fp32
 // accumulation on wgmma (sm_90a).  A block owns a WGM_BM x WGM_BN tile.  A
@@ -25,9 +27,9 @@
 // zeros, so any shape whose rows are 16-byte multiples works.
 //
 // gemm_f32: epi(A @ B) in true fp32 FMA on the CUDA cores (no TF32).  A is
-// a functor of (m, k) (a stored fp32 or bf16 matrix, either way round, or
-// rows assembled from several inputs), B a stored fp32 or bf16 matrix,
-// either way round; the epilogue functor gets each thread's 8 x 8
+// a functor of (m, k) (a stored fp32 or bf16 matrix, rows assembled from
+// several inputs, or with A_T a functor read m fastest), B a stored fp32 or
+// bf16 (K x N) matrix; the epilogue functor gets each thread's 8 x 8
 // accumulators (gemm_f32_launch: C = A @ B, rows optionally scaled).  A
 // block owns a 128 x 128 tile of one row segment (a sample), 8 x 8 per
 // thread, K in double-buffered slabs of 8 (the next slab's loads in
@@ -47,8 +49,8 @@
 // transpose, fp32 rows padded with zeros to a 16-byte multiple (tf32 wgmma
 // has no transpose: both operands are read K-major).
 //   Persistent: a block a multiprocessor walks output tiles of 128 rows x
-// BN columns (112 or 128) with two consumer warpgroups of 64 rows each and
-// a loader warpgroup.  The loader fills a ring of TF3_STAGES stages of K =
+// BN columns (80, 112 or 128) with two consumer warpgroups of 64 rows each
+// and a loader warpgroup.  The loader fills a ring of TF3_STAGES stages of K =
 // 32 (one 128-byte swizzled row): A_hi, A_lo, B_hi, B_lo, and runs on into
 // the next tile while the consumers run a tile's epilogue (the tail
 // backward's passes have 3 to 11 stages a tile; as one block a tile, each
@@ -71,6 +73,9 @@
 // block); a stage of 12 wgmmas from zero, then one round-to-nearest fp32
 // add, keeps the fp32 class.  The second set of accumulators is why BN
 // stops at 128.  The epilogue functor gets the summed fragment (TcTile).
+// A stage that K cuts short (the tail's K = 256 + 73 = 329: 9 of its 11th
+// stage's 32) issues only the k8 steps that hold data.  BN is 80, 112 or
+// 128 (80: the tail's 73 output columns).
 // Tunables: WGM_BN, WGM_STAGES (wgmma_gemm); TF3_STAGES (gemm_tf32x3).
 
 #pragma once
@@ -322,21 +327,21 @@ constexpr int F32_BM = 128, F32_BN = 128, F32_BK = 8, F32_THREADS = 256, F32_MIN
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// A's element (m, k) from a stored matrix of T: row-major (m, k), or with
-// A_T its (K x M) transpose, rows of ld elements.  gemm_f32's A operand is
-// any functor `a(m, k, seg)` (seg: the block's row segment).
-template <bool A_T, typename T>
+// A's element (m, k) from a stored row-major matrix of T, rows of ld
+// elements.  gemm_f32's A operand is any functor `a(m, k, seg)` (seg: the
+// block's row segment).
+template <typename T>
 struct F32Matrix {
   const T* p;
   long long ld;
   __device__ __forceinline__ float operator()(long long m, long long k, int) const {
-    return to_float(__ldg(A_T ? p + k * ld + m : p + m * ld + k));
+    return to_float(__ldg(p + m * ld + k));
   }
   // elements (m, k .. k + 3), k a multiple of 4 (gemm_tf32x3's loader): one
   // 16-byte load where the rows are 16-byte aligned fp32 rows; `finish`
   // turns a quad into A's values (here: as it is)
   __device__ __forceinline__ float4 quad(long long m, long long k, int seg) const {
-    if constexpr (!A_T && std::is_same<T, float>::value) {
+    if constexpr (std::is_same<T, float>::value) {
       if ((ld & 3) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0)
         return __ldg(reinterpret_cast<const float4*>(p + m * ld + k));
     }
@@ -391,15 +396,15 @@ struct F32Store {
   }
 };
 
-// epi(A @ B) with A (M x K) given by the functor `a` and B (K x N, ldb;
-// B_T: its (N x K) transpose) of TB.  The rows fall into segments of
-// seg_rows each (samples); a block's tile never crosses a segment's end,
-// so an epilogue can reduce over a tile of one sample.  A_T chooses
+// epi(A @ B) with A (M x K) given by the functor `a` and B (K x N, ldb) of
+// TB.  The rows fall into segments of seg_rows each (samples); a block's
+// tile never crosses a segment's end, so an epilogue can reduce over a
+// tile of one sample.  A_T chooses
 // the threads' load pattern (k fastest, or m fastest, for a transposed
 // A).  blockIdx.x walks (row tile, column tile), columns fastest, so the
 // blocks of one row tile run side by side and share its rows in L2; split
 // z of blockIdx.z takes K range [z k_split, (z + 1) k_split).
-template <bool A_T, bool B_T, class ALoad, typename TB, class Epi>
+template <bool A_T, class ALoad, typename TB, class Epi>
 __global__ void __launch_bounds__(F32_THREADS, F32_MINB)
     gemm_f32(ALoad a_of, const TB* __restrict__ B, long long ldb, int N, long long K,
              long long k_split, int seg_rows, int seg_tiles, int n_tiles, Epi epi) {
@@ -416,10 +421,10 @@ __global__ void __launch_bounds__(F32_THREADS, F32_MINB)
   const int n0 = (int)(blockIdx.x % n_tiles) * F32_BN;
   const long long kb = (long long)blockIdx.z * k_split;
   const long long ke = kb + k_split < K ? kb + k_split : K;
-  // this thread's 4 values of each slab: (m or n, 4 consecutive k) where K
-  // is the stored rows' contiguous extent, else (k, 4 consecutive m or n)
+  // this thread's 4 values of each slab: A's (m, 4 consecutive k), or with
+  // A_T (k, 4 consecutive m); B's (k, 4 consecutive n)
   const int a_i = A_T ? tid / 32 : tid / 2, a_j = A_T ? (tid % 32) * 4 : (tid % 2) * 4;
-  const int b_i = B_T ? tid / 2 : tid / 32, b_j = B_T ? (tid % 2) * 4 : (tid % 32) * 4;
+  const int b_i = tid / 32, b_j = (tid % 32) * 4;
   float ra[4], rb[4];
   auto load = [&](long long k0) {
 #pragma unroll
@@ -431,13 +436,9 @@ __global__ void __launch_bounds__(F32_THREADS, F32_MINB)
         const long long kk = k0 + a_i;
         ra[j] = (kk < ke && a_j + j < rows) ? a_of(m0 + a_j + j, kk, seg) : 0.f;
       }
-      if (!B_T) {
-        const long long kk = k0 + b_i;
-        rb[j] = (kk < ke && n0 + b_j + j < N) ? to_float(B[kk * ldb + n0 + b_j + j]) : 0.f;
-      } else {
-        const long long kk = k0 + b_j + j;
-        rb[j] = (n0 + b_i < N && kk < ke) ? to_float(B[(long long)(n0 + b_i) * ldb + kk]) : 0.f;
-      }
+      const long long kb_row = k0 + b_i;
+      rb[j] = (kb_row < ke && n0 + b_j + j < N) ? to_float(B[kb_row * ldb + n0 + b_j + j])
+                                                : 0.f;
     }
   };
   auto store = [&](int buf) {
@@ -445,8 +446,7 @@ __global__ void __launch_bounds__(F32_THREADS, F32_MINB)
     for (int j = 0; j < 4; ++j) {
       if (!A_T) as[buf][a_j + j][a_i] = ra[j];
       else as[buf][a_i][a_j + j] = ra[j];
-      if (!B_T) bs[buf][b_i][b_j + j] = rb[j];
-      else bs[buf][b_j + j][b_i] = rb[j];
+      bs[buf][b_i][b_j + j] = rb[j];
     }
   };
   float acc[8][8];
@@ -486,7 +486,7 @@ __global__ void __launch_bounds__(F32_THREADS, F32_MINB)
 
 // Launches gemm_f32 over m = segments * seg_rows rows (seg_rows 0: one
 // segment of m rows), m < 2^31.  Returns a CUDA error code.
-template <bool A_T, bool B_T, class ALoad, typename TB, class Epi>
+template <bool A_T, class ALoad, typename TB, class Epi>
 int gemm_f32_run(const ALoad& a, const TB* b, long long ldb, long long m, int n, long long k,
                  int splits, long long seg_rows, const Epi& epi, cudaStream_t stream) {
   if (seg_rows == 0) seg_rows = m;
@@ -499,22 +499,21 @@ int gemm_f32_run(const ALoad& a, const TB* b, long long ldb, long long m, int n,
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const long long k_split = (k + splits - 1) / splits;
   dim3 grid((unsigned)blocks, 1, splits);
-  gemm_f32<A_T, B_T, ALoad, TB, Epi><<<grid, F32_THREADS, 0, stream>>>(
+  gemm_f32<A_T, ALoad, TB, Epi><<<grid, F32_THREADS, 0, stream>>>(
       a, b, ldb, n, k, k_split, (int)seg_rows, (int)seg_tiles, n_tiles, epi);
   return (int)cudaGetLastError();
 }
 
 // C (M x N, leading dimension ldc) = A (M x K) @ B (K x N), each row m then
-// multiplied by row_scale[m] (fp32 or bf16, rs_bf16) when given.  A_T: A
-// is stored as its (K x M) transpose; B_T: B as its (N x K) transpose; lda,
-// ldb are the stored rows' lengths.  Split z takes K range [z k_split, (z +
-// 1) k_split) and writes C + z * M * ldc.
-template <bool A_T, bool B_T, typename TA, typename TB>
+// multiplied by row_scale[m] (fp32 or bf16, rs_bf16) when given; lda, ldb
+// are the stored rows' lengths.  Split z takes K range [z k_split, (z + 1)
+// k_split) and writes C + z * M * ldc.
+template <typename TA, typename TB>
 int gemm_f32_launch(const TA* a, long long lda, const TB* b, long long ldb, float* c,
                     long long ldc, int m, int n, long long k, int splits, const void* row_scale,
                     int rs_bf16, cudaStream_t stream) {
-  return gemm_f32_run<A_T, B_T>(F32Matrix<A_T, TA>{a, lda}, b, ldb, m, n, k, splits, 0,
-                                F32Store{c, ldc, m, n, row_scale, rs_bf16}, stream);
+  return gemm_f32_run<false>(F32Matrix<TA>{a, lda}, b, ldb, m, n, k, splits, 0,
+                             F32Store{c, ldc, m, n, row_scale, rs_bf16}, stream);
 }
 
 
@@ -536,7 +535,7 @@ constexpr int TF3_LOADER_REGS = 136, TF3_CONSUMER_REGS = 184;
 
 template <int BN>
 struct Tf3Ring {
-  static_assert(BN == 112 || BN == 128, "BN is 112 or 128");
+  static_assert(BN == 80 || BN == 112 || BN == 128, "BN is 80, 112 or 128");
   static constexpr int B_BYTES = BN * TF3_BK * 4;  // each of B_hi and B_lo
   static constexpr int SLOT = 2 * TF3_A_BYTES + 2 * B_BYTES;
   static constexpr int STAGES =
@@ -591,12 +590,14 @@ struct Tf3Grid {
 };
 
 // The loader warpgroup: for each stage of each of the block's tiles, the A
-// functor's values of the tile's rows (zeros past the segment's end and
-// past K), split into hi and lo and stored K-major in the swizzle, and B's
-// hi and lo boxes by TMA.  Thread t fills 16-byte chunk t % 8 of rows t / 8
-// + 16 j, j < 8; the next stage's raw quads (the next tile's first, at a
-// tile's end) are loaded before this one's are finished and stored (a
-// quad that K cuts is the functor's finished scalars).
+// functor's values of the tile's rows (zeros past K), split into hi and lo
+// and stored K-major in the swizzle, and B's hi and lo boxes by TMA.
+// Thread t fills 16-byte chunk t % 8 of rows t / 8 + 16 j, j < 8; the next
+// stage's raw quads (the next tile's first, at a tile's end) are loaded
+// before this one's are finished and stored (a quad that K cuts is the
+// functor's finished scalars).  Rows past the segment's end are loaded as
+// zeros and finished with the others (an affine makes them nonzero): no
+// epilogue stores or sums a row past the tile's end.
 template <int BN, class ALoad>
 __device__ __forceinline__ void tf3_load(char* smem, uint64_t* full, uint64_t* empty,
                                          const CUtensorMap* bh_map, const CUtensorMap* bl_map,
@@ -651,10 +652,16 @@ __device__ __forceinline__ void tf3_load(char* smem, uint64_t* full, uint64_t* e
       tma_load_2d(sb + 2 * TF3_A_BYTES + R::B_BYTES, bl_map, full + slot, kk, cur_t.n0);
     }
     const int k = kk + 4 * c;
+    // the thread's 8 quads finished together, under one condition: the
+    // functor's loads for this k (MlpInput's affine) are then made once a
+    // stage, not once a row
+    if (k + 3 < cur_t.ke) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cur[j] = a_of.finish(cur[j], k, cur_t.seg);
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float4 x = k + 3 < cur_t.ke && r0 + 16 * j < cur_t.rows
-                           ? a_of.finish(cur[j], k, cur_t.seg) : cur[j];
+      const float4 x = cur[j];
       const float4 hi = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
       const float4 lo = make_float4(tf32_rna(x.x - hi.x), tf32_rna(x.y - hi.y),
                                     tf32_rna(x.z - hi.z), tf32_rna(x.w - hi.w));
@@ -673,13 +680,31 @@ __device__ __forceinline__ void tf3_load(char* smem, uint64_t* full, uint64_t* e
   }
 }
 
+// A stage's wgmmas for warpgroup g: lo.hi and hi.lo of its first NKS k8
+// steps (k8 = 32 bytes, as bf16's k16), then their hi.hi, into `part`,
+// the first overwriting it
+template <int BN, int NKS>
+__device__ __forceinline__ void tf3_stage(float (&part)[BN / 2], char* sb, int g) {
+  using R = Tf3Ring<BN>;
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      char* a = sb + g * 8192 + ks * 32 + (pass == 0 ? TF3_A_BYTES : 0);
+      char* b = sb + 2 * TF3_A_BYTES + ks * 32 + (pass == 1 ? R::B_BYTES : 0);
+      wgmma_tf32<BN>(part, wgmma_desc(a, 16, 1024), wgmma_desc(b, 16, 1024),
+                     pass + ks > 0 ? 1 : 0);
+    }
+}
+
 // The consumer warpgroups, for each of the block's tiles: warpgroup g owns
 // rows [64 g, 64 g + 64) of the tile; three wgmmas per k8 step into `part`,
-// which each stage starts afresh, the small terms first; once they are
-// done, the stage is released and `part` added to `acc` (fp32, round to
-// nearest); then the epilogue on `acc`, while the loader fills the ring
-// with the next tile's stages.  While one warpgroup adds, the other's
-// wgmmas keep the tensor cores busy.
+// which each stage starts afresh, the small terms first (a stage that K
+// cuts short: only its k8 steps with data); once they are done, the stage
+// is released and `part` added to `acc` (fp32, round to nearest); then the
+// epilogue on `acc`, while the loader fills the ring with the next tile's
+// stages.  While one warpgroup adds, the other's wgmmas keep the tensor
+// cores busy.
 template <int BN, class Epi>
 __device__ __forceinline__ void tf3_consume(char* smem, uint64_t* full, uint64_t* empty,
                                             const Tf3Grid& grid, const Epi& epi) {
@@ -698,17 +723,11 @@ __device__ __forceinline__ void tf3_consume(char* smem, uint64_t* full, uint64_t
       mbar_wait(full + slot, (gs / R::STAGES) & 1);
       wgmma_fence();
       fence_operand(part);
-      // the small terms first: lo.hi and hi.lo of the stage's four k8
-      // steps (k8 = 32 bytes, as bf16's k16), then its hi.hi
-#pragma unroll
-      for (int pass = 0; pass < 3; ++pass)
-#pragma unroll
-        for (int ks = 0; ks < TF3_BK / 8; ++ks) {
-          char* a = sb + g * 8192 + ks * 32 + (pass == 0 ? TF3_A_BYTES : 0);
-          char* b = sb + 2 * TF3_A_BYTES + ks * 32 + (pass == 1 ? R::B_BYTES : 0);
-          wgmma_tf32<BN>(part, wgmma_desc(a, 16, 1024), wgmma_desc(b, 16, 1024),
-                         pass + ks > 0 ? 1 : 0);  // the stage's first overwrites
-        }
+      const int nks = (tl.ke - tl.kb - s * TF3_BK + 7) / 8;  // k8 steps with data
+      if (nks >= 4) tf3_stage<BN, 4>(part, sb, g);
+      else if (nks == 3) tf3_stage<BN, 3>(part, sb, g);
+      else if (nks == 2) tf3_stage<BN, 2>(part, sb, g);
+      else tf3_stage<BN, 1>(part, sb, g);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(part);
@@ -796,6 +815,57 @@ int gemm_tf32x3_run(const ALoad& a, const float* b_hi, const float* b_lo, long l
                      (int)count};
   gemm_tf32x3<BN, ALoad, Epi><<<(unsigned)min(count, (long long)sms), TF3_THREADS, R::SMEM,
                                 stream>>>(maps[0], maps[1], a, grid, epi);
+  return (int)cudaGetLastError();
+}
+
+// The plain epilogue of gemm_tf32x3: acc to c + z m ldc (split z's partial
+// product), rows of ldc floats, columns n0 .. < n; a fragment's column pair
+// as one 8-byte store where ldc is even
+struct TcStore {
+  float* c;
+  long long ldc, m;
+  int n;
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
+    float* out = c + (long long)t.z * m * ldc;
+    const bool pair = ldc % 2 == 0 && reinterpret_cast<uintptr_t>(c) % 8 == 0;
+#pragma unroll
+    for (int v = 0; v < NV; v += 2) {
+      const long long r = t.m0 + t.row(v);
+      const int col = t.n0 + t.col(v);
+      if (r >= t.m_end || col >= n) continue;
+      float* p = out + r * ldc + col;
+      if (pair && col + 1 < n) {
+        *reinterpret_cast<float2*>(p) = make_float2(acc[v], acc[v + 1]);
+      } else {
+        p[0] = acc[v];
+        if (col + 1 < n) p[1] = acc[v + 1];
+      }
+    }
+  }
+};
+
+// The hi and lo halves (2, rows, ld) of a row-major fp32 matrix (rows x
+// cols), each row zero-padded to ld floats: a gemm_tf32x3 B operand made
+// on the card, for a weight that changes between calls (the GCN
+// backward's W, which the optimizer updates in place)
+__global__ void tf32_split_rows(const float* __restrict__ src, int rows, int cols, int ld,
+                                float* __restrict__ dst) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = (long long)rows * ld;
+  if (i >= total) return;
+  const int c = (int)(i % ld);
+  const float x = c < cols ? src[i / ld * cols + c] : 0.f;
+  const float hi = tf32_rna(x);
+  dst[i] = hi;
+  dst[total + i] = tf32_rna(x - hi);
+}
+
+inline int tf32_split_rows_launch(const float* src, int rows, int cols, int ld, float* dst,
+                                  cudaStream_t stream) {
+  if (rows < 1 || cols < 1 || ld < cols || ld % 4) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)rows * ld;
+  tf32_split_rows<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(src, rows, cols, ld, dst);
   return (int)cudaGetLastError();
 }
 

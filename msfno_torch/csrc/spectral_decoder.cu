@@ -54,17 +54,24 @@
 // Tunables (tools/kernel_variants.py): DEC_STAGES (ring depth of 32 KB
 // stages beside the 112 KB A tile; at most 3).
 //
-// fp32 operands (the "float32" and "tensorfloat" knobs): spectral_decoder_f32,
-// in true fp32 FMA on the CUDA cores.  The fp32 inverse DFT of
-// dft_synthesis (dft_tiles.cuh:fold_rows, the even/odd fold) writes the
-// unscaled grid field Mt @ hm, fp32, to a (B, H, W, C) scratch; then the
-// decoder MLP of mlp_f32.cuh (two gemm_f32 launches) reads it with a and b
-// as its per-sample input affine, a * (Mt @ hm) + b: a per-channel scale
-// commutes with the DFT, and where the plain version scales hm first the
-// sums differ by rounding only (nothing is rounded to bf16 here).  Bound on
-// the H100: 2.78e11 FLOP (the DFT folded) at 67 TFLOP/s, 4.15 ms; the grid
-// field's round trip (2 x 1.06 GB) and h's are ~0.64 ms each at the HBM
-// rate.
+// fp32 operands (the "float32" and "tensorfloat" knobs): spectral_decoder_f32.
+// The fp32 inverse DFT of dft_synthesis (dft_tiles.cuh:fold_rows, the
+// even/odd fold, fp32 FMA on the CUDA cores) writes a * (Mt @ hm) + b (the
+// affine in its epilogue: a per-channel scale commutes with the DFT, and
+// where the plain version scales hm first the sums differ by rounding
+// only; nothing is rounded to bf16 here) into the first C columns of the
+// first GEMM's rows, fp32, lda = C + S rounded up to 4 floats (332); a
+// small pass copies the skip into the next S and zeros the pad.  Then the
+// decoder MLP of mlp_f32.cuh on the split-precision core (mlp_tf32x3_run:
+// two gemm_tf32x3 launches, fp32-class products as three TF32 tensor-core
+// passes over hi / lo splits, B the prepared halves of W1^T and W2^T)
+// reads those rows by 16-byte loads.  (Read through mlp_f32.cuh's MlpInput
+// instead, the affine and the 73-wide skip in the GEMM's loader, the first
+// GEMM took 4.25 ms on the H100; the skip's copy and this GEMM take 0.37
+// and 2.69, the fold 0.09 more.)  Bound on
+// the H100: 2.78e11 FLOP (the DFT folded) at 165 TFLOP/s (an fp32-class
+// product's least time on this card), 1.69 ms; the rows' round trip (2 x
+// 1.38 GB) and h's (2 x 1.06 GB) are ~0.8 and ~0.64 ms at the HBM rate.
 
 #include "chain_gemm.cuh"
 #include "dft_tiles.cuh"
@@ -365,29 +372,62 @@ extern "C" int spectral_decoder_bf16(const void* const* ptrs, const long long* i
                    : launch_tiles<float>(maps, a, blocks, st);
 }
 
+namespace {
+
+// The fp32 tail's skip (rows, s), fp32 or bf16, into columns [c, lda) of
+// the first GEMM's rows (rows, lda) fp32, zeros past c + s
+__global__ void skip_into_rows(const void* skip, int skip_bf16, long long rows, int c, int s,
+                               int lda, float* __restrict__ xa) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int cols = lda - c;
+  if (i >= rows * cols) return;
+  const long long r = i / cols;
+  const int j = (int)(i % cols);
+  xa[r * lda + c + j] = j < s ? load_act(skip, r * s + j, skip_bf16) : 0.f;
+}
+
+}  // namespace
+
 // The fp32-operand tail.  ptrs and ints begin with the decoder MLP's
-// MlpPtr / MlpInt layouts (mlp_f32.cuh: x is the (B, H*W, c) fp32 grid
-// field scratch that the DFT writes, aff_a / aff_b are a and b, the skip
-// its second input); then ptrs: the fp32 fold operand of
-// dft_synthesis.prepare (at_rows, at_cols), hm (B, H, 2M, c); ints: B, H,
-// W, the modes M, at_rows, at_cols, hm_bf16.
+// MlpPtr / MlpInt layouts (mlp_f32.cuh: x is the (B*H*W, lda) fp32
+// scratch of the first GEMM's rows [a x + b | skip | 0], aff_a / aff_b are
+// a and b, the skip its second input; w1 and w2 are not read); then ptrs:
+// the fp32 fold operand of dft_synthesis.prepare (at_rows, at_cols), hm
+// (B, H, 2M, c), the hi / lo halves of W1^T (2, hidden, k1_pad) and of
+// W2^T (2, c_out, hid_pad); ints: B, H, W, the modes M, at_rows, at_cols,
+// hm_bf16, k1_pad, hid_pad, lda (a multiple of 4, at least c + s).
 extern "C" int spectral_decoder_f32(const void* const* ptrs, const long long* ints,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const MlpF32 mlp = mlp_f32_args(ptrs, ints);
   const long long* v = ints + MLP_INTS;
-  const long long bsz = v[0], h = v[1], w = v[2];
+  const long long bsz = v[0], h = v[1], w = v[2], lda = v[9];
   const int m = (int)v[3], at_rows = (int)v[4], at_cols = (int)v[5];
+  const int c = mlp.c_main, s = mlp.c_skip;
   if (bsz < 1 || h < 1 || w < 2 || m < 1 || mlp.x_bf16 || mlp.samples != bsz ||
-      mlp.rps != h * w || !mlp.aff_a)
+      mlp.rps != h * w || !mlp.aff_a || !mlp.aff_b || s < 1 || !mlp.skip || lda < c + s ||
+      lda % 4 || lda > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const void* at = ptrs[MLP_PTRS];
   const void* hm = ptrs[MLP_PTRS + 1];
-  void* x = (void*)mlp.x;
-  int err = v[6] ? fold_launch<false, __nv_bfloat16, float>(at, hm, x, bsz * h, (int)w, m,
-                                                            mlp.c_main, at_rows, at_cols, st)
-                 : fold_launch<false, float, float>(at, hm, x, bsz * h, (int)w, m, mlp.c_main,
-                                                    at_rows, at_cols, st);
+  float* xa = (float*)mlp.x;
+  // 1. a (Mt @ hm) + b into columns [0, c) of the rows: the fold DFT with
+  //    the affine in its epilogue
+  int err = v[6] ? fold_launch<false, __nv_bfloat16, float, true>(
+                       at, hm, xa, bsz * h, (int)w, m, c, at_rows, at_cols, st, lda, mlp.aff_a,
+                       mlp.aff_b, h)
+                 : fold_launch<false, float, float, true>(
+                       at, hm, xa, bsz * h, (int)w, m, c, at_rows, at_cols, st, lda, mlp.aff_a,
+                       mlp.aff_b, h);
   if (err) return err;
-  return mlp_f32_run(mlp, st);
+  // 2. the skip into columns [c, lda)
+  const long long rows = bsz * h * w, n = rows * (lda - c);
+  skip_into_rows<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(mlp.skip, mlp.skip_bf16, rows, c,
+                                                                s, (int)lda, xa);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // 3. the MLP: 16-byte rows of K = lda against W1^T's zero-padded rows
+  return mlp_tf32x3_run(F32Matrix<float>{xa, lda}, (int)lda, mlp,
+                        (const float*)ptrs[MLP_PTRS + 2], v[7],
+                        (const float*)ptrs[MLP_PTRS + 3], v[8], st);
 }

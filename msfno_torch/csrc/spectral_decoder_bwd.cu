@@ -911,7 +911,7 @@ struct GeluT {
 template <class ALoad>
 int weight_grad(const ALoad& a, const float* b, int rows, int cols, long long n_px, int splits,
                 float* part, float* out, cudaStream_t st) {
-  int err = gemm_f32_run<true, false>(a, b, cols, rows, cols, n_px, splits, 0,
+  int err = gemm_f32_run<true>(a, b, cols, rows, cols, n_px, splits, 0,
                                       F32Store{part, cols, rows, cols, nullptr, 0}, st);
   if (err) return err;
   sum_rows<<<(rows * cols + 255) / 256, 256, 0, st>>>(part, splits, rows * cols, out);
@@ -1153,7 +1153,7 @@ extern "C" int spectral_decoder_bwd_f32(const void* const* ptrs, const long long
     if (err) return err;
   }
   // 3. dz1 = (g @ W2^T) * gelu'(z1) over z (W2^T's K-major form is W2)
-  err = gemm_tf32x3_run<128>(F32Matrix<false, float>{g, c_out}, w2k, w2k + w2k_half,
+  err = gemm_tf32x3_run<128>(F32Matrix<float>{g, c_out}, w2k, w2k + w2k_half,
                              c_out_pad, n_px, hidden, c_out, 1, rps, DzStore{z, hidden}, st);
   if (err) return err;
   if (need_w) {  // dW1 = [xa | skip]^T dz1 and db1 = sum dz1, while xg holds x_raw
@@ -1169,7 +1169,7 @@ extern "C" int spectral_decoder_bwd_f32(const void* const* ptrs, const long long
   float* part_da = (float*)ptrs[Q_PART_DA];
   float* part_db = (float*)ptrs[Q_PART_DB];
   err = gemm_tf32x3_run<DX_BN>(
-      F32Matrix<false, float>{z, hidden}, w1k, w1k + w1k_half, hidden_pad, n_px, c + s, hidden,
+      F32Matrix<float>{z, hidden}, w1k, w1k + w1k_half, hidden_pad, n_px, c + s, hidden,
       1, rps, DxStore{xg, (float*)ptrs[Q_DSKIP], aff_a, part_da, part_db, c, s, (int)tiles}, st);
   if (err) return err;
   // 5. da, db: each sample's partials in runs, then the runs

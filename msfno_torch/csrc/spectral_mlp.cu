@@ -166,24 +166,6 @@ struct OutF32 {
   }
 };
 
-// the core's plain epilogue (tf32x3_matmul): split z's partial product to
-// c + z m ldc
-struct TcStore {
-  float* c;
-  long long ldc, m;
-  int n;
-  template <int NV>
-  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
-    float* out = c + (long long)t.z * m * ldc;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const long long r = t.m0 + t.row(v);
-      const int col = t.n0 + t.col(v);
-      if (r < t.m_end && col < n) out[r * ldc + col] = acc[v];
-    }
-  }
-};
-
 int check_dims(const int* d, const long long* off, int n_layers, int n_rows) {
   if (n_layers < 1 || n_layers > MAX_LAYERS || n_rows < 1) return (int)cudaErrorInvalidValue;
   for (int l = 0; l <= n_layers; ++l)
@@ -222,7 +204,7 @@ extern "C" int spectral_mlp_f32(const void* xr, const void* xi, const void* w_hi
                                         HiddenF32{next, d[l + 1], slope}, st);
     };
     const int err = l == 0 ? layer(ComplexRows{(const float*)xr, (const float*)xi, d[0]})
-                           : layer(F32Matrix<false, float>{a, k});
+                           : layer(F32Matrix<float>{a, k});
     if (err) return err;
   }
   return 0;
@@ -230,17 +212,18 @@ extern "C" int spectral_mlp_f32(const void* xr, const void* xi, const void* w_hi
 
 // The split-precision core on its own (tests): c (m x n, fp32, rows of ldc)
 // = a (m x k, fp32, rows of lda) @ b, b given as the hi and lo halves of
-// its (n x k) transpose (rows of ldb), on bn-column tiles (112 or 128),
+// its (n x k) transpose (rows of ldb), on bn-column tiles (80, 112 or 128),
 // rows in segments of seg_rows (0: one), K in `splits` ranges whose
 // partial products go to c + z m ldc.
 extern "C" int tf32x3_matmul(const void* a, long long lda, const void* b_hi, const void* b_lo,
                              long long ldb, void* c, long long ldc, int m, int n, int k,
                              long long seg_rows, int splits, int bn, void* stream) {
-  const F32Matrix<false, float> x{(const float*)a, lda};
+  const F32Matrix<float> x{(const float*)a, lda};
   const TcStore out{(float*)c, ldc, m, n};
   const cudaStream_t st = (cudaStream_t)stream;
   const float* hi = (const float*)b_hi;
   const float* lo = (const float*)b_lo;
+  if (bn == 80) return gemm_tf32x3_run<80>(x, hi, lo, ldb, m, n, k, splits, seg_rows, out, st);
   if (bn == 112) return gemm_tf32x3_run<112>(x, hi, lo, ldb, m, n, k, splits, seg_rows, out, st);
   if (bn == 128) return gemm_tf32x3_run<128>(x, hi, lo, ldb, m, n, k, splits, seg_rows, out, st);
   return (int)cudaErrorInvalidValue;

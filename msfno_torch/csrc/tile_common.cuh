@@ -430,11 +430,27 @@ __device__ __forceinline__ float tf32_rna(float x) {
 // d (64 x N fp32, the warpgroup's accumulator fragment, the layout of
 // wgmma_m64n128k16 for q < N / 8) (+)= A (64 x 8 tf32) @ B (8 x N tf32),
 // both K-major in shared memory by descriptor (tf32 wgmma has no
-// transpose), N 112 or 128; scale_d 0 overwrites d
+// transpose), N 80, 112 or 128; scale_d 0 overwrites d
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da, uint64_t db,
                                            int scale_d) {
-  if constexpr (N == 112) {
+  if constexpr (N == 80) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 112) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
@@ -474,7 +490,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da, uint6
         "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
   } else {
-    static_assert(N == 112 || N == 128, "wgmma_tf32: N is 112 or 128");
+    static_assert(N == 80 || N == 112 || N == 128, "wgmma_tf32: N is 80, 112 or 128");
   }
 }
 

@@ -10,11 +10,13 @@ forward y = residual + leaky_relu((box3(x @ W * d) * d + b) * mask, slope):
 
 with dsup, W and x rounded to the matmul operand dtype before the products,
 fp32 accumulation.  The residual's cotangent is g itself (the caller's).
-Bound on the H100 at a 512 -> 512 layer: memory traffic on bf16 operands,
-fp32 FMA operations on fp32 operands (see the kernel source).  The kernel
-walks strips of latitude rows for dsup and splits dW over pixel ranges;
-`dsup_strip_walk`, `dw_split_k` and `gcn_layer_bwd_passes` are plain
-mirrors of that decomposition (tests only).
+On fp32 operands ("float32", "tensorfloat") the kernel's two products are
+fp32-class: three TF32 tensor-core passes over hi / lo splits
+(`tf32x3`).  Bound on the H100 at a 512 -> 512 layer: memory traffic on
+bf16 operands, operations on fp32 operands (see the kernel source).  The
+kernel walks strips of latitude rows for dsup and splits dW over pixel
+ranges; `dsup_strip_walk`, `dw_split_k` and `gcn_layer_bwd_passes` are
+plain mirrors of that decomposition (tests only).
 """
 
 from __future__ import annotations
@@ -26,17 +28,20 @@ import torch
 from msfno_torch.ops.kernels import (check, kernel_operand, library, operand_dtype,
                                      reduce_groups, stream_ptr, tile_stats_reduce)
 from msfno_torch.ops.kernels.gcn_layer import box3
+from msfno_torch.ops.kernels.tf32x3 import K_PAD, matmul_tf32x3
 from msfno_torch.runtime import mxu_round
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
 
 STRIP_ROWS = 8  # latitude rows a block of the dsup pass emits (DS_ROWS, gcn_layer_bwd.cu)
 SEGMENT = 30  # longitudes a block of the dsup pass emits (DS_PIX - 2)
-SPLIT_CHUNK = 64  # the dW split ranges are whole K stages of this many pixels (WGM_BK)
+# the dW split ranges are whole K stages of this many pixels: wgmma_gemm's
+# WGM_BK (bf16 operands), dw_mma's MMA_BK (fp32)
+SPLIT_CHUNK = {False: 64, True: 32}
 # the dW GEMM's output tile: wgmma_gemm's 128 x 256 (bf16 operands), one
 # block an SM, splits x tiles at most the card's 132 SMs, one wave (against
-# two: half the partials to add, the same GEMM time); gemm_f32's 128 x 128
-# (fp32), two blocks an SM, at least two waves
+# two: half the partials to add, the same GEMM time); dw_mma's 128 x 128
+# (fp32), one block an SM, four waves
 _DW_TILE = {False: (128, 256), True: (128, 128)}
 
 
@@ -102,17 +107,18 @@ def dsup_strip_walk(g, y, residual, x, dinv, mask, slope=0.01, mxu_dtype="bfloat
     return dsup, flat(part_db), flat(part_dw)
 
 
-def dw_split_k(x, dsup, splits: int, chunk: int = SPLIT_CHUNK):
+def dw_split_k(x, dsup, splits: int, chunk: int = SPLIT_CHUNK[False], matmul=torch.matmul):
     """Plain mirror of the kernel's dW (tests only): x^T dsup of (n, c_in) and
     (n, F) over `splits` pixel ranges of ceil(n / splits) rounded up to a
     multiple of `chunk` (a range past the end is empty), each an fp32
-    partial, added in order."""
+    partial by `matmul` (fp32 operands: `tf32x3.matmul_tf32x3`), added in
+    order."""
     n = x.shape[0]
     k_split = -(-(-(-n // splits)) // chunk) * chunk
     out = x.new_zeros((x.shape[1], dsup.shape[1]), dtype=torch.float32)
     for z in range(splits):
         xs, ds = x[z * k_split:(z + 1) * k_split], dsup[z * k_split:(z + 1) * k_split]
-        out = out + xs.float().t() @ ds.float()
+        out = out + matmul(xs.float().t(), ds.float())
     return out
 
 
@@ -131,22 +137,23 @@ def gcn_layer_bwd_passes(g, y, residual, x, w, dinv, mask, slope=0.01, mxu_dtype
                          strip=STRIP_ROWS, segment=SEGMENT, splits=None):
     """Plain mirror of the kernel's passes (tests only): `dsup_strip_walk`,
     dx = dsup W^T, dW by `dw_split_k` (c_in == 1: the per-row-segment
-    partials), the partials added in `tile_stats_reduce`'s order.  Returns
-    (dx, dw, db) as `gcn_layer_bwd`."""
+    partials), the partials added in `tile_stats_reduce`'s order; on fp32
+    operands (c_in > 1) both products are the split-precision product
+    (`tf32x3.matmul_tf32x3`).  Returns (dx, dw, db) as `gcn_layer_bwd`."""
     c_in, f = w.shape
     dsup, part_db, part_dw = dsup_strip_walk(g, y, residual, x, dinv, mask, slope, mxu_dtype,
                                              strip, segment)
     db = tile_stats_reduce(part_db[None])[0]
     wr = mxu_round(w, mxu_dtype).float()
-    dx = dsup @ wr.t()
     if c_in == 1:
-        return dx, tile_stats_reduce(part_dw[None]), db
+        return dsup @ wr.t(), tile_stats_reduce(part_dw[None]), db
     n, f32_ops = dsup.numel() // f, operand_dtype(mxu_dtype) == torch.float32
+    matmul = matmul_tf32x3 if f32_ops else torch.matmul
     if splits is None:
         splits = dw_splits(n, c_in, f, f32_ops)
     xr = mxu_round(x, mxu_dtype).float().reshape(n, c_in)
-    # fp32 operands: the FMA GEMM splits K into ranges of ceil(n / splits)
-    return dx, dw_split_k(xr, dsup.reshape(n, f), splits, 1 if f32_ops else SPLIT_CHUNK), db
+    dx = matmul(dsup.reshape(n, f), wr.t()).reshape(*dsup.shape[:3], c_in)
+    return dx, dw_split_k(xr, dsup.reshape(n, f), splits, SPLIT_CHUNK[f32_ops], matmul), db
 
 
 def gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope: float = 0.01,
@@ -154,9 +161,11 @@ def gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope: float = 0.01,
     """Input, weight and bias gradients of `gcn_layer` (the JAX
     `_gcn_layer_bwd_call` contract).  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel or raises.  Without `need_dx` the kernel
-    skips dx and returns None for it.  `prepared` is an optional cached bf16
-    copy of w (c_in > 1) in the operand dtype: bf16, or fp32 for the
-    "float32" and "tensorfloat" knobs."""
+    skips dx and returns None for it.  `prepared` is an optional cached copy
+    of w (c_in > 1) in the operand dtype: bf16, or fp32 for the "float32"
+    and "tensorfloat" knobs.  On fp32 operands the kernel splits w into hi /
+    lo halves on every call, into a scratch of that call: w is a trained
+    weight, updated in place between steps."""
     if g.device.type == "cpu":
         return gcn_layer_bwd_reference(g, y, residual, x, w, dinv, mask, slope, mxu_dtype)
     if g.device.type != "cuda":
@@ -183,6 +192,10 @@ def gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope: float = 0.01,
     mk = mask.to(dk.dtype).contiguous()
     op_dtype = torch.float32 if f32_ops else torch.bfloat16
     if c_in > 1:
+        if prepared is not None and (prepared.shape != (c_in, f) or prepared.dtype != op_dtype
+                                     or not prepared.is_contiguous()):
+            raise ValueError(f"gcn_layer_bwd: prepared w {tuple(prepared.shape)} "
+                             f"{prepared.dtype} is not a contiguous ({c_in}, {f}) {op_dtype}")
         xk, x_bf16 = x.to(op_dtype).contiguous(), int(not f32_ops)
         wk = prepared if prepared is not None else w.to(op_dtype).contiguous()
     else:
@@ -208,13 +221,17 @@ def gcn_layer_bwd(g, y, residual, x, w, dinv, mask, slope: float = 0.01,
                                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                                   ctypes.c_void_p]
     lib.gcn_layer_bwd.restype = ctypes.c_int
-    ptrs = (ctypes.c_void_p * 15)(*[
+    # fp32 operands: the hi / lo halves of w, rows padded (dx's K-major B)
+    f_pad = -(-f // K_PAD) * K_PAD
+    w_x3 = (torch.empty((2, c_in, f_pad), device=dev) if f32_ops and c_in > 1 and need_dx
+            else None)
+    ptrs = (ctypes.c_void_p * 16)(*[
         t.data_ptr() if t is not None else None
         for t in (gk, yk, rk, xk, wk, dk, mk, dx, dw, db, dsup, part_db, part_dw, grp[0],
-                  grp[-1])
+                  grp[-1], w_x3)
     ])
-    ints = (ctypes.c_longlong * 11)(bsz, h, wd, c_in, f, act_bf16, x_bf16, d_bf16, splits,
-                                    int(f32_ops), groups)
+    ints = (ctypes.c_longlong * 12)(bsz, h, wd, c_in, f, act_bf16, x_bf16, d_bf16, splits,
+                                    int(f32_ops), groups, f_pad)
     status = lib.gcn_layer_bwd(ptrs, ints, slope, stream_ptr(g))
     check(status, "gcn_layer_bwd")
     global LAUNCHES

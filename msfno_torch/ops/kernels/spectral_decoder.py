@@ -16,10 +16,11 @@ affine per (sample, channel): a per-channel affine commutes with the DFT.
 The grid field is never stored: the kernel chains three GEMMs per tile of
 128 longitudes of a row (see its source); `decoder_tiles` is a plain
 mirror of that chain (tests only).  On fp32 operands ("float32",
-"tensorfloat") the kernel runs in true fp32 FMA: the fp32 inverse DFT of
-`dft_synthesis` (the even/odd fold) writes the unscaled field Mt @ hm, and
-the decoder MLP of csrc/mlp_f32.cuh reads it with (a, b) as its input
-affine; `decoder_f32_passes` is its plain mirror.  Bound on the H100 at
+"tensorfloat") the fp32 inverse DFT of `dft_synthesis` (the even/odd fold)
+writes a * (Mt @ hm) + b beside a copy of the skip, and the decoder MLP of
+csrc/mlp_f32.cuh reads those rows, its two products fp32-class: three TF32
+tensor-core passes over hi / lo splits (`tf32x3`); `decoder_f32_passes` is
+its plain mirror.  Bound on the H100 at
 the serving shapes: operations (see the kernel source).  Its gradient is the
 `spectral_decoder_bwd` kernel (JAX `_bwd`, spectral_decoder.py:412-438),
 on bf16 and on fp32 operands: dhm, dskip, da, db and the weight
@@ -39,7 +40,7 @@ from msfno_torch.ops.kernels.dft_analysis import FOLD_K, FOLD_TILE, _ceil, align
 from msfno_torch.ops.kernels.grid_encoder_spectral import (
     DFT_ROW_MULTIPLE, TILE_ROWS, _dft_operand, pad_dft_matrix)
 from msfno_torch.ops.kernels.grid_mlp import grid_mlp_reference, prepare_weights
-from msfno_torch.ops.kernels.tf32x3 import kmajor_split
+from msfno_torch.ops.kernels.tf32x3 import kmajor_split, matmul_tf32x3
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -103,14 +104,20 @@ def _transposed_pair(mt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def decoder_f32_passes(hm, skip, mt, a, b, w1, b1, w2, b2=None, out_dtype=None):
     """Plain mirror of the fp32-operand kernel (tests only): the folded
     inverse DFT of the unscaled hm (`dft_synthesis.dft_synthesis_folded`),
-    then the decoder MLP with (a, b) as its per-sample input affine, all in
-    fp32.  Same returns as `spectral_decoder`."""
+    then the decoder MLP with (a, b) as its per-sample input affine, in
+    fp32, its two products the split-precision product
+    (`tf32x3.matmul_tf32x3`).  Same returns as `spectral_decoder`."""
     bsz, h, two_m, c = hm.shape
     w = mt.shape[0]
     x = dft_synthesis.dft_synthesis_folded(hm.float(), *_synthesis_pair(mt.float()))
-    return grid_mlp_reference(x.reshape(bsz, h, w, c), w1, b1, w2, b2, skip=skip,
-                              mxu_dtype="float32", out_dtype=out_dtype or "float32",
-                              affine=(a.float(), b.float()))
+    xin = torch.cat([x.reshape(bsz, h * w, c) * a.float()[:, None] + b.float()[:, None],
+                     skip.float().reshape(bsz, h * w, -1)], dim=-1)
+    hid = torch.nn.functional.gelu(matmul_tf32x3(xin, w1.float()) + b1.float(),
+                                   approximate="none")
+    y = matmul_tf32x3(hid, w2.float())
+    if b2 is not None:
+        y = y + b2.float()
+    return y.reshape(bsz, h, w, -1).to(torch_dtype(out_dtype or "float32"))
 
 
 def spectral_grid_stats(hm: torch.Tensor, omega: torch.Tensor):
@@ -139,15 +146,18 @@ def prepare(w1, w2, mt, c_main: int, mxu_dtype="bfloat16"):
     the fp32 weights and the fold's half matrices of
     `dft_synthesis.prepare` for the forward, and for the backward's dhm
     those of `dft_analysis.prepare` of the transposed product (~0.75 MB
-    each at the serving widths); then the backward's split-precision B
-    operands (`tf32x3.kmajor_split`: hi and lo, K-major, rows zero-padded):
-    W1^T (hidden x (C + S)) for z1, W2 (hidden x C_out) for dz1 = g W2^T
-    and W1 ((C + S) x hidden) for [dxa | dskip] = dz1 W1^T (~1.5 MB)."""
+    each at the serving widths); then the split-precision B operands
+    (`tf32x3.kmajor_split`: hi and lo, K-major, rows zero-padded): W1^T
+    (hidden x (C + S)) for the forward's first product and the backward's
+    z1, W2 (hidden x C_out) for dz1 = g W2^T, W1 ((C + S) x hidden) for
+    [dxa | dskip] = dz1 W1^T and W2^T (C_out x hidden) for the forward's
+    second product (~1.6 MB)."""
     if operand_dtype(mxu_dtype) == torch.float32:
         w1p, w2p = prepare_weights(w1, w2, c_main, mxu_dtype)
         return (w1p, w2p, dft_synthesis.prepare(*_synthesis_pair(mt), mxu_dtype),
                 dft_analysis.prepare(*_transposed_pair(mt), mxu_dtype),
-                kmajor_split(w1p), kmajor_split(w2p.t()), kmajor_split(w1p.t()))
+                kmajor_split(w1p), kmajor_split(w2p.t()), kmajor_split(w1p.t()),
+                kmajor_split(w2p))
     w1p, w2p = prepare_weights(w1, w2, c_main)
     return (w1p, w2p, pad_dft_matrix(mt), w1p.t().contiguous(), w2p.t().contiguous(),
             _dft_operand(mt))
@@ -219,7 +229,8 @@ def _forward(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype, prepared)
     if od not in (torch.float32, torch.bfloat16):
         raise ValueError(f"spectral_decoder: unsupported out dtype {od}")
     if f32:
-        return _forward_f32(hm, skip, a, b, w1p, b1, w2p, b2, mtp, od, w)
+        return _forward_f32(hm, skip, a, b, w1p, b1, w2p, b2, mtp, prepared[4], prepared[7],
+                            od, w)
     hmf, hm_bf16 = kernel_operand(hm)
     skf, skip_bf16 = kernel_operand(skip)
     af, bf = a.float().contiguous(), b.float().contiguous()
@@ -252,25 +263,33 @@ def _forward(hm, skip, mt, a, b, w1, b1, w2, b2, mxu_dtype, out_dtype, prepared)
     return out
 
 
-def _forward_f32(hm, skip, a, b, w1p, b1, w2p, b2, at, od, w):
-    """The fp32-operand kernel: the folded inverse DFT of hm into an fp32
-    grid-field scratch, then the decoder MLP with (a, b) as its input
-    affine (csrc/spectral_decoder.cu)."""
+def _forward_f32(hm, skip, a, b, w1p, b1, w2p, b2, at, w1t_x3, w2t_x3, od, w):
+    """The fp32-operand kernel: the folded inverse DFT of hm with (a, b)
+    applied, and the skip, into the rows of the MLP's first product, then
+    the decoder MLP on the split-precision core, B the prepared hi / lo
+    halves of W1^T and W2^T (csrc/spectral_decoder.cu)."""
     bsz, h, two_m, c = hm.shape
-    c_out = w2p.shape[1]
+    hidden, c_out = w2p.shape
+    if (w1t_x3.shape[:2] != (2, hidden) or w1t_x3.shape[2] < w1p.shape[0]
+            or w2t_x3.shape[:2] != (2, c_out) or w2t_x3.shape[2] < hidden
+            or w1t_x3.dtype != torch.float32 or w2t_x3.dtype != torch.float32):
+        raise ValueError("spectral_decoder: prepared split weights do not match the MLP")
     lib = library("spectral_decoder")
     check_operand("spectral_decoder", lib, at,
                   (_ceil(two_m // 2, FOLD_K), 2 * FOLD_TILE * -(-(w // 2 + 1) // FOLD_TILE)),
                   bf16_ops=0)
     hmf, hm_bf16 = kernel_operand(hm)
     hmf = aligned(hmf)
-    xg = torch.empty((bsz * h * w, c), device=hm.device)  # the grid field Mt @ hm
+    # the first product's rows [a (Mt @ hm) + b | skip | 0], 16-byte multiples
+    lda = -(-w1p.shape[0] // 4) * 4
+    xa = torch.empty((bsz * h * w, lda), device=hm.device)
     out = torch.empty((bsz, h, w, c_out), dtype=od, device=hm.device)
     affine = (a.float().contiguous(), b.float().contiguous())
-    ptrs, ints, _keep, _ = mlp_f32.mlp_args(xg, w1p, b1, w2p, b2, skip=skip, affine=affine,
-                                            out=out, samples=bsz)
-    ptrs += [at.data_ptr(), hmf.data_ptr()]
-    ints += [bsz, h, w, two_m // 2, at.shape[0], at.shape[1], hm_bf16]
+    ptrs, ints, _keep, _ = mlp_f32.mlp_args(xa[:, :c], w1p, b1, w2p, b2, skip=skip,
+                                            affine=affine, out=out, samples=bsz)
+    ptrs += [at.data_ptr(), hmf.data_ptr(), w1t_x3.data_ptr(), w2t_x3.data_ptr()]
+    ints += [bsz, h, w, two_m // 2, at.shape[0], at.shape[1], hm_bf16, w1t_x3.shape[2],
+             w2t_x3.shape[2], lda]
     mlp_f32.launch("spectral_decoder", "spectral_decoder_f32", ptrs, ints, stream_ptr(hm))
     global LAUNCHES
     LAUNCHES += 1

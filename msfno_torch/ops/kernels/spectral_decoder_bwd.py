@@ -302,7 +302,7 @@ def _bwd_f32(g, hm, skip, a, b, b1, b2, prepared, need_weights):
     `spectral_decoder_bwd_f32`): its passes through an fp32 grid-field
     scratch and an fp32 hidden scratch, then the folded forward DFT; the
     MLP's products read the prepared hi / lo K-major weights."""
-    w1p, w2p, at_syn, at_ana, w1t_x3, w2_x3, w1_x3 = prepared
+    w1p, w2p, at_syn, at_ana, w1t_x3, w2_x3, w1_x3 = prepared[:7]
     bsz, h, two_m, c = hm.shape
     wd, s = skip.shape[-2], skip.shape[-1]
     hidden, c_out = w2p.shape

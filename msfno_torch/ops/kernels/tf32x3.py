@@ -64,7 +64,7 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, bn: int = 128, seg_rows: int
                   splits: int = 1) -> torch.Tensor:
     """a (m, k) @ b (k, n) on the split-precision core alone (tests): on a
     CUDA tensor one launch of `tf32x3_matmul` (csrc/spectral_mlp.cu) on
-    bn-column tiles (112 or 128), its rows in segments of seg_rows (0:
+    bn-column tiles (80, 112 or 128), its rows in segments of seg_rows (0:
     one), K in `splits` ranges; returns the partial products (splits, m, n).
     On a CPU tensor the plain mirror, (1, m, n)."""
     if a.device.type == "cpu":

@@ -126,6 +126,57 @@ def test_dw_split_ranges():
     assert tb.dw_splits(180 * 360, 1, 512, False) == 1
 
 
+def test_dw_split_ranges_fp32():
+    """fp32 operands: dW's split ranges are whole 32-pixel stages of the
+    split-precision core (gemm_tf32x3_mn's K), as many splits as make four
+    128 x 128 tiles per SM at the 512 -> 512 layer, and the partials of the
+    split product add up to the product within the fp32 class."""
+    from msfno_torch.ops.kernels.tf32x3 import matmul_tf32x3
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((200, 40)).astype(np.float32))
+    d = torch.from_numpy(rng.standard_normal((200, 24)).astype(np.float32))
+    want = x.double().t() @ d.double()
+    for splits in (1, 3, 7):  # 7 splits of 32 pixels: the last one is empty
+        got = tb.dw_split_k(x, d, splits, tb.SPLIT_CHUNK[True], matmul_tf32x3)
+        assert rel_l2(got, want) <= 1e-6
+    assert tb.dw_splits(180 * 360, 512, 512, True) == 33
+    assert tb.dw_splits(180 * 360, 1, 512, True) == 1
+
+
+# fp32 operands on the split product: C_in and F not multiples of the
+# core's 128-wide tiles (40 x 24; 136 x 144: a full and a ragged tile each
+# way), dW over several pixel ranges (3, 5)
+SPLIT_CASES = [((1, 7, 15, 40, 24), True, 3), ((2, 4, 17, 136, 144), False, 5)]
+
+
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("shape,residual,splits", SPLIT_CASES)
+def test_fp32_split_product_passes_match_jax_kernel(shape, residual, splits, mxu):
+    """The fp32 kernel's algebra at ragged widths: `gcn_layer_bwd_passes`
+    with dx = dsup W^T and dW = x^T dsup as the split-precision product
+    (`tf32x3.matmul_tf32x3`, dW in `splits` ranges of whole 32-pixel
+    stages) against the Pallas backward (interpret mode) on fp32 operands,
+    every output to 1e-5."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.gcn_layer import _gcn_layer_bwd_call, _pick_tile_h
+
+    ops = _case(*shape, residual, seed=11)
+    j = {k: jnp.asarray(v) if v is not None else None for k, v in ops.items()}
+    ref = _gcn_layer_bwd_call(
+        j["g"], j["y"], j["residual"], j["x"], j["dinv"], j["mask"], j["w"].T,
+        has_residual=residual, slope=0.01, mxu_dtype=mxu, interpret=True,
+        tile_h=_pick_tile_h(shape[1]))
+    t = {k: torch.from_numpy(v) if v is not None else None for k, v in ops.items()}
+    got = tb.gcn_layer_bwd_passes(t["g"], t["y"], t["residual"], t["x"], t["w"], t["dinv"],
+                                  t["mask"], 0.01, mxu, splits=splits)
+    for name, a, b in zip(("dx", "dw", "db"), got, (ref[0], ref[1], np.ravel(ref[2]))):
+        assert a.shape == np.shape(b)
+        assert report(f"gcn_layer_bwd split product[{shape},splits={splits},{mxu}] {name}",
+                      rel_l2(a, b)) <= 1e-5
+
+
 @pytest.mark.parametrize("shape,residual", SHAPES)
 def test_function_matches_jax_grad(shape, residual):
     """The autograd Function (plain backward on the CPU) against jax.grad of
@@ -183,9 +234,9 @@ def test_kernel_matches_plain(cuda, shape, residual):
 @pytest.mark.parametrize("c_in", [1, 512])
 @pytest.mark.parametrize("residual", [False, True])
 def test_fp32_kernel_matches_plain(cuda, c_in, residual):
-    """fp32 operands: dsup is not rounded, dx and dW are fp32 FMA GEMMs (dW
-    split over pixel ranges, added in a fixed order); every output within
-    1e-5 of the plain version."""
+    """fp32 operands: dsup is not rounded, dx and dW are split-precision
+    TF32 GEMMs (dW split over pixel ranges, added in a fixed order); every
+    output within 1e-5 of the true-fp32 plain version."""
     from msfno_torch.runtime import exact_fp32_matmuls
 
     exact_fp32_matmuls()
@@ -201,3 +252,71 @@ def test_fp32_kernel_matches_plain(cuda, c_in, residual):
     for a, b in zip(k, p):
         assert a.shape == b.shape and a.dtype == torch.float32
         assert rel_l2(a.cpu(), b.cpu()) <= 1e-5
+
+
+def _fp32_args(cuda, shape, residual, seed):
+    ops = _case(*shape, residual, seed=seed)
+    t = {k: torch.from_numpy(v).to(cuda) if v is not None else None for k, v in ops.items()}
+    return (t["g"], t["y"], t["residual"], t["x"], t["w"], t["dinv"], t["mask"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("shape,residual", [((1, 7, 16, 42, 24), True),
+                                            ((2, 9, 40, 136, 144), False),
+                                            ((1, 20, 360, 200, 512), True)])
+def test_fp32_kernel_ragged_sizes(cuda, shape, residual, mxu):
+    """fp32 operands at widths that are not multiples of the split-precision
+    core's 128-wide tiles (C_in 42: x's rows are not 16-byte multiples and
+    are read by scalar loads), dW in the shape's own split count: every
+    output within 1e-5 of the plain version, one launch."""
+    from msfno_torch.runtime import exact_fp32_matmuls
+
+    exact_fp32_matmuls()
+    args = _fp32_args(cuda, shape, residual, 8)
+    before = tb.LAUNCHES
+    with torch.inference_mode():
+        k = tb.gcn_layer_bwd(*args, mxu_dtype=mxu)
+        torch.cuda.synchronize()
+        p = tb.gcn_layer_bwd_reference(*args, mxu_dtype="float32")
+    assert tb.LAUNCHES == before + 1
+    for name, a, b in zip(("dx", "dw", "db"), k, p):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert rel_l2(a.cpu(), b.cpu()) <= 1e-5, name
+
+
+@pytest.mark.cuda
+def test_fp32_backward_follows_weight_update(cuda):
+    """W is split into its hi / lo halves on every call: after an in-place
+    update of W (as the optimizer makes), given as `w` or as `prepared`,
+    dx follows the new W, not a stale split."""
+    from msfno_torch.runtime import exact_fp32_matmuls
+
+    exact_fp32_matmuls()
+    g, y, res, x, w, dinv, mask = _fp32_args(cuda, (1, 9, 40, 64, 64), True, 9)
+    with torch.inference_mode():
+        for step in range(3):
+            for prepared in (None, w):
+                dx, dw, db = tb.gcn_layer_bwd(g, y, res, x, w, dinv, mask, mxu_dtype="float32",
+                                              prepared=prepared)
+                want = tb.gcn_layer_bwd_reference(g, y, res, x, w, dinv, mask,
+                                                  mxu_dtype="float32")
+                assert rel_l2(dx.cpu(), want[0].cpu()) <= 1e-5, (step, prepared is None)
+            w.mul_(-1.5).add_(0.25)  # in place: same storage, new values
+
+
+@pytest.mark.cuda
+def test_fp32_bad_operands_raise(cuda):
+    """A wrong-shape weight or prepared weight raises before any launch,
+    and nothing falls back to the plain version."""
+    g, y, res, x, w, dinv, mask = _fp32_args(cuda, (1, 7, 16, 16, 16), True, 10)
+    before = tb.LAUNCHES
+    with pytest.raises(ValueError):
+        tb.gcn_layer_bwd(g, y, res, x, w[:, :8], dinv, mask, mxu_dtype="float32")
+    with pytest.raises(ValueError):
+        tb.gcn_layer_bwd(g, y, res, x, w, dinv, mask, mxu_dtype="float32",
+                         prepared=w.t().contiguous()[:, :8])
+    with pytest.raises(ValueError):
+        tb.gcn_layer_bwd(g, y, res, x, w, dinv, mask, mxu_dtype="float32",
+                         prepared=w.to(torch.bfloat16))
+    assert tb.LAUNCHES == before

@@ -200,6 +200,23 @@ def test_fp32_passes_mirror_matches_jax_kernel(b2, mxu):
     assert report(f"spectral_decoder fp32 passes[b2={b2}, {mxu}]", rel_l2(yt, yj)) <= 1e-5
 
 
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+def test_fp32_split_product_mirror_odd_widths_matches_jax(mxu):
+    """The fp32 kernel's two products on the split-precision product
+    (`decoder_f32_passes`: [a x + b | skip] W1 and h W2 by
+    `tf32x3.matmul_tf32x3`) at the serving step's odd widths, a 73-wide skip
+    and 73 output columns (K = C + 73 not a multiple of the core's 32-wide
+    stages, N = 73 of an 80-column tile), W = 160, B = 2, against the
+    Pallas kernel (interpret mode) on fp32 operands, to 1e-5."""
+    jnp, jk = _jax()
+    ops = _case(seed=15, b=2, h=2, w=160, mmax=20, c=32, s=73, hidden=48, c_out=73)
+    yj = _call(jk.spectral_decoder, ops, jnp.asarray, mxu_dtype=mxu, interpret=True)
+    yt = _call(tk.decoder_f32_passes, ops, torch.from_numpy)
+    assert yt.shape == yj.shape == (2, 2, 160, 73) and yt.dtype == torch.float32
+    assert report(f"spectral_decoder fp32 split product, S = C_out = 73[{mxu}]",
+                  rel_l2(yt, yj)) <= 1e-5
+
+
 def test_tensorfloat_is_float32_on_cpu():
     ops = _case(seed=6)
     a = _call(tk.spectral_decoder, ops, torch.from_numpy, mxu_dtype="tensorfloat")
@@ -211,8 +228,8 @@ def test_prepare_fp32():
     """fp32 operands: the MLP's weights as they are, the fold operand of
     dft_synthesis for the (Ci, Si) pair of Mt and, for the backward's dhm,
     the fold operand of dft_analysis for Mt's cos columns and its negated
-    sin columns; then the backward's split-precision B operands (W1^T, W2,
-    W1 as `tf32x3.kmajor_split` lays them out); a bf16 pack is refused."""
+    sin columns; then the split-precision B operands (W1^T, W2, W1 and W2^T
+    as `tf32x3.kmajor_split` lays them out); a bf16 pack is refused."""
     from msfno_torch.ops.kernels import check_prepared
     from msfno_torch.ops.kernels import dft_analysis as ak
     from msfno_torch.ops.kernels import dft_synthesis as sk
@@ -220,7 +237,7 @@ def test_prepare_fp32():
 
     t = {k: torch.from_numpy(v) for k, v in _case().items()}
     prepared = tk.prepare(t["w1"], t["w2"], t["mt"], 8, "float32")
-    w1p, w2p, at, at_bwd, w1t_x3, w2_x3, w1_x3 = prepared
+    w1p, w2p, at, at_bwd, w1t_x3, w2_x3, w1_x3, w2t_x3 = prepared
     m = t["mt"].shape[1] // 2
     assert torch.equal(w1p, t["w1"]) and torch.equal(w2p, t["w2"])
     assert torch.equal(at, sk.prepare(t["mt"][:, :m].t(), -t["mt"][:, m:].t(), "float32"))
@@ -228,6 +245,7 @@ def test_prepare_fp32():
     assert torch.equal(w1t_x3, kmajor_split(t["w1"]))
     assert torch.equal(w2_x3, kmajor_split(t["w2"].t()))
     assert torch.equal(w1_x3, kmajor_split(t["w1"].t()))
+    assert torch.equal(w2t_x3, kmajor_split(t["w2"]))
     check_prepared("spectral_decoder", prepared, "tensorfloat")
     with pytest.raises(ValueError):
         check_prepared("spectral_decoder", tk.prepare(t["w1"], t["w2"], t["mt"], 8)[:3],
@@ -246,8 +264,10 @@ def test_prepare_fp32():
      "bfloat16"),
 ])
 def test_fp32_kernel_matches_plain(cuda, shape, hm_dtype, out, mxu):
-    # true fp32 FMA on both sides: the sums' order only (the card folds the
-    # DFT and scales after it); a bf16 output rounds the same fp32 value
+    # the kernel's split-precision products (about 21 of fp32's 24
+    # significand bits) against the true-fp32 plain version, and the sums'
+    # order (the card folds the DFT and scales after it); a bf16 output
+    # rounds the same fp32 value
     ops = _case(seed=7, **shape)
     args = [None if ops[k] is None else torch.from_numpy(ops[k]).to(cuda) for k in NAMES]
     args[0] = args[0].to(getattr(torch, hm_dtype))
@@ -282,3 +302,27 @@ def test_fp32_backward_launches_kernel(cuda, mxu):
     gp = torch.autograd.grad(yp.sum(), list(leaves.values()))
     for n, a, b in zip(leaves, gk, gp):
         assert rel_l2(a.cpu(), b.cpu()) <= 1e-5, n
+
+
+@pytest.mark.cuda
+def test_fp32_bad_prepared_raises(cuda):
+    """The fp32 tail's prepared split weights: a wrong shape raises before
+    the launch, a misaligned one (not a 16-byte TMA operand) makes the
+    kernel refuse it and the wrapper raise; nothing falls back to the
+    plain version or to another product."""
+    ops = _case(seed=8, c=16, hidden=16)
+    args = [None if ops[k] is None else torch.from_numpy(ops[k]).to(cuda) for k in NAMES]
+    prepared = tk.prepare(args[5], args[7], args[2], 16, "float32")
+    w2t_x3 = prepared[7]
+    wrong = (*prepared[:7], w2t_x3[:, :, :8].contiguous())
+    shifted = torch.empty(w2t_x3.numel() + 1, device=cuda)[1:].view(w2t_x3.shape)
+    shifted.copy_(w2t_x3)
+    misaligned = (*prepared[:7], shifted)
+    before = tk.LAUNCHES
+    with torch.inference_mode():
+        with pytest.raises(ValueError):
+            tk.spectral_decoder(*args, mxu_dtype="float32", prepared=wrong)
+        with pytest.raises(RuntimeError):
+            tk.spectral_decoder(*args, mxu_dtype="float32", prepared=misaligned)
+            torch.cuda.synchronize()
+    assert tk.LAUNCHES == before

@@ -224,6 +224,8 @@ def test_fp32_kernel_matches_plain(cuda, n_rows, c, hidden, mxu):
     (300, 256, 329, 128, 150, 1),    # two segments of 150 rows, K = 329
     (2000, 512, 1024, 128, 0, 1),    # K = 1024: the spectral_mlp block's deepest
     (257, 130, 200, 128, 0, 3),      # K in three ranges of whole stages
+    (1000, 73, 256, 80, 0, 1),       # the tail's second product: N = 73 on 80-column tiles
+    (500, 96, 329, 80, 0, 1),        # two 80-column tiles; K = 329's short last stage
 ])
 def test_tf32x3_core_matches_fp64(cuda, m, n, k, bn, seg_rows, splits):
     """The split-precision core alone (`tf32x3.tf32x3_matmul`, csrc/row_gemm.cuh:

@@ -110,16 +110,17 @@ def test_kmajor_split_layout(k, n):
 def test_prepared_decoder_operands_zero_padded():
     """The tail's fp32 prepare at the serving widths (C 256, S 73, hidden
     256, C_out 73): W1^T as (2, 256, 336), W2 as (2, 256, 80), W1 as (2, 329,
-    256), pads zero, the halves those of the weights."""
+    256), W2^T as (2, 73, 256), pads zero, the halves those of the
+    weights."""
     from msfno_torch.ops.sht import InverseRealSHT
 
     rng = np.random.default_rng(5)
     w1 = torch.from_numpy((0.05 * rng.standard_normal((329, 256))).astype(np.float32))
     w2 = torch.from_numpy((0.06 * rng.standard_normal((256, 73))).astype(np.float32))
     mt = torch.as_tensor(np.asarray(InverseRealSHT(4, 32, lmax=4, mmax=5).merged_matrix_t))
-    w1t_x3, w2_x3, w1_x3 = tk.prepare(w1, w2, mt, 256, "float32")[4:]
+    w1t_x3, w2_x3, w1_x3, w2t_x3 = tk.prepare(w1, w2, mt, 256, "float32")[4:]
     for got, w, shape in ((w1t_x3, w1, (2, 256, 336)), (w2_x3, w2.t(), (2, 256, 80)),
-                          (w1_x3, w1.t(), (2, 329, 256))):
+                          (w1_x3, w1.t(), (2, 329, 256)), (w2t_x3, w2, (2, 73, 256))):
         assert got.shape == shape
         k = w.shape[0]
         assert not got[:, :, k:].any()

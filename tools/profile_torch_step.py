@@ -19,9 +19,10 @@ and power limit.
 
 --tier fp32: the same for the fp32-kernel tier (`fp32_kernel_config()`,
 the JAX exact tier with every kernel on fp32 operands), fused and unfused.
-Its grid_mlp, head and tail share the fp32 MLP's GEMM kernels
+Its grid_mlp and head share the fp32 MLP's gemm_f32 kernels
 (csrc/mlp_f32.cuh), so their device time is reported together as
-"fp32_mlp"; the folded DFT passes by direction, "dft_fold_analysis" (the
+"fp32_mlp" (the tail's MLP, on gemm_tf32x3, counts as spectral_decoder's);
+the folded DFT passes by direction, "dft_fold_analysis" (the
 head's DFT, and in a train step the tail backward's dhm) and
 "dft_fold_synthesis" (the tail's inverse DFT, and in a train step the tail
 backward's recompute of it).
@@ -86,10 +87,12 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
     # the tail's t pre-pass and tile kernel, the tail backward's pre-pass,
     # tile kernel and transposed DFT (the DIRECT analysis_wgmma, fp32 dhm);
     # on fp32 operands, spectral_mlp's gemm_tf32x3 layers, the fp32 MLP's
-    # two gemm_f32 launches that grid_mlp, the head and the tail share
-    # ("fp32_mlp"), the tail backward's three gemm_tf32x3 passes (z1, dz1,
-    # [dxa | dskip]; gcn_layer_bwd's fp32 GEMMs are the gemm_f32 ones with
-    # the plain F32Store epilogue); the folded DFT passes, whose kernels the head, the
+    # two gemm_f32 launches that grid_mlp and the head share ("fp32_mlp"),
+    # the tail's skip copy and two gemm_tf32x3 launches (HiddenGelu,
+    # OutStore; its fold counts under dft_fold_synthesis), the tail
+    # backward's three gemm_tf32x3 passes (z1, dz1, [dxa | dskip]),
+    # gcn_layer_bwd's W split, dx (gemm_tf32x3 with the plain TcStore) and
+    # dW (dw_mma); the folded DFT passes, whose kernels the head, the
     # tail and the tail's backward share, by direction ("dft_fold_*"); the
     # partials' reduces that several kernels share (tile_reduce,
     # stats_reduce: a few us a call) count under none.  The keys are regular
@@ -104,12 +107,14 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
                    "dft_fold_synthesis": (ns + "fold_rows<false",),
                    "grid_encoder_spectral": (ns + "enc_mlp<",
                                              direct + re.escape("__nv_bfloat16, 0, true>")),
-                   "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16"),
+                   "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16",
+                                        ns + "skip_into_rows", ns + "HiddenGelu>",
+                                        ns + "OutStore>"),
                    "gcn_layer": (ns + "gcn_stencil", ns + "TEpi,",
-                                 ns + "gemm_f32<false, false.*F32Store>"),
+                                 ns + "gemm_f32<false, .*F32Store>"),
                    "gcn_layer_bwd": (ns + "gcn_bwd_", ns + "StoreEpi,", ns + "sum_rows",
-                                     ns + "gemm_f32<false, true.*F32Store>",
-                                     ns + "gemm_f32<true, false.*F32Store>"),
+                                     ns + "tf32_split_rows", ns + "dw_mma<",
+                                     ns + "gemm_tf32x3<128, .*TcStore>"),
                    "spectral_decoder_bwd": ("decoder_bwd_", "hm_to_bf16",
                                             direct + re.escape("float, 0, true>"),
                                             ns + "Z1Store>", ns + "DzStore>", ns + "DxStore>"),
