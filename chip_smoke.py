@@ -77,11 +77,12 @@ Phases (any failure raises, and the script exits non-zero):
      spectral_mlp_bwd launches per train step with 0 (14 / 2 / 0 with 1),
      the median ms per train step and the peak memory.
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
-operands of that tier (sites "*/fp32") to 1e-5; at the tail's and the GCN
-backward's fp32 sites it records the CUDA kernels one call launches
-(`route`, by torch.profiler in a child process: `chip_smoke.py --routes`)
-and fails if the fp32 FMA GEMM (`gemm_f32`) is among them or the
-split-precision one is not.  Bounds count the products
+operands of that tier (sites "*/fp32") to 1e-5; at the fp32 sites of the
+GCN layer and its backward, the head and the tail it records the CUDA
+kernels one call launches (`route`, by torch.profiler in a child process:
+`chip_smoke.py --routes`) and fails if the fp32 FMA GEMM (`gemm_f32`) is
+among them or the split-precision one is not (and, at grid_mlp's inner
+fp32 site, the reverse).  Bounds count the products
 of matrix products on fp32 operands at 495 / 3 TFLOP/s, three TF32
 tensor-core passes (their least time on this card: `PEAK_OPS_PER_S`), and
 elementwise fp32 work at 67 TFLOP/s.
@@ -167,7 +168,8 @@ def log(*args):
 # the split-precision core's epilogue and A functors, as ptxas' mangled
 # names spell them
 TF3_PARTS = ("ComplexRows", "F32Matrix", "MlpInput", "HiddenF32", "OutF32", "TcStore",
-             "Z1Store", "DzStore", "DxStore", "HiddenGelu", "OutStore")
+             "Z1Store", "DzStore", "DxStore", "HiddenGelu", "OutStore", "OutStats", "TScale",
+             "EncRows")
 
 
 def ptxas_tf32x3(logs: dict) -> dict:
@@ -775,21 +777,31 @@ def kernel_checks(dev):
 
 # phase 3's route checks: (kernel, site) -> (a CUDA kernel that one
 # main-path call must launch, one that it must not): on fp32 operands conv1
-# (c_in = 1) has no product, the other GCN layers' dx and dW and the tail's
-# MLP run on the split-precision core, none on the fp32 FMA GEMM
-ROUTES = {("gcn_layer_bwd", "conv1/fp32"): ("gcn_bwd_dsup", "gemm_f32"),
+# (c_in = 1) has no product; the other GCN layers' forward GEMM pass, their
+# backward's dx and dW, the head's and the tail's MLPs run on the
+# split-precision core, none on the fp32 FMA GEMM; grid_mlp's fp32 MLP is
+# still on the fp32 FMA GEMM
+ROUTES = {("gcn_layer", "conv/fp32"): ("gemm_tf32x3", "gemm_f32"),
+          ("gcn_layer_bwd", "conv1/fp32"): ("gcn_bwd_dsup", "gemm_f32"),
           ("gcn_layer_bwd", "conv/fp32"): ("gemm_tf32x3", "gemm_f32"),
-          ("spectral_decoder", "tail/fp32"): ("gemm_tf32x3", "gemm_f32")}
+          ("grid_encoder_spectral", "head/fp32"): ("gemm_tf32x3", "gemm_f32"),
+          ("spectral_decoder", "tail/fp32"): ("gemm_tf32x3", "gemm_f32"),
+          ("grid_mlp", "inner/fp32"): ("gemm_f32", "gemm_tf32x3")}
 
 
 def route_calls(dev) -> dict:
     """One main-path call of each ROUTES site, at a few latitude rows (the
-    kernels a call launches do not depend on the row count): gcn_layer_bwd
-    on fp32 operands at conv1 (no dx, as the path asks) and 512 -> 512, the
-    tail on fp32 operands at 1440 longitudes, 256 + 73 -> 256 -> 73."""
+    kernels a call launches do not depend on the row count): gcn_layer and
+    gcn_layer_bwd on fp32 operands at 512 -> 512 and the backward at conv1
+    (no dx, as the path asks), the head and the tail on fp32 operands at
+    1440 longitudes (73 -> 256 -> 256 + pe + statistics; 256 + 73 -> 256 ->
+    73), grid_mlp's inner MLP on fp32 operands (256 -> 512 -> 256)."""
     import torch
 
+    from msfno_torch.ops.kernels import gcn_layer as gk
     from msfno_torch.ops.kernels import gcn_layer_bwd as gb
+    from msfno_torch.ops.kernels import grid_encoder_spectral as ek
+    from msfno_torch.ops.kernels import grid_mlp as mk
     from msfno_torch.ops.kernels import spectral_decoder as dk
 
     rn, g = _randn(dev, 9)
@@ -803,6 +815,22 @@ def route_calls(dev) -> dict:
         calls[("gcn_layer_bwd", site)] = (
             lambda gy=gy, y=y, res=res, x=x, wt=wt, c_in=c_in: gb.gcn_layer_bwd(
                 gy, y, res, x, wt, dinv, mask, mxu_dtype="float32", need_dx=c_in > 1))
+        if c_in > 1:
+            b = rn(512, scale=0.1)
+            calls[("gcn_layer", site)] = lambda x=x, wt=wt, b=b, res=res: gk.gcn_layer(
+                x, wt, b, dinv, mask, residual=res, mxu_dtype="float32")
+    cs = _serving_transforms()[0]._const("merged", dev)
+    xe, pe = rn(1, 4, cs.shape[0], 73), rn(4, cs.shape[0], 256, scale=0.02)
+    w1e, b1e, w2e = rn(73, 256, scale=0.1), rn(256, scale=0.1), rn(256, 256, scale=0.06)
+    prep_e = ek.prepare(w1e, w2e, cs, "float32")
+    calls[("grid_encoder_spectral", "head/fp32")] = lambda: ek.grid_encoder_spectral(
+        xe, w1e, b1e, w2e, pe, cs, "float32", "float32", prepared=prep_e)
+    xi = rn(1, 16, 240, 256)
+    w1i, b1i = rn(256, 512, scale=0.06), rn(512, scale=0.1)
+    w2i, b2i = rn(512, 256, scale=0.04), rn(256, scale=0.1)
+    prep_i = mk.prepare_weights(w1i, w2i, 256, "float32")
+    calls[("grid_mlp", "inner/fp32")] = lambda: mk.grid_mlp(
+        xi, w1i, b1i, w2i, b2=b2i, mxu_dtype="float32", out_dtype="float32", prepared=prep_i)
     mt = _serving_transforms()[1]._const("merged_t", dev)
     c = 256
     hm, skip = rn(1, 4, mt.shape[1], c, scale=0.05), rn(1, 4, mt.shape[0], 73)

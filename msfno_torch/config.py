@@ -263,8 +263,9 @@ def fp32_kernel_config(**overrides) -> SFNOConfig:
     --pallas-grid-mlp --grid-mlp-mxu-dtype float32` runs it: fp32
     activations, the SHT on fp32, and the spectral_mlp, grid_mlp,
     gcn_layer kernels and the fused head and tail on fp32 operands
-    (fp32-class products: true fp32 FMA, or three TF32 tensor-core passes
-    in spectral_mlp and the tail's backward).
+    (fp32-class products: three TF32 tensor-core passes over hi / lo
+    splits in spectral_mlp, gcn_layer and its backward, the head, the tail
+    and its backward; true fp32 FMA in grid_mlp).
     `fp32_kernel_config(fuse_encoder_dft=False,
     fuse_decoder_tail=False)` is the same tier with the head and tail
     unfused."""

@@ -15,8 +15,9 @@
 // Bound on the H100 at a 512 -> 512 layer, (1, 180, 360): 3.4e10 FLOP.
 // bf16 operands: ~0.2 GB of traffic (x, res, out in bf16, W) -> 0.06 ms at
 // 3.35 TB/s, above the 0.035 ms of bf16 tensor-core work: bytes.  fp32
-// operands (the JAX exact and balanced tiers' generator): true fp32 FMA, no
-// TF32: 0.51 ms at 67 TFLOP/s: operations.
+// operands (the JAX exact, balanced and fp32-kernel tiers' generator): an
+// fp32-class product, whose least time on this card is three TF32
+// tensor-core passes (165 TFLOP/s): 0.21 ms: operations.
 //
 // Design: the TPU kernel walks the latitude rows in grid order and carries
 // the previous tile's rows in VMEM; CUDA blocks run in no order.  The old
@@ -26,9 +27,15 @@
 // dinv goes to an fp32 scratch (133 MB at the generator's shapes, L2- and
 // HBM-resident):
 //   1. GEMM: bf16 operands on the TMA + wgmma GEMM of row_gemm.cuh (F, c_in
-//      multiples of 8), its epilogue scaling each row by dinv; fp32
-//      operands, or bf16 with unaligned widths, on row_gemm.cuh's fp32 FMA
-//      GEMM (bf16 x bf16 products are exact in fp32: the same function).
+//      multiples of 8), its epilogue scaling each row by dinv (bf16 with
+//      other widths on row_gemm.cuh's fp32 FMA GEMM: bf16 x bf16 products
+//      are exact in fp32, the same function).  fp32 operands on the
+//      split-precision core (row_gemm.cuh:gemm_tf32x3: three TF32 wgmma
+//      passes over hi / lo splits), A x's fp32 rows, B the hi / lo halves of
+//      W^T (tf32_split_transposed, into a scratch of the call: W is trained
+//      in place, so no split outlives a call), the epilogue TScale: 0.49 ms
+//      of a 512 -> 512 layer's 0.68 on the H100, against 1.14 in true fp32
+//      FMA on row_gemm.cuh:gemm_f32.
 //   2. Stencil: a block owns one output row and ST_FC features; it sums the
 //      rows above, at and below into shared memory (16-byte loads of t,
 //      each t row read by three blocks, mostly from L2), then applies the
@@ -65,6 +72,31 @@ struct TEpi {
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[i] *= (i % 4) < 2 ? s0 : s1;
     store_acc<float>(d, t, t, INT_MAX, ldt, row0, rows, col0, f, true);
+  }
+};
+
+// the same on the split-precision core (TcTile): t rows scaled by dinv, a
+// fragment's column pair as one 8-byte store (ldt is a multiple of 4)
+struct TScale {
+  float* t;
+  int ldt, f, dm_bf16;
+  const void* dinv;
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& tl) const {
+    float s[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = tl.m0 + tl.row(2 * h);
+      s[h] = m < tl.m_end ? load_act(dinv, m, dm_bf16) : 0.f;
+    }
+#pragma unroll
+    for (int v = 0; v < NV; v += 2) {
+      const long long m = tl.m0 + tl.row(v);
+      const int n = tl.n0 + tl.col(v);
+      if (m >= tl.m_end || n >= f) continue;
+      const float sc = s[(v >> 1) & 1];
+      *reinterpret_cast<float2*>(t + m * ldt + n) = make_float2(acc[v] * sc, acc[v + 1] * sc);
+    }
   }
 };
 
@@ -193,15 +225,18 @@ __global__ void __launch_bounds__(ST_THREADS) gcn_stencil(StencilArgs a) {
 // operands (f32_ops); w: (c_in, F) bf16 or fp32 (f32_ops) for c_in > 1,
 // (F) fp32 for c_in == 1; bias fp32 (F); dinv, mask: (B, H, W) in fp32 or
 // bf16 (dm_bf16); res may be null; t: fp32 scratch (B*H*W, ldt), ldt >= F
-// a multiple of 4 (unused for c_in == 1).  W must be at least 3 and at
-// most 400.
+// a multiple of 4 (unused for c_in == 1); w_x3: with fp32 operands and c_in
+// > 1, an fp32 scratch (2, F, c_in_pad) for W^T's hi / lo halves, c_in_pad
+// >= c_in a multiple of 4.  W must be at least 3 and at most 400.
 extern "C" int gcn_layer(const void* x, const void* w, const void* bias, const void* dinv,
-                         const void* mask, const void* res, void* out, void* t, int batch,
-                         int h, int wd, int c_in, int f, int ldt, int x_bf16, int dm_bf16,
-                         int res_bf16, int out_bf16, int f32_ops, float slope, void* stream) {
+                         const void* mask, const void* res, void* out, void* t, void* w_x3,
+                         int batch, int h, int wd, int c_in, int f, int ldt, int c_in_pad,
+                         int x_bf16, int dm_bf16, int res_bf16, int out_bf16, int f32_ops,
+                         float slope, void* stream) {
   if (batch < 1 || batch > 65535 || h < 1 || h > 65535 || wd < 3 || wd > MAX_WIDTH ||
       c_in < 1 || f < 1 || (c_in > 1 && (ldt < f || ldt % 4 || t == nullptr)) ||
-      (c_in > 1 && x_bf16 == f32_ops))
+      (c_in > 1 && x_bf16 == f32_ops) ||
+      (c_in > 1 && f32_ops && (w_x3 == nullptr || c_in_pad < c_in || c_in_pad % 4)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const long long n_px = (long long)batch * h * wd;
@@ -210,9 +245,13 @@ extern "C" int gcn_layer(const void* x, const void* w, const void* bias, const v
   if (c_in > 1) {
     float* tk = (float*)t;
     using bf = __nv_bfloat16;
-    if (f32_ops) {
-      err = gemm_f32_launch((const float*)x, c_in, (const float*)w, f, tk, ldt,
-                                          (int)n_px, f, c_in, 1, dinv, dm_bf16, st);
+    if (f32_ops) {  // t (n_px x F) = x (n_px x c_in) @ W: B's (N x K) is W^T
+      float* wx = (float*)w_x3;
+      err = tf32_split_transposed_launch((const float*)w, c_in, f, c_in_pad, wx, st);
+      if (!err)
+        err = gemm_tf32x3_run<128>(F32Matrix<float>{(const float*)x, c_in}, wx,
+                                   wx + (long long)f * c_in_pad, c_in_pad, n_px, f, c_in, 1, 0,
+                                   TScale{tk, ldt, f, dm_bf16, dinv}, st);
     } else if (c_in % 8 == 0 && f % 8 == 0) {
       err = wgmma_gemm_launch(x, c_in, w, f, (int)n_px, f, c_in,
                               TEpi{tk, ldt, f, dm_bf16, dinv}, st);
@@ -242,4 +281,12 @@ extern "C" int gcn_layer(const void* x, const void* w, const void* bias, const v
   }
   gcn_stencil<<<dim3((f + ST_FC - 1) / ST_FC, h, batch), ST_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The hi / lo halves (2, F, c_in_pad) of W^T that the fp32 GEMM pass makes
+// on every call (tf32_split_transposed), alone: w (c_in, F) fp32 (tests).
+extern "C" int gcn_layer_split_w(const void* w, int c_in, int f, int c_in_pad, void* w_x3,
+                                 void* stream) {
+  return tf32_split_transposed_launch((const float*)w, c_in, f, c_in_pad, (float*)w_x3,
+                                      (cudaStream_t)stream);
 }

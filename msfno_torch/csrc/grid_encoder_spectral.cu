@@ -57,15 +57,21 @@
 // ENC_DFT_STAGES (ring depth of pass 2; 0 fills 192 KB).
 //
 // fp32 operands (the "float32" and "tensorfloat" knobs):
-// grid_encoder_spectral_f32, in true fp32 FMA on the CUDA cores, nothing
-// rounded before f.  Also two passes: the encoder MLP of mlp_f32.cuh (two
-// gemm_f32 launches, h through device memory, pe and the statistics' tile
-// partials in the second GEMM's epilogue, then the fixed-order reduces)
-// writes fp32 y, and the fp32 forward DFT of dft_analysis
-// (dft_tiles.cuh:fold_rows, the even/odd fold: half the dense
-// multiply-adds) reads it.  Bound on the H100: 2.39e11 FLOP (the DFT
-// folded) at 67 TFLOP/s, 3.57 ms.  y's round trip, 2 x 1.06 GB, is
-// ~0.64 ms at the HBM rate, and h's the same.
+// grid_encoder_spectral_f32, nothing rounded before f.  Also two passes: the
+// encoder MLP of mlp_f32.cuh on the split-precision core (mlp_tf32x3_run
+// with statistics: two gemm_tf32x3 launches, fp32-class products as three
+// TF32 tensor-core passes over hi / lo splits, B the prepared halves of W1^T
+// and W2^T, h through device memory; the first GEMM's A x's rows, the
+// second's epilogue OutStats adding pe and writing the statistics' tile
+// partials; then the fixed-order reduces) writes fp32 y, and the fp32
+// forward DFT of dft_analysis (dft_tiles.cuh:fold_rows, the even/odd fold:
+// half the dense multiply-adds) reads it.  x's 73-wide rows are first
+// copied into rows of 76 (pad_rows): the first GEMM's loader then reads A
+// by 16-byte loads, and took 0.87 ms against 1.90 with four scalar loads a
+// quad on the H100 (the copy: 0.20).  Bound on the H100: 2.39e11 FLOP (the
+// DFT folded) at 165 TFLOP/s (an fp32-class product's least time on this
+// card), 1.45 ms.  y's round trip, 2 x 1.06 GB, is ~0.64 ms at the HBM
+// rate, and h's the same.
 
 #include "chain_gemm.cuh"
 #include "dft_tiles.cuh"
@@ -336,6 +342,10 @@ int launch_enc(int pe, const void* w1, const void* w2, void* y, const EncArgs& a
                         : launch_enc_mlp<IN_T, PE_NONE>(w1, w2, y, a, bsz, stream);
 }
 
+// the first GEMM's A, x's padded rows: F32Matrix under a name of its own,
+// so that a profile tells the head's first GEMM from the tail's
+struct EncRows : F32Matrix<float> {};
+
 enum Ptr { P_X, P_W1, P_B1, P_W2, P_PE, P_CST, P_Y, P_F, P_PART_SUM, P_PART_SQ, P_GRP_SUM,
            P_GRP_SQ, P_SSUM, P_SSQ, N_PTRS };
 enum Int { I_B, I_H, I_W, I_C_IN, I_K1P, I_HIDDEN, I_C, I_TWO_M, I_CST_ROWS, I_CST_COLS,
@@ -408,8 +418,11 @@ extern "C" int grid_encoder_spectral_bf16(const void* const* ptrs, const long lo
 // The fp32-operand head.  ptrs and ints begin with the encoder MLP's
 // MlpPtr / MlpInt layouts (mlp_f32.cuh: out is the (B, H*W, c) fp32 y
 // scratch, with statistics); then ptrs: the fp32 fold operand of
-// dft_analysis.prepare (at_rows, at_cols), f (B, H, 2M, c); ints: B, H, W,
-// the modes M, at_rows, at_cols, f_bf16.
+// dft_analysis.prepare (at_rows, at_cols), f (B, H, 2M, c), the hi / lo
+// halves of W1^T (2, hidden, k1_pad) and of W2^T (2, c, hid_pad), and for
+// fp32 x whose width c_in is no multiple of 4 an fp32 scratch (B*H*W,
+// c_in rounded up to 4) for x's padded rows, else null; ints: B, H, W, the
+// modes M, at_rows, at_cols, f_bf16, k1_pad, hid_pad.
 extern "C" int grid_encoder_spectral_f32(const void* const* ptrs, const long long* ints,
                                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -418,9 +431,23 @@ extern "C" int grid_encoder_spectral_f32(const void* const* ptrs, const long lon
   const long long bsz = v[0], h = v[1], w = v[2];
   const int m = (int)v[3], at_rows = (int)v[4], at_cols = (int)v[5];
   if (bsz < 1 || h < 1 || w < 2 || m < 1 || mlp.out_bf16 || mlp.samples != bsz ||
-      mlp.rps != h * w || !mlp.part_sum)
+      mlp.rps != h * w || !mlp.part_sum || mlp.skip || mlp.aff_a)
     return (int)cudaErrorInvalidValue;
-  int err = mlp_f32_run(mlp, st);
+  int err;
+  float* xp = (float*)ptrs[MLP_PTRS + 4];
+  if (xp) {  // fp32 x of a width that is no multiple of 4: 16-byte rows first
+    if (mlp.x_bf16) return (int)cudaErrorInvalidValue;
+    const int ld = (mlp.c_main + 3) / 4 * 4;
+    err = pad_rows_launch((const float*)mlp.x, mlp.samples * mlp.rps, mlp.c_main, ld, xp, st);
+    if (!err)
+      err = mlp_tf32x3_run<128, true>(EncRows{{xp, ld}}, ld, mlp,
+                                      (const float*)ptrs[MLP_PTRS + 2], v[7],
+                                      (const float*)ptrs[MLP_PTRS + 3], v[8], st);
+  } else {
+    const MlpInput in{mlp.x, nullptr, nullptr, nullptr, mlp.c_main, 0, mlp.x_bf16, 0};
+    err = mlp_tf32x3_run<128, true>(in, mlp.c_main, mlp, (const float*)ptrs[MLP_PTRS + 2],
+                                    v[7], (const float*)ptrs[MLP_PTRS + 3], v[8], st);
+  }
   if (err) return err;
   const void* at = ptrs[MLP_PTRS];
   void* f = (void*)ptrs[MLP_PTRS + 1];

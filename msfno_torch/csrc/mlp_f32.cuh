@@ -8,8 +8,9 @@
 //   out = round(y, out dtype);  optionally per-sample sum(y), sum(y*y)
 //
 // with no rounding of any operand (the JAX kernels' "float32" and
-// "tensorfloat" knobs); mlp_f32_run in true fp32 FMA on the CUDA cores.  x,
-// the skip, pe and the residual are read as stored, fp32 or bf16.
+// "tensorfloat" knobs): mlp_f32_run in true fp32 FMA on the CUDA cores,
+// mlp_tf32x3_run as fp32-class products on the tensor cores.  x, the skip,
+// pe and the residual are read as stored, fp32 or bf16.
 //
 // Bound on the H100: operations, e.g. the encoder site (1,038,240 rows, 73
 // -> 256 -> 256) 1.75e11 FLOP, 1.06 ms at 165 TFLOP/s (an fp32-class
@@ -32,17 +33,19 @@
 // the HBM rate), against an operations bound several times larger; a
 // tile-resident h (the bf16 kernels' chain) is a later redesign.
 //
-// The tail (spectral_decoder.cu) takes a second runner, mlp_tf32x3_run: the
-// same two GEMMs as fp32-class products on row_gemm.cuh:gemm_tf32x3, three
-// TF32 tensor-core passes over hi / lo splits (495 / 3 = 165 TFLOP/s, the
-// least time of an fp32-class product on the H100), B the prepared hi / lo
-// K-major halves of W1^T and W2^T (tf32x3.py:kmajor_split).  The first
-// GEMM's A is the caller's functor (the tail's: [a x + b | skip | 0] rows
-// of 332 fp32, 16-byte loads), its epilogue HiddenGelu writes fp32 h.  The
-// second reads h (F32Matrix) on TAIL_OUT_BN-column tiles (80: the 73
-// output columns) and OutStore adds b2.  The tail passes no pe, residual
-// or statistics, and this runner takes none.  The head and grid_mlp keep
-// mlp_f32_run.
+// The second runner, mlp_tf32x3_run: the same two GEMMs as fp32-class
+// products on row_gemm.cuh:gemm_tf32x3, three TF32 tensor-core passes over
+// hi / lo splits (495 / 3 = 165 TFLOP/s, the least time of an fp32-class
+// product on the H100), B the prepared hi / lo K-major halves of W1^T and
+// W2^T (tf32x3.py:kmajor_split).  The first GEMM's A is the caller's functor
+// (the head's: x's 73-wide rows copied into rows of 76 by pad_rows; the
+// tail's: [a x + b | skip | 0] rows of 332; both read by 16-byte loads), its
+// epilogue HiddenGelu writes fp32 h.  The second reads h (F32Matrix).  Without statistics
+// (the tail) on OUT_BN-column tiles (80: the 73 output columns) and
+// OutStore adds b2; with them (the head) on 128-column tiles, and
+// OutStats adds pe and writes fp32 y and the statistics' tile partials, in
+// the layout of MlpOut, for the same reduces.  Both GEMMs' row segments are
+// the samples.  No residual.  grid_mlp keeps mlp_f32_run.
 
 #pragma once
 
@@ -107,6 +110,29 @@ struct MlpInput {
     return make_float4(r[0], r[1], r[2], r[3]);
   }
 };
+
+// fp32 rows (c wide) into rows of ld floats, ld a multiple of 4 (zeros
+// past c): an A of 16-byte rows for gemm_tf32x3's loader, which reads a
+// quad of a row of another width as four scalar loads.  A thread a quad.
+__global__ void pad_rows(const float* __restrict__ x, int n_quads, int quads, int c,
+                         float4* __restrict__ xp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_quads) return;
+  const int r = i / quads, k = (i - r * quads) * 4;
+  const float* p = x + (long long)r * c + k;
+  xp[i] = make_float4(__ldg(p), k + 1 < c ? __ldg(p + 1) : 0.f, k + 2 < c ? __ldg(p + 2) : 0.f,
+                      k + 3 < c ? __ldg(p + 3) : 0.f);
+}
+
+inline int pad_rows_launch(const float* x, long long rows, int c, int ld, float* xp,
+                           cudaStream_t st) {
+  const long long n = rows * (ld / 4);
+  if (rows < 1 || c < 1 || ld < c || ld % 4 || n > INT_MAX || (uintptr_t)xp % 16)
+    return (int)cudaErrorInvalidValue;
+  pad_rows<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(x, (int)n, ld / 4, c,
+                                                        reinterpret_cast<float4*>(xp));
+  return (int)cudaGetLastError();
+}
 
 // the first GEMM's epilogue: h = gelu(acc + b1), fp32 rows of `hidden`
 struct MlpHidden {
@@ -256,6 +282,116 @@ struct OutStore {
   }
 };
 
+// The head's second GEMM's epilogue on the split-precision core: y = acc
+// [+ pe[row % pe_rows]] (pe fp32 or bf16), fp32 rows of c_out, and the
+// tile's column sums of y and y^2 into part_sum / part_sq
+// (samples, tiles, c_out) as MlpOut writes them: each thread sums its two
+// rows, the warp's 8 row groups add by a fixed butterfly of shuffles, then
+// the 8 warps (16 rows each) in order through TcTile::smem.  No atomics:
+// deterministic.  All of pe's loads go out before the first store of y.
+struct OutStats {
+  const void* pe;
+  float* out;
+  float* part_sum;
+  float* part_sq;
+  long long pe_rows;
+  int c_out, tiles, pe_bf16;
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
+    constexpr int BN = 2 * NV;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    float* sh_s = t.smem;  // (8 warps, BN)
+    float* sh_q = t.smem + 8 * BN;
+    // the tile's pe first, all loads in flight together (loaded between
+    // the stores of y, each would wait for memory in turn)
+    float add[NV];
+#pragma unroll
+    for (int v = 0; v < NV; v += 2) {
+      const long long m = t.m0 + t.row(v);
+      const int n = t.n0 + t.col(v);
+      add[v] = add[v + 1] = 0.f;
+      if (!pe || m >= t.m_end || n >= c_out) continue;
+      const long long pi = (m % pe_rows) * c_out + n;
+      if (!pe_bf16 && n + 1 < c_out && c_out % 2 == 0) {
+        const float2 p = __ldg(reinterpret_cast<const float2*>(
+            static_cast<const float*>(pe) + pi));
+        add[v] = p.x;
+        add[v + 1] = p.y;
+      } else {
+        add[v] = load_act(pe, pi, pe_bf16);
+        if (n + 1 < c_out) add[v + 1] = load_act(pe, pi + 1, pe_bf16);
+      }
+    }
+    t.sync();  // the block's last tile has read sh_s and sh_q
+    float sums[NV];  // of column col(4 (u / 2) + u % 2): y at u < NV / 2, y^2 at NV / 2 + u
+#pragma unroll
+    for (int q = 0; q < NV / 4; ++q) {
+      const int n = t.n0 + t.col(4 * q);  // the pair's first column
+      float* s = sums + 2 * q;
+      float* sq = sums + NV / 2 + 2 * q;
+      s[0] = s[1] = sq[0] = sq[1] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int v = 4 * q + 2 * h;
+        const long long m = t.m0 + t.row(v);
+        if (m >= t.m_end || n >= c_out) continue;
+        const float y0 = acc[v] + add[v], y1 = acc[v + 1] + add[v + 1];
+        const bool two = n + 1 < c_out;
+        float* o = out + m * c_out + n;
+        if (two && c_out % 2 == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
+        } else {
+          o[0] = y0;
+          if (two) o[1] = y1;
+        }
+        s[0] += y0;
+        sq[0] = fmaf(y0, y0, sq[0]);
+        if (two) {
+          s[1] += y1;
+          sq[1] = fmaf(y1, y1, sq[1]);
+        }
+      }
+    }
+    // over the warp's 8 row groups (lane bits 2-4): at each step a lane
+    // keeps one half of its sums, adds the partner's, and sends the other
+    // half, so a lane ends with NV / 8 of the warp's column sums (NV - NV / 8
+    // shuffles, not 3 NV)
+    static_assert(NV % 8 == 0, "three halvings of the thread's sums");
+    float h1[NV / 2], h2[NV / 4], h3[NV / 8];
+    const bool up16 = lane & 16, up8 = lane & 8, up4 = lane & 4;
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i)
+      h1[i] = (up16 ? sums[NV / 2 + i] : sums[i]) +
+              __shfl_xor_sync(0xffffffffu, up16 ? sums[i] : sums[NV / 2 + i], 16);
+#pragma unroll
+    for (int i = 0; i < NV / 4; ++i)
+      h2[i] = (up8 ? h1[NV / 4 + i] : h1[i]) +
+              __shfl_xor_sync(0xffffffffu, up8 ? h1[i] : h1[NV / 4 + i], 8);
+#pragma unroll
+    for (int i = 0; i < NV / 8; ++i)
+      h3[i] = (up4 ? h2[NV / 8 + i] : h2[i]) +
+              __shfl_xor_sync(0xffffffffu, up4 ? h2[i] : h2[NV / 8 + i], 4);
+    const int first = (up16 ? NV / 2 : 0) + (up8 ? NV / 4 : 0) + (up4 ? NV / 8 : 0);
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j) {
+      const int u = (first + j) % (NV / 2);
+      (first + j < NV / 2 ? sh_s : sh_q)[warp * BN + t.col(4 * (u / 2) + u % 2)] = h3[j];
+    }
+    t.sync();
+    const int col = threadIdx.x;
+    if (col < BN && t.n0 + col < c_out) {
+      float ss = 0.f, qq = 0.f;
+      for (int w = 0; w < TF3_CONSUMERS / 32; ++w) {
+        ss += sh_s[w * BN + col];
+        qq += sh_q[w * BN + col];
+      }
+      const long long i = ((long long)t.seg * tiles + t.tile) * c_out + t.n0 + col;
+      part_sum[i] = ss;
+      part_sq[i] = qq;
+    }
+  }
+};
+
 // The MLP's operands.  x, skip, pe, res: fp32 or bf16 (the *_bf16 flags);
 // w1 (c_main + c_skip, hidden) and w2 (hidden, c_out) fp32 row-major; h
 // (samples * rps, hidden) fp32 scratch; part_sum / part_sq (samples, tiles,
@@ -331,6 +467,22 @@ inline MlpF32 mlp_f32_args(const void* const* p, const long long* v) {
   return a;
 }
 
+// The statistics' tile partials (per 128-row tile of a sample), added in
+// runs of tiles, then the runs: a fixed order.  Returns a CUDA error code.
+inline int mlp_stats_reduce(const MlpF32& a, cudaStream_t st) {
+  const long long tiles = (a.rps + F32_BM - 1) / F32_BM;
+  const int per = (int)((tiles + a.groups - 1) / max(a.groups, 1));
+  if (a.groups < 1 || (long long)per * (a.groups - 1) >= tiles) return (int)cudaErrorInvalidValue;
+  dim3 rgrid((a.c_out + 31) / 32, (unsigned)a.samples);
+  tile_reduce<<<dim3(rgrid.x, rgrid.y, a.groups), dim3(32, 8), 0, st>>>(
+      a.part_sum, a.part_sq, (int)tiles, per, a.c_out, a.grp_sum, a.grp_sq);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  stats_reduce<<<rgrid, dim3(32, 8), 0, st>>>(a.grp_sum, a.grp_sq, a.groups, a.c_out, a.ssum,
+                                              a.ssq);
+  return (int)cudaGetLastError();
+}
+
 // The two GEMMs, then the statistics' reduces.  Returns a CUDA error code.
 inline int mlp_f32_run(const MlpF32& a, cudaStream_t st) {
   if (a.samples < 1 || a.rps < 1 || a.c_main < 1 || a.c_skip < 0 || (a.c_skip > 0) != !!a.skip ||
@@ -348,16 +500,7 @@ inline int mlp_f32_run(const MlpF32& a, cudaStream_t st) {
   err = gemm_f32_run<false>(F32Matrix<float>{a.h, a.hidden}, a.w2, a.c_out, rows,
                                    a.c_out, a.hidden, 1, a.rps, out, st);
   if (err || !a.part_sum) return err;
-  // the tiles' partials, added in runs, then the runs
-  const int per = (int)((tiles + a.groups - 1) / max(a.groups, 1));
-  if (a.groups < 1 || (long long)per * (a.groups - 1) >= tiles) return (int)cudaErrorInvalidValue;
-  dim3 rgrid((a.c_out + 31) / 32, (unsigned)a.samples);
-  tile_reduce<<<dim3(rgrid.x, rgrid.y, a.groups), dim3(32, 8), 0, st>>>(
-      a.part_sum, a.part_sq, (int)tiles, per, a.c_out, a.grp_sum, a.grp_sq);
-  if ((err = (int)cudaGetLastError())) return err;
-  stats_reduce<<<rgrid, dim3(32, 8), 0, st>>>(a.grp_sum, a.grp_sq, a.groups, a.c_out, a.ssum,
-                                              a.ssq);
-  return (int)cudaGetLastError();
+  return mlp_stats_reduce(a, st);
 }
 
 #ifndef TAIL_OUT_BN_OVERRIDE
@@ -366,27 +509,41 @@ inline int mlp_f32_run(const MlpF32& a, cudaStream_t st) {
 // the second GEMM's column tile: 80, 112 or 128 (one tile of the tail's 73)
 constexpr int TAIL_OUT_BN = TAIL_OUT_BN_OVERRIDE;
 
-// The tail's MLP on the split-precision core (see the note at the top): the
+// The MLP on the split-precision core (see the note at the top): the
 // first GEMM's A the functor `in` over K = k (zeros in W1^T's pad past its
 // rows), w1_x3 the hi and lo halves (2, hidden, k1_pad) of W1^T, w2_x3
 // those (2, c_out, hid_pad) of W2^T, rows zero-padded to multiples of 4
-// floats; of `a` the hidden width, b1, h, b2 and out.  No pe, residual or
-// statistics.  Returns a CUDA error code.  (A template: the sources that
-// include this header without calling it build none of its kernels.)
-template <int OUT_BN = TAIL_OUT_BN, class ALoad>
+// floats; of `a` the samples and rows a sample, the hidden width, b1, h,
+// out and, without STATS, b2, with STATS pe and the statistics' scratch
+// (part_sum required; out fp32, no b2).  No residual.  Returns a CUDA error
+// code.
+// (A template: the sources that include this header without calling it
+// build none of its kernels.)
+template <int OUT_BN = TAIL_OUT_BN, bool STATS = false, class ALoad>
 int mlp_tf32x3_run(const ALoad& in, int k, const MlpF32& a, const float* w1_x3,
                    long long k1_pad, const float* w2_x3, long long hid_pad, cudaStream_t st) {
   if (a.samples < 1 || a.rps < 1 || k < 1 || a.hidden < 1 || a.c_out < 1 || !w1_x3 || !a.b1 ||
-      !w2_x3 || !a.out || !a.h || a.pe || a.res || a.part_sum || k1_pad < k ||
-      hid_pad < a.hidden)
+      !w2_x3 || !a.out || !a.h || a.res || (!STATS && a.pe) || STATS != (a.part_sum != nullptr) ||
+      k1_pad < k || hid_pad < a.hidden)
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)a.samples * a.rps;
   int err = gemm_tf32x3_run<128>(in, w1_x3, w1_x3 + a.hidden * k1_pad, k1_pad, rows, a.hidden,
-                                 k, 1, 0, HiddenGelu{a.h, a.b1, a.hidden}, st);
+                                 k, 1, a.rps, HiddenGelu{a.h, a.b1, a.hidden}, st);
   if (err) return err;
-  return gemm_tf32x3_run<OUT_BN>(F32Matrix<float>{a.h, a.hidden}, w2_x3,
-                                 w2_x3 + a.c_out * hid_pad, hid_pad, rows, a.c_out, a.hidden, 1,
-                                 0, OutStore{a.b2, a.out, a.c_out, a.out_bf16}, st);
+  const F32Matrix<float> h{a.h, a.hidden};
+  const float* w2_lo = w2_x3 + a.c_out * hid_pad;
+  if constexpr (STATS) {
+    static_assert(TF3_BM == F32_BM, "the statistics' partials are per 128-row tile");
+    if (a.b2 || a.out_bf16) return (int)cudaErrorInvalidValue;
+    const OutStats out{a.pe, (float*)a.out, a.part_sum, a.part_sq, a.pe_rows, a.c_out,
+                       (int)((a.rps + TF3_BM - 1) / TF3_BM), a.pe_bf16};
+    err = gemm_tf32x3_run<OUT_BN>(h, w2_x3, w2_lo, hid_pad, rows, a.c_out, a.hidden, 1, a.rps,
+                                  out, st);
+    return err ? err : mlp_stats_reduce(a, st);
+  } else {
+    return gemm_tf32x3_run<OUT_BN>(h, w2_x3, w2_lo, hid_pad, rows, a.c_out, a.hidden, 1, a.rps,
+                                   OutStore{a.b2, a.out, a.c_out, a.out_bf16}, st);
+  }
 }
 
 }  // namespace

@@ -1,10 +1,11 @@
 // Row GEMMs shared by spectral_mlp.cu, spectral_mlp_bwd.cu, gcn_layer.cu,
 // gcn_layer_bwd.cu and, through mlp_f32.cuh, the fp32 paths of grid_mlp.cu,
 // grid_encoder_spectral.cu and spectral_decoder.cu.  gemm_f32 runs the fp32
-// GEMM pass of gcn_layer.cu, the MLP of grid_mlp.cu and of the head, and
-// the weight gradients of spectral_decoder_bwd.cu; gemm_tf32x3 the fp32
-// paths of spectral_mlp.cu, the tail, spectral_decoder_bwd.cu and
-// gcn_layer_bwd.cu (dx).
+// MLP of grid_mlp.cu, gcn_layer.cu's GEMM pass on bf16 operands of widths
+// that wgmma_gemm does not take, and the weight gradients of
+// spectral_decoder_bwd.cu; gemm_tf32x3 the fp32 paths of spectral_mlp.cu,
+// gcn_layer.cu (the GEMM pass), the head, the tail, spectral_decoder_bwd.cu
+// and gcn_layer_bwd.cu (dx).
 //
 // wgmma_gemm: C = epi(A @ B), A (M x K) and B (K x N) bf16, row-major, fp32
 // accumulation on wgmma (sm_90a).  A block owns a WGM_BM x WGM_BN tile.  A
@@ -866,6 +867,40 @@ inline int tf32_split_rows_launch(const float* src, int rows, int cols, int ld, 
   if (rows < 1 || cols < 1 || ld < cols || ld % 4) return (int)cudaErrorInvalidValue;
   const long long total = (long long)rows * ld;
   tf32_split_rows<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(src, rows, cols, ld, dst);
+  return (int)cudaGetLastError();
+}
+
+// The same of the transpose: the hi and lo halves (2, cols, ld) of src^T,
+// src a row-major fp32 (rows x cols) matrix, each row of the transpose
+// zero-padded to ld floats: the K-major B operand of a stored (K x N) weight
+// (gcn_layer's W, which the optimizer updates in place).  A block moves a
+// 32 x 32 tile through shared memory, so that both its reads and its writes
+// are rows.
+__global__ void tf32_split_transposed(const float* __restrict__ src, int rows, int cols, int ld,
+                                      float* __restrict__ dst) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;  // src rows k, columns n
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int k = k0 + j, n = n0 + threadIdx.x;
+    tile[j][threadIdx.x] = k < rows && n < cols ? src[(long long)k * cols + n] : 0.f;
+  }
+  __syncthreads();
+  const long long total = (long long)cols * ld;
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int n = n0 + j, k = k0 + threadIdx.x;
+    if (n >= cols || k >= ld) continue;
+    const float x = tile[threadIdx.x][j], hi = tf32_rna(x);
+    dst[(long long)n * ld + k] = hi;
+    dst[total + (long long)n * ld + k] = tf32_rna(x - hi);
+  }
+}
+
+inline int tf32_split_transposed_launch(const float* src, int rows, int cols, int ld, float* dst,
+                                        cudaStream_t stream) {
+  if (rows < 1 || cols < 1 || ld < rows || ld % 4 || cols > 65535 * 32)
+    return (int)cudaErrorInvalidValue;
+  tf32_split_transposed<<<dim3((ld + 31) / 32, (cols + 31) / 32), dim3(32, 8), 0, stream>>>(
+      src, rows, cols, ld, dst);
   return (int)cudaGetLastError();
 }
 

@@ -8,10 +8,14 @@ Replaces msfno_tpu/ops/pallas/gcn_layer.py:gcn_layer:
 with box3 the 3x3 neighbour sum (periodic in longitude, zero past the poles)
 and d = D^{-1/2}.  The kernel runs it in two passes, mirrored by
 `gcn_t_pass` (t = x @ W * d in fp32) and `gcn_stencil_pass`; "float32" and
-"tensorfloat" knobs take fp32 operands (true fp32 FMA), "bfloat16" bf16
-operands.  Bound on the H100 at the generator's shapes, a 512 -> 512
-layer: ~200 MB of bf16 traffic (0.06 ms), or 3.4e10 fp32 FMA operations
-(0.51 ms) on fp32 operands (see the kernel source).  Its gradient is the
+"tensorfloat" knobs take fp32 operands, "bfloat16" bf16 operands.  On fp32
+operands the first pass is the split-precision product (three TF32
+tensor-core passes over hi / lo splits, `tf32x3`; its mirror is
+`gcn_t_pass(..., matmul=tf32x3.matmul_tf32x3)`), against hi / lo halves of
+W^T that the kernel makes on every call: W is trained in place.  Bound on
+the H100 at the generator's shapes, a 512 -> 512 layer: ~200 MB of bf16
+traffic (0.06 ms), or 3.4e10 operations of an fp32-class product (0.21 ms
+at 165 TFLOP/s) on fp32 operands (see the kernel source).  Its gradient is the
 `gcn_layer_bwd` kernel (JAX `_bwd`, gcn_layer.py:396-421): dx, dW and db
 from the kernel, g itself for the residual, none for dinv and mask
 (functions of the SST's NaN pattern).
@@ -25,6 +29,7 @@ import torch
 
 from msfno_torch.ops.kernels import (check, kernel_operand, library, operand_dtype,
                                      stream_ptr)
+from msfno_torch.ops.kernels.tf32x3 import K_PAD, kmajor_split
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -42,14 +47,15 @@ def box3(v: torch.Tensor) -> torch.Tensor:
     return rows + torch.roll(rows, 1, dims=-2) + torch.roll(rows, -1, dims=-2)
 
 
-def gcn_t_pass(x, w, dinv, mxu_dtype="bfloat16") -> torch.Tensor:
+def gcn_t_pass(x, w, dinv, mxu_dtype="bfloat16", matmul=torch.matmul) -> torch.Tensor:
     """The kernel's first pass, t = (x @ W) * dinv in fp32: for c_in > 1 x
-    and W rounded to `mxu_dtype` before an fp32-accumulated product; c_in
-    == 1 an fp32 outer product."""
+    and W rounded to `mxu_dtype` before an fp32-accumulated product by
+    `matmul` (the card's fp32 operands: `tf32x3.matmul_tf32x3`); c_in == 1
+    an fp32 outer product."""
     if x.shape[-1] == 1:
         sup = x.float() * w.float()[0]
     else:
-        sup = mxu_round(x, mxu_dtype) @ mxu_round(w, mxu_dtype)
+        sup = matmul(mxu_round(x, mxu_dtype), mxu_round(w, mxu_dtype))
     return sup * dinv.float()
 
 
@@ -130,12 +136,17 @@ def _forward(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype, prepare
         raise ValueError("gcn_layer: operand shapes do not match x (B, H, W, C_in) "
                          f"{tuple(x.shape)} and w (C_in, F) {tuple(w.shape)}")
     f32_ops = operand_dtype(mxu_dtype) == torch.float32
+    w_x3, c_in_pad = None, 0
     if c_in == 1:
         wk = w.float().reshape(-1).contiguous()
         xk, x_bf16 = kernel_operand(x)
     elif f32_ops:
         wk = prepared if prepared is not None else w.float().contiguous()
         xk, x_bf16 = x.float().contiguous(), 0
+        # the hi / lo halves of W^T, rows padded (the GEMM's K-major B),
+        # made by the kernel on every call
+        c_in_pad = -(-c_in // K_PAD) * K_PAD
+        w_x3 = torch.empty((2, f, c_in_pad), device=x.device)
     else:
         wk = prepared if prepared is not None else w.to(torch.bfloat16).contiguous()
         xk, x_bf16 = x.to(torch.bfloat16).contiguous(), 1
@@ -157,16 +168,35 @@ def _forward(x, w, b, dinv, mask, residual, slope, mxu_dtype, out_dtype, prepare
     bk = b.float().contiguous()
     fn = library("gcn_layer").gcn_layer
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 8 + [ci] * 11 + [ctypes.c_float, vp]
+    fn.argtypes = [vp] * 9 + [ci] * 12 + [ctypes.c_float, vp]
     fn.restype = ci
     status = fn(
         xk.data_ptr(), wk.data_ptr(), bk.data_ptr(), dk.data_ptr(), mk.data_ptr(),
         rk.data_ptr() if rk is not None else None, out.data_ptr(),
-        t.data_ptr() if t is not None else None,
-        bsz, h, wd, c_in, f, ldt, x_bf16, d_bf16, r_bf16, int(od == torch.bfloat16),
+        t.data_ptr() if t is not None else None, w_x3.data_ptr() if w_x3 is not None else None,
+        bsz, h, wd, c_in, f, ldt, c_in_pad, x_bf16, d_bf16, r_bf16, int(od == torch.bfloat16),
         int(f32_ops), slope, stream_ptr(x),
     )
     check(status, "gcn_layer")
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def split_w(w: torch.Tensor) -> torch.Tensor:
+    """The hi / lo halves of W^T, (2, F, C_in padded to K_PAD), that the
+    kernel's fp32 GEMM pass makes on every call (tests): on a CUDA tensor
+    the kernel's transposing split alone, on a CPU tensor its plain
+    version, `tf32x3.kmajor_split`."""
+    if w.device.type == "cpu":
+        return kmajor_split(w)
+    c_in, f = w.shape
+    wk = w.float().contiguous()
+    out = torch.empty((2, f, -(-c_in // K_PAD) * K_PAD), device=w.device)
+    fn = library("gcn_layer").gcn_layer_split_w
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, ci, ci, vp, vp]
+    fn.restype = ci
+    check(fn(wk.data_ptr(), c_in, f, out.shape[2], out.data_ptr(), stream_ptr(w)),
+          "gcn_layer_split_w")
     return out

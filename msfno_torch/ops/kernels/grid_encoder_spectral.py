@@ -16,10 +16,12 @@ stored in fp32: the kernel runs in two passes (see its source), the
 encoder MLP over 128-pixel tiles with per-tile column sums of y and y^2
 added in a fixed order, writing bf16 y, then the bf16 forward DFT of
 `dft_analysis` on it.  On fp32 operands ("float32", "tensorfloat") the
-same two passes run in true fp32 FMA: the encoder MLP of csrc/mlp_f32.cuh
-writes fp32 y, and the fp32 DFT of `dft_analysis` (the even/odd fold)
-reads it.  `encoder_mlp_tiles`, `tile_stats_reduce` and `dft_pass` are
-plain mirrors of that decomposition (tests only).  Bound on
+same two passes run nothing rounded: the encoder MLP of csrc/mlp_f32.cuh,
+its products split-precision (three TF32 tensor-core passes over hi / lo
+splits, `tf32x3`), writes fp32 y, and the fp32 DFT of `dft_analysis` (the
+even/odd fold) reads it.  `encoder_mlp_tiles`, `tile_stats_reduce` and
+`dft_pass` are plain mirrors of that decomposition, `encoder_f32_passes`
+of the fp32 one (tests only).  Bound on
 the H100 at the serving shapes: operations (see the kernel source).  The
 JAX package has no backward kernel here: its gradient is the VJP of
 `_ref_encoder_spectral` (grid_mlp.py:521-560: fp32 MLP, y and cs rounded
@@ -41,6 +43,7 @@ from msfno_torch.ops.kernels.dft_analysis import (BF16_K, BF16_TILE, FOLD_K, FOL
 # REDUCE_GROUPS and tile_stats_reduce are re-exported for the tail's modules and the tests
 from msfno_torch.ops.kernels import REDUCE_GROUPS, tile_stats_reduce  # noqa: F401
 from msfno_torch.ops.kernels.grid_mlp import _pad16, grid_mlp_reference, prepare_weights
+from msfno_torch.ops.kernels.tf32x3 import kmajor_split, matmul_tf32x3
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -80,14 +83,39 @@ def encoder_mlp_tiles(x, w1, b1, w2, pe, mxu_dtype="bfloat16", tile=TILE_ROWS):
     bsz, h, w, _ = x.shape
     y = grid_mlp_reference(x, w1, b1, w2, pe=pe, mxu_dtype=mxu_dtype, out_dtype="float32")
     y = y.reshape(bsz, h * w, -1)
-    tiles = -(-h * w // tile)
-    pad = y.new_zeros((bsz, tiles * tile - h * w, y.shape[-1]))
+    return (mxu_round(y, mxu_dtype), *_tile_partials(y, tile))
+
+
+def _tile_partials(y, tile=TILE_ROWS):
+    """Each `tile`-row tile's column sums of y (B, rows, C) and y^2, each (B,
+    tiles, C): the sums over its groups of 16 rows, added in order."""
+    bsz, rows, _ = y.shape
+    tiles = -(-rows // tile)
+    pad = y.new_zeros((bsz, tiles * tile - rows, y.shape[-1]))
     yt = torch.cat([y, pad], dim=1).reshape(bsz, tiles, tile // 16, 16, -1)
     s, q = yt.sum(3), (yt * yt).sum(3)
     ps, pq = s[:, :, 0], q[:, :, 0]
     for r in range(1, tile // 16):
         ps, pq = ps + s[:, :, r], pq + q[:, :, r]
-    return mxu_round(y, mxu_dtype), ps, pq
+    return ps, pq
+
+
+def encoder_f32_passes(x, w1, b1, w2, pe, cs, out_dtype=None):
+    """Plain mirror of the fp32-operand kernel (tests only): the encoder MLP
+    in fp32, its two products the split-precision product
+    (`tf32x3.matmul_tf32x3`), + pe; the statistics' tile partials
+    (`_tile_partials`) added by `tile_stats_reduce`; the folded forward DFT
+    of y (`dft_pass`).  Same returns as `grid_encoder_spectral`."""
+    bsz, h, w, _ = x.shape
+    hid = torch.nn.functional.gelu(matmul_tf32x3(x.float(), w1.float()) + b1.float(),
+                                   approximate="none")
+    y = matmul_tf32x3(hid, w2.float())
+    if pe is not None:
+        y = y + pe.float()
+    y = y.reshape(bsz, h * w, -1)
+    part_sum, part_sq = _tile_partials(y)
+    f = dft_pass(y, cs, w, "float32", out_dtype or "float32")
+    return f, tile_stats_reduce(part_sum), tile_stats_reduce(part_sq)
 
 
 def dft_pass(y, cs, w, mxu_dtype="bfloat16", out_dtype=None):
@@ -159,12 +187,14 @@ def prepare(w1, w2, cs, mxu_dtype="bfloat16"):
     """The kernel's operands for `mxu_dtype`: `grid_mlp.prepare_weights` of
     the MLP and the DFT pass's operand (bf16: [C | -S]^T, as
     `dft_analysis.prepare` builds its bf16 one; fp32: the fold's half
-    matrices of `dft_analysis.prepare`)."""
+    matrices of `dft_analysis.prepare`), and for fp32 operands the MLP's
+    split-precision B operands (`tf32x3.kmajor_split`: hi and lo, K-major,
+    rows zero-padded) of W1^T and W2^T."""
+    w1p, w2p = prepare_weights(w1, w2, w1.shape[0], mxu_dtype)
     if operand_dtype(mxu_dtype) == torch.float32:
         at = dft_analysis.prepare(*_analysis_pair(cs), mxu_dtype)
-    else:
-        at = _dft_operand(cs)
-    return (*prepare_weights(w1, w2, w1.shape[0], mxu_dtype), at)
+        return w1p, w2p, at, kmajor_split(w1p), kmajor_split(w2p)
+    return w1p, w2p, _dft_operand(cs)
 
 
 def grid_encoder_spectral(x, w1, b1, w2, pe, cs, mxu_dtype="bfloat16", out_dtype=None,
@@ -232,12 +262,12 @@ def _forward(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared):
     if prepared is None:
         prepared = prepare(w1, w2, cs, mxu_dtype)
     check_prepared("grid_encoder_spectral", prepared, mxu_dtype)
-    w1p, w2p, cst = prepared
+    w1p, w2p, cst = prepared[:3]
     od = torch_dtype(out_dtype or "bfloat16")
     if od not in (torch.float32, torch.bfloat16):
         raise ValueError(f"grid_encoder_spectral: unsupported out dtype {od}")
     if f32:
-        return _forward_f32(x, w1p, b1, w2p, pe, cst, two_m, od)
+        return _forward_f32(x, w1p, b1, w2p, pe, cst, *prepared[3:], two_m, od)
     xf, x_bf16 = kernel_operand(x)
     xf = aligned(xf)
     pef, pe_bf16 = kernel_operand(pe) if pe is not None else (None, 0)
@@ -271,11 +301,15 @@ def _forward(x, w1, b1, w2, pe, cs, mxu_dtype, out_dtype, prepared):
     return f, ssum, ssq
 
 
-def _forward_f32(x, w1p, b1, w2p, pe, at, two_m, od):
-    """The fp32-operand kernel: the encoder MLP into an fp32 y scratch, then
-    the folded forward DFT of y (csrc/grid_encoder_spectral.cu)."""
+def _forward_f32(x, w1p, b1, w2p, pe, at, w1t_x3, w2t_x3, two_m, od):
+    """The fp32-operand kernel: the encoder MLP on the split-precision core,
+    B the prepared hi / lo halves of W1^T and W2^T, into an fp32 y scratch,
+    then the folded forward DFT of y (csrc/grid_encoder_spectral.cu)."""
     bsz, h, w, c_in = x.shape
-    c = w2p.shape[1]
+    hidden, c = w2p.shape
+    if (w1t_x3.shape[:2] != (2, hidden) or w1t_x3.shape[2] < c_in
+            or w2t_x3.shape[:2] != (2, c) or w2t_x3.shape[2] < hidden):
+        raise ValueError("grid_encoder_spectral: prepared split weights do not match the MLP")
     lib = library("grid_encoder_spectral")
     check_operand("grid_encoder_spectral", lib, at,
                   (_ceil(w // 2 + 1, FOLD_K), 2 * FOLD_TILE * -(-(two_m // 2) // FOLD_TILE)),
@@ -285,8 +319,14 @@ def _forward_f32(x, w1p, b1, w2p, pe, at, two_m, od):
     f = torch.empty((bsz, h, two_m, c), dtype=od, device=x.device)
     ptrs, ints, _keep, (ssum, ssq) = mlp_f32.mlp_args(
         xf.reshape(-1, c_in), w1p, b1, w2p, pe=pe, out=y, samples=bsz, stats=True)
-    ptrs += [at.data_ptr(), f.data_ptr()]
-    ints += [bsz, h, w, two_m // 2, at.shape[0], at.shape[1], int(od == torch.bfloat16)]
+    # fp32 x of a width that is no multiple of 4 (73): the kernel copies it
+    # into 16-byte rows for its first GEMM's loader
+    xp = (torch.empty((bsz * h * w, -(-c_in // 4) * 4), device=x.device)
+          if c_in % 4 and xf.dtype == torch.float32 else None)
+    ptrs += [at.data_ptr(), f.data_ptr(), w1t_x3.data_ptr(), w2t_x3.data_ptr(),
+             xp.data_ptr() if xp is not None else None]
+    ints += [bsz, h, w, two_m // 2, at.shape[0], at.shape[1], int(od == torch.bfloat16),
+             w1t_x3.shape[2], w2t_x3.shape[2]]
     mlp_f32.launch("grid_encoder_spectral", "grid_encoder_spectral_f32", ptrs, ints,
                    stream_ptr(x))
     global LAUNCHES

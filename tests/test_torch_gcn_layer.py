@@ -157,6 +157,36 @@ def test_two_pass_mirror_matches_jax_kernel(mxu, shape, residual):
                   rel_l2(yt, yj)) <= 1e-5
 
 
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("c_in,f", [(40, 24), (136, 144)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_split_product_mirror_matches_jax_kernel(mxu, c_in, f, residual):
+    """The card's fp32 passes: t = (x W) d as the split-precision product
+    (`tf32x3.matmul_tf32x3`), then the stencil, against the Pallas kernel
+    (interpret mode) on fp32 operands: the fp32 class, 1e-5."""
+    _jax()
+    import jax.numpy as jnp
+    from msfno_tpu.ops.pallas.gcn_layer import gcn_layer as jax_gcn_layer
+
+    from msfno_torch.ops.kernels.tf32x3 import matmul_tf32x3
+
+    ops = _case(2, 5, 16, c_in, f, residual, seed=12)
+    yj = _call(jax_gcn_layer, ops, jnp.asarray, mxu_dtype=mxu, out_dtype="float32")
+    t = {k: torch.from_numpy(v) for k, v in ops.items()}
+    tt = tk.gcn_t_pass(t["x"], t["w"], t["dinv"], mxu, matmul=matmul_tf32x3)
+    yt = tk.gcn_stencil_pass(tt, t["b"], t["dinv"], t["mask"], t.get("residual"))
+    assert report(f"gcn_layer split-product mirror[{c_in}x{f}, res={residual}, {mxu}]",
+                  rel_l2(yt, yj)) <= 1e-5
+
+
+def test_split_w_on_cpu_is_kmajor_split():
+    from msfno_torch.ops.kernels.tf32x3 import kmajor_split
+
+    w = torch.from_numpy(_case(1, 3, 4, 40, 24, False)["w"])
+    out = tk.split_w(w)
+    assert out.shape == (2, 24, 48) and torch.equal(out, kmajor_split(w))
+
+
 def _on_card(ops, dev, mxu):
     dt = torch.float32 if mxu == "float32" else torch.bfloat16
     return {k: torch.from_numpy(v).to(dev).to(torch.float32 if k in ("w", "b") else dt)
@@ -167,8 +197,9 @@ def _on_card(ops, dev, mxu):
 @pytest.mark.parametrize("c_in", [1, 512])
 @pytest.mark.parametrize("residual", [False, True])
 def test_fp32_kernel_matches_plain(cuda, c_in, residual):
-    """fp32 operands (the JAX exact and balanced tiers' generator): true fp32
-    FMA, fp32 in and out, sums in another order only."""
+    """fp32 operands (the JAX exact, balanced and fp32-kernel tiers'
+    generator), fp32 in and out: the kernel's split-precision product
+    against the plain version's true fp32 one, 1e-5."""
     from msfno_torch.runtime import exact_fp32_matmuls
 
     exact_fp32_matmuls()
@@ -204,3 +235,37 @@ def test_kernel_ragged_sizes(cuda, mxu, shape, residual):
         yp = _call(tk.gcn_layer_reference, t, lambda a: a, mxu_dtype=mxu)
     assert yk.shape == yp.shape and yk.dtype == yp.dtype
     assert rel_l2(yk.float().cpu(), yp.float().cpu()) <= (1e-5 if mxu == "float32" else 1e-2)
+
+
+@pytest.mark.cuda
+def test_fp32_kernel_after_w_updated_in_place(cuda):
+    """The fp32 GEMM pass splits W on every call: a W that the optimizer
+    updates in place between two calls reaches the second call (B = 2,
+    ragged row tiles: 2 * 9 * 40 pixels)."""
+    from msfno_torch.runtime import exact_fp32_matmuls
+
+    exact_fp32_matmuls()
+    ops = _case(2, 9, 40, 64, 96, True, seed=9)
+    t = _on_card(ops, cuda, "float32")
+    with torch.inference_mode():
+        y0 = _call(tk.gcn_layer, t, lambda a: a, mxu_dtype="float32")
+        t["w"].mul_(-0.5).add_(0.01)
+        y1 = _call(tk.gcn_layer, t, lambda a: a, mxu_dtype="float32")
+        torch.cuda.synchronize()
+        yp = _call(tk.gcn_layer_reference, t, lambda a: a, mxu_dtype="float32")
+    assert rel_l2(y1.cpu(), yp.cpu()) <= 1e-5
+    assert rel_l2(y0.cpu(), yp.cpu()) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,f", [(512, 512), (40, 24), (136, 144), (73, 256), (7, 33)])
+def test_split_w_matches_kmajor_split(cuda, c_in, f):
+    """The kernel's transposing split of W is `tf32x3.kmajor_split` bit for
+    bit: the same rounding, layout and zero padding."""
+    from msfno_torch.ops.kernels.tf32x3 import kmajor_split
+
+    w = torch.from_numpy(_case(1, 3, 4, c_in, f, False, seed=10)["w"])
+    w[0, 0], w[-1, -1] = 1.0 + 2.0 ** -11, -(1.0 + 3 * 2.0 ** -11)  # ties, away from zero
+    out = tk.split_w(w.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), kmajor_split(w))

@@ -136,6 +136,25 @@ def test_two_pass_mirror_matches_jax_kernel(pe, mxu):
                       rel_l2(a, b)) <= tol
 
 
+@pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
+@pytest.mark.parametrize("pe", [True, False])
+def test_split_product_mirror_matches_jax_kernel(pe, mxu):
+    # the card's fp32 passes (`encoder_f32_passes`): the MLP's products
+    # split-precision, 128-row tiles' statistics partials (B = 2, H*W = 5 *
+    # 160: the last tile ragged) added in a fixed order, the folded DFT,
+    # against the Pallas kernel (interpret mode) on fp32 operands: 1e-5
+    jnp, jax_enc = _jax()
+    ops = _case(seed=13, b=2, h=5, w=160, c_in=73, hidden=32, c=16, mmax=9, pe=pe)
+    fj, sj, qj = _call(jax_enc, ops, jnp.asarray, mxu_dtype=mxu, out_dtype=jnp.float32,
+                       interpret=True)
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in ops.items()}
+    f, ssum, ssq = tk.encoder_f32_passes(*(t[k] for k in ("x", "w1", "b1", "w2", "pe", "cs")))
+    assert f.shape == fj.shape == (2, 5, 18, 16) and f.dtype == torch.float32
+    for part, a, b in (("f", f, fj), ("ssum", ssum, sj), ("ssq", ssq, qj)):
+        assert report(f"grid_encoder_spectral split-product mirror[pe={pe}, {mxu}] {part}",
+                      rel_l2(a, b)) <= 1e-5
+
+
 def test_rational_erf_matches_erf():
     # the head's and tail's GELU take erf as a branch-free rational function
     # (chain_gemm.cuh:gelu_rational); its error against erf stays below
@@ -190,17 +209,24 @@ def test_tensorfloat_is_float32_on_cpu():
 
 
 def test_prepare_fp32():
-    """fp32 operands: the MLP's weights as they are and the fold operand of
-    dft_analysis for the (C, S) pair of cs; a bf16 pack is refused."""
+    """fp32 operands: the MLP's weights as they are, the fold operand of
+    dft_analysis for the (C, S) pair of cs, and the split-precision B
+    operands of W1^T and W2^T (`tf32x3.kmajor_split`); a bf16 pack is
+    refused."""
     from msfno_torch.ops.kernels import check_prepared
     from msfno_torch.ops.kernels import dft_analysis as ak
+    from msfno_torch.ops.kernels.tf32x3 import kmajor_split
 
     t = {k: torch.from_numpy(v) for k, v in _case().items()}
-    w1p, w2p, at = tk.prepare(t["w1"], t["w2"], t["cs"], "float32")
+    prepared = tk.prepare(t["w1"], t["w2"], t["cs"], "float32")
+    w1p, w2p, at, w1t_x3, w2t_x3 = prepared
     m = t["cs"].shape[1] // 2
     assert torch.equal(w1p, t["w1"]) and torch.equal(w2p, t["w2"])
     assert torch.equal(at, ak.prepare(t["cs"][:, :m], -t["cs"][:, m:], "float32"))
-    check_prepared("grid_encoder_spectral", (w1p, w2p, at), "tensorfloat")
+    assert w1t_x3.shape == (2, 12, 16) and w2t_x3.shape == (2, 8, 16)
+    assert torch.equal(w1t_x3, kmajor_split(t["w1"]))
+    assert torch.equal(w2t_x3, kmajor_split(t["w2"]))
+    check_prepared("grid_encoder_spectral", prepared, "tensorfloat")
     with pytest.raises(ValueError):
         check_prepared("grid_encoder_spectral", tk.prepare(t["w1"], t["w2"], t["cs"]),
                        "float32")
@@ -216,8 +242,11 @@ def test_prepare_fp32():
     (dict(b=2, h=2, w=160, c_in=73, hidden=128, c=256, mmax=80), None, "float32"),
 ])
 def test_fp32_kernel_matches_plain(cuda, shape, pe, out, mxu):
-    # true fp32 FMA on both sides (the DFT folded on the card): the sums'
-    # order only; a bf16 f rounds the same fp32 value on both sides
+    # the kernel's split-precision MLP and folded DFT against the plain
+    # version's true fp32 products: the fp32 class (B = 2 with ragged last
+    # tiles, a partial second column tile at C = 160, K = 7 and 73 in one
+    # stage's k8 steps); a bf16 f rounds nearly the same fp32 value on
+    # both sides
     ops = _case(seed=7, pe=pe is not None, **shape)
     t = {k: None if v is None else torch.from_numpy(v).to(cuda) for k, v in ops.items()}
     if pe is not None:

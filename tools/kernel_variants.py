@@ -19,12 +19,15 @@ tiles, for example:
     python3 tools/kernel_variants.py grid_mlp base GM_STAGES=2 base
     python3 tools/kernel_variants.py dft_analysis base DFT_STAGES=3 base
 Repeat "base" at the end to see the run-to-run spread.  With --profile,
-each variant's sites also run under torch.profiler, and one JSON line per
-CUDA kernel (the kernel's own launches and the plain version's alike) gives
-its calls and mean device time: how a wrapper call's time splits over the
-launches it makes.
+after each site's check the call that the main path makes runs PROFILE_CALLS
+more times under torch.profiler, and one JSON line per (site, CUDA kernel)
+gives its launches a call and mean device time: how a wrapper call's time
+splits over the launches it makes, site by site.
 
     python3 tools/kernel_variants.py --profile gcn_layer_bwd base
+
+The tool reaches the sites through chip_smoke.check_site, so a copy of it
+run from an unpacked older tree splits that tree's kernels the same way.
 """
 
 from __future__ import annotations
@@ -35,7 +38,37 @@ import os
 import subprocess
 import sys
 
+PROFILE_CALLS = 5
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _profiled(check_site, card: str, var: str):
+    """chip_smoke.check_site, followed by PROFILE_CALLS calls of the site's
+    main-path call (`time_fn`, else `kernel_fn`) under torch.profiler: one
+    JSON line per CUDA kernel those calls launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(name, site, kernel_fn, plain_fn, work, iters, time_fn=None, **kw):
+        rec = check_site(name, site, kernel_fn, plain_fn, work, iters, time_fn=time_fn, **kw)
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_CALLS):
+                (time_fn or kernel_fn)()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA or not ev.count:
+                continue
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.self_cuda_time_total
+            print(json.dumps({"variant": var, "site": site, "cuda_kernel": ev.key[:160],
+                              "launches_per_call": ev.count / PROFILE_CALLS,
+                              "mean_us": dev_us / ev.count, "card": card}))
+        return rec
+
+    return run
 
 
 def main(argv) -> int:
@@ -71,24 +104,12 @@ def main(argv) -> int:
         if proc.returncode != 0:
             print(log[-3000:])
             return 1
+    check_site = chip_smoke.check_site
     for var, lib, _ in procs:
         kernels._LIBS[name] = ctypes.CDLL(str(lib))
         if profile:
-            from torch.profiler import ProfilerActivity
-            from torch.profiler import profile as torch_profile
-
-            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                recs = chip_smoke.SITES[name](dev)
-            for ev in prof.key_averages():
-                if ev.device_type != torch.autograd.DeviceType.CUDA or not ev.count:
-                    continue
-                dev_us = getattr(ev, "self_device_time_total", None)
-                if dev_us is None:
-                    dev_us = ev.self_cuda_time_total
-                print(json.dumps({"variant": var, "cuda_kernel": ev.key[:120], "calls": ev.count,
-                                  "mean_us": dev_us / ev.count, "card": card}))
-        else:
-            recs = chip_smoke.SITES[name](dev)
+            chip_smoke.check_site = _profiled(check_site, card, var)
+        recs = chip_smoke.SITES[name](dev)
         for rec in recs:
             print(json.dumps({"variant": var, "site": rec["site"], "ms": rec["ms"],
                               "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"],

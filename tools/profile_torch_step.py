@@ -19,9 +19,8 @@ and power limit.
 
 --tier fp32: the same for the fp32-kernel tier (`fp32_kernel_config()`,
 the JAX exact tier with every kernel on fp32 operands), fused and unfused.
-Its grid_mlp and head share the fp32 MLP's gemm_f32 kernels
-(csrc/mlp_f32.cuh), so their device time is reported together as
-"fp32_mlp" (the tail's MLP, on gemm_tf32x3, counts as spectral_decoder's);
+Each kernel's gemm_tf32x3 and gemm_f32 launches count as its own (the
+fp32 MLP of csrc/mlp_f32.cuh as grid_mlp's, the head's and the tail's);
 the folded DFT passes by direction, "dft_fold_analysis" (the
 head's DFT, and in a train step the tail backward's dhm) and
 "dft_fold_synthesis" (the tail's inverse DFT, and in a train step the tail
@@ -86,10 +85,13 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
     # the head's MLP pass and DFT pass (the DIRECT analysis_wgmma, bf16 f),
     # the tail's t pre-pass and tile kernel, the tail backward's pre-pass,
     # tile kernel and transposed DFT (the DIRECT analysis_wgmma, fp32 dhm);
-    # on fp32 operands, spectral_mlp's gemm_tf32x3 layers, the fp32 MLP's
-    # two gemm_f32 launches that grid_mlp and the head share ("fp32_mlp"),
-    # the tail's skip copy and two gemm_tf32x3 launches (HiddenGelu,
-    # OutStore; its fold counts under dft_fold_synthesis), the tail
+    # on fp32 operands, spectral_mlp's gemm_tf32x3 layers, grid_mlp's two
+    # gemm_f32 launches (MlpHidden, MlpOut), gcn_layer's W split and
+    # gemm_tf32x3 (TScale), the head's copy of x into 16-byte rows and two
+    # gemm_tf32x3 launches (EncRows, OutStats; its fold counts under
+    # dft_fold_analysis), the tail's skip copy and two gemm_tf32x3 launches
+    # (F32Matrix with HiddenGelu, OutStore; its fold counts under
+    # dft_fold_synthesis), the tail
     # backward's three gemm_tf32x3 passes (z1, dz1, [dxa | dskip]),
     # gcn_layer_bwd's W split, dx (gemm_tf32x3 with the plain TcStore) and
     # dW (dw_mma); the folded DFT passes, whose kernels the head, the
@@ -101,16 +103,20 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
     direct = re.escape("analysis_wgmma<__nv_bfloat16, ")  # + the output type, ", 0, true>"
     kernel_keys = {"spectral_mlp": (ns + "stage_input", ns + "HiddenEpi,", ns + "OutEpi,",
                                     ns + "HiddenF32>", ns + "OutF32>"),
-                   "grid_mlp": (ns + "mlp_tiles<",),
-                   "fp32_mlp": (ns + "MlpHidden>", ns + "MlpOut>"),
+                   "grid_mlp": (ns + "mlp_tiles<", ns + "MlpHidden>", ns + "MlpOut>"),
                    "dft_fold_analysis": (ns + "fold_rows<true",),
                    "dft_fold_synthesis": (ns + "fold_rows<false",),
                    "grid_encoder_spectral": (ns + "enc_mlp<",
-                                             direct + re.escape("__nv_bfloat16, 0, true>")),
+                                             direct + re.escape("__nv_bfloat16, 0, true>"),
+                                             ns + "pad_rows", ns + "EncRows,",
+                                             ns + "MlpInput, " + ns + "HiddenGelu>",
+                                             ns + "OutStats>"),
                    "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16",
-                                        ns + "skip_into_rows", ns + "HiddenGelu>",
+                                        ns + "skip_into_rows",
+                                        ns + "F32Matrix<float>, " + ns + "HiddenGelu>",
                                         ns + "OutStore>"),
-                   "gcn_layer": (ns + "gcn_stencil", ns + "TEpi,",
+                   "gcn_layer": (ns + "gcn_stencil", ns + "TEpi,", ns + "TScale>",
+                                 ns + "tf32_split_transposed",
                                  ns + "gemm_f32<false, .*F32Store>"),
                    "gcn_layer_bwd": (ns + "gcn_bwd_", ns + "StoreEpi,", ns + "sum_rows",
                                      ns + "tf32_split_rows", ns + "dw_mma<",
@@ -120,7 +126,7 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
                                             ns + "Z1Store>", ns + "DzStore>", ns + "DxStore>"),
                    "spectral_mlp_bwd": (ns + "stage_grad_rows", ns + "RecomputeEpi,",
                                         ns + "ChainEpi,", ns + "InputGradEpi,")}
-    for name in (*KERNELS, "fp32_mlp", "dft_fold_analysis", "dft_fold_synthesis"):
+    for name in (*KERNELS, "dft_fold_analysis", "dft_fold_synthesis"):
         keys = kernel_keys.get(name, (f"{name}_kernel",))
         mine = [r for r in rows if any(re.search(k, r[1]) for k in keys)]
         print(json.dumps({"path": path, "kernel": name,
