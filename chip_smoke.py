@@ -9,7 +9,7 @@ Phases (any failure raises, and the script exits non-zero):
      and print ptxas' registers and spills of every instantiation of the
      split-precision fp32 core (row_gemm.cuh:gemm_tf32x3) and of the GCN
      backward's mma.sync dW (gcn_layer_bwd.cu:dw_mma), failing on a C7520
-     line (wgmmas serialized) there;
+     line (wgmmas serialized) or a spill there;
   3. each kernel against its plain PyTorch version at the shapes of the
      serving step (grid_mlp also with the inner MLP's fold of
      `fuse_inner_mlp`) and of the fine-tune step (the three backward kernels,
@@ -78,11 +78,11 @@ Phases (any failure raises, and the script exits non-zero):
      the median ms per train step and the peak memory.
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
 operands of that tier (sites "*/fp32") to 1e-5; at the fp32 sites of the
-GCN layer and its backward, the head and the tail it records the CUDA
-kernels one call launches (`route`, by torch.profiler in a child process:
-`chip_smoke.py --routes`) and fails if the fp32 FMA GEMM (`gemm_f32`) is
-among them or the split-precision one is not (and, at grid_mlp's inner
-fp32 site, the reverse).  Bounds count the products
+GCN layer and its backward, the head, the tail and grid_mlp (each of its
+four) it records the CUDA kernels one call launches (`route`, by
+torch.profiler in a child process: `chip_smoke.py --routes`) and fails if
+the fp32 FMA GEMM (`gemm_f32`) is among them or the split-precision one
+is not.  Bounds count the products
 of matrix products on fp32 operands at 495 / 3 TFLOP/s, three TF32
 tensor-core passes (their least time on this card: `PEAK_OPS_PER_S`), and
 elementwise fp32 work at 67 TFLOP/s.
@@ -169,7 +169,7 @@ def log(*args):
 # names spell them
 TF3_PARTS = ("ComplexRows", "F32Matrix", "MlpInput", "HiddenF32", "OutF32", "TcStore",
              "Z1Store", "DzStore", "DxStore", "HiddenGelu", "OutStore", "OutStats", "TScale",
-             "EncRows")
+             "EncRows", "GmInput", "GmHidden")
 
 
 def ptxas_tf32x3(logs: dict) -> dict:
@@ -178,7 +178,8 @@ def ptxas_tf32x3(logs: dict) -> dict:
     backward's split-precision dW (csrc/gcn_layer_bwd.cu:dw_mma, mma.sync)
     in the libraries built in this run: registers, stack, spill stores and
     loads, and the C7520 lines (ptxas serialized the function's wgmmas)
-    that name one.  Raises on such a line."""
+    that name one.  Raises on such a line, and on a function that
+    spills."""
     funcs, c7520, func = {}, [], None
     for lib, text in logs.items():
         for line in text.splitlines():
@@ -209,6 +210,9 @@ def ptxas_tf32x3(logs: dict) -> dict:
     log(json.dumps(rec))
     if c7520:
         raise AssertionError(f"ptxas serialized gemm_tf32x3's wgmmas: {c7520}")
+    spills = [k for k, r in funcs.items() if r.get("spill_stores") or r.get("spill_loads")]
+    if spills:
+        raise AssertionError(f"ptxas spilled in {spills}")
     return rec
 
 
@@ -341,42 +345,52 @@ def spectral_mlp_sites(dev):
     return recs
 
 
-def grid_mlp_sites(dev):
-    """grid_mlp at its three call sites: encoder (+pe, +stats), inner block
-    MLP (+b2), big-skip decoder (+skip); and the inner MLP with the folded
-    norm + FiLM affine and the residual of `fuse_inner_mlp=True`
-    ("inner_fold", which no serving path of SITE_COUNTS launches)."""
+def _grid_mlp_ops(rn, h, h_inner, w):
+    """grid_mlp's operands at its sites (see grid_mlp_sites), h latitude
+    rows of w longitudes (the inner MLP: h_inner rows of w / 6), and the
+    fp32-kernel tier's sites "*/fp32": the same shapes, fp32 activations,
+    pe and outputs (its compute dtype)."""
     import torch
 
-    from msfno_torch.ops.kernels import grid_mlp as mk
-
-    rn, _ = _randn(dev, 2)
     bf = torch.bfloat16
-    h, w = 721, 1440
+    wi = w // 6
     sites = {
         "encoder": dict(x=rn(1, h, w, 73), w1=rn(73, 256, scale=0.1), b1=rn(256, scale=0.1),
                         w2=rn(256, 256, scale=0.06), pe=rn(h, w, 256, scale=0.02, dtype=bf),
                         stats_rows=h * w, out_dtype="bfloat16"),
-        "inner": dict(x=rn(1, 120, 240, 256, dtype=bf), w1=rn(256, 512, scale=0.06),
+        "inner": dict(x=rn(1, h_inner, wi, 256, dtype=bf), w1=rn(256, 512, scale=0.06),
                       b1=rn(512, scale=0.1), w2=rn(512, 256, scale=0.04),
                       b2=rn(256, scale=0.1), out_dtype="bfloat16"),
         "decoder": dict(x=rn(1, h, w, 256, dtype=bf), skip=rn(1, h, w, 73),
                         w1=rn(329, 256, scale=0.05), b1=rn(256, scale=0.1),
                         w2=rn(256, 73, scale=0.06), out_dtype="float32"),
-        "inner_fold": dict(x=rn(1, 120, 240, 256, dtype=bf), w1=rn(256, 512, scale=0.06),
+        "inner_fold": dict(x=rn(1, h_inner, wi, 256, dtype=bf), w1=rn(256, 512, scale=0.06),
                            b1=rn(512, scale=0.1), w2=rn(512, 256, scale=0.04),
                            b2=rn(256, scale=0.1),
                            affine=(1.0 + rn(1, 256, scale=0.1), rn(1, 256, scale=0.1)),
-                           residual=rn(1, 120, 240, 256, dtype=bf), out_dtype="bfloat16"),
+                           residual=rn(1, h_inner, wi, 256, dtype=bf), out_dtype="bfloat16"),
     }
-    # the fp32-kernel tier's sites: the same shapes, fp32 activations, pe
-    # and outputs (its compute dtype)
     f32 = lambda v: v.float() if isinstance(v, torch.Tensor) else v  # noqa: E731
     for site in list(sites):
         sites[site + "/fp32"] = {
             k: (tuple(map(f32, v)) if isinstance(v, tuple) else f32(v))
             for k, v in sites[site].items()}
         sites[site + "/fp32"]["out_dtype"] = "float32"
+    return sites
+
+
+def grid_mlp_sites(dev):
+    """grid_mlp at its three call sites: encoder (+pe, +stats), inner block
+    MLP (+b2), big-skip decoder (+skip); and the inner MLP with the folded
+    norm + FiLM affine and the residual of `fuse_inner_mlp=True`
+    ("inner_fold", which no serving path of SITE_COUNTS launches); each
+    also on fp32 operands ("*/fp32")."""
+    import torch
+
+    from msfno_torch.ops.kernels import grid_mlp as mk
+
+    rn, _ = _randn(dev, 2)
+    sites = _grid_mlp_ops(rn, 721, 120, 1440)
     recs = []
     for site, ops in sites.items():
         mxu, kind = ("float32", "fp32") if site.endswith("/fp32") else ("bfloat16", "bf16")
@@ -778,15 +792,16 @@ def kernel_checks(dev):
 # phase 3's route checks: (kernel, site) -> (a CUDA kernel that one
 # main-path call must launch, one that it must not): on fp32 operands conv1
 # (c_in = 1) has no product; the other GCN layers' forward GEMM pass, their
-# backward's dx and dW, the head's and the tail's MLPs run on the
-# split-precision core, none on the fp32 FMA GEMM; grid_mlp's fp32 MLP is
-# still on the fp32 FMA GEMM
+# backward's dx and dW, the head's, the tail's and grid_mlp's MLPs (at each
+# of grid_mlp's sites) run on the split-precision core, none on the fp32 FMA
+# GEMM
 ROUTES = {("gcn_layer", "conv/fp32"): ("gemm_tf32x3", "gemm_f32"),
           ("gcn_layer_bwd", "conv1/fp32"): ("gcn_bwd_dsup", "gemm_f32"),
           ("gcn_layer_bwd", "conv/fp32"): ("gemm_tf32x3", "gemm_f32"),
           ("grid_encoder_spectral", "head/fp32"): ("gemm_tf32x3", "gemm_f32"),
           ("spectral_decoder", "tail/fp32"): ("gemm_tf32x3", "gemm_f32"),
-          ("grid_mlp", "inner/fp32"): ("gemm_f32", "gemm_tf32x3")}
+          **{("grid_mlp", site): ("gemm_tf32x3", "gemm_f32")
+             for site in ("encoder/fp32", "inner/fp32", "decoder/fp32", "inner_fold/fp32")}}
 
 
 def route_calls(dev) -> dict:
@@ -795,7 +810,7 @@ def route_calls(dev) -> dict:
     gcn_layer_bwd on fp32 operands at 512 -> 512 and the backward at conv1
     (no dx, as the path asks), the head and the tail on fp32 operands at
     1440 longitudes (73 -> 256 -> 256 + pe + statistics; 256 + 73 -> 256 ->
-    73), grid_mlp's inner MLP on fp32 operands (256 -> 512 -> 256)."""
+    73), grid_mlp on fp32 operands at its four sites (phase 3's shapes)."""
     import torch
 
     from msfno_torch.ops.kernels import gcn_layer as gk
@@ -825,12 +840,13 @@ def route_calls(dev) -> dict:
     prep_e = ek.prepare(w1e, w2e, cs, "float32")
     calls[("grid_encoder_spectral", "head/fp32")] = lambda: ek.grid_encoder_spectral(
         xe, w1e, b1e, w2e, pe, cs, "float32", "float32", prepared=prep_e)
-    xi = rn(1, 16, 240, 256)
-    w1i, b1i = rn(256, 512, scale=0.06), rn(512, scale=0.1)
-    w2i, b2i = rn(512, 256, scale=0.04), rn(256, scale=0.1)
-    prep_i = mk.prepare_weights(w1i, w2i, 256, "float32")
-    calls[("grid_mlp", "inner/fp32")] = lambda: mk.grid_mlp(
-        xi, w1i, b1i, w2i, b2=b2i, mxu_dtype="float32", out_dtype="float32", prepared=prep_i)
+    for site, ops in _grid_mlp_ops(rn, 4, 16, 1440).items():
+        if site.endswith("/fp32"):
+            x, w1, b1, w2 = ops.pop("x"), ops.pop("w1"), ops.pop("b1"), ops.pop("w2")
+            prep = mk.prepare_weights(w1, w2, x.shape[-1], "float32")
+            calls[("grid_mlp", site)] = (
+                lambda x=x, w1=w1, b1=b1, w2=w2, prep=prep, ops=ops: mk.grid_mlp(
+                    x, w1, b1, w2, mxu_dtype="float32", prepared=prep, **ops))
     mt = _serving_transforms()[1]._const("merged_t", dev)
     c = 256
     hm, skip = rn(1, 4, mt.shape[1], c, scale=0.05), rn(1, 4, mt.shape[0], 73)

@@ -418,11 +418,10 @@ extern "C" int grid_encoder_spectral_bf16(const void* const* ptrs, const long lo
 // The fp32-operand head.  ptrs and ints begin with the encoder MLP's
 // MlpPtr / MlpInt layouts (mlp_f32.cuh: out is the (B, H*W, c) fp32 y
 // scratch, with statistics); then ptrs: the fp32 fold operand of
-// dft_analysis.prepare (at_rows, at_cols), f (B, H, 2M, c), the hi / lo
-// halves of W1^T (2, hidden, k1_pad) and of W2^T (2, c, hid_pad), and for
-// fp32 x whose width c_in is no multiple of 4 an fp32 scratch (B*H*W,
-// c_in rounded up to 4) for x's padded rows, else null; ints: B, H, W, the
-// modes M, at_rows, at_cols, f_bf16, k1_pad, hid_pad.
+// dft_analysis.prepare (at_rows, at_cols), f (B, H, 2M, c), and for fp32 x
+// whose width c_in is no multiple of 4 an fp32 scratch (B*H*W, c_in
+// rounded up to 4) for x's padded rows, else null; ints: B, H, W, the
+// modes M, at_rows, at_cols, f_bf16.
 extern "C" int grid_encoder_spectral_f32(const void* const* ptrs, const long long* ints,
                                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -431,22 +430,18 @@ extern "C" int grid_encoder_spectral_f32(const void* const* ptrs, const long lon
   const long long bsz = v[0], h = v[1], w = v[2];
   const int m = (int)v[3], at_rows = (int)v[4], at_cols = (int)v[5];
   if (bsz < 1 || h < 1 || w < 2 || m < 1 || mlp.out_bf16 || mlp.samples != bsz ||
-      mlp.rps != h * w || !mlp.part_sum || mlp.skip || mlp.aff_a)
+      mlp.rps != h * w || !mlp.part_sum || mlp.skip || mlp.aff_a || mlp.b2 || mlp.res)
     return (int)cudaErrorInvalidValue;
   int err;
-  float* xp = (float*)ptrs[MLP_PTRS + 4];
+  float* xp = (float*)ptrs[MLP_PTRS + 2];
   if (xp) {  // fp32 x of a width that is no multiple of 4: 16-byte rows first
     if (mlp.x_bf16) return (int)cudaErrorInvalidValue;
     const int ld = (mlp.c_main + 3) / 4 * 4;
-    err = pad_rows_launch((const float*)mlp.x, mlp.samples * mlp.rps, mlp.c_main, ld, xp, st);
-    if (!err)
-      err = mlp_tf32x3_run<128, true>(EncRows{{xp, ld}}, ld, mlp,
-                                      (const float*)ptrs[MLP_PTRS + 2], v[7],
-                                      (const float*)ptrs[MLP_PTRS + 3], v[8], st);
+    err = pad_rows_launch<EncRows>(mlp.x, 0, mlp.samples * mlp.rps, mlp.c_main, ld, xp, st);
+    if (!err) err = mlp_tf32x3_run<128, true>(EncRows{{xp, ld}}, ld, mlp, st);
   } else {
     const MlpInput in{mlp.x, nullptr, nullptr, nullptr, mlp.c_main, 0, mlp.x_bf16, 0};
-    err = mlp_tf32x3_run<128, true>(in, mlp.c_main, mlp, (const float*)ptrs[MLP_PTRS + 2],
-                                    v[7], (const float*)ptrs[MLP_PTRS + 3], v[8], st);
+    err = mlp_tf32x3_run<128, true>(in, mlp.c_main, mlp, st);
   }
   if (err) return err;
   const void* at = ptrs[MLP_PTRS];

@@ -65,10 +65,22 @@
 // many as fit below it: 4 left the encoder and decoder sites within 1% of 3).
 //
 // fp32 operands (the "float32" and "tensorfloat" knobs): grid_mlp_f32, every
-// option of the bf16 kernel in true fp32 FMA on the CUDA cores, as two
-// gemm_f32 launches with h through device memory (mlp_f32.cuh).  Bound on
-// the H100 at 67 TFLOP/s: the inner MLP 1.51e10 FLOP, 0.225 ms; encoder
-// 1.75e11, 2.61 ms; decoder 2.14e11, 3.19 ms: operations.
+// option of the bf16 kernel with fp32-class products, as mlp_f32.cuh's
+// mlp_tf32x3_run: two gemm_tf32x3 launches (three TF32 tensor-core passes
+// over hi / lo splits; B the prepared halves of W1^T and W2^T) with h
+// through device memory.  The first GEMM's A is GmInput: x's rows, then
+// the skip's, each as 16-byte loads of fp32 rows whose width is a multiple
+// of 4 (x and the skip as stored where they are such rows, else copied
+// into them by pad_rows first: the encoder's 73-wide x, the decoder's
+// 73-wide skip, a bf16 input; W1^T's rows are laid out to match,
+// grid_mlp.py:prepare_weights), the affine applied once a quad is loaded.
+// The second GEMM's epilogue adds one table (b2, pe or the residual; the
+// host adds them into one where a call has more) and writes y (OutStore,
+// on 80-column tiles for C_out <= 80), with statistics also the tiles'
+// partials (OutStats, fp32 y) and the fixed-order reduces.  Bound on the
+// H100 at 165 TFLOP/s (an fp32-class product's least time on this card):
+// the inner MLP 1.51e10 FLOP, 0.092 ms; encoder 1.75e11, 1.06 ms; decoder
+// 2.14e11, 1.30 ms: operations.
 
 #include "chain_gemm.cuh"
 #include "mlp_f32.cuh"
@@ -466,6 +478,71 @@ int launch_tiles(const CUtensorMap* maps, const MlpArgs& a, cudaStream_t stream)
                       : launch_narrow<OUT, false>(maps, a, stream);
 }
 
+// grid_mlp's first GEMM's A on fp32 operands: row m is x's row (lx fp32
+// wide, its first c_main columns x's channels, with AFF the affine applied
+// to them), then with SKIP the skip's (ls wide); lx and ls multiples of 4
+// and both 16-byte aligned, so that K = lx + ls comes in whole quads, each
+// one 16-byte load from one of the two.  (With the dtype and the alignment
+// of each input decided per quad, GEMM 1 took 1.31 ms at the encoder site
+// on the H100, against 0.89 for the head's same rows: an input that is not
+// such rows is copied into them first.  With AFF and SKIP runtime choices
+// it took 1.04, 0.91 as template parameters; the decoder's 3.02 against
+// 2.93.)
+template <bool AFF, bool SKIP>
+struct GmInput {
+  const float* x;
+  const float* skip;
+  const float* aff_a;  // (samples, c_main) or null
+  const float* aff_b;
+  int c_main, lx, ls;
+  // raw elements (m, k .. k + 3), k a multiple of 4: a load only (with the
+  // skip, the matrix and its row width chosen by k alone, the same for the
+  // 8 rows a loader thread fetches at once)
+  __device__ __forceinline__ float4 quad(long long m, long long k, int) const {
+    if constexpr (!SKIP) {
+      return __ldg(reinterpret_cast<const float4*>(x + m * lx + k));
+    } else {
+      const bool main = k < lx;
+      const float* p = main ? x + k : skip + (k - lx);
+      return __ldg(reinterpret_cast<const float4*>(p + m * (main ? lx : ls)));
+    }
+  }
+  // the affine on a quad's main channels
+  __device__ __forceinline__ float4 finish(float4 v, long long k, int seg) const {
+    if (!AFF || k >= c_main) return v;
+    float r[4] = {v.x, v.y, v.z, v.w};
+    const long long i = (long long)seg * c_main + k;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (k + e < c_main) r[e] = fmaf(__ldg(aff_a + i + e), r[e], __ldg(aff_b + i + e));
+    return make_float4(r[0], r[1], r[2], r[3]);
+  }
+  // element (m, k) (gemm_tf32x3 reads whole quads here: K = lx + ls)
+  __device__ __forceinline__ float operator()(long long m, long long k, int seg) const {
+    const float v = !SKIP || k < lx ? x[m * lx + k] : skip[m * ls + k - lx];
+    if (!AFF || k >= c_main) return v;
+    const long long i = (long long)seg * c_main + k;
+    return fmaf(aff_a[i], v, aff_b[i]);
+  }
+};
+
+// grid_mlp's h as the second GEMM's A: F32Matrix under a name of its own,
+// so that a profile tells grid_mlp's second GEMM from the head's and the
+// tail's; and the name of grid_mlp's copies into 16-byte rows
+// (pad_rows<GmRows>)
+struct GmHidden : F32Matrix<float> {};
+struct GmRows {};
+
+// the two GEMMs and the statistics' reduces, A = GmInput<AFF, SKIP> over x
+// and the skip as 16-byte rows
+template <bool AFF, bool SKIP>
+int gm_run(const MlpF32& a, const float* x, const float* skip, int lx, int ls, cudaStream_t st) {
+  const GmInput<AFF, SKIP> in{x, skip, a.aff_a, a.aff_b, a.c_main, lx, ls};
+  if (a.part_sum) return mlp_tf32x3_run<128, true, GmHidden>(in, lx + ls, a, st);
+  return a.c_out <= TAIL_OUT_BN ? mlp_tf32x3_run<TAIL_OUT_BN, false, GmHidden>(in, lx + ls, a, st)
+                                : mlp_tf32x3_run<128, false, GmHidden>(in, lx + ls, a, st);
+}
+
 enum Ptr { P_X, P_SKIP, P_AFF_A, P_AFF_B, P_W1, P_B1, P_W2, P_B2, P_PE, P_RES, P_OUT,
            P_PART_SUM, P_PART_SQ, P_GRP_SUM, P_GRP_SQ, P_SSUM, P_SSQ, N_PTRS };
 enum Int { I_SAMPLES, I_ROWS_PER_SAMPLE, I_PE_ROWS, I_C_MAIN, I_C_SKIP, I_CMP, I_K1P,
@@ -562,8 +639,35 @@ extern "C" int grid_mlp_bf16(const void* const* ptrs, const long long* ints, voi
   return (int)cudaGetLastError();
 }
 
-// The fp32-operand MLP: ptrs and ints in the MlpPtr and MlpInt layouts of
-// mlp_f32.cuh.
+// The fp32-operand MLP.  ptrs and ints begin with the MlpPtr / MlpInt
+// layouts of mlp_f32.cuh (W1^T's rows: x's c_main rows, zeros to a
+// multiple of 4, then the skip's c_skip rows); then ptrs: an fp32 scratch
+// (rows, c_main rounded up to 4) for x's rows where x is not already such
+// rows (bf16, a width that is no multiple of 4, not 16-byte aligned), else
+// null, and the same (rows, c_skip rounded up to 4) for the skip's.
 extern "C" int grid_mlp_f32(const void* const* ptrs, const long long* ints, void* stream) {
-  return mlp_f32_run(mlp_f32_args(ptrs, ints), (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  const MlpF32 a = mlp_f32_args(ptrs, ints);
+  float* xp = (float*)ptrs[MLP_PTRS];
+  float* sp = (float*)ptrs[MLP_PTRS + 1];
+  const int lx = (a.c_main + 3) / 4 * 4, ls = (a.c_skip + 3) / 4 * 4;
+  const long long rows = (long long)a.samples * a.rps;
+  const auto rows16 = [](const void* p, int bf16, int c) {
+    return !bf16 && c % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (a.c_main < 1 || a.c_skip < 0 || (a.c_skip > 0) != (a.skip != nullptr) ||
+      (a.aff_a != nullptr) != (a.aff_b != nullptr) || !a.x ||
+      (!xp && !rows16(a.x, a.x_bf16, a.c_main)) ||
+      (a.skip && !sp && !rows16(a.skip, a.skip_bf16, a.c_skip)))
+    return (int)cudaErrorInvalidValue;
+  int err = 0;
+  if (xp) err = pad_rows_launch<GmRows>(a.x, a.x_bf16, rows, a.c_main, lx, xp, st);
+  if (!err && sp) err = pad_rows_launch<GmRows>(a.skip, a.skip_bf16, rows, a.c_skip, ls, sp, st);
+  if (err) return err;
+  const float* xr = xp ? xp : (const float*)a.x;
+  const float* sr = sp ? sp : (const float*)a.skip;
+  if (a.aff_a) return a.skip ? gm_run<true, true>(a, xr, sr, lx, ls, st)
+                             : gm_run<true, false>(a, xr, sr, lx, ls, st);
+  return a.skip ? gm_run<false, true>(a, xr, sr, lx, ls, st)
+                : gm_run<false, false>(a, xr, sr, lx, ls, st);
 }

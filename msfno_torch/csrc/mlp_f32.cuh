@@ -8,52 +8,41 @@
 //   out = round(y, out dtype);  optionally per-sample sum(y), sum(y*y)
 //
 // with no rounding of any operand (the JAX kernels' "float32" and
-// "tensorfloat" knobs): mlp_f32_run in true fp32 FMA on the CUDA cores,
-// mlp_tf32x3_run as fp32-class products on the tensor cores.  x, the skip,
-// pe and the residual are read as stored, fp32 or bf16.
+// "tensorfloat" knobs), as fp32-class products on the tensor cores.  x, the
+// skip, pe and the residual are read as stored, fp32 or bf16.
 //
 // Bound on the H100: operations, e.g. the encoder site (1,038,240 rows, 73
 // -> 256 -> 256) 1.75e11 FLOP, 1.06 ms at 165 TFLOP/s (an fp32-class
-// product's least time on this card; 2.6 ms at the CUDA cores' 67); its
-// bytes (x, pe, y: 2.6 GB fp32) 0.8 ms.
+// product's least time on this card); its bytes (x, pe, y: 2.6 GB fp32)
+// 0.8 ms.
 //
-// Design of mlp_f32_run: two launches of row_gemm.cuh:gemm_f32 (128 x 128 tiles, 8 x 8 a
-// thread), h through device memory.  The first GEMM's A functor
-// (MlpInput) reads a row's x (the affine applied) and then its skip, as one
-// K = c_main + c_skip row against the unpadded fp32 W1; its epilogue adds
-// b1, applies the exact GELU (chain_gemm.cuh:gelu_rational) and writes fp32
-// h (rows x hidden).  The second GEMM reads h and W2; its epilogue adds b2,
-// pe and the residual, writes y in the output dtype and, with statistics,
-// sums y and y^2 over the tile's rows (each thread its 8 rows, then the 16
-// row groups in order through shared memory) into one partial per (sample,
-// 128-row tile, column), which tile_reduce and stats_reduce
-// (tile_common.cuh) add in a fixed order: deterministic.  The GEMMs' row
-// segments are the samples, so no tile crosses a sample.  h's round trip
-// costs 2 x rows x hidden x 4 bytes (the encoder site: 2.1 GB, ~0.6 ms at
-// the HBM rate), against an operations bound several times larger; a
-// tile-resident h (the bf16 kernels' chain) is a later redesign.
-//
-// The second runner, mlp_tf32x3_run: the same two GEMMs as fp32-class
-// products on row_gemm.cuh:gemm_tf32x3, three TF32 tensor-core passes over
-// hi / lo splits (495 / 3 = 165 TFLOP/s, the least time of an fp32-class
-// product on the H100), B the prepared hi / lo K-major halves of W1^T and
-// W2^T (tf32x3.py:kmajor_split).  The first GEMM's A is the caller's functor
-// (the head's: x's 73-wide rows copied into rows of 76 by pad_rows; the
-// tail's: [a x + b | skip | 0] rows of 332; both read by 16-byte loads), its
-// epilogue HiddenGelu writes fp32 h.  The second reads h (F32Matrix).  Without statistics
-// (the tail) on OUT_BN-column tiles (80: the 73 output columns) and
-// OutStore adds b2; with them (the head) on 128-column tiles, and
-// OutStats adds pe and writes fp32 y and the statistics' tile partials, in
-// the layout of MlpOut, for the same reduces.  Both GEMMs' row segments are
-// the samples.  No residual.  grid_mlp keeps mlp_f32_run.
+// Design, mlp_tf32x3_run: two launches of row_gemm.cuh:gemm_tf32x3, three
+// TF32 tensor-core passes over hi / lo splits, B the prepared hi / lo
+// K-major halves of W1^T and W2^T (tf32x3.py:kmajor_split), h (rows x
+// hidden, fp32) through device memory.  The first GEMM's A is the caller's
+// functor, read by 16-byte loads where its rows allow (grid_mlp's GmInput:
+// x, then the skip; the head's: x's 73-wide rows copied into rows of 76 by
+// pad_rows; the tail's: [a x + b | skip | 0] rows of 332); its epilogue
+// HiddenGelu adds b1, applies the exact GELU (chain_gemm.cuh:gelu_rational)
+// and writes fp32 h.  The second reads h (F32Matrix, or a caller's type of
+// the same layout: a name of its own in a profile).  Without statistics on
+// OUT_BN-column tiles (80: the tail's 73 output columns) and OutStore; with
+// them on 128-column tiles and OutStats, which also writes the statistics'
+// tile partials: each thread sums its two rows, the warp's 8 row groups add
+// by a fixed butterfly of shuffles, then the 8 warps in order, into one
+// partial per (sample, 128-row tile, column), which tile_reduce and
+// stats_reduce (tile_common.cuh) add in a fixed order (mlp_stats_reduce):
+// no atomics, deterministic.  Both epilogues add one of b2, pe and the
+// residual (OutAdd, loaded before the first store of y) and write y
+// (OutStats: fp32 y).  Both GEMMs' row segments are the samples, so no tile
+// crosses a sample.  h's round trip costs 2 x rows x hidden x 4 bytes (the
+// encoder site: 2.1 GB, ~0.6 ms at the HBM rate).
 
 #pragma once
 
 #include "chain_gemm.cuh"
 
 namespace {
-
-static_assert(F32_BM == 128, "the wrappers count statistics tiles of 128 rows (TILE_ROWS)");
 
 // the first GEMM's A: row m's main channels (the affine applied), then its
 // skip channels
@@ -111,120 +100,44 @@ struct MlpInput {
   }
 };
 
-// fp32 rows (c wide) into rows of ld floats, ld a multiple of 4 (zeros
-// past c): an A of 16-byte rows for gemm_tf32x3's loader, which reads a
-// quad of a row of another width as four scalar loads.  A thread a quad.
-__global__ void pad_rows(const float* __restrict__ x, int n_quads, int quads, int c,
+// x's rows (rows x c, fp32 or bf16) into fp32 rows of ld floats, ld a
+// multiple of 4 (zeros past c): an A of 16-byte rows for gemm_tf32x3's
+// loader, which reads a quad of a row of another width as four scalar
+// loads.  A thread a quad.  `A` names the copy in a profile (the head's
+// EncRows, grid_mlp's GmRows).
+template <class A>
+__global__ void pad_rows(const void* x, int x_bf16, int n_quads, int quads, int c,
                          float4* __restrict__ xp) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_quads) return;
   const int r = i / quads, k = (i - r * quads) * 4;
-  const float* p = x + (long long)r * c + k;
-  xp[i] = make_float4(__ldg(p), k + 1 < c ? __ldg(p + 1) : 0.f, k + 2 < c ? __ldg(p + 2) : 0.f,
-                      k + 3 < c ? __ldg(p + 3) : 0.f);
+  const long long o = (long long)r * c + k;
+  if (!x_bf16) {
+    const float* p = static_cast<const float*>(x) + o;
+    xp[i] = make_float4(__ldg(p), k + 1 < c ? __ldg(p + 1) : 0.f, k + 2 < c ? __ldg(p + 2) : 0.f,
+                        k + 3 < c ? __ldg(p + 3) : 0.f);
+    return;
+  }
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = k + e < c ? load_act(x, o + e, 1) : 0.f;
+  xp[i] = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-inline int pad_rows_launch(const float* x, long long rows, int c, int ld, float* xp,
-                           cudaStream_t st) {
+template <class A>
+int pad_rows_launch(const void* x, int x_bf16, long long rows, int c, int ld, float* xp,
+                    cudaStream_t st) {
   const long long n = rows * (ld / 4);
   if (rows < 1 || c < 1 || ld < c || ld % 4 || n > INT_MAX || (uintptr_t)xp % 16)
     return (int)cudaErrorInvalidValue;
-  pad_rows<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(x, (int)n, ld / 4, c,
-                                                        reinterpret_cast<float4*>(xp));
+  pad_rows<A><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(x, x_bf16, (int)n, ld / 4, c,
+                                                           reinterpret_cast<float4*>(xp));
   return (int)cudaGetLastError();
 }
 
-// the first GEMM's epilogue: h = gelu(acc + b1), fp32 rows of `hidden`
-struct MlpHidden {
-  float* h;
-  const float* b1;
-  int hidden;
-  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long m = t.m0 + t.row(i);
-      if (m >= t.m_end) continue;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int n = t.n0 + t.col(4 * q);
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = n + j < hidden ? gelu_rational(acc[i][4 * q + j] + b1[n + j]) : 0.f;
-        float* p = h + m * hidden + n;
-        if (hidden % 4 == 0 && n < hidden) {
-          *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (n + j < hidden) p[j] = v[j];
-        }
-      }
-    }
-  }
-};
-
-// the second GEMM's epilogue: y = acc + b2 + pe + res, out in fp32 or bf16,
-// and the tile's column sums of y and y^2 into part_sum / part_sq
-// (samples, tiles, c_out) when they are given
-struct MlpOut {
-  const float* b2;
-  const void* pe;
-  const void* res;
-  void* out;
-  float* part_sum;
-  float* part_sq;
-  long long pe_rows;
-  int c_out, tiles, pe_bf16, res_bf16, out_bf16;
-  __device__ __forceinline__ void operator()(const float (&acc)[8][8], const F32Tile& t) const {
-    float s[8], q[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j] = q[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long m = t.m0 + t.row(i);
-      if (m >= t.m_end) continue;
-      const long long pe_row = pe ? m % pe_rows : 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = t.n0 + t.col(j);
-        if (n >= c_out) continue;
-        float y = acc[i][j];
-        if (b2) y += b2[n];
-        if (pe) y += load_act(pe, pe_row * c_out + n, pe_bf16);
-        if (res) y += load_act(res, m * c_out + n, res_bf16);
-        if (out_bf16) reinterpret_cast<__nv_bfloat16*>(out)[m * c_out + n] = __float2bfloat16_rn(y);
-        else reinterpret_cast<float*>(out)[m * c_out + n] = y;
-        s[j] += y;
-        q[j] = fmaf(y, y, q[j]);
-      }
-    }
-    if (!part_sum) return;
-    __shared__ float sh_s[16][F32_BN];
-    __shared__ float sh_q[16][F32_BN];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sh_s[t.ty][t.col(j)] = s[j];
-      sh_q[t.ty][t.col(j)] = q[j];
-    }
-    __syncthreads();
-    const int c = threadIdx.x;
-    if (c < F32_BN && t.n0 + c < c_out) {
-      float ss = 0.f, qq = 0.f;
-      for (int r = 0; r < 16; ++r) {
-        ss += sh_s[r][c];
-        qq += sh_q[r][c];
-      }
-      const long long i = ((long long)t.seg * tiles + t.tile) * c_out + t.n0 + c;
-      part_sum[i] = ss;
-      part_sq[i] = qq;
-    }
-  }
-};
-
-// The tail's first GEMM's epilogue on the split-precision core (TcTile):
-// h = gelu(acc + b1) as MlpHidden, fp32 rows of `hidden` (a fragment's
-// column pair as one 8-byte store where `hidden` is even)
+// The first GEMM's epilogue on the split-precision core (TcTile): h =
+// gelu(acc + b1), fp32 rows of `hidden` (a fragment's column pair as one
+// 8-byte store where `hidden` is even)
 struct HiddenGelu {
   float* h;
   const float* b1;
@@ -255,73 +168,112 @@ struct HiddenGelu {
   }
 };
 
-// The tail's second GEMM's epilogue on the split-precision core: y = acc +
-// b2 (b2 may be null) as MlpOut without pe, residual or statistics, out in
-// fp32 or bf16, rows of c_out
-struct OutStore {
+// y0, y1 into elements (i, i + 1) of a row-major fp32 or bf16 array
+// (8-byte aligned), i even where `vec`; the second only with `two`.  One
+// 8-byte (fp32) or 4-byte (bf16) store where `vec`.
+__device__ __forceinline__ void store_pair(void* p, long long i, float y0, float y1, int bf16,
+                                           bool two, bool vec) {
+  if (two && vec) {
+    if (bf16) reinterpret_cast<__nv_bfloat162*>(p)[i / 2] = __floats2bfloat162_rn(y0, y1);
+    else reinterpret_cast<float2*>(p)[i / 2] = make_float2(y0, y1);
+  } else if (bf16) {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p) + i;
+    o[0] = __float2bfloat16_rn(y0);
+    if (two) o[1] = __float2bfloat16_rn(y1);
+  } else {
+    float* o = static_cast<float*>(p) + i;
+    o[0] = y0;
+    if (two) o[1] = y1;
+  }
+}
+
+// The second GEMM's addend: y = acc + b2[col] or acc + T[row][col], at
+// most one of them (null: none).  T is pe, its rows repeating every
+// t_rows rows, or the residual (t_rows: every row), fp32 or bf16 as
+// stored; a call with more than one of b2, pe and the residual adds them
+// into one fp32 table first (grid_mlp.py).  `table` gives the addend at
+// each element of the thread's fragment: b2 once a column (the tail's),
+// or T with every load issued before the epilogue's first store of y
+// (loaded between those stores, each waited for memory in turn: the
+// head's GEMM 2 took 4.04 ms against 2.80 on the H100).  (b2 read at the
+// store and T's pairs loaded through load_pair's dtype switch took the
+// head's GEMM 2 from 2.47 to 2.96 ms; each of b2, pe and the residual
+// loaded ahead, the epilogue spilled.)
+struct OutAdd {
   const float* b2;
-  void* out;
-  int c_out, out_bf16;
+  const void* t;
+  long long t_rows;
+  int c_out, t_bf16;
   template <int NV>
-  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
-    float bias[NV / 2];
+  __device__ __forceinline__ void table(float (&a)[NV], const TcTile& tt) const {
+    if (b2) {
 #pragma unroll
-    for (int u = 0; u < NV / 2; ++u) {
-      const int n = t.n0 + t.col(4 * (u / 2) + u % 2);
-      bias[u] = b2 && n < c_out ? __ldg(b2 + n) : 0.f;
+      for (int u = 0; u < NV / 2; ++u) {  // column col(v) of rows row(v) and row(v + 2)
+        const int v = 4 * (u / 2) + u % 2, n = tt.n0 + tt.col(v);
+        a[v] = a[v + 2] = n < c_out ? __ldg(b2 + n) : 0.f;
+      }
+      return;
     }
 #pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const long long m = t.m0 + t.row(v);
-      const int n = t.n0 + t.col(v);
-      if (m >= t.m_end || n >= c_out) continue;
-      const float y = acc[v] + bias[2 * (v / 4) + v % 2];
-      if (out_bf16) reinterpret_cast<__nv_bfloat16*>(out)[m * c_out + n] = __float2bfloat16_rn(y);
-      else reinterpret_cast<float*>(out)[m * c_out + n] = y;
+    for (int v = 0; v < NV; v += 2) {
+      const long long m = tt.m0 + tt.row(v);
+      const int n = tt.n0 + tt.col(v);
+      a[v] = a[v + 1] = 0.f;
+      if (!t || m >= tt.m_end || n >= c_out) continue;
+      const long long i = (m % t_rows) * c_out + n;
+      if (!t_bf16 && n + 1 < c_out && c_out % 2 == 0) {
+        const float2 q = __ldg(reinterpret_cast<const float2*>(static_cast<const float*>(t) + i));
+        a[v] = q.x;
+        a[v + 1] = q.y;
+      } else {
+        a[v] = load_act(t, i, t_bf16);
+        if (n + 1 < c_out) a[v + 1] = load_act(t, i + 1, t_bf16);
+      }
     }
   }
 };
 
-// The head's second GEMM's epilogue on the split-precision core: y = acc
-// [+ pe[row % pe_rows]] (pe fp32 or bf16), fp32 rows of c_out, and the
-// tile's column sums of y and y^2 into part_sum / part_sq
-// (samples, tiles, c_out) as MlpOut writes them: each thread sums its two
-// rows, the warp's 8 row groups add by a fixed butterfly of shuffles, then
-// the 8 warps (16 rows each) in order through TcTile::smem.  No atomics:
-// deterministic.  All of pe's loads go out before the first store of y.
+// The second GEMM's epilogue without statistics: y = acc + OutAdd's
+// table, rows of c_out in the output dtype (a fragment's column pair as
+// one store where c_out is even)
+struct OutStore {
+  OutAdd add;
+  void* out;
+  int c_out, out_bf16;
+  template <int NV>
+  __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
+    float a[NV];
+    add.table(a, t);
+#pragma unroll
+    for (int v = 0; v < NV; v += 2) {
+      const long long m = t.m0 + t.row(v);
+      const int n = t.n0 + t.col(v);
+      if (m >= t.m_end || n >= c_out) continue;
+      store_pair(out, m * c_out + n, acc[v] + a[v], acc[v + 1] + a[v + 1], out_bf16,
+                 n + 1 < c_out, c_out % 2 == 0);
+    }
+  }
+};
+
+// The second GEMM's epilogue with statistics: y as OutStore writes it, in
+// fp32, and the tile's column sums of y and y^2 into part_sum / part_sq
+// (samples, tiles, c_out): each thread sums its two rows, the warp's 8 row
+// groups add by a fixed butterfly of shuffles, then the 8 warps (16 rows
+// each) in order through TcTile::smem.  No atomics: deterministic.
 struct OutStats {
-  const void* pe;
+  OutAdd add;
   float* out;
   float* part_sum;
   float* part_sq;
-  long long pe_rows;
-  int c_out, tiles, pe_bf16;
+  int c_out, tiles;
   template <int NV>
   __device__ __forceinline__ void operator()(const float (&acc)[NV], const TcTile& t) const {
     constexpr int BN = 2 * NV;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     float* sh_s = t.smem;  // (8 warps, BN)
     float* sh_q = t.smem + 8 * BN;
-    // the tile's pe first, all loads in flight together (loaded between
-    // the stores of y, each would wait for memory in turn)
-    float add[NV];
-#pragma unroll
-    for (int v = 0; v < NV; v += 2) {
-      const long long m = t.m0 + t.row(v);
-      const int n = t.n0 + t.col(v);
-      add[v] = add[v + 1] = 0.f;
-      if (!pe || m >= t.m_end || n >= c_out) continue;
-      const long long pi = (m % pe_rows) * c_out + n;
-      if (!pe_bf16 && n + 1 < c_out && c_out % 2 == 0) {
-        const float2 p = __ldg(reinterpret_cast<const float2*>(
-            static_cast<const float*>(pe) + pi));
-        add[v] = p.x;
-        add[v + 1] = p.y;
-      } else {
-        add[v] = load_act(pe, pi, pe_bf16);
-        if (n + 1 < c_out) add[v + 1] = load_act(pe, pi + 1, pe_bf16);
-      }
-    }
+    float a[NV];
+    add.table(a, t);
     t.sync();  // the block's last tile has read sh_s and sh_q
     float sums[NV];  // of column col(4 (u / 2) + u % 2): y at u < NV / 2, y^2 at NV / 2 + u
 #pragma unroll
@@ -335,7 +287,7 @@ struct OutStats {
         const int v = 4 * q + 2 * h;
         const long long m = t.m0 + t.row(v);
         if (m >= t.m_end || n >= c_out) continue;
-        const float y0 = acc[v] + add[v], y1 = acc[v + 1] + add[v + 1];
+        const float y0 = acc[v] + a[v], y1 = acc[v + 1] + a[v + 1];
         const bool two = n + 1 < c_out;
         float* o = out + m * c_out + n;
         if (two && c_out % 2 == 0) {
@@ -393,18 +345,20 @@ struct OutStats {
 };
 
 // The MLP's operands.  x, skip, pe, res: fp32 or bf16 (the *_bf16 flags);
-// w1 (c_main + c_skip, hidden) and w2 (hidden, c_out) fp32 row-major; h
-// (samples * rps, hidden) fp32 scratch; part_sum / part_sq (samples, tiles,
-// c_out) and grp_sum / grp_sq (samples, groups, c_out) fp32 scratch, or
-// null part_sum: no statistics; ssum / ssq (samples, c_out).
+// w1_x3 the hi and lo halves (2, hidden, k1_pad) of W1^T and w2_x3 those
+// (2, c_out, hid_pad) of W2^T (tf32x3.py:kmajor_split: K-major rows
+// zero-padded to multiples of 16 floats); h (samples * rps, hidden) fp32
+// scratch; part_sum / part_sq (samples, tiles, c_out) and grp_sum / grp_sq
+// (samples, groups, c_out) fp32 scratch, or null part_sum: no statistics;
+// ssum / ssq (samples, c_out).
 struct MlpF32 {
   const void* x;
   const void* skip;
   const float* aff_a;
   const float* aff_b;
-  const float* w1;
+  const float* w1_x3;
   const float* b1;
-  const float* w2;
+  const float* w2_x3;
   const float* b2;
   const void* pe;
   const void* res;
@@ -416,7 +370,7 @@ struct MlpF32 {
   float* grp_sq;
   float* ssum;
   float* ssq;
-  long long rps, pe_rows;
+  long long rps, pe_rows, k1_pad, hid_pad;
   int samples, c_main, c_skip, hidden, c_out, groups;
   int x_bf16, skip_bf16, pe_bf16, res_bf16, out_bf16;
 };
@@ -424,12 +378,12 @@ struct MlpF32 {
 // The pointer and integer layout of an MlpF32 in the C entry points'
 // arrays (ops/kernels/mlp_f32.py:mlp_args builds it); a head or tail
 // entry point appends its own after them.
-enum MlpPtr { MP_X, MP_SKIP, MP_AFF_A, MP_AFF_B, MP_W1, MP_B1, MP_W2, MP_B2, MP_PE, MP_RES,
-              MP_OUT, MP_H, MP_PART_SUM, MP_PART_SQ, MP_GRP_SUM, MP_GRP_SQ, MP_SSUM, MP_SSQ,
-              MLP_PTRS };
+enum MlpPtr { MP_X, MP_SKIP, MP_AFF_A, MP_AFF_B, MP_W1_X3, MP_B1, MP_W2_X3, MP_B2, MP_PE,
+              MP_RES, MP_OUT, MP_H, MP_PART_SUM, MP_PART_SQ, MP_GRP_SUM, MP_GRP_SQ, MP_SSUM,
+              MP_SSQ, MLP_PTRS };
 enum MlpInt { MI_SAMPLES, MI_RPS, MI_PE_ROWS, MI_C_MAIN, MI_C_SKIP, MI_HIDDEN, MI_C_OUT,
               MI_GROUPS, MI_X_BF16, MI_SKIP_BF16, MI_PE_BF16, MI_RES_BF16, MI_OUT_BF16,
-              MLP_INTS };
+              MI_K1_PAD, MI_HID_PAD, MLP_INTS };
 
 inline MlpF32 mlp_f32_args(const void* const* p, const long long* v) {
   MlpF32 a;
@@ -437,9 +391,9 @@ inline MlpF32 mlp_f32_args(const void* const* p, const long long* v) {
   a.skip = p[MP_SKIP];
   a.aff_a = (const float*)p[MP_AFF_A];
   a.aff_b = (const float*)p[MP_AFF_B];
-  a.w1 = (const float*)p[MP_W1];
+  a.w1_x3 = (const float*)p[MP_W1_X3];
   a.b1 = (const float*)p[MP_B1];
-  a.w2 = (const float*)p[MP_W2];
+  a.w2_x3 = (const float*)p[MP_W2_X3];
   a.b2 = (const float*)p[MP_B2];
   a.pe = p[MP_PE];
   a.res = p[MP_RES];
@@ -464,13 +418,15 @@ inline MlpF32 mlp_f32_args(const void* const* p, const long long* v) {
   a.pe_bf16 = (int)v[MI_PE_BF16];
   a.res_bf16 = (int)v[MI_RES_BF16];
   a.out_bf16 = (int)v[MI_OUT_BF16];
+  a.k1_pad = v[MI_K1_PAD];
+  a.hid_pad = v[MI_HID_PAD];
   return a;
 }
 
 // The statistics' tile partials (per 128-row tile of a sample), added in
 // runs of tiles, then the runs: a fixed order.  Returns a CUDA error code.
 inline int mlp_stats_reduce(const MlpF32& a, cudaStream_t st) {
-  const long long tiles = (a.rps + F32_BM - 1) / F32_BM;
+  const long long tiles = (a.rps + TF3_BM - 1) / TF3_BM;
   const int per = (int)((tiles + a.groups - 1) / max(a.groups, 1));
   if (a.groups < 1 || (long long)per * (a.groups - 1) >= tiles) return (int)cudaErrorInvalidValue;
   dim3 rgrid((a.c_out + 31) / 32, (unsigned)a.samples);
@@ -483,26 +439,6 @@ inline int mlp_stats_reduce(const MlpF32& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The two GEMMs, then the statistics' reduces.  Returns a CUDA error code.
-inline int mlp_f32_run(const MlpF32& a, cudaStream_t st) {
-  if (a.samples < 1 || a.rps < 1 || a.c_main < 1 || a.c_skip < 0 || (a.c_skip > 0) != !!a.skip ||
-      a.hidden < 1 || a.c_out < 1 || !a.x || !a.w1 || !a.b1 || !a.w2 || !a.out || !a.h ||
-      (a.aff_a != nullptr) != (a.aff_b != nullptr))
-    return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)a.samples * a.rps;
-  const long long tiles = (a.rps + F32_BM - 1) / F32_BM;
-  MlpInput in{a.x, a.skip, a.aff_a, a.aff_b, a.c_main, a.c_skip, a.x_bf16, a.skip_bf16};
-  int err = gemm_f32_run<false>(in, a.w1, a.hidden, rows, a.hidden, a.c_main + a.c_skip,
-                                       1, a.rps, MlpHidden{a.h, a.b1, a.hidden}, st);
-  if (err) return err;
-  MlpOut out{a.b2, a.pe, a.res, a.out, a.part_sum, a.part_sq, a.pe_rows, a.c_out, (int)tiles,
-             a.pe_bf16, a.res_bf16, a.out_bf16};
-  err = gemm_f32_run<false>(F32Matrix<float>{a.h, a.hidden}, a.w2, a.c_out, rows,
-                                   a.c_out, a.hidden, 1, a.rps, out, st);
-  if (err || !a.part_sum) return err;
-  return mlp_stats_reduce(a, st);
-}
-
 #ifndef TAIL_OUT_BN_OVERRIDE
 #define TAIL_OUT_BN_OVERRIDE 80
 #endif
@@ -511,38 +447,42 @@ constexpr int TAIL_OUT_BN = TAIL_OUT_BN_OVERRIDE;
 
 // The MLP on the split-precision core (see the note at the top): the
 // first GEMM's A the functor `in` over K = k (zeros in W1^T's pad past its
-// rows), w1_x3 the hi and lo halves (2, hidden, k1_pad) of W1^T, w2_x3
-// those (2, c_out, hid_pad) of W2^T, rows zero-padded to multiples of 4
-// floats; of `a` the samples and rows a sample, the hidden width, b1, h,
-// out and, without STATS, b2, with STATS pe and the statistics' scratch
-// (part_sum required; out fp32, no b2).  No residual.  Returns a CUDA error
-// code.
+// rows, k <= k1_pad), the second's h read as HRows (F32Matrix<float>'s
+// layout; a type of its own names a caller's launches in a profile); out
+// on OUT_BN-column tiles, with STATS (part_sum given; no residual; fp32
+// out) the statistics' partials and reduces; at most one of b2, pe and the
+// residual (OutAdd).  Returns a CUDA error code.
 // (A template: the sources that include this header without calling it
 // build none of its kernels.)
-template <int OUT_BN = TAIL_OUT_BN, bool STATS = false, class ALoad>
-int mlp_tf32x3_run(const ALoad& in, int k, const MlpF32& a, const float* w1_x3,
-                   long long k1_pad, const float* w2_x3, long long hid_pad, cudaStream_t st) {
-  if (a.samples < 1 || a.rps < 1 || k < 1 || a.hidden < 1 || a.c_out < 1 || !w1_x3 || !a.b1 ||
-      !w2_x3 || !a.out || !a.h || a.res || (!STATS && a.pe) || STATS != (a.part_sum != nullptr) ||
-      k1_pad < k || hid_pad < a.hidden)
+template <int OUT_BN = TAIL_OUT_BN, bool STATS = false, class HRows = F32Matrix<float>,
+          class ALoad>
+int mlp_tf32x3_run(const ALoad& in, int k, const MlpF32& a, cudaStream_t st) {
+  // one addend (OutAdd), T read in pairs of 8 bytes
+  const auto al8 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; };
+  if (a.samples < 1 || a.rps < 1 || k < 1 || a.hidden < 1 || a.c_out < 1 || !a.w1_x3 || !a.b1 ||
+      !a.w2_x3 || !a.out || !a.h || STATS != (a.part_sum != nullptr) ||
+      (STATS && (a.res || a.out_bf16)) || a.k1_pad < k || a.hid_pad < a.hidden ||
+      !!a.b2 + !!a.pe + !!a.res > 1 || !al8(a.pe) || !al8(a.res) || !al8(a.out))
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)a.samples * a.rps;
-  int err = gemm_tf32x3_run<128>(in, w1_x3, w1_x3 + a.hidden * k1_pad, k1_pad, rows, a.hidden,
-                                 k, 1, a.rps, HiddenGelu{a.h, a.b1, a.hidden}, st);
+  int err = gemm_tf32x3_run<128>(in, a.w1_x3, a.w1_x3 + a.hidden * a.k1_pad, a.k1_pad, rows,
+                                 a.hidden, k, 1, a.rps, HiddenGelu{a.h, a.b1, a.hidden}, st);
   if (err) return err;
-  const F32Matrix<float> h{a.h, a.hidden};
-  const float* w2_lo = w2_x3 + a.c_out * hid_pad;
+  HRows h;
+  h.p = a.h;
+  h.ld = a.hidden;
+  const float* w2_lo = a.w2_x3 + a.c_out * a.hid_pad;
+  const OutAdd add{a.b2, a.pe ? a.pe : a.res, a.pe ? a.pe_rows : rows, a.c_out,
+                   a.pe ? a.pe_bf16 : a.res_bf16};
   if constexpr (STATS) {
-    static_assert(TF3_BM == F32_BM, "the statistics' partials are per 128-row tile");
-    if (a.b2 || a.out_bf16) return (int)cudaErrorInvalidValue;
-    const OutStats out{a.pe, (float*)a.out, a.part_sum, a.part_sq, a.pe_rows, a.c_out,
-                       (int)((a.rps + TF3_BM - 1) / TF3_BM), a.pe_bf16};
-    err = gemm_tf32x3_run<OUT_BN>(h, w2_x3, w2_lo, hid_pad, rows, a.c_out, a.hidden, 1, a.rps,
-                                  out, st);
+    const OutStats out{add, (float*)a.out, a.part_sum, a.part_sq, a.c_out,
+                       (int)((a.rps + TF3_BM - 1) / TF3_BM)};
+    err = gemm_tf32x3_run<OUT_BN>(h, a.w2_x3, w2_lo, a.hid_pad, rows, a.c_out, a.hidden, 1,
+                                  a.rps, out, st);
     return err ? err : mlp_stats_reduce(a, st);
   } else {
-    return gemm_tf32x3_run<OUT_BN>(h, w2_x3, w2_lo, hid_pad, rows, a.c_out, a.hidden, 1, a.rps,
-                                   OutStore{a.b2, a.out, a.c_out, a.out_bf16}, st);
+    return gemm_tf32x3_run<OUT_BN>(h, a.w2_x3, w2_lo, a.hid_pad, rows, a.c_out, a.hidden, 1,
+                                   a.rps, OutStore{add, a.out, a.c_out, a.out_bf16}, st);
   }
 }
 

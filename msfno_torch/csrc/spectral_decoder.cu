@@ -391,22 +391,21 @@ __global__ void skip_into_rows(const void* skip, int skip_bf16, long long rows, 
 // The fp32-operand tail.  ptrs and ints begin with the decoder MLP's
 // MlpPtr / MlpInt layouts (mlp_f32.cuh: x is the (B*H*W, lda) fp32
 // scratch of the first GEMM's rows [a x + b | skip | 0], aff_a / aff_b are
-// a and b, the skip its second input; w1 and w2 are not read); then ptrs:
-// the fp32 fold operand of dft_synthesis.prepare (at_rows, at_cols), hm
-// (B, H, 2M, c), the hi / lo halves of W1^T (2, hidden, k1_pad) and of
-// W2^T (2, c_out, hid_pad); ints: B, H, W, the modes M, at_rows, at_cols,
-// hm_bf16, k1_pad, hid_pad, lda (a multiple of 4, at least c + s).
+// a and b, the skip its second input); then ptrs: the fp32 fold operand
+// of dft_synthesis.prepare (at_rows, at_cols), hm (B, H, 2M, c); ints: B,
+// H, W, the modes M, at_rows, at_cols, hm_bf16, lda (a multiple of 4, at
+// least c + s).
 extern "C" int spectral_decoder_f32(const void* const* ptrs, const long long* ints,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const MlpF32 mlp = mlp_f32_args(ptrs, ints);
   const long long* v = ints + MLP_INTS;
-  const long long bsz = v[0], h = v[1], w = v[2], lda = v[9];
+  const long long bsz = v[0], h = v[1], w = v[2], lda = v[7];
   const int m = (int)v[3], at_rows = (int)v[4], at_cols = (int)v[5];
   const int c = mlp.c_main, s = mlp.c_skip;
   if (bsz < 1 || h < 1 || w < 2 || m < 1 || mlp.x_bf16 || mlp.samples != bsz ||
       mlp.rps != h * w || !mlp.aff_a || !mlp.aff_b || s < 1 || !mlp.skip || lda < c + s ||
-      lda % 4 || lda > INT_MAX)
+      lda % 4 || lda > INT_MAX || mlp.pe || mlp.res || mlp.part_sum)
     return (int)cudaErrorInvalidValue;
   const void* at = ptrs[MLP_PTRS];
   const void* hm = ptrs[MLP_PTRS + 1];
@@ -427,7 +426,5 @@ extern "C" int spectral_decoder_f32(const void* const* ptrs, const long long* in
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // 3. the MLP: 16-byte rows of K = lda against W1^T's zero-padded rows
-  return mlp_tf32x3_run(F32Matrix<float>{xa, lda}, (int)lda, mlp,
-                        (const float*)ptrs[MLP_PTRS + 2], v[7],
-                        (const float*)ptrs[MLP_PTRS + 3], v[8], st);
+  return mlp_tf32x3_run(F32Matrix<float>{xa, lda}, (int)lda, mlp, st);
 }

@@ -43,7 +43,7 @@ from msfno_torch.ops.kernels.dft_analysis import (BF16_K, BF16_TILE, FOLD_K, FOL
 # REDUCE_GROUPS and tile_stats_reduce are re-exported for the tail's modules and the tests
 from msfno_torch.ops.kernels import REDUCE_GROUPS, tile_stats_reduce  # noqa: F401
 from msfno_torch.ops.kernels.grid_mlp import _pad16, grid_mlp_reference, prepare_weights
-from msfno_torch.ops.kernels.tf32x3 import kmajor_split, matmul_tf32x3
+from msfno_torch.ops.kernels.tf32x3 import matmul_tf32x3
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -190,10 +190,9 @@ def prepare(w1, w2, cs, mxu_dtype="bfloat16"):
     matrices of `dft_analysis.prepare`), and for fp32 operands the MLP's
     split-precision B operands (`tf32x3.kmajor_split`: hi and lo, K-major,
     rows zero-padded) of W1^T and W2^T."""
-    w1p, w2p = prepare_weights(w1, w2, w1.shape[0], mxu_dtype)
+    w1p, w2p, *splits = prepare_weights(w1, w2, w1.shape[0], mxu_dtype)
     if operand_dtype(mxu_dtype) == torch.float32:
-        at = dft_analysis.prepare(*_analysis_pair(cs), mxu_dtype)
-        return w1p, w2p, at, kmajor_split(w1p), kmajor_split(w2p)
+        return w1p, w2p, dft_analysis.prepare(*_analysis_pair(cs), mxu_dtype), *splits
     return w1p, w2p, _dft_operand(cs)
 
 
@@ -318,15 +317,13 @@ def _forward_f32(x, w1p, b1, w2p, pe, at, w1t_x3, w2t_x3, two_m, od):
     y = torch.empty((bsz * h * w, c), device=x.device)  # fp32 y, pass 1 -> 2
     f = torch.empty((bsz, h, two_m, c), dtype=od, device=x.device)
     ptrs, ints, _keep, (ssum, ssq) = mlp_f32.mlp_args(
-        xf.reshape(-1, c_in), w1p, b1, w2p, pe=pe, out=y, samples=bsz, stats=True)
+        xf.reshape(-1, c_in), w1t_x3, b1, w2t_x3, pe=pe, out=y, samples=bsz, stats=True)
     # fp32 x of a width that is no multiple of 4 (73): the kernel copies it
     # into 16-byte rows for its first GEMM's loader
     xp = (torch.empty((bsz * h * w, -(-c_in // 4) * 4), device=x.device)
           if c_in % 4 and xf.dtype == torch.float32 else None)
-    ptrs += [at.data_ptr(), f.data_ptr(), w1t_x3.data_ptr(), w2t_x3.data_ptr(),
-             xp.data_ptr() if xp is not None else None]
-    ints += [bsz, h, w, two_m // 2, at.shape[0], at.shape[1], int(od == torch.bfloat16),
-             w1t_x3.shape[2], w2t_x3.shape[2]]
+    ptrs += [at.data_ptr(), f.data_ptr(), xp.data_ptr() if xp is not None else None]
+    ints += [bsz, h, w, two_m // 2, at.shape[0], at.shape[1], int(od == torch.bfloat16)]
     mlp_f32.launch("grid_encoder_spectral", "grid_encoder_spectral_f32", ptrs, ints,
                    stream_ptr(x))
     global LAUNCHES

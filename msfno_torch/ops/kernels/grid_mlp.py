@@ -13,10 +13,13 @@ width above 256 as two passes of the first GEMM, and adds per-tile
 statistics partials in a fixed order: `mlp_tiles` and
 `ops.kernels.tile_stats_reduce` are plain mirrors of that decomposition
 (tests only).  On fp32 operands ("float32", "tensorfloat") the kernel is
-two fp32 FMA GEMMs with h through device memory (csrc/mlp_f32.cuh): the
-same tiles of 128 rows of one sample and the same fixed-order statistics,
-in one pass over the hidden width (`mlp_tiles` with `half` = hidden).  The JAX package has no backward kernel here: its gradient is
-the VJP of the fp32 pre-rounding reference (`_ref_mlp_f32`,
+two split-precision TF32 GEMMs with h through device memory
+(csrc/mlp_f32.cuh:mlp_tf32x3_run; B the hi / lo halves of W1^T and W2^T
+that `prepare_weights` adds): the same tiles of 128 rows of one sample and
+the same fixed-order statistics, in one pass over the hidden width
+(`mlp_tiles` with `half` = hidden and `matmul` =
+`tf32x3.matmul_tf32x3`).  The JAX package has no backward kernel here: its
+gradient is the VJP of the fp32 pre-rounding reference (`_ref_mlp_f32`,
 grid_mlp.py:306-395), and so it is here.
 """
 
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 from msfno_torch.ops.kernels import (TILE_ROWS, check, check_prepared, kernel_operand,
                                      library, mlp_f32, operand_dtype, reference_vjp,
                                      stats_scratch, stream_ptr)
+from msfno_torch.ops.kernels.tf32x3 import kmajor_split
 from msfno_torch.runtime import mxu_round, torch_dtype
 
 LAUNCHES = 0  # kernel launches since the last reset (ops.kernels.reset_launch_counts)
@@ -39,6 +43,10 @@ HIDDEN_PASS = 256  # the first GEMM's N a pass (GM_HALF, grid_mlp.cu)
 
 def _pad16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -93,12 +101,14 @@ def grid_mlp_reference(x, w1, b1, w2, b2=None, skip=None, pe=None,
 
 def mlp_tiles(x, w1, b1, w2, b2=None, skip=None, pe=None, mxu_dtype="bfloat16",
               stats_rows=None, affine=None, residual=None, tile=TILE_ROWS,
-              half=HIDDEN_PASS):
+              half=HIDDEN_PASS, matmul=torch.matmul):
     """Plain mirror of the kernel's tile chain (tests only): per sample (of
     `stats_rows` rows, or of the affine's rows, else one), tiles of `tile`
     consecutive rows, the last one ragged; the first GEMM in passes of
-    `half` hidden columns, the second GEMM over h's K-chunks in order, the
-    epilogue in the plain version's order.  Returns (y fp32 (rows, C_out);
+    `half` hidden columns, the second GEMM over h's K-chunks in order, each
+    an fp32-accumulated product by `matmul` (the card's fp32 operands:
+    `tf32x3.matmul_tf32x3`), the epilogue in the plain version's order.
+    Returns (y fp32 (rows, C_out);
     each tile's column sums of y and y^2 over its groups of 16 rows, added in
     order, each (samples, tiles, C_out))."""
     _check_options(stats_rows, affine, pe, residual)
@@ -123,10 +133,11 @@ def mlp_tiles(x, w1, b1, w2, b2=None, skip=None, pe=None, mxu_dtype="bfloat16",
             u = mxu_round(u, mxu_dtype).float()
             if skip is not None:
                 u = torch.cat([u, mxu_round(_flat(skip)[rows], mxu_dtype).float()], dim=1)
-            hs = [F.gelu(u @ w1r[:, j:j + half] + b1.float()[j:j + half], approximate="none")
+            hs = [F.gelu(matmul(u, w1r[:, j:j + half]) + b1.float()[j:j + half],
+                         approximate="none")
                   for j in range(0, hidden, half)]
             h = mxu_round(torch.cat(hs, dim=1), mxu_dtype).float()
-            yt = h @ w2r
+            yt = matmul(h, w2r)
             if b2 is not None:
                 yt = yt + b2.float()
             if pe is not None:
@@ -145,9 +156,19 @@ def prepare_weights(w1, w2, c_main: int, mxu_dtype: str = "bfloat16"):
     """The kernel's weights for `mxu_dtype`.  bf16 operands: W1 as (k1p,
     hidden) with the main rows padded to a multiple of 16 and the skip rows
     after them, W2 as (hidden, n2p) with zero columns past c_out.  fp32
-    operands: W1 and W2 as they are, contiguous fp32."""
+    operands: W1 and W2 as they are, contiguous fp32, then the
+    split-precision B operands (`tf32x3.kmajor_split`: hi and lo, K-major,
+    rows zero-padded) of W1^T, whose K holds the main rows padded with
+    zeros to a multiple of 4 and then the skip rows (the kernel's A: x's
+    rows, then the skip's, each of a width that is a multiple of 4), and
+    of W2^T."""
     if operand_dtype(mxu_dtype) == torch.float32:
-        return w1.float().contiguous(), w2.float().contiguous()
+        w1f, w2f = w1.float().contiguous(), w2.float().contiguous()
+        w1k = w1f
+        if c_main % 4 and w1f.shape[0] > c_main:
+            w1k = torch.cat([w1f[:c_main], w1f.new_zeros((_pad4(c_main) - c_main, w1f.shape[1])),
+                             w1f[c_main:]])
+        return w1f, w2f, kmajor_split(w1k), kmajor_split(w2f)
     hidden, c_out = w1.shape[1], w2.shape[1]
     c_skip = w1.shape[0] - c_main
     cmp = _pad16(c_main)
@@ -231,7 +252,7 @@ def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affi
     if prepared is None:
         prepared = prepare_weights(w1, w2, c_main, mxu_dtype)
     check_prepared("grid_mlp", prepared, mxu_dtype)
-    w1p, w2p = prepared
+    w1p, w2p = prepared[:2]
     dev = x.device
     od = torch_dtype(out_dtype or "float32")
     if od not in (torch.float32, torch.bfloat16):
@@ -262,13 +283,11 @@ def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affi
         raise ValueError(f"pixel count {n} not a multiple of pe rows {_flat(pe).shape[0]}")
     global LAUNCHES
     if f32:
-        ptrs, ints, _keep, stats = mlp_f32.mlp_args(
-            xf, w1p, b1, w2p, b2, skip=skip, pe=pe, affine=(aff_a, aff_b), residual=residual,
-            out=out, samples=n_samples, stats=stats_rows is not None)
-        mlp_f32.launch("grid_mlp", "grid_mlp_f32", ptrs, ints, stream_ptr(x))
+        sums = _forward_f32(xf, skip, pe, b1, b2, residual, (aff_a, aff_b), out, n_samples,
+                            stats_rows is not None, prepared, stream_ptr(x))
         LAUNCHES += 1
         out = out.reshape(*lead, c_out)
-        return out if stats is None else (out, *stats)
+        return out if sums is None else (out, *sums)
     skf, skip_bf16 = kernel_operand(_flat(skip)) if skip is not None else (None, 0)
     pef, pe_bf16, pe_rows = None, 0, 0
     if pe is not None:
@@ -311,3 +330,48 @@ def _forward(x, w1, b1, w2, b2, skip, pe, mxu_dtype, out_dtype, stats_rows, affi
     if stats_rows is None:
         return out
     return out, ssum, ssq
+
+
+def _forward_f32(xf, skip, pe, b1, b2, residual, affine, out, samples, stats, prepared,
+                 stream):
+    """The fp32-operand kernel (csrc/grid_mlp.cu:grid_mlp_f32): x's rows,
+    then the skip's, each copied first into fp32 rows of a multiple of 4
+    floats where it is not such rows, against the prepared hi / lo halves
+    of W1^T and W2^T, into `out`; b2, pe and the residual, where a call has
+    more than one of them, added into one fp32 table first.  Returns (ssum,
+    ssq) with `stats`, else None."""
+    w1p, w2p, w1t_x3, w2t_x3 = prepared
+    (rows, c_main), (hidden, c_out) = xf.shape, w2p.shape
+    c_skip = w1p.shape[0] - c_main
+    k = _pad4(c_main) + _pad4(c_skip)
+    if (w1t_x3.shape[:2] != (2, hidden) or w1t_x3.shape[2] < k
+            or w2t_x3.shape[:2] != (2, c_out) or w2t_x3.shape[2] < hidden):
+        raise ValueError("grid_mlp: prepared split weights do not match the MLP")
+    if (b2 is not None) + (pe is not None) + (residual is not None) > 1:
+        # one addend table (mlp_f32.cuh:OutAdd): the residual's rows, or pe's
+        table = 0.0 if b2 is None else b2.float()
+        if pe is not None:
+            pf = _flat(pe).float()
+            table = table + pf if residual is None else (
+                _flat(residual).float().reshape(-1, pf.shape[0], c_out) + pf + table
+            ).reshape(rows, c_out)
+        else:
+            table = _flat(residual).float() + table
+        b2 = None
+        pe, residual = (table, None) if residual is None else (None, table)
+    # with statistics the kernel writes fp32 y
+    y = out if not stats or out.dtype == torch.float32 else torch.empty(
+        out.shape, device=out.device)
+    ptrs, ints, _keep, sums = mlp_f32.mlp_args(
+        xf, w1t_x3, b1, w2t_x3, b2, skip=skip, pe=pe, affine=affine, residual=residual,
+        out=y, samples=samples, stats=stats)
+    # x and the skip as 16-byte aligned fp32 rows of a multiple of 4 floats,
+    # else the kernel copies them into such rows first
+    pads = [torch.empty((rows, _pad4(c)), device=xf.device)
+            if t is not None and (c % 4 or t.dtype != torch.float32 or t.data_ptr() % 16)
+            else None for t, c in ((xf, c_main), (_keep[1], c_skip))]
+    ptrs += [t.data_ptr() if t is not None else None for t in pads]
+    mlp_f32.launch("grid_mlp", "grid_mlp_f32", ptrs, ints, stream)
+    if y is not out:
+        out.copy_(y)
+    return sums

@@ -153,7 +153,7 @@ def prepare(w1, w2, mt, c_main: int, mxu_dtype="bfloat16"):
     [dxa | dskip] = dz1 W1^T and W2^T (C_out x hidden) for the forward's
     second product (~1.6 MB)."""
     if operand_dtype(mxu_dtype) == torch.float32:
-        w1p, w2p = prepare_weights(w1, w2, c_main, mxu_dtype)
+        w1p, w2p = prepare_weights(w1, w2, c_main, mxu_dtype)[:2]
         return (w1p, w2p, dft_synthesis.prepare(*_synthesis_pair(mt), mxu_dtype),
                 dft_analysis.prepare(*_transposed_pair(mt), mxu_dtype),
                 kmajor_split(w1p), kmajor_split(w2p.t()), kmajor_split(w1p.t()),
@@ -285,11 +285,10 @@ def _forward_f32(hm, skip, a, b, w1p, b1, w2p, b2, at, w1t_x3, w2t_x3, od, w):
     xa = torch.empty((bsz * h * w, lda), device=hm.device)
     out = torch.empty((bsz, h, w, c_out), dtype=od, device=hm.device)
     affine = (a.float().contiguous(), b.float().contiguous())
-    ptrs, ints, _keep, _ = mlp_f32.mlp_args(xa[:, :c], w1p, b1, w2p, b2, skip=skip,
+    ptrs, ints, _keep, _ = mlp_f32.mlp_args(xa[:, :c], w1t_x3, b1, w2t_x3, b2, skip=skip,
                                             affine=affine, out=out, samples=bsz)
-    ptrs += [at.data_ptr(), hmf.data_ptr(), w1t_x3.data_ptr(), w2t_x3.data_ptr()]
-    ints += [bsz, h, w, two_m // 2, at.shape[0], at.shape[1], hm_bf16, w1t_x3.shape[2],
-             w2t_x3.shape[2], lda]
+    ptrs += [at.data_ptr(), hmf.data_ptr()]
+    ints += [bsz, h, w, two_m // 2, at.shape[0], at.shape[1], hm_bf16, lda]
     mlp_f32.launch("spectral_decoder", "spectral_decoder_f32", ptrs, ints, stream_ptr(hm))
     global LAUNCHES
     LAUNCHES += 1

@@ -43,7 +43,9 @@ def cuda():
 
 def _case(name, seed=0, big=False):
     """Operands of one call site, as numpy: encoder (+pe, +stats), inner
-    (+b2), decoder (+skip), fold (+affine, +residual, +b2)."""
+    (+b2), decoder (+skip), fold (+affine, +residual, +b2); and "odd", no
+    call site: x and the skip of widths that are no multiple of 4, with the
+    affine, the residual and b2."""
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s).astype(np.float32)
     b, h, w = (2, 9, 40) if big else (2, 6, 8)
@@ -57,12 +59,17 @@ def _case(name, seed=0, big=False):
         c, hid, out = 16, 16, 5
         ops = dict(x=r(1, h, w, c), skip=r(1, h, w, 5))
         c_skip = 5
-    else:  # fold
+    elif name == "fold":
         c, hid, out = 16, 32, 16
         ops = dict(x=r(b, h, w, c), b2=0.1 * r(out),
                    affine=(1.0 + 0.1 * r(b, c), 0.1 * r(b, c)),
                    residual=r(b, h, w, out))
-    k_in = c + (5 if name == "decoder" else 0)
+    else:  # odd
+        c, hid, out = 6, 24, 10
+        ops = dict(x=r(b, h, w, c), skip=r(b, h, w, 5), b2=0.1 * r(out),
+                   affine=(1.0 + 0.1 * r(b, c), 0.1 * r(b, c)),
+                   residual=r(b, h, w, out))
+    k_in = c + (5 if "skip" in ops else 0)
     ops.update(w1=0.3 * r(k_in, hid), b1=0.1 * r(hid), w2=0.3 * r(hid, out))
     return ops
 
@@ -121,9 +128,9 @@ def test_tile_mirror_matches_jax_kernel(name, mxu, tol):
     _check_tile_mirror(name, mxu, tol, MIRROR_HALF)
 
 
-def _check_tile_mirror(name, mxu, tol, half):
-    """`mlp_tiles` (hidden passes of `half`) against the Pallas
-    `_grid_mlp_call` (interpret mode) at one call site."""
+def _check_tile_mirror(name, mxu, tol, half, matmul=torch.matmul):
+    """`mlp_tiles` (hidden passes of `half`, products by `matmul`) against
+    the Pallas `_grid_mlp_call` (interpret mode) at one call site."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from msfno_tpu.ops.pallas.grid_mlp import _grid_mlp_call
@@ -149,23 +156,30 @@ def _check_tile_mirror(name, mxu, tol, half):
     y, part_sum, part_sq = tk.mlp_tiles(
         t("x"), t("w1"), t("b1"), t("w2"), t("b2"), t("skip"), t("pe"), mxu,
         stats_rows=rows or None, residual=t("residual"), tile=MIRROR_TILE, half=half,
-        affine=tuple(torch.from_numpy(a) for a in aff) if aff else None)
+        affine=tuple(torch.from_numpy(a) for a in aff) if aff else None, matmul=matmul)
     if rows:
         assert rows % MIRROR_TILE and part_sum.shape[1] == -(-rows // MIRROR_TILE)  # ragged
     assert y.shape == (n, c_out)
-    assert report(f"grid_mlp tiles[{name},{mxu},half={half}]", rel_l2(y, yj)) <= tol
+    tag = f"{name},{mxu},half={half},{getattr(matmul, '__name__', matmul)}"
+    assert report(f"grid_mlp tiles[{tag}]", rel_l2(y, yj)) <= tol
     for part, got, want in zip(("ssum", "ssq"), (part_sum, part_sq), sums):
-        assert report(f"grid_mlp tiles[{name},{mxu},half={half}] {part}",
+        assert report(f"grid_mlp tiles[{tag}] {part}",
                       rel_l2(tile_stats_reduce(got), want)) <= tol
 
 
+@pytest.mark.parametrize("product", ["matmul", "tf32x3"])
 @pytest.mark.parametrize("mxu", ["float32", "tensorfloat"])
 @pytest.mark.parametrize("name", ["encoder", "inner", "decoder", "fold"])
-def test_fp32_tile_mirror_matches_jax_kernel(name, mxu):
+def test_fp32_tile_mirror_matches_jax_kernel(name, mxu, product):
     """The fp32 kernel's decomposition (csrc/mlp_f32.cuh): the whole hidden
-    width in one GEMM, tiles of one sample, per-tile statistics partials
-    added in the fixed order; "tensorfloat" takes the same fp32 kernel."""
-    _check_tile_mirror(name, mxu, 1e-5, half=32)
+    width in one GEMM, tiles of one sample (ragged), per-tile statistics
+    partials added in the fixed order, each product fp32 (`matmul`) or the
+    card's split-precision product (`tf32x3.matmul_tf32x3`); "tensorfloat"
+    takes the same fp32 kernel."""
+    from msfno_torch.ops.kernels.tf32x3 import matmul_tf32x3
+
+    _check_tile_mirror(name, mxu, 1e-5, half=32,
+                       matmul=matmul_tf32x3 if product == "tf32x3" else torch.matmul)
 
 
 @pytest.mark.parametrize("bad", ["residual+stats", "affine+pe"])
@@ -210,17 +224,39 @@ def test_tensorfloat_is_float32_on_cpu(name):
 
 
 def test_prepare_weights_fp32():
-    """fp32 operands take W1 and W2 as they are (no padding, no rounding);
-    a bf16 pack is refused for them."""
+    """fp32 operands take W1 and W2 as they are (no padding, no rounding),
+    then the split-precision B operands of W1^T and W2^T, bit for bit
+    `tf32x3.kmajor_split`'s; a bf16 pack is refused for them."""
     from msfno_torch.ops.kernels import check_prepared
+    from msfno_torch.ops.kernels.tf32x3 import kmajor_split
 
     ops = _case("decoder")
     w1, w2 = torch.from_numpy(ops["w1"]), torch.from_numpy(ops["w2"])
-    w1p, w2p = tk.prepare_weights(w1, w2, 16, "float32")
+    prepared = tk.prepare_weights(w1, w2, 16, "float32")
+    w1p, w2p, w1t_x3, w2t_x3 = prepared
     assert torch.equal(w1p, w1) and torch.equal(w2p, w2) and w1p.dtype == torch.float32
-    check_prepared("grid_mlp", (w1p, w2p), "tensorfloat")
+    assert torch.equal(w1t_x3, kmajor_split(w1)) and torch.equal(w2t_x3, kmajor_split(w2))
+    check_prepared("grid_mlp", prepared, "tensorfloat")
     with pytest.raises(ValueError):
         check_prepared("grid_mlp", tk.prepare_weights(w1, w2, 16), "float32")
+
+
+@pytest.mark.parametrize("name", ["encoder", "odd"])
+def test_prepare_weights_fp32_pads_main_rows(name):
+    """W1^T's K on fp32 operands: x's rows padded with zeros to a multiple
+    of 4, then the skip's (the kernel's A rows); without a skip, W1 as it
+    is."""
+    from msfno_torch.ops.kernels.tf32x3 import kmajor_split
+
+    ops = _case(name)
+    c_main = ops["x"].shape[-1]
+    w1, w2 = torch.from_numpy(ops["w1"]), torch.from_numpy(ops["w2"])
+    w1t_x3 = tk.prepare_weights(w1, w2, c_main, "float32")[2]
+    lx = -(-c_main // 4) * 4
+    want = torch.zeros((lx + w1.shape[0] - c_main, w1.shape[1]))
+    want[:c_main], want[lx:] = w1[:c_main], w1[c_main:]
+    assert torch.equal(w1t_x3, kmajor_split(want))
+    assert w1t_x3.shape[2] >= lx + -(-(w1.shape[0] - c_main) // 4) * 4
 
 
 @pytest.mark.cuda
@@ -228,11 +264,18 @@ def test_prepare_weights_fp32():
 @pytest.mark.parametrize("name,io", [
     ("encoder", "fp32"), ("inner", "fp32"), ("decoder", "fp32"), ("fold", "fp32"),
     # bf16 x, skip, pe and residual as stored, bf16 output
-    ("encoder", "bf16"), ("decoder", "bf16"), ("fold", "bf16"),
+    ("encoder", "bf16"), ("decoder", "bf16"), ("fold", "bf16"), ("inner", "bf16"),
+    # x and the skip copied into 16-byte rows, the affine on the copy
+    ("odd", "fp32"), ("odd", "bf16"),
 ])
 def test_fp32_kernel_matches_plain(cuda, name, io, mxu):
-    # true fp32 FMA on both sides: the sums' order only; bf16 storage is
-    # read as it is on both sides, and a bf16 output rounds the same y
+    # the kernel's split-precision products against true fp32 FMA: the fp32
+    # class; row counts no multiple of 128 (720 a sample, 2 samples with
+    # statistics); bf16 storage is read as it is on both sides, and a bf16
+    # output rounds the same y
+    from msfno_torch.runtime import exact_fp32_matmuls
+
+    exact_fp32_matmuls()
     ops = _case(name, seed=5, big=True)
     bf = io == "bf16"
 
@@ -258,3 +301,31 @@ def test_fp32_kernel_matches_plain(cuda, name, io, mxu):
     assert rel_l2(yk[0].float().cpu(), yp[0].float().cpu()) <= (1e-3 if bf else 1e-5)
     for a, b in zip(yk[1:], yp[1:]):
         assert rel_l2(a.cpu(), b.cpu()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fp32_mlp_follows_in_place_weight_update(cuda):
+    """`Mlp` caches the prepared split of W1^T and W2^T (DerivedCache): a
+    weight updated in place between two calls, as an optimizer step does,
+    reaches the second call."""
+    from msfno_torch.models.sfno.layers import Mlp
+    from msfno_torch.runtime import exact_fp32_matmuls
+
+    exact_fp32_matmuls()
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    mlp = Mlp(16, 32, 16, use_pallas=True, mxu_dtype="float32", device=cuda, gen=gen)
+    x = torch.randn((1, 9, 40, 16), device=cuda, generator=gen)
+
+    def plain():
+        fc1, fc2 = mlp.fwd["0"], mlp.fwd["2"]
+        return tk.grid_mlp_reference(x, fc1.dense(), fc1.bias, fc2.dense(), b2=fc2.bias,
+                                     mxu_dtype="float32")
+
+    with torch.no_grad():
+        y0 = mlp(x)
+        mlp.fwd["0"].weight.mul_(-0.5).add_(0.01)
+        y1 = mlp(x)
+        torch.cuda.synchronize()
+        want = plain()
+    assert rel_l2(y1.cpu(), want.cpu()) <= 1e-5
+    assert rel_l2(y0.cpu(), want.cpu()) > 1e-2

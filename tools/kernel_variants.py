@@ -46,7 +46,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def _profiled(check_site, card: str, var: str):
     """chip_smoke.check_site, followed by PROFILE_CALLS calls of the site's
     main-path call (`time_fn`, else `kernel_fn`) under torch.profiler: one
-    JSON line per CUDA kernel those calls launched."""
+    JSON line per CUDA kernel those calls launched, by its name without
+    namespaces and arguments (its template arguments tell an MLP's copy,
+    GEMM 1, GEMM 2 and reduces apart: grid_mlp's `pad_rows<GmRows>`,
+    `gemm_tf32x3<128, GmInput<false, false>, HiddenGelu>`,
+    `gemm_tf32x3<.., GmHidden, OutStore>` or `<.., OutStats>`,
+    `tile_reduce`, `stats_reduce`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -63,7 +68,9 @@ def _profiled(check_site, card: str, var: str):
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = ev.self_cuda_time_total
-            print(json.dumps({"variant": var, "site": site, "cuda_kernel": ev.key[:160],
+            kernel = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+            print(json.dumps({"variant": var, "site": site,
+                              "cuda_kernel": kernel.removeprefix("void ")[:160],
                               "launches_per_call": ev.count / PROFILE_CALLS,
                               "mean_us": dev_us / ev.count, "card": card}))
         return rec

@@ -20,7 +20,8 @@ and power limit.
 --tier fp32: the same for the fp32-kernel tier (`fp32_kernel_config()`,
 the JAX exact tier with every kernel on fp32 operands), fused and unfused.
 Each kernel's gemm_tf32x3 and gemm_f32 launches count as its own (the
-fp32 MLP of csrc/mlp_f32.cuh as grid_mlp's, the head's and the tail's);
+fp32 MLP of csrc/mlp_f32.cuh as grid_mlp's, the head's and the tail's,
+told apart by their A and h types: GmInput / GmHidden, EncRows, F32Matrix);
 the folded DFT passes by direction, "dft_fold_analysis" (the
 head's DFT, and in a train step the tail backward's dhm) and
 "dft_fold_synthesis" (the tail's inverse DFT, and in a train step the tail
@@ -85,14 +86,15 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
     # the head's MLP pass and DFT pass (the DIRECT analysis_wgmma, bf16 f),
     # the tail's t pre-pass and tile kernel, the tail backward's pre-pass,
     # tile kernel and transposed DFT (the DIRECT analysis_wgmma, fp32 dhm);
-    # on fp32 operands, spectral_mlp's gemm_tf32x3 layers, grid_mlp's two
-    # gemm_f32 launches (MlpHidden, MlpOut), gcn_layer's W split and
-    # gemm_tf32x3 (TScale), the head's copy of x into 16-byte rows and two
-    # gemm_tf32x3 launches (EncRows, OutStats; its fold counts under
-    # dft_fold_analysis), the tail's skip copy and two gemm_tf32x3 launches
-    # (F32Matrix with HiddenGelu, OutStore; its fold counts under
-    # dft_fold_synthesis), the tail
-    # backward's three gemm_tf32x3 passes (z1, dz1, [dxa | dskip]),
+    # on fp32 operands, spectral_mlp's gemm_tf32x3 layers, grid_mlp's copies
+    # into 16-byte rows (pad_rows<GmRows>) and two gemm_tf32x3 launches (A
+    # GmInput, GmHidden), gcn_layer's W split and gemm_tf32x3 (TScale), the
+    # head's copy of x into 16-byte rows (pad_rows<EncRows>) and two
+    # gemm_tf32x3 launches (EncRows or MlpInput, F32Matrix with OutStats; its
+    # fold counts under dft_fold_analysis), the tail's skip copy and two
+    # gemm_tf32x3 launches (F32Matrix with HiddenGelu, with OutStore; its
+    # fold counts under dft_fold_synthesis), the tail backward's three
+    # gemm_tf32x3 passes (z1, dz1, [dxa | dskip]),
     # gcn_layer_bwd's W split, dx (gemm_tf32x3 with the plain TcStore) and
     # dW (dw_mma); the folded DFT passes, whose kernels the head, the
     # tail and the tail's backward share, by direction ("dft_fold_*"); the
@@ -103,18 +105,20 @@ def breakdown(prof, steps: int, wall: float, path: str) -> None:
     direct = re.escape("analysis_wgmma<__nv_bfloat16, ")  # + the output type, ", 0, true>"
     kernel_keys = {"spectral_mlp": (ns + "stage_input", ns + "HiddenEpi,", ns + "OutEpi,",
                                     ns + "HiddenF32>", ns + "OutF32>"),
-                   "grid_mlp": (ns + "mlp_tiles<", ns + "MlpHidden>", ns + "MlpOut>"),
+                   "grid_mlp": (ns + "mlp_tiles<", ns + "pad_rows<" + ns + "GmRows>",
+                                ns + "GmInput<", ns + "GmHidden,"),
                    "dft_fold_analysis": (ns + "fold_rows<true",),
                    "dft_fold_synthesis": (ns + "fold_rows<false",),
                    "grid_encoder_spectral": (ns + "enc_mlp<",
                                              direct + re.escape("__nv_bfloat16, 0, true>"),
-                                             ns + "pad_rows", ns + "EncRows,",
+                                             ns + "pad_rows<" + ns + "EncRows>",
+                                             ns + "EncRows,",
                                              ns + "MlpInput, " + ns + "HiddenGelu>",
-                                             ns + "OutStats>"),
+                                             ns + "F32Matrix<float>, " + ns + "OutStats>"),
                    "spectral_decoder": (ns + "spectral_decoder_tiles<", ns + "scale_to_bf16",
                                         ns + "skip_into_rows",
                                         ns + "F32Matrix<float>, " + ns + "HiddenGelu>",
-                                        ns + "OutStore>"),
+                                        ns + "F32Matrix<float>, " + ns + "OutStore>"),
                    "gcn_layer": (ns + "gcn_stencil", ns + "TEpi,", ns + "TScale>",
                                  ns + "tf32_split_transposed",
                                  ns + "gemm_f32<false, .*F32Store>"),
