@@ -75,7 +75,27 @@ Phases (any failure raises, and the script exits non-zero):
      descent of phase 7, exactly 12 / 11 / 1 / 1 / 7 forward launches per
      rollout step and 7 / 1 / 0 gcn_layer_bwd / spectral_decoder_bwd /
      spectral_mlp_bwd launches per train step with 0 (14 / 2 / 0 with 1),
-     the median ms per train step and the peak memory.
+     the median ms per train step and the peak memory;
+ 13. the fine-tune of phase 7 fed from a full-width ERA5 / SST npy store
+     (`write_store`: 36 steps of (721, 1440, 73) fp32 states, 4 distinct
+     files and 32 symlinks to them, and (180, 360) SST frames with NaN over
+     land, each its own file, in a temporary directory removed at the end;
+     its statistics through `Normalizer.from_npy`), through ERA5Dataset over
+     NpyBackend and PrefetchLoader(batch_size=1, shuffle=True, 2 workers,
+     prefetch 2), with multi_step_training 0 and 1: the first batch bit for
+     bit the frames and SST windows read with np.load (fails unless the
+     native reader served it), the loss of one in-memory `_train_step` on it
+     against the first step of `Trainer.train` through the loader (1e-6
+     relative), an epoch and a validation through the loaders (finite
+     losses, the film parameters move, the frozen weights stay
+     bit-identical, every train step exactly phase 7's launches), then the
+     loader's ms per batch with fp32 and bf16 transfer, where a batch's
+     time goes before its step (the native read of its states, the whole
+     `get_batch`, the copy to the card from pageable and from pinned
+     memory), the ms per train step through the loader beside the
+     in-memory step in turns, the device-busy share of the steps of an
+     epoch through the loader (torch.profiler; copies apart from kernels)
+     and the peak memory.
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
 operands of that tier (sites "*/fp32") to 1e-5; at the fp32 sites of the
 GCN layer and its backward, the head, the tail and grid_mlp (each of its
@@ -1413,6 +1433,326 @@ def fp32_kernel_tier(dev, smi):
     return recs, timing
 
 
+# phase 13: the fine-tune fed from an ERA5 / SST npy store at full width
+STORE_FRAMES = 36  # temporal_step 28: 7 samples at multi_step_training=0, 6 at 1
+STORE_DISTINCT_ERA5 = 4  # the other era5 frames are symlinks to these
+STORE_SEED = 13
+LOADER_LOSS_TOL = 1e-6
+
+
+def write_store(root, cfg, frames: int = STORE_FRAMES,
+                distinct: int = STORE_DISTINCT_ERA5, seed: int = STORE_SEED) -> None:
+    """A full-width npy store under `root` (the layout of
+    tools/make_npy_store.py): era5_{i:06d}.npy (H, W, C) fp32 states,
+    means + stds * N(0, 1) per channel, of which `distinct` are files and
+    the rest symlinks to them; every sst_{i:06d}.npy (Hs, Ws) fp32 frame its
+    own file, NaN over `synthetic_land_mask`; the statistics as
+    global_means.npy / global_stds.npy (1, C, 1, 1) and sst_stats.npy
+    (mean, std).  All from numpy seeded with `seed`."""
+    import os
+
+    import numpy as np
+
+    from msfno_torch.data.synthetic import synthetic_land_mask
+
+    rng = np.random.default_rng(seed)
+    h, w = cfg.img_size
+    c = cfg.in_chans
+    means = rng.normal(0.0, 2.0, c).astype(np.float32)
+    stds = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    np.save(os.path.join(root, "global_means.npy"), means.reshape(1, c, 1, 1))
+    np.save(os.path.join(root, "global_stds.npy"), stds.reshape(1, c, 1, 1))
+    for i in range(distinct):
+        z = rng.standard_normal((h, w, c), dtype=np.float32)
+        np.save(os.path.join(root, f"era5_{i:06d}.npy"), z * stds + means)
+    for i in range(distinct, frames):
+        os.symlink(f"era5_{i % distinct:06d}.npy", os.path.join(root, f"era5_{i:06d}.npy"))
+    hs, ws = cfg.film.sst_shape
+    land = synthetic_land_mask(hs, ws)
+    sst_mean, sst_std = 290.0, 5.0
+    np.save(os.path.join(root, "sst_stats.npy"), np.asarray([sst_mean, sst_std], np.float32))
+    for i in range(frames):
+        sst = (sst_mean + sst_std * rng.standard_normal((hs, ws))).astype(np.float32)
+        sst[land] = np.nan
+        np.save(os.path.join(root, f"sst_{i:06d}.npy"), sst)
+
+
+def store_normalizers(root):
+    """(Normalizer, SSTNormalizer) of the statistics `write_store` saved."""
+    import os
+
+    import numpy as np
+
+    from msfno_torch.data.normalization import Normalizer, SSTNormalizer
+
+    sst_mean, sst_std = np.load(os.path.join(root, "sst_stats.npy")).tolist()
+    return (Normalizer.from_npy(os.path.join(root, "global_means.npy"),
+                                os.path.join(root, "global_stds.npy")),
+            SSTNormalizer(sst_mean, sst_std))
+
+
+def store_loader(root, cfg, ms: int, **kw):
+    """The fine-tune's loader over the store: ERA5Dataset over NpyBackend,
+    PrefetchLoader(batch_size=1, shuffle=True, num_workers=2, prefetch=2)."""
+    from msfno_torch.data.era5 import ERA5Dataset, NpyBackend, PrefetchLoader
+
+    ds = ERA5Dataset(NpyBackend(root), multi_step=ms, temporal_step=cfg.film.temporal_step)
+    return PrefetchLoader(ds, **{"batch_size": 1, "shuffle": True, "num_workers": 2,
+                                 "prefetch": 2, **kw})
+
+
+def check_first_batch(root, loader, temporal_step: int) -> dict:
+    """The loader's first batch against the frames and SST windows read
+    directly with np.load (bit for bit, NaNs in the same places); fails
+    unless the native reader served it."""
+    import os
+
+    import numpy as np
+
+    from msfno_torch.data import native_loader
+
+    t0 = time.perf_counter()
+    batch = next(iter(loader.epoch(0)))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if not (native_loader.get_lib() is not None and loader.dataset.backend.native):
+        raise AssertionError("phase 13: the store was not read by the native reader")
+    base = int(loader._order(0)[0])
+    s = batch.era5.shape[0]
+    load = lambda kind, i: np.load(os.path.join(root, f"{kind}_{i:06d}.npy"))  # noqa: E731
+    era5 = np.stack([load("era5", base + j) for j in range(s)])[:, None]
+    sst = np.stack([np.stack([load("sst", base + j + k) for k in range(temporal_step)])
+                    for j in range(s)])[:, None]
+    np.testing.assert_array_equal(batch.era5, era5)
+    np.testing.assert_array_equal(batch.sst, sst)
+    return dict(first_batch_ms=first_ms, first_sample=base, era5_shape=list(batch.era5.shape),
+                sst_shape=list(batch.sst.shape), sst_nan=int(np.isnan(batch.sst).sum()),
+                native_reader=True, batch=batch)
+
+
+def device_busy_ms(prof) -> tuple[float, float]:
+    """(device time, of which copies and sets) of a torch.profiler profile:
+    the CUDA-side events' self time, as tools/profile_torch_step.py sums
+    it."""
+    import torch
+
+    busy_us = copy_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            dev_us = ev.self_cuda_time_total if dev_us is None else dev_us
+            busy_us += dev_us
+            if ev.key.startswith(("Memcpy", "Memset")):
+                copy_us += dev_us
+    return busy_us / 1e3, copy_us / 1e3
+
+
+def loader_steps(tr, state, loader, epoch: int = 0):
+    """The train steps of one epoch of `loader`, each as `Trainer.train`
+    runs it: the batch to the device, the step, the previous step's loss
+    read back.  Returns (state, steps)."""
+    prev, steps = None, 0
+    for batch in loader.epoch(epoch):
+        state, m = tr._train_step(state, *tr._device_batch(batch))
+        if prev is not None:
+            float(prev["loss"])
+        prev, steps = m, steps + 1
+    float(prev["loss"])
+    return state, steps
+
+
+def batch_parts(ds, sample: int, batch, dev) -> dict:
+    """Where a batch's time goes before its step, each timed once on the
+    host clock: the native read of its states, the whole `get_batch`
+    (states, SST steps, assembly), the copy of its fields to the card from
+    pageable memory (as `Trainer._device_batch` does it) and, for
+    comparison, from pinned memory (the pinning not timed)."""
+    import torch
+
+    s = batch.era5.shape[0]
+    out = {}
+    t0 = time.perf_counter()
+    ds.backend.era5_batch(list(range(sample, sample + s)))
+    out["native_read_states"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ds.get_batch([sample])
+    out["get_batch"] = (time.perf_counter() - t0) * 1e3
+    host = [torch.from_numpy(batch.era5), torch.from_numpy(batch.sst)]
+    for name, tensors in (("to_device_pageable", host),
+                          ("to_device_pinned", [t.pin_memory() for t in host])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_dev = [t.to(dev, non_blocking=True) for t in tensors]
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        del on_dev
+    out["bytes_to_device"] = sum(t.numel() * t.element_size() for t in host)
+    return out
+
+
+def store_fine_tune(dev, smi, root, ms: int) -> dict:
+    """Phase 13 for one configuration: `finetune_config()` +
+    `finetune_train_config(multi_step_training=ms)` fed from the store.
+    The first batch against np.load; one `_train_step` on it in memory
+    against the first step of `Trainer.train` through the loader (twin
+    trainers with the same weights, LOADER_LOSS_TOL); the epoch and a
+    validation through the loaders (finite losses, the film parameters
+    move, the frozen weights stay bit-identical, exactly phase 7's
+    launches in every train step); then ms per batch of the loader (fp32
+    and bf16 transfer), `batch_parts`, ms per train step through the
+    loader beside the in-memory step in turns, the device-busy share of
+    the steps of an epoch through the loader and the peak memory.  Returns
+    the record."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from msfno_torch.config import finetune_config, finetune_train_config
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+    from msfno_torch.training.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    norm, sst_norm = store_normalizers(root)
+    cfg = finetune_config()
+    tcfg = finetune_train_config(multi_step_training=ms, validation_interval=0,
+                                 learning_rate=1e-3)
+    mem = Trainer(cfg, tcfg, normalizer=norm, sst_normalizer=sst_norm, device=dev)
+    tr = Trainer(cfg, tcfg, normalizer=norm, sst_normalizer=sst_norm, device=dev)
+    tr.model.load_state_dict(mem.model.state_dict())
+    mem_state, state = mem.init_state(), tr.init_state()
+    loader = store_loader(root, cfg, ms, seed=tcfg.seed)
+    val = store_loader(root, cfg, ms, shuffle=False)
+    val_loader = lambda: itertools.islice(val.epoch(0), 1)  # noqa: E731
+    rec = dict(phase="store_fine_tune", multi_step_training=ms, card=smi,
+               samples=len(loader.dataset), steps_per_epoch=len(loader))
+    first = check_first_batch(root, loader, cfg.film.temporal_step)
+    batch = first.pop("batch")
+    rec.update(first)
+    rec["batch_parts_ms"] = batch_parts(loader.dataset, first["first_sample"], batch, dev)
+
+    # the first step in memory and through the loader
+    era5, sst = mem._device_batch(batch)
+    mem_state, m = mem._train_step(mem_state, era5, sst)
+    loss_mem = float(m["loss"])
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+    film0 = {k: p.detach().clone() for k, p in state.trainable.items()}
+    per_step, step_fn = [], tr._train_step
+
+    def counted_step(st, e, s):
+        before = launch_counts()
+        out = step_fn(st, e, s)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return out
+
+    tr._train_step = counted_step
+    reset_launch_counts()
+    state = tr.train(state, loader=loader, val_loader=val_loader)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    tr._train_step = step_fn
+    losses = [r["loss"] for r in tr.writer.records if "loss" in r]
+    val_losses = [r["validation loss step=0"] for r in tr.writer.records
+                  if "validation loss step=0" in r]
+    loss_err = abs(losses[0] - loss_mem) / abs(loss_mem)
+    want = {name: 0 for name in counts}
+    want.update({name: n * (ms + 1) for name, n in PER_STEP["fused"].items()})
+    want.update(TRAIN_BWD[ms])
+    rec.update(loss_in_memory=loss_mem, loss_through_loader=losses[0], loss_rel_err=loss_err,
+               loss_tol=LOADER_LOSS_TOL, losses=losses, validation_losses=val_losses,
+               launches_per_train_step=per_step[0], launches_epoch_and_validation=counts,
+               finite=bool(np.isfinite(losses + val_losses).all()),
+               film_params_changed=any(not torch.equal(p, film0[k])
+                                       for k, p in state.trainable.items()),
+               frozen_bit_identical=all(torch.equal(p, frozen0[k])
+                                        for k, p in state.frozen.items()))
+    del frozen0, film0
+    if not (loss_err <= LOADER_LOSS_TOL and len(losses) == len(loader) == len(per_step)
+            and rec["finite"] and rec["film_params_changed"] and rec["frozen_bit_identical"]
+            and val_losses):
+        raise AssertionError(f"phase 13 ms={ms}: {rec}")
+    bad = [c for c in per_step if c != want]
+    if bad:
+        raise AssertionError(f"phase 13 ms={ms}: launches per train step {bad[0]} "
+                             f"(want {want})")
+
+    # the loader alone: ms per batch over an epoch, fp32 and bf16 transfer
+    loader_ms = {}
+    for name, kw in (("float32", {}), ("bfloat16", {"transfer_dtype": torch.bfloat16})):
+        ld = store_loader(root, cfg, ms, seed=tcfg.seed, **kw)
+        loader_ms[name] = tr.test_dataloader_speed(ld.epoch(1), iters=len(ld)) * 1e3
+    # ms per train step: in memory on the first batch (host clock over as
+    # many steps as an epoch, synchronized) and through the loader (an epoch
+    # of train(), its validation's time taken out), in turns
+    n = len(loader)
+    val_s, validation = [], tr.validation
+
+    def timed_validation(*a, **kw):
+        t0 = time.perf_counter()
+        out = validation(*a, **kw)
+        torch.cuda.synchronize()
+        val_s.append(time.perf_counter() - t0)
+        return out
+
+    tr.validation = timed_validation
+    step_ms = {"in_memory": [], "through_loader": []}
+    for how in ("in_memory", "through_loader", "through_loader", "in_memory"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "in_memory":
+            for _ in range(n):
+                mem_state, m = mem._train_step(mem_state, era5, sst)
+            float(m["loss"])
+            step_ms[how].append((time.perf_counter() - t0) * 1e3 / n)
+        else:
+            state = tr.train(state, loader=loader, val_loader=val_loader)
+            torch.cuda.synchronize()
+            step_ms[how].append((time.perf_counter() - t0 - val_s[-1]) * 1e3 / n)
+    tr.validation = validation
+    # the device-busy share of the steps of an epoch through the loader,
+    # under torch.profiler: each step as train() runs it (the batch to the
+    # device, the step, the previous step's loss read back)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = loader_steps(tr, state, loader)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, copies = device_busy_ms(prof)
+    rec.update(loader_ms_per_batch=loader_ms, train_step_ms=step_ms,
+               median_train_step_ms={k: statistics.median(v) for k, v in step_ms.items()},
+               profiled_epoch=dict(wall_ms_per_step=wall_ms / n, device_busy_ms_per_step=busy / n,
+                                   copies_ms_per_step=copies / n,
+                                   device_busy_share=busy / wall_ms,
+                                   kernel_busy_share=(busy - copies) / wall_ms),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(json.dumps(rec))
+    del mem, tr, mem_state, state, era5, sst, batch, prof
+    torch.cuda.empty_cache()
+    return rec
+
+
+def store_phase(dev, smi) -> dict:
+    """Phase 13: write the full-width store into a temporary directory, run
+    `store_fine_tune` at multi_step_training 0 and 1, and remove the store
+    whatever happens (an error still propagates)."""
+    import shutil
+    import tempfile
+
+    from msfno_torch.config import finetune_config
+
+    root = tempfile.mkdtemp(prefix="msfno_store_")
+    try:
+        t0 = time.perf_counter()
+        write_store(root, finetune_config())
+        log(json.dumps({"phase": "store_written", "seconds": time.perf_counter() - t0,
+                        "frames": STORE_FRAMES, "distinct_era5_files": STORE_DISTINCT_ERA5}))
+        return {ms: store_fine_tune(dev, smi, root, ms) for ms in (0, 1)}
+    finally:
+        shutil.rmtree(root)
+
+
 def model_inputs(cfg, dev, steps):
     import torch
 
@@ -1569,6 +1909,24 @@ def main() -> int:
                     "peak_mem_gib": {f"multi_step_training={ms}": r["peak_mem_gib"]
                                      for ms, r in f32_tuned.items()},
                     "seconds_total": time.time() - t_start}))
+
+    # phase 13: the fine-tune fed from an ERA5 / SST npy store at full width
+    torch.cuda.empty_cache()
+    stored = store_phase(dev, smi)
+    log(json.dumps({"phase": "store_fine_tune_time", "card": smi,
+                    "loader_ms_per_batch": {f"multi_step_training={ms}": r["loader_ms_per_batch"]
+                                            for ms, r in stored.items()},
+                    "median_train_step_ms": {f"multi_step_training={ms}":
+                                             r["median_train_step_ms"]
+                                             for ms, r in stored.items()},
+                    "device_busy_share": {f"multi_step_training={ms}":
+                                          r["profiled_epoch"]["device_busy_share"]
+                                          for ms, r in stored.items()},
+                    "phase_7_in_memory_ms": {f"multi_step_training={ms}": r["median_train_step_ms"]
+                                             for ms, r in tuned.items()},
+                    "peak_mem_gib": {f"multi_step_training={ms}": r["peak_mem_gib"]
+                                     for ms, r in stored.items()},
+                    "seconds_total": time.time() - t_start}))
     log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
 
     kernels = []
@@ -1604,6 +1962,9 @@ def main() -> int:
                              for p, r in f32_tier.items()})
             what = f"one 6-hour step of the fused path (sum over its launches), {STEPS}-step " \
                    "rollout counts"
+        # phase 13: one train step fed from the store
+        launches.update({f"launches_store_train_step_multi_step_{ms}":
+                         r["launches_per_train_step"][name] for ms, r in stored.items()})
         # the fp32-operand sites, summed over one fused step of the
         # fp32-kernel tier (forward kernels) or over its train step with
         # multi_step_training=1 (backward kernels)

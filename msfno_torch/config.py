@@ -264,8 +264,8 @@ def fp32_kernel_config(**overrides) -> SFNOConfig:
     activations, the SHT on fp32, and the spectral_mlp, grid_mlp,
     gcn_layer kernels and the fused head and tail on fp32 operands
     (fp32-class products: three TF32 tensor-core passes over hi / lo
-    splits in spectral_mlp, gcn_layer and its backward, the head, the tail
-    and its backward; true fp32 FMA in grid_mlp).
+    splits in every one of these kernels and the backward kernels, grid_mlp
+    included).
     `fp32_kernel_config(fuse_encoder_dft=False,
     fuse_decoder_tail=False)` is the same tier with the head and tail
     unfused."""

@@ -20,7 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from msfno_torch.config import FilmConfig, SFNOConfig
+from msfno_torch.config import FilmConfig, SFNOConfig, TrainConfig
 from msfno_torch.convert import from_flax_params
 from msfno_torch.data.normalization import Normalizer, SSTNormalizer
 from msfno_torch.inference.rollout import RolloutConfig, rollout
@@ -158,11 +158,16 @@ class ModelWrapper:
                 output.write(field, step=(i + 1) * 6)
             yield field
 
-    def trainer(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the wrapper's trainer() comes in a later slice; build "
-            "msfno_torch.training.trainer.Trainer(model_cfg, train_cfg) directly"
-        )
+    def trainer(self, tcfg: TrainConfig, **kw):
+        """A fine-tune `Trainer` of this wrapper's configuration with its
+        normalizers, on its device unless `device=` is given (the JAX
+        wrapper's `trainer`).  The trainer builds its own net from the train
+        config's seed."""
+        from msfno_torch.training.trainer import Trainer
+
+        kw.setdefault("device", self.device)
+        return Trainer(self.cfg, tcfg, normalizer=self.normalizer,
+                       sst_normalizer=self.sst_normalizer, **kw)
 
 
 class SFNOWrapper(ModelWrapper):

@@ -28,6 +28,7 @@ from msfno_torch.models.sfno.layers import (
     SpectralFilterLayer,
     SpectralGridIn,
     dense,
+    drop_path,
 )
 from msfno_torch.ops.kernels.spectral_decoder import spectral_grid_stats
 from msfno_torch.runtime import torch_dtype
@@ -53,7 +54,7 @@ def make_filter(filter_type: str, spectral_transform: str, forward_transform,
                 inverse_transform, embed_dim: int, mlp_ratio: float,
                 complex_activation: str, spectral_layers: int, compression=None,
                 rank: int = 128, use_pallas: bool = False, mxu_dtype: str = "float32",
-                device=None, gen=None):
+                drop_rate: float = 0.0, device=None, gen=None):
     """SpectralFilterLayer mux (reference sfnonet.py:60-133): the spectral
     MLP on the SHT or, without the kernel as in the JAX package, on the
     planar FFT; the linear filter on either."""
@@ -63,7 +64,7 @@ def make_filter(filter_type: str, spectral_transform: str, forward_transform,
             hidden_size_factor=mlp_ratio, complex_activation=complex_activation,
             spectral_layers=spectral_layers,
             use_pallas=use_pallas and spectral_transform == "sht",
-            mxu_dtype=mxu_dtype, device=device, gen=gen,
+            mxu_dtype=mxu_dtype, drop_rate=drop_rate, device=device, gen=gen,
         )
     if filter_type == "linear" and spectral_transform == "sht":
         return SpectralConvS2(forward_transform, inverse_transform, embed_dim,
@@ -83,11 +84,17 @@ class FourierNeuralOperatorBlock(nn.Module):
     `fuse_tail` (the last block only, set by the net): return (hm, a, b),
     the Legendre-synthesis intermediate and the norm1 + FiLM affine folded
     per (sample, channel), for the fused decoder.  The net guarantees the
-    non-linear SHT filter, instance norm, no skips and no channel MLP."""
+    non-linear SHT filter, instance norm, no skips and no channel MLP.
+
+    `drop_rate` is the filter's and the channel MLP's dropout,
+    `drop_path_rate` the block's stochastic depth; both act only in a
+    forward given `rng` (training).  With either set, the norm1 affine is
+    not folded into the MLP kernel (the JAX gate, blocks.py:248)."""
 
     def __init__(self, forward_transform, inverse_transform, embed_dim: int,
                  filter_type: str = "non-linear", spectral_transform: str = "sht",
-                 mlp_ratio: float = 2.0, norm_kind: str = "instance_norm",
+                 mlp_ratio: float = 2.0, drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, norm_kind: str = "instance_norm",
                  input_shape=(0, 0), output_shape=(0, 0),
                  inner_skip=None, outer_skip=None, use_mlp: bool = True,
                  complex_activation: str = "real", spectral_layers: int = 1,
@@ -105,7 +112,7 @@ class FourierNeuralOperatorBlock(nn.Module):
         self.filter_layer = SpectralFilterLayer(make_filter(
             filter_type, spectral_transform, forward_transform, inverse_transform,
             embed_dim, mlp_ratio, complex_activation, spectral_layers,
-            compression, rank, use_pallas, mxu_dtype, device, gen,
+            compression, rank, use_pallas, mxu_dtype, drop_rate, device, gen,
         ))
         self.inner_skip = (
             Conv1x1(embed_dim, embed_dim, True, device, gen)
@@ -115,7 +122,7 @@ class FourierNeuralOperatorBlock(nn.Module):
         self.mlp = (
             Mlp(embed_dim, int(embed_dim * mlp_ratio), embed_dim, dtype=dtype,
                 use_pallas=pallas_grid_mlp, mxu_dtype=grid_mlp_mxu_dtype,
-                device=device, gen=gen)
+                drop_rate=drop_rate, device=device, gen=gen)
             if use_mlp else None
         )
         self.outer_skip = outer_skip
@@ -125,32 +132,37 @@ class FourierNeuralOperatorBlock(nn.Module):
         # instance norm
         self.fuse_norm = (fuse_norm and self.instance_norm and filter_type == "non-linear"
                           and spectral_transform == "sht")
-        self.fuse_mlp_affine = fuse_mlp_affine and self.instance_norm
+        self.fuse_mlp_affine = (fuse_mlp_affine and self.instance_norm and drop_rate == 0.0
+                                and drop_path_rate == 0.0)
+        self.drop_path_rate = drop_path_rate
         self.linear_filter = filter_type == "linear"
         self.filmed = filmed
         self.dtype = torch_dtype(dtype)
-        if fuse_tail and (inner_skip or outer_skip or use_mlp or not self.fuse_norm):
+        if fuse_tail and (inner_skip or outer_skip or use_mlp or not self.fuse_norm
+                          or drop_path_rate != 0.0):
             raise ValueError("fuse_tail set on an incompatible block configuration")
         self.fuse_tail = fuse_tail
 
-    def forward(self, x, gamma=None, beta=None, scale=1.0, norm0_stats=None):
+    def forward(self, x, gamma=None, beta=None, scale=1.0, norm0_stats=None, rng=None):
         if self.fuse_tail:
-            return self._fused_tail(x, gamma, beta, scale, norm0_stats)
+            return self._fused_tail(x, gamma, beta, scale, norm0_stats, rng)
         residual = x
         spectral_in = isinstance(x, SpectralGridIn)
         if spectral_in and not (self.fuse_norm and norm0_stats is not None
                                 and self.inner_skip is None and self.outer_skip is None):
             raise ValueError("SpectralGridIn on an incompatible block configuration")
+        # only the non-linear filter has dropout
+        drop_kw = {} if self.linear_filter else {"rng": rng}
         if self.fuse_norm:
             # fold norm0 into the filter's forward SHT: the normalized field
             # is never materialized; with a SpectralGridIn the statistics
             # come from the encoder kernel
             a, b = self.norm0(x.f if spectral_in else x, True, norm0_stats)
-            x = self.filter_layer(x, norm_affine=(a, b))
+            x = self.filter_layer(x, norm_affine=(a, b), **drop_kw)
         elif self.instance_norm:
-            x = self.filter_layer(self.norm0(x, stats=norm0_stats))
+            x = self.filter_layer(self.norm0(x, stats=norm0_stats), **drop_kw)
         else:
-            x = self.filter_layer(self.norm0(x))
+            x = self.filter_layer(self.norm0(x), **drop_kw)
 
         if self.inner_skip is not None:
             x = x + dense(residual, self.inner_skip, self.dtype)
@@ -173,17 +185,19 @@ class FourierNeuralOperatorBlock(nn.Module):
         if self.filmed:
             x = film_modulation(x, gamma, beta, scale)
         if self.mlp is not None:
-            x = self.mlp(x)
+            x = self.mlp(x, rng=rng)
+        if self.drop_path_rate > 0.0 and rng is not None:
+            x = drop_path(x, self.drop_path_rate, rng)
         if self.outer_skip == "identity":
             x = x + residual
         return x
 
-    def _fused_tail(self, x, gamma, beta, scale, norm0_stats):
+    def _fused_tail(self, x, gamma, beta, scale, norm0_stats, rng=None):
         """Last-block body for the fused decoder tail: the standard path up to
         and including the norm1 + FiLM affine, with the inverse DFT deferred
         and the affine returned folded, (hm, a, b) with a, b (B, C) fp32."""
         a0, b0 = self.norm0(x, True, norm0_stats)
-        hm = self.filter_layer(x, norm_affine=(a0, b0), defer_inverse=True)
+        hm = self.filter_layer(x, norm_affine=(a0, b0), defer_inverse=True, rng=rng)
         itrans = self.filter_layer.filter.inverse_transform
         mean, mean_sq = spectral_grid_stats(hm, itrans._const("omega", hm.device))
         # the spectral identities yield means: the stats contract's count is 1

@@ -10,6 +10,11 @@ order), instance norms have (C,) and layer norms (H, W) weight/bias.  Activation
 
 `use_pallas` (the JAX package's name) selects the hand-written kernel of
 each layer; on a CPU tensor a kernel wrapper runs its plain version.
+
+Dropout runs only when a forward is given a `torch.Generator` (`rng`, the
+JAX package's `deterministic=False` with a "dropout" PRNG): a layer whose
+dropout sits inside its kernel then takes its plain path, as the JAX layer
+does.
 """
 
 from __future__ import annotations
@@ -69,6 +74,22 @@ def new_param(shape, device, gen=None, init: str = "zeros", std: float = 0.02):
     return nn.Parameter(t)
 
 
+def dropout(x: torch.Tensor, rate: float, rng: torch.Generator, shape=None) -> torch.Tensor:
+    """Inverted dropout (flax nn.Dropout): keep each element with
+    probability 1 - rate, scaled by 1 / (1 - rate).  `shape` is the mask's
+    (broadcast against x), by default x's."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape if shape is None else shape, generator=rng,
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float, rng: torch.Generator) -> torch.Tensor:
+    """Stochastic depth per sample (reference layers.py:88-118; JAX
+    layers.py:455): the whole sample is kept or zeroed."""
+    return dropout(x, rate, rng, (x.shape[0],) + (1,) * (x.dim() - 1))
+
+
 def rows_of(x: torch.Tensor) -> int:
     return math.prod(x.shape[1:-1])
 
@@ -117,12 +138,17 @@ class Mlp(nn.Module):
     `with_stats` the per-sample instance-norm statistics of the output come
     back as well.  With `spectral_cs` (W, 2M) the output goes straight
     through the forward longitude DFT instead (the grid_encoder_spectral
-    kernel) and `(f, (ssum, ssq, H*W))` comes back."""
+    kernel) and `(f, (ssum, ssq, H*W))` comes back.
+
+    `drop_rate` drops the hidden and the output activations (before `pe`
+    and `residual`) when a forward gets `rng`; the dropout sits between the
+    kernel's two products, so that forward takes the plain path (JAX
+    layers.py:203-219)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  output_bias: bool = True, dtype="float32", use_pallas: bool = False,
                  mxu_dtype: str = "bfloat16", out_dtype=None, with_stats: bool = False,
-                 device=None, gen=None):
+                 drop_rate: float = 0.0, device=None, gen=None):
         super().__init__()
         self.fwd = nn.ModuleDict({
             "0": Conv1x1(in_features, hidden_features, True, device, gen),
@@ -133,13 +159,19 @@ class Mlp(nn.Module):
         self.use_pallas = use_pallas
         self.mxu_dtype = mxu_dtype
         self.with_stats = with_stats
+        self.drop_rate = drop_rate
         self._cache = DerivedCache()
 
-    def forward(self, x, pe=None, affine=None, residual=None, spectral_cs=None):
+    def forward(self, x, pe=None, affine=None, residual=None, spectral_cs=None, rng=None):
         fc1, fc2 = self.fwd["0"], self.fwd["2"]
+        dropping = self.drop_rate > 0.0 and rng is not None
         if spectral_cs is not None:
+            if self.drop_rate > 0.0:
+                raise ValueError("spectral_cs needs drop_rate == 0")
             return self._encode_spectral(x, pe, spectral_cs)
-        if self.use_pallas:
+        if dropping and (affine is not None or residual is not None):
+            raise ValueError("the folded affine and residual need drop_rate == 0")
+        if self.use_pallas and not dropping:
             w1, w2 = fc1.dense(), fc2.dense()
             prepared = None
             if x.is_cuda:
@@ -166,7 +198,11 @@ class Mlp(nn.Module):
             a, b = affine
             x = x.float() * a.float() + b.float()
         h = torch.nn.functional.gelu(dense(x, fc1, self.dtype), approximate="none")
+        if dropping:
+            h = dropout(h, self.drop_rate, rng)
         y = dense(h, fc2, self.dtype)
+        if dropping:
+            y = dropout(y, self.drop_rate, rng)
         if pe is not None:
             y = y + pe.to(y.dtype)
         if residual is not None:
@@ -337,14 +373,16 @@ class SpectralAttentionS2(nn.Module):
     ComplexReLU(`complex_activation`), then the `wout` projection back to C;
     weights (in, out, 2) shared across modes.  The transforms and the MLP run
     in fp32 (operands rounded per `mxu_dtype`).  The spectral_mlp kernel runs
-    under the JAX package's own gate: `use_pallas` and the "real"
-    activation."""
+    under the JAX package's own gate: `use_pallas`, the "real" activation
+    and no dropout in this forward (`drop_rate` drops the complex activation
+    after each spectral layer, the same mask on re and im, reference
+    layers.py:491,506; JAX layers.py:550)."""
 
     def __init__(self, forward_transform, inverse_transform, embed_dim: int,
                  hidden_size_factor: float = 2.0, complex_activation: str = "real",
                  spectral_layers: int = 1, scale: float = 0.02,
                  use_pallas: bool = False, mxu_dtype: str = "float32",
-                 device=None, gen=None):
+                 drop_rate: float = 0.0, device=None, gen=None):
         super().__init__()
         self.forward_transform = forward_transform
         self.inverse_transform = inverse_transform
@@ -361,21 +399,24 @@ class SpectralAttentionS2(nn.Module):
                            if complex_activation in ("modulus", "halfplane") else None)
         self.use_kernel = use_pallas and complex_activation == "real"
         self.mxu_dtype = mxu_dtype
+        self.drop_rate = drop_rate
         self._cache = DerivedCache()
 
     def weights(self) -> list[torch.Tensor]:
         return [*self.w, self.wout]
 
-    def _mlp(self, z):
+    def _mlp(self, z, rng=None):
         """The complex MLP without the kernel (the JAX package's compl_mul +
-        complex_relu chain)."""
+        complex_relu chain), with dropout when given `rng`."""
         bias = None if self.activation is None else self.activation.bias.reshape(-1)
         for w in self.w:
             z = complex_relu(compl_mul(z, w, self.mxu_dtype), self.complex_activation,
                              bias=bias)
+            if rng is not None:
+                z = dropout(z, self.drop_rate, rng, z.shape[1:])
         return compl_mul(z, self.wout, self.mxu_dtype)
 
-    def forward(self, x, norm_affine=None, defer_inverse: bool = False):
+    def forward(self, x, norm_affine=None, defer_inverse: bool = False, rng=None):
         if isinstance(x, SpectralGridIn):
             # the longitude DFT already ran inside the fused encoder kernel
             in_dtype = x.f.dtype
@@ -392,7 +433,8 @@ class SpectralAttentionS2(nn.Module):
             s0 = self.forward_transform._const("s0", z.device)
             z = z * a.reshape(1, bsz, 1, 1, c).float()
             z[0, :, :, 0, :] += b.reshape(bsz, 1, c).float() * s0.reshape(1, -1, 1)
-        if self.use_kernel:
+        dropping = self.drop_rate > 0.0 and rng is not None
+        if self.use_kernel and not dropping:
             ws = self.weights()
             packed = None
             if z.is_cuda:
@@ -400,7 +442,7 @@ class SpectralAttentionS2(nn.Module):
                                          lambda: pack_weights(ws, self.mxu_dtype))
             z = spectral_mlp(z, ws, 0.0, self.mxu_dtype, packed=packed)
         else:
-            z = self._mlp(z)
+            z = self._mlp(z, rng if dropping else None)
         if defer_inverse:
             # fused tail: the fp32 Legendre-synthesis intermediate; the
             # spectral_decoder kernel runs the inverse DFT

@@ -20,11 +20,15 @@ linear one (dense, or tensor-train on the SHT), instance or layer norm.
 Layout: channels-last (B, H, W, C) on the grid.  Parameter names and shapes
 are the original MSFNO state_dict's.  The nets run on CUDA unless built with
 `device="cpu"`; weights are random, drawn from a `torch.Generator` seeded
-with `seed` (load real ones with `load_state_dict`).
+with `seed` (load real ones with `load_state_dict`).  A forward given a
+`torch.Generator` as `rng` trains: dropout (`drop_rate`) and drop-path
+(`drop_path_rate`, rising linearly over the blocks from 0) act, and the
+kernels that JAX bypasses under dropout take their plain paths.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -66,6 +70,7 @@ def _block_kwargs(cfg: SFNOConfig, i: int, transforms) -> dict:
     trans_down, itrans_up, trans, itrans = transforms
     first, last = i == 0, i == cfg.num_layers - 1
     inner = 0 < i < cfg.num_layers - 1
+    dpr = np.linspace(0, cfg.drop_path_rate, cfg.num_layers)
     return dict(
         forward_transform=trans_down if first else trans,
         inverse_transform=itrans_up if last else itrans,
@@ -73,6 +78,8 @@ def _block_kwargs(cfg: SFNOConfig, i: int, transforms) -> dict:
         filter_type=cfg.filter_type,
         spectral_transform=cfg.spectral_transform,
         mlp_ratio=cfg.mlp_ratio,
+        drop_rate=cfg.drop_rate,
+        drop_path_rate=float(dpr[i]),
         norm_kind=cfg.normalization_layer,
         input_shape=cfg.img_size if first else (cfg.h, cfg.w),
         output_shape=cfg.img_size if last else (cfg.h, cfg.w),
@@ -88,9 +95,7 @@ def _block_kwargs(cfg: SFNOConfig, i: int, transforms) -> dict:
         pallas_grid_mlp=cfg.pallas_grid_mlp,
         grid_mlp_mxu_dtype=cfg.grid_mlp_mxu_dtype,
         fuse_norm=cfg.fuse_norm_sht,
-        fuse_mlp_affine=(cfg.fuse_inner_mlp and cfg.drop_rate == 0.0
-                         and cfg.drop_path_rate == 0.0
-                         and not cfg.checkpointing_mlp),
+        fuse_mlp_affine=cfg.fuse_inner_mlp and not cfg.checkpointing_mlp,
         dtype=cfg.compute_dtype,
     )
 
@@ -218,7 +223,7 @@ class FourierNeuralOperatorNet(nn.Module):
             y = self.decoder(x)
         return y.to(self.out_dtype)
 
-    def _run_blocks(self, x, stats, gamma=None, beta=None, scale=1.0):
+    def _run_blocks(self, x, stats, gamma=None, beta=None, scale=1.0, rng=None):
         cfg = self.cfg
         n_film = cfg.film.film_layers if self.filmed else 0
         for i, blk in enumerate(self.blocks):
@@ -226,15 +231,15 @@ class FourierNeuralOperatorNet(nn.Module):
             if blk.filmed:
                 idx = (min(i, n_film - 1) if cfg.film.repeat_film
                        else i - (cfg.num_layers - n_film))
-                x = blk(x, gamma[:, idx], beta[:, idx], scale, s_i)
+                x = blk(x, gamma[:, idx], beta[:, idx], scale, s_i, rng=rng)
             else:
-                x = blk(x, None, None, 1.0, s_i)
+                x = blk(x, None, None, 1.0, s_i, rng=rng)
         return x
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         residual = x
         x, stats = self._encode(x)
-        x = self._run_blocks(x, stats)
+        x = self._run_blocks(x, stats, rng=rng)
         return self._decode(x, residual)
 
 
@@ -252,10 +257,10 @@ class FourierNeuralOperatorNetFilmed(FourierNeuralOperatorNet):
         self.film_gen = FilmWrapper(cfg.film, device=device, gen=gen)
         super()._build(cfg, device, gen)
 
-    def forward(self, x, sst, scale=1.0):
-        film_mod = self.film_gen(sst)  # (B, 2, film_layers, C)
+    def forward(self, x, sst, scale=1.0, rng=None):
+        film_mod = self.film_gen(sst)  # (B, 2, film_layers, C); the GCN has no dropout
         gamma, beta = film_mod[:, 0], film_mod[:, 1]
         residual = x
         x, stats = self._encode(x)
-        x = self._run_blocks(x, stats, gamma, beta, scale)
+        x = self._run_blocks(x, stats, gamma, beta, scale, rng)
         return self._decode(x, residual)

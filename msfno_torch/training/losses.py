@@ -1,5 +1,5 @@
-"""Loss functions (port of msfno_tpu/training/losses.py:22-147,254-329;
-reference MSFNO/Models/losses.py), channels-last (B, H, W, C).
+"""Loss functions (port of msfno_tpu/training/losses.py; reference
+MSFNO/Models/losses.py), channels-last (B, H, W, C).
 
 The default is `L2Sphere_noSine` as the registry builds it: relative and
 squared (reference create_loss, train.py:436-440), not the function's own
@@ -7,11 +7,15 @@ squared (reference create_loss, train.py:436-440), not the function's own
 SpectralSphere, H1Sphere) measures the error in SHT space, through an
 equiangular `RealSHT` on the matmul path, differentiable, cached per shape
 and truncated to the model's modes when `get_loss` is given its config.
+`fluct_l2loss_sphere` and the distributional losses (`normal_crps`,
+`beta_nll`, `statistical_loss`) are library functions only, as in the JAX
+package: `get_loss` does not reach them.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -125,6 +129,77 @@ def h1loss_sphere(sht, prd, tar, squared: bool = True):
     l2 = _spectral_norm2(coeffs)
     loss = (h1 + l2) if squared else (torch.sqrt(h1) + torch.sqrt(l2))
     return loss.mean()
+
+
+def fluct_l2loss_sphere(sht_weights, prd, tar, inp, relative: bool = False):
+    """Fluctuation-weighted L2 (reference losses.py:234-244): each channel's
+    error weighted by its share of the fluctuation |tar - inp|^2; sht_weights
+    (H,) are the grid's quadrature weights.  With relative=True the weight
+    cancels (as upstream), leaving a plain relative L2."""
+    w = torch.as_tensor(sht_weights, dtype=prd.dtype, device=prd.device)[:, None, None]
+    integ = lambda f: (w * f).sum((-3, -2))  # noqa: E731
+    fluct = integ((tar - inp) ** 2)
+    weight = fluct / fluct.sum(-1, keepdim=True)
+    loss = weight * integ((prd - tar) ** 2)
+    if relative:
+        loss = loss / (weight * integ(tar ** 2))
+    return loss.mean()
+
+
+def _sigma_transform(sigma, kind: str):
+    if kind == "softplus":
+        return torch.nn.functional.softplus(sigma)
+    if kind == "exp":
+        return torch.exp(sigma)
+    if kind == "none":
+        return sigma
+    raise NotImplementedError(f"sigma transform {kind!r}")
+
+
+def normal_crps(mu, sigma, observation, mask=None, reduction: str = "mean",
+                sigma_transform: str = "softplus"):
+    """CRPS of a normal predictive distribution, Gneiting et al. 2005
+    (reference NormalCRPS, losses.py:248-311); `mask` is 1 where scored."""
+    std = _sigma_transform(sigma, sigma_transform)
+    z = (observation - mu) / std
+    phi = torch.exp(-(z ** 2) / 2.0) / math.sqrt(2.0 * math.pi)
+    score = std * (z * torch.erf(z / math.sqrt(2.0)) + 2.0 * phi - 1.0 / math.sqrt(math.pi))
+    if reduction == "none":
+        return score
+    if mask is not None:
+        m = mask.to(score.dtype)
+        total = (score * m).sum()
+        return total / torch.clamp(m.sum(), min=1.0) if reduction == "mean" else total
+    return score.mean() if reduction == "mean" else score.sum()
+
+
+def beta_nll(mu, sigma, observation, beta: float = 0.5, reduction: str = "mean",
+             sigma_transform: str = "softplus"):
+    """Beta negative log likelihood (reference Beta_NLL, losses.py:313-355):
+    the Gaussian NLL weighted by var^beta, the weight outside the gradient."""
+    var = _sigma_transform(sigma, sigma_transform)
+    loss = 0.5 * ((observation - mu) ** 2 / var + torch.log(var))
+    if beta > 0:
+        loss = loss * var.detach() ** beta
+    return loss.mean() if reduction == "mean" else loss.sum()
+
+
+def statistical_loss(prediction, observation, ensemble_axis: int = -1,
+                     reduction: str = "mean", corrected: bool = False):
+    """AtmoRep's first-order statistical loss (reference StatisticalLoss,
+    losses.py:357-400).  By default the reference's exp(+z^2 / 2), with no
+    eps on the sigma divide, as upstream; corrected=True takes the intended
+    exp(-z^2 / 2) with an eps-guarded sigma."""
+    mu = prediction.mean(ensemble_axis)
+    sigma = prediction.std(ensemble_axis, correction=0)
+    if corrected:
+        phi = torch.exp(-(((mu - observation) / (sigma + 1e-8)) ** 2) / 2.0)
+    else:
+        phi = torch.exp(((mu - observation) / sigma) ** 2 / 2.0)
+    stat_dist = (1.0 - phi) ** 2
+    member_dist = ((prediction - observation.unsqueeze(ensemble_axis)) ** 2).sum(ensemble_axis)
+    score = stat_dist + member_dist + torch.sqrt(sigma)
+    return score.mean() if reduction == "mean" else score.sum()
 
 
 @functools.lru_cache(maxsize=4)

@@ -1,5 +1,5 @@
-"""Training orchestration (port of msfno_tpu/training/trainer.py:121-739;
-reference Trainer, MSFNO/Models/train.py:35-1337).
+"""Training orchestration (port of msfno_tpu/training/trainer.py; reference
+Trainer, MSFNO/Models/train.py:35-1337).
 
 One optimization step is the multi-step autoregressive rollout, the loss
 with its discount and skip semantics, the gradient of the trainable
@@ -9,7 +9,11 @@ loop feeds batches and keeps the cadence: validation, checkpoints, the
 film-scale ramp and the time-limit stop.  Method names are the JAX
 package's, so each has its counterpart there; `TrainState` holds the
 model's own Parameter objects, and a step updates it in place and returns
-it.
+it.  Batches come from a `data.era5.PrefetchLoader`, any iterable or
+callable of `Batch`es, or synthetic data; their fields may be numpy arrays
+or torch tensors (a bf16 transfer).  With dropout or drop-path set, each
+step draws its masks from one `torch.Generator` seeded from the config's
+seed and the step.
 """
 
 from __future__ import annotations
@@ -32,9 +36,53 @@ from msfno_torch.training import checkpoint as ckpt_io
 from msfno_torch.training.losses import get_loss
 from msfno_torch.training.optim import create_optimizer, fast_forward_schedule
 from msfno_torch.training.partition import count_params, film_trainable_predicate, split_params
-from msfno_torch.utils.observability import FinTraining, LocalLog
+from msfno_torch.utils.observability import FinTraining, LocalLog, Timer
 
 log = logging.getLogger("msfno_torch")
+
+# the FiLM generators whose dropout the port runs: the GCN ones have none,
+# so film.dropout is a no-op for them, as in the JAX package
+_FILM_DROPOUT_FREE = ("gcn", "gcn_custom", "none", None)
+
+
+def _is_oom_error(e: BaseException) -> bool:
+    """True for an out-of-memory failure of the device: `test_batch_size`
+    stops its sweep on these only."""
+    return isinstance(e, torch.cuda.OutOfMemoryError) or (
+        isinstance(e, RuntimeError) and "out of memory" in str(e).lower())
+
+
+def chunk_input_bytes_per_step(model_cfg: SFNOConfig, train_cfg: TrainConfig) -> int:
+    """Bytes of one batch inside a scan chunk: `_device_chunk` stacks K of
+    these into one (K, S, B, ...) fp32 buffer (S = rollout states + target)."""
+    h, w = model_cfg.img_size
+    s = train_cfg.multi_step_training + 2
+    n = s * train_cfg.batch_size * h * w * model_cfg.in_chans
+    if model_cfg.film is not None:
+        f = model_cfg.film
+        n += s * train_cfg.batch_size * f.temporal_step * f.sst_shape[0] * f.sst_shape[1]
+    return n * 4
+
+
+def auto_scan_steps(model_cfg: SFNOConfig, train_cfg: TrainConfig,
+                    hbm_budget_bytes: int | None = None, max_k: int = 16) -> int:
+    """K for `scan_steps` "auto": the largest K that divides
+    validation_interval (chunks then tile the cadence), keeps the stacked
+    input chunk within the budget and is at most max_k.  The default budget
+    is a quarter of the current CUDA device's memory; without a card give
+    one."""
+    if hbm_budget_bytes is None:
+        if not torch.cuda.is_available():
+            raise ValueError("auto_scan_steps needs hbm_budget_bytes without a CUDA device")
+        hbm_budget_bytes = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).total_memory // 4
+    per = chunk_input_bytes_per_step(model_cfg, train_cfg)
+    cap = int(max(1, min(max_k, hbm_budget_bytes // max(per, 1))))
+    vi = train_cfg.validation_interval
+    k = max(d for d in range(1, cap + 1) if vi % d == 0) if vi and vi > 0 else cap
+    log.info("scan-steps auto: K=%d (chunk %.0f MB of %.0f MB budget, validation_interval=%s)",
+             k, k * per / 2**20, hbm_budget_bytes / 2**20, vi)
+    return k
 
 
 @dataclasses.dataclass
@@ -65,11 +113,11 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: multi-device training (DDP) comes in a later slice")
-        film_drop = model_cfg.film.dropout if model_cfg.film is not None else 0.0
-        if model_cfg.drop_rate > 0.0 or model_cfg.drop_path_rate > 0.0 or film_drop > 0.0:
+        film = model_cfg.film
+        if film is not None and film.dropout > 0.0 and film.film_gen_type not in _FILM_DROPOUT_FREE:
             raise NotImplementedError(
-                "dropout and drop-path come in a later slice; set drop_rate, "
-                "drop_path_rate and film.dropout to 0")
+                f"film.dropout with film_gen_type={film.film_gen_type!r}: the ViT and MAE "
+                "generators come in a later slice")
         self.cfg = model_cfg
         self.tcfg = train_cfg
         self.device = resolve_device(device)
@@ -114,23 +162,43 @@ class Trainer:
 
     # -------------------------------------------------------- forward/loss
 
-    def _apply(self, x, sst, scale):
+    @property
+    def _has_dropout(self) -> bool:
+        # film.dropout is accepted only where it is a no-op (the GCN generators)
+        return self.cfg.drop_rate > 0.0 or self.cfg.drop_path_rate > 0.0
+
+    def _train_rng(self, step: int) -> torch.Generator:
+        """The dropout and drop-path masks' generator of one step, seeded
+        from the config's seed and the step (JAX folds the same two into its
+        PRNG keys, `_train_rngs`; the streams differ)."""
+        seed = np.random.SeedSequence([self.tcfg.seed, int(step)]).generate_state(1)[0]
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _apply(self, x, sst, scale, rng=None):
+        """The model's forward; with `rng` in training mode (dropout and
+        drop-path act)."""
         if self.filmed:
-            return self.model(x, sst, scale)
-        return self.model(x)
+            return self.model(x, sst, scale, rng=rng)
+        return self.model(x, rng=rng)
+
+    def _to_device(self, x) -> torch.Tensor:
+        """A batch field (numpy array or torch tensor) on the device, its
+        dtype kept."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(self.device)
 
     def _device_batch(self, batch: Batch):
-        era5 = torch.as_tensor(np.asarray(batch.era5), device=self.device)
-        sst = (torch.as_tensor(np.asarray(batch.sst), device=self.device)
-               if batch.sst is not None else None)
-        return era5, sst
+        sst = self._to_device(batch.sst) if batch.sst is not None else None
+        return self._to_device(batch.era5), sst
 
-    def _rollout_loss(self, era5, sst, scale):
+    def _rollout_loss(self, era5, sst, scale, rng=None):
         """Multi-step autoregressive loss (reference train.py:146-197).
 
         era5: (S, B, H, W, C) raw; sst: (S, B, T, Hs, Ws) or None.
         loss = sum over scored steps of disc^step * L(out, gt) / (ms + 1).
-        No 1/(acc + 1) factor: the optimizer averages micro-step gradients."""
+        No 1/(acc + 1) factor: the optimizer averages micro-step gradients.
+        `rng`: training mode, the rollout's steps drawing from it in turn."""
         t = self.tcfg
         ms, skip = t.multi_step_training, t.training_step_skip
         inp = self.normalizer(era5[0].float())
@@ -138,7 +206,7 @@ class Trainer:
         for step in range(ms + 1):
             sst_step = (self.sst_normalizer(sst[step + 1].float())
                         if sst is not None else None)
-            out = self._apply(inp, sst_step, scale)
+            out = self._apply(inp, sst_step, scale, rng)
             if step % (skip + 1) == 0:
                 gt = self.normalizer(era5[step + 1].float())
                 loss = self.loss_fn(out, gt) / (ms + 1) * t.discount_factor ** step
@@ -149,8 +217,10 @@ class Trainer:
 
     def loss_and_grads(self, state: TrainState, era5, sst):
         """(loss, per-step losses, name -> gradient of the trainable
-        parameters) at the current parameters."""
-        loss, per_step = self._rollout_loss(era5, sst, state.film_scale)
+        parameters) at the current parameters, in training mode when the
+        model has dropout or drop-path."""
+        rng = self._train_rng(state.step) if self._has_dropout else None
+        loss, per_step = self._rollout_loss(era5, sst, state.film_scale, rng)
         names = list(state.trainable)
         grads = torch.autograd.grad(loss, [state.trainable[n] for n in names],
                                     allow_unused=True)
@@ -199,11 +269,11 @@ class Trainer:
     # ------------------------------------------------------------ loops
 
     def _device_chunk(self, batches: list[Batch]):
-        era5 = np.stack([np.asarray(b.era5) for b in batches])
-        sst = (np.stack([np.asarray(b.sst) for b in batches])
+        """K batches stacked to (K, S, B, ...) on the device."""
+        era5 = torch.stack([self._to_device(b.era5) for b in batches])
+        sst = (torch.stack([self._to_device(b.sst) for b in batches])
                if batches[0].sst is not None else None)
-        return (torch.as_tensor(era5, device=self.device),
-                torch.as_tensor(sst, device=self.device) if sst is not None else None)
+        return era5, sst
 
     def _epoch_iterator(self, loader, epoch: int, num_batches: int):
         """The batches of one epoch (reference pre_epoch seeding,
@@ -288,7 +358,7 @@ class Trainer:
 
                 for batch in it:
                     self._check_time_limit()
-                    if buf and np.asarray(batch.era5).shape != np.asarray(buf[0].era5).shape:
+                    if buf and tuple(batch.era5.shape) != tuple(buf[0].era5.shape):
                         # a ragged batch: drain the buffered ones as singles
                         for b in buf:
                             state, pending = run_single(state, b, pending)
@@ -345,7 +415,7 @@ class Trainer:
                 metrics[f"MSE var{c} step={k}"] = float(mean_var[k, c])
         if self.filmed and batches and batches[0].sst is not None:
             with torch.no_grad():
-                sst0 = torch.as_tensor(np.asarray(batches[0].sst[0]), device=self.device)
+                sst0 = self._to_device(batches[0].sst[0])
                 film_mod = self.model.film_gen(self.sst_normalizer(sst0.float()))
             metrics["gamma mean"] = float(film_mod[:, 0].mean())
             metrics["beta mean"] = float(film_mod[:, 1].mean())
@@ -379,6 +449,85 @@ class Trainer:
                                 extra={"film_scale": float(state.film_scale)})
         self.writer.save(f"_epoch{self.epoch}")
         return path
+
+    def save_data(self, loader, out_dir: str, num_batches: int = 4) -> str:
+        """Write the first `num_batches` batches of `loader` as
+        `batch_{i:04d}.npz` (era5, times, sst) under `out_dir` (reference
+        --save-data, main.py:293); bf16 fields are written as fp32."""
+        os.makedirs(out_dir, exist_ok=True)
+        as_numpy = lambda x: (x.float().cpu().numpy() if isinstance(x, torch.Tensor)  # noqa: E731
+                              else x)
+        for i, batch in enumerate(loader):
+            if i >= num_batches:
+                break
+            arrays = {"era5": as_numpy(batch.era5), "times": batch.times}
+            if batch.sst is not None:
+                arrays["sst"] = as_numpy(batch.sst)
+            np.savez(os.path.join(out_dir, f"batch_{i:04d}.npz"), **arrays)
+        return out_dir
+
+    # ------------------------------------------------ perf harness trio
+    # (reference --test-performance: train.py:1196-1337)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def test_model_speed(self, state: TrainState, iters: int = 10) -> float:
+        """Seconds per forward on a synthetic batch (train.py:1196-1208),
+        after one warm-up call."""
+        batch = gen_batch(self.cfg, self.tcfg.batch_size, 0, seed=0)
+        era5, sst = self._device_batch(batch)
+        x, s = era5[0], sst[0] if sst is not None else None
+        self._apply(x, s, state.film_scale)
+        self._sync()
+        with Timer("model fwd", divisor=iters) as tm:
+            for _ in range(iters):
+                self._apply(x, s, state.film_scale)
+            self._sync()
+        return tm.seconds
+
+    def test_dataloader_speed(self, loader: Iterator[Batch], iters: int = 5) -> float:
+        """Seconds per batch of drawing `iters` batches from `loader`
+        (train.py:1282-1289)."""
+        with Timer("dataloader", divisor=iters) as tm:
+            for i, _ in enumerate(loader):
+                if i + 1 >= iters:
+                    break
+        return tm.seconds
+
+    def _probe_batch_size(self, b: int) -> None:
+        """One train step at batch size b on a fresh trainer (raises on
+        failure)."""
+        probe = Trainer(self.cfg, dataclasses.replace(self.tcfg, batch_size=b),
+                        device=self.device)
+        try:
+            st = probe.init_state()
+            batch = gen_batch(self.cfg, b, self.tcfg.multi_step_training, seed=0)
+            st, m = probe._train_step(st, *probe._device_batch(batch))
+            float(m["loss"])
+        finally:
+            del probe
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def test_batch_size(self, candidates: tuple[int, ...] = (1, 2, 4, 8, 16)) -> int:
+        """The largest candidate batch size whose train step runs, growing
+        until one runs out of memory (train.py:1296-1337).  Only an
+        out-of-memory failure ends the sweep; any other error propagates."""
+        best = 0
+        for b in candidates:
+            try:
+                self._probe_batch_size(b)
+            except Exception as e:
+                if not _is_oom_error(e):
+                    raise
+                log.info("batch size %d OOM (%s)", b, type(e).__name__)
+                break
+            best = b
+            log.info("batch size %d OK", b)
+        return best
 
     def restore(self, state: TrainState, path: str, resume_optimizer: bool = False,
                 resume_scheduler: bool = False) -> TrainState:

@@ -111,3 +111,74 @@ def test_h1_loss_unsquared_matches_jax():
 def test_unknown_loss_raises():
     with pytest.raises(ValueError):
         tl.get_loss("nope")
+
+
+# the four library losses that get_loss does not reach (JAX losses.py:150-254):
+# name -> its call on the (jax or torch) losses module and the inputs; each
+# value and its gradient held to JAX at 1e-6 rel-L2 (fp32 against fp32)
+def _dist_inputs(seed=5, shape=(2, 6, 8, 3)):
+    rng = np.random.default_rng(seed)
+    mu = rng.standard_normal(shape).astype(np.float32)
+    sigma = (0.5 * rng.standard_normal(shape)).astype(np.float32)
+    obs = (mu + rng.standard_normal(shape)).astype(np.float32)
+    mask = (rng.random(shape) > 0.3).astype(np.float32)
+    ens = (obs[..., None] + 0.5 * rng.standard_normal(shape + (4,))).astype(np.float32)
+    w = np.abs(rng.standard_normal(shape[1])).astype(np.float32)
+    inp = (obs + 0.7 * rng.standard_normal(shape)).astype(np.float32)
+    return dict(mu=mu, sigma=sigma, obs=obs, mask=mask, ens=ens, w=w, inp=inp)
+
+
+NEW_LOSSES = {
+    "fluct_l2loss_sphere": lambda m, d: m.fluct_l2loss_sphere(d["w"], d["mu"], d["obs"], d["inp"]),
+    "fluct_l2loss_sphere/relative": lambda m, d: m.fluct_l2loss_sphere(
+        d["w"], d["mu"], d["obs"], d["inp"], relative=True),
+    "normal_crps": lambda m, d: m.normal_crps(d["mu"], d["sigma"], d["obs"]),
+    "normal_crps/mask/exp": lambda m, d: m.normal_crps(
+        d["mu"], d["sigma"], d["obs"], mask=d["mask"], sigma_transform="exp"),
+    "normal_crps/sum": lambda m, d: m.normal_crps(d["mu"], d["sigma"], d["obs"],
+                                                  reduction="sum"),
+    "beta_nll": lambda m, d: m.beta_nll(d["mu"], d["sigma"], d["obs"]),
+    "beta_nll/beta0/exp/sum": lambda m, d: m.beta_nll(
+        d["mu"], d["sigma"], d["obs"], beta=0.0, sigma_transform="exp", reduction="sum"),
+    "statistical_loss": lambda m, d: m.statistical_loss(d["ens"], d["obs"]),
+    "statistical_loss/corrected": lambda m, d: m.statistical_loss(d["ens"], d["obs"],
+                                                                  corrected=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_LOSSES))
+def test_library_loss_and_gradient_match_jax(name):
+    """Value and the gradient in the prediction (mu, or the ensemble) against
+    JAX at 1e-6 rel-L2."""
+    d = _dist_inputs()
+    key = "ens" if name.startswith("statistical") else "mu"
+    call = NEW_LOSSES[name]
+
+    def jfn(x):
+        return call(jl, {**{k: jnp.asarray(v) for k, v in d.items()}, key: x})
+
+    vj, gj = jax.value_and_grad(jfn)(jnp.asarray(d[key]))
+    x = torch.from_numpy(d[key]).requires_grad_(True)
+    vt = call(tl, {**{k: torch.from_numpy(v) for k, v in d.items()}, key: x})
+    vt.backward()
+    assert abs(vt.item() - float(vj)) <= 1e-6 * abs(float(vj))
+    err = rel(x.grad, gj)
+    print(f"parity loss {name} grad rel_l2={err:.3e}")
+    assert err <= 1e-6
+
+
+def test_normal_crps_none_reduction_matches_jax():
+    d = _dist_inputs(seed=6)
+    vj = jl.normal_crps(jnp.asarray(d["mu"]), jnp.asarray(d["sigma"]), jnp.asarray(d["obs"]),
+                        reduction="none")
+    vt = tl.normal_crps(torch.from_numpy(d["mu"]), torch.from_numpy(d["sigma"]),
+                        torch.from_numpy(d["obs"]), reduction="none")
+    assert vt.shape == vj.shape and rel(vt, vj) <= 1e-6
+
+
+def test_library_losses_stay_out_of_get_loss():
+    """As in JAX, get_loss does not reach the four library losses."""
+    for name in ("fluct_l2loss_sphere", "normal_crps", "beta_nll", "statistical_loss"):
+        assert name not in tl.LOSSES and name not in jl.LOSSES
+        with pytest.raises(ValueError):
+            tl.get_loss(name)

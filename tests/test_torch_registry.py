@@ -93,7 +93,7 @@ def test_reference_torch_checkpoint_loads(tmp_path):
     lambda tmp: registry.get_model("fcn"),
     lambda tmp: registry.get_model("mae"),
     lambda tmp: registry.get_model("sfno", cfg=dataclasses.replace(FUSED_FP32, film=None),
-                                   device="cpu").trainer(),
+                                   device="cpu").trainer(tcfg.TrainConfig(), mesh=object()),
     lambda tmp: registry.get_model("sfno", "film", cfg=FUSED_FP32,
                                    device="cpu").load_model(str(tmp)),
 ])

@@ -4,7 +4,7 @@ the PyTorch port goes, on a CUDA card.
 
     python3 tools/profile_torch_step.py [--steps N] [--trace FILE]
     python3 tools/profile_torch_step.py --tier fp32 [--steps N] [--trace FILE]
-    python3 tools/profile_torch_step.py --train [--tier fp32] [--steps N] [--trace FILE]
+    python3 tools/profile_torch_step.py --train [--tier fp32] [--store] [--steps N] [--trace FILE]
 
 Serving: builds the full-width filmed SFNO of
 `msfno_torch.config.serving_config()` (the fused head and tail) and the same
@@ -35,6 +35,14 @@ fp32-kernel tier with its fp32 frozen weights) with multi_step_training 0
 and 1, each on one fixed synthetic batch: two warm-up steps, N profiled
 steps, then the median train step times from CUDA events in turns (0, 1,
 1, 0).
+
+--train --store: the train steps fed from a full-width ERA5 / SST npy store
+(chip_smoke.write_store, in a temporary directory removed at the end) through
+ERA5Dataset and PrefetchLoader (chip_smoke.store_loader): two warm-up steps,
+then one epoch of steps profiled as `Trainer.train` runs them (the batch to
+the device, the step, the previous step's loss read back), so the wall time
+and the device's idle share include the loader; the timing in turns then
+runs in memory on the loader's first batch.
 
 With --trace, writes the first path's Chrome trace to FILE.
 """
@@ -183,9 +191,30 @@ def profile_train(trainer, state, batch, steps: int, path: str):
     return prof
 
 
-def train_main(args, card) -> int:
+def profile_train_store(trainer, state, loader, path: str):
+    """torch.profiler over one epoch of train steps fed by `loader`, each as
+    `Trainer.train` runs it; prints the breakdown and returns the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import loader_steps
+
+    for _, batch in zip(range(2), loader.epoch(1)):
+        state, _ = trainer._train_step(state, *trainer._device_batch(batch))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, steps = loader_steps(trainer, state, loader)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    breakdown(prof, steps, wall, path)
+    return prof
+
+
+def train_main(args, card, store=None) -> int:
     import torch
 
+    from chip_smoke import store_loader, store_normalizers
     from msfno_torch.config import finetune_config, finetune_train_config, fp32_kernel_config
     from msfno_torch.data.synthetic import gen_batch
     from msfno_torch.training.trainer import Trainer
@@ -196,18 +225,28 @@ def train_main(args, card) -> int:
     for ms in (0, 1):
         tcfg = finetune_train_config(multi_step_training=ms, **(
             {"bf16_frozen_params": False} if fp32 else {}))
-        tr = Trainer(cfg, tcfg)
-        runs[ms] = (tr, tr.init_state(), gen_batch(tr.cfg, 1, ms, seed=11))
-    for ms, (tr, state, batch) in runs.items():
+        if store is None:
+            tr = Trainer(cfg, tcfg)
+            runs[ms] = (tr, tr.init_state(), gen_batch(tr.cfg, 1, ms, seed=11), None)
+            continue
+        norm, sst_norm = store_normalizers(store)
+        tr = Trainer(cfg, tcfg, normalizer=norm, sst_normalizer=sst_norm)
+        loader = store_loader(store, cfg, ms, seed=tcfg.seed)
+        runs[ms] = (tr, tr.init_state(), next(iter(loader.epoch(0))), loader)
+    for ms, (tr, state, batch, loader) in runs.items():
         torch.cuda.reset_peak_memory_stats()
-        prof = profile_train(tr, state, batch, args.steps, f"train ms={ms}")
-        print(json.dumps({"path": f"train ms={ms}",
+        path = f"train ms={ms}" + (" from the store" if loader is not None else "")
+        if loader is None:
+            prof = profile_train(tr, state, batch, args.steps, path)
+        else:
+            prof = profile_train_store(tr, state, loader, path)
+        print(json.dumps({"path": path,
                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
         if args.trace and ms == 0:
             prof.export_chrome_trace(args.trace)
     times = {ms: [] for ms in runs}
     for ms in (0, 1, 1, 0):
-        tr, state, batch = runs[ms]
+        tr, state, batch, _ = runs[ms]
         era5, sst = tr._device_batch(batch)
         for i in range(4):
             start = torch.cuda.Event(enable_timing=True)
@@ -241,6 +280,8 @@ def main() -> int:
                     help="the serving tier (bf16) or the fp32-kernel tier")
     ap.add_argument("--train", action="store_true",
                     help="profile the fine-tune train step instead of the serving step")
+    ap.add_argument("--store", action="store_true",
+                    help="with --train: feed the steps from a full-width npy store")
     args = ap.parse_args()
     make_cfg = fp32_kernel_config if args.tier == "fp32" else serving_config
     dev = resolve_device()
@@ -248,6 +289,20 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    if args.store and not args.train:
+        ap.error("--store profiles train steps: give --train")
+    if args.train and args.store:
+        import shutil
+        import tempfile
+
+        from chip_smoke import write_store
+
+        root = tempfile.mkdtemp(prefix="msfno_store_")
+        try:
+            write_store(root, make_cfg())
+            return train_main(args, card, store=root)
+        finally:
+            shutil.rmtree(root)
     if args.train:
         return train_main(args, card)
     nets = {"fused": FourierNeuralOperatorNetFilmed(make_cfg(), device=dev, seed=0)}
