@@ -95,7 +95,25 @@ Phases (any failure raises, and the script exits non-zero):
      memory), the ms per train step through the loader beside the
      in-memory step in turns, the device-busy share of the steps of an
      epoch through the loader (torch.profiler; copies apart from kernels)
-     and the peak memory.
+     and the peak memory;
+ 14. checkpoint skill evaluation and forecast archives from such a store
+     (`eval_phase`): two filmed `serving_config()` checkpoints written by
+     `Trainer.save_checkpoint` (the second with perturbed film weights and
+     film_scale 0.5) and a reference-layout PyTorch checkpoint of the same
+     weights; `evaluate_checkpoints` with the scale-0 baseline over 2 init
+     times of 4 steps (batch 1, the store's mean state as the static
+     climatology): (4, 73) finite reports, the first run's MSE / skill /
+     ACC against an fp64 numpy recompute (`skill_fp64`, a copy of the
+     formulas) over a second, stacked rollout (1e-5 relative / 1e-5
+     absolute), exactly the fused step's launches x 4 steps x 2 init times
+     x 3 runs; `save_forecast` of one checkpoint and
+     `ModelWrapper.running(lead_time_h=12, output=get_output("netcdf"))`,
+     read back (ForecastWriter.read, scipy) bit for bit against a
+     rollout's denormalised fp32 fields; one rollout step of the ViT
+     generator at its published defaults (bf16) against its `exact_config`
+     twin (3e-2, gamma / beta 3e-2, no gcn_layer launch); the ms per eval
+     step, of the device metrics, of a checkpoint load per file type, of
+     the archive and NetCDF writes, peak device memory and host RSS.
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
 operands of that tier (sites "*/fp32") to 1e-5; at the fp32 sites of the
 GCN layer and its backward, the head, the tail and grid_mlp (each of its
@@ -1753,6 +1771,351 @@ def store_phase(dev, smi) -> dict:
         shutil.rmtree(root)
 
 
+# phase 14: checkpoint skill evaluation and forecast archives at full width
+EVAL_STEPS = 4  # one day of 6-hour steps
+EVAL_INITS = 2  # init times, batch 1 each
+EVAL_RUNS = 3  # the scale-0 baseline and two checkpoints
+EVAL_MSE_RTOL = 1e-5
+EVAL_ABS_TOL = 1e-5  # skill and ACC
+VIT_TOL = 3e-2  # the bf16 class, as the serving step's
+VIT_FILM_TOL = 3e-2  # gamma / beta of the bf16 ViT against the fp32 one
+
+
+def _skill_sums_fp64(fc, tar, clim, w) -> tuple:
+    """fp64 weighted sums over (B, H, W) of (f - t)^2, t't', f't' and f'f'
+    (f' = f - c, t' = t - c; t't' is also the climatology's (c - t)^2) for
+    rows of the grid."""
+    import numpy as np
+
+    fp = fc.astype(np.float64)
+    fp -= clim
+    tp = tar.astype(np.float64)
+    tp -= clim
+    d = fp - tp
+
+    def wsum(a, b):
+        return ((a * b).sum(axis=(0, 2)) * w[:, None]).sum(axis=0)
+
+    return wsum(d, d), wsum(tp, tp), wsum(fp, tp), wsum(fp, fp)
+
+
+def skill_fp64(fc_norm, targets, clim, normalizer, threads: int = 8) -> dict:
+    """MSE, skill and ACC of forecasts against targets, recomputed with
+    numpy in fp64 from the formulas of the JAX package's evaluate.py (a
+    copy: area weights cos(lat) clipped + 1e-6, normalised, fp32; the
+    per-variable weighted means over batch and grid; skill = 1 - mse /
+    max(mse_clim, 1e-12); ACC = <f't'> / max(sqrt(<f'f'><t't'>), 1e-12)).
+    fc_norm: per init time an (S, 1, H, W, C) normalized fp32 forecast;
+    targets: per init time the (S, 1, H, W, C) states; denormalised in fp32
+    as the port does (x * std + mean).  The sums run over bands of rows in
+    `threads` threads (numpy lets go of the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    s, h = fc_norm[0].shape[0], fc_norm[0].shape[-3]
+    w = np.cos(np.linspace(-np.pi / 2, np.pi / 2, h))
+    w = np.clip(w, 0.0, None) + 1e-6
+    w = (w / w.mean()).astype(np.float32).astype(np.float64)
+    c64 = clim.astype(np.float64)
+    n = sum(f.shape[1] * f.shape[2] * f.shape[3] for f in fc_norm)  # points a step
+    bands = np.array_split(np.arange(h), threads)
+    out = {k: [] for k in ("mse", "skill", "acc")}
+    with ThreadPoolExecutor(threads) as pool:
+        for k in range(s):
+            tot = np.zeros((4, c64.shape[-1]))  # (f-t)^2, t't', f't', f'f'
+            for fcs, tars in zip(fc_norm, targets):
+                fc = fcs[k] * normalizer.stds + normalizer.means
+                parts = pool.map(lambda r: _skill_sums_fp64(
+                    fc[:, r[0]:r[-1] + 1], tars[k][:, r[0]:r[-1] + 1], c64[r[0]:r[-1] + 1],
+                    w[r[0]:r[-1] + 1]), bands)
+                tot += sum(np.stack(p) for p in parts)
+            mse, mse_clim = tot[0] / n, tot[1] / n
+            out["mse"].append(mse)
+            out["skill"].append(1.0 - mse / np.maximum(mse_clim, 1e-12))
+            out["acc"].append(tot[2] / np.maximum(np.sqrt(tot[3] * tot[1]), 1e-12))
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def _timed_ms(fn):
+    """(result, ms) of one call on the host clock, the card synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def vit_film_step(dev, smi) -> dict:
+    """Phase 14's ViT check: one rollout step of `serving_config()` with
+    the ViT generator at FilmConfig's published defaults (dim 512, depth
+    6, patch (28, 9, 9), bf16) over the (1, 28, 180, 360) SST, a random
+    film head: the launches of the step (the backbone's kernels, no
+    gcn_layer), the step against the `exact_config` twin with the same
+    weights (VIT_TOL) and its gamma / beta (VIT_FILM_TOL), finite."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from msfno_torch.config import FilmConfig, exact_config, serving_config
+    from msfno_torch.inference.rollout import RolloutConfig, rollout
+    from msfno_torch.models import FourierNeuralOperatorNetFilmed
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfg = serving_config(film=FilmConfig(film_gen_type="transformer",
+                                         compute_dtype="bfloat16"))
+    net = FourierNeuralOperatorNetFilmed(cfg, device=dev, seed=0)
+    _random_film_head(net, dev)
+    x0, sst, sst_seq = model_inputs(cfg, dev, 1)
+    reset_launch_counts()
+    outs = list(rollout(net, x0, RolloutConfig(steps=1), sst_seq=sst_seq))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update({k: v for k, v in PER_STEP["fused"].items()})
+    want["gcn_layer"] = 0  # the ViT generator runs plain torch ops
+    y_k, film_k = _step_and_film(net, x0, sst)
+    with torch.inference_mode():
+        step_ms = cuda_ms(lambda: net(x0, sst), 3, warmup=1)
+        gen_ms = cuda_ms(lambda: net.film_gen(sst), 5, warmup=1)
+    weights = net.state_dict()
+    del net
+    plain = FourierNeuralOperatorNetFilmed(exact_config(cfg), device=dev, seed=1)
+    plain.load_state_dict(weights)
+    del weights
+    y_p, film_p = _step_and_film(plain, x0, sst)
+    del plain
+    err, film_err = rel_l2(y_k, y_p), rel_l2(film_k, film_p)
+    finite = bool(torch.isfinite(y_k).all()) and all(np.isfinite(o).all() for o in outs)
+    f = cfg.film
+    rec = dict(phase="vit_film_step", card=smi, generator=dataclasses.asdict(f),
+               tokens=(f.temporal_step // min(f.patch_size[0], f.temporal_step))
+               * (f.sst_shape[0] // f.patch_size[1]) * (f.sst_shape[1] // f.patch_size[2]),
+               rel_l2_vs_exact_config=err, tol=VIT_TOL, film_rel_l2_vs_exact_config=film_err,
+               film_tol=VIT_FILM_TOL, finite=finite, launches={k: v for k, v in counts.items() if v},
+               step_ms=step_ms, generator_ms=gen_ms)
+    log(json.dumps(rec))
+    del y_k, y_p, film_k, film_p, x0, sst, sst_seq, outs
+    torch.cuda.empty_cache()
+    if not (err <= VIT_TOL and film_err <= VIT_FILM_TOL and finite):
+        raise AssertionError(f"phase 14 ViT step: {rec}")
+    if counts != want:
+        raise AssertionError(f"phase 14 ViT step: launches {counts} (want {want})")
+    return rec
+
+
+def eval_phase(dev, smi) -> dict:
+    """Phase 14: a full-width npy store (`write_store`), two filmed
+    `serving_config()` checkpoints written by `Trainer.save_checkpoint`
+    (the second with perturbed film weights and film_scale 0.5) and a
+    reference-layout PyTorch checkpoint of the same weights; then
+    `evaluate_checkpoints` with the scale-0 baseline over EVAL_INITS init
+    times of EVAL_STEPS steps (batch 1, the static climatology of the
+    store's distinct states), held against `skill_fp64` of a second,
+    stacked rollout (`scan_rollout`) of its first run; `save_forecast` of
+    one checkpoint and `ModelWrapper.running` into NetCDF, each read back
+    bit for bit against a rollout's denormalised fields; the ViT generator
+    (`vit_film_step`).  Prints ms per eval step, the metrics' ms, the
+    load ms per file type, the archive / NetCDF write ms, peak device
+    memory and host RSS; raises on any failed check.  The directory is
+    removed whatever happens."""
+    import os
+    import resource
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from msfno_torch.config import TrainConfig, serving_config
+    from msfno_torch.data.era5 import ERA5Dataset, NpyBackend
+    from msfno_torch.inference import (ForecastWriter, RolloutConfig, evaluate_checkpoints,
+                                       get_output, rollout, scan_rollout)
+    from msfno_torch.inference.evaluate import SkillSums
+    from msfno_torch.models import FourierNeuralOperatorNetFilmed
+    from msfno_torch.models.registry import get_model, read_checkpoint
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+    from msfno_torch.training.trainer import Trainer, save_forecast
+
+    cfg = serving_config()
+    root = tempfile.mkdtemp(prefix="msfno_eval_")
+    try:
+        t0 = time.perf_counter()
+        write_store(root, cfg)
+        norm, sst_norm = store_normalizers(root)
+        ds = ERA5Dataset(NpyBackend(root), multi_step=EVAL_STEPS - 1,
+                         temporal_step=cfg.film.temporal_step)
+        batches = [ds.get_batch([i]) for i in range(EVAL_INITS)]
+        clim = torch.zeros(tuple(batches[0].era5.shape[2:]), dtype=torch.float64, device=dev)
+        for i in range(STORE_DISTINCT_ERA5):
+            clim += torch.from_numpy(np.load(os.path.join(root, f"era5_{i:06d}.npy"))).to(dev)
+        clim = (clim / STORE_DISTINCT_ERA5).float()
+        seconds = {"store_and_batches_s": time.perf_counter() - t0}
+
+        # the checkpoints: Trainer.save_checkpoint, and the reference layout
+        tr = Trainer(cfg, TrainConfig(film_scale_start=1.0), normalizer=norm,
+                     sst_normalizer=sst_norm, checkpoint_dir=os.path.join(root, "ckpt"),
+                     device=dev)
+        _random_film_head(tr.model, dev)
+        state = tr.init_state()
+        tr.iter = 10
+        cps, save_ms = [], {}
+        path, save_ms["pt"] = _timed_ms(lambda: tr.save_checkpoint(state))
+        cps.append(path)
+        g = torch.Generator(device=dev).manual_seed(17)
+        with torch.no_grad():
+            for p in state.trainable.values():
+                p.mul_(1.0 + 0.2 * torch.randn(p.shape, device=dev, generator=g))
+        state.film_scale, tr.iter = 0.5, 20
+        cps.append(tr.save_checkpoint(state))
+        tar = os.path.join(root, "weights.tar")
+        ref_state = {f"module.{k}": v for k, v in tr.model.state_dict().items()}
+        _, save_ms["reference_tar"] = _timed_ms(lambda: torch.save({"model_state": ref_state}, tar))
+        del ref_state
+        net = FourierNeuralOperatorNetFilmed(cfg, device=dev, seed=3)
+        load_ms = {}
+        for kind, path in (("pt", cps[1]), ("reference_tar", tar)):
+            def load(path=path):
+                params, _, reference = read_checkpoint(path)
+                net.load_state_dict(params, strict=not reference)
+            _, load_ms[kind] = _timed_ms(load)
+        if not all(torch.equal(a, b) for a, b in zip(net.state_dict().values(),
+                                                     tr.model.state_dict().values())):
+            raise AssertionError("phase 14: the reference checkpoint did not load the weights")
+        seconds["checkpoints_s"] = time.perf_counter() - t0 - seconds["store_and_batches_s"]
+
+        # evaluate_checkpoints, its launches read just around it
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t_host = time.perf_counter()
+        start.record()
+        reports = evaluate_checkpoints(net, cps, batches, clim, EVAL_STEPS, normalizer=norm,
+                                       sst_normalizer=sst_norm, include_sfno_baseline=True)
+        end.record()
+        torch.cuda.synchronize()
+        eval_ms = start.elapsed_time(end)
+        eval_host_s = time.perf_counter() - t_host
+        counts = launch_counts()
+        peak_eval = torch.cuda.max_memory_allocated() - mem0
+        names = list(reports)
+        want = {k: 0 for k in counts}
+        want.update({k: v * EVAL_STEPS * EVAL_INITS * EVAL_RUNS
+                     for k, v in PER_STEP["fused"].items()})
+        shapes_ok = all(getattr(r, f).shape == (EVAL_STEPS, cfg.in_chans)
+                        and np.isfinite(getattr(r, f)).all()
+                        for r in reports.values() for f in ("mse_model", "skill", "acc"))
+
+        # (a) the first run against the fp64 numpy recompute of a stacked rollout
+        t_part = time.perf_counter()
+        first = reports[names[0]]
+        scale = 0.0 if names[0].endswith("@scale0") else 1.0
+        params, _, _ = read_checkpoint(cps[0])
+        net.load_state_dict(params)
+        del params
+        fc_norm = [scan_rollout(net, b.era5[0], EVAL_STEPS, sst_seq=b.sst[1:EVAL_STEPS + 1],
+                                normalizer=norm, sst_normalizer=sst_norm, scale=scale
+                                ).cpu().numpy() for b in batches]
+        ref = skill_fp64(fc_norm, [b.era5[1:EVAL_STEPS + 1] for b in batches],
+                         clim.cpu().numpy(), norm)
+        err = dict(mse=float(np.max(np.abs(first.mse_model - ref["mse"]) / np.abs(ref["mse"]))),
+                   skill=float(np.max(np.abs(first.skill - ref["skill"]))),
+                   acc=float(np.max(np.abs(first.acc - ref["acc"]))))
+        del fc_norm
+        seconds["recompute_s"] = time.perf_counter() - t_part
+
+        # the device metrics of one step at full width (CUDA events)
+        fc = torch.as_tensor(batches[0].era5[1], device=dev)
+        tar_d = torch.as_tensor(batches[0].era5[2], device=dev)
+        sums = SkillSums(EVAL_STEPS, cfg.in_chans, dev)
+        with torch.inference_mode():
+            metrics_ms = cuda_ms(lambda: sums.add(0, fc, tar_d, clim.expand(fc.shape), fc, tar_d), 5)
+        _, target_copy_ms = _timed_ms(lambda: torch.as_tensor(batches[0].era5[2], device=dev))
+        del fc, tar_d, sums
+
+        # save_forecast of the second checkpoint's weights (the trainer's)
+        t_part = time.perf_counter()
+        arch = os.path.join(root, "archive")
+        _, forecast_ms = _timed_ms(lambda: save_forecast(tr, state, batches, EVAL_STEPS, arch))
+        meta, data = ForecastWriter.read(arch)
+        want_fc = np.stack([np.concatenate(list(rollout(
+            tr.model, b.era5[0], RolloutConfig(steps=EVAL_STEPS), sst_seq=b.sst[1:EVAL_STEPS + 1],
+            normalizer=norm, sst_normalizer=sst_norm, scale=state.film_scale)))
+            for b in batches], axis=1)  # (S, inits, H, W, C)
+        archive_ok = (data.dtype == np.float32 and data.shape == want_fc.shape
+                      and np.array_equal(data, want_fc)
+                      and meta["times"] == [int(b.times[0, 0]) for b in batches])
+        chunk = want_fc[:1, 0]  # one step's field: the write of one step
+        _, append_ms = _timed_ms(lambda: ForecastWriter(
+            os.path.join(root, "append_probe"), meta["channels"], meta["lat"], meta["lon"]
+        ).append(0, chunk))
+        del data, want_fc, chunk
+        seconds["archive_s"] = time.perf_counter() - t_part
+
+        # ModelWrapper.running into NetCDF files, read back with scipy
+        from scipy.io import netcdf_file
+
+        w = get_model("sfno", "film", cfg=cfg, assets=root, device=dev, seed=4)
+        w.sst_normalizer = sst_norm
+        w.load_model(cps[0])
+        nc_dir = os.path.join(root, "netcdf")
+        out = get_output("netcdf", path=nc_dir, ordering=w.ordering)
+        b = batches[0]
+        t_run = time.perf_counter()
+        fields = list(w.running(b.era5[0], lead_time_h=12, sst_seq=b.sst[1:3], output=out))
+        running_s = time.perf_counter() - t_run
+        nc_ok = sorted(os.listdir(nc_dir)) == ["step_0006.nc", "step_0012.nc"]
+        for i, f in enumerate(fields):
+            with netcdf_file(os.path.join(nc_dir, f"step_{6 * (i + 1):04d}.nc"), "r",
+                             mmap=False) as nc:
+                nc_ok &= all(np.array_equal(nc.variables[name][:][0], f[0, ..., c])
+                             for c, name in enumerate(w.ordering))
+        _, nc_write_ms = _timed_ms(lambda: out.write(fields[0], step=99))
+        del w, fields, net, tr, state
+        seconds["netcdf_s"] = time.perf_counter() - t_run
+
+        rec = dict(
+            phase="eval_checkpoints", card=smi, steps=EVAL_STEPS, init_times=EVAL_INITS,
+            runs=names, seconds=seconds, launches=counts, want_launches=want,
+            skill_shapes_finite=shapes_ok,
+            first_run_vs_fp64=dict(run=names[0], err=err, mse_rtol=EVAL_MSE_RTOL,
+                                   abs_tol=EVAL_ABS_TOL),
+            mean_skill={n: float(np.mean(r.skill)) for n, r in reports.items()},
+            mean_acc={n: float(np.mean(r.acc)) for n, r in reports.items()},
+            eval_ms_total=eval_ms, eval_host_s=eval_host_s,
+            eval_ms_per_step=eval_ms / (EVAL_STEPS * EVAL_INITS * EVAL_RUNS),
+            eval_ms_per_step_less_loads=(eval_ms - 2 * load_ms["pt"])
+            / (EVAL_STEPS * EVAL_INITS * EVAL_RUNS),
+            metrics_ms_per_step=metrics_ms, target_to_device_ms=target_copy_ms,
+            checkpoint_save_ms=save_ms, checkpoint_load_ms=load_ms,
+            save_forecast_ms_per_step=forecast_ms / (EVAL_STEPS * EVAL_INITS),
+            archive_append_ms_per_step=append_ms,
+            archive_bit_identical=archive_ok,
+            running_netcdf_ms_per_step=running_s * 1e3 / 2, netcdf_write_ms_per_step=nc_write_ms,
+            netcdf_bit_identical=nc_ok,
+            eval_peak_mem_gib_above_start=peak_eval / 2**30,
+            host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
+        log(json.dumps(rec))
+        if not (shapes_ok and err["mse"] <= EVAL_MSE_RTOL and err["skill"] <= EVAL_ABS_TOL
+                and err["acc"] <= EVAL_ABS_TOL and archive_ok and nc_ok and len(names) == 3):
+            raise AssertionError(f"phase 14: {rec}")
+        if counts != want:
+            raise AssertionError(f"phase 14: eval launches {counts} (want {want})")
+    finally:
+        shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+    rec["vit"] = vit_film_step(dev, smi)
+    rec["seconds"]["vit_s"] = time.perf_counter() - t_part
+    rec["seconds"]["phase_s"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "eval_phase_seconds", **rec["seconds"]}))
+    return rec
+
+
 def model_inputs(cfg, dev, steps):
     import torch
 
@@ -1927,6 +2290,18 @@ def main() -> int:
                     "peak_mem_gib": {f"multi_step_training={ms}": r["peak_mem_gib"]
                                      for ms, r in stored.items()},
                     "seconds_total": time.time() - t_start}))
+
+    # phase 14: checkpoint skill evaluation and forecast archives at full width
+    torch.cuda.empty_cache()
+    evaluated = eval_phase(dev, smi)
+    log(json.dumps({"phase": "eval_checkpoints_time", "card": smi,
+                    "eval_ms_per_step": evaluated["eval_ms_per_step"],
+                    "metrics_ms_per_step": evaluated["metrics_ms_per_step"],
+                    "checkpoint_load_ms": evaluated["checkpoint_load_ms"],
+                    "archive_append_ms_per_step": evaluated["archive_append_ms_per_step"],
+                    "netcdf_write_ms_per_step": evaluated["netcdf_write_ms_per_step"],
+                    "vit_step_ms": evaluated["vit"]["step_ms"],
+                    "seconds_total": time.time() - t_start}))
     log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
 
     kernels = []
@@ -1965,6 +2340,8 @@ def main() -> int:
         # phase 13: one train step fed from the store
         launches.update({f"launches_store_train_step_multi_step_{ms}":
                          r["launches_per_train_step"][name] for ms, r in stored.items()})
+        # phase 14: the evaluate_checkpoints run (3 runs x 2 init times x 4 steps)
+        launches["launches_eval_checkpoints"] = evaluated["launches"][name]
         # the fp32-operand sites, summed over one fused step of the
         # fp32-kernel tier (forward kernels) or over its train step with
         # multi_step_training=1 (backward kernels)

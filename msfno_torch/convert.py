@@ -18,7 +18,13 @@ independent copy of that mapping for the parameters this package has):
 
 The GCN FiLM generator, which the export skips, maps to
 `film_gen.film_gen.{conv1,conv_i}.{weight (in, out), bias}` and
-`film_gen.film_gen.head_film.{weight (out, in), bias}`.
+`film_gen.film_gen.head_film.{weight (out, in), bias}`.  The ViT generator
+maps to the reference names that msfno_tpu/models/convert.py:517-545
+emits: `film_gen.film_gen.to_patch_embedding.{norm1,lin,norm2}`,
+`encoder_position_code` ((N, dim) -> (1, N, dim)),
+`transformer.layers.{i}.0.{norm, to_qkv, to_out.0}`,
+`transformer.layers.{i}.1.net.{0,1,4}` and `transformer.norm`, Dense
+kernels (in, out) as Linear weights (out, in).
 """
 
 from __future__ import annotations
@@ -84,9 +90,35 @@ def _backbone_key(parts: list[str], v: np.ndarray):
     return None
 
 
+_FF = {"norm": "0", "fc1": "1", "fc2": "4"}  # FeedForward's Sequential indices
+
+
+def _vit_key(g: list[str], v: np.ndarray):
+    """(name under film_gen.film_gen, array) of a ViT generator leaf."""
+    linear = lambda leaf: np.ascontiguousarray(v.T) if leaf == "kernel" else v  # noqa: E731
+    if g[0] in ("patch_norm1", "patch_norm2") and len(g) == 2:
+        return f"to_patch_embedding.norm{g[0][-1]}.{_kind(g[1])}", v
+    if g[0] == "patch_proj" and len(g) == 2:
+        return f"to_patch_embedding.lin.{_kind(g[1])}", linear(g[1])
+    if g == ["encoder_position_code"]:
+        return "encoder_position_code", v[None]
+    if g[0] != "transformer":
+        return None
+    if g[1] == "norm" and len(g) == 3:
+        return f"transformer.norm.{_kind(g[2])}", v
+    m = re.match(r"^(attn|ff)_(\d+)$", g[1])
+    if not m or len(g) != 4:
+        return None
+    sub, i = m.groups()
+    if sub == "ff":
+        return f"transformer.layers.{i}.1.net.{_FF[g[2]]}.{_kind(g[3])}", linear(g[3])
+    layer = {"norm": "norm", "to_qkv": "to_qkv", "to_out": "to_out.0"}[g[2]]
+    return f"transformer.layers.{i}.0.{layer}.{_kind(g[3])}", linear(g[3])
+
+
 def _film_key(parts: list[str], v: np.ndarray):
-    """(name, array) of a GCN generator leaf, or None."""
-    if parts[:2] != ["film_gen", "film_gen"] or len(parts) < 4:
+    """(name, array) of a GCN or ViT generator leaf, or None."""
+    if parts[:2] != ["film_gen", "film_gen"] or len(parts) < 3:
         return None
     layer, g = parts[2], parts[3:]
     base = f"film_gen.film_gen.{layer}"
@@ -97,12 +129,14 @@ def _film_key(parts: list[str], v: np.ndarray):
             return f"{base}.weight", v
         if g == ["bias"]:
             return f"{base}.bias", v
-    return None
+        return None
+    hit = _vit_key(parts[2:], v)
+    return None if hit is None else (f"film_gen.film_gen.{hit[0]}", hit[1])
 
 
 def from_flax_params(params: Mapping) -> dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (a flax `params` tree of the JAX SFNO /
-    filmed SFNO with a gcn or gcn_custom generator) -> state_dict for
+    filmed SFNO with a gcn, gcn_custom or transformer generator) -> state_dict for
     `load_state_dict(strict=True)`.  Raises on a leaf it cannot place."""
     out, unknown = {}, []
     for path, v in _flatten(params).items():

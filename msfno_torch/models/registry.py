@@ -4,15 +4,16 @@ and sfno/model.py:1590-1598 `get_model`).
 
 A wrapper owns the net, its statistics and normalizers, and the checkpoint
 it was loaded from, and runs the autoregressive forecast (`running`).  It
-reads two checkpoint formats: the JAX package's native `.npz` (flattened
-`params/*` leaves and a `meta/json` record, read here with numpy), and a
-reference PyTorch checkpoint (`weights.tar` / `.pkl` / `.pt` / `.ckpt`).
+reads three checkpoint formats (`read_checkpoint`): the JAX package's
+native `.npz` (flattened `params/*` leaves and a `meta/json` record, read
+here with numpy), this package's own `torch.save` file
+(`training.checkpoint`, which `save_checkpoint` writes), and a reference
+PyTorch checkpoint (`weights.tar` / `.pkl` / `.pt` / `.ckpt`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import logging
 import os
 from typing import Sequence
@@ -20,14 +21,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from msfno_torch.config import FilmConfig, SFNOConfig, TrainConfig
-from msfno_torch.convert import from_flax_params
+from msfno_torch.config import FilmConfig, SFNOConfig, TrainConfig, to_json
 from msfno_torch.data.normalization import Normalizer, SSTNormalizer
 from msfno_torch.inference.rollout import RolloutConfig, rollout
 from msfno_torch.models.sfno.sfnonet import (
     FourierNeuralOperatorNet,
     FourierNeuralOperatorNetFilmed,
 )
+from msfno_torch.models.variables import ORDERING
+from msfno_torch.training import checkpoint as ckpt_io
 
 log = logging.getLogger("msfno_torch")
 
@@ -35,27 +37,6 @@ TORCH_CHECKPOINT_SUFFIXES = (".tar", ".pkl", ".pt", ".ckpt")
 # reference state_dict keys that are not parameters of the net: the dead
 # top-level norm (model.py:218) and the DDP bookkeeping entry
 _DEAD_KEYS = {"norm.weight", "norm.bias", "ged"}
-
-
-def _unflatten(flat: dict[str, np.ndarray]) -> dict:
-    tree: dict = {}
-    for path, v in flat.items():
-        node = tree
-        *parents, leaf = path.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return tree
-
-
-def read_npz_checkpoint(path: str) -> tuple[dict, dict]:
-    """(params tree of numpy arrays, meta) of a checkpoint written by the JAX
-    package's `training.checkpoint.save_checkpoint`: leaves under
-    "params/<a>/<b>/...", the metadata as JSON bytes under "meta/json"."""
-    with np.load(path) as z:
-        meta = json.loads(bytes(z["meta/json"]).decode())
-        flat = {k[len("params/"):]: z[k] for k in z.files if k.startswith("params/")}
-    return _unflatten(flat), meta
 
 
 def reference_state_dict(checkpoint) -> dict[str, torch.Tensor]:
@@ -72,6 +53,32 @@ def reference_state_dict(checkpoint) -> dict[str, torch.Tensor]:
         if k not in _DEAD_KEYS and isinstance(v, torch.Tensor):
             out[k] = v
     return out
+
+
+def _is_own_checkpoint(obj) -> bool:
+    """A `training.checkpoint.save_checkpoint` payload."""
+    return (isinstance(obj, dict) and {"meta", "params"} <= set(obj)
+            and isinstance(obj["meta"], dict) and "format_version" in obj["meta"])
+
+
+def read_checkpoint(path: str) -> tuple[dict[str, torch.Tensor], dict, bool]:
+    """(state_dict, meta, is_reference) of a checkpoint file: a JAX `.npz`
+    (every parameter, through `from_flax_params`), this package's own file
+    (its parameters and meta) or a reference PyTorch checkpoint
+    (`reference_state_dict`, no meta: `is_reference` True, loaded with
+    strict=False).  Orbax directories raise NotImplementedError."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory (an Orbax checkpoint): orbax.checkpoint imports jax, "
+            "which this package never imports"
+        )
+    if not path.endswith(TORCH_CHECKPOINT_SUFFIXES):
+        params, _, meta = ckpt_io.load_checkpoint(path)
+        return params, meta, False
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if _is_own_checkpoint(obj):
+        return obj["params"], obj["meta"], False
+    return reference_state_dict(obj), {}, True
 
 
 @dataclasses.dataclass
@@ -111,33 +118,35 @@ class ModelWrapper:
         return self.normalizer(x, reverse=reverse)
 
     def load_model(self, checkpoint_file: str | None) -> torch.nn.Module:
-        """Load weights from the JAX package's `.npz` checkpoint (all of them,
-        strictly, and its `film_scale`) or a reference PyTorch checkpoint
-        (the entries the net has; the rest is logged).  None keeps the
-        seeded random weights."""
+        """Load weights from a JAX `.npz` checkpoint or this package's own
+        file (all of them, strictly, and its `film_scale`) or from a
+        reference PyTorch checkpoint (the entries the net has; the rest is
+        logged).  None keeps the seeded random weights."""
         if checkpoint_file is None:
             return self.module
-        if os.path.isdir(checkpoint_file):
-            raise NotImplementedError(
-                f"{checkpoint_file} is a directory: Orbax checkpoints come in a "
-                "later slice"
-            )
-        if checkpoint_file.endswith(TORCH_CHECKPOINT_SUFFIXES):
-            checkpoint = torch.load(checkpoint_file, map_location="cpu", weights_only=True)
-            result = self.module.load_state_dict(reference_state_dict(checkpoint),
-                                                 strict=False)
-            if result.missing_keys or result.unexpected_keys:
-                log.warning("checkpoint keys not loaded (strict=False): missing %s, "
-                            "unexpected %s", result.missing_keys[:10],
-                            result.unexpected_keys[:10])
-            return self.module
-        params, meta = read_npz_checkpoint(checkpoint_file)
-        self.module.load_state_dict(from_flax_params(params), strict=True)
+        params, meta, reference = read_checkpoint(checkpoint_file)
+        result = self.module.load_state_dict(params, strict=not reference)
+        if reference and (result.missing_keys or result.unexpected_keys):
+            log.warning("checkpoint keys not loaded (strict=False): missing %s, "
+                        "unexpected %s", result.missing_keys[:10],
+                        result.unexpected_keys[:10])
         # inference modulates at the TRAINED film strength: the training
         # ramp leaves it well below 1.0 in most checkpoints
         if "film_scale" in meta:
             self.film_scale = float(meta["film_scale"])
         return self.module
+
+    def save_checkpoint(self, path: str, **extra) -> str:
+        """Write the net's weights with the config's JSON as this package's
+        checkpoint file (`training.checkpoint.save_checkpoint`; `extra`
+        are its keywords: opt_state, step, epoch, extra)."""
+        return ckpt_io.save_checkpoint(path, self.module.state_dict(),
+                                       config_json=to_json(self.cfg), **extra)
+
+    def get_parameters(self) -> dict[str, torch.nn.Parameter]:
+        """The trainable parameters by name (reference get_parameters,
+        model.py:1532-1536): all of them here."""
+        return dict(self.module.named_parameters())
 
     def running(self, x0: np.ndarray, lead_time_h: int = 24,
                 sst_seq: np.ndarray | None = None,
@@ -176,6 +185,10 @@ class SFNOWrapper(ModelWrapper):
     def build_module(self):
         return FourierNeuralOperatorNet(self.cfg, device=self.device, seed=self.seed)
 
+    @property
+    def ordering(self) -> list[str]:
+        return ORDERING
+
 
 class SFNOFilmedWrapper(ModelWrapper):
     """FourCastNetv2_filmed (reference sfno/model.py:905-1588)."""
@@ -184,6 +197,18 @@ class SFNOFilmedWrapper(ModelWrapper):
         if self.cfg.film is None:
             raise ValueError("film config required")
         return FourierNeuralOperatorNetFilmed(self.cfg, device=self.device, seed=self.seed)
+
+    @property
+    def ordering(self) -> list[str]:
+        return ORDERING
+
+    def get_parameters(self) -> dict[str, torch.nn.Parameter]:
+        """The film-trainable subset (reference model.py:1532-1536):
+        `film_trainable_predicate` on each name's JAX-style path."""
+        from msfno_torch.training.partition import film_trainable_predicate, jax_path
+
+        pred = film_trainable_predicate(num_layers=self.cfg.num_layers)
+        return {n: p for n, p in self.module.named_parameters() if pred(jax_path(n))}
 
 
 def get_model(model_type: str = "sfno", model_version: str = "latest",

@@ -258,7 +258,7 @@ class FourierNeuralOperatorNetFilmed(FourierNeuralOperatorNet):
         super()._build(cfg, device, gen)
 
     def forward(self, x, sst, scale=1.0, rng=None):
-        film_mod = self.film_gen(sst)  # (B, 2, film_layers, C); the GCN has no dropout
+        film_mod = self.film_gen(sst, rng=rng)  # (B, 2, film_layers, C)
         gamma, beta = film_mod[:, 0], film_mod[:, 1]
         residual = x
         x, stats = self._encode(x)

@@ -4,15 +4,18 @@ reference MSFNO/Models/train.py:779-819, MSFNO/Models/checkpoint.py:9-57).
 This package's format is one `torch.save` file holding the parameters
 (state_dict names), the optimizer state, and the JAX package's metadata:
 step, epoch, config (JSON) and film_scale.  `load_checkpoint` also reads
-the parameters of a JAX-written `.npz` training checkpoint through
-`convert.from_flax_params`; its optimizer state and Orbax checkpoint
-directories raise NotImplementedError.
+a JAX-written `.npz` training checkpoint: its parameters through
+`convert.from_flax_params`, and its optax optimizer state mapped into this
+package's `Optimizer` state (`jax_opt_state`).  Orbax checkpoint
+directories raise NotImplementedError: `orbax.checkpoint` imports `jax`,
+which this package never imports.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import zipfile
 from typing import Any
 
@@ -20,6 +23,8 @@ import numpy as np
 import torch
 
 FORMAT_VERSION = 1
+OPTIMIZERS = ("adam", "adamw", "sgd")
+SCHEDULERS = ("none", "cosine", "step")
 
 
 def _cpu(tree):
@@ -54,8 +59,9 @@ def _is_npz(path: str) -> bool:
 def _check_file(path: str) -> None:
     if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path} is a directory: Orbax checkpoints come in a later slice; this "
-            "package reads its own files and the JAX package's .npz files"
+            f"{path} is a directory (an Orbax checkpoint): orbax.checkpoint imports jax, "
+            "which this package never imports; it reads its own files and the JAX "
+            "package's .npz files"
         )
 
 
@@ -76,35 +82,145 @@ def peek(path: str) -> dict[str, Any]:
     return {**ckpt["meta"], "keys": list(ckpt["params"])}
 
 
-def _npz_params(z) -> dict[str, torch.Tensor]:
+def _npz_tree(z) -> dict:
+    """The "params/*" leaves of a JAX `.npz` as a nested dict of arrays."""
+    keys = [k for k in z.files if k.startswith("params/")]
+    return _nest([tuple(k[len("params/"):].split("/")) for k in keys], [z[k] for k in keys])
+
+
+def _flat_paths(tree: dict, prefix: tuple = ()) -> list[tuple[str, ...]]:
+    out = []
+    for k, v in tree.items():
+        out.extend(_flat_paths(v, prefix + (k,)) if isinstance(v, dict) else [prefix + (k,)])
+    return out
+
+
+def _nest(paths, leaves) -> dict:
+    tree: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def trainable_flax_paths(tree: dict, train_cfg) -> list[tuple[str, ...]]:
+    """The flax paths of the parameters the JAX trainer optimizes, in
+    `jax.tree_util` order (dict keys sorted at every level): all of them
+    for an SFNO, the film-trainable subset (`film_trainable_predicate` with
+    the config's retrain_film) for a filmed one."""
+    from msfno_torch.training.partition import film_trainable_predicate
+
+    paths = _flat_paths(tree)
+    if "film_gen" in tree or "film_head" in tree:
+        num_layers = sum(1 for k in tree if re.fullmatch(r"blocks_\d+", k))
+        pred = film_trainable_predicate(train_cfg.retrain_film, num_layers)
+        paths = [p for p in paths if pred(p)]
+    return sorted(paths)
+
+
+def jax_opt_state(leaves: list[np.ndarray], tree: dict, train_cfg, step: int = 0) -> dict:
+    """The optax state of `msfno_tpu.training.optim.create_optimizer(
+    train_cfg)` as this package's `Optimizer` state (CPU tensors).
+
+    The JAX `.npz` stores the state's leaves as `opt_state/{i}` in
+    `jax.tree_util.tree_flatten` order and no tree structure, so the order
+    is rebuilt from the train config and the trainable parameters'
+    flax paths (`trainable_flax_paths`, N of them, dict keys sorted):
+
+      optax.MultiSteps (accumulation_steps > 0) first:
+          mini_step, gradient_step, <inner>, acc_grads x N
+          (MultiStepsState's fields; its skip_state () has no leaf)
+      <inner> = the chain of create_optimizer:
+          adam / adamw: ScaleByAdamState count, mu x N, nu x N
+                        (adamw's add_decayed_weights: EmptyState, no leaf)
+          sgd:          TraceState trace x N
+          then, for schedule cosine / step, ScaleByScheduleState count
+          (schedule none: optax.scale's EmptyState, no leaf).
+
+    The moments map to this package's names through
+    `convert.from_flax_params`, layout changes included.  A chain other
+    than these, or a leaf count or shape that disagrees, raises
+    ValueError."""
     from msfno_torch.convert import from_flax_params
 
-    tree: dict = {}
-    for key in z.files:
-        if not key.startswith("params/"):
-            continue
-        node = tree
-        *parents, leaf = key[len("params/"):].split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = z[key]
-    return from_flax_params(tree)
+    opt, sched, acc = train_cfg.optimizer, train_cfg.scheduler, train_cfg.accumulation_steps
+    if opt not in OPTIMIZERS or sched not in SCHEDULERS:
+        raise ValueError(f"no optax chain is known for optimizer={opt!r}, scheduler={sched!r}")
+    paths = trainable_flax_paths(tree, train_cfg)
+    n, pos = len(paths), 0
+
+    def take(k):
+        nonlocal pos
+        out = leaves[pos:pos + k]
+        if len(out) != k:
+            raise ValueError(f"optax state: {len(leaves)} leaves, fewer than the chain of "
+                             f"{opt}/{sched}/accumulation_steps={acc} over {n} parameters")
+        pos += k
+        return out
+
+    def counts(k):
+        vals = take(k)
+        if any(np.ndim(v) for v in vals):
+            raise ValueError(f"optax state: an array where the chain of {opt}/{sched}/"
+                             f"accumulation_steps={acc} has a count")
+        return [int(v) for v in vals]
+
+    def moments(arrays):
+        for path, a in zip(paths, arrays):
+            node = tree
+            for p in path:
+                node = node[p]
+            if np.shape(node) != np.shape(a):
+                raise ValueError(f"optax state: leaf of shape {np.shape(a)} for parameter "
+                                 f"{'/'.join(path)} of shape {np.shape(node)}")
+        return from_flax_params(_nest(paths, arrays))
+
+    multi = acc > 0
+    if multi:
+        mini_step, gradient_step = counts(2)
+    inner: dict = {}
+    if opt == "sgd":
+        inner["trace"] = moments(take(n))
+    else:
+        count = counts(1)[0]
+        inner.update(count=count, mu=moments(take(n)), nu=moments(take(n)))
+    if sched != "none":
+        inner["sched_count"] = counts(1)[0]
+    else:  # a constant rate: the count of applied updates
+        inner["sched_count"] = inner.get("count", gradient_step if multi else int(step))
+    state = {"inner": inner}
+    if multi:
+        state.update(mini_step=mini_step, gradient_step=gradient_step, acc=moments(take(n)))
+    if pos != len(leaves):
+        raise ValueError(f"optax state: {len(leaves)} leaves, the chain of "
+                         f"{opt}/{sched}/accumulation_steps={acc} over {n} parameters "
+                         f"takes {pos}")
+    return state
 
 
-def load_checkpoint(path: str, with_opt_state: bool = False):
+def load_checkpoint(path: str, with_opt_state: bool = False, train_cfg=None):
     """Returns (params, opt_state or None, meta).  A JAX `.npz` checkpoint
-    gives its parameters under this package's names; asking for its
-    optimizer state (optax pytrees) raises NotImplementedError."""
+    gives its parameters under this package's names and, with
+    `with_opt_state`, its optax state mapped by `jax_opt_state`, which
+    needs the run's `TrainConfig` (`train_cfg`) to order the leaves."""
+    from msfno_torch.convert import from_flax_params
+
     _check_file(path)
     if _is_npz(path):
         with np.load(path) as z:
             meta = json.loads(bytes(z["meta/json"]).decode())
+            tree = _npz_tree(z)
+            opt_state = None
             if with_opt_state and "meta/opt_num_leaves" in z.files:
-                raise NotImplementedError(
-                    f"{path}: optimizer state written by the JAX package (optax) is not "
-                    "read by this package; resume from its parameters only"
-                )
-            return _npz_params(z), None, meta
+                if train_cfg is None:
+                    raise ValueError(
+                        f"{path}: the optax state's leaf order comes from the train "
+                        "config; pass train_cfg=")
+                leaves = [z[f"opt_state/{i}"] for i in range(int(z["meta/opt_num_leaves"]))]
+                opt_state = jax_opt_state(leaves, tree, train_cfg, meta.get("step", 0))
+            return from_flax_params(tree), opt_state, meta
     ckpt = _load(path)
     return ckpt["params"], ckpt["opt_state"] if with_opt_state else None, ckpt["meta"]
 

@@ -40,9 +40,9 @@ from msfno_torch.utils.observability import FinTraining, LocalLog, Timer
 
 log = logging.getLogger("msfno_torch")
 
-# the FiLM generators whose dropout the port runs: the GCN ones have none,
-# so film.dropout is a no-op for them, as in the JAX package
-_FILM_DROPOUT_FREE = ("gcn", "gcn_custom", "none", None)
+# the FiLM generators whose film.dropout the port runs: the ViT's acts; the
+# GCN ones have none, so it is a no-op for them, as in the JAX package
+_FILM_DROPOUT_PORTED = ("transformer", "gcn", "gcn_custom", "none", None)
 
 
 def _is_oom_error(e: BaseException) -> bool:
@@ -114,10 +114,10 @@ class Trainer:
             raise NotImplementedError(
                 "mesh=: multi-device training (DDP) comes in a later slice")
         film = model_cfg.film
-        if film is not None and film.dropout > 0.0 and film.film_gen_type not in _FILM_DROPOUT_FREE:
+        if film is not None and film.dropout > 0.0 and film.film_gen_type not in _FILM_DROPOUT_PORTED:
             raise NotImplementedError(
-                f"film.dropout with film_gen_type={film.film_gen_type!r}: the ViT and MAE "
-                "generators come in a later slice")
+                f"film.dropout with film_gen_type={film.film_gen_type!r}: the MAE generator "
+                "comes in the next slice")
         self.cfg = model_cfg
         self.tcfg = train_cfg
         self.device = resolve_device(device)
@@ -164,8 +164,11 @@ class Trainer:
 
     @property
     def _has_dropout(self) -> bool:
-        # film.dropout is accepted only where it is a no-op (the GCN generators)
-        return self.cfg.drop_rate > 0.0 or self.cfg.drop_path_rate > 0.0
+        # film.dropout acts in the ViT generator only (a no-op for the GCN ones)
+        film = self.cfg.film
+        return (self.cfg.drop_rate > 0.0 or self.cfg.drop_path_rate > 0.0
+                or (film is not None and film.dropout > 0.0
+                    and film.film_gen_type == "transformer"))
 
     def _train_rng(self, step: int) -> torch.Generator:
         """The dropout and drop-path masks' generator of one step, seeded
@@ -533,10 +536,12 @@ class Trainer:
                 resume_scheduler: bool = False) -> TrainState:
         """Resume (the JAX cli's restore_train_state): parameters always come
         from the checkpoint; the optimizer state only with resume_optimizer
-        (this package's files), else the schedule position only with
+        (this package's files, or a JAX `.npz`'s optax state ordered by this
+        trainer's config), else the schedule position only with
         resume_scheduler.  The next `train` starts after the checkpoint's
         epoch."""
-        params, opt_state, meta = ckpt_io.load_checkpoint(path, with_opt_state=resume_optimizer)
+        params, opt_state, meta = ckpt_io.load_checkpoint(
+            path, with_opt_state=resume_optimizer, train_cfg=self.tcfg)
         with torch.no_grad():
             for name, p in self.model.named_parameters():
                 if name in params:
@@ -544,6 +549,10 @@ class Trainer:
         state.step = int(meta.get("step", 0))
         state.film_scale = float(meta.get("film_scale", self.tcfg.film_scale_start))
         if resume_optimizer and opt_state is not None:
+            moments = opt_state["inner"].get("mu", opt_state["inner"].get("trace"))
+            if set(moments) != set(state.trainable):
+                raise ValueError(f"{path}: the optimizer state's parameters are not this "
+                                 "trainer's trainable ones")
             state.opt_state = _to_device(opt_state, self.device)
         elif resume_scheduler:
             state.opt_state = fast_forward_schedule(state.opt_state, state.step)
@@ -559,3 +568,30 @@ def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree
+
+
+def save_forecast(trainer: Trainer, state: TrainState, batches, steps: int, out_path: str,
+                  channels: list[str] | None = None) -> str:
+    """Weatherbench2-format forecast dump (the JAX package's save_forecast;
+    reference Trainer.save_forecast, train.py:942-1022, and
+    save_to_zarr_forecast, 1024-1110): for each batch, roll out `steps`
+    prediction timedeltas from its first state on the trainer's device at
+    the state's film scale, denormalise each step there, copy it to the
+    host and append one (steps, H, W, C) chunk per init time
+    (`batch.times[0, b]`) to a ForecastWriter archive at `out_path`."""
+    from msfno_torch.inference.forecast_writer import ForecastWriter
+    from msfno_torch.inference.rollout import _states
+
+    h, w = trainer.cfg.img_size
+    writer = ForecastWriter(
+        out_path, channels or [f"var{i}" for i in range(trainer.cfg.out_chans)],
+        lat=np.linspace(90, -90, h), lon=np.linspace(0, 360, w, endpoint=False))
+    for batch in batches:
+        sst_seq = batch.sst[1:steps + 1] if batch.sst is not None else None
+        states = _states(trainer.model, batch.era5[0], steps, sst_seq, trainer.normalizer,
+                         trainer.sst_normalizer, float(state.film_scale))
+        fc = np.stack([trainer.normalizer(s.float(), reverse=True).cpu().numpy()
+                       for s in states])  # (steps, B, H, W, C)
+        for b in range(fc.shape[1]):
+            writer.append(int(batch.times[0, b]), fc[:, b])
+    return out_path

@@ -1,7 +1,7 @@
 """Config, package boundary and entry-point rules of the PyTorch port: one
 JSON string drives both packages, importing the port pulls in no JAX, the
 entry points refuse to fall back to the CPU, and every path the port does
-not run yet (the ViT and MAE FiLM generators) raises NotImplementedError."""
+not run yet (the MAE FiLM generator) raises NotImplementedError."""
 
 import dataclasses
 import subprocess
@@ -137,7 +137,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("change", [
-    dict(film=dataclasses.replace(SMALL["film"], film_gen_type="transformer")),
+    # the ViT generator ("transformer") builds since it was ported
+    # (tests/test_torch_vit.py); the MAE one, with or without cls inputs, not yet
+    dict(film=dataclasses.replace(SMALL["film"], film_gen_type="mae", cls_input=True)),
     dict(film=dataclasses.replace(SMALL["film"], film_gen_type="mae")),
 ])
 def test_unported_paths_raise(change):

@@ -174,7 +174,9 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 
 def test_jax_npz_checkpoint_params_load(tmp_path, trained):
     """A JAX-written .npz training checkpoint: its parameters load by name;
-    its optax state and Orbax directories raise."""
+    its optax state needs the train config that orders its leaves
+    (tests/test_torch_checkpoint_optax.py resumes from it); Orbax
+    directories raise."""
     from msfno_tpu.training import checkpoint as jckpt
 
     js1 = trained["js1"]
@@ -185,9 +187,12 @@ def test_jax_npz_checkpoint_params_load(tmp_path, trained):
     assert opt is None and meta["step"] == 1 and tckpt.peek(path)["step"] == 1
     ref = from_flax_params(jax.tree_util.tree_map(np.asarray, js1.params))
     assert set(params) == set(ref) and all(torch.equal(params[k], ref[k]) for k in ref)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="train_cfg"):
         tckpt.load_checkpoint(path, with_opt_state=True)
-    with pytest.raises(NotImplementedError):
+    _, opt, _ = tckpt.load_checkpoint(path, with_opt_state=True,
+                                      train_cfg=from_json(to_json(TCFG)))
+    assert opt["inner"]["count"] == 1 and set(opt["inner"]["mu"]) == set(trained["ps1"].trainable)
+    with pytest.raises(NotImplementedError, match="imports jax"):
         tckpt.load_checkpoint(str(tmp_path))
     merged = tckpt.merge_film_checkpoint(ref, {"film_gen.film_gen.conv1.bias": 0})
     assert merged["film_gen.film_gen.conv1.bias"] == 0 and len(merged) == len(ref)
@@ -252,12 +257,12 @@ def test_gen_batch_matches_jax():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         TTrainer(from_json(to_json(CFG)), TTrainConfig(), device="cpu", mesh=object())
-    # dropout and drop-path are ported (tests/test_torch_dropout.py); film.dropout
-    # of the generators the port does not have yet still raises
-    vit = dataclasses.replace(from_json(to_json(CFG)).film, film_gen_type="transformer",
-                              dropout=0.1)
+    # dropout and drop-path are ported (tests/test_torch_dropout.py), and the
+    # ViT generator's film.dropout (tests/test_torch_vit.py); film.dropout of
+    # the generator the port does not have yet (MAE) still raises
+    mae = dataclasses.replace(from_json(to_json(CFG)).film, film_gen_type="mae", dropout=0.1)
     with pytest.raises(NotImplementedError, match="film.dropout"):
-        TTrainer(dataclasses.replace(from_json(to_json(CFG)), film=vit), TTrainConfig(),
+        TTrainer(dataclasses.replace(from_json(to_json(CFG)), film=mae), TTrainConfig(),
                  device="cpu")
     # the spectral losses are ported (tests/test_torch_trainer_spectral_loss.py)
     TTrainer(from_json(to_json(CFG)), TTrainConfig(loss_fn="SpectralL2Sphere"), device="cpu")
