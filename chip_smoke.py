@@ -114,6 +114,20 @@ Phases (any failure raises, and the script exits non-zero):
      twin (3e-2, gamma / beta 3e-2, no gcn_layer launch); the ms per eval
      step, of the device metrics, of a checkpoint load per file type, of
      the archive and NetCDF writes, peak device memory and host RSS.
+ 15. the MAE and FourCastNet families (`mae_afno_phase`): one rollout step
+     of `serving_config()` with the MAE generator at FilmConfig's defaults
+     (ContextCast fp32, 800 tokens) against its `exact_config` twin (3e-2,
+     gamma / beta 1e-5), exactly 12 / 11 / 1 / 1 / 0 launches, the same
+     net with `cls_input=True` fed the first run's class token (gamma /
+     beta 1e-6); `get_model("mae")` on a batch of 2 full-size SST windows,
+     loss and gradient on the card against the CPU at a float and a tensor
+     mask ratio (1e-5 relative, each parameter's gradient 1e-4), 10
+     `pretrain` steps (finite, descending, every parameter moved),
+     `compute_cls_tokens` over 4 windows; `get_model("fcn", "1")` at
+     720x1440x26 against its fp64 copy on the card (1e-5), a 2-step
+     `running`, a reference-layout checkpoint reloaded bit for bit, a
+     nonnegative PrecipNet step, no kernel launch; the median ms a step
+     of each and the peak memory.
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
 operands of that tier (sites "*/fp32") to 1e-5; at the fp32 sites of the
 GCN layer and its backward, the head, the tail and grid_mlp (each of its
@@ -2116,6 +2130,295 @@ def eval_phase(dev, smi) -> dict:
     return rec
 
 
+# phase 15: the MAE FiLM generator, MAE SST pretraining and FourCastNet at
+# full width
+MAE_STEP_TOL = 3e-2  # the serving step against its exact_config twin
+MAE_FILM_TOL = 1e-5  # gamma / beta: ContextCast and its head are fp32 in both
+MAE_CLS_TOL = 1e-6  # gamma / beta from the class token against from the SST
+MAE_LOSS_TOL = 1e-5  # card against CPU, relative
+MAE_GRAD_TOL = 1e-4  # card against CPU, each parameter's gradient
+MAE_PRETRAIN_STEPS = 10
+AFNO_TOL = 1e-5  # fp32 against fp64 on the card
+TIMED_RUNS = 10
+
+
+def _median_event_ms(fn, runs: int = TIMED_RUNS) -> float:
+    """Median of `runs` calls timed one by one by CUDA events, after one
+    warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def mae_film_step(dev, smi) -> dict:
+    """Phase 15 (a): one rollout step of `serving_config()` with the MAE
+    generator at FilmConfig's defaults (embed 512, mlp 512, patch (28, 9,
+    9): 800 tokens; ContextCast fp32) over the (1, 28, 180, 360) SST: the
+    step's launches (the backbone's kernels, no gcn_layer), the step
+    against its `exact_config` twin (MAE_STEP_TOL) and its gamma / beta
+    (MAE_FILM_TOL); the same net with `cls_input=True` fed the class token
+    of the first run gives the same gamma / beta (MAE_CLS_TOL); the median
+    ms a step."""
+    import numpy as np
+    import torch
+
+    from msfno_torch.config import FilmConfig, exact_config, serving_config
+    from msfno_torch.inference.rollout import RolloutConfig, rollout
+    from msfno_torch.models import FourierNeuralOperatorNetFilmed
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfg = serving_config(film=FilmConfig(film_gen_type="mae"))
+    net = FourierNeuralOperatorNetFilmed(cfg, device=dev, seed=0)
+    x0, sst, sst_seq = model_inputs(cfg, dev, 1)
+    reset_launch_counts()
+    outs = list(rollout(net, x0, RolloutConfig(steps=1), sst_seq=sst_seq))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(PER_STEP["fused"])
+    want["gcn_layer"] = 0  # ContextCast runs plain torch ops
+    y_k, film_k = _step_and_film(net, x0, sst)
+    with torch.inference_mode():
+        cls = net.film_gen.film_gen.encoder_class_token(sst)
+        step_ms = _median_event_ms(lambda: net(x0, sst))
+        gen_ms = _median_event_ms(lambda: net.film_gen(sst))
+    weights = net.state_dict()
+    del net
+    cls_cfg = serving_config(film=FilmConfig(film_gen_type="mae", cls_input=True))
+    head_only = FourierNeuralOperatorNetFilmed(cls_cfg, device=dev, seed=2)
+    head_only.load_state_dict({k: v for k, v in weights.items()
+                               if not k.startswith("film_gen.film_gen.")})
+    y_c, film_c = _step_and_film(head_only, x0, cls)
+    del head_only
+    plain = FourierNeuralOperatorNetFilmed(exact_config(cfg), device=dev, seed=1)
+    plain.load_state_dict(weights)
+    del weights
+    y_p, film_p = _step_and_film(plain, x0, sst)
+    del plain
+    err, film_err = rel_l2(y_k, y_p), rel_l2(film_k, film_p)
+    cls_err = rel_l2(film_c, film_k)
+    finite = bool(torch.isfinite(y_k).all()) and all(np.isfinite(o).all() for o in outs)
+    f = cfg.film
+    rec = dict(phase="mae_film_step", card=smi, generator=dataclasses.asdict(f),
+               tokens=(f.temporal_step // min(f.patch_size[0], f.temporal_step))
+               * (f.sst_shape[0] // f.patch_size[1]) * (f.sst_shape[1] // f.patch_size[2]),
+               rel_l2_vs_exact_config=err, tol=MAE_STEP_TOL,
+               film_rel_l2_vs_exact_config=film_err, film_tol=MAE_FILM_TOL,
+               cls_input_film_rel_l2=cls_err,
+               cls_input_max_abs=float((film_c - film_k).abs().max()), cls_tol=MAE_CLS_TOL, cls_input_step_rel_l2=rel_l2(y_c, y_k), finite=finite,
+               launches={k: v for k, v in counts.items() if v}, median_step_ms=step_ms,
+               median_generator_ms=gen_ms)
+    log(json.dumps(rec))
+    del y_k, y_p, y_c, film_k, film_p, film_c, x0, sst, sst_seq, outs
+    torch.cuda.empty_cache()
+    if not (err <= MAE_STEP_TOL and film_err <= MAE_FILM_TOL and cls_err <= MAE_CLS_TOL
+            and finite):
+        raise AssertionError(f"phase 15 MAE step: {rec}")
+    if counts != want:
+        raise AssertionError(f"phase 15 MAE step: launches {counts} (want {want})")
+    rec["launch_counts"] = counts
+    return rec
+
+
+def mae_pretraining(dev, smi) -> dict:
+    """Phase 15 (b): `get_model("mae")` at FilmConfig's defaults on a batch
+    of 2 full-size SST windows (NaN over land): one loss and gradient on
+    the card against the same weights, noise and ratio on the CPU, for a
+    float ratio of 0.75 and a tensor ratio (MAE_LOSS_TOL, MAE_GRAD_TOL for
+    each parameter); `pretrain` for MAE_PRETRAIN_STEPS steps on the batch
+    at lr 1e-3 (every loss finite, the last below the first, every
+    parameter moved); `compute_cls_tokens` over 4 windows; the median ms a
+    pretrain step and the peak memory."""
+    import numpy as np
+    import torch
+
+    from msfno_torch.config import FilmConfig, SFNOConfig, TrainConfig
+    from msfno_torch.data.synthetic import synthetic_land_mask
+    from msfno_torch.models.registry import get_model
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+    from msfno_torch.training.optim import Optimizer
+
+    cfg = SFNOConfig(film=FilmConfig(film_gen_type="mae"))
+    f = cfg.film
+    card = get_model("mae", cfg=cfg, device=dev, seed=0)
+    host = get_model("mae", cfg=cfg, device="cpu", seed=1)
+    host.module.load_state_dict({k: v.cpu() for k, v in card.module.state_dict().items()})
+    g = torch.Generator().manual_seed(15)
+    windows = torch.randn((4, f.temporal_step, *f.sst_shape), generator=g)
+    windows[..., torch.as_tensor(synthetic_land_mask(*f.sst_shape))] = float("nan")
+    batch = windows[:2]
+    n = card.module.encoder_position_code.shape[0]
+    checks = {}
+    for name, ratio in (("float_0.75", 0.75), ("tensor", card.draw_mask_ratio(g))):
+        noise = torch.rand((2, n), generator=g)
+        grads, losses = [], []
+        for w, d in ((card, dev), (host, torch.device("cpu"))):
+            w.module.zero_grad(set_to_none=True)
+            r = ratio.to(d) if isinstance(ratio, torch.Tensor) else ratio
+            loss = w.loss(batch.to(d), r, noise=noise.to(d))
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append({k: p.grad.detach().cpu() for k, p in w.module.named_parameters()})
+        worst, worst_name = 0.0, None
+        for k, ref in grads[1].items():
+            e = 0.0 if float(ref.norm()) == 0.0 else rel_l2(grads[0][k], ref)
+            if e > worst or worst_name is None:
+                worst, worst_name = e, k
+        checks[name] = dict(ratio=float(ratio), loss_card=losses[0], loss_cpu=losses[1],
+                            loss_rel=abs(losses[0] - losses[1]) / abs(losses[1]),
+                            worst_param_grad_rel_l2=worst, worst_param=worst_name)
+    del host
+    card.module.zero_grad(set_to_none=True)
+    before = {k: v.clone() for k, v in card.module.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dev_batch = batch.to(dev)
+    reset_launch_counts()
+    _, losses = card.pretrain([dev_batch] * MAE_PRETRAIN_STEPS, steps=MAE_PRETRAIN_STEPS,
+                              learning_rate=1e-3, seed=0)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    moved = [k for k, v in card.module.state_dict().items() if not torch.equal(v, before[k])]
+    opt = Optimizer(TrainConfig(learning_rate=1e-3))
+    state = {"opt": opt.init(dict(card.module.named_parameters()))}
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def one_step():
+        state["opt"], _ = card.train_step(opt, state["opt"], dev_batch, gen)
+
+    step_ms = _median_event_ms(one_step)
+    enc, _ = card.compute_cls_tokens([windows[:2].to(dev), windows[2:].to(dev)])
+    counts = launch_counts()
+    rec = dict(phase="mae_pretraining", card=smi, generator=dataclasses.asdict(f),
+               batch=2, tokens=n, checks=checks, loss_tol=MAE_LOSS_TOL, grad_tol=MAE_GRAD_TOL,
+               pretrain_losses=losses, params_moved=len(moved), params=len(before),
+               cls_tokens_shape=list(enc.shape), cls_tokens_finite=bool(np.isfinite(enc).all()),
+               median_pretrain_step_ms=step_ms, pretrain_peak_mem_gib_above_start=peak,
+               launches={k: v for k, v in counts.items() if v})
+    log(json.dumps(rec))
+    n_params = len(before)
+    del card, before, dev_batch
+    torch.cuda.empty_cache()
+    ok = all(c["loss_rel"] <= MAE_LOSS_TOL and c["worst_param_grad_rel_l2"] <= MAE_GRAD_TOL
+             for c in checks.values())
+    finite = bool(np.isfinite(losses).all())
+    if not (ok and finite and len(losses) == MAE_PRETRAIN_STEPS and losses[-1] < losses[0]
+            and len(moved) == n_params and rec["cls_tokens_shape"] == [4, f.embed_dim]
+            and rec["cls_tokens_finite"] and not rec["launches"]):
+        raise AssertionError(f"phase 15 MAE pretraining: {rec}")
+    return rec
+
+
+def fourcastnet(dev, smi) -> dict:
+    """Phase 15 (c): `get_model("fcn", "1")` at `fcn_config(26)` (720 x
+    1440 x 26, patch 8, embed 768, 12 blocks), seeded: one step against the
+    same weights in fp64 on the card (AFNO_TOL); `running(x0,
+    lead_time_h=12)`, 2 finite steps; a reference-layout checkpoint
+    ({"model_state": {"module." + k: v}} with the dead final norm) saved
+    and loaded through `load_model` into a second wrapper, whose step is
+    the first's bit for bit; a PrecipNet step, nonnegative; no kernel
+    launch; the median ms a step and the peak memory."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from msfno_torch.models.afno import AFNONet, PrecipNet
+    from msfno_torch.models.registry import get_model
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    w = get_model("fcn", "1", device=dev, seed=0)
+    c = w.cfg
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn((1, *c.img_size, c.in_chans), device=dev, generator=g)
+    with torch.inference_mode():
+        y = w.module(x)
+        step_ms = _median_event_ms(lambda: w.module(x))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ref = copy.deepcopy(w.module).double()
+    with torch.inference_mode():
+        y64 = ref(x.double())
+        fp64_ms = _median_event_ms(lambda: ref(x.double()), runs=3)
+    del ref
+    err = rel_l2(y, y64)
+    del y64
+    outs = list(w.running(x.cpu().numpy(), lead_time_h=12))
+    run_ok = len(outs) == 2 and all(o.shape == tuple(x.shape) and np.isfinite(o).all()
+                                    for o in outs)
+    root = tempfile.mkdtemp(prefix="chip_smoke_fcn_")
+    try:
+        state = {f"module.{k}": v.cpu() for k, v in w.module.state_dict().items()}
+        dim = c.embed_dim
+        state["module.norm.weight"], state["module.norm.bias"] = torch.ones(dim), torch.zeros(dim)
+        path = os.path.join(root, "weights.tar")
+        torch.save({"model_state": state, "epoch": 0}, path)
+        del state
+        w2 = get_model("fcn", "1", device=dev, seed=1)
+        t0 = time.perf_counter()
+        w2.load_model(path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(root)
+    with torch.inference_mode():
+        same = bool(torch.equal(w2.module(x), y))
+    del w, w2
+    torch.cuda.empty_cache()
+    precip = PrecipNet(AFNONet(img_size=c.img_size, patch_size=(c.scale_factor,) * 2,
+                               in_chans=c.in_chans, out_chans=1, device=dev, seed=3))
+    with torch.inference_mode():
+        tp = precip(x)
+        precip_ms = _median_event_ms(lambda: precip(x), runs=3)
+    precip_ok = bool((tp >= 0).all() and torch.isfinite(tp).all()) and tp.shape == (
+        1, *c.img_size, 1)
+    del precip, tp
+    counts = launch_counts()
+    rec = dict(phase="fourcastnet", card=smi, config=dict(img_size=list(c.img_size),
+               patch=c.scale_factor, channels=c.in_chans, embed_dim=c.embed_dim,
+               depth=c.num_layers), rel_l2_vs_fp64=err, tol=AFNO_TOL, running_steps=len(outs),
+               running_finite=run_ok, reference_checkpoint_bit_identical=same,
+               reference_checkpoint_load_ms=load_ms, precip_nonnegative=precip_ok,
+               median_step_ms=step_ms, fp64_step_ms=fp64_ms, precip_step_ms=precip_ms,
+               step_peak_mem_gib_above_start=peak,
+               launches={k: v for k, v in counts.items() if v})
+    log(json.dumps(rec))
+    del x, y, outs
+    torch.cuda.empty_cache()
+    if not (err <= AFNO_TOL and run_ok and same and precip_ok and not rec["launches"]):
+        raise AssertionError(f"phase 15 FourCastNet: {rec}")
+    return rec
+
+
+def mae_afno_phase(dev, smi) -> dict:
+    """Phase 15: (a) `mae_film_step`, (b) `mae_pretraining`, (c)
+    `fourcastnet`, each timed."""
+    t0 = time.perf_counter()
+    rec, seconds = {}, {}
+    for name, fn in (("mae_film_step", mae_film_step), ("mae_pretraining", mae_pretraining),
+                     ("fourcastnet", fourcastnet)):
+        t_part = time.perf_counter()
+        rec[name] = fn(dev, smi)
+        seconds[f"{name}_s"] = time.perf_counter() - t_part
+    seconds["phase_s"] = time.perf_counter() - t0
+    rec["seconds"] = seconds
+    log(json.dumps({"phase": "mae_afno_phase_seconds", **seconds}))
+    return rec
+
+
 def model_inputs(cfg, dev, steps):
     import torch
 
@@ -2302,6 +2605,22 @@ def main() -> int:
                     "netcdf_write_ms_per_step": evaluated["netcdf_write_ms_per_step"],
                     "vit_step_ms": evaluated["vit"]["step_ms"],
                     "seconds_total": time.time() - t_start}))
+
+    # phase 15: the MAE FiLM generator, MAE SST pretraining and FourCastNet
+    # at full width
+    torch.cuda.empty_cache()
+    fifteen = mae_afno_phase(dev, smi)
+    log(json.dumps({"phase": "mae_afno_time", "card": smi,
+                    "mae_film_step_ms": fifteen["mae_film_step"]["median_step_ms"],
+                    "mae_generator_ms": fifteen["mae_film_step"]["median_generator_ms"],
+                    "mae_pretrain_step_ms":
+                        fifteen["mae_pretraining"]["median_pretrain_step_ms"],
+                    "mae_pretrain_peak_mem_gib":
+                        fifteen["mae_pretraining"]["pretrain_peak_mem_gib_above_start"],
+                    "fcn_step_ms": fifteen["fourcastnet"]["median_step_ms"],
+                    "fcn_peak_mem_gib": fifteen["fourcastnet"]["step_peak_mem_gib_above_start"],
+                    "phase_s": fifteen["seconds"]["phase_s"],
+                    "seconds_total": time.time() - t_start}))
     log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
 
     kernels = []
@@ -2342,6 +2661,8 @@ def main() -> int:
                          r["launches_per_train_step"][name] for ms, r in stored.items()})
         # phase 14: the evaluate_checkpoints run (3 runs x 2 init times x 4 steps)
         launches["launches_eval_checkpoints"] = evaluated["launches"][name]
+        # phase 15: one rollout step of the MAE-filmed serving net
+        launches["launches_mae_film_step"] = fifteen["mae_film_step"]["launch_counts"][name]
         # the fp32-operand sites, summed over one fused step of the
         # fp32-kernel tier (forward kernels) or over its train step with
         # multi_step_training=1 (backward kernels)

@@ -1,6 +1,7 @@
-"""Model registry and serving wrappers, SFNO family (port of
-msfno_tpu/models/registry.py; reference MSFNO/Models/models.py `load_model`
-and sfno/model.py:1590-1598 `get_model`).
+"""Model registry and serving wrappers (port of msfno_tpu/models/registry.py;
+reference MSFNO/Models/models.py `load_model` and sfno/model.py:1590-1598
+`get_model`): the SFNO family here, FourCastNet (AFNO) in `registry_fcn`,
+the MAE and its linear probe in `registry_mae`.
 
 A wrapper owns the net, its statistics and normalizers, and the checkpoint
 it was loaded from, and runs the autoregressive forecast (`running`).  It
@@ -61,9 +62,10 @@ def _is_own_checkpoint(obj) -> bool:
             and isinstance(obj["meta"], dict) and "format_version" in obj["meta"])
 
 
-def read_checkpoint(path: str) -> tuple[dict[str, torch.Tensor], dict, bool]:
+def read_checkpoint(path: str, convert=None) -> tuple[dict[str, torch.Tensor], dict, bool]:
     """(state_dict, meta, is_reference) of a checkpoint file: a JAX `.npz`
-    (every parameter, through `from_flax_params`), this package's own file
+    (every parameter, through `convert`, by default `from_flax_params`),
+    this package's own file
     (its parameters and meta) or a reference PyTorch checkpoint
     (`reference_state_dict`, no meta: `is_reference` True, loaded with
     strict=False).  Orbax directories raise NotImplementedError."""
@@ -73,7 +75,7 @@ def read_checkpoint(path: str) -> tuple[dict[str, torch.Tensor], dict, bool]:
             "which this package never imports"
         )
     if not path.endswith(TORCH_CHECKPOINT_SUFFIXES):
-        params, _, meta = ckpt_io.load_checkpoint(path)
+        params, _, meta = ckpt_io.load_checkpoint(path, convert=convert)
         return params, meta, False
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if _is_own_checkpoint(obj):
@@ -124,7 +126,7 @@ class ModelWrapper:
         logged).  None keeps the seeded random weights."""
         if checkpoint_file is None:
             return self.module
-        params, meta, reference = read_checkpoint(checkpoint_file)
+        params, meta, reference = read_checkpoint(checkpoint_file, convert=self.from_flax)
         result = self.module.load_state_dict(params, strict=not reference)
         if reference and (result.missing_keys or result.unexpected_keys):
             log.warning("checkpoint keys not loaded (strict=False): missing %s, "
@@ -135,6 +137,12 @@ class ModelWrapper:
         if "film_scale" in meta:
             self.film_scale = float(meta["film_scale"])
         return self.module
+
+    def from_flax(self, tree) -> dict[str, torch.Tensor]:
+        """The state_dict of a JAX `.npz` checkpoint's parameter tree."""
+        from msfno_torch.convert import from_flax_params
+
+        return from_flax_params(tree)
 
     def save_checkpoint(self, path: str, **extra) -> str:
         """Write the net's weights with the config's JSON as this package's
@@ -214,16 +222,21 @@ class SFNOFilmedWrapper(ModelWrapper):
 def get_model(model_type: str = "sfno", model_version: str = "latest",
               cfg: SFNOConfig | None = None, **kw) -> ModelWrapper:
     """Registry mux (reference load_model, models.py:418-428, and the
-    per-family get_model, sfno/model.py:1590-1598)."""
+    per-family get_model, sfno/model.py:1590-1598): "sfno" (version "film"
+    for the filmed net), "fcn" (versions "0" / "release", "1" / "latest"),
+    "mae" (version "lin-probe" for the linear probe)."""
     if model_type == "sfno":
         if model_version == "film":
             return SFNOFilmedWrapper(cfg or SFNOConfig(film=FilmConfig()), **kw)
         return SFNOWrapper(cfg or SFNOConfig(), **kw)
     if model_type == "fcn":
-        raise NotImplementedError("the FourCastNet (AFNO) family comes in a later slice")
+        from msfno_torch.models.registry_fcn import FCNWrapper
+
+        return FCNWrapper.for_version(model_version, cfg, **kw)
     if model_type == "mae":
-        raise NotImplementedError(
-            "the MAE pretraining family comes in a later slice, after the ViT and "
-            "MAE FiLM generators"
-        )
+        from msfno_torch.models.registry_mae import LinProbeWrapper, MAEWrapper
+
+        if model_version == "lin-probe":
+            return LinProbeWrapper(cfg or SFNOConfig(film=FilmConfig()), **kw)
+        return MAEWrapper(cfg or SFNOConfig(film=FilmConfig()), **kw)
     raise ValueError(f"unknown model {model_type}/{model_version}")

@@ -200,13 +200,16 @@ def jax_opt_state(leaves: list[np.ndarray], tree: dict, train_cfg, step: int = 0
     return state
 
 
-def load_checkpoint(path: str, with_opt_state: bool = False, train_cfg=None):
+def load_checkpoint(path: str, with_opt_state: bool = False, train_cfg=None, convert=None):
     """Returns (params, opt_state or None, meta).  A JAX `.npz` checkpoint
-    gives its parameters under this package's names and, with
-    `with_opt_state`, its optax state mapped by `jax_opt_state`, which
-    needs the run's `TrainConfig` (`train_cfg`) to order the leaves."""
+    gives its parameters under this package's names (through `convert`, a
+    flax tree -> state_dict function, by default `from_flax_params`: the
+    SFNO family's) and, with `with_opt_state`, its optax state mapped by
+    `jax_opt_state`, which needs the run's `TrainConfig` (`train_cfg`) to
+    order the leaves."""
     from msfno_torch.convert import from_flax_params
 
+    convert = convert or from_flax_params
     _check_file(path)
     if _is_npz(path):
         with np.load(path) as z:
@@ -220,7 +223,7 @@ def load_checkpoint(path: str, with_opt_state: bool = False, train_cfg=None):
                         "config; pass train_cfg=")
                 leaves = [z[f"opt_state/{i}"] for i in range(int(z["meta/opt_num_leaves"]))]
                 opt_state = jax_opt_state(leaves, tree, train_cfg, meta.get("step", 0))
-            return from_flax_params(tree), opt_state, meta
+            return convert(tree), opt_state, meta
     ckpt = _load(path)
     return ckpt["params"], ckpt["opt_state"] if with_opt_state else None, ckpt["meta"]
 

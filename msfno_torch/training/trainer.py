@@ -40,9 +40,10 @@ from msfno_torch.utils.observability import FinTraining, LocalLog, Timer
 
 log = logging.getLogger("msfno_torch")
 
-# the FiLM generators whose film.dropout the port runs: the ViT's acts; the
-# GCN ones have none, so it is a no-op for them, as in the JAX package
-_FILM_DROPOUT_PORTED = ("transformer", "gcn", "gcn_custom", "none", None)
+# the FiLM generators whose film.dropout acts: the ViT's and the MAE's (in
+# ContextCast and its film head); the GCN ones have none, so it is a no-op
+# for them, as in the JAX package
+_FILM_DROPOUT_ACTS = ("transformer", "mae")
 
 
 def _is_oom_error(e: BaseException) -> bool:
@@ -113,11 +114,6 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: multi-device training (DDP) comes in a later slice")
-        film = model_cfg.film
-        if film is not None and film.dropout > 0.0 and film.film_gen_type not in _FILM_DROPOUT_PORTED:
-            raise NotImplementedError(
-                f"film.dropout with film_gen_type={film.film_gen_type!r}: the MAE generator "
-                "comes in the next slice")
         self.cfg = model_cfg
         self.tcfg = train_cfg
         self.device = resolve_device(device)
@@ -164,11 +160,10 @@ class Trainer:
 
     @property
     def _has_dropout(self) -> bool:
-        # film.dropout acts in the ViT generator only (a no-op for the GCN ones)
         film = self.cfg.film
         return (self.cfg.drop_rate > 0.0 or self.cfg.drop_path_rate > 0.0
                 or (film is not None and film.dropout > 0.0
-                    and film.film_gen_type == "transformer"))
+                    and film.film_gen_type in _FILM_DROPOUT_ACTS))
 
     def _train_rng(self, step: int) -> torch.Generator:
         """The dropout and drop-path masks' generator of one step, seeded

@@ -1,7 +1,7 @@
 """Config, package boundary and entry-point rules of the PyTorch port: one
 JSON string drives both packages, importing the port pulls in no JAX, the
-entry points refuse to fall back to the CPU, and every path the port does
-not run yet (the MAE FiLM generator) raises NotImplementedError."""
+entry points refuse to fall back to the CPU, and the MAE FiLM generator
+builds."""
 
 import dataclasses
 import subprocess
@@ -136,16 +136,21 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     assert FourierNeuralOperatorNetFilmed(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("change", [
-    # the ViT generator ("transformer") builds since it was ported
-    # (tests/test_torch_vit.py); the MAE one, with or without cls inputs, not yet
-    dict(film=dataclasses.replace(SMALL["film"], film_gen_type="mae", cls_input=True)),
-    dict(film=dataclasses.replace(SMALL["film"], film_gen_type="mae")),
-])
-def test_unported_paths_raise(change):
-    cfg = tcfg.SFNOConfig(**{**SMALL, **change})
-    with pytest.raises(NotImplementedError):
-        FourierNeuralOperatorNetFilmed(cfg, device="cpu")
+@pytest.mark.parametrize("cls_input", [False, True])
+def test_mae_generator_builds(cls_input):
+    """The MAE generator builds with and without class-token input (held
+    against JAX in tests/test_torch_mae.py): ContextCast and its film head,
+    or the film head alone."""
+    film = dataclasses.replace(SMALL["film"], film_gen_type="mae", cls_input=cls_input,
+                               patch_size=(2, 4, 4))
+    cfg = tcfg.SFNOConfig(**{**SMALL, "film": film})
+    net = FourierNeuralOperatorNetFilmed(cfg, device="cpu")
+    assert hasattr(net.film_gen, "film_gen") != cls_input
+    sst = (torch.randn(2, film.embed_dim) if cls_input
+           else torch.randn(2, film.temporal_step, *film.sst_shape))
+    with torch.no_grad():
+        y = net(torch.randn(2, *cfg.img_size, cfg.in_chans), sst)
+    assert y.shape == (2, *cfg.img_size, cfg.out_chans) and torch.isfinite(y).all()
 
 
 def test_serving_fusions_build():

@@ -2,7 +2,7 @@
 a checkpoint written by the JAX package loads into the port and serves the
 same step and the same forecast (`running`, with statistics from an assets
 directory) as the JAX wrapper; a reference PyTorch checkpoint loads; the
-families and paths not ported yet raise."""
+MAE and FourCastNet families build; the paths not ported yet raise."""
 
 import dataclasses
 
@@ -90,8 +90,6 @@ def test_reference_torch_checkpoint_loads(tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda tmp: registry.get_model("fcn"),
-    lambda tmp: registry.get_model("mae"),
     lambda tmp: registry.get_model("sfno", cfg=dataclasses.replace(FUSED_FP32, film=None),
                                    device="cpu").trainer(tcfg.TrainConfig(), mesh=object()),
     lambda tmp: registry.get_model("sfno", "film", cfg=FUSED_FP32,
@@ -100,3 +98,30 @@ def test_reference_torch_checkpoint_loads(tmp_path):
 def test_unported_entry_points_raise(call, tmp_path):
     with pytest.raises(NotImplementedError):
         call(tmp_path)
+
+
+_FILM_SMALL = tcfg.FilmConfig(film_gen_type="mae", embed_dim=16, mlp_dim=16, sst_shape=(8, 16),
+                              temporal_step=2, patch_size=(2, 4, 4))
+_FCN_SMALL = dict(img_size=(16, 32), scale_factor=4, embed_dim=16, num_layers=1)
+
+
+@pytest.mark.parametrize("model_type,version,kind", [
+    ("mae", "latest", "MAEWrapper"), ("mae", "lin-probe", "LinProbeWrapper"),
+    ("fcn", "0", "FCNWrapper"), ("fcn", "1", "FCNWrapper"),
+])
+def test_mae_and_fcn_entry_points_build(model_type, version, kind):
+    """The MAE and FourCastNet families build on device="cpu" (at small
+    sizes; held against JAX in tests/test_torch_{mae,afno}.py) and, with
+    no card, refuse to run anywhere else."""
+    from msfno_torch.models.registry_fcn import fcn_config
+
+    if model_type == "fcn":
+        cfg = dataclasses.replace(fcn_config(20 if version == "0" else 26), **_FCN_SMALL)
+    else:
+        cfg = dataclasses.replace(FUSED_FP32, film=_FILM_SMALL)
+    w = registry.get_model(model_type, version, cfg=cfg, device="cpu")
+    assert type(w).__name__ == kind
+    assert all(p.device.type == "cpu" for p in w.module.parameters())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            registry.get_model(model_type, version, cfg=cfg)

@@ -258,11 +258,34 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         TTrainer(from_json(to_json(CFG)), TTrainConfig(), device="cpu", mesh=object())
     # dropout and drop-path are ported (tests/test_torch_dropout.py), and the
-    # ViT generator's film.dropout (tests/test_torch_vit.py); film.dropout of
-    # the generator the port does not have yet (MAE) still raises
-    mae = dataclasses.replace(from_json(to_json(CFG)).film, film_gen_type="mae", dropout=0.1)
-    with pytest.raises(NotImplementedError, match="film.dropout"):
-        TTrainer(dataclasses.replace(from_json(to_json(CFG)), film=mae), TTrainConfig(),
-                 device="cpu")
+    # ViT's and the MAE's film.dropout (tests/test_torch_vit.py, below)
     # the spectral losses are ported (tests/test_torch_trainer_spectral_loss.py)
     TTrainer(from_json(to_json(CFG)), TTrainConfig(loss_fn="SpectralL2Sphere"), device="cpu")
+
+
+def test_mae_film_dropout_draws_from_the_step_generator():
+    """film.dropout with the MAE generator: the Trainer accepts it, an eval
+    forward is the no-dropout net's bit for bit, a forward given a
+    generator draws its masks from it (the same seed, the same output), and
+    a train step runs."""
+    from msfno_torch.models import FourierNeuralOperatorNetFilmed
+
+    def mae(dropout):
+        cfg = from_json(to_json(CFG))
+        return dataclasses.replace(cfg, film=dataclasses.replace(
+            cfg.film, film_gen_type="mae", dropout=dropout))
+
+    pt = TTrainer(mae(0.3), TTrainConfig(film_scale_start=0.8), device="cpu")
+    assert pt._has_dropout
+    plain = FourierNeuralOperatorNetFilmed(mae(0.0), device="cpu")
+    plain.load_state_dict(pt.model.state_dict())
+    batch = gen_batch(CFG, 1, 0, seed=7)
+    x, sst = torch.from_numpy(batch.era5[0]), torch.from_numpy(batch.sst[1])
+    with torch.no_grad():
+        a, b = pt.model(x, sst, 0.8), plain(x, sst, 0.8)
+        c = pt.model(x, sst, 0.8, rng=pt._train_rng(0))
+        d = pt.model(x, sst, 0.8, rng=pt._train_rng(0))
+    assert torch.equal(a, b) and torch.equal(c, d) and not torch.equal(a, c)
+    ps = pt.init_state()
+    ps, m = pt._train_step(ps, *pt._device_batch(batch))
+    assert np.isfinite(float(m["loss"])) and ps.step == 1
