@@ -128,6 +128,17 @@ Phases (any failure raises, and the script exits non-zero):
      `running`, a reference-layout checkpoint reloaded bit for bit, a
      nonnegative PrecipNet step, no kernel launch; the median ms a step
      of each and the peak memory.
+ 16. the command line at full width (`cli_phase`) on the fine-tune tier's
+     flags (`CLI_FINETUNE`, whose configs must be `finetune_config()` /
+     `finetune_train_config()`): `msfno_torch.cli.main` with `--train` for
+     3 steps in this process (rc 0, finite losses, one `.pt` checkpoint,
+     exactly 3 x phase 7's launches a train step, read apart from the
+     epoch-end validation's), the same command under `python -m
+     torch.distributed.run --nproc_per_node 1 ... --mesh 1,1,1` (NCCL at
+     world size 1: trainable tensors within 1e-6, frozen bit-identical),
+     `--run` of 12 hours into NetCDF read back bit for bit against
+     `ModelWrapper.running`, `--eval-model` (finite), `--test-performance`
+     and `--dump-provenance` (lists the card), with each action's seconds.
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
 operands of that tier (sites "*/fp32") to 1e-5; at the fp32 sites of the
 GCN layer and its backward, the head, the tail and grid_mlp (each of its
@@ -2419,6 +2430,238 @@ def mae_afno_phase(dev, smi) -> dict:
     return rec
 
 
+# phase 16: the command line (`python -m msfno_torch.cli`) on the card at
+# full width, on the flags of the bench's fine-tune tier
+CLI_FINETUNE = ["--model-version", "film", "--compute-dtype", "bfloat16", "--use-pallas",
+                "--pallas-grid-mlp", "--spectral-mxu-dtype", "bfloat16", "--sht-mxu-dtype",
+                "bfloat16", "--film-compute-dtype", "bfloat16", "--bf16-frozen-params",
+                "--film-scale-start", "1.0", "--synthetic-data"]
+CLI_TRAIN_STEPS = 3
+CLI_VARIABLES = ["msl", "z500", "tcwv"]  # three of the 73 channels, for --run's NetCDF
+
+
+def _cli_main(argv):
+    """msfno_torch.cli.main in this process: (rc, its stdout, seconds)."""
+    import contextlib
+    import io
+
+    from msfno_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_phase(dev, smi, serving_step_ms) -> dict:
+    """Phase 16: the CLI's actions at full width (`serving_config()`'s
+    fine-tune tier, seeded random weights), in a temporary directory removed
+    at the end:
+      1. configs_from_args on CLI_FINETUNE gives finetune_config() /
+         finetune_train_config() (to_json);
+      2. `--train --num-iterations 3 --validation-interval 0` in this
+         process: rc 0, finite losses in its log, one .pt checkpoint, and
+         exactly 3 x phase 7's launches a train step in the train steps
+         (read around each `Trainer.validation`, which the CLI runs at the
+         epoch's end: 2 batches x one forward step + one generator call);
+      3. the same command under `torchrun --nproc_per_node 1 ... --mesh
+         1,1,1` (NCCL at world size 1, the data-parallel path): its
+         checkpoint's trainable tensors within 1e-6 rel-L2 of step 2's and
+         its frozen tensors bit-identical (the record says whether the
+         trainable ones were bit-identical too);
+      4. `--run --resume-checkpoint <3's .pt> --lead-time 12` from .npy
+         initial-state and SST files into NetCDF (three variables), read
+         back bit for bit against `ModelWrapper.running` of the same
+         checkpoint and inputs;
+      5. `--eval-model --checkpoint-list <3's .pt>`: finite reports;
+      6. `--test-performance` (its model_fwd_s beside phase 6's serving
+         step) and `--dump-provenance` (lists the card).
+    Returns the record with each action's seconds."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from msfno_torch import cli
+    from msfno_torch.config import finetune_config, finetune_train_config, to_json
+    from msfno_torch.models.registry import get_model
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+    from msfno_torch.training import trainer as trainer_mod
+    from msfno_torch.training.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    mc, tc = cli.configs_from_args(cli.build_parser().parse_args(CLI_FINETUNE))
+    config_ok = (to_json(mc) == to_json(finetune_config())
+                 and to_json(tc) == to_json(finetune_train_config()))
+    if not config_ok:
+        raise AssertionError(f"phase 16: CLI_FINETUNE gives {to_json(mc)} / {to_json(tc)}")
+    root = tempfile.mkdtemp(prefix="msfno_cli_")
+    try:
+        train = CLI_FINETUNE + ["--train", "--num-iterations", str(CLI_TRAIN_STEPS),
+                                "--validation-interval", "0", "--seed", "7"]
+        # 2. --train in this process, the launches read around validation
+        #    and CUDA events around each train step
+        marks, step_ms = [], []
+        orig_validation, orig_step = trainer_mod.Trainer.validation, trainer_mod.Trainer._train_step
+
+        def validation(self, *a, **kw):
+            marks.append(launch_counts())
+            out = orig_validation(self, *a, **kw)
+            marks.append(launch_counts())
+            return out
+
+        def train_step(self, *a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig_step(self, *a, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            return out
+
+        trainer_mod.Trainer.validation, trainer_mod.Trainer._train_step = validation, train_step
+        try:
+            reset_launch_counts()
+            rc, _, seconds["train_s"] = _cli_main(train + ["--output-path", f"{root}/a"])
+            total = launch_counts()
+        finally:
+            trainer_mod.Trainer.validation, trainer_mod.Trainer._train_step = (orig_validation,
+                                                                              orig_step)
+        torch.cuda.empty_cache()
+        before, after = marks[0], marks[-1]
+        train_counts = {k: before[k] + total[k] - after[k] for k in total}
+        val_counts = {k: after[k] - before[k] for k in total}
+        want_train = {k: 0 for k in total}
+        want_train.update({k: n * CLI_TRAIN_STEPS for k, n in PER_STEP["fused"].items()})
+        want_train.update({k: n * CLI_TRAIN_STEPS for k, n in TRAIN_BWD[0].items()})
+        want_val = {k: 0 for k in total}
+        want_val.update({k: 2 * n for k, n in PER_STEP["fused"].items()})
+        want_val["gcn_layer"] += PER_STEP["fused"]["gcn_layer"]  # the gamma / beta call
+        cps_a = sorted(glob.glob(f"{root}/a/*.pt"))
+        logged = np.load(f"{root}/a/training_log_epoch0.npy", allow_pickle=True)
+        losses = [float(r["loss"]) for r in logged if "loss" in r]
+        rec = dict(phase="cli", card=smi, config_equals_finetune=config_ok, train_rc=rc,
+                   train_losses=losses, train_checkpoints=[os.path.basename(p) for p in cps_a],
+                   train_launches=train_counts, validation_launches=val_counts,
+                   cli_train_step_ms=step_ms,
+                   cli_median_train_step_ms=statistics.median(step_ms[1:]))
+        if not (rc == 0 and len(cps_a) == 1 and len(losses) == CLI_TRAIN_STEPS
+                and all(np.isfinite(losses))):
+            raise AssertionError(f"phase 16 --train: {rec}")
+        if len(marks) != 2 or train_counts != want_train or val_counts != want_val:
+            raise AssertionError(f"phase 16 --train: launches {train_counts} / validation "
+                                 f"{val_counts} (want {want_train} / {want_val})")
+
+        # 3. the same command under torchrun, NCCL at world size 1
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "1", "-m", "msfno_torch.cli", *train, "--mesh", "1,1,1", "--output-path",
+             f"{root}/b"], capture_output=True, text=True, timeout=600, env=env)
+        seconds["torchrun_train_s"] = time.perf_counter() - t0
+        cps_b = sorted(glob.glob(f"{root}/b/*.pt"))
+        if proc.returncode != 0 or len(cps_b) != 1:
+            raise AssertionError(f"phase 16 torchrun: rc {proc.returncode}, {cps_b}\n"
+                                 f"{proc.stderr[-4000:]}")
+        pa, _, _ = load_checkpoint(cps_a[0])
+        pb, _, meta_b = load_checkpoint(cps_b[0])
+        film = [k for k in pa if k.startswith("film_gen.")]
+        num = sum(float(((pb[k].double() - pa[k].double()) ** 2).sum()) for k in film)
+        den = sum(float((pa[k].double() ** 2).sum()) for k in film)
+        ddp_err = (num / den) ** 0.5
+        rec.update(torchrun_rc=proc.returncode, torchrun_trainable_rel_l2=ddp_err,
+                   torchrun_trainable_bit_identical=all(torch.equal(pa[k], pb[k]) for k in film),
+                   torchrun_frozen_bit_identical=all(torch.equal(pa[k], pb[k])
+                                                     for k in pa if k not in film),
+                   torchrun_step=meta_b["step"],
+                   torchrun_joined_nccl_group="joined a nccl group" in proc.stderr)
+        del pa, pb
+        if not (ddp_err <= 1e-6 and rec["torchrun_frozen_bit_identical"]
+                and meta_b["step"] == CLI_TRAIN_STEPS and rec["torchrun_joined_nccl_group"]):
+            raise AssertionError(f"phase 16 torchrun vs in process: {rec}")
+
+        # 4. --run from the torchrun checkpoint into NetCDF, against running
+        g = torch.Generator().manual_seed(16)
+        h, w = mc.img_size
+        x0 = torch.randn((1, h, w, mc.in_chans), generator=g).numpy()
+        f = mc.film
+        sst = torch.randn((2, 1, f.temporal_step, *f.sst_shape), generator=g).numpy()
+        from msfno_torch.data.synthetic import synthetic_land_mask
+
+        sst[..., synthetic_land_mask(*f.sst_shape)] = np.nan
+        np.save(f"{root}/x0.npy", x0)
+        np.save(f"{root}/sst.npy", sst)
+        with open(f"{root}/vars.json", "w") as fh:
+            json.dump(CLI_VARIABLES, fh)
+        rc, _, seconds["run_s"] = _cli_main(
+            CLI_FINETUNE + ["--run", "--resume-checkpoint", cps_b[0], "--lead-time", "12",
+                            "--era5-path", f"{root}/x0.npy", "--sst-path", f"{root}/sst.npy",
+                            "--output", "netcdf", "--output-variables", f"{root}/vars.json",
+                            "--output-path", f"{root}/run"])
+        torch.cuda.empty_cache()
+        wrapper = get_model("sfno", "film", cfg=mc, device=dev)
+        wrapper.load_model(cps_b[0])
+        want = list(wrapper.running(x0, lead_time_h=12, sst_seq=sst))
+        del wrapper
+        torch.cuda.empty_cache()
+        from scipy.io import netcdf_file
+
+        from msfno_torch.models.variables import ORDERING
+
+        idx = [ORDERING.index(v) for v in CLI_VARIABLES]
+        nc_ok = rc == 0
+        for i, field in enumerate(want):
+            with netcdf_file(f"{root}/run/forecast/step_{6 * (i + 1):04d}.nc", "r",
+                             mmap=False) as nc:
+                for v, c in zip(CLI_VARIABLES, idx):
+                    nc_ok &= bool(np.array_equal(nc.variables[v][0], field[0, :, :, c]))
+        rec.update(run_rc=rc, run_netcdf_bit_identical=nc_ok)
+        if not nc_ok:
+            raise AssertionError(f"phase 16 --run: {rec}")
+
+        # 5. --eval-model on the torchrun checkpoint
+        rc, _, seconds["eval_s"] = _cli_main(
+            CLI_FINETUNE + ["--eval-model", "--checkpoint-list", cps_b[0],
+                            "--output-path", f"{root}/ev"])
+        torch.cuda.empty_cache()
+        reports = sorted(glob.glob(f"{root}/ev/eval/*_skill.npy"))
+        skill = [np.load(p) for p in reports]
+        rec.update(eval_rc=rc, eval_reports=[os.path.basename(p) for p in reports],
+                   eval_finite=bool(skill) and all(np.isfinite(s).all() for s in skill),
+                   eval_mean_skill=[float(np.mean(s)) for s in skill])
+        if not (rc == 0 and rec["eval_finite"]):
+            raise AssertionError(f"phase 16 --eval-model: {rec}")
+
+        # 6. --test-performance and --dump-provenance
+        rc, out, seconds["test_performance_s"] = _cli_main(
+            CLI_FINETUNE + ["--test-performance", "--output-path", f"{root}/perf"])
+        torch.cuda.empty_cache()
+        fwd_s = json.loads(out.strip().splitlines()[-1])["model_fwd_s"]
+        rc2, _, seconds["dump_provenance_s"] = _cli_main(
+            ["--dump-provenance", "--output-path", f"{root}/prov"])
+        with open(f"{root}/prov/provenance.json") as fh:
+            prov = json.load(fh)
+        rec.update(test_performance_rc=rc, model_fwd_s=fwd_s,
+                   phase_6_serving_step_ms=serving_step_ms, dump_provenance_rc=rc2,
+                   provenance_devices=prov["devices"], provenance_nvidia_smi=prov["nvidia_smi"])
+        if not (rc == 0 and fwd_s > 0 and rc2 == 0 and prov["default_backend"] == "cuda"
+                and torch.cuda.get_device_name(0) in prov["devices"]
+                and prov["nvidia_smi"] == smi):
+            raise AssertionError(f"phase 16 --test-performance / --dump-provenance: {rec}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds["phase_s"] = time.perf_counter() - t_phase
+    rec["seconds"] = seconds
+    log(json.dumps(rec))
+    return rec
+
+
 def model_inputs(cfg, dev, steps):
     import torch
 
@@ -2621,6 +2864,16 @@ def main() -> int:
                     "fcn_peak_mem_gib": fifteen["fourcastnet"]["step_peak_mem_gib_above_start"],
                     "phase_s": fifteen["seconds"]["phase_s"],
                     "seconds_total": time.time() - t_start}))
+
+    # phase 16: the command line on the card at full width
+    torch.cuda.empty_cache()
+    sixteen = cli_phase(dev, smi, statistics.median(times["fused"]))
+    log(json.dumps({"phase": "cli_time", "card": smi, **sixteen["seconds"],
+                    "cli_median_train_step_ms": sixteen["cli_median_train_step_ms"],
+                    "phase_7_train_step_ms": tuned[0]["median_train_step_ms"],
+                    "model_fwd_ms": sixteen["model_fwd_s"] * 1e3,
+                    "phase_6_serving_step_ms": sixteen["phase_6_serving_step_ms"],
+                    "seconds_total": time.time() - t_start}))
     log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
 
     kernels = []
@@ -2663,6 +2916,8 @@ def main() -> int:
         launches["launches_eval_checkpoints"] = evaluated["launches"][name]
         # phase 15: one rollout step of the MAE-filmed serving net
         launches["launches_mae_film_step"] = fifteen["mae_film_step"]["launch_counts"][name]
+        # phase 16: the CLI's --train, its 3 train steps (validation apart)
+        launches["launches_cli_train_3_steps"] = sixteen["train_launches"][name]
         # the fp32-operand sites, summed over one fused step of the
         # fp32-kernel tier (forward kernels) or over its train step with
         # multi_step_training=1 (backward kernels)

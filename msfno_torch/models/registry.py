@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import zipfile
 from typing import Sequence
 
 import numpy as np
@@ -56,6 +57,17 @@ def reference_state_dict(checkpoint) -> dict[str, torch.Tensor]:
     return out
 
 
+def load_statistics(assets: str | None, channels: int) -> Normalizer:
+    """global_means.npy / global_stds.npy under `assets` (reference
+    model.py:194-205), else the identity over `channels`."""
+    if assets:
+        m = os.path.join(assets, "global_means.npy")
+        s = os.path.join(assets, "global_stds.npy")
+        if os.path.exists(m) and os.path.exists(s):
+            return Normalizer.from_npy(m, s)
+    return Normalizer.identity(channels)
+
+
 def _is_own_checkpoint(obj) -> bool:
     """A `training.checkpoint.save_checkpoint` payload."""
     return (isinstance(obj, dict) and {"meta", "params"} <= set(obj)
@@ -83,6 +95,18 @@ def read_checkpoint(path: str, convert=None) -> tuple[dict[str, torch.Tensor], d
     return reference_state_dict(obj), {}, True
 
 
+def is_reference_checkpoint(path: str) -> bool:
+    """True for a reference PyTorch checkpoint file: a torch file
+    (`TORCH_CHECKPOINT_SUFFIXES`, not a directory) that is not this
+    package's own format.  Such a file carries no config."""
+    if os.path.isdir(path) or not path.endswith(TORCH_CHECKPOINT_SUFFIXES):
+        return False
+    if not zipfile.is_zipfile(path):
+        return True  # the legacy torch.save format: never this package's
+    obj = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    return not _is_own_checkpoint(obj)
+
+
 @dataclasses.dataclass
 class ModelWrapper:
     """Base wrapper: config + net + normalizers + checkpoint I/O (reference
@@ -107,14 +131,7 @@ class ModelWrapper:
         raise NotImplementedError
 
     def load_statistics(self) -> Normalizer:
-        """global_means.npy / global_stds.npy under `assets` (reference
-        model.py:194-205), else the identity."""
-        if self.assets:
-            m = os.path.join(self.assets, "global_means.npy")
-            s = os.path.join(self.assets, "global_stds.npy")
-            if os.path.exists(m) and os.path.exists(s):
-                return Normalizer.from_npy(m, s)
-        return Normalizer.identity(self.cfg.in_chans)
+        return load_statistics(self.assets, self.cfg.in_chans)
 
     def normalise(self, x, reverse: bool = False):
         return self.normalizer(x, reverse=reverse)
@@ -162,13 +179,15 @@ class ModelWrapper:
         """Autoregressive forecast (reference running(), model.py:289-372):
         yields the denormalized fp32 field of each 6-hour step, at the
         wrapper's film_scale; `output.write(field, step=hours)` per step when
-        given."""
+        given; each step's rate and ETA are logged (`Stepper`)."""
+        from msfno_torch.utils.observability import Stepper
+
         steps = lead_time_h // 6
         filmed = isinstance(self.module, FourierNeuralOperatorNetFilmed)
         it = rollout(
             self.module, x0, RolloutConfig(steps=steps, collect_channels=collect_channels),
             sst_seq=sst_seq if filmed else None, normalizer=self.normalizer,
-            sst_normalizer=self.sst_normalizer, scale=self.film_scale,
+            sst_normalizer=self.sst_normalizer, scale=self.film_scale, stepper=Stepper(steps),
         )
         for i, field in enumerate(it):
             if output is not None:

@@ -237,6 +237,20 @@ LOSSES = {
 }
 
 
+# the losses that sum over the batch's samples (the L2 losses); every other
+# --loss-fn choice averages over them
+_SAMPLE_SUMS = frozenset({"L2Sphere", "L2Sphere_noSine"})
+
+
+def sums_over_samples(name: str) -> bool:
+    """Whether the --loss-fn `name` sums over the batch's samples (else it
+    averages over them): under a data mesh the ranks' losses and gradients
+    add up to the global batch's for the first kind and average to it for
+    the second."""
+    get_loss(name)  # raises for an unknown name
+    return name in _SAMPLE_SUMS
+
+
 def get_loss(name: str, model_cfg=None):
     """Resolve a --loss-fn name (the JAX `get_loss`): `model_cfg`, when given,
     truncates the spectral losses' SHT to its modes_lat / modes_lon."""

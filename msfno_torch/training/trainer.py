@@ -14,6 +14,14 @@ callable of `Batch`es, or synthetic data; their fields may be numpy arrays
 or torch tensors (a bf16 transfer).  With dropout or drop-path set, each
 step draws its masks from one `torch.Generator` seeded from the config's
 seed and the step.
+
+With `mesh=` (a data-only `parallel.mesh.make_mesh`), each process trains a
+whole replica on its local batch: the state starts as rank 0's, the
+trainable gradients and the loss are all-reduced over the data group before
+the optimizer step (`parallel.sharded_train`): summed for a loss that sums
+over samples, averaged for one that averages, so that they are the global
+batch's.  Validation metrics are averaged over the group, and rank 0 writes
+the checkpoints.
 """
 
 from __future__ import annotations
@@ -26,17 +34,25 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from msfno_torch.config import SFNOConfig, TrainConfig, to_json
 from msfno_torch.data.normalization import Normalizer, SSTNormalizer
 from msfno_torch.data.synthetic import Batch, gen_batch, synthetic_loader
 from msfno_torch.models import FourierNeuralOperatorNet, FourierNeuralOperatorNetFilmed
+from msfno_torch.parallel.sharded_train import all_reduce, data_group, shard_state
 from msfno_torch.runtime import resolve_device
 from msfno_torch.training import checkpoint as ckpt_io
-from msfno_torch.training.losses import get_loss
+from msfno_torch.training.losses import get_loss, sums_over_samples
 from msfno_torch.training.optim import create_optimizer, fast_forward_schedule
 from msfno_torch.training.partition import count_params, film_trainable_predicate, split_params
-from msfno_torch.utils.observability import FinTraining, LocalLog, Timer
+from msfno_torch.utils.observability import (
+    FinTraining,
+    LocalLog,
+    Timer,
+    device_memory_stats,
+    system_monitor,
+)
 
 log = logging.getLogger("msfno_torch")
 
@@ -104,16 +120,19 @@ class TrainState:
 
 class Trainer:
     """Drives training and validation of SFNO and filmed-SFNO models on one
-    device (CUDA unless `device="cpu"`)."""
+    device (CUDA unless `device="cpu"`), data-parallel over the ranks of a
+    `mesh`."""
 
     def __init__(self, model_cfg: SFNOConfig, train_cfg: TrainConfig,
                  normalizer: Normalizer | None = None,
                  sst_normalizer: SSTNormalizer | None = None,
                  writer: LocalLog | None = None, checkpoint_dir: str | None = None,
                  device=None, mesh=None):
+        self.mesh = mesh
+        self._group, self.world, self.rank = None, 1, 0
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: multi-device training (DDP) comes in a later slice")
+            self._group = data_group(mesh)  # raises for lat or channel > 1
+            self.world, self.rank = dist.get_world_size(self._group), dist.get_rank(self._group)
         self.cfg = model_cfg
         self.tcfg = train_cfg
         self.device = resolve_device(device)
@@ -152,9 +171,12 @@ class Trainer:
             serving_params(self.model, frozen_only=True)
         log.info("params: %d trainable / %d frozen", count_params(trainable),
                  count_params(frozen))
-        return TrainState(trainable=trainable, frozen=frozen,
-                          opt_state=self.tx.init(trainable), step=0,
-                          film_scale=float(self.tcfg.film_scale_start))
+        state = TrainState(trainable=trainable, frozen=frozen,
+                           opt_state=self.tx.init(trainable), step=0,
+                           film_scale=float(self.tcfg.film_scale_start))
+        if self.mesh is not None:
+            state = shard_state(state, self.mesh)
+        return state
 
     # -------------------------------------------------------- forward/loss
 
@@ -168,8 +190,10 @@ class Trainer:
     def _train_rng(self, step: int) -> torch.Generator:
         """The dropout and drop-path masks' generator of one step, seeded
         from the config's seed and the step (JAX folds the same two into its
-        PRNG keys, `_train_rngs`; the streams differ)."""
-        seed = np.random.SeedSequence([self.tcfg.seed, int(step)]).generate_state(1)[0]
+        PRNG keys, `_train_rngs`; the streams differ), and with more than one
+        rank the rank too, so that each rank's samples draw their own masks."""
+        entropy = [self.tcfg.seed, int(step)] + ([self.rank] if self.world > 1 else [])
+        seed = np.random.SeedSequence(entropy).generate_state(1)[0]
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
     def _apply(self, x, sst, scale, rng=None):
@@ -228,8 +252,14 @@ class Trainer:
 
     def _train_step(self, state: TrainState, era5, sst):
         """One optimizer step on one batch; updates `state` in place and
-        returns it with the step's metrics (device scalars)."""
+        returns it with the step's metrics (device scalars).  Under a mesh
+        the gradients and losses are those of the global batch: the ranks'
+        sum for a loss that sums over samples, their mean for one that
+        averages."""
         loss, per_step, grads = self.loss_and_grads(state, era5, sst)
+        if self.mesh is not None:
+            all_reduce(list(grads.values()) + [loss, per_step], self._group,
+                       mean=not sums_over_samples(self.tcfg.loss_fn))
         gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
         self.tx.step(state.trainable, grads, state.opt_state)
         state.step += 1
@@ -417,8 +447,17 @@ class Trainer:
                 film_mod = self.model.film_gen(self.sst_normalizer(sst0.float()))
             metrics["gamma mean"] = float(film_mod[:, 0].mean())
             metrics["beta mean"] = float(film_mod[:, 1].mean())
-        if t.advanced_logging and self.device.type == "cuda":
-            metrics["device0 hbm gb"] = round(torch.cuda.memory_allocated(self.device) / 2**30, 3)
+        if self.mesh is not None:  # the reference's all_reduce(SUM) / world
+            vals = torch.tensor(list(metrics.values()), dtype=torch.float64, device=self.device)
+            dist.all_reduce(vals, group=self._group)
+            metrics = dict(zip(metrics, (vals / self.world).tolist()))
+        if t.advanced_logging:
+            # reference mem_log / system_monitor telemetry (train.py:747-756)
+            sysm = system_monitor(printout=False)
+            metrics["host ram percent"] = sysm["ram_percent"]
+            metrics["process rss gb"] = sysm["process_rss_gb"]
+            for i, d in enumerate(device_memory_stats()):
+                metrics[f"device{i} hbm gb"] = round(d["bytes_in_use"] / 2**30, 3)
         self.writer.log(metrics, step=self.iter)
         if self.filmed and state.film_scale < 1.0:
             state.film_scale = min(state.film_scale + t.film_scale_step, 1.0)
@@ -433,19 +472,30 @@ class Trainer:
         if t.time_limit_s is None:
             return
         grace = min(15 * 60, t.time_limit_s / 2)
-        if time.time() - self._start_time > t.time_limit_s - grace:
+        stop = time.time() - self._start_time > t.time_limit_s - grace
+        if self.mesh is not None:  # every rank stops at the same step
+            flag = torch.tensor([float(stop)], device=self.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
+            stop = bool(flag.item())
+        if stop:
             raise FinTraining("time limit reached")
 
     def save_checkpoint(self, state: TrainState, tag: str = "") -> str | None:
+        """Write the state as this package's `.pt` checkpoint; under a mesh
+        rank 0 writes it (every rank holds the whole replica) and the ranks
+        meet at a barrier after."""
         if self.checkpoint_dir is None:
             return None
         name = f"checkpoint_iter={self.iter}_epoch={self.epoch}{tag}.pt"
         path = os.path.join(self.checkpoint_dir, name)
-        ckpt_io.save_checkpoint(path, state.params, opt_state=state.opt_state,
-                                step=self.iter, epoch=self.epoch,
-                                config_json=to_json(self.cfg),
-                                extra={"film_scale": float(state.film_scale)})
-        self.writer.save(f"_epoch{self.epoch}")
+        if self.rank == 0:
+            ckpt_io.save_checkpoint(path, state.params, opt_state=state.opt_state,
+                                    step=self.iter, epoch=self.epoch,
+                                    config_json=to_json(self.cfg),
+                                    extra={"film_scale": float(state.film_scale)})
+            self.writer.save(f"_epoch{self.epoch}")
+        if self.mesh is not None:
+            dist.barrier(group=self._group)
         return path
 
     def save_data(self, loader, out_dir: str, num_batches: int = 4) -> str:
@@ -565,7 +615,7 @@ def _to_device(tree, device):
     return tree
 
 
-def save_forecast(trainer: Trainer, state: TrainState, batches, steps: int, out_path: str,
+def save_forecast(trainer: Trainer, state: TrainState, batches, steps: int, out_path: str | None,
                   channels: list[str] | None = None) -> str:
     """Weatherbench2-format forecast dump (the JAX package's save_forecast;
     reference Trainer.save_forecast, train.py:942-1022, and
@@ -573,12 +623,14 @@ def save_forecast(trainer: Trainer, state: TrainState, batches, steps: int, out_
     prediction timedeltas from its first state on the trainer's device at
     the state's film scale, denormalise each step there, copy it to the
     host and append one (steps, H, W, C) chunk per init time
-    (`batch.times[0, b]`) to a ForecastWriter archive at `out_path`."""
+    (`batch.times[0, b]`) to a ForecastWriter archive at `out_path`.  With
+    out_path None the rollouts run and nothing is written (the ranks other
+    than 0 of a data mesh)."""
     from msfno_torch.inference.forecast_writer import ForecastWriter
     from msfno_torch.inference.rollout import _states
 
     h, w = trainer.cfg.img_size
-    writer = ForecastWriter(
+    writer = None if out_path is None else ForecastWriter(
         out_path, channels or [f"var{i}" for i in range(trainer.cfg.out_chans)],
         lat=np.linspace(90, -90, h), lon=np.linspace(0, 360, w, endpoint=False))
     for batch in batches:
@@ -587,6 +639,6 @@ def save_forecast(trainer: Trainer, state: TrainState, batches, steps: int, out_
                          trainer.sst_normalizer, float(state.film_scale))
         fc = np.stack([trainer.normalizer(s.float(), reverse=True).cpu().numpy()
                        for s in states])  # (steps, B, H, W, C)
-        for b in range(fc.shape[1]):
+        for b in range(fc.shape[1] if writer is not None else 0):
             writer.append(int(batch.times[0, b]), fc[:, b])
     return out_path

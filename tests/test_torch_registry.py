@@ -5,6 +5,7 @@ directory) as the JAX wrapper; a reference PyTorch checkpoint loads; the
 MAE and FourCastNet families build; the paths not ported yet raise."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -89,9 +90,13 @@ def test_reference_torch_checkpoint_loads(tmp_path):
         torch.testing.assert_close(dst.module.state_dict()[k], v, rtol=0, atol=0)
 
 
+# the lat and channel mesh axes are not ported (a data-only mesh is)
+LAT_MESH = types.SimpleNamespace(mesh_dim_names=("data", "lat", "channel"), shape=(1, 2, 1))
+
+
 @pytest.mark.parametrize("call", [
     lambda tmp: registry.get_model("sfno", cfg=dataclasses.replace(FUSED_FP32, film=None),
-                                   device="cpu").trainer(tcfg.TrainConfig(), mesh=object()),
+                                   device="cpu").trainer(tcfg.TrainConfig(), mesh=LAT_MESH),
     lambda tmp: registry.get_model("sfno", "film", cfg=FUSED_FP32,
                                    device="cpu").load_model(str(tmp)),
 ])

@@ -7,6 +7,7 @@ cadence and the time-limit stop."""
 
 import dataclasses
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -255,8 +256,11 @@ def test_gen_batch_matches_jax():
 
 
 def test_unported_options_raise():
+    # a data-only mesh is ported (tests/test_torch_distributed.py); the lat
+    # and channel axes are not
+    lat_mesh = types.SimpleNamespace(mesh_dim_names=("data", "lat", "channel"), shape=(1, 2, 1))
     with pytest.raises(NotImplementedError):
-        TTrainer(from_json(to_json(CFG)), TTrainConfig(), device="cpu", mesh=object())
+        TTrainer(from_json(to_json(CFG)), TTrainConfig(), device="cpu", mesh=lat_mesh)
     # dropout and drop-path are ported (tests/test_torch_dropout.py), and the
     # ViT's and the MAE's film.dropout (tests/test_torch_vit.py, below)
     # the spectral losses are ported (tests/test_torch_trainer_spectral_loss.py)
