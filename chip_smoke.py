@@ -139,6 +139,19 @@ Phases (any failure raises, and the script exits non-zero):
      `--run` of 12 hours into NetCDF read back bit for bit against
      `ModelWrapper.running`, `--eval-model` (finite), `--test-performance`
      and `--dump-provenance` (lists the card), with each action's seconds.
+ 17. the full-width filmed net on a 1,2,2 (data, lat, channel) mesh
+     (`mesh_phase`): one `python -m torch.distributed.run --nproc_per_node
+     4` launch of this script's `--mesh-worker`, four processes on this
+     card over gloo (collectives on card tensors staged through host
+     memory; the 721 rows uneven over lat = 2): the exact tier's step
+     against the unsharded step (1e-5, gamma / beta 1e-5), the serving
+     step against the fp32 plain path (3e-2) with exactly 7 gcn_layer
+     launches and no block kernel, a 2-step scan_rollout (finite, the same
+     on every rank), the fp32 film-only fine-tune step against one process
+     (loss 1e-5, film gradient 1e-4) and finetune_config()'s (finite, 7 +
+     7 gcn_layer / gcn_layer_bwd launches), the backend, each rank's
+     device, peak memory per rank, the ms per sharded serving step and the
+     phase's seconds (under 150).
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
 operands of that tier (sites "*/fp32") to 1e-5; at the fp32 sites of the
 GCN layer and its backward, the head, the tail and grid_mlp (each of its
@@ -310,20 +323,25 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def launched_kernels(fn) -> list:
+def launched_kernels(fn, tries: int = 3) -> list:
     """The CUDA kernels that one call of `fn` launches, by name
-    (torch.profiler; namespaces and argument lists dropped)."""
+    (torch.profiler; namespaces and argument lists dropped).  A trace with
+    no device activity at all is a miss of the profiler (every site
+    launches kernels): the call is traced again, up to `tries` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     names = set()
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
-            names.add(name.removeprefix("void "))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+                names.add(name.removeprefix("void "))
+        if names:
+            break
     return sorted(names)
 
 
@@ -2662,6 +2680,219 @@ def cli_phase(dev, smi, serving_step_ms) -> dict:
     return rec
 
 
+# phase 17: the full-width filmed net on a 1,2,2 (data, lat, channel) mesh,
+# four processes on this one card over gloo (NCCL refuses two ranks on one
+# device; collectives on card tensors staged through host memory)
+MESH_SHAPE = (1, 2, 2)
+MESH_EXACT_TOL, MESH_FILM_TOL = 1e-5, 1e-5  # the exact tier against one process
+MESH_SERVING_TOL = 3e-2  # the serving step against the fp32 plain path
+MESH_LOSS_TOL, MESH_GRAD_TOL = 1e-5, 1e-4  # the fp32 fine-tune step
+MESH_ROLLOUT_STEPS = 2
+MESH_TIMED_STEPS = 3
+MESH_PHASE_LIMIT_S = 150
+
+
+def mesh_worker(root: str) -> None:
+    """One rank of phase 17, started by `mesh_phase` under torch.distributed.
+    run: every rank runs every step under the mesh, rank 0 also the
+    unsharded references, and rank 0 writes the record to root/mesh.json."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from msfno_torch.config import exact_config, finetune_config, finetune_train_config, \
+        serving_config
+    from msfno_torch.inference.rollout import scan_rollout
+    from msfno_torch.models import FourierNeuralOperatorNetFilmed
+    from msfno_torch.ops.kernels import build, launch_counts, reset_launch_counts
+    from msfno_torch.parallel.annotate import backend_note, use_mesh
+    from msfno_torch.parallel.mesh import make_mesh, model_shard
+    from msfno_torch.parallel.sharded_train import reduce_gradients
+    from msfno_torch.runtime import resolve_device
+    from msfno_torch.training.losses import sums_over_samples
+    from msfno_torch.training.trainer import Trainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    dev = resolve_device()
+    build()  # built by phase 2: loads the libraries
+    mesh = make_mesh(shape=MESH_SHAPE)
+    shard = model_shard(mesh)
+    rec = {"mesh": list(MESH_SHAPE), "backend": backend_note(shard.lat_group)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {"rank": rank, "device": torch.cuda.current_device(),
+                                   "name": torch.cuda.get_device_name(),
+                                   "lat_rank": shard.lat_rank, "chan_rank": shard.chan_rank})
+    rec["ranks"] = every
+    torch.cuda.reset_peak_memory_stats()
+
+    def gathered_same(t) -> bool:
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, hashlib.sha256(
+            t.detach().float().cpu().numpy().tobytes()).hexdigest())
+        return len(set(digests)) == 1
+
+    # 1. the exact tier: one step on the mesh against the unsharded step
+    serving = serving_config()
+    x0, sst, sst_seq = model_inputs(serving, dev, MESH_ROLLOUT_STEPS)
+    net = FourierNeuralOperatorNetFilmed(exact_config(serving), device=dev, seed=0)
+    with torch.inference_mode():
+        gb_ref = net.film_gen(sst) if rank == 0 else None
+        y_ref = net(x0, sst) if rank == 0 else None
+        with use_mesh(mesh):
+            gb = net.film_gen(sst)
+            y = net(x0, sst)
+    rec["exact_same_on_every_rank"] = gathered_same(y)
+    if rank == 0:
+        rec["exact_rel_l2"] = rel_l2(y, y_ref)
+        rec["exact_gamma_beta_rel_l2"] = rel_l2(gb, gb_ref)
+    state_dict = net.state_dict()
+    del net, y, gb
+    torch.cuda.empty_cache()
+
+    # 2. the serving tier on the mesh: the block kernels off, gcn_layer on
+    net = FourierNeuralOperatorNetFilmed(serving, device=dev, seed=0)
+    net.load_state_dict(state_dict)
+    del state_dict
+    with torch.inference_mode():
+        reset_launch_counts()
+        with use_mesh(mesh):
+            y = net(x0, sst)
+        rec["serving_launches"] = launch_counts()
+        rec["serving_finite"] = bool(torch.isfinite(y).all())
+        if rank == 0:
+            rec["serving_rel_l2"] = rel_l2(y, y_ref)
+        times = []
+        for _ in range(MESH_TIMED_STEPS):
+            dist.barrier()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            with use_mesh(mesh):
+                net(x0, sst)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        rec["serving_step_ms"] = times
+        # 3. a scan_rollout under the mesh
+        reset_launch_counts()
+        outs = scan_rollout(net, x0, MESH_ROLLOUT_STEPS, sst_seq=sst_seq, mesh=mesh)
+        rec["rollout_launches"] = launch_counts()
+        rec["rollout_finite"] = bool(torch.isfinite(outs).all())
+        rec["rollout_same_on_every_rank"] = gathered_same(outs)
+        rec["rollout_shape"] = list(outs.shape)
+    del net, y, y_ref, outs
+    torch.cuda.empty_cache()
+
+    # 4. the film-only fine-tune step (ms = 0) on the mesh: the fp32 plain
+    # path against one process, and finetune_config()'s bf16 tier
+    g = torch.Generator(device=dev).manual_seed(17)  # the same target on every rank
+    era5 = torch.stack([x0, x0 + 0.01 * torch.randn(x0.shape, device=dev, generator=g)])
+    sst_pair = torch.stack([sst, sst_seq[0]])
+
+    def film_step(cfg, tcfg, mesh_):
+        tr = Trainer(cfg, tcfg, device=dev, mesh=mesh_)
+        tr.model.load_state_dict(weights)
+        state = tr.init_state()
+        reset_launch_counts()
+        loss, per_step, grads = tr.loss_and_grads(state, era5, sst_pair)
+        if mesh_ is not None:
+            reduce_gradients(grads, state.trainable, mesh_, [loss, per_step],
+                             mean=not sums_over_samples(tcfg.loss_fn))
+        counts = launch_counts()
+        flat = torch.cat([grads[k].float().reshape(-1) for k in sorted(grads)])
+        del tr, state
+        torch.cuda.empty_cache()
+        return float(loss), flat, counts
+
+    exact_tune = exact_config(finetune_config())
+    weights = FourierNeuralOperatorNetFilmed(exact_tune, device=dev, seed=0).state_dict()
+    tcfg = finetune_train_config(multi_step_training=0, bf16_frozen_params=False)
+    loss_m, grad_m, _ = film_step(exact_tune, tcfg, mesh)
+    loss_t, grad_t, rec["finetune_launches"] = film_step(finetune_config(),
+                                                         finetune_train_config(), mesh)
+    if rank == 0:
+        loss_1, grad_1, _ = film_step(exact_tune, tcfg, None)
+        finite = np.isfinite(loss_t) and torch.isfinite(grad_t).all() and grad_t.abs().sum() > 0
+        rec.update(finetune_bf16_finite=bool(finite),
+                   finetune_exact_loss_rel=abs(loss_m - loss_1) / abs(loss_1),
+                   finetune_exact_grad_rel_l2=rel_l2(grad_m, grad_1),
+                   finetune_bf16_loss_rel=abs(loss_t - loss_1) / abs(loss_1),
+                   finetune_bf16_grad_rel_l2=rel_l2(grad_t, grad_1))
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 2**30)
+    rec["peak_mem_gib_per_rank"] = peaks
+    if rank == 0:
+        with open(f"{root}/mesh.json", "w") as fh:
+            json.dump(rec, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_phase(dev, smi) -> dict:
+    """Phase 17: one `python -m torch.distributed.run --nproc_per_node 4`
+    launch of `mesh_worker` on the 1,2,2 mesh (the 721 rows uneven over lat
+    = 2), four processes on this card over gloo.  Held: the exact tier's
+    step against the unsharded step (rel-L2 <= 1e-5, gamma / beta <= 1e-5),
+    the serving step against the fp32 plain path (3e-2), a 2-step
+    scan_rollout finite and the same on every rank, the fp32 film-only
+    fine-tune step against one process (loss 1e-5, film gradient 1e-4) and
+    finetune_config()'s (the bf16 tier without its block kernels: finite,
+    its loss and film gradient's distance to the fp32 step recorded),
+    exactly 7 gcn_layer launches a step (and 7 gcn_layer_bwd a train step)
+    and no other kernel, the phase under 150 s.  Printed: the backend,
+    each rank's device, peak memory per rank, the seconds and the ms per
+    sharded serving step (one card, gloo-staged: not a scaling result)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="msfno_mesh_")
+    try:
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "4", os.path.abspath(__file__), "--mesh-worker", root],
+            capture_output=True, text=True, timeout=600, env=env)
+        if proc.returncode != 0 or not os.path.exists(f"{root}/mesh.json"):
+            raise AssertionError(f"phase 17: rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-6000:]}")
+        with open(f"{root}/mesh.json") as fh:
+            rec = json.load(fh)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["phase"] = "mesh_1_2_2"
+    rec["card"] = smi
+    rec["seconds"] = time.perf_counter() - t0
+    rec["median_serving_step_ms"] = statistics.median(rec["serving_step_ms"])
+    log(json.dumps(rec))
+    step_want = {name: 0 for name in rec["serving_launches"]}
+    step_want["gcn_layer"] = 7
+    roll_want = {k: v * MESH_ROLLOUT_STEPS for k, v in step_want.items()}
+    tune_want = dict(step_want, gcn_layer_bwd=7)
+    ok = (rec["exact_rel_l2"] <= MESH_EXACT_TOL
+          and rec["exact_gamma_beta_rel_l2"] <= MESH_FILM_TOL
+          and rec["exact_same_on_every_rank"]
+          and rec["serving_rel_l2"] <= MESH_SERVING_TOL and rec["serving_finite"]
+          and rec["serving_launches"] == step_want
+          and rec["rollout_finite"] and rec["rollout_same_on_every_rank"]
+          and rec["rollout_launches"] == roll_want
+          and rec["finetune_exact_loss_rel"] <= MESH_LOSS_TOL
+          and rec["finetune_exact_grad_rel_l2"] <= MESH_GRAD_TOL
+          and rec["finetune_bf16_finite"]
+          and rec["finetune_launches"] == tune_want
+          and rec["seconds"] <= MESH_PHASE_LIMIT_S)
+    if not ok:
+        raise AssertionError(f"phase 17: {rec}")
+    torch.cuda.synchronize(dev)
+    return rec
+
+
 def model_inputs(cfg, dev, steps):
     import torch
 
@@ -2874,6 +3105,15 @@ def main() -> int:
                     "model_fwd_ms": sixteen["model_fwd_s"] * 1e3,
                     "phase_6_serving_step_ms": sixteen["phase_6_serving_step_ms"],
                     "seconds_total": time.time() - t_start}))
+
+    # phase 17: the full-width filmed net on a 1,2,2 mesh, four processes
+    torch.cuda.empty_cache()
+    seventeen = mesh_phase(dev, smi)
+    log(json.dumps({"phase": "mesh_time", "card": smi, "backend": seventeen["backend"],
+                    "median_sharded_serving_step_ms": seventeen["median_serving_step_ms"],
+                    "phase_6_serving_step_ms": statistics.median(times["fused"]),
+                    "peak_mem_gib_per_rank": seventeen["peak_mem_gib_per_rank"],
+                    "phase_s": seventeen["seconds"], "seconds_total": time.time() - t_start}))
     log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
 
     kernels = []
@@ -2918,6 +3158,9 @@ def main() -> int:
         launches["launches_mae_film_step"] = fifteen["mae_film_step"]["launch_counts"][name]
         # phase 16: the CLI's --train, its 3 train steps (validation apart)
         launches["launches_cli_train_3_steps"] = sixteen["train_launches"][name]
+        # phase 17: one serving step and one fine-tune step on the 1,2,2 mesh
+        launches["launches_mesh_1_2_2_step"] = seventeen["serving_launches"][name]
+        launches["launches_mesh_1_2_2_train_step"] = seventeen["finetune_launches"][name]
         # the fp32-operand sites, summed over one fused step of the
         # fp32-kernel tier (forward kernels) or over its train step with
         # multi_step_training=1 (backward kernels)
@@ -2955,4 +3198,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2])
+        sys.exit(0)
     sys.exit(routes_main() if sys.argv[1:] == ["--routes"] else main())

@@ -11,9 +11,9 @@ Architecture Film Gen) assemble the configs; on --resume-checkpoint they are
 merged with the checkpoint's stored hyperparameters: explicitly passed flags
 win, the architecture groups are protected (reference main.py:179-246).
 Checkpoints are this package's `.pt` files; every flag that takes one also
-takes a JAX `.npz` and a reference PyTorch `.tar`.  --mesh spans the data
-axis of a torch.distributed group (one process per card); the lat and
-channel axes are not ported yet.
+takes a JAX `.npz` and a reference PyTorch `.tar`.  --mesh D,L,C lays a
+(data, lat, channel) mesh over a torch.distributed group, one process per
+card (or, on a host with one card, several processes on it over gloo).
 """
 
 from __future__ import annotations
@@ -252,12 +252,13 @@ def build_parser() -> argparse.ArgumentParser:
     dist = p.add_argument_group("Distributed")
     dist.add_argument("--mesh", default="auto",
                       help="device mesh (replaces the reference's --ddp "
-                           "launcher, main.py:39-49,1149-1156): 'auto' trains "
-                           "data-parallel over the processes torchrun "
-                           "started when there is more than one; 'none' "
-                           "forces a single process; or explicit sizes "
-                           "'DATA,LAT,CHANNEL' with DATA the world size and "
-                           "LAT = CHANNEL = 1, e.g. --mesh 2,1,1")
+                           "launcher, main.py:39-49,1149-1156): 'auto' lays "
+                           "one over the processes torchrun started when "
+                           "there is more than one (training: data axis "
+                           "first up to the global batch; else lat first); "
+                           "'none' forces a single process; or explicit "
+                           "sizes 'DATA,LAT,CHANNEL' whose product is the "
+                           "world size, e.g. --mesh 1,2,2")
     dist.add_argument("--coordinator-address", default=None,
                       help="host:port of rank 0 for torch.distributed (the "
                            "reference's MASTER_ADDR/PORT, main.py:45-46); "
@@ -461,14 +462,17 @@ def build_backend(args):
     return ZarrBackend(path, sst_path=args.sst_path)
 
 
-def build_loaders(args, model_cfg, train_cfg, argv=None):
+def build_loaders(args, model_cfg, train_cfg, argv=None, mesh=None):
     """--era5-path -> backend -> ERA5Dataset -> PrefetchLoader (reference
     set_dataloader, train.py:448-521).  Returns (train_loader | None,
-    val_loader_factory | None).  Under a torch.distributed group each
-    loader reads its rank's share (`PrefetchLoader`'s default shard)."""
+    val_loader_factory | None).  Under a mesh each loader reads its data
+    rank's share (the ranks of one (lat, channel) model group read the
+    same batches); under a group without one, its rank's share
+    (`PrefetchLoader`'s default shard)."""
     if not args.era5_path or args.synthetic_data:
         return None, None
     from msfno_torch.data.era5 import ERA5Dataset, PrefetchLoader, year_range_indices
+    from msfno_torch.parallel.mesh import mesh_sizes
 
     backend = build_backend(args)
     n = len(backend)
@@ -502,14 +506,18 @@ def build_loaders(args, model_cfg, train_cfg, argv=None):
     val_ds = ERA5Dataset(multi_step=train_cfg.multi_step_validation, start_idx=va_s,
                          end_idx=va_e, **common)
     transfer_dtype = torch.bfloat16 if args.input_transfer_dtype == "bfloat16" else None
+    shards = {}
+    if mesh is not None:
+        shards = dict(shard_id=mesh.get_local_rank("data"),
+                      num_shards=mesh_sizes(mesh)["data"])
     train_loader = PrefetchLoader(train_ds, batch_size=train_cfg.batch_size,
                                   shuffle=not args.no_shuffle, seed=args.seed,
                                   num_workers=args.training_workers,
-                                  transfer_dtype=transfer_dtype)
+                                  transfer_dtype=transfer_dtype, **shards)
     val_prefetch = PrefetchLoader(val_ds, batch_size=args.batch_size_validation
                                   or train_cfg.batch_size, shuffle=False,
                                   num_workers=args.training_workers,
-                                  transfer_dtype=transfer_dtype)
+                                  transfer_dtype=transfer_dtype, **shards)
 
     def val_factory():
         import itertools
@@ -531,15 +539,19 @@ def resolve_mesh(args, device=None):
     torch.distributed group (`initialize_distributed`: torchrun's
     environment or --coordinator-address):
       --mesh none   -> None (one process);
-      --mesh auto   -> the data-only mesh of the world size when torchrun
-                       (or the flags) started more than one process, else
-                       None;
-      --mesh D,L,C  -> make_mesh; D must be the world size and L = C = 1.
-                       1,1,1 in a lone process joins a group of one.
-    The mesh flows into the Trainer; --run, --save-forecast and
-    --eval-model compute on every rank and write from rank 0."""
+      --mesh auto   -> when torchrun (or the flags) started more than one
+                       process, the JAX package's policy over the world
+                       size (cli.py:611-621): training with a real batch
+                       deals the processes to the data axis first, up to
+                       the global batch, other work lat first
+                       (`factorize`: 4 -> 1,2,2); else None;
+      --mesh D,L,C  -> make_mesh; D*L*C must be the world size.  1,1,1 in a
+                       lone process joins a group of one.
+    The mesh flows into the Trainer, the rollouts of --run and
+    --save-forecast and --eval-model's scoring; they compute on every rank
+    and write from rank 0."""
     from msfno_torch.parallel.distributed import initialize_distributed
-    from msfno_torch.parallel.mesh import LATER, make_mesh
+    from msfno_torch.parallel.mesh import factorize, make_mesh
 
     mesh_arg = (args.mesh or "auto").strip().lower()
     if mesh_arg == "none":
@@ -553,24 +565,25 @@ def resolve_mesh(args, device=None):
         if len(shape) != 3 or any(s < 1 for s in shape):
             raise SystemExit(f"--mesh must be 'auto', 'none', or three comma-separated "
                              f"sizes data,lat,channel (got {args.mesh!r})")
-        if shape[1] * shape[2] > 1:
-            raise SystemExit(f"--mesh {args.mesh}: {LATER}")
     initialize_distributed(coordinator_address=args.coordinator_address,
                            num_processes=args.num_processes, process_id=args.process_id,
                            device=device)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if shape is not None:
-        if shape[0] == 1 and not dist.is_initialized():
+        need = math.prod(shape)
+        if need == 1 and not dist.is_initialized():
             initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device)
             world = 1
-        if shape[0] != world:
-            raise SystemExit(f"--mesh {args.mesh} needs {math.prod(shape)} processes, one per "
+        if need != world:
+            raise SystemExit(f"--mesh {args.mesh} needs {need} processes, one per "
                              f"device, but the world size is {world}; launch it with "
-                             f"torchrun --nproc_per_node {shape[0]}")
+                             f"torchrun --nproc_per_node {need}")
         return make_mesh(shape=shape)
     if world > 1:
-        mesh = make_mesh(shape=(world, 1, 1))
-        log.info("data-parallel mesh over %d processes", world)
+        data_target = args.batch_size * world if args.train else 1
+        mesh = make_mesh(shape=factorize(world, data_target=data_target))
+        log.info("mesh over %d processes: %s", world, dict(zip(mesh.mesh_dim_names,
+                                                                mesh.shape)))
         return mesh
     n = torch.cuda.device_count() if torch.cuda.is_available() and not args.cpu else 1
     if n > 1:
@@ -583,7 +596,10 @@ def resolve_mesh(args, device=None):
 def _overlay(module, params: dict, reference: bool, what: str) -> None:
     """Copy the checkpoint's tensors into the module's parameters of the same
     names (strict=False, reference model.py:216-256: a backbone-only file
-    keeps a filmed net's generator as initialised)."""
+    keeps a filmed net's generator as initialised); a parameter that holds
+    its mesh shard takes its part."""
+    from msfno_torch.parallel.sharded_train import local_of
+
     own = dict(module.named_parameters())
     unknown = [k for k in params if k not in own]
     if unknown:
@@ -592,7 +608,7 @@ def _overlay(module, params: dict, reference: bool, what: str) -> None:
     with torch.no_grad():
         for k, v in params.items():
             if k in own:
-                own[k].copy_(v.to(own[k].dtype))
+                own[k].copy_(local_of(v.to(own[k].device), own[k]).to(own[k].dtype))
 
 
 def restore_train_state(state, trainer, args, model_cfg, train_cfg):
@@ -825,7 +841,7 @@ def _main(args, argv=None) -> int:
         if args.test_performance:
             _print({"model_fwd_s": trainer.test_model_speed(state)})
             return 0
-        train_loader, val_factory = build_loaders(args, model_cfg, train_cfg, argv)
+        train_loader, val_factory = build_loaders(args, model_cfg, train_cfg, argv, mesh)
         trainer.train(state, loader=train_loader, val_loader=val_factory,
                       num_batches=args.num_iterations)
         log.info("training done in %.1fs", time.time() - t0)
@@ -840,7 +856,7 @@ def _main(args, argv=None) -> int:
         state = trainer.init_state()
         if args.resume_checkpoint:
             state = restore_train_state(state, trainer, args, model_cfg, train_cfg)
-        _, val_factory = build_loaders(args, model_cfg, train_cfg, argv)
+        _, val_factory = build_loaders(args, model_cfg, train_cfg, argv, mesh)
         steps = max(train_cfg.multi_step_validation, 1)
         if val_factory is not None:
             batches = list(val_factory())
@@ -870,7 +886,7 @@ def _main(args, argv=None) -> int:
             log.error("no checkpoints to evaluate (--checkpoint-list or checkpoint_* "
                       ".pt/.npz under --output-path)")
             return 1
-        _, val_factory = build_loaders(args, model_cfg, train_cfg, argv)
+        _, val_factory = build_loaders(args, model_cfg, train_cfg, argv, mesh)
         steps = max(train_cfg.multi_step_validation, 1)
         if val_factory is not None:
             batches = list(val_factory())
@@ -890,13 +906,13 @@ def _main(args, argv=None) -> int:
             w.module, cps, batches, climatology=clim, steps=steps, normalizer=w.normalizer,
             sst_normalizer=w.sst_normalizer,
             save_path=os.path.join(args.output_path, "eval") if rank0 else None,
-            include_sfno_baseline=args.eval_sfno, device=device)
+            include_sfno_baseline=args.eval_sfno, device=device, mesh=mesh)
         for name, rep in reports.items():
             log.info("%s: mean skill %.4f", name, float(np.mean(rep.skill)))
         return 0
 
     if args.run:
-        return _run(args, model_cfg, get_wrapper(), rank0)
+        return _run(args, model_cfg, get_wrapper(), rank0, mesh)
 
     if args.test_dataloader_speed:
         trainer = trainer_of()
@@ -929,7 +945,7 @@ def _main(args, argv=None) -> int:
     return 0
 
 
-def _run(args, model_cfg, wrapper, rank0: bool) -> int:
+def _run(args, model_cfg, wrapper, rank0: bool, mesh=None) -> int:
     """--run: an autoregressive forecast from a store, an .npy initial
     state or a seeded random one, with the SST windows of a filmed model,
     written as forecast.npz or per-step files (reference main.py:339)."""
@@ -1015,7 +1031,8 @@ def _run(args, model_cfg, wrapper, rank0: bool) -> int:
             start = int(args.date) if args.date else ref_year * 10000 + 101
             writer = HindcastReLabel(None, writer, reference_date=ref_year * 10000 + start % 10000,
                                      hdate=start)
-    outs = list(wrapper.running(x0, lead_time_h=args.lead_time, sst_seq=sst_seq, output=writer))
+    outs = list(wrapper.running(x0, lead_time_h=args.lead_time, sst_seq=sst_seq, output=writer,
+                                mesh=mesh))
     if args.output == "npz" and rank0:
         out_file = os.path.join(args.output_path, "forecast.npz")
         np.savez(out_file, forecast=np.stack(outs))

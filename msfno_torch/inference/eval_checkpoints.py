@@ -80,7 +80,7 @@ def _load_into(module: torch.nn.Module, path: str, params: dict, reference: bool
 
 
 def _score_batch(module, batch, steps, sums, climatology, binned, normalizer,
-                 sst_normalizer, scale, dev) -> None:
+                 sst_normalizer, scale, dev, mesh=None) -> None:
     """Roll one batch out step by step and add each step's sums: the
     forecast denormalised on the device, the target brought over alone."""
     sst_seq = batch.sst[1:steps + 1] if batch.sst is not None else None
@@ -89,7 +89,8 @@ def _score_batch(module, batch, steps, sums, climatology, binned, normalizer,
     # no valid times (synthetic data carries 0): the binned climatology's mean
     times = (np.asarray(times)[1:steps + 1] if times is not None
              else np.zeros(target_shape[:2], np.int64))
-    states = _states(module, batch.era5[0], steps, sst_seq, normalizer, sst_normalizer, scale)
+    states = _states(module, batch.era5[0], steps, sst_seq, normalizer, sst_normalizer, scale,
+                     mesh)
     with torch.inference_mode():
         for k, state in enumerate(states):
             out_n = state.float()
@@ -111,6 +112,7 @@ def evaluate_checkpoints(
     film_scales: dict[str, float] | None = None,
     include_sfno_baseline: bool = False,
     device=None,
+    mesh=None,
 ) -> dict[str, SkillReport]:
     """Roll out each checkpoint over `batches` and score skill against
     climatology.
@@ -123,7 +125,9 @@ def evaluate_checkpoints(
     model.py:1346-1354), named "<file>@scale0".  A name met twice gets its
     directory as a prefix.  climatology: broadcastable to the targets
     (static, e.g. (H, W, C), or per step) or (doy, hour)-binned
-    ((365|366, 4, H, W, C)), indexed by each batch's valid times."""
+    ((365|366, 4, H, W, C)), indexed by each batch's valid times.  With
+    `mesh`, every rollout runs under it (each rank its band; the outputs
+    gathered, the sums the same on every rank)."""
     from msfno_torch.models.registry import read_checkpoint
 
     dev = resolve_device(device)
@@ -155,7 +159,7 @@ def evaluate_checkpoints(
         sums = SkillSums(steps, channels, dev)
         for batch in batches:
             _score_batch(module, batch, steps, sums, climatology, binned, normalizer,
-                         sst_normalizer, scale, dev)
+                         sst_normalizer, scale, dev, mesh)
         name = os.path.basename(cp) + ("" if scale_override is None else "@scale0")
         if name in reports:
             parent = os.path.basename(os.path.dirname(cp)) or str(len(reports))

@@ -4,7 +4,10 @@ reference FourCastNetv2.running(), MSFNO/Models/sfno/model.py:289-372).
 The model state stays on the device across steps; each step's output is
 fed back as the next input.  Emitted fields are always fp32, whatever the
 model's output dtype; the carry keeps the output dtype, and the initial
-state is cast to it as well.
+state is cast to it as well.  With `mesh=` every step runs under it
+(`parallel.annotate.use_mesh`): each rank of a (lat, channel) model group
+takes its band of the state, and the step's output comes back gathered,
+the same on every rank; the parameters may be whole or held as shards.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from msfno_torch.data.normalization import Normalizer, SSTNormalizer
+from msfno_torch.parallel.annotate import use_mesh
 
 
 @dataclasses.dataclass
@@ -42,9 +46,10 @@ def serving_params(model: torch.nn.Module, dtype=torch.bfloat16,
     return model
 
 
-def _states(model, x0, steps: int, sst_seq, normalizer, sst_normalizer, scale):
+def _states(model, x0, steps: int, sst_seq, normalizer, sst_normalizer, scale, mesh=None):
     """The autoregressive loop shared by `rollout` and `scan_rollout`:
-    yields each step's state (normalized space, the model's output dtype)."""
+    yields each step's state (normalized space, the model's output dtype),
+    each step run under `mesh`."""
     dev = next(model.parameters()).device
     normalizer = normalizer or Normalizer.identity(x0.shape[-1])
     sstn = sst_normalizer or SSTNormalizer.identity()
@@ -52,11 +57,12 @@ def _states(model, x0, steps: int, sst_seq, normalizer, sst_normalizer, scale):
     with torch.inference_mode():
         state = normalizer(torch.as_tensor(x0, device=dev).float()).to(out_dtype)
         for i in range(steps):
-            if sst_seq is None:
-                state = model(state)
-            else:
-                sst_i = sstn(torch.as_tensor(sst_seq[i], device=dev).float())
-                state = model(state, sst_i, scale)
+            with use_mesh(mesh):
+                if sst_seq is None:
+                    state = model(state)
+                else:
+                    sst_i = sstn(torch.as_tensor(sst_seq[i], device=dev).float())
+                    state = model(state, sst_i, scale)
             yield state
 
 
@@ -69,13 +75,13 @@ def _collect(t: torch.Tensor, channels) -> torch.Tensor:
 def rollout(model, x0, cfg: RolloutConfig, sst_seq=None,
             normalizer: Normalizer | None = None,
             sst_normalizer: SSTNormalizer | None = None, scale: float = 1.0,
-            stepper=None) -> Iterator[np.ndarray]:
+            stepper=None, mesh=None) -> Iterator[np.ndarray]:
     """Streaming rollout on the model's device: yields one (B, H, W, C_collect)
     fp32 numpy field per step (denormalized unless cfg.denormalize=False).
     x0 is the raw initial condition; sst_seq (steps, B, T, Hs, Ws) drives a
     filmed model."""
     normalizer = normalizer or Normalizer.identity(x0.shape[-1])
-    states = _states(model, x0, cfg.steps, sst_seq, normalizer, sst_normalizer, scale)
+    states = _states(model, x0, cfg.steps, sst_seq, normalizer, sst_normalizer, scale, mesh)
     for i, state in enumerate(states):
         out = state.float()
         if cfg.denormalize:
@@ -88,9 +94,9 @@ def rollout(model, x0, cfg: RolloutConfig, sst_seq=None,
 def scan_rollout(model, x0, steps: int, sst_seq=None,
                  normalizer: Normalizer | None = None,
                  sst_normalizer: SSTNormalizer | None = None, scale: float = 1.0,
-                 collect_channels: Sequence[int] | None = None) -> torch.Tensor:
+                 collect_channels: Sequence[int] | None = None, mesh=None) -> torch.Tensor:
     """The JAX `scan_rollout` as a loop: returns the stacked
     (steps, B, H, W, C_collect) normalized-space outputs, fp32, on the
     model's device."""
-    states = _states(model, x0, steps, sst_seq, normalizer, sst_normalizer, scale)
+    states = _states(model, x0, steps, sst_seq, normalizer, sst_normalizer, scale, mesh)
     return torch.stack([_collect(s, collect_channels).float() for s in states])

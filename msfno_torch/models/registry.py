@@ -175,11 +175,12 @@ class ModelWrapper:
 
     def running(self, x0: np.ndarray, lead_time_h: int = 24,
                 sst_seq: np.ndarray | None = None,
-                collect_channels: Sequence[int] | None = None, output=None):
+                collect_channels: Sequence[int] | None = None, output=None, mesh=None):
         """Autoregressive forecast (reference running(), model.py:289-372):
         yields the denormalized fp32 field of each 6-hour step, at the
         wrapper's film_scale; `output.write(field, step=hours)` per step when
-        given; each step's rate and ETA are logged (`Stepper`)."""
+        given; each step's rate and ETA are logged (`Stepper`).  With
+        `mesh`, each step runs under it (`rollout`)."""
         from msfno_torch.utils.observability import Stepper
 
         steps = lead_time_h // 6
@@ -188,6 +189,7 @@ class ModelWrapper:
             self.module, x0, RolloutConfig(steps=steps, collect_channels=collect_channels),
             sst_seq=sst_seq if filmed else None, normalizer=self.normalizer,
             sst_normalizer=self.sst_normalizer, scale=self.film_scale, stepper=Stepper(steps),
+            mesh=mesh,
         )
         for i, field in enumerate(it):
             if output is not None:

@@ -10,6 +10,10 @@ Filmed block (sfnonet.py:254-393): FiLM between norm1 and the channel MLP.
 Fused head and tail: block 0 may take a `SpectralGridIn` (the encoder kernel
 already ran the longitude DFT), and with `fuse_tail` the last block stops
 before its inverse DFT and hands (hm, a, b) to the spectral_decoder kernel.
+Under a mesh with lat or channel > 1 (`parallel.annotate.use_mesh`) a block
+computes this rank's band and channels: FiLM's gamma / beta and the norms'
+affines are sliced to its channels, the inner skip gathers the channels,
+and the fused tail is off (its operands would be shards).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from msfno_torch.models.sfno.layers import (
     drop_path,
 )
 from msfno_torch.ops.kernels.spectral_decoder import spectral_grid_stats
+from msfno_torch.parallel.annotate import current_shard, gather_channels, local_channels
 from msfno_torch.runtime import torch_dtype
 
 
@@ -44,7 +49,7 @@ def film_modulation(x, gamma, beta, scale):
 
 def make_norm(kind: str, c: int, spatial_shape, device=None):
     if kind == "instance_norm":
-        return InstanceNorm(c, device=device)
+        return InstanceNorm(c, nlat=spatial_shape[0], device=device)
     if kind == "layer_norm":
         return SpatialLayerNorm(spatial_shape, device=device)
     raise NotImplementedError(f"normalization {kind!r} not implemented")
@@ -122,7 +127,7 @@ class FourierNeuralOperatorBlock(nn.Module):
         self.mlp = (
             Mlp(embed_dim, int(embed_dim * mlp_ratio), embed_dim, dtype=dtype,
                 use_pallas=pallas_grid_mlp, mxu_dtype=grid_mlp_mxu_dtype,
-                drop_rate=drop_rate, device=device, gen=gen)
+                drop_rate=drop_rate, nlat=output_shape[0], device=device, gen=gen)
             if use_mlp else None
         )
         self.outer_skip = outer_skip
@@ -144,8 +149,11 @@ class FourierNeuralOperatorBlock(nn.Module):
         self.fuse_tail = fuse_tail
 
     def forward(self, x, gamma=None, beta=None, scale=1.0, norm0_stats=None, rng=None):
-        if self.fuse_tail:
+        shard = current_shard()
+        if self.fuse_tail and shard is None:
             return self._fused_tail(x, gamma, beta, scale, norm0_stats, rng)
+        if shard is not None and self.filmed:
+            gamma, beta = local_channels(gamma, shard=shard), local_channels(beta, shard=shard)
         residual = x
         spectral_in = isinstance(x, SpectralGridIn)
         if spectral_in and not (self.fuse_norm and norm0_stats is not None
@@ -165,7 +173,12 @@ class FourierNeuralOperatorBlock(nn.Module):
             x = self.filter_layer(self.norm0(x), **drop_kw)
 
         if self.inner_skip is not None:
-            x = x + dense(residual, self.inner_skip, self.dtype)
+            if shard is None:
+                x = x + dense(residual, self.inner_skip, self.dtype)
+            else:
+                skip_in = gather_channels(residual, shard=shard)
+                x = x + dense(skip_in, self.inner_skip, self.dtype,
+                              shard.channels(skip_in.shape[-1]))
         if self.linear_filter:
             x = torch.nn.functional.gelu(x, approximate="none")
 

@@ -15,6 +15,19 @@ Dropout runs only when a forward is given a `torch.Generator` (`rng`, the
 JAX package's `deterministic=False` with a "dropout" PRNG): a layer whose
 dropout sits inside its kernel then takes its plain path, as the JAX layer
 does.
+
+Under a mesh whose lat or channel axis exceeds 1 (`parallel.annotate.
+use_mesh`), each layer computes this rank's share: a latitude band of the
+grid, an m-shard of the spectrum, a share of the embedding channels.  The
+SHTs become the all_to_all sharded pair (`spectral_transforms`), the
+statistics of the norms are summed over the lat group (real rows only),
+and every channel-mixing product gathers its input channels and computes
+its local output channels (column-parallel; the hidden layer of an MLP is
+computed whole on each channel rank).  The kernels are off there, as the
+JAX package gates them under a mesh; a parameter is used as the shard
+`parallel.sharded_train.shard_state` left in it, or sliced from the whole
+one.  Dropout draws the whole mask on every rank and keeps its part, so the
+masks are those of one device.
 """
 
 from __future__ import annotations
@@ -37,6 +50,19 @@ from msfno_torch.ops.kernels import grid_encoder_spectral as enc_kernel
 from msfno_torch.ops.kernels import spectral_decoder as dec_kernel
 from msfno_torch.ops.kernels.grid_mlp import grid_mlp, prepare_weights
 from msfno_torch.ops.kernels.spectral_mlp import pack_weights, spectral_mlp
+from msfno_torch.ops.sht import RealSHT
+from msfno_torch.parallel.annotate import (
+    active_mesh,
+    current_shard,
+    gather_channels,
+    gather_rows,
+    local_channels,
+    local_view,
+    real_rows,
+    shard_rows,
+    sum_over_lat,
+)
+from msfno_torch.parallel.sharded_train import local_param
 from msfno_torch.runtime import DerivedCache, torch_dtype
 
 
@@ -74,13 +100,17 @@ def new_param(shape, device, gen=None, init: str = "zeros", std: float = 0.02):
     return nn.Parameter(t)
 
 
-def dropout(x: torch.Tensor, rate: float, rng: torch.Generator, shape=None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, rng: torch.Generator, shape=None,
+            view=None) -> torch.Tensor:
     """Inverted dropout (flax nn.Dropout): keep each element with
     probability 1 - rate, scaled by 1 / (1 - rate).  `shape` is the mask's
-    (broadcast against x), by default x's."""
+    (broadcast against x), by default x's; under a mesh it is the whole
+    field's and `view` picks this rank's part of the mask."""
     keep = 1.0 - rate
     mask = torch.rand(x.shape if shape is None else shape, generator=rng,
                       device=x.device) < keep
+    if view is not None:
+        mask = view(mask)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -120,13 +150,23 @@ class Conv1x1(nn.Module):
         return self.weight[:, :, 0, 0].t()
 
 
-def dense(x: torch.Tensor, conv: Conv1x1, dtype: torch.dtype) -> torch.Tensor:
+def dense(x: torch.Tensor, conv: Conv1x1, dtype: torch.dtype, cols=None) -> torch.Tensor:
     """x @ W (+ b) with input, kernel and output in `dtype` (flax Dense with
-    dtype=...)."""
-    y = x.to(dtype) @ conv.dense().to(dtype)
-    if conv.bias is not None:
-        y = y + conv.bias.to(dtype)
+    dtype=...); with `cols` = (start, stop) the output columns in that range
+    only."""
+    w, b = conv.dense(), conv.bias
+    if cols is not None:
+        w = w[:, cols[0]:cols[1]]
+        b = None if b is None else b[cols[0]:cols[1]]
+    y = x.to(dtype) @ w.to(dtype)
+    if b is not None:
+        y = y + b.to(dtype)
     return y
+
+
+def _full_mask_shape(x: torch.Tensor, nlat: int, c: int) -> tuple:
+    """The whole field's (B, nlat, W, c) mask shape of a band x."""
+    return (x.shape[0], nlat, x.shape[-2], c)
 
 
 class Mlp(nn.Module):
@@ -148,7 +188,8 @@ class Mlp(nn.Module):
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  output_bias: bool = True, dtype="float32", use_pallas: bool = False,
                  mxu_dtype: str = "bfloat16", out_dtype=None, with_stats: bool = False,
-                 drop_rate: float = 0.0, device=None, gen=None):
+                 drop_rate: float = 0.0, nlat: int = 0, shard_out: bool = True,
+                 device=None, gen=None):
         super().__init__()
         self.fwd = nn.ModuleDict({
             "0": Conv1x1(in_features, hidden_features, True, device, gen),
@@ -160,9 +201,16 @@ class Mlp(nn.Module):
         self.mxu_dtype = mxu_dtype
         self.with_stats = with_stats
         self.drop_rate = drop_rate
+        # under a mesh: the grid's row count (whole dropout masks) and
+        # whether the output is channel-sharded (the embedding) or whole
+        self.nlat = nlat
+        self.shard_out = shard_out
         self._cache = DerivedCache()
 
     def forward(self, x, pe=None, affine=None, residual=None, spectral_cs=None, rng=None):
+        shard = current_shard()
+        if shard is not None:
+            return self._forward_sharded(x, pe, affine, residual, rng, shard)
         fc1, fc2 = self.fwd["0"], self.fwd["2"]
         dropping = self.drop_rate > 0.0 and rng is not None
         if spectral_cs is not None:
@@ -210,6 +258,36 @@ class Mlp(nn.Module):
         if self.with_stats:
             return y, spatial_stats(y)
         return y
+
+    def _forward_sharded(self, x, pe, affine, residual, rng, shard):
+        """This rank's share under a mesh: x a band of rows with its share
+        of the channels (or all of them: the raw input), the input channels
+        gathered, the hidden layer whole, this rank's output channels (all
+        of them with shard_out False).  With with_stats the statistics are
+        left to the norm: (y, None)."""
+        fc1, fc2 = self.fwd["0"], self.fwd["2"]
+        dropping = self.drop_rate > 0.0 and rng is not None
+        if affine is not None:
+            a, b = affine
+            x = x.float() * a.float() + b.float()
+        if x.shape[-1] != fc1.weight.shape[1]:
+            x = gather_channels(x, shard=shard)
+        h = torch.nn.functional.gelu(dense(x, fc1, self.dtype), approximate="none")
+        if dropping:
+            h = dropout(h, self.drop_rate, rng, _full_mask_shape(h, self.nlat, h.shape[-1]),
+                        lambda m: local_view(m, row_dim=1, shard=shard))
+        c_out = fc2.weight.shape[0]
+        cols = shard.channels(c_out) if self.shard_out else None
+        y = dense(h, fc2, self.dtype, cols)
+        if dropping:
+            y = dropout(y, self.drop_rate, rng, _full_mask_shape(y, self.nlat, c_out),
+                        lambda m: local_view(m, row_dim=1, chan_dim=-1 if self.shard_out
+                                             else None, shard=shard))
+        if pe is not None:
+            y = y + pe.to(y.dtype)
+        if residual is not None:
+            y = y + residual.to(y.dtype)
+        return (y, None) if self.with_stats else y
 
     def _encode_spectral(self, x, pe, cs):
         """The fused encoder -> spectral head (JAX Mlp with spectral_cs):
@@ -262,7 +340,12 @@ class BigSkipMlp(nn.Module):
 
     def forward(self, x, residual):
         fc1, fc2 = self.fwd["0"], self.fwd["2"]
-        if isinstance(x, tuple):
+        shard = current_shard()
+        if shard is not None:
+            # under a mesh: the channels gathered, the whole output on this
+            # rank's band (the plain path below)
+            x = gather_channels(x, shard=shard)
+        elif isinstance(x, tuple):
             hm, a, b, mt = x
             w1, w2 = fc1.dense(), fc2.dense()
             prepared = None
@@ -275,7 +358,7 @@ class BigSkipMlp(nn.Module):
                 hm, residual, mt, a, b, w1, fc1.bias, w2, fc2.bias,
                 mxu_dtype=self.mxu_dtype, out_dtype=self.out_dtype, prepared=prepared,
             )
-        if self.use_pallas:
+        if self.use_pallas and shard is None:
             w1, w2 = fc1.dense(), fc2.dense()
             prepared = None
             if x.is_cuda:
@@ -303,16 +386,26 @@ class InstanceNorm(nn.Module):
     folding into a downstream linear op.  `stats=(ssum, ssq, count)` takes
     precomputed spatial sums instead of reading x."""
 
-    def __init__(self, c: int, eps: float = 1e-6, device=None):
+    def __init__(self, c: int, eps: float = 1e-6, nlat: int = 0, device=None):
         super().__init__()
         self.weight = new_param((c,), device, init="ones")
         self.bias = new_param((c,), device)
         self.eps = eps
+        self.nlat = nlat  # the grid's rows: under a mesh, x is a band of them
 
     def forward(self, x, return_affine: bool = False, stats=None):
         in_dtype = x.dtype
         c = x.shape[-1]
-        if stats is not None:
+        shard = current_shard()
+        if shard is not None and stats is None:
+            # this band's real rows, summed over the lat group
+            dims = (-3, -2)
+            xr = real_rows(x, self.nlat, shard=shard)
+            sums = torch.stack([xr.sum(dim=dims, keepdim=True, dtype=torch.float32),
+                                (xr.float() * xr.float()).sum(dim=dims, keepdim=True)])
+            sums = sum_over_lat(sums, shard) / (self.nlat * x.shape[-2])
+            mean, mean_sq = sums[0], sums[1]
+        elif stats is not None:
             ssum, ssq, count = stats
             shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (c,)
             mean = (ssum.float() / count).reshape(shape)
@@ -329,6 +422,8 @@ class InstanceNorm(nn.Module):
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
         inv = torch.rsqrt(var + self.eps)
         scale, bias = self.weight.float(), self.bias.float()
+        if shard is not None:
+            scale, bias = local_channels(scale, shard=shard), local_channels(bias, shard=shard)
         a, b = inv * scale, bias - mean * inv * scale
         if return_affine:
             return a, b
@@ -349,11 +444,24 @@ class SpatialLayerNorm(nn.Module):
 
     def forward(self, x):
         x32 = x.float()
-        mean = x32.mean(dim=(-3, -2), keepdim=True)
-        mean_sq = (x32 * x32).mean(dim=(-3, -2), keepdim=True)
+        shard = current_shard()
+        weight, bias = self.weight, self.bias
+        if shard is None:
+            mean = x32.mean(dim=(-3, -2), keepdim=True)
+            mean_sq = (x32 * x32).mean(dim=(-3, -2), keepdim=True)
+        else:
+            # this band's real rows, summed over the lat group; the affine's
+            # rows are the band's
+            h, w = weight.shape
+            xr = real_rows(x32, h, shard=shard)
+            sums = torch.stack([xr.sum(dim=(-3, -2), keepdim=True),
+                                (xr * xr).sum(dim=(-3, -2), keepdim=True)])
+            sums = sum_over_lat(sums, shard) / (h * w)
+            mean, mean_sq = sums[0], sums[1]
+            weight, bias = shard_rows(weight, 0, shard), shard_rows(bias, 0, shard)
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight[..., None] + self.bias[..., None]).to(x.dtype)
+        return (y * weight[..., None] + bias[..., None]).to(x.dtype)
 
 
 class ComplexReLUBias(nn.Module):
@@ -363,6 +471,66 @@ class ComplexReLUBias(nn.Module):
     def __init__(self, hidden: int, device=None):
         super().__init__()
         self.bias = new_param((hidden, 1, 1), device)
+
+
+class _GatheredRows:
+    """A planar FFT under a lat axis > 1 (the JAX package has no sharded
+    FFT): the band's rows gathered over the lat group, the plain forward
+    transform on the whole grid, its whole spectrum on every lat rank."""
+
+    def __init__(self, fwd, shard):
+        self.t, self.shard = fwd, shard
+        self.lmax, self.mmax = fwd.lmax, fwd.mmax
+
+    def __call__(self, x):
+        return self.t(gather_rows(x, self.t.nlat, shard=self.shard))
+
+
+class _ScatteredRows:
+    """The inverse of `_GatheredRows`: the plain inverse transform on the
+    whole grid, then this rank's band of it."""
+
+    def __init__(self, inv, shard):
+        self.t, self.shard = inv, shard
+
+    def __call__(self, y, out_dtype=torch.float32):
+        return shard_rows(self.t(y, out_dtype=out_dtype), shard=self.shard)
+
+
+def spectral_transforms(fwd, inv):
+    """The transforms of a spectral filter under the active mesh (JAX
+    layers.py:76-95): the SHTs become the all_to_all sharded pair under any
+    mesh with lat or channel > 1 (with lat = 1 the exchange is the
+    identity), planar FFTs gather their rows under lat > 1; without such a
+    mesh the plain pair.  Built once per mesh."""
+    shard = current_shard()
+    if shard is None or (shard.lat == 1 and not isinstance(fwd, RealSHT)):
+        return fwd, inv
+    mesh = active_mesh()
+    cache = mesh.__dict__.setdefault("_msfno_transforms", {})
+    key = (id(fwd), id(inv))
+    if key not in cache:
+        if isinstance(fwd, RealSHT):
+            from msfno_torch.parallel.sharded_sht import make_sharded_transforms
+
+            cache[key] = make_sharded_transforms(fwd, inv, mesh, "lat")
+        else:
+            cache[key] = (_GatheredRows(fwd, shard), _ScatteredRows(inv, shard))
+    return cache[key]
+
+
+def local_orders(fwd) -> np.ndarray:
+    """The orders m of a forward transform's mode positions on this rank
+    (an m-shard's, in its layout; values >= mmax are padding)."""
+    orders = getattr(fwd, "local_orders", None)
+    return np.arange(fwd.mmax) if orders is None else orders
+
+
+def _mode_mask_view(orders: np.ndarray, mmax: int):
+    """A whole (B, L, mmax, C) spectral dropout mask -> this rank's mode
+    positions (padded positions take any row: their modes are discarded)."""
+    idx = torch.as_tensor(np.minimum(orders, mmax - 1))
+    return lambda m: m.index_select(-2, idx.to(m.device))
 
 
 class SpectralAttentionS2(nn.Module):
@@ -405,18 +573,51 @@ class SpectralAttentionS2(nn.Module):
     def weights(self) -> list[torch.Tensor]:
         return [*self.w, self.wout]
 
-    def _mlp(self, z, rng=None):
+    def _mlp(self, z, rng=None, cols=None, mask=None):
         """The complex MLP without the kernel (the JAX package's compl_mul +
-        complex_relu chain), with dropout when given `rng`."""
+        complex_relu chain), with dropout when given `rng`.  Under a mesh:
+        `cols` the output channels to compute and `mask` = (the whole mode
+        count, the view of this rank's modes) of the dropout mask."""
         bias = None if self.activation is None else self.activation.bias.reshape(-1)
         for w in self.w:
             z = complex_relu(compl_mul(z, w, self.mxu_dtype), self.complex_activation,
                              bias=bias)
             if rng is not None:
-                z = dropout(z, self.drop_rate, rng, z.shape[1:])
-        return compl_mul(z, self.wout, self.mxu_dtype)
+                if mask is None:
+                    z = dropout(z, self.drop_rate, rng, z.shape[1:])
+                else:
+                    shape = z.shape[1:-2] + (mask[0], z.shape[-1])
+                    z = dropout(z, self.drop_rate, rng, shape, mask[1])
+        wout = self.wout if cols is None else self.wout[:, cols[0]:cols[1]]
+        return compl_mul(z, wout, self.mxu_dtype)
+
+    def _forward_sharded(self, x, norm_affine, rng, shard):
+        """This rank's share under a mesh: its band in, its m-shard of the
+        spectrum (`spectral_transforms`), the channels gathered for the
+        complex MLP, its output channels, its band out."""
+        fwd, inv = spectral_transforms(self.forward_transform, self.inverse_transform)
+        in_dtype = x.dtype
+        z = fwd(x)
+        orders = local_orders(fwd)
+        if norm_affine is not None:
+            a, b = norm_affine  # (B, 1, 1, C_local) fp32 each
+            bsz, c = a.shape[0], a.shape[-1]
+            z = z * a.reshape(1, bsz, 1, 1, c).float()
+            if orders[0] == 0:  # only the rank holding m = 0 adds b * SHT(1)
+                s0 = self.forward_transform._const("s0", z.device)
+                z[0, :, :, 0, :] += b.reshape(bsz, 1, c).float() * s0.reshape(1, -1, 1)
+        z = gather_channels(z, shard=shard)
+        dropping = self.drop_rate > 0.0 and rng is not None
+        mask = (fwd.mmax, _mode_mask_view(orders, fwd.mmax))
+        z = self._mlp(z, rng if dropping else None, shard.channels(self.wout.shape[1]), mask)
+        return inv(z, out_dtype=in_dtype)
 
     def forward(self, x, norm_affine=None, defer_inverse: bool = False, rng=None):
+        shard = current_shard()
+        if shard is not None:
+            if defer_inverse or isinstance(x, SpectralGridIn):
+                raise ValueError("the fused head and tail do not run under a mesh")
+            return self._forward_sharded(x, norm_affine, rng, shard)
         if isinstance(x, SpectralGridIn):
             # the longitude DFT already ran inside the fused encoder kernel
             in_dtype = x.f.dtype
@@ -479,6 +680,9 @@ class SpectralConvS2(nn.Module):
         self.compression = compression
 
     def forward(self, x):
+        shard = current_shard()
+        if shard is not None:
+            return self._forward_sharded(x, shard)
         in_dtype = x.dtype
         z = self.forward_transform(x)  # (2, B, L, M, C)
         ii, jj = self.tril_l, self.tril_m
@@ -490,6 +694,36 @@ class SpectralConvS2(nn.Module):
         y = z.new_zeros(z.shape[:-1] + (yk.shape[-1],))
         y[:, :, ii, jj, :] = yk
         return self.inverse_transform(y, out_dtype=in_dtype)
+
+    def _forward_sharded(self, x, shard):
+        """This rank's share under a mesh (JAX layers.py:606-620): the
+        triangular modes of its m-shard, found through the shard's layout
+        (`mode_inv`), the channels gathered, its output channels of the
+        per-mode product (`w` sharded over them)."""
+        fwd, inv = spectral_transforms(self.forward_transform, self.inverse_transform)
+        z = gather_channels(fwd(x), shard=shard)  # (2, B, L, q, C)
+        orders = local_orders(fwd)
+        mmax = self.forward_transform.mmax
+        pos_of = np.full(mmax, -1)
+        real = orders < mmax
+        pos_of[orders[real]] = np.nonzero(real)[0]
+        ii, jj = self.tril_l.cpu().numpy(), self.tril_m.cpu().numpy()
+        ks = np.nonzero(pos_of[jj] >= 0)[0]
+        dev = z.device
+        li = torch.as_tensor(ii[ks], device=dev)
+        pj = torch.as_tensor(pos_of[jj[ks]], device=dev)
+        kt = torch.as_tensor(ks, device=dev)
+        zk = z[:, :, li, pj, :]  # (2, B, K_local, C)
+        c0, c1 = shard.channels(z.shape[-1])
+        if self.compression == "tt":
+            g1, g2, g3 = self.w
+            yk = contract_tt(zk, g1[c0:c1], g2, g3.index_select(1, kt))
+        else:
+            w = local_param(self.w, ("channel", None, None, None), shard)
+            yk = compl_contract_tril(zk, w.permute(2, 1, 0, 3).index_select(0, kt))
+        y = z.new_zeros(z.shape[:-1] + (c1 - c0,))
+        y[:, :, li, pj, :] = yk
+        return inv(y, out_dtype=x.dtype)
 
 
 class SpectralConv2d(nn.Module):
@@ -508,6 +742,14 @@ class SpectralConv2d(nn.Module):
                             forward_transform.mmax, 2), device, gen, "normal", scale)
 
     def forward(self, x):
+        shard = current_shard()
+        if shard is not None:
+            # the whole spectrum on every lat rank (`spectral_transforms`),
+            # the channels gathered, this rank's output channels
+            fwd, inv = spectral_transforms(self.forward_transform, self.inverse_transform)
+            z = gather_channels(fwd(x), shard=shard)
+            w = local_channels(self.w, 0, shard)
+            return inv(compl_contract_dense(z, w.permute(2, 3, 1, 0, 4)), out_dtype=x.dtype)
         z = self.forward_transform(x)
         y = compl_contract_dense(z, self.w.permute(2, 3, 1, 0, 4))  # (L, M, in, out, 2)
         return self.inverse_transform(y, out_dtype=x.dtype)

@@ -24,6 +24,16 @@ with `seed` (load real ones with `load_state_dict`).  A forward given a
 `torch.Generator` as `rng` trains: dropout (`drop_rate`) and drop-path
 (`drop_path_rate`, rising linearly over the blocks from 0) act, and the
 kernels that JAX bypasses under dropout take their plain paths.
+
+Under a mesh with lat or channel > 1 (`parallel.annotate.use_mesh`) a
+forward still takes and returns whole fields: each rank takes its band of
+the input's rows, computes its band and channels through the blocks (the
+pos_embed as its (lat, channel) shard, the encoder writing its channels,
+the decoder gathering them for its 256 -> 73 product on its band, the big
+skip from its band of the input) and the output's bands are gathered over
+the lat group.  The block kernels and the fused head and tail are off
+there, as the JAX package gates them under a mesh; the FiLM generator sees
+the same SST on every rank and keeps its gcn_layer kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +47,9 @@ from msfno_torch.models.sfno.blocks import FourierNeuralOperatorBlock
 from msfno_torch.models.sfno.layers import BigSkipMlp, Mlp, SpectralGridIn, new_param
 from msfno_torch.ops.fft import InverseRealFFT2, RealFFT2
 from msfno_torch.ops.sht import InverseRealSHT, RealSHT
+from msfno_torch.parallel.annotate import current_shard, gather_rows, shard_rows
+from msfno_torch.parallel.mesh import param_pspec
+from msfno_torch.parallel.sharded_train import local_param
 from msfno_torch.runtime import DerivedCache, resolve_device, torch_dtype
 
 
@@ -102,8 +115,8 @@ def _block_kwargs(cfg: SFNOConfig, i: int, transforms) -> dict:
 
 def _encoder_fusible(cfg: SFNOConfig) -> bool:
     """The JAX gate of the fused encoder->spectral kernel
-    (grid_encoder_spectral).  The JAX gate's `active_mesh() is None` term is
-    always true here: this package has no mesh."""
+    (grid_encoder_spectral); its `active_mesh() is None` term is read at
+    each forward."""
     return (cfg.fuse_encoder_dft and cfg.pallas_grid_mlp
             and cfg.filter_type == "non-linear" and cfg.spectral_transform == "sht"
             and cfg.normalization_layer == "instance_norm" and cfg.fuse_norm_sht
@@ -112,8 +125,8 @@ def _encoder_fusible(cfg: SFNOConfig) -> bool:
 
 def _tail_fusible(cfg: SFNOConfig) -> bool:
     """The JAX gate of the fused spectral->output decoder tail
-    (spectral_decoder).  The JAX gate's `active_mesh() is None` term is
-    always true here: this package has no mesh."""
+    (spectral_decoder); its `active_mesh() is None` term is read at each
+    forward."""
     return (cfg.fuse_decoder_tail and cfg.pallas_grid_mlp and cfg.big_skip
             and cfg.filter_type == "non-linear" and cfg.spectral_transform == "sht"
             and cfg.normalization_layer == "instance_norm" and cfg.fuse_norm_sht
@@ -149,7 +162,7 @@ class FourierNeuralOperatorNet(nn.Module):
             cfg.in_chans, cfg.embed_dim, cfg.embed_dim, output_bias=False,
             dtype=dtype, use_pallas=cfg.pallas_grid_mlp,
             mxu_dtype=cfg.grid_mlp_mxu_dtype, with_stats=self.want_stats,
-            device=device, gen=gen,
+            nlat=cfg.img_size[0], device=device, gen=gen,
         )
         if cfg.pos_embed:
             h, w = cfg.img_size
@@ -185,7 +198,7 @@ class FourierNeuralOperatorNet(nn.Module):
                 cfg.embed_dim, cfg.embed_dim, cfg.out_chans, output_bias=False,
                 dtype=dtype, use_pallas=cfg.pallas_grid_mlp,
                 mxu_dtype=cfg.grid_mlp_mxu_dtype, out_dtype=self.out_dtype,
-                device=device, gen=gen,
+                nlat=cfg.img_size[0], shard_out=False, device=device, gen=gen,
             )
         self._cache = DerivedCache()
 
@@ -195,6 +208,10 @@ class FourierNeuralOperatorNet(nn.Module):
         being trained."""
         if self.pos_embed is None:
             return None
+        shard = current_shard()
+        if shard is not None:  # this rank's (lat, channel) shard
+            pe = local_param(self.pos_embed, param_pspec("pos_embed", self.pos_embed), shard)
+            return pe[0].permute(1, 2, 0).to(self.dtype)
         build = lambda: self.pos_embed[0].permute(1, 2, 0).to(self.dtype).contiguous()
         trained = torch.is_grad_enabled() and self.pos_embed.requires_grad
         if x.is_cuda and self.cfg.pallas_grid_mlp and not trained:
@@ -204,7 +221,7 @@ class FourierNeuralOperatorNet(nn.Module):
     def _encode(self, x):
         """(block 0's input, its norm0 statistics or None): a SpectralGridIn
         of the longitude modes when the fused head engages."""
-        if self.fuse_dft:
+        if self.fuse_dft and current_shard() is None:
             cs = self.transforms[0]._const("merged", x.device)
             f, stats = self.encoder(x, pe=self._pos_embed(x), spectral_cs=cs)
             return SpectralGridIn(f), stats
@@ -236,11 +253,19 @@ class FourierNeuralOperatorNet(nn.Module):
                 x = blk(x, None, None, 1.0, s_i, rng=rng)
         return x
 
-    def forward(self, x, rng=None):
+    def _forward(self, x, gamma=None, beta=None, scale=1.0, rng=None):
+        shard = current_shard()
+        nlat = x.shape[-3]
+        if shard is not None:
+            x = shard_rows(x, shard=shard)
         residual = x
         x, stats = self._encode(x)
-        x = self._run_blocks(x, stats, rng=rng)
-        return self._decode(x, residual)
+        x = self._run_blocks(x, stats, gamma, beta, scale, rng)
+        y = self._decode(x, residual)
+        return y if shard is None else gather_rows(y, nlat, shard=shard)
+
+    def forward(self, x, rng=None):
+        return self._forward(x, rng=rng)
 
 
 class FourierNeuralOperatorNetFilmed(FourierNeuralOperatorNet):
@@ -259,8 +284,4 @@ class FourierNeuralOperatorNetFilmed(FourierNeuralOperatorNet):
 
     def forward(self, x, sst, scale=1.0, rng=None):
         film_mod = self.film_gen(sst, rng=rng)  # (B, 2, film_layers, C)
-        gamma, beta = film_mod[:, 0], film_mod[:, 1]
-        residual = x
-        x, stats = self._encode(x)
-        x = self._run_blocks(x, stats, gamma, beta, scale, rng)
-        return self._decode(x, residual)
+        return self._forward(x, film_mod[:, 0], film_mod[:, 1], scale, rng)

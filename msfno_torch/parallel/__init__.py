@@ -1,5 +1,7 @@
-"""Data-parallel training over torch.distributed (port of msfno_tpu/parallel,
-the data axis; the lat and channel axes are ROADMAP Queue 1 item 7)."""
+"""The (data, lat, channel) mesh over torch.distributed (port of
+msfno_tpu/parallel): the mesh and its layout rules, the active mesh and the
+model's explicit collectives, the all_to_all sharded SHT and training over
+the mesh."""
 
 from msfno_torch.parallel.distributed import (  # noqa: F401
     initialize_distributed,

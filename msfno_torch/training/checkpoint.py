@@ -16,6 +16,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import sys
 import zipfile
 from typing import Any
 
@@ -28,10 +29,13 @@ SCHEDULERS = ("none", "cosine", "step")
 
 
 def _cpu(tree):
+    """The tree on the host, its keys interned: pickle writes an equal key
+    once per object, so a file's bytes then depend on its values only (a
+    sharded run's file is the unsharded run's, byte for byte)."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
     if isinstance(tree, dict):
-        return {k: _cpu(v) for k, v in tree.items()}
+        return {sys.intern(k) if isinstance(k, str) else k: _cpu(v) for k, v in tree.items()}
     return tree
 
 

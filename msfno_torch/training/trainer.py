@@ -15,13 +15,19 @@ or torch tensors (a bf16 transfer).  With dropout or drop-path set, each
 step draws its masks from one `torch.Generator` seeded from the config's
 seed and the step.
 
-With `mesh=` (a data-only `parallel.mesh.make_mesh`), each process trains a
-whole replica on its local batch: the state starts as rank 0's, the
-trainable gradients and the loss are all-reduced over the data group before
-the optimizer step (`parallel.sharded_train`): summed for a loss that sums
-over samples, averaged for one that averages, so that they are the global
-batch's.  Validation metrics are averaged over the group, and rank 0 writes
-the checkpoints.
+With `mesh=` (`parallel.mesh.make_mesh`, any D,L,C), each data rank trains
+on its local batch and each (lat, channel) model group holds one replica
+between its ranks: the forwards run under the mesh (`use_mesh`; every rank
+computes its band and channels and the output is gathered, so the losses
+and metrics are computed alike on every rank of a model group and seeded
+on one), the state starts as rank 0's with the pos_embed and the
+SpectralConvS2 weight kept as shards, and the gradients are reduced before
+the optimizer step (`parallel.sharded_train`): over the model group as
+their parameters' placement asks, then over the data group, summed for a
+loss that sums over samples and averaged for one that averages, so that
+they are the global batch's.  Validation metrics are averaged over the
+data group.  Checkpoints hold the whole tensors (gathered over the model
+groups), rank 0 writes them, and `restore` takes a file onto any mesh.
 """
 
 from __future__ import annotations
@@ -40,7 +46,16 @@ from msfno_torch.config import SFNOConfig, TrainConfig, to_json
 from msfno_torch.data.normalization import Normalizer, SSTNormalizer
 from msfno_torch.data.synthetic import Batch, gen_batch, synthetic_loader
 from msfno_torch.models import FourierNeuralOperatorNet, FourierNeuralOperatorNetFilmed
-from msfno_torch.parallel.sharded_train import all_reduce, data_group, shard_state
+from msfno_torch.parallel.annotate import loss_seed, use_mesh
+from msfno_torch.parallel.sharded_train import (
+    data_group,
+    grad_norm,
+    local_of,
+    reduce_gradients,
+    reslice_moments,
+    shard_state,
+    whole_state,
+)
 from msfno_torch.runtime import resolve_device
 from msfno_torch.training import checkpoint as ckpt_io
 from msfno_torch.training.losses import get_loss, sums_over_samples
@@ -120,8 +135,8 @@ class TrainState:
 
 class Trainer:
     """Drives training and validation of SFNO and filmed-SFNO models on one
-    device (CUDA unless `device="cpu"`), data-parallel over the ranks of a
-    `mesh`."""
+    device (CUDA unless `device="cpu"`), over the ranks of a `mesh`: the
+    batch over its data axis, the model over its lat and channel axes."""
 
     def __init__(self, model_cfg: SFNOConfig, train_cfg: TrainConfig,
                  normalizer: Normalizer | None = None,
@@ -130,8 +145,10 @@ class Trainer:
                  device=None, mesh=None):
         self.mesh = mesh
         self._group, self.world, self.rank = None, 1, 0
+        self.is_writer = not dist.is_initialized() or dist.get_rank() == 0
         if mesh is not None:
-            self._group = data_group(mesh)  # raises for lat or channel > 1
+            # world and rank: the data axis's (a model group trains as one)
+            self._group = data_group(mesh)
             self.world, self.rank = dist.get_world_size(self._group), dist.get_rank(self._group)
         self.cfg = model_cfg
         self.tcfg = train_cfg
@@ -197,11 +214,12 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
     def _apply(self, x, sst, scale, rng=None):
-        """The model's forward; with `rng` in training mode (dropout and
-        drop-path act)."""
-        if self.filmed:
-            return self.model(x, sst, scale, rng=rng)
-        return self.model(x, rng=rng)
+        """The model's forward, under the trainer's mesh; with `rng` in
+        training mode (dropout and drop-path act)."""
+        with use_mesh(self.mesh):
+            if self.filmed:
+                return self.model(x, sst, scale, rng=rng)
+            return self.model(x, rng=rng)
 
     def _to_device(self, x) -> torch.Tensor:
         """A batch field (numpy array or torch tensor) on the device, its
@@ -244,8 +262,9 @@ class Trainer:
         rng = self._train_rng(state.step) if self._has_dropout else None
         loss, per_step = self._rollout_loss(era5, sst, state.film_scale, rng)
         names = list(state.trainable)
-        grads = torch.autograd.grad(loss, [state.trainable[n] for n in names],
-                                    allow_unused=True)
+        with use_mesh(self.mesh):  # the backward's collectives, once per model group
+            grads = torch.autograd.grad(loss_seed(loss), [state.trainable[n] for n in names],
+                                        allow_unused=True)
         grads = {n: torch.zeros_like(state.trainable[n]) if g is None else g
                  for n, g in zip(names, grads)}
         return loss.detach(), per_step.detach(), grads
@@ -258,9 +277,9 @@ class Trainer:
         averages."""
         loss, per_step, grads = self.loss_and_grads(state, era5, sst)
         if self.mesh is not None:
-            all_reduce(list(grads.values()) + [loss, per_step], self._group,
-                       mean=not sums_over_samples(self.tcfg.loss_fn))
-        gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+            reduce_gradients(grads, state.trainable, self.mesh, [loss, per_step],
+                             mean=not sums_over_samples(self.tcfg.loss_fn))
+        gnorm = grad_norm(grads, state.trainable, self.mesh)
         self.tx.step(state.trainable, grads, state.opt_state)
         state.step += 1
         return state, {"loss": loss, "per_step": per_step, "grad_norm": gnorm}
@@ -448,7 +467,8 @@ class Trainer:
             metrics["gamma mean"] = float(film_mod[:, 0].mean())
             metrics["beta mean"] = float(film_mod[:, 1].mean())
         if self.mesh is not None:  # the reference's all_reduce(SUM) / world
-            vals = torch.tensor(list(metrics.values()), dtype=torch.float64, device=self.device)
+            vals = torch.tensor(list(metrics.values()), dtype=torch.float64,
+                                device=self._host_or_device())
             dist.all_reduce(vals, group=self._group)
             metrics = dict(zip(metrics, (vals / self.world).tolist()))
         if t.advanced_logging:
@@ -474,28 +494,34 @@ class Trainer:
         grace = min(15 * 60, t.time_limit_s / 2)
         stop = time.time() - self._start_time > t.time_limit_s - grace
         if self.mesh is not None:  # every rank stops at the same step
-            flag = torch.tensor([float(stop)], device=self.device)
-            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
+            flag = torch.tensor([float(stop)], device=self._host_or_device())
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
             stop = bool(flag.item())
         if stop:
             raise FinTraining("time limit reached")
 
+    def _host_or_device(self):
+        """Where a small collective's tensor lives: the host for gloo (which
+        may lack the collective for card tensors), else the device."""
+        return "cpu" if dist.get_backend() == "gloo" else self.device
+
     def save_checkpoint(self, state: TrainState, tag: str = "") -> str | None:
         """Write the state as this package's `.pt` checkpoint; under a mesh
-        rank 0 writes it (every rank holds the whole replica) and the ranks
-        meet at a barrier after."""
+        the shards are gathered whole (the file an unsharded run writes),
+        rank 0 writes it and the ranks meet at a barrier after."""
         if self.checkpoint_dir is None:
             return None
         name = f"checkpoint_iter={self.iter}_epoch={self.epoch}{tag}.pt"
         path = os.path.join(self.checkpoint_dir, name)
-        if self.rank == 0:
-            ckpt_io.save_checkpoint(path, state.params, opt_state=state.opt_state,
+        params, opt_state = whole_state(state)
+        if self.is_writer:
+            ckpt_io.save_checkpoint(path, params, opt_state=opt_state,
                                     step=self.iter, epoch=self.epoch,
                                     config_json=to_json(self.cfg),
                                     extra={"film_scale": float(state.film_scale)})
             self.writer.save(f"_epoch{self.epoch}")
         if self.mesh is not None:
-            dist.barrier(group=self._group)
+            dist.barrier()
         return path
 
     def save_data(self, loader, out_dir: str, num_batches: int = 4) -> str:
@@ -589,8 +615,8 @@ class Trainer:
             path, with_opt_state=resume_optimizer, train_cfg=self.tcfg)
         with torch.no_grad():
             for name, p in self.model.named_parameters():
-                if name in params:
-                    p.copy_(params[name].to(p.dtype))
+                if name in params:  # a parameter that holds a shard takes its part
+                    p.copy_(local_of(params[name].to(p.device), p).to(p.dtype))
         state.step = int(meta.get("step", 0))
         state.film_scale = float(meta.get("film_scale", self.tcfg.film_scale_start))
         if resume_optimizer and opt_state is not None:
@@ -599,6 +625,7 @@ class Trainer:
                 raise ValueError(f"{path}: the optimizer state's parameters are not this "
                                  "trainer's trainable ones")
             state.opt_state = _to_device(opt_state, self.device)
+            reslice_moments(state)
         elif resume_scheduler:
             state.opt_state = fast_forward_schedule(state.opt_state, state.step)
         self.iter = state.step
@@ -636,7 +663,7 @@ def save_forecast(trainer: Trainer, state: TrainState, batches, steps: int, out_
     for batch in batches:
         sst_seq = batch.sst[1:steps + 1] if batch.sst is not None else None
         states = _states(trainer.model, batch.era5[0], steps, sst_seq, trainer.normalizer,
-                         trainer.sst_normalizer, float(state.film_scale))
+                         trainer.sst_normalizer, float(state.film_scale), trainer.mesh)
         fc = np.stack([trainer.normalizer(s.float(), reverse=True).cpu().numpy()
                        for s in states])  # (steps, B, H, W, C)
         for b in range(fc.shape[1] if writer is not None else 0):

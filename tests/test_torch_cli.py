@@ -406,10 +406,35 @@ def test_store_train_run_with_date_and_sst_windows(tmp_path, cli_store, monkeypa
     assert calls == [3, 4, 5, 5, 6]  # the guard read, then windows [4, 5], [5, 6]
 
 
+@pytest.mark.parametrize("action,batch,world", [("--run", 1, 4), ("--train", 1, 4),
+                                                  ("--train", 2, 4), ("--run", 1, 8),
+                                                  ("--train", 1, 8), ("--eval-model", 1, 2)])
+def test_mesh_auto_follows_the_jax_policy(monkeypatch, action, batch, world):
+    """--mesh auto under a group of `world` processes: the JAX CLI's policy
+    (msfno_tpu/cli.py:611-621), training dealing the processes to the data
+    axis up to the global batch, every other action lat first."""
+    import types
+
+    from msfno_torch.parallel import distributed, mesh
+    from msfno_tpu.parallel.mesh import factorize as jax_factorize
+
+    monkeypatch.setattr(distributed, "initialize_distributed", lambda **kw: None)
+    monkeypatch.setattr(cli.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(cli.dist, "get_world_size", lambda group=None: world)
+    monkeypatch.setattr(mesh, "make_mesh", lambda shape: types.SimpleNamespace(
+        shape=shape, mesh_dim_names=mesh.AXES))
+    args = cli.build_parser().parse_args(TINY + [action, "--batch-size", str(batch)])
+    got = cli.resolve_mesh(args, "cpu").shape
+    want = jax_factorize(world, data_target=batch * world if action == "--train" else 1)
+    assert got == want
+    if action == "--run" and world == 4:
+        assert got == (1, 2, 2)
+
+
 def test_error_cases(tmp_path, cli_store):
     with pytest.raises(SystemExit, match="hour 0-23"):
         cli.main(TINY + ["--run", "--time", "1200", "--output-path", str(tmp_path)])
-    for mesh, match in (("2x2", "three comma-separated"), ("16,16,16", "Queue 1 item 7"),
+    for mesh, match in (("2x2", "three comma-separated"), ("16,16,16", "needs 4096 processes"),
                         ("2,1,1", "world size is 1")):
         with pytest.raises(SystemExit, match=match):
             cli.main(TINY + ["--train", "--mesh", mesh, "--output-path", str(tmp_path)])

@@ -5,14 +5,15 @@ is their worker, `python tests/test_torch_distributed.py MODE ...`); no
 process group is ever created in the pytest process.  (a) one data-parallel
 Trainer step against the JAX trainer's step on the global batch, (b) the CLI
 under torchrun against a one-process run with the global batch, (c)
-`measure_scaling` over one and two ranks."""
+`measure_scaling` over one and two ranks, (d) meshes with lat and channel >
+1 (eight ranks) and a Trainer on a 1,2,1 mesh (two ranks); the nets and the
+trainer under such meshes against JAX are tests/test_torch_sharded_model.py."""
 
 import json
 import os
 import socket
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -120,26 +121,57 @@ def test_factorize_matches_jax(data_target):
         assert factorize(n, data_target) == jax_factorize(n, data_target), n
 
 
-def test_make_mesh_refuses_lat_and_channel():
-    from msfno_torch.parallel.mesh import check_data_only, make_mesh
-
-    for shape in [(1, 2, 1), (1, 1, 2), (2, 2, 2)]:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            make_mesh(shape=shape)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        make_mesh(4)  # factorize(4) = (1, 2, 2): lat first
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        check_data_only(types.SimpleNamespace(mesh_dim_names=("data", "lat", "channel"),
-                                              shape=(2, 1, 2)))
+MESHES = {"1,2,1": (1, 2, 1), "1,1,2": (1, 1, 2), "2,2,2": (2, 2, 2),
+          "make_mesh(4)": (1, 2, 2)}
 
 
-def test_trainer_refuses_lat_mesh():
-    from msfno_torch.config import TrainConfig
-    from msfno_torch.training.trainer import Trainer
+@pytest.fixture(scope="module")
+def eight_rank_meshes(tmp_path_factory):
+    """Every rank's view of each mesh of MESHES, built in one spawn of 8
+    gloo ranks (a mesh of fewer ranks spans the first ones)."""
+    d = tmp_path_factory.mktemp("meshes")
+    _workers("meshes", d, world=8)
+    return [json.loads((d / f"meshes{r}.json").read_text()) for r in range(8)]
 
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "lat", "channel"), shape=(1, 2, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Trainer(TINY_CFG, TrainConfig(), device="cpu", mesh=mesh)
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_make_mesh_builds_lat_and_channel_meshes(eight_rank_meshes, name):
+    """make_mesh takes lat and channel > 1: the JAX package's row-major rank
+    layout (`devices.reshape(shape)`), the lat, channel and (lat, channel)
+    model groups of each rank, and make_mesh(4) = factorize(4) = (1, 2, 2)
+    over the first 4 ranks."""
+    shape = MESHES[name]
+    n = int(np.prod(shape))
+    grid = np.arange(n).reshape(shape)
+    for rank, views in enumerate(eight_rank_meshes):
+        v = views[name]
+        if rank >= n:
+            assert v is None
+            continue
+        d, l, c = (int(i[0]) for i in np.nonzero(grid == rank))
+        assert v["shape"] == list(shape)
+        assert (v["data"], v["lat"], v["channel"]) == (d, l, c)
+        assert v["lat_group"] == grid[d, :, c].tolist()
+        assert v["channel_group"] == grid[d, l, :].tolist()
+        assert v["model_group"] == grid[d].reshape(-1).tolist()
+        assert v["shard_rank"] == l * shape[2] + c
+
+
+def test_trainer_takes_a_lat_mesh(tmp_path):
+    """Trainer(mesh=) on a 1,2,1 mesh (two gloo ranks, the 16 rows split
+    over lat): one step equals the same trainer's step without a mesh, run
+    by rank 0 (loss and updated trainable within 1e-5), and the two ranks
+    hold the same trainable parameters."""
+    _workers("latstep", tmp_path)
+    res = [torch.load(tmp_path / f"latstep{r}.pt") for r in range(2)]
+    want = res[0]["one_process"]
+    for r in res:
+        loss_err = abs(r["loss"] - want["loss"]) / abs(want["loss"])
+        err = rel_l2(r["trainable"], want["trainable"])
+        print(f"parity lat mesh 1,2,1 trainer step loss rel={loss_err:.3e} rel_l2={err:.3e}")
+        assert loss_err <= 1e-5 and err <= 1e-5
+    for k, v in res[0]["trainable"].items():
+        assert torch.equal(v, res[1]["trainable"][k]), k
 
 
 def test_dropout_stream_folds_the_rank_only_above_one_rank():
@@ -427,6 +459,10 @@ def _worker(mode, rank, world, port, workdir):
     try:
         if mode == "step":
             _step_worker(rank, world, workdir, make_mesh(shape=(world, 1, 1)))
+        elif mode == "meshes":
+            _meshes_worker(rank, workdir)
+        elif mode == "latstep":
+            _lat_step_worker(rank, workdir, make_mesh(shape=(1, world, 1)))
         elif mode == "scaling":
             _scaling_worker(rank, workdir)
         else:
@@ -457,6 +493,56 @@ def _step_worker(rank, world, workdir, mesh):
                 "trainable": {k: v.detach() for k, v in state.trainable.items()},
                 "frozen": {k: v.detach() for k, v in state.frozen.items()}},
                os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def _meshes_worker(rank, workdir):
+    import torch.distributed as dist
+
+    from msfno_torch.parallel.mesh import make_mesh, mesh_sizes, model_shard
+
+    views = {}
+    for name in sorted(MESHES):
+        mesh = make_mesh(4) if name == "make_mesh(4)" else make_mesh(shape=MESHES[name])
+        if rank >= mesh.mesh.numel():
+            views[name] = None
+            continue
+        shard = model_shard(mesh)
+        ranks = lambda axis: dist.get_process_group_ranks(mesh.get_group(axis))  # noqa: E731
+        views[name] = {"shape": [mesh_sizes(mesh)[a] for a in ("data", "lat", "channel")],
+                       **{a: mesh.get_local_rank(a) for a in ("data", "lat", "channel")},
+                       "lat_group": ranks("lat"), "channel_group": ranks("channel"),
+                       "model_group": dist.get_process_group_ranks(shard.group),
+                       "shard_rank": shard.rank}
+    with open(os.path.join(workdir, f"meshes{rank}.json"), "w") as f:
+        json.dump(views, f)
+
+
+def _lat_step_worker(rank, workdir, mesh):
+    import dataclasses
+
+    from msfno_torch.config import TrainConfig
+    from msfno_torch.data.synthetic import gen_batch
+    from msfno_torch.parallel.sharded_train import whole_state
+    from msfno_torch.training.trainer import Trainer
+
+    cfg = dataclasses.replace(TINY_CFG, pos_embed=True)
+    tcfg = TrainConfig(batch_size=2, optimizer="sgd", learning_rate=1e-2)
+    b = gen_batch(cfg, 2, 0, seed=5)
+    out = {}
+    for key, m in (("mesh", mesh), ("one_process", None)):
+        if key == "one_process" and rank:
+            continue
+        tr = Trainer(cfg, tcfg, device="cpu", mesh=m)
+        state = tr.init_state()
+        state, metrics = tr._train_step(state, torch.from_numpy(b.era5), None)
+        params, _ = whole_state(state)
+        rec = {"loss": float(metrics["loss"]),
+               "trainable": {k: params[k] for k in state.trainable}}
+        if key == "mesh":
+            out.update(rec)
+        else:
+            out["one_process"] = rec
+    torch.save(out, os.path.join(workdir, f"latstep{rank}.pt"))
 
 
 def _scaling_worker(rank, workdir):

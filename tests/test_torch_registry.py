@@ -5,7 +5,6 @@ directory) as the JAX wrapper; a reference PyTorch checkpoint loads; the
 MAE and FourCastNet families build; the paths not ported yet raise."""
 
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -90,13 +89,17 @@ def test_reference_torch_checkpoint_loads(tmp_path):
         torch.testing.assert_close(dst.module.state_dict()[k], v, rtol=0, atol=0)
 
 
-# the lat and channel mesh axes are not ported (a data-only mesh is)
-LAT_MESH = types.SimpleNamespace(mesh_dim_names=("data", "lat", "channel"), shape=(1, 2, 1))
+def _restore_orbax(tmp):
+    """The wrapper's trainer resuming from a directory (an Orbax checkpoint)."""
+    tr = registry.get_model("sfno", cfg=dataclasses.replace(FUSED_FP32, film=None),
+                            device="cpu").trainer(tcfg.TrainConfig())
+    return tr.restore(tr.init_state(), str(tmp))
 
 
+# every mesh is ported (tests/test_torch_sharded_model.py); Orbax checkpoint
+# directories are not (orbax.checkpoint imports jax)
 @pytest.mark.parametrize("call", [
-    lambda tmp: registry.get_model("sfno", cfg=dataclasses.replace(FUSED_FP32, film=None),
-                                   device="cpu").trainer(tcfg.TrainConfig(), mesh=LAT_MESH),
+    _restore_orbax,
     lambda tmp: registry.get_model("sfno", "film", cfg=FUSED_FP32,
                                    device="cpu").load_model(str(tmp)),
 ])

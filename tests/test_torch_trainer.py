@@ -7,7 +7,6 @@ cadence and the time-limit stop."""
 
 import dataclasses
 import os
-import types
 
 import jax
 import jax.numpy as jnp
@@ -255,12 +254,13 @@ def test_gen_batch_matches_jax():
         np.testing.assert_array_equal(a.sst, b.sst)
 
 
-def test_unported_options_raise():
-    # a data-only mesh is ported (tests/test_torch_distributed.py); the lat
-    # and channel axes are not
-    lat_mesh = types.SimpleNamespace(mesh_dim_names=("data", "lat", "channel"), shape=(1, 2, 1))
-    with pytest.raises(NotImplementedError):
-        TTrainer(from_json(to_json(CFG)), TTrainConfig(), device="cpu", mesh=lat_mesh)
+def test_unported_options_raise(tmp_path):
+    # every mesh is ported (tests/test_torch_distributed.py,
+    # tests/test_torch_sharded_model.py); resuming from an Orbax checkpoint
+    # directory is not (orbax.checkpoint imports jax)
+    tr = TTrainer(from_json(to_json(CFG)), TTrainConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Orbax"):
+        tr.restore(tr.init_state(), str(tmp_path))
     # dropout and drop-path are ported (tests/test_torch_dropout.py), and the
     # ViT's and the MAE's film.dropout (tests/test_torch_vit.py, below)
     # the spectral losses are ported (tests/test_torch_trainer_spectral_loss.py)
