@@ -149,9 +149,18 @@ Phases (any failure raises, and the script exits non-zero):
      launches and no block kernel, a 2-step scan_rollout (finite, the same
      on every rank), the fp32 film-only fine-tune step against one process
      (loss 1e-5, film gradient 1e-4) and finetune_config()'s (finite, 7 +
-     7 gcn_layer / gcn_layer_bwd launches), the backend, each rank's
-     device, peak memory per rank, the ms per sharded serving step and the
-     phase's seconds (under 150).
+     7 gcn_layer / gcn_layer_bwd launches) with its bf16 generator and
+     with the generator in fp32, each against the one-process bf16 step
+     with the gates a model mesh sets (loss 1e-2, film gradient 5e-2), the
+     backend, each rank's device, peak memory per rank, the ms per sharded
+     serving step and the phase's seconds (under 150).
+ 18. Orbax checkpoint directories without orbax (`orbax_phase`): the
+     committed JAX-written fixture against its `.npz` twin bit for bit and
+     the zstd decoder's MB/s on it; finetune_config()'s net at full width
+     after one Adam step saved as `.pt` and as an Orbax directory, read
+     back equal (meta and every tensor), one more step resumed from each
+     bit-identical, with the directory's bytes and write / read MB/s; the
+     CLI's `--train --checkpoint-backend orbax` and its resume.
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
 operands of that tier (sites "*/fp32") to 1e-5; at the fp32 sites of the
 GCN layer and its backward, the head, the tail and grid_mlp (each of its
@@ -2687,6 +2696,9 @@ MESH_SHAPE = (1, 2, 2)
 MESH_EXACT_TOL, MESH_FILM_TOL = 1e-5, 1e-5  # the exact tier against one process
 MESH_SERVING_TOL = 3e-2  # the serving step against the fp32 plain path
 MESH_LOSS_TOL, MESH_GRAD_TOL = 1e-5, 1e-4  # the fp32 fine-tune step
+# the bf16 fine-tune step on the mesh against the one-process bf16 step with
+# the same gates (tests/test_torch_sharded_model.py: BF16_TOL)
+MESH_BF16_LOSS_TOL, MESH_BF16_GRAD_TOL = 1e-2, 5e-2
 MESH_ROLLOUT_STEPS = 2
 MESH_TIMED_STEPS = 3
 MESH_PHASE_LIMIT_S = 150
@@ -2787,7 +2799,10 @@ def mesh_worker(root: str) -> None:
     torch.cuda.empty_cache()
 
     # 4. the film-only fine-tune step (ms = 0) on the mesh: the fp32 plain
-    # path against one process, and finetune_config()'s bf16 tier
+    # path against one process, and finetune_config()'s bf16 tier (with its
+    # bf16 generator and with the generator in fp32) against the one-process
+    # bf16 step with the gates a model mesh sets (the block kernels and the
+    # fused head and tail off, the gcn_layer kernel on)
     g = torch.Generator(device=dev).manual_seed(17)  # the same target on every rank
     era5 = torch.stack([x0, x0 + 0.01 * torch.randn(x0.shape, device=dev, generator=g)])
     sst_pair = torch.stack([sst, sst_seq[0]])
@@ -2810,17 +2825,33 @@ def mesh_worker(root: str) -> None:
     exact_tune = exact_config(finetune_config())
     weights = FourierNeuralOperatorNetFilmed(exact_tune, device=dev, seed=0).state_dict()
     tcfg = finetune_train_config(multi_step_training=0, bf16_frozen_params=False)
+    gen32 = lambda c: dataclasses.replace(  # noqa: E731
+        c, film=dataclasses.replace(c.film, compute_dtype="float32"))
+    gated = finetune_config(use_pallas=False, pallas_grid_mlp=False)
     loss_m, grad_m, _ = film_step(exact_tune, tcfg, mesh)
-    loss_t, grad_t, rec["finetune_launches"] = film_step(finetune_config(),
-                                                         finetune_train_config(), mesh)
+    bf16 = {"bf16_gen": film_step(finetune_config(), finetune_train_config(), mesh),
+            "fp32_gen": film_step(gen32(finetune_config()), finetune_train_config(), mesh)}
+    rec["finetune_launches"] = bf16["bf16_gen"][2]
+    rec["finetune_fp32_gen_launches"] = bf16["fp32_gen"][2]
     if rank == 0:
         loss_1, grad_1, _ = film_step(exact_tune, tcfg, None)
-        finite = np.isfinite(loss_t) and torch.isfinite(grad_t).all() and grad_t.abs().sum() > 0
-        rec.update(finetune_bf16_finite=bool(finite),
-                   finetune_exact_loss_rel=abs(loss_m - loss_1) / abs(loss_1),
-                   finetune_exact_grad_rel_l2=rel_l2(grad_m, grad_1),
-                   finetune_bf16_loss_rel=abs(loss_t - loss_1) / abs(loss_1),
-                   finetune_bf16_grad_rel_l2=rel_l2(grad_t, grad_1))
+        rec.update(finetune_exact_loss_rel=abs(loss_m - loss_1) / abs(loss_1),
+                   finetune_exact_grad_rel_l2=rel_l2(grad_m, grad_1))
+        one = {"bf16_gen": film_step(gated, finetune_train_config(), None),
+               "fp32_gen": film_step(gen32(gated), finetune_train_config(), None)}
+        rec["finetune_one_process_launches"] = {k: v[2] for k, v in one.items()}
+        for gen, (loss_t, grad_t, _) in bf16.items():
+            loss_o, grad_o, _ = one[gen]
+            finite = (np.isfinite(loss_t) and bool(torch.isfinite(grad_t).all())
+                      and float(grad_t.abs().sum()) > 0)
+            rec[f"finetune_{gen}"] = dict(
+                finite=bool(finite), loss_rel_vs_one_process=abs(loss_t - loss_o) / abs(loss_o),
+                grad_rel_l2_vs_one_process=rel_l2(grad_t, grad_o),
+                loss_tol=MESH_BF16_LOSS_TOL, grad_tol=MESH_BF16_GRAD_TOL,
+                # a record: the distance to the fp32 step mixes the bf16
+                # tier's own drift with the sharding
+                loss_rel_vs_fp32_one_process=abs(loss_t - loss_1) / abs(loss_1),
+                grad_rel_l2_vs_fp32_one_process=rel_l2(grad_t, grad_1))
     peaks = [None] * dist.get_world_size()
     dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 2**30)
     rec["peak_mem_gib_per_rank"] = peaks
@@ -2839,10 +2870,13 @@ def mesh_phase(dev, smi) -> dict:
     the serving step against the fp32 plain path (3e-2), a 2-step
     scan_rollout finite and the same on every rank, the fp32 film-only
     fine-tune step against one process (loss 1e-5, film gradient 1e-4) and
-    finetune_config()'s (the bf16 tier without its block kernels: finite,
-    its loss and film gradient's distance to the fp32 step recorded),
-    exactly 7 gcn_layer launches a step (and 7 gcn_layer_bwd a train step)
-    and no other kernel, the phase under 150 s.  Printed: the backend,
+    finetune_config()'s, with its bf16 generator and with the generator in
+    fp32 (the bf16 tier without its block kernels), against the
+    one-process bf16 step with the same gates (loss 1e-2, film gradient
+    5e-2 rel-L2; the distance to the fp32 step recorded), exactly 7
+    gcn_layer launches a step (and 7 gcn_layer_bwd a train step, on the
+    mesh and in the one-process bf16 steps) and no other kernel, the phase
+    under 150 s.  Printed: the backend,
     each rank's device, peak memory per rank, the seconds and the ms per
     sharded serving step (one card, gloo-staged: not a scaling result)."""
     import os
@@ -2884,12 +2918,204 @@ def mesh_phase(dev, smi) -> dict:
           and rec["rollout_launches"] == roll_want
           and rec["finetune_exact_loss_rel"] <= MESH_LOSS_TOL
           and rec["finetune_exact_grad_rel_l2"] <= MESH_GRAD_TOL
-          and rec["finetune_bf16_finite"]
+          and all(rec[f"finetune_{gen}"]["finite"]
+                  and rec[f"finetune_{gen}"]["loss_rel_vs_one_process"] <= MESH_BF16_LOSS_TOL
+                  and rec[f"finetune_{gen}"]["grad_rel_l2_vs_one_process"]
+                  <= MESH_BF16_GRAD_TOL for gen in ("bf16_gen", "fp32_gen"))
           and rec["finetune_launches"] == tune_want
+          and rec["finetune_fp32_gen_launches"] == tune_want
+          and all(c == tune_want for c in rec["finetune_one_process_launches"].values())
           and rec["seconds"] <= MESH_PHASE_LIMIT_S)
     if not ok:
         raise AssertionError(f"phase 17: {rec}")
     torch.cuda.synchronize(dev)
+    return rec
+
+
+ORBAX_FIXTURE = "tests/fixtures/orbax_jax_tiny"  # and its .npz twin
+ORBAX_CLI = ["--img-size", "32", "64", "--scale-factor", "2", "--in-chans", "3", "--out-chans",
+             "3", "--embed-dim", "16", "--num-layers", "2", "--spectral-layers", "1",
+             "--synthetic-data", "--validation-interval", "0", "--checkpoint-backend", "orbax"]
+ORBAX_DECODE_REPEATS = 50
+ORBAX_PHASE_LIMIT_S = 120
+
+
+def _flat_tree(tree: dict, keys: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat_tree(v, keys + (k,)) if isinstance(v, dict) else {keys + (k,): v})
+    return out
+
+
+def _fixture_phase(root: str) -> dict:
+    """Phase 18 (a): the JAX-written fixture read by the port, each leaf
+    against its `.npz` twin bit for bit, and the zstd decoder's rate over
+    every frame of the directory (OCDBT manifests and nodes, zarr chunks)."""
+    import os
+
+    import numpy as np
+
+    from msfno_torch.training.ocdbt import OcdbtReader
+    from msfno_torch.training.orbax_ckpt import _restore
+    from msfno_torch.utils import zstd
+
+    twin = np.load(root + ".npz")
+    leaves = _flat_tree(_restore(root))
+    bad, names = [], set()
+    for keys, v in leaves.items():
+        if keys == ("meta_json",):
+            meta = json.loads(v.numpy().tobytes())
+            if meta.pop("backend", None) != "orbax" or meta != json.loads(
+                    twin["meta/json"].tobytes()):
+                bad.append("meta_json")
+            continue
+        name = "/".join(("opt_state",) + keys[1:] if keys[0] == "opt_leaves" else keys)
+        names.add(name)
+        a = v.numpy()
+        if name not in twin.files or a.dtype != twin[name].dtype or not np.array_equal(
+                a, twin[name]):
+            bad.append(name)
+    want = {k for k in twin.files if k.startswith(("params/", "opt_state/"))}
+    frames = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            data = open(os.path.join(dirpath, f), "rb").read()
+            if data[:2] == b"\x0c\xdb":  # a manifest or b-tree node file
+                frames.append(data[14:-4])
+    with OcdbtReader(root) as store:
+        frames += [store.read(k) for k in store.keys() if not k.endswith("/.zarray")]
+    t0 = time.perf_counter()
+    for _ in range(ORBAX_DECODE_REPEATS):
+        decoded = sum(len(zstd.decompress(f)) for f in frames)
+    dt = time.perf_counter() - t0
+    return dict(leaves=len(leaves), equal=not bad and names == want, mismatched=bad,
+                missing=sorted(want - names), frames=len(frames),
+                compressed_bytes=sum(map(len, frames)), decoded_bytes=decoded,
+                decode_mb_per_s=decoded * ORBAX_DECODE_REPEATS / dt / 1e6)
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    if isinstance(b, dict):
+        return isinstance(a, dict) and set(a) == set(b) and all(_same(a[k], b[k]) for k in b)
+    if isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def orbax_phase(dev, smi) -> dict:
+    """Phase 18: Orbax checkpoint directories, read and written without
+    orbax, tensorstore or JAX (`msfno_torch/training/orbax_ckpt.py` over
+    the zstd decoder of `msfno_torch/csrc/zstd_decode.cpp`, built here with
+    g++):
+      (a) the committed JAX-written fixture (ORBAX_FIXTURE, whose zstd
+          frames hold Huffman literals and FSE sequence tables) against its
+          `.npz` twin, leaf for leaf, bit for bit; the decoder's MB/s on it;
+      (b) finetune_config()'s filmed net at full width after one Adam
+          fine-tune step, saved by the trainer as `.pt` and as an Orbax
+          directory (the frozen backbone in bf16): `peek` and
+          `load_checkpoint` of the directory give the `.pt`'s meta and every
+          tensor bit for bit, and one more step resumed from each gives
+          bit-identical trainable parameters; the directory's bytes and the
+          write / read seconds and MB/s (host side);
+      (c) `msfno_torch.cli --train --checkpoint-backend orbax` on a tiny
+          synthetic run writes a directory that `--resume-checkpoint` takes
+          back (with the optimizer state) for one more step."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from msfno_torch.config import finetune_config, finetune_train_config
+    from msfno_torch.data.synthetic import gen_batch
+    from msfno_torch.training import checkpoint as ckpt_io
+    from msfno_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    rec = {"phase": "orbax", "card": smi,
+           "fixture": _fixture_phase(os.path.join(here, ORBAX_FIXTURE))}
+    root = tempfile.mkdtemp(prefix="msfno_orbax_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(finetune_config(), finetune_train_config(learning_rate=1e-3), device=dev,
+                     checkpoint_dir=root)
+        state = tr.init_state()
+        batches = [tr._device_batch(gen_batch(tr.cfg, 1, 0, seed=s)) for s in (21, 22)]
+        state, _ = tr._train_step(state, *batches[0])
+        tr.iter = 1
+        stepped = {k: v.detach().clone() for k, v in state.trainable.items()}
+        torch.cuda.synchronize()
+        rec["step_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pt = tr.save_checkpoint(state)
+        rec["pt_write_s"] = time.perf_counter() - t0
+        tr.tcfg = dataclasses.replace(tr.tcfg, checkpoint_backend="orbax")
+        t0 = time.perf_counter()
+        d = tr.save_checkpoint(state)
+        rec["orbax_write_s"] = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(p, f)) for p, _, fs in os.walk(d) for f in fs)
+        t0 = time.perf_counter()
+        peeked = ckpt_io.peek(d)
+        rec["orbax_peek_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_d, o_d, m_d = ckpt_io.load_checkpoint(d, with_opt_state=True)
+        rec["orbax_read_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_t, o_t, m_t = ckpt_io.load_checkpoint(pt, with_opt_state=True)
+        rec["pt_read_s"] = time.perf_counter() - t0
+        strip = lambda m: {k: v for k, v in m.items()  # noqa: E731
+                           if k not in ("backend", "writer", "keys")}
+        rec.update(
+            orbax_dir=os.path.basename(d), orbax_bytes=nbytes, pt_bytes=os.path.getsize(pt),
+            orbax_write_mb_per_s=nbytes / rec["orbax_write_s"] / 1e6,
+            orbax_read_mb_per_s=nbytes / rec["orbax_read_s"] / 1e6,
+            bf16_leaves=sum(v.dtype == torch.bfloat16 for v in p_d.values()),
+            meta_equal=(strip(m_d) == strip(m_t) == strip(peeked) and m_d["backend"] == "orbax"),
+            tensors_equal=_same(p_d, p_t) and _same(o_d, o_t))
+        del p_d, o_d, p_t, o_t
+        resumed = {}
+        for tag, path in (("orbax", d), ("pt", pt)):
+            st = tr.restore(tr.init_state(), path, resume_optimizer=True)
+            st, _ = tr._train_step(st, *batches[1])
+            resumed[tag] = {k: v.detach().clone() for k, v in st.trainable.items()}
+        rec["resume_step"] = st.step
+        rec["resume_equal"] = _same(resumed["orbax"], resumed["pt"])
+        rec["resume_moved"] = not _same(resumed["pt"], stepped)
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del tr, state, st, resumed, batches, stepped
+        torch.cuda.empty_cache()
+
+        out = os.path.join(root, "cli")
+        rc1, _, s1 = _cli_main(ORBAX_CLI + ["--train", "--num-iterations", "2",
+                                            "--output-path", out])
+        cp = os.path.join(out, "checkpoint_iter=2_epoch=0")
+        rc2, _, s2 = _cli_main(ORBAX_CLI + ["--train", "--num-iterations", "1",
+                                            "--training-epochs", "2", "--resume-checkpoint", cp,
+                                            "--resume-optimizer", "--output-path", out + "_r"])
+        cp3 = os.path.join(out + "_r", "checkpoint_iter=3_epoch=1")
+        ok3 = ckpt_io.is_orbax_dir(cp3)
+        _, opt3, meta3 = ckpt_io.load_checkpoint(cp3, with_opt_state=True) if ok3 else (
+            None, {"inner": {}}, {})
+        rec["cli"] = dict(rc=[rc1, rc2], seconds=[s1, s2],
+                          dirs=[ckpt_io.is_orbax_dir(cp), ok3], step=meta3.get("step"),
+                          adam_count=opt3["inner"].get("count"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(rec))
+    cli = rec["cli"]
+    ok = (rec["fixture"]["equal"] and rec["meta_equal"] and rec["tensors_equal"]
+          and rec["bf16_leaves"] > 0 and rec["resume_equal"] and rec["resume_moved"]
+          and rec["resume_step"] == 2
+          and cli["rc"] == [0, 0] and all(cli["dirs"]) and cli["step"] == 3
+          and cli["adam_count"] == 3 and rec["seconds"] <= ORBAX_PHASE_LIMIT_S)
+    if not ok:
+        raise AssertionError(f"phase 18: {rec}")
     return rec
 
 
@@ -3114,6 +3340,19 @@ def main() -> int:
                     "phase_6_serving_step_ms": statistics.median(times["fused"]),
                     "peak_mem_gib_per_rank": seventeen["peak_mem_gib_per_rank"],
                     "phase_s": seventeen["seconds"], "seconds_total": time.time() - t_start}))
+
+    # phase 18: Orbax checkpoint directories without orbax
+    torch.cuda.empty_cache()
+    eighteen = orbax_phase(dev, smi)
+    log(json.dumps({"phase": "orbax_time", "card": smi,
+                    "orbax_bytes": eighteen["orbax_bytes"],
+                    "orbax_write_s": eighteen["orbax_write_s"],
+                    "orbax_read_s": eighteen["orbax_read_s"],
+                    "orbax_write_mb_per_s": eighteen["orbax_write_mb_per_s"],
+                    "orbax_read_mb_per_s": eighteen["orbax_read_mb_per_s"],
+                    "pt_write_s": eighteen["pt_write_s"], "pt_read_s": eighteen["pt_read_s"],
+                    "fixture_decode_mb_per_s": eighteen["fixture"]["decode_mb_per_s"],
+                    "phase_s": eighteen["seconds"], "seconds_total": time.time() - t_start}))
     log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
 
     kernels = []

@@ -161,11 +161,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="HH:MM:SS graceful-stop wall limit (main.py:149-156)")
     tr.add_argument("--checkpoint-backend", default="npz",
                     choices=["npz", "orbax"],
-                    help="checkpoint format: this package writes its own .pt "
-                         "files; orbax directories are not supported")
+                    help="checkpoint format: npz = this package's own .pt "
+                         "files, orbax = Orbax checkpoint directories (read "
+                         "and written without orbax)")
     tr.add_argument("--async-checkpoint", action="store_true",
-                    help="no effect here (asynchronous saves are an orbax "
-                         "feature of the JAX package)")
+                    help="no effect here (saves are synchronous: rank 0 "
+                         "writes the gathered state)")
     tr.add_argument("--scan-steps", default="1",
                     help="train this many optimizer steps per chunk of "
                          "stacked input batches (cadence semantics "
@@ -439,8 +440,8 @@ PROTECTED = {"img_size", "scale_factor", "in_chans", "out_chans", "embed_dim", "
 def merge_resume_config(model_cfg, args, argv=None):
     """Checkpoint-hyperparameter merge on resume: the stored config wins
     unless the flag was passed explicitly; the architecture always comes
-    from the checkpoint (reference main.py:179-246).  Reads a `.pt` or a
-    JAX `.npz` through `checkpoint.peek`."""
+    from the checkpoint (reference main.py:179-246).  Reads a `.pt`, a
+    JAX `.npz` or an Orbax directory through `checkpoint.peek`."""
     from msfno_torch.config import from_json
     from msfno_torch.training.checkpoint import peek
 
@@ -689,10 +690,6 @@ def _main(args, argv=None) -> int:
         resolve_device(device)
     except RuntimeError as e:  # no card and no --cpu: stop here
         raise SystemExit(f"msfno_torch.cli: {e}; on the command line: --cpu") from e
-    if args.checkpoint_backend == "orbax":
-        raise SystemExit("--checkpoint-backend orbax: orbax.checkpoint imports jax, which "
-                         "this package never imports (ROADMAP Queue 1 item 2); its "
-                         "checkpoints are .pt files, and it reads JAX .npz files")
 
     world = world_size_hint()
     if (world > 1 and not dist.is_initialized() and not torchrun_env()

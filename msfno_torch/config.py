@@ -189,8 +189,8 @@ class TrainConfig:
     # optimizer steps per chunk of `Trainer.train_steps`; the host loop's
     # cadence (validation, checkpoints, logs) is the same for every value
     scan_steps: int = 1
-    # "npz" or "orbax" in the JAX package; this package writes its own
-    # torch.save format whatever the value (orbax directories raise)
+    # "npz": this package writes its own torch.save `.pt` files; "orbax":
+    # Orbax checkpoint directories (training/orbax_ckpt.py, no orbax needed)
     checkpoint_backend: str = "npz"
     async_checkpoint: bool = False
     advanced_logging: bool = False

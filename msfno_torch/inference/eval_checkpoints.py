@@ -35,13 +35,15 @@ from msfno_torch.runtime import resolve_device
 log = logging.getLogger("msfno_torch")
 
 # this package's trainer names its checkpoints checkpoint_iter={i}_epoch={e}.pt
+# (an Orbax directory: the same name without a suffix)
 CHECKPOINT_SUFFIXES = (".npz", ".pt")
 
 
 def load_eval_params(path: str) -> tuple[dict, dict]:
     """(state_dict, meta) of any checkpoint this package reads: its own
-    `.pt`, a JAX `.npz`, or a reference PyTorch checkpoint (`weights.tar`
-    and the reference Trainer's saves, sfno/model.py:207-271; no meta)."""
+    `.pt`, a JAX `.npz`, an Orbax directory, or a reference PyTorch
+    checkpoint (`weights.tar` and the reference Trainer's saves,
+    sfno/model.py:207-271; no meta)."""
     from msfno_torch.models.registry import read_checkpoint
 
     params, meta, _ = read_checkpoint(path)
@@ -60,11 +62,15 @@ def _checkpoint_sort_key(path: str) -> tuple:
 
 
 def select_checkpoints(pattern: str, max_count: int = 5) -> list[str]:
-    """Equidistant subset of the matching checkpoint files, `.npz` and
-    this package's `.pt` (reference main.py:305-322), in training-iteration
+    """Equidistant subset of the matching checkpoints, `.npz` files, this
+    package's `.pt` files and Orbax directories (reference main.py:305-322;
+    msfno_tpu/inference/eval_checkpoints.py:69-75), in training-iteration
     order."""
+    from msfno_torch.training.orbax_ckpt import is_orbax_dir
+
     files = sorted((f for f in glob.glob(pattern)
-                    if f.endswith(CHECKPOINT_SUFFIXES) and os.path.isfile(f)),
+                    if (f.endswith(CHECKPOINT_SUFFIXES) and os.path.isfile(f))
+                    or is_orbax_dir(f)),
                    key=_checkpoint_sort_key)
     if len(files) <= max_count:
         return files

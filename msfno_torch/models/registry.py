@@ -80,13 +80,10 @@ def read_checkpoint(path: str, convert=None) -> tuple[dict[str, torch.Tensor], d
     this package's own file
     (its parameters and meta) or a reference PyTorch checkpoint
     (`reference_state_dict`, no meta: `is_reference` True, loaded with
-    strict=False).  Orbax directories raise NotImplementedError."""
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an Orbax checkpoint): orbax.checkpoint imports jax, "
-            "which this package never imports"
-        )
-    if not path.endswith(TORCH_CHECKPOINT_SUFFIXES):
+    strict=False).  An Orbax directory, the JAX package's or this
+    package's, reads as the `.npz` and `.pt` files do; a directory that is
+    not one raises FileNotFoundError."""
+    if os.path.isdir(path) or not path.endswith(TORCH_CHECKPOINT_SUFFIXES):
         params, _, meta = ckpt_io.load_checkpoint(path, convert=convert)
         return params, meta, False
     obj = torch.load(path, map_location="cpu", weights_only=True)

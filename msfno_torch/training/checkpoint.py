@@ -6,9 +6,10 @@ This package's format is one `torch.save` file holding the parameters
 step, epoch, config (JSON) and film_scale.  `load_checkpoint` also reads
 a JAX-written `.npz` training checkpoint: its parameters through
 `convert.from_flax_params`, and its optax optimizer state mapped into this
-package's `Optimizer` state (`jax_opt_state`).  Orbax checkpoint
-directories raise NotImplementedError: `orbax.checkpoint` imports `jax`,
-which this package never imports.
+package's `Optimizer` state (`jax_opt_state`).  `peek` and
+`load_checkpoint` also take an Orbax checkpoint directory, the JAX
+package's or this package's (`orbax_ckpt.py`, read and written without
+orbax).
 """
 
 from __future__ import annotations
@@ -22,6 +23,13 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from msfno_torch.training.orbax_ckpt import (  # noqa: F401 (re-exported)
+    is_orbax_dir,
+    load_checkpoint_orbax,
+    peek_orbax,
+    save_checkpoint_orbax,
+)
 
 FORMAT_VERSION = 1
 OPTIMIZERS = ("adam", "adamw", "sgd")
@@ -60,12 +68,11 @@ def _is_npz(path: str) -> bool:
     return zipfile.is_zipfile(path) and path.endswith(".npz")
 
 
-def _check_file(path: str) -> None:
+def _not_a_checkpoint_dir(path: str) -> None:
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an Orbax checkpoint): orbax.checkpoint imports jax, "
-            "which this package never imports; it reads its own files and the JAX "
-            "package's .npz files"
+        raise FileNotFoundError(
+            f"{path} is a directory but has no meta.json — not an orbax "
+            f"checkpoint saved by this framework"
         )
 
 
@@ -75,8 +82,11 @@ def _load(path: str) -> dict:
 
 def peek(path: str) -> dict[str, Any]:
     """Checkpoint metadata without reading tensor data (the file is mapped,
-    not read): this package's files and JAX `.npz` files."""
-    _check_file(path)
+    not read): this package's files, JAX `.npz` files and Orbax directories
+    (their meta.json sidecar)."""
+    if is_orbax_dir(path):
+        return peek_orbax(path)
+    _not_a_checkpoint_dir(path)
     if _is_npz(path):
         with np.load(path) as z:
             meta = json.loads(bytes(z["meta/json"]).decode())
@@ -210,11 +220,14 @@ def load_checkpoint(path: str, with_opt_state: bool = False, train_cfg=None, con
     flax tree -> state_dict function, by default `from_flax_params`: the
     SFNO family's) and, with `with_opt_state`, its optax state mapped by
     `jax_opt_state`, which needs the run's `TrainConfig` (`train_cfg`) to
-    order the leaves."""
+    order the leaves.  An Orbax directory goes through
+    `orbax_ckpt.load_checkpoint_orbax` with the same arguments."""
     from msfno_torch.convert import from_flax_params
 
+    if is_orbax_dir(path):
+        return load_checkpoint_orbax(path, with_opt_state, train_cfg, convert)
     convert = convert or from_flax_params
-    _check_file(path)
+    _not_a_checkpoint_dir(path)
     if _is_npz(path):
         with np.load(path) as z:
             meta = json.loads(bytes(z["meta/json"]).decode())

@@ -506,19 +506,21 @@ class Trainer:
         return "cpu" if dist.get_backend() == "gloo" else self.device
 
     def save_checkpoint(self, state: TrainState, tag: str = "") -> str | None:
-        """Write the state as this package's `.pt` checkpoint; under a mesh
-        the shards are gathered whole (the file an unsharded run writes),
-        rank 0 writes it and the ranks meet at a barrier after."""
+        """Write the state as this package's `.pt` checkpoint, or with
+        checkpoint_backend "orbax" as an Orbax directory (the same name
+        without a suffix); under a mesh the shards are gathered whole (the
+        checkpoint an unsharded run writes), rank 0 writes it and the ranks
+        meet at a barrier after."""
         if self.checkpoint_dir is None:
             return None
-        name = f"checkpoint_iter={self.iter}_epoch={self.epoch}{tag}.pt"
+        orbax = self.tcfg.checkpoint_backend == "orbax"
+        name = f"checkpoint_iter={self.iter}_epoch={self.epoch}{tag}{'' if orbax else '.pt'}"
         path = os.path.join(self.checkpoint_dir, name)
         params, opt_state = whole_state(state)
         if self.is_writer:
-            ckpt_io.save_checkpoint(path, params, opt_state=opt_state,
-                                    step=self.iter, epoch=self.epoch,
-                                    config_json=to_json(self.cfg),
-                                    extra={"film_scale": float(state.film_scale)})
+            save = ckpt_io.save_checkpoint_orbax if orbax else ckpt_io.save_checkpoint
+            save(path, params, opt_state=opt_state, step=self.iter, epoch=self.epoch,
+                 config_json=to_json(self.cfg), extra={"film_scale": float(state.film_scale)})
             self.writer.save(f"_epoch{self.epoch}")
         if self.mesh is not None:
             dist.barrier()

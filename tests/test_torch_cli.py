@@ -205,6 +205,36 @@ def test_train_synthetic_and_resume(tmp_path):
     assert meta["step"] == 3 and opt["inner"]["count"] == 3
 
 
+def test_orbax_backend_round_trip(tmp_path):
+    """--checkpoint-backend orbax writes Orbax directories (no suffix) that
+    --resume-checkpoint takes back with the optimizer state and that
+    --eval-model sweeps; they hold what the .pt files of the same run hold."""
+    from msfno_torch.training.checkpoint import is_orbax_dir, load_checkpoint
+
+    assert cli.main(TINY + ["--train", "--num-iterations", "2", "--validation-interval", "0",
+                            "--checkpoint-backend", "orbax", "--output-path",
+                            str(tmp_path)]) == 0
+    cp = tmp_path / "checkpoint_iter=2_epoch=0"
+    assert is_orbax_dir(str(cp)) and not _cps(tmp_path)
+    pt = _train(tmp_path / "pt")
+    p1, o1, m1 = load_checkpoint(str(cp), with_opt_state=True)
+    p2, o2, m2 = load_checkpoint(str(pt), with_opt_state=True)
+    assert all(torch.equal(p1[k], p2[k]) for k in p2) and set(p1) == set(p2)
+    assert m1["backend"] == "orbax" and m1["step"] == m2["step"] == 2
+    assert o1["inner"]["count"] == o2["inner"]["count"] == 2
+    rc = cli.main(TINY + ["--train", "--num-iterations", "1", "--training-epochs", "2",
+                          "--validation-interval", "0", "--checkpoint-backend", "orbax",
+                          "--resume-checkpoint", str(cp), "--resume-optimizer",
+                          "--output-path", str(tmp_path / "r")])
+    assert rc == 0
+    cp3 = tmp_path / "r" / "checkpoint_iter=3_epoch=1"
+    _, opt, meta = load_checkpoint(str(cp3), with_opt_state=True)
+    assert meta["step"] == 3 and opt["inner"]["count"] == 3
+    assert cli.main(TINY + ["--eval-model", "--multi-step-validation", "1", "--eval-sfno",
+                            "--output-path", str(tmp_path / "r")]) == 0
+    assert any(f.endswith("_skill.npy") for f in os.listdir(tmp_path / "r" / "eval"))
+
+
 def test_restore_train_state_semantics(tmp_path):
     """Parameters always from the checkpoint; the schedule position alone
     under --resume-scheduler (Adam's count stays 0)."""
@@ -438,8 +468,11 @@ def test_error_cases(tmp_path, cli_store):
                         ("2,1,1", "world size is 1")):
         with pytest.raises(SystemExit, match=match):
             cli.main(TINY + ["--train", "--mesh", mesh, "--output-path", str(tmp_path)])
-    with pytest.raises(SystemExit, match="Queue 1 item 2"):
-        cli.main(TINY + ["--train", "--checkpoint-backend", "orbax",
+    # --checkpoint-backend orbax is ported (test_orbax_backend_round_trip); a
+    # directory that is not a checkpoint raises the JAX package's error
+    (tmp_path / "not_a_checkpoint").mkdir()
+    with pytest.raises(FileNotFoundError, match="not an orbax checkpoint"):
+        cli.main(TINY + ["--train", "--resume-checkpoint", str(tmp_path / "not_a_checkpoint"),
                          "--output-path", str(tmp_path)])
     with pytest.raises(SystemExit, match="fix the year flags"):
         cli.main(TINY_REAL + ["--train", "--era5-path", cli_store, "--trainingset-start-year",
@@ -468,17 +501,21 @@ def test_profile_dir_writes_a_trace(tmp_path):
 
 
 def test_cli_and_parallel_import_no_jax():
-    """The command line, parallel/* and observability import nothing of JAX
-    or of the JAX package; `python -m msfno_torch.cli --help` runs."""
+    """The command line, parallel/*, observability and the Orbax modules
+    import nothing of JAX, orbax, tensorstore, zstandard or the JAX package;
+    `python -m msfno_torch.cli --help` runs."""
     import subprocess
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import sys\n"
             "import msfno_torch.cli, msfno_torch.parallel, msfno_torch.parallel.sharded_train\n"
-            "import msfno_torch.utils.observability\n"
+            "import msfno_torch.utils.observability, msfno_torch.utils.zstd\n"
+            "import msfno_torch.training.orbax_ckpt, msfno_torch.training.ocdbt\n"
+            "import msfno_torch.training.zarr2\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'msfno_tpu')]\n"
+            "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tensorstore', 'zstandard',\n"
+            "        'msfno_tpu')]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env, capture_output=True,

@@ -178,9 +178,11 @@ def test_evaluation_modules_import_no_jax():
         "msfno_torch.inference.forecast_writer, msfno_torch.models.variables, "
         "msfno_torch.models.film.attention, msfno_torch.models.film.vit, "
         "msfno_torch.models.film.wrapper, msfno_torch.training.checkpoint, "
-        "msfno_torch.training.trainer, msfno_torch.models.registry\n"
+        "msfno_torch.training.trainer, msfno_torch.models.registry, "
+        "msfno_torch.training.orbax_ckpt, msfno_torch.training.ocdbt, "
+        "msfno_torch.training.zarr2, msfno_torch.utils.zstd\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'orbax', 'msfno_tpu')]\n"
+        "('jax', 'flax', 'optax', 'orbax', 'tensorstore', 'zstandard', 'msfno_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True,

@@ -89,23 +89,51 @@ def test_reference_torch_checkpoint_loads(tmp_path):
         torch.testing.assert_close(dst.module.state_dict()[k], v, rtol=0, atol=0)
 
 
-def _restore_orbax(tmp):
-    """The wrapper's trainer resuming from a directory (an Orbax checkpoint)."""
+def _restore_orbax(path):
+    """The wrapper's trainer resuming from `path`: its parameters."""
     tr = registry.get_model("sfno", cfg=dataclasses.replace(FUSED_FP32, film=None),
                             device="cpu").trainer(tcfg.TrainConfig())
-    return tr.restore(tr.init_state(), str(tmp))
+    return dict(tr.restore(tr.init_state(), path).params)
 
 
-# every mesh is ported (tests/test_torch_sharded_model.py); Orbax checkpoint
-# directories are not (orbax.checkpoint imports jax)
+def _jax_orbax_pair(tmp_path, film: bool):
+    """An Orbax directory and an `.npz` of one JAX wrapper's seeded
+    parameters (filmed or not), written by the JAX package."""
+    from msfno_tpu.models.registry import get_model as jax_get_model
+    from msfno_tpu.training import checkpoint as ckpt_io
+    from msfno_tpu.utils import config as jcfg
+
+    cfg = FUSED_FP32 if film else dataclasses.replace(FUSED_FP32, film=None)
+    cfg_j = jcfg.from_json(tcfg.to_json(cfg))
+    wrapper = jax_get_model("sfno", "film" if film else "latest", cfg=cfg_j)
+    wrapper.init_params()
+    paths = str(tmp_path / "checkpoint_iter=0_epoch=0"), str(tmp_path / "checkpoint.npz")
+    for save, path in zip((ckpt_io.save_checkpoint_orbax, ckpt_io.save_checkpoint), paths):
+        save(path, wrapper.params, config_json=jcfg.to_json(cfg_j),
+             extra={"film_scale": FILM_SCALE})
+    return paths
+
+
+# every mesh is ported (tests/test_torch_sharded_model.py), and Orbax
+# checkpoint directories (tests/test_torch_orbax.py)
 @pytest.mark.parametrize("call", [
     _restore_orbax,
-    lambda tmp: registry.get_model("sfno", "film", cfg=FUSED_FP32,
-                                   device="cpu").load_model(str(tmp)),
+    lambda path: registry.get_model("sfno", "film", cfg=FUSED_FP32,
+                                    device="cpu").load_model(path).state_dict(),
 ])
 def test_unported_entry_points_raise(call, tmp_path):
-    with pytest.raises(NotImplementedError):
-        call(tmp_path)
+    """Both entry points take a JAX-written Orbax directory as they take its
+    `.npz` twin, bit for bit; a directory that is not a checkpoint raises
+    the JAX package's FileNotFoundError."""
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    with pytest.raises(FileNotFoundError, match="not an orbax checkpoint"):
+        call(str(empty))
+    orbax_dir, npz = _jax_orbax_pair(tmp_path, film=call is not _restore_orbax)
+    got, want = call(orbax_dir), call(npz)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
 
 
 _FILM_SMALL = tcfg.FilmConfig(film_gen_type="mae", embed_dim=16, mlp_dim=16, sst_shape=(8, 16),

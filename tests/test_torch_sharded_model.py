@@ -12,6 +12,13 @@ JAX's `small_cfg` (tests/test_training.py) unfilmed and filmed, and filmed
 variants with 17 rows (uneven over lat) and 3 blocks: instance and layer
 norm, the linear filter (its modes through `mode_inv`, its weight sharded),
 and the planar FFT.
+
+The bf16 tier (film-only SGD step of the filmed net at compute, spectral
+and SHT dtype bfloat16, the frozen backbone stored in bf16, the block
+kernels off as every model mesh gates them, the generator on its plain
+path, in fp32 and in bf16) is held on meshes 1,2,2 and 2,2,1 against the
+port's own one-process bf16 step, and that step against JAX's unsharded
+bf16 step, at the bf16-class tolerances BF16_TOL.
 """
 
 import dataclasses
@@ -35,6 +42,13 @@ STEPS = ("sgd", "sgd_odd", "film")
 # its unsharded step by ~90% (its forward agrees): a fault of the JAX
 # package (ROADMAP Queue 3), so that case is held to the unsharded step only
 NO_JAX_MESH_STEP = ("sgd_odd",)
+# the bf16 tier's film-only step, with the generator in fp32 and in bf16
+BF16 = ("bf16_genf32", "bf16")
+BF16_MESHES = ("1,2,2", "2,2,1")
+# bf16-class bounds: the loss (relative), the film gradient and the update
+# (rel-L2), for the sharded step against the one-process step, and for
+# that step against JAX's
+BF16_TOL = {"loss": 1e-2, "grad": 5e-2, "update": 5e-2}
 ROLLOUT_STEPS = 3
 SCALE = 0.8
 TOL = 1e-5
@@ -52,6 +66,15 @@ def _jax_cfg(name):
     """The JAX SFNOConfig of a case."""
     from tests.test_training import small_cfg
 
+    if name in BF16:
+        cfg = small_cfg(film=True)
+        film = dataclasses.replace(cfg.film, pallas_gcn=False,
+                                   compute_dtype="float32" if name == "bf16_genf32"
+                                   else "bfloat16")
+        return dataclasses.replace(cfg, film=film, compute_dtype="bfloat16",
+                                   spectral_mxu_dtype="bfloat16", sht_mxu_dtype="bfloat16",
+                                   use_pallas=False, pallas_grid_mlp=False,
+                                   output_dtype="float32")
     if name == "net":
         return small_cfg(film=False)
     cfg = small_cfg(film=True)
@@ -72,7 +95,8 @@ def _train_cfg(name):
 
     # SGD: the update is linear in the gradient, so two summation orders
     # stay apart by their round-off (Adam's first step is the gradient's sign)
-    return TrainConfig(batch_size=2, optimizer="sgd", learning_rate=1e-2, film_scale_start=SCALE)
+    return TrainConfig(batch_size=2, optimizer="sgd", learning_rate=1e-2, film_scale_start=SCALE,
+                       bf16_frozen_params=name in BF16)
 
 
 def _inputs(cfg, seed=0):
@@ -147,7 +171,7 @@ def jax_train(name):
     s1, m1 = jt._train_step(js, jnp.asarray(era5), None if sst is None else jnp.asarray(sst))
     out["single"] = (float(m1["loss"]), {k: v for k, v in from_flax_params(
         _np_tree(s1.params)).items() if k in names})
-    if name in NO_JAX_MESH_STEP:
+    if name in NO_JAX_MESH_STEP or name in BF16:
         return init, out
     mesh = make_mesh(8, shape=(2, 2, 2))
     jt2 = JTrainer(cfg, tcfg)
@@ -251,6 +275,8 @@ def _worker(rank, world, port, workdir, shape):
         if name == "sgd" and shape == (1, 2, 2):
             _checkpoint_cases(tr, state, params, opt, workdir, rank, out)
     _multi_step_case(mesh, meta, out)
+    if ",".join(map(str, shape)) in BF16_MESHES:
+        _bf16_case(mesh, meta, workdir, out)
     np.savez(os.path.join(workdir, f"{'_'.join(map(str, shape))}_rank{rank}.npz"), **out)
     dist.barrier()
     dist.destroy_process_group()
@@ -283,6 +309,41 @@ def _multi_step_case(mesh, meta, out):
         out[f"ms2_{key}/loss"] = np.float64(metrics["loss"])
         for k in state.trainable:
             out[f"ms2_{key}/p/{k}"] = params[k].numpy()
+
+
+def _bf16_case(mesh, meta, workdir, out):
+    """The bf16 tier's film-only SGD step (BF16 configs), under the mesh
+    (each data rank its share of the batch of 2) and on one process, in
+    this rank: the loss, the reduced film gradient and the updated film
+    parameters."""
+    import torch
+
+    from msfno_torch.config import from_json
+    from msfno_torch.parallel.sharded_train import reduce_gradients, whole_state
+    from msfno_torch.training.losses import sums_over_samples
+    from msfno_torch.training.trainer import Trainer
+
+    n_data, d = mesh.mesh.shape[0], mesh.get_local_rank("data")
+    share = slice(d * 2 // n_data, (d + 1) * 2 // n_data)
+    for name in BF16:
+        cfg, tcfg = from_json(meta["cfg"][name]), from_json(meta["tcfg_bf16"])
+        z = np.load(os.path.join(workdir, f"batch_{name}.npz"))
+        for key, m, samples in (("mesh", mesh, share), ("one", None, slice(None))):
+            tr = Trainer(cfg, tcfg, device="cpu", mesh=m)
+            tr.model.load_state_dict(torch.load(os.path.join(workdir, f"init_{name}.pt")))
+            state = tr.init_state()
+            era5 = torch.from_numpy(z["era5"][:, samples])
+            sst = torch.from_numpy(z["sst"][:, samples])
+            loss, per_step, grads = tr.loss_and_grads(state, era5, sst)
+            if m is not None:
+                reduce_gradients(grads, state.trainable, m, [loss, per_step],
+                                 mean=not sums_over_samples(tcfg.loss_fn))
+            tr.tx.step(state.trainable, grads, state.opt_state)
+            params, _ = whole_state(state)
+            out[f"{name}_{key}/loss"] = np.float64(loss)
+            for k in state.trainable:
+                out[f"{name}_{key}/g/{k}"] = grads[k].float().numpy()
+                out[f"{name}_{key}/p/{k}"] = params[k].float().numpy()
 
 
 def _checkpoint_cases(tr, state, params, opt, workdir, rank, out):
@@ -370,7 +431,8 @@ def workdir(tmp_path_factory):
     from msfno_tpu.utils.config import to_json
 
     d = tmp_path_factory.mktemp("sharded_model")
-    cases = {"cfg": {}, "tcfg": to_json(_train_cfg("sgd"))}
+    cases = {"cfg": {}, "tcfg": to_json(_train_cfg("sgd")),
+             "tcfg_bf16": to_json(_train_cfg("bf16"))}
     for name in FORWARD:
         params, _ = jax_forward(name)
         cfg = _jax_cfg(name)
@@ -380,7 +442,7 @@ def workdir(tmp_path_factory):
         era5, sst_seq = _batch(cfg, ROLLOUT_STEPS) if cfg.film else (None, None)
         arrays = dict(x=x) if sst is None else dict(x=x, sst=sst, era5=era5, sst_seq=sst_seq)
         np.savez(d / f"{name}.npz", **arrays)
-    for name in STEPS:
+    for name in STEPS + BF16:
         init, _ = jax_train(name)
         cases["cfg"][name] = to_json(_jax_cfg(name))
         torch.save(init, d / f"init_{name}.pt")
@@ -492,6 +554,51 @@ def test_rollout_matches_jax(port_runs, mesh):
             err = rel_l2(res["rollout"], want[ref][:, _samples(mesh, r)])
             print(f"parity sharded rollout mesh {mesh} rank {r} vs jax {ref} rel_l2={err:.3e}")
             assert err <= TOL
+
+
+def _flat(res, prefix, names):
+    return np.concatenate([res[f"{prefix}/{k}"].astype(np.float64).ravel() for k in names])
+
+
+@pytest.mark.parametrize("mesh", BF16_MESHES)
+@pytest.mark.parametrize("name", BF16)
+def test_bf16_step_under_mesh_is_the_one_process_step(port_runs, mesh, name):
+    """The bf16 tier's film-only step under the mesh against the port's
+    one-process bf16 step on the batch of 2 (the same gates: the block
+    kernels off, the generator plain): the loss, the film gradient and the
+    update within BF16_TOL, on every rank."""
+    init, _ = jax_train(name)
+    for r, res in enumerate(port_runs(mesh)):
+        names = sorted(k[len(f"{name}_one/g/"):] for k in res if k.startswith(f"{name}_one/g/"))
+        assert names and all(k.startswith("film_gen.") for k in names)
+        lerr = abs(float(res[f"{name}_mesh/loss"]) - float(res[f"{name}_one/loss"])) / abs(
+            float(res[f"{name}_one/loss"]))
+        gerr = rel_l2(_flat(res, f"{name}_mesh/g", names), _flat(res, f"{name}_one/g", names))
+        start = np.concatenate([init[k].double().numpy().ravel() for k in names])
+        uerr = rel_l2(_flat(res, f"{name}_mesh/p", names) - start,
+                      _flat(res, f"{name}_one/p", names) - start)
+        print(f"parity sharded bf16 step {name} mesh {mesh} rank {r} vs one process loss "
+              f"rel={lerr:.3e} grad rel_l2={gerr:.3e} update rel_l2={uerr:.3e}")
+        assert lerr <= BF16_TOL["loss"] and gerr <= BF16_TOL["grad"]
+        assert uerr <= BF16_TOL["update"]
+
+
+@pytest.mark.parametrize("name", BF16)
+def test_bf16_one_process_step_matches_jax(port_runs, name):
+    """The port's one-process bf16 step (as the mesh runs computed it)
+    against JAX's unsharded bf16 step of the same config and weights: the
+    loss and the update within BF16_TOL."""
+    init, want = jax_train(name)
+    loss, params = want["single"]
+    res = port_runs(BF16_MESHES[0])[0]
+    names = sorted(params)
+    lerr = abs(float(res[f"{name}_one/loss"]) - loss) / abs(loss)
+    start = np.concatenate([init[k].double().numpy().ravel() for k in names])
+    want_upd = np.concatenate([params[k].double().numpy().ravel() for k in names]) - start
+    uerr = rel_l2(_flat(res, f"{name}_one/p", names) - start, want_upd)
+    print(f"parity bf16 one-process step {name} vs jax loss rel={lerr:.3e} "
+          f"update rel_l2={uerr:.3e}")
+    assert lerr <= BF16_TOL["loss"] and uerr <= BF16_TOL["update"]
 
 
 def test_checkpoint_under_mesh_is_the_unsharded_file(port_runs):

@@ -175,8 +175,9 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 def test_jax_npz_checkpoint_params_load(tmp_path, trained):
     """A JAX-written .npz training checkpoint: its parameters load by name;
     its optax state needs the train config that orders its leaves
-    (tests/test_torch_checkpoint_optax.py resumes from it); Orbax
-    directories raise."""
+    (tests/test_torch_checkpoint_optax.py resumes from it).  The same
+    payload saved as an Orbax directory loads equal; a directory that is
+    not a checkpoint raises the JAX package's FileNotFoundError."""
     from msfno_tpu.training import checkpoint as jckpt
 
     js1 = trained["js1"]
@@ -192,8 +193,16 @@ def test_jax_npz_checkpoint_params_load(tmp_path, trained):
     _, opt, _ = tckpt.load_checkpoint(path, with_opt_state=True,
                                       train_cfg=from_json(to_json(TCFG)))
     assert opt["inner"]["count"] == 1 and set(opt["inner"]["mu"]) == set(trained["ps1"].trainable)
-    with pytest.raises(NotImplementedError, match="imports jax"):
+    with pytest.raises(FileNotFoundError, match="not an orbax checkpoint"):
         tckpt.load_checkpoint(str(tmp_path))
+    orbax_dir = os.path.join(tmp_path, "jax_orbax")
+    jckpt.save_checkpoint_orbax(orbax_dir, js1.params, opt_state=js1.opt_state, step=1,
+                                epoch=0, config_json=to_json(CFG), extra={"film_scale": 0.8})
+    p2, o2, m2 = tckpt.load_checkpoint(orbax_dir, with_opt_state=True,
+                                       train_cfg=from_json(to_json(TCFG)))
+    assert set(p2) == set(ref) and all(torch.equal(p2[k], ref[k]) for k in ref)
+    assert all(torch.equal(o2["inner"]["mu"][k], v) for k, v in opt["inner"]["mu"].items())
+    assert m2["step"] == 1 and m2["backend"] == "orbax"
     merged = tckpt.merge_film_checkpoint(ref, {"film_gen.film_gen.conv1.bias": 0})
     assert merged["film_gen.film_gen.conv1.bias"] == 0 and len(merged) == len(ref)
 
@@ -256,11 +265,28 @@ def test_gen_batch_matches_jax():
 
 def test_unported_options_raise(tmp_path):
     # every mesh is ported (tests/test_torch_distributed.py,
-    # tests/test_torch_sharded_model.py); resuming from an Orbax checkpoint
-    # directory is not (orbax.checkpoint imports jax)
+    # tests/test_torch_sharded_model.py), and Orbax checkpoint directories
+    # (tests/test_torch_orbax.py): a directory that is not one raises the
+    # JAX package's FileNotFoundError, and a trainer with checkpoint_backend
+    # "orbax" resumes from its own directory with its optimizer state
     tr = TTrainer(from_json(to_json(CFG)), TTrainConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(FileNotFoundError, match="not an orbax checkpoint"):
         tr.restore(tr.init_state(), str(tmp_path))
+    src = TTrainer(from_json(to_json(CFG)), TTrainConfig(checkpoint_backend="orbax"),
+                   device="cpu", checkpoint_dir=str(tmp_path / "out"))
+    b = gen_batch(CFG, 1, 0, seed=3)
+    state, _ = src._train_step(src.init_state(), torch.from_numpy(b.era5),
+                               torch.from_numpy(b.sst))
+    src.iter = 1
+    path = src.save_checkpoint(state)
+    assert os.path.isdir(path) and path.endswith("checkpoint_iter=1_epoch=0")
+    dst = TTrainer(from_json(to_json(CFG)), TTrainConfig(), device="cpu")
+    got = dst.restore(dst.init_state(), path, resume_optimizer=True)
+    assert got.step == 1 and got.opt_state["inner"]["count"] == 1
+    for k, p in state.params.items():
+        assert torch.equal(got.params[k], p), k
+    for k, m in state.opt_state["inner"]["mu"].items():
+        assert torch.equal(got.opt_state["inner"]["mu"][k], m), k
     # dropout and drop-path are ported (tests/test_torch_dropout.py), and the
     # ViT's and the MAE's film.dropout (tests/test_torch_vit.py, below)
     # the spectral losses are ported (tests/test_torch_trainer_spectral_loss.py)
