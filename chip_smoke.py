@@ -161,6 +161,20 @@ Phases (any failure raises, and the script exits non-zero):
      back equal (meta and every tensor), one more step resumed from each
      bit-identical, with the directory's bytes and write / read MB/s; the
      CLI's `--train --checkpoint-backend orbax` and its resume.
+ 19. the JAX package's host/device overlap (`overlap_phase`):
+     finetune_config()'s fine-tune through `Trainer.train` with
+     `async_checkpoint` (4 steps, an Orbax save after each): every
+     directory committed with its meta.json when train() returns and
+     bit for bit the state cloned before its save, exactly phase 7's
+     launches a step, the seconds each save blocked beside a synchronous
+     save, train steps timed with a write in flight and without one; the
+     phase-6 serving net's 8-step `rollout` (73 channels, denormalised):
+     each field bit for bit a synchronous fetch of the same state, the
+     JAX package's order of steps, stepper calls and yields, exactly the
+     fused step's launches a step, the wall per step beside the
+     synchronous loop's in turns, the device-busy share and the
+     device-to-host copies' time under a kernel (torch.profiler); under
+     90 s.
 Phase 3 also holds every forward kernel and the tail's backward on the fp32
 operands of that tier (sites "*/fp32") to 1e-5; at the fp32 sites of the
 GCN layer and its backward, the head, the tail and grid_mlp (each of its
@@ -3119,6 +3133,371 @@ def orbax_phase(dev, smi) -> dict:
     return rec
 
 
+OVERLAP_TRAIN_STEPS = 4  # Trainer.train with a save after each step
+OVERLAP_TIMED_STEPS = 8  # train steps a turn, with a write in flight or without one
+OVERLAP_ROLLOUT_STEPS = 8
+OVERLAP_PHASE_LIMIT_S = 90
+
+
+def _clone_tree(tree, device=None):
+    """A copy of a state tree's tensors (on `device`, else where they are)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device, copy=True) if device else tree.detach().clone()
+    return tree
+
+
+def _spin_ms(n: int = 200_000) -> float:
+    """The ms of a fixed pure-Python loop: it slows where another thread
+    holds the GIL or the host's cores are short."""
+    t0 = time.perf_counter()
+    x = 0
+    for i in range(n):
+        x += i
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _writing() -> bool:
+    """Whether an asynchronous checkpoint write is in flight."""
+    from msfno_torch.training import orbax_ckpt
+
+    return orbax_ckpt._INFLIGHT is not None and orbax_ckpt._INFLIGHT.is_alive()
+
+
+def async_saves(dev, root) -> dict:
+    """Phase 19 (a): finetune_config()'s fine-tune at full width through
+    `Trainer.train` (4 steps of one synthetic batch, a validation and an
+    asynchronous Orbax save after each step and at the epoch's end); a
+    device clone of the state is kept before each save.  When train()
+    returns, every directory has committed with its meta.json and reads
+    back bit for bit as the clone, parameters and optimizer state; each
+    train step launched exactly phase 7's kernels.  Then, on the same
+    state: one synchronous save's seconds, one asynchronous write's
+    seconds with this thread idle, and train steps timed in turns without a
+    write in flight and with one (idle, writing, writing, idle; the first
+    step after each save, which waits on the snapshot's copy on the card,
+    apart), each after a fixed pure-Python loop timed the same way
+    (`_spin_ms`: the GIL's share of the cost)."""
+    import os
+
+    import torch
+
+    from msfno_torch.config import finetune_config, finetune_train_config
+    from msfno_torch.data.synthetic import gen_batch
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+    from msfno_torch.parallel.sharded_train import whole_state
+    from msfno_torch.training import checkpoint as ckpt_io
+    from msfno_torch.training.trainer import Trainer
+
+    tcfg = finetune_train_config(learning_rate=1e-3, checkpoint_backend="orbax",
+                                 async_checkpoint=True, validation_interval=1,
+                                 save_checkpoint_interval=1, training_epochs=1)
+    tr = Trainer(finetune_config(), tcfg, device=dev, checkpoint_dir=os.path.join(root, "train"))
+    batch = gen_batch(tr.cfg, 1, 0, seed=31)
+    vbatch = gen_batch(tr.cfg, 1, tcfg.multi_step_validation, seed=32)
+    want = dict(PER_STEP["fused"])
+    want.update(TRAIN_BWD[0])
+    save, step = tr.save_checkpoint, tr._train_step
+    clones, drain_s, blocked_s, train_steps = {}, [], [], []
+
+    def recorded_save(state, tag=""):
+        t0 = time.perf_counter()
+        ckpt_io.wait_for_async_saves()  # what the save drains first, timed apart
+        drain_s.append(time.perf_counter() - t0)
+        clone = tuple(_clone_tree(t) for t in whole_state(state))
+        t0 = time.perf_counter()
+        path = save(state, tag)
+        blocked_s.append(time.perf_counter() - t0)
+        clones[path] = clone
+        return path
+
+    def recorded_step(state, era5, sst):
+        torch.cuda.synchronize()
+        writing = _writing()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = step(state, era5, sst)
+        torch.cuda.synchronize()
+        train_steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                            "write_in_flight": writing and _writing(),
+                            "launches": launch_counts()})
+        return out
+
+    tr.save_checkpoint, tr._train_step = recorded_save, recorded_step
+    t0 = time.perf_counter()
+    state = tr.train(tr.init_state(), loader=[batch] * OVERLAP_TRAIN_STEPS,
+                     val_loader=lambda: iter([vbatch]))
+    train_s = time.perf_counter() - t0
+    committed = {os.path.basename(p): os.path.exists(os.path.join(p, "meta.json"))
+                 for p in clones}
+    tr.save_checkpoint, tr._train_step = save, step
+    equal, read_s = {}, []
+    for path, (params, opt) in clones.items():
+        t0 = time.perf_counter()
+        p, o, meta = ckpt_io.load_checkpoint(path, with_opt_state=True)
+        read_s.append(time.perf_counter() - t0)
+        equal[os.path.basename(path)] = (_same(p, _clone_tree(params, "cpu"))
+                                         and _same(o, _clone_tree(opt, "cpu"))
+                                         and meta["step"] == int(path.split("iter=")[1]
+                                                                 .split("_")[0]))
+    del clones, p, o
+    launches_ok = all(s["launches"] == {k: want.get(k, 0) for k in s["launches"]}
+                      for s in train_steps)
+
+    # on the same state: one synchronous save, then steps in turns
+    era5, sst = tr._device_batch(batch)
+    tr.checkpoint_dir = os.path.join(root, "timed")
+    tr.tcfg = dataclasses.replace(tcfg, async_checkpoint=False)
+    tr.iter = 100
+    t0 = time.perf_counter()
+    tr.save_checkpoint(state)
+    sync_s = time.perf_counter() - t0
+    tr.tcfg = tcfg
+    tr.iter += 1
+    tr.save_checkpoint(state)
+    t0 = time.perf_counter()
+    ckpt_io.wait_for_async_saves()
+    write_alone_s = time.perf_counter() - t0
+    turns = {"idle": [], "writing": []}
+    spins = {"idle": [], "writing": []}
+    after_save, async_s, in_flight = [], [], []
+    for turn in ("idle", "writing", "writing", "idle"):
+        if turn == "writing":
+            tr.iter += 1
+            t0 = time.perf_counter()
+            tr.save_checkpoint(state)
+            async_s.append(time.perf_counter() - t0)
+        for k in range(OVERLAP_TIMED_STEPS):
+            spin = _spin_ms()
+            if turn == "idle" or _writing():
+                spins[turn].append(spin)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = tr._train_step(state, era5, sst)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if turn == "idle":
+                turns["idle"].append(ms)
+            elif k == 0:
+                after_save.append(ms)
+            elif _writing():
+                turns["writing"].append(ms)
+        in_flight.append(_writing())
+        t0 = time.perf_counter()
+        ckpt_io.wait_for_async_saves()
+        if turn == "writing":
+            drain_s.append(time.perf_counter() - t0)
+    del tr, state
+    torch.cuda.empty_cache()
+    rec = dict(
+        train_steps=OVERLAP_TRAIN_STEPS, train_s=train_s, committed_at_return=committed,
+        bit_equal=equal, launches_per_train_step_ok=launches_ok,
+        train_step_ms=[s["ms"] for s in train_steps],
+        train_step_write_in_flight=[s["write_in_flight"] for s in train_steps],
+        save_blocked_s=blocked_s, save_drain_s=drain_s, read_back_s=read_s,
+        sync_save_s=sync_s, async_save_blocked_s=async_s,
+        write_alone_s=write_alone_s, python_spin_ms_without_write=spins["idle"],
+        python_spin_ms_with_write=spins["writing"],
+        step_ms_without_write=turns["idle"], step_ms_with_write=turns["writing"],
+        first_step_after_save_ms=after_save,
+        median_step_ms_without_write=statistics.median(turns["idle"]),
+        median_step_ms_with_write=(statistics.median(turns["writing"])
+                                   if turns["writing"] else None),
+        write_in_flight_at_turn_end=in_flight)
+    rec["ok"] = (all(committed.values()) and all(equal.values()) and launches_ok
+                 and len(equal) == OVERLAP_TRAIN_STEPS and all(s > 0 for s in blocked_s))
+    return rec
+
+
+class _RecordedSeq:
+    """An SST sequence whose reads are recorded: `rollout` reads
+    sst_seq[i] once, when it runs step i."""
+
+    def __init__(self, seq, events):
+        self.seq, self.events = seq, events
+
+    def __getitem__(self, i):
+        self.events.append(("step", i))
+        return self.seq[i]
+
+
+def _device_intervals(prof) -> tuple[list, list]:
+    """([(start, end)] of the kernels, of the device-to-host copies) in a
+    torch.profiler profile, microseconds."""
+    import torch
+
+    kernels, copies = [], []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (ev.time_range.start, ev.time_range.end)
+        if ev.name.startswith("Memcpy DtoH"):
+            copies.append(span)
+        elif not ev.name.startswith(("Memcpy", "Memset")):
+            kernels.append(span)
+    return kernels, copies
+
+
+def _union(spans: list) -> list:
+    out = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def _overlap_us(spans: list, union: list) -> float:
+    return sum(max(0.0, min(e, ue) - max(s, us)) for s, e in spans for us, ue in union)
+
+
+def overlapped_rollout(dev) -> dict:
+    """Phase 19 (b): the phase-6 serving net (fused, gcn_custom) over
+    OVERLAP_ROLLOUT_STEPS steps, all 73 channels, denormalised: the
+    overlapped `rollout` yields each field bit for bit as a synchronous
+    fetch of the same states (each captured as the step returns it), in the
+    JAX package's order of steps, stepper calls and yields, with exactly
+    the fused step's launches a step; then the wall per step of the
+    synchronous loop (step, then `.cpu()`) and of `rollout`, in turns, the
+    consumer dropping each field; then one profiled run of each: the
+    device-busy share (summed device time over the wall, as
+    tools/profile_torch_step.py counts it, and the union of the device
+    intervals), and the device-to-host copies' time that runs while a
+    kernel runs."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from msfno_torch.config import serving_config
+    from msfno_torch.data.normalization import Normalizer
+    from msfno_torch.inference.rollout import RolloutConfig, _states, rollout
+    from msfno_torch.models import FourierNeuralOperatorNetFilmed
+    from msfno_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    steps = OVERLAP_ROLLOUT_STEPS
+    cfg = serving_config()
+    net = FourierNeuralOperatorNetFilmed(cfg, device=dev, seed=0)
+    x0, _, sst_seq = model_inputs(cfg, dev, steps)
+    rng = np.random.default_rng(19)
+    norm = Normalizer(rng.standard_normal(cfg.out_chans).astype(np.float32),
+                      (1.0 + rng.random(cfg.out_chans)).astype(np.float32))
+
+    class Captured(torch.nn.Module):
+        """The net, keeping a device copy of each state it returns."""
+
+        def __init__(self):
+            super().__init__()
+            self.net, self.states = net, []
+            self.out_dtype = getattr(net, "out_dtype", torch.float32)
+
+        def forward(self, *args):
+            y = self.net(*args)
+            self.states.append(y.clone())
+            return y
+
+    def synchronous():
+        for state in _states(net, x0, steps, sst_seq, norm, None, 1.0):
+            norm(state.float(), reverse=True).cpu().numpy()
+
+    def overlapped():
+        for _ in rollout(net, x0, RolloutConfig(steps=steps), sst_seq=sst_seq, normalizer=norm):
+            pass
+
+    captured, events = Captured(), []
+    reset_launch_counts()
+    fields = []
+    for k, f in enumerate(rollout(captured, x0, RolloutConfig(steps=steps),
+                                  sst_seq=_RecordedSeq(sst_seq, events), normalizer=norm,
+                                  stepper=lambda i, h: events.append(("stepper", i)))):
+        events.append(("yield", k))
+        fields.append(f)
+    counts = launch_counts()
+    want_events = [("step", 0), ("stepper", 0)]
+    for i in range(1, steps):
+        want_events += [("step", i), ("yield", i - 1), ("stepper", i)]
+    want_events.append(("yield", steps - 1))
+    with torch.inference_mode():
+        sync = [norm(s.float(), reverse=True).cpu().numpy() for s in captured.states]
+    bit_equal = len(fields) == len(sync) == steps and all(
+        a.dtype == np.float32 and a.shape == b.shape
+        and np.array_equal(a.view(np.uint32), b.view(np.uint32)) for a, b in zip(fields, sync))
+    finite = all(bool(np.isfinite(f).all()) for f in fields)
+    shape = list(fields[0].shape)
+    del fields, sync, captured
+    want = {name: 0 for name in counts}
+    want.update({k: v * steps for k, v in PER_STEP["fused"].items()})
+
+    walls = {"synchronous": [], "overlapped": []}
+    runs = {"synchronous": synchronous, "overlapped": overlapped}
+    for name in ("synchronous", "overlapped", "overlapped", "synchronous"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    profiled = {}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, copy = device_busy_ms(prof)
+        kernels, copies = _device_intervals(prof)
+        union = _union(kernels + copies)
+        kernel_union = _union(kernels)
+        profiled[name] = dict(
+            wall_ms_per_step=wall / steps, device_busy_ms_per_step=busy / steps,
+            copy_ms_per_step=copy / steps,
+            device_busy_share=busy / wall if wall else None,
+            device_busy_share_union=(sum(e - s for s, e in union) / 1e3 / wall
+                                     if union and wall else None),
+            dtoh_copies=len(copies), dtoh_ms=sum(e - s for s, e in copies) / 1e3,
+            dtoh_ms_under_a_kernel=_overlap_us(copies, kernel_union) / 1e3,
+            dtoh_copies_under_a_kernel=sum(_overlap_us([c], kernel_union) > 0 for c in copies))
+    del net, x0, sst_seq
+    torch.cuda.empty_cache()
+    rec = dict(steps=steps, shape=shape, finite=finite, bit_equal_to_synchronous=bit_equal,
+               order_is_jax=events == want_events, events=[f"{e}{i}" for e, i in events],
+               launches=counts, launches_ok=counts == want,
+               wall_ms_per_step=walls,
+               median_wall_ms_per_step={k: statistics.median(v) for k, v in walls.items()},
+               profiled=profiled)
+    rec["ok"] = (bit_equal and finite and rec["order_is_jax"] and rec["launches_ok"]
+                 and shape[-1] == cfg.out_chans)
+    return rec
+
+
+def overlap_phase(dev, smi) -> dict:
+    """Phase 19: the JAX package's host/device overlap in the port:
+    asynchronous Orbax saves through the Trainer (`async_saves`) and the
+    streaming rollout's one-step-behind fetch (`overlapped_rollout`), in a
+    temporary directory removed at the end; fails unless both hold and the
+    phase stays under OVERLAP_PHASE_LIMIT_S."""
+    import os
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="msfno_overlap_")
+    try:
+        saves = async_saves(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec = {"phase": "overlap", "card": smi, "saves": saves,
+           "rollout": overlapped_rollout(dev)}
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(rec))
+    if not (saves["ok"] and rec["rollout"]["ok"] and rec["seconds"] <= OVERLAP_PHASE_LIMIT_S):
+        raise AssertionError(f"phase 19: {rec}")
+    return rec
+
+
 def model_inputs(cfg, dev, steps):
     import torch
 
@@ -3353,6 +3732,20 @@ def main() -> int:
                     "pt_write_s": eighteen["pt_write_s"], "pt_read_s": eighteen["pt_read_s"],
                     "fixture_decode_mb_per_s": eighteen["fixture"]["decode_mb_per_s"],
                     "phase_s": eighteen["seconds"], "seconds_total": time.time() - t_start}))
+
+    # phase 19: asynchronous Orbax saves and the overlapped rollout fetch
+    torch.cuda.empty_cache()
+    nineteen = overlap_phase(dev, smi)
+    saves, roll = nineteen["saves"], nineteen["rollout"]
+    log(json.dumps({"phase": "overlap_time", "card": smi,
+                    "save_blocked_s": saves["save_blocked_s"],
+                    "sync_save_s": saves["sync_save_s"],
+                    "median_step_ms_without_write": saves["median_step_ms_without_write"],
+                    "median_step_ms_with_write": saves["median_step_ms_with_write"],
+                    "rollout_median_wall_ms_per_step": roll["median_wall_ms_per_step"],
+                    "rollout_device_busy_share": {k: v["device_busy_share"]
+                                                  for k, v in roll["profiled"].items()},
+                    "phase_s": nineteen["seconds"], "seconds_total": time.time() - t_start}))
     log(json.dumps({"phase": "done", "seconds_total": time.time() - t_start}))
 
     kernels = []
@@ -3400,6 +3793,8 @@ def main() -> int:
         # phase 17: one serving step and one fine-tune step on the 1,2,2 mesh
         launches["launches_mesh_1_2_2_step"] = seventeen["serving_launches"][name]
         launches["launches_mesh_1_2_2_train_step"] = seventeen["finetune_launches"][name]
+        # phase 19: the overlapped 8-step rollout
+        launches["launches_overlapped_rollout"] = roll["launches"][name]
         # the fp32-operand sites, summed over one fused step of the
         # fp32-kernel tier (forward kernels) or over its train step with
         # multi_step_training=1 (backward kernels)

@@ -165,8 +165,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "files, orbax = Orbax checkpoint directories (read "
                          "and written without orbax)")
     tr.add_argument("--async-checkpoint", action="store_true",
-                    help="no effect here (saves are synchronous: rank 0 "
-                         "writes the gathered state)")
+                    help="with --checkpoint-backend orbax: snapshot and "
+                         "return immediately, writing the checkpoint in "
+                         "the background (full-size saves are ~10-20 s of "
+                         "blocking I/O otherwise)")
     tr.add_argument("--scan-steps", default="1",
                     help="train this many optimizer steps per chunk of "
                          "stacked input batches (cadence semantics "

@@ -9,7 +9,8 @@ a JAX-written `.npz` training checkpoint: its parameters through
 package's `Optimizer` state (`jax_opt_state`).  `peek` and
 `load_checkpoint` also take an Orbax checkpoint directory, the JAX
 package's or this package's (`orbax_ckpt.py`, read and written without
-orbax).
+orbax; `save_checkpoint_orbax(..., async_save=True)` writes in the
+background until `wait_for_async_saves()`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from msfno_torch.training.orbax_ckpt import (  # noqa: F401 (re-exported)
     load_checkpoint_orbax,
     peek_orbax,
     save_checkpoint_orbax,
+    wait_for_async_saves,
 )
 
 FORMAT_VERSION = 1

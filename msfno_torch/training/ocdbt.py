@@ -334,6 +334,21 @@ def _size(value) -> int:
     return sum(len(memoryview(p).cast("B")) for p in value)
 
 
+def _write_parts(fd: int, parts: list) -> None:
+    """Write byte strings one after another to `fd` with as few system
+    calls as writev allows (IOV_MAX at a time): a background writer then
+    takes the GIL back a few times for a whole store, not once a block."""
+    views = [memoryview(p).cast("B") for p in parts]
+    i, most = 0, os.sysconf("SC_IOV_MAX")
+    while i < len(views):
+        n = os.writev(fd, views[i:i + most])
+        while i < len(views) and n >= len(views[i]):
+            n -= len(views[i])
+            i += 1
+        if n:  # a short write ends inside views[i]
+            views[i] = views[i][n:]
+
+
 def write_store(root: str, items: dict) -> None:
     """Write a store of `items` (key -> a list of byte strings that make
     its value, written one after another) under `root`: one data file
@@ -342,16 +357,15 @@ def write_store(root: str, items: dict) -> None:
     os.makedirs(os.path.join(root, "d"), exist_ok=True)
     name = f"d/{uuid.uuid4().hex}"
     keys = sorted(items, key=lambda k: k.encode())
-    lengths, indirect_off, inline = [], {}, []
+    lengths, indirect_off, inline, data = [], {}, [], []
     offset = 0
-    with open(os.path.join(root, name), "wb") as f:
+    with open(os.path.join(root, name), "wb", buffering=0) as f:
         for k in keys:
             size = _size(items[k])
             lengths.append(size)
             if size > MAX_INLINE_VALUE_BYTES:
                 indirect_off[k] = offset
-                for p in items[k]:
-                    f.write(p)
+                data.extend(items[k])
                 offset += size
             else:
                 inline.append(b"".join(bytes(memoryview(p).cast("B")) for p in items[k]))
@@ -368,7 +382,7 @@ def write_store(root: str, items: dict) -> None:
             *(_varint(indirect_off[k]) for k in keys if k in indirect_off),
             *inline])
         node = container(BTREE_MAGIC, body)
-        f.write(node)
+        _write_parts(f.fileno(), data + [node])
     manifest = b"".join([
         uuid.uuid4().bytes, _varint(0), _varint(MAX_INLINE_VALUE_BYTES),
         _varint(MAX_DECODED_NODE_BYTES), bytes([VERSION_TREE_ARITY_LOG2]), _varint(1),

@@ -15,7 +15,9 @@ nested tree, `opt_state` (its `Optimizer` state; ints as Orbax scalars) and
 `meta_json`, whose meta carries `"backend": "orbax"` and
 `"writer": WRITER`.  It writes no flax names.  Rank 0 writes a whole
 directory (tmp + rename); reads return CPU tensors whatever mesh saved the
-arrays.
+arrays.  `save_checkpoint_orbax(..., async_save=True)` snapshots the state
+and writes the directory on a background thread, at most one at a time;
+`wait_for_async_saves()` drains it (msfno_tpu's async save).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import time
 
 import numpy as np
@@ -195,23 +198,94 @@ def _walk(tree: dict, keys: tuple = ()):
             raise TypeError(f"{'/'.join(here)}: a {type(v).__name__} cannot be saved")
 
 
-def save_checkpoint_orbax(path: str, params: dict, opt_state=None, step: int = 0,
-                          epoch: int = 0, config_json: str = "{}",
-                          extra: dict | None = None) -> str:
-    """Write params (name -> tensor), the optimizer state and the metadata
-    as an Orbax directory at `path` (the JAX package's container, this
-    package's payload), through a temporary directory renamed onto `path`;
-    an existing `path` is replaced."""
-    t0 = time.time_ns()
-    path = os.path.abspath(path)
-    meta = {"step": int(step), "epoch": int(epoch), "config": config_json,
-            "format_version": 1, "backend": "orbax", "writer": WRITER}
-    if extra:
-        meta.update(extra)
-    payload = {"params": _nest(dict(params)),
-               "meta_json": np.frombuffer(json.dumps(meta).encode(), np.uint8).copy()}
-    if opt_state is not None:
-        payload["opt_state"] = opt_state
+def _tensors(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        elif isinstance(v, torch.Tensor):
+            yield v
+
+
+def _snapshot(tree: dict):
+    """(a copy of `tree` that no later in-place update reaches, the event
+    of its copies from the card or None).  Host tensors are cloned; card
+    tensors are copied into pinned host memory on a side stream that waits
+    for the work queued so far, and the compute stream waits for that copy
+    before its next kernel, so an optimizer update queued after the save
+    cannot reach the copy; `record_stream` keeps the caching allocator from
+    handing a source's blocks on before the copy has read them.  The
+    writer waits on the event, not on the card."""
+    card = next((t.device for t in _tensors(tree) if t.is_cuda), None)
+    if card is not None:
+        stream = torch.cuda.Stream(card)
+        stream.wait_stream(torch.cuda.current_stream(card))
+
+    def copy(v):
+        if isinstance(v, dict):
+            return {k: copy(x) for k, x in v.items()}
+        if isinstance(v, np.ndarray):
+            return v.copy()
+        if not isinstance(v, torch.Tensor):
+            return v
+        v = v.detach()
+        if not v.is_cuda:
+            return v.clone()
+        host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        with torch.cuda.stream(stream):
+            host.copy_(v, non_blocking=True)
+        v.record_stream(stream)
+        return host
+
+    out = copy(tree)
+    if card is None:
+        return out, None
+    done = torch.cuda.Event()
+    done.record(stream)
+    torch.cuda.current_stream(card).wait_event(done)
+    return out, done
+
+
+class _Writer(threading.Thread):
+    """The thread of one asynchronous save; keeps the exception it hit."""
+
+    def __init__(self, path: str, write):
+        super().__init__(name=f"orbax-writer {os.path.basename(path)}", daemon=False)
+        self.path, self._write, self.error = path, write, None
+
+    def run(self) -> None:
+        try:
+            self._write()
+        except BaseException as e:  # re-raised by wait_for_async_saves
+            self.error = e
+
+
+# at most one asynchronous write in flight per process, as the JAX
+# package's single AsyncCheckpointer (wait_for_async_saves() takes no
+# handle): the next save, or wait_for_async_saves(), drains it first;
+# _LOCK makes the drain and the start of the next write one step
+_INFLIGHT: _Writer | None = None
+_LOCK = threading.RLock()
+
+
+def wait_for_async_saves() -> None:
+    """Block until the in-flight asynchronous save, if any, has committed
+    (its meta.json included), then re-raise any exception its writer hit:
+    the directory is then absent, never retried or written synchronously."""
+    global _INFLIGHT
+    with _LOCK:
+        writer, _INFLIGHT = _INFLIGHT, None
+        if writer is None:
+            return
+        writer.join()
+    if writer.error is not None:
+        writer.error.add_note(f"in the asynchronous checkpoint write to {writer.path}")
+        raise writer.error
+
+
+def _write_dir(path: str, payload: dict, meta: dict, t0: int) -> None:
+    """The directory of `payload` at `path`: zarr v2 arrays over an OCDBT
+    store, `_METADATA`, `_CHECKPOINT_METADATA` and `meta.json` in a
+    temporary directory (removed if any of it fails), renamed onto `path`."""
     items, tree_md = {}, {}
     for keys, vtype, t in _walk(payload):
         name = ".".join(keys)
@@ -222,19 +296,63 @@ def save_checkpoint_orbax(path: str, params: dict, opt_state=None, step: int = 0
                               "value_metadata": {"value_type": vtype, "skip_deserialize": False}}
     tmp = f"{path}.orbax-checkpoint-tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    write_store(tmp, items)
-    _write_json(os.path.join(tmp, "_METADATA"), {
-        "tree_metadata": tree_md, "use_ocdbt": True, "use_zarr3": False,
-        "store_array_data_equal_to_fill_value": True, "custom_metadata": None})
-    _write_json(os.path.join(tmp, "_CHECKPOINT_METADATA"), {
-        "item_handlers": HANDLER, "metrics": {}, "performance_metrics": {},
-        "init_timestamp_nsecs": t0, "commit_timestamp_nsecs": time.time_ns(),
-        "custom_metadata": {}})
-    _write_json(os.path.join(tmp, "meta.json"), meta)
+    try:
+        os.makedirs(tmp)
+        write_store(tmp, items)
+        _write_json(os.path.join(tmp, "_METADATA"), {
+            "tree_metadata": tree_md, "use_ocdbt": True, "use_zarr3": False,
+            "store_array_data_equal_to_fill_value": True, "custom_metadata": None})
+        _write_json(os.path.join(tmp, "_CHECKPOINT_METADATA"), {
+            "item_handlers": HANDLER, "metrics": {}, "performance_metrics": {},
+            "init_timestamp_nsecs": t0, "commit_timestamp_nsecs": time.time_ns(),
+            "custom_metadata": {}})
+        _write_json(os.path.join(tmp, "meta.json"), meta)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     old = f"{path}.orbax-checkpoint-old-{os.getpid()}"
     if os.path.exists(path):
         os.replace(path, old)
     os.replace(tmp, path)
     shutil.rmtree(old, ignore_errors=True)
+
+
+def save_checkpoint_orbax(path: str, params: dict, opt_state=None, step: int = 0,
+                          epoch: int = 0, config_json: str = "{}",
+                          extra: dict | None = None, async_save: bool = False) -> str:
+    """Write params (name -> tensor), the optimizer state and the metadata
+    as an Orbax directory at `path` (the JAX package's container, this
+    package's payload), through a temporary directory renamed onto `path`;
+    an existing `path` is replaced.
+
+    Either way the asynchronous save in flight, if any, is drained first.
+    async_save=True then takes a snapshot of the state (`_snapshot`) and
+    returns; a non-daemon thread writes and commits the directory.  The
+    next save, or wait_for_async_saves(), drains it and re-raises what the
+    write hit."""
+    global _INFLIGHT
+    t0 = time.time_ns()
+    path = os.path.abspath(path)
+    meta = {"step": int(step), "epoch": int(epoch), "config": config_json,
+            "format_version": 1, "backend": "orbax", "writer": WRITER}
+    if extra:
+        meta.update(extra)
+    payload = {"params": _nest(dict(params)),
+               "meta_json": np.frombuffer(json.dumps(meta).encode(), np.uint8).copy()}
+    if opt_state is not None:
+        payload["opt_state"] = opt_state
+    with _LOCK:
+        wait_for_async_saves()  # one write at a time: the tmp path is per process
+        if not async_save:
+            _write_dir(path, payload, meta, t0)
+            return path
+        payload, copied = _snapshot(payload)
+
+        def write():
+            if copied is not None:
+                copied.synchronize()
+            _write_dir(path, payload, meta, t0)
+
+        _INFLIGHT = _Writer(path, write)
+        _INFLIGHT.start()
     return path

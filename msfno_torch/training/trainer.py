@@ -438,6 +438,10 @@ class Trainer:
             log.info("training finished early: %s", e)
             if self.checkpoint_dir:
                 self.save_checkpoint(state)
+        finally:
+            # drain the in-flight asynchronous write before returning, so the
+            # caller never sees a half-committed last checkpoint
+            self._drain_saves()
         return state
 
     def validation(self, state: TrainState,
@@ -508,9 +512,10 @@ class Trainer:
     def save_checkpoint(self, state: TrainState, tag: str = "") -> str | None:
         """Write the state as this package's `.pt` checkpoint, or with
         checkpoint_backend "orbax" as an Orbax directory (the same name
-        without a suffix); under a mesh the shards are gathered whole (the
-        checkpoint an unsharded run writes), rank 0 writes it and the ranks
-        meet at a barrier after."""
+        without a suffix), with async_checkpoint written in the background
+        (`_drain_saves` waits for it); under a mesh the shards are gathered
+        whole (the checkpoint an unsharded run writes), rank 0 writes it and
+        the ranks meet at a barrier after the write, or in the drain."""
         if self.checkpoint_dir is None:
             return None
         orbax = self.tcfg.checkpoint_backend == "orbax"
@@ -519,12 +524,40 @@ class Trainer:
         params, opt_state = whole_state(state)
         if self.is_writer:
             save = ckpt_io.save_checkpoint_orbax if orbax else ckpt_io.save_checkpoint
+            kwargs = {"async_save": True} if self._async_saves else {}
             save(path, params, opt_state=opt_state, step=self.iter, epoch=self.epoch,
-                 config_json=to_json(self.cfg), extra={"film_scale": float(state.film_scale)})
+                 config_json=to_json(self.cfg), extra={"film_scale": float(state.film_scale)},
+                 **kwargs)
             self.writer.save(f"_epoch{self.epoch}")
-        if self.mesh is not None:
+        if self.mesh is not None and not self._async_saves:
             dist.barrier()
         return path
+
+    @property
+    def _async_saves(self) -> bool:
+        """Whether checkpoints are written in the background: the orbax
+        backend with async_checkpoint (the `.pt` backend ignores the flag,
+        as the JAX package's `.npz` does)."""
+        return self.tcfg.checkpoint_backend == "orbax" and self.tcfg.async_checkpoint
+
+    def _drain_saves(self) -> None:
+        """Wait for the in-flight asynchronous save.  Under a mesh the ranks
+        then meet (the barrier a synchronous save holds after its write), so
+        every rank returns after the last directory has committed, and a
+        failed write fails every rank."""
+        error = None
+        try:
+            ckpt_io.wait_for_async_saves()
+        except Exception as e:
+            error = e
+        if self.mesh is not None and self._async_saves:
+            failed = torch.tensor([float(error is not None)], device=self._host_or_device())
+            dist.all_reduce(failed, op=dist.ReduceOp.MAX)
+            if error is None and failed.item():
+                raise RuntimeError("the asynchronous checkpoint write on the writing rank "
+                                   "failed")
+        if error is not None:
+            raise error
 
     def save_data(self, loader, out_dir: str, num_batches: int = 4) -> str:
         """Write the first `num_batches` batches of `loader` as

@@ -76,8 +76,8 @@ ARGVS = {
 }
 
 # flags whose help text says what the port does where it differs from JAX
-PORT_HELP = {"cpu", "sfno_weights", "checkpoint_backend", "async_checkpoint", "scan_steps",
-             "profile_dir", "pallas_grid_mlp", "no_fuse_decoder_tail", "no_fuse_encoder_dft",
+PORT_HELP = {"cpu", "sfno_weights", "checkpoint_backend", "scan_steps", "profile_dir",
+             "pallas_grid_mlp", "no_fuse_decoder_tail", "no_fuse_encoder_dft",
              "no_pallas_gcn", "mesh", "coordinator_address", "film_compute_dtype"}
 
 
@@ -233,6 +233,36 @@ def test_orbax_backend_round_trip(tmp_path):
     assert cli.main(TINY + ["--eval-model", "--multi-step-validation", "1", "--eval-sfno",
                             "--output-path", str(tmp_path / "r")]) == 0
     assert any(f.endswith("_skill.npy") for f in os.listdir(tmp_path / "r" / "eval"))
+
+
+def test_async_orbax_backend_round_trip(tmp_path):
+    """--checkpoint-backend orbax --async-checkpoint writes, in the
+    background, the directories the synchronous save writes: committed with
+    meta.json when the run returns, and --resume-checkpoint takes them back
+    with the optimizer state."""
+    from msfno_torch.training.checkpoint import is_orbax_dir, load_checkpoint
+
+    orbax = ["--checkpoint-backend", "orbax", "--async-checkpoint"]
+    assert cli.main(TINY + ["--train", "--num-iterations", "2", "--validation-interval", "0",
+                            "--training-epochs", "2", *orbax, "--output-path",
+                            str(tmp_path)]) == 0
+    cps = sorted(f for f in os.listdir(tmp_path) if f.startswith("checkpoint_"))
+    assert cps == ["checkpoint_iter=2_epoch=0", "checkpoint_iter=4_epoch=1"]
+    assert all((tmp_path / c / "meta.json").exists() for c in cps)
+    pt = _train(tmp_path / "pt", ["--training-epochs", "2"])
+    p1, o1, m1 = load_checkpoint(str(tmp_path / cps[-1]), with_opt_state=True)
+    p2, o2, m2 = load_checkpoint(str(pt), with_opt_state=True)
+    assert set(p1) == set(p2) and all(torch.equal(p1[k], p2[k]) for k in p2)
+    assert m1["step"] == m2["step"] == 4 and o1["inner"]["count"] == 4
+    rc = cli.main(TINY + ["--train", "--num-iterations", "1", "--training-epochs", "3",
+                          "--validation-interval", "0", *orbax, "--resume-checkpoint",
+                          str(tmp_path / cps[-1]), "--resume-optimizer", "--output-path",
+                          str(tmp_path / "r")])
+    assert rc == 0
+    cp5 = tmp_path / "r" / "checkpoint_iter=5_epoch=2"
+    assert is_orbax_dir(str(cp5))
+    _, opt, meta = load_checkpoint(str(cp5), with_opt_state=True)
+    assert meta["step"] == 5 and opt["inner"]["count"] == 5
 
 
 def test_restore_train_state_semantics(tmp_path):
