@@ -188,7 +188,12 @@ def build_parser() -> argparse.ArgumentParser:
     lg.add_argument("--profile-dir", default=None,
                     help="capture a torch.profiler trace of the action into "
                          "this directory (TensorBoard / Perfetto-loadable; "
-                         "the reference has no profiler integration)")
+                         "the reference has no profiler integration); the "
+                         "program's spans appear in it as user annotations "
+                         "on the host and device timelines: trainer.forward, "
+                         "trainer.backward, trainer.optimizer, film.generator, "
+                         "net.encoder, net.block, net.decoder, rollout.inputs, "
+                         "rollout.outputs, rollout.fetch_wait")
     lg.add_argument("--advanced-logging", action="store_true")
     lg.add_argument("--wandb", action="store_true")
     lg.add_argument("--wandb-resume", default=None, metavar="RUN_ID",

@@ -9,6 +9,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from msfno_torch.utils.observability import upload
+
 
 @dataclasses.dataclass(frozen=True)
 class Normalizer:
@@ -29,8 +31,8 @@ class Normalizer:
         return cls(m, s)
 
     def __call__(self, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-        m = torch.as_tensor(self.means, device=x.device)
-        s = torch.as_tensor(self.stds, device=x.device)
+        m = upload(self.means, x.device)
+        s = upload(self.stds, x.device)
         if reverse:
             return x * s + m
         return (x - m) / s

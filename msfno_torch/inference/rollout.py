@@ -13,6 +13,7 @@ the same on every rank; the parameters may be whole or held as shards.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Sequence
 
@@ -21,6 +22,11 @@ import torch
 
 from msfno_torch.data.normalization import Normalizer, SSTNormalizer
 from msfno_torch.parallel.annotate import use_mesh
+from msfno_torch.utils.observability import set_request, span, upload
+
+# forecasts begun in this process: the first part of a rollout step's
+# request id (forecast, step)
+_forecasts = itertools.count()
 
 
 @dataclasses.dataclass
@@ -50,19 +56,26 @@ def serving_params(model: torch.nn.Module, dtype=torch.bfloat16,
 def _states(model, x0, steps: int, sst_seq, normalizer, sst_normalizer, scale, mesh=None):
     """The autoregressive loop shared by `rollout` and `scan_rollout`:
     yields each step's state (normalized space, the model's output dtype),
-    each step run under `mesh`."""
+    each step run under `mesh` with the request id (forecast, step).  The
+    uploads and normalization of x0 and of each step's SST are
+    `rollout.inputs` spans."""
     dev = next(model.parameters()).device
     normalizer = normalizer or Normalizer.identity(x0.shape[-1])
     sstn = sst_normalizer or SSTNormalizer.identity()
     out_dtype = getattr(model, "out_dtype", torch.float32)
+    forecast = next(_forecasts)
     with torch.inference_mode():
-        state = normalizer(torch.as_tensor(x0, device=dev).float()).to(out_dtype)
+        set_request((forecast, 0))
+        with span("rollout.inputs", dev):
+            state = normalizer(upload(x0, dev).float()).to(out_dtype)
         for i in range(steps):
+            set_request((forecast, i))
             with use_mesh(mesh):
                 if sst_seq is None:
                     state = model(state)
                 else:
-                    sst_i = sstn(torch.as_tensor(sst_seq[i], device=dev).float())
+                    with span("rollout.inputs", dev):
+                        sst_i = sstn(upload(sst_seq[i], dev).float())
                     state = model(state, sst_i, scale)
             yield state
 
@@ -70,7 +83,7 @@ def _states(model, x0, steps: int, sst_seq, normalizer, sst_normalizer, scale, m
 def _collect(t: torch.Tensor, channels) -> torch.Tensor:
     if channels is None:
         return t
-    return t[..., torch.as_tensor(np.asarray(channels), device=t.device)]
+    return t[..., upload(np.asarray(channels), t.device)]
 
 
 class _Fetch:
@@ -118,6 +131,13 @@ class _Fetch:
             self.pool.shutdown(wait=True)
 
 
+def _wait(pending) -> np.ndarray:
+    """The fetched field, the consumer's wait in a `rollout.fetch_wait`
+    span."""
+    with span("rollout.fetch_wait"):
+        return pending()
+
+
 def rollout(model, x0, cfg: RolloutConfig, sst_seq=None,
             normalizer: Normalizer | None = None,
             sst_normalizer: SSTNormalizer | None = None, scale: float = 1.0,
@@ -133,23 +153,25 @@ def rollout(model, x0, cfg: RolloutConfig, sst_seq=None,
     `stepper(i, step_hours)` called; the last step is yielded after the
     loop.  So the consumer's work on field i-1 overlaps step i on the
     card, step i's copy overlaps step i+1, and a consumer that stops after
-    k fields has run k+1 steps."""
+    k fields has run k+1 steps.  The fp32 cast, denormalization, collection
+    and queued fetch of a step are a `rollout.outputs` span."""
     normalizer = normalizer or Normalizer.identity(x0.shape[-1])
     states = _states(model, x0, cfg.steps, sst_seq, normalizer, sst_normalizer, scale, mesh)
     fetch, pending = _Fetch(), None
     try:
         for i, state in enumerate(states):
-            out = state.float()
-            if cfg.denormalize:
-                out = normalizer(out, reverse=True)
-            fetched = fetch(_collect(out, cfg.collect_channels))
+            with span("rollout.outputs", state):
+                out = state.float()
+                if cfg.denormalize:
+                    out = normalizer(out, reverse=True)
+                fetched = fetch(_collect(out, cfg.collect_channels))
             if pending is not None:
-                yield pending()
+                yield _wait(pending)
             pending = fetched
             if stepper is not None:
                 stepper(i, cfg.step_hours)
         if pending is not None:
-            yield pending()
+            yield _wait(pending)
     finally:
         fetch.close()
 

@@ -28,6 +28,7 @@ from torch import nn
 from msfno_torch.models.film.attention import Dense, _lecun_normal
 from msfno_torch.models.sfno.layers import dropout, new_param, trunc_normal_
 from msfno_torch.runtime import resolve_device
+from msfno_torch.utils.observability import span
 
 LN_EPS = 1e-6
 
@@ -207,15 +208,18 @@ class AFNONet(nn.Module):
     def forward(self, x, rng=None):
         b = x.shape[0]
         (gh, gw), (ph, pw) = self.grid, self.patch_size
-        x = self.patch_embed(x)
-        x = x + self.pos_embed.reshape(1, gh, gw, -1).to(x.dtype)
-        if self.drop_rate > 0.0 and rng is not None:
-            # pos_drop after the positional-embed add (afnonet.py:385, 435)
-            x = dropout(x, self.drop_rate, rng)
-        for blk in self.blocks:
-            x = blk(x, rng)
-        x = self.head(x).reshape(b, gh, gw, ph, pw, self.out_chans)
-        return x.permute(0, 1, 3, 2, 4, 5).reshape(b, gh * ph, gw * pw, self.out_chans)
+        with span("net.encoder", x):
+            x = self.patch_embed(x)
+            x = x + self.pos_embed.reshape(1, gh, gw, -1).to(x.dtype)
+            if self.drop_rate > 0.0 and rng is not None:
+                # pos_drop after the positional-embed add (afnonet.py:385, 435)
+                x = dropout(x, self.drop_rate, rng)
+        for i, blk in enumerate(self.blocks):
+            with span("net.block", x, i):
+                x = blk(x, rng)
+        with span("net.decoder", x):
+            x = self.head(x).reshape(b, gh, gw, ph, pw, self.out_chans)
+            return x.permute(0, 1, 3, 2, 4, 5).reshape(b, gh * ph, gw * pw, self.out_chans)
 
 
 class PrecipNet(nn.Module):

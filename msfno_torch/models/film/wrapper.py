@@ -21,6 +21,7 @@ from msfno_torch.models.film.attention import FeedForward
 from msfno_torch.models.film.gcn import GCNFilmGenerator
 from msfno_torch.models.film.mae import ContextCast
 from msfno_torch.models.film.vit import ViTFilmGenerator
+from msfno_torch.utils.observability import span
 
 
 class FilmWrapper(nn.Module):
@@ -63,13 +64,16 @@ class FilmWrapper(nn.Module):
     def forward(self, sst, rng=None):
         """(B, 2, film_layers, C); `rng` drives the ViT's and the MAE's
         dropout (the GCN generators have none).  With the "mae" generator
-        and `cls_input`, `sst` is the (B, embed_dim) class token."""
-        if self.cfg.film_gen_type == "mae":
-            cls = sst if self.cfg.cls_input else self.film_gen.encoder_class_token(sst, rng=rng)
-            x = self.film_head(cls, rng=rng)
-        elif isinstance(self.film_gen, ViTFilmGenerator):
-            x = self.film_gen(sst, rng=rng)
-        else:
-            x = self.film_gen(sst)
-        cfg = self.cfg
-        return x.reshape(sst.shape[0], 2, cfg.film_layers, cfg.num_film_features)
+        and `cls_input`, `sst` is the (B, embed_dim) class token.  A
+        `film.generator` span."""
+        with span("film.generator", sst):
+            if self.cfg.film_gen_type == "mae":
+                cls = (sst if self.cfg.cls_input
+                       else self.film_gen.encoder_class_token(sst, rng=rng))
+                x = self.film_head(cls, rng=rng)
+            elif isinstance(self.film_gen, ViTFilmGenerator):
+                x = self.film_gen(sst, rng=rng)
+            else:
+                x = self.film_gen(sst)
+            cfg = self.cfg
+            return x.reshape(sst.shape[0], 2, cfg.film_layers, cfg.num_film_features)

@@ -51,6 +51,7 @@ from msfno_torch.parallel.annotate import current_shard, gather_rows, shard_rows
 from msfno_torch.parallel.mesh import param_pspec
 from msfno_torch.parallel.sharded_train import local_param
 from msfno_torch.runtime import DerivedCache, resolve_device, torch_dtype
+from msfno_torch.utils.observability import span
 
 
 def build_transforms(cfg: SFNOConfig):
@@ -240,17 +241,20 @@ class FourierNeuralOperatorNet(nn.Module):
             y = self.decoder(x)
         return y.to(self.out_dtype)
 
-    def _run_blocks(self, x, stats, gamma=None, beta=None, scale=1.0, rng=None):
+    def _run_blocks(self, x, stats, gamma=None, beta=None, scale=1.0, rng=None, device=None):
+        """The blocks, each in a `net.block` span on `device` (a tensor on
+        the net's device)."""
         cfg = self.cfg
         n_film = cfg.film.film_layers if self.filmed else 0
         for i, blk in enumerate(self.blocks):
             s_i = stats if i == 0 else None
-            if blk.filmed:
-                idx = (min(i, n_film - 1) if cfg.film.repeat_film
-                       else i - (cfg.num_layers - n_film))
-                x = blk(x, gamma[:, idx], beta[:, idx], scale, s_i, rng=rng)
-            else:
-                x = blk(x, None, None, 1.0, s_i, rng=rng)
+            with span("net.block", device, i):
+                if blk.filmed:
+                    idx = (min(i, n_film - 1) if cfg.film.repeat_film
+                           else i - (cfg.num_layers - n_film))
+                    x = blk(x, gamma[:, idx], beta[:, idx], scale, s_i, rng=rng)
+                else:
+                    x = blk(x, None, None, 1.0, s_i, rng=rng)
         return x
 
     def _forward(self, x, gamma=None, beta=None, scale=1.0, rng=None):
@@ -259,9 +263,11 @@ class FourierNeuralOperatorNet(nn.Module):
         if shard is not None:
             x = shard_rows(x, shard=shard)
         residual = x
-        x, stats = self._encode(x)
-        x = self._run_blocks(x, stats, gamma, beta, scale, rng)
-        y = self._decode(x, residual)
+        with span("net.encoder", residual):
+            x, stats = self._encode(x)
+        x = self._run_blocks(x, stats, gamma, beta, scale, rng, device=residual)
+        with span("net.decoder", residual):
+            y = self._decode(x, residual)
         return y if shard is None else gather_rows(y, nlat, shard=shard)
 
     def forward(self, x, rng=None):

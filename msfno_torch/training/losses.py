@@ -22,6 +22,7 @@ import torch
 
 from msfno_torch.ops.quadrature import legendre_gauss
 from msfno_torch.ops.sht import RealSHT
+from msfno_torch.utils.observability import upload
 
 
 @functools.lru_cache(maxsize=8)
@@ -38,7 +39,7 @@ def _cos_jacobian(h: int) -> np.ndarray:
 
 
 def _column(w: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(w, device=like.device)[:, None, None]
+    return upload(w, like.device)[:, None, None]
 
 
 def cosine_mse(prd, tar, reduction: str = "mean", eps: float = 1e-4):
@@ -113,7 +114,7 @@ def _l_weights(lmax: int) -> np.ndarray:
 
 def spectral_loss_sphere(sht, prd, tar, relative: bool = False, squared: bool = True):
     """l(l+1)-weighted spectral loss (reference losses.py:178-203)."""
-    sw = torch.as_tensor(_l_weights(sht.lmax), device=prd.device)
+    sw = upload(_l_weights(sht.lmax), prd.device)
     loss = _spectral_norm2(sht(prd - tar), sw)
     if relative:
         loss = loss / _spectral_norm2(sht(tar), sw)
@@ -125,7 +126,7 @@ def spectral_loss_sphere(sht, prd, tar, relative: bool = False, squared: bool = 
 def h1loss_sphere(sht, prd, tar, squared: bool = True):
     """H1-style loss (reference losses.py:205-232)."""
     coeffs = sht(prd - tar)
-    h1 = _spectral_norm2(coeffs, torch.as_tensor(_l_weights(sht.lmax), device=prd.device))
+    h1 = _spectral_norm2(coeffs, upload(_l_weights(sht.lmax), prd.device))
     l2 = _spectral_norm2(coeffs)
     loss = (h1 + l2) if squared else (torch.sqrt(h1) + torch.sqrt(l2))
     return loss.mean()
@@ -136,7 +137,7 @@ def fluct_l2loss_sphere(sht_weights, prd, tar, inp, relative: bool = False):
     error weighted by its share of the fluctuation |tar - inp|^2; sht_weights
     (H,) are the grid's quadrature weights.  With relative=True the weight
     cancels (as upstream), leaving a plain relative L2."""
-    w = torch.as_tensor(sht_weights, dtype=prd.dtype, device=prd.device)[:, None, None]
+    w = upload(sht_weights, prd.device, prd.dtype)[:, None, None]
     integ = lambda f: (w * f).sum((-3, -2))  # noqa: E731
     fluct = integ((tar - inp) ** 2)
     weight = fluct / fluct.sum(-1, keepdim=True)

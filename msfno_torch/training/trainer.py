@@ -66,7 +66,10 @@ from msfno_torch.utils.observability import (
     LocalLog,
     Timer,
     device_memory_stats,
+    set_request,
+    span,
     system_monitor,
+    upload,
 )
 
 log = logging.getLogger("msfno_torch")
@@ -226,7 +229,7 @@ class Trainer:
         dtype kept."""
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))
-        return x.to(self.device)
+        return upload(x, self.device)
 
     def _device_batch(self, batch: Batch):
         sst = self._to_device(batch.sst) if batch.sst is not None else None
@@ -260,13 +263,16 @@ class Trainer:
         parameters) at the current parameters, in training mode when the
         model has dropout or drop-path."""
         rng = self._train_rng(state.step) if self._has_dropout else None
-        loss, per_step = self._rollout_loss(era5, sst, state.film_scale, rng)
+        with span("trainer.forward"):
+            loss, per_step = self._rollout_loss(era5, sst, state.film_scale, rng)
         names = list(state.trainable)
-        with use_mesh(self.mesh):  # the backward's collectives, once per model group
-            grads = torch.autograd.grad(loss_seed(loss), [state.trainable[n] for n in names],
-                                        allow_unused=True)
-        grads = {n: torch.zeros_like(state.trainable[n]) if g is None else g
-                 for n, g in zip(names, grads)}
+        with span("trainer.backward"):
+            with use_mesh(self.mesh):  # the backward's collectives, once per model group
+                grads = torch.autograd.grad(loss_seed(loss),
+                                            [state.trainable[n] for n in names],
+                                            allow_unused=True)
+            grads = {n: torch.zeros_like(state.trainable[n]) if g is None else g
+                     for n, g in zip(names, grads)}
         return loss.detach(), per_step.detach(), grads
 
     def _train_step(self, state: TrainState, era5, sst):
@@ -275,12 +281,14 @@ class Trainer:
         the gradients and losses are those of the global batch: the ranks'
         sum for a loss that sums over samples, their mean for one that
         averages."""
+        set_request(state.step)
         loss, per_step, grads = self.loss_and_grads(state, era5, sst)
-        if self.mesh is not None:
-            reduce_gradients(grads, state.trainable, self.mesh, [loss, per_step],
-                             mean=not sums_over_samples(self.tcfg.loss_fn))
-        gnorm = grad_norm(grads, state.trainable, self.mesh)
-        self.tx.step(state.trainable, grads, state.opt_state)
+        with span("trainer.optimizer"):
+            if self.mesh is not None:
+                reduce_gradients(grads, state.trainable, self.mesh, [loss, per_step],
+                                 mean=not sums_over_samples(self.tcfg.loss_fn))
+            gnorm = grad_norm(grads, state.trainable, self.mesh)
+            self.tx.step(state.trainable, grads, state.opt_state)
         state.step += 1
         return state, {"loss": loss, "per_step": per_step, "grad_norm": gnorm}
 
